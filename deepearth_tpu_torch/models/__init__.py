@@ -1,0 +1,17 @@
+from .decoders import ModalityDecoder, SpatiotemporalDecoder
+from .deepearth import DeepEarthModel
+from .fusion import (
+    CrossModalFusion,
+    FusionAttention,
+    FusionLayer,
+    SpatialTemporalEmbedding,
+)
+from .grid4d import Grid4DEncoder
+from .transformer import GatedMLP, KernelParam, MLP
+
+__all__ = [
+    "ModalityDecoder", "SpatiotemporalDecoder", "DeepEarthModel",
+    "CrossModalFusion", "FusionAttention", "FusionLayer",
+    "SpatialTemporalEmbedding", "Grid4DEncoder", "GatedMLP", "KernelParam",
+    "MLP",
+]
