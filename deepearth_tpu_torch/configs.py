@@ -1,11 +1,12 @@
 """Configuration dataclasses for the PyTorch port, free of JAX.
 
 The fields and ``__post_init__`` derivations are those of
-``deepearth_tpu/configs.py`` for every class the inference forward reads;
-dtypes are torch dtypes. :func:`config_from_json` reads the JSON that the JAX
-package's ``config_to_json`` writes, so a checkpoint's config travels between
-the two packages. Sections the forward does not read (masking, optimizer,
-sharding, the DeepSeek fusion block) are kept as plain dicts.
+``deepearth_tpu/configs.py`` for every class the model and the train step
+read; dtypes are torch dtypes. :func:`config_from_json` reads the JSON that
+the JAX package's ``config_to_json`` writes, and :func:`config_to_json`
+writes the same schema, so a checkpoint's config travels between the two
+packages. Sections the port does not read yet (sharding, the DeepSeek fusion
+block) are kept as plain dicts.
 """
 
 from __future__ import annotations
@@ -185,6 +186,35 @@ class ModalityConfig:
 
 
 @dataclass
+class MaskingConfig:
+    """Masked-reconstruction objectives; probabilities of hiding an entry."""
+
+    spatial_mask_prob: float = 0.15
+    temporal_mask_prob: float = 0.15
+    modality_mask_prob: float = 0.15  # whole-modality masking default
+    vision_patch_mask_prob: float = 0.75  # MAE-style
+    language_token_mask_prob: float = 0.15  # MLM-style
+
+
+@dataclass
+class OptimizerConfig:
+    """AdamW with a learning-rate schedule (training/trainer.py)."""
+
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    grad_clip_norm: float = 1.0
+    grad_accum_steps: int = 1  # > 1: MultiSteps gradient accumulation
+    moment_dtype: str = "float32"  # first moment: 'float32' | 'bfloat16'
+    second_moment: str = "float32"  # 'float32' | 'bfloat16' | 'factored'
+    fused: bool = True  # the port has the fused AdamW only
+    b1: float = 0.9
+    b2: float = 0.999
+    schedule: str = "cosine"  # 'cosine' | 'onecycle' | 'constant'
+
+
+@dataclass
 class DeepEarthConfig:
     """Main configuration."""
 
@@ -199,9 +229,9 @@ class DeepEarthConfig:
     modality_encoder: TransformerConfig = None
     fusion: FusionConfig = None
 
-    # training-side sections, kept as plain data
-    masking: Dict[str, Any] = field(default_factory=dict)
-    optimizer: Dict[str, Any] = field(default_factory=dict)
+    masking: MaskingConfig = field(default_factory=MaskingConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    # mesh layout, kept as plain data until the multi-GPU slice
     sharding: Dict[str, Any] = field(default_factory=dict)
 
     param_dtype: torch.dtype = torch.float32
@@ -225,7 +255,7 @@ class DeepEarthConfig:
 
 
 # --------------------------------------------------------------------------- #
-# JSON written by deepearth_tpu.configs.config_to_json
+# JSON in the schema of deepearth_tpu.configs.config_to_json
 # --------------------------------------------------------------------------- #
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -234,8 +264,24 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 _CLASSES = {
     c.__name__: c
     for c in (HashEncodingConfig, Grid4DConfig, TransformerConfig,
-              FusionConfig, ModalityConfig, DeepEarthConfig)
+              FusionConfig, ModalityConfig, MaskingConfig, OptimizerConfig,
+              DeepEarthConfig)
 }
+_DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
+
+
+def _encode(obj):
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {"__dataclass__": type(obj).__name__,
+                **{f.name: _encode(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj)}}
+    if isinstance(obj, dict):
+        return {k: _encode(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_encode(v) for v in obj]
+    if isinstance(obj, torch.dtype):
+        return {"__dtype__": _DTYPE_NAMES[obj]}
+    return obj
 
 
 def _decode(obj):
@@ -261,3 +307,14 @@ def config_from_json(source: str) -> DeepEarthConfig:
         with open(source) as f:
             source = f.read()
     return _decode(json.loads(source))
+
+
+def config_to_json(cfg: DeepEarthConfig, path: Optional[str] = None) -> str:
+    """Serialize a config to the JSON schema of the JAX package's
+    ``config_to_json`` (optionally also to a file); the JAX package's
+    ``config_from_json`` reads it back."""
+    payload = json.dumps(_encode(cfg), indent=2)
+    if path:
+        with open(path, "w") as f:
+            f.write(payload)
+    return payload

@@ -1,10 +1,12 @@
-"""Load a flax parameter tree of the JAX package into the PyTorch port.
+"""Carry parameters and optimizer state between the JAX package's flax
+trees and the PyTorch port, both ways.
 
 The port names its submodules after the flax modules, so a flax path maps to
 a torch parameter name by joining with dots and renaming the leaf: Dense
 ``kernel`` -> ``weight`` (transposed from (in, out) to (out, in)), LayerNorm
 ``scale`` -> ``weight``, Embed ``embedding`` -> ``weight``. Every other leaf
 (``tables``, ``cls_token``, ``modality_embed_*``, ...) keeps its name.
+Nothing here imports JAX: trees are nested mappings of numpy arrays.
 """
 
 from __future__ import annotations
@@ -65,3 +67,89 @@ def load_flax_params(model: nn.Module, tree: Mapping[str, Any]) -> None:
         for name, value in pending.items():
             p = params[name]
             p.copy_(torch.tensor(value, dtype=p.dtype, device=p.device))
+
+
+def _flax_leaves_of(model: nn.Module
+                    ) -> Dict[str, Tuple[Tuple[str, ...], bool]]:
+    """Each torch parameter name -> (its flax path, whether it is stored
+    transposed), from the type of the module that owns it."""
+    from .models.layers import Dense, Embed, LayerNorm
+    from .models.transformer import KernelParam
+
+    weight_leaf = {Dense: "kernel", KernelParam: "kernel",
+                   LayerNorm: "scale", Embed: "embedding"}
+    out = {}
+    for mod_name, mod in model.named_modules():
+        modules = tuple(mod_name.split(".")) if mod_name else ()
+        for pname, _ in mod.named_parameters(recurse=False):
+            leaf = pname
+            if pname == "weight":
+                if type(mod) not in weight_leaf:
+                    raise ValueError(f"no flax name for the weight of a "
+                                     f"{type(mod).__name__}")
+                leaf = weight_leaf[type(mod)]
+            out[".".join(modules + (pname,))] = (modules + (leaf,),
+                                                 leaf == "kernel")
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def _set(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _get(tree: Mapping[str, Any], path: Tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def flax_params_from_model(model: nn.Module) -> Dict[str, Any]:
+    """The inverse of :func:`load_flax_params`: the model's parameters as a
+    flax-named tree of numpy arrays (kernels transposed back to (in, out);
+    bf16 parameters as float32)."""
+    params = dict(model.named_parameters())
+    tree: Dict[str, Any] = {}
+    for name, (path, transposed) in _flax_leaves_of(model).items():
+        value = _numpy(params[name])
+        _set(tree, path, value.T if transposed else value)
+    return tree
+
+
+def load_flax_opt_state(optimizer, model: nn.Module, opt_state) -> None:
+    """Copy the JAX package's ``FusedAdamWState`` (``count``, ``mu``, ``nu``;
+    trees shaped like the flax params, a factored ``nu`` leaf has ``row``
+    and ``col``) into the port's :class:`FusedAdamW` over ``model``'s
+    parameters, so that a JAX run resumes in the port.
+
+    A transposed kernel's moments are transposed too; its factored ``row``
+    (mean over the flax kernel's last axis) becomes the port's ``nu_col``
+    and ``col`` its ``nu_row``.
+    """
+    params = dict(model.named_parameters())
+    leaves = _flax_leaves_of(model)
+    if [id(p) for p in optimizer.params] != [id(p) for p in params.values()]:
+        raise ValueError("the optimizer must hold the model's parameters in "
+                         "the model's order")
+    state = {"count": int(np.asarray(opt_state.count)), "state": []}
+    for name, p in params.items():
+        path, transposed = leaves[name]
+        mu = np.array(_get(opt_state.mu, path), np.float32)
+        nu = _get(opt_state.nu, path)
+        st = {"mu": torch.from_numpy(mu.T if transposed else mu)}
+        if hasattr(nu, "row"):
+            row = torch.from_numpy(np.array(nu.row, np.float32))
+            col = torch.from_numpy(np.array(nu.col, np.float32))
+            st["nu_row"], st["nu_col"] = (col, row) if transposed else (row,
+                                                                         col)
+        else:
+            nu = np.array(nu, np.float32)
+            st["nu"] = torch.from_numpy(nu.T if transposed else nu)
+        state["state"].append(st)
+    optimizer.load_state_dict(state)

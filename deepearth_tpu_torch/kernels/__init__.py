@@ -5,10 +5,13 @@ compiled with ``nvcc`` into one shared library under ``build/kernels/`` at the
 repository root, named by a hash of the sources, and loaded with ctypes. No
 PyTorch header is compiled, so a build takes seconds.
 
-Each wrapper checks its inputs, allocates the output with ``torch.empty``,
-launches on the current stream, raises if the launch reports an error, and
-adds one to its entry of :data:`launch_counts`. Nothing here runs at import
-time: the CPU tests import this module on machines without ``nvcc``.
+Each wrapper checks its inputs, allocates the output with ``torch.empty``
+(``torch.zeros`` for the scatter-add), launches on the current stream,
+raises if the launch reports an error, and adds one to its entry of
+:data:`launch_counts`. The wrappers know nothing of autograd: the
+``torch.autograd.Function`` of each kernel pair lives in ``ops/``. Nothing
+here runs at import time: the CPU tests import this module on machines
+without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -30,14 +33,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Launches per kernel since the last reset_launch_counts().
-launch_counts = {"hash_encode_fwd": 0, "pairwise_attention_fwd": 0}
+launch_counts = {"hash_encode_fwd": 0, "hash_encode_bwd": 0,
+                 "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "hash_encode_fwd": [_P, _P, _P, _P, _I64, _I, _I, _I64, _I64, _I, _I, _P],
+    "hash_encode_bwd": [_P, _P, _P, _P, _I64, _I, _I, _I64, _I64, _I, _I, _P],
     "pairwise_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I64, _I64, _I64, _I64, _I64, _I64, _F, _I, _P],
+    "pairwise_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I64, _I64, _I64, _I64, _I64, _I64, _F, _I,
+                               _P],
 }
 
 
@@ -105,16 +113,26 @@ def _check(name: str, rc: int) -> None:
     launch_counts[name] += 1
 
 
-def _no_grad(name: str, *tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} has no backward kernel yet; run it under "
-            "torch.inference_mode() or torch.no_grad()")
-
-
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def _hash_inputs(name, coords, tables_shape, device, resolutions,
+                 table_size):
+    n, d = coords.shape
+    n_levels, level_stride, f = tables_shape
+    _require(coords.is_cuda and device == coords.device
+             and resolutions.device == coords.device,
+             f"{name}: inputs must lie on one CUDA device")
+    _require(coords.dtype == resolutions.dtype == torch.float32,
+             f"{name}: coords and resolutions must be float32")
+    _require(1 <= d <= 4, f"{name}: coords_dim {d} not in 1..4")
+    _require(resolutions.shape == (n_levels,),
+             f"{name}: resolutions must be (L,)")
+    _require(0 < table_size <= level_stride,
+             f"{name}: table_size must fit the tables")
+    return n, d, n_levels, level_stride, f
 
 
 def hash_encode_fwd(coords: torch.Tensor, tables: torch.Tensor,
@@ -122,19 +140,11 @@ def hash_encode_fwd(coords: torch.Tensor, tables: torch.Tensor,
                     linear: bool) -> torch.Tensor:
     """K2 forward: coords (N, D) fp32, tables (L, T, F) fp32, resolutions (L,)
     fp32, all on one CUDA device. Returns (N, L*F) fp32."""
-    _no_grad("hash_encode_fwd", coords, tables)
-    n, d = coords.shape
-    n_levels, level_stride, f = tables.shape
-    _require(coords.is_cuda and tables.device == coords.device
-             and resolutions.device == coords.device,
-             "hash_encode_fwd: inputs must lie on one CUDA device")
-    _require(coords.dtype == tables.dtype == resolutions.dtype == torch.float32,
-             "hash_encode_fwd: coords, tables and resolutions must be float32")
-    _require(1 <= d <= 4, f"hash_encode_fwd: coords_dim {d} not in 1..4")
-    _require(resolutions.shape == (n_levels,),
-             "hash_encode_fwd: resolutions must be (L,)")
-    _require(0 < table_size <= level_stride,
-             "hash_encode_fwd: table_size must fit the tables")
+    n, d, n_levels, level_stride, f = _hash_inputs(
+        "hash_encode_fwd", coords, tables.shape, tables.device, resolutions,
+        table_size)
+    _require(tables.dtype == torch.float32,
+             "hash_encode_fwd: tables must be float32")
     coords, tables, resolutions = (
         coords.contiguous(), tables.contiguous(), resolutions.contiguous())
     out = torch.empty((n, n_levels * f), device=coords.device,
@@ -147,17 +157,69 @@ def hash_encode_fwd(coords: torch.Tensor, tables: torch.Tensor,
     return out
 
 
+def hash_encode_bwd(coords: torch.Tensor, grad_out: torch.Tensor,
+                    resolutions: torch.Tensor, tables_shape, table_size: int,
+                    linear: bool) -> torch.Tensor:
+    """K2 backward: the gradient of :func:`hash_encode_fwd` with respect to
+    the tables. coords (N, D) fp32, grad_out (N, L*F) fp32, resolutions (L,)
+    fp32 on one CUDA device; tables_shape (L, T, F). Returns (L, T, F) fp32,
+    summed with atomics (the order of each sum differs from run to run)."""
+    n, d, n_levels, level_stride, f = _hash_inputs(
+        "hash_encode_bwd", coords, tuple(tables_shape), grad_out.device,
+        resolutions, table_size)
+    _require(grad_out.dtype == torch.float32
+             and grad_out.shape == (n, n_levels * f),
+             "hash_encode_bwd: grad_out must be (N, L*F) float32")
+    coords, grad_out, resolutions = (
+        coords.contiguous(), grad_out.contiguous(), resolutions.contiguous())
+    grad_tables = torch.zeros((n_levels, level_stride, f),
+                              device=coords.device, dtype=torch.float32)
+    rc = library().hash_encode_bwd(
+        coords.data_ptr(), grad_out.data_ptr(), resolutions.data_ptr(),
+        grad_tables.data_ptr(), n, d, n_levels, level_stride, table_size, f,
+        int(linear), torch.cuda.current_stream(coords.device).cuda_stream)
+    _check("hash_encode_bwd", rc)
+    return grad_tables
+
+
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _token_major_strides(x: torch.Tensor, name: str):
     _require(x.dim() == 3 and x.stride(2) == 1,
-             f"pairwise_attention_fwd: {name} must be (N, B, D) with unit "
+             f"pairwise attention: {name} must be (N, B, D) with unit "
              "stride along D")
     _require(x.stride(0) % 2 == 0 and x.stride(1) % 2 == 0
              and x.data_ptr() % (2 * x.element_size()) == 0,
-             f"pairwise_attention_fwd: {name} must be aligned to element pairs")
+             f"pairwise attention: {name} must be aligned to element pairs")
     return x.stride(0), x.stride(1)
+
+
+def _attention_inputs(q, k, v, n_heads, key_mask):
+    """Checks shared by both directions; returns the strides of q, k, v and
+    the key mask's pointer (or None)."""
+    nq, b, d = q.shape
+    nk = k.shape[0]
+    _require(q.is_cuda and k.device == q.device and v.device == q.device,
+             "pairwise attention: q, k, v must lie on one CUDA device")
+    _require(q.dtype in _ATTN_DTYPES and k.dtype == q.dtype
+             and v.dtype == q.dtype,
+             "pairwise attention: q, k, v must share float32 or bfloat16")
+    _require(k.shape == v.shape == (nk, b, d),
+             "pairwise attention: k and v must be (Nk, B, D) like q")
+    _require(d % n_heads == 0 and (d // n_heads) % 2 == 0,
+             "pairwise attention: head dim must be even")
+    _require(1 <= nk and nq * nk <= 64, "pairwise attention: Nq*Nk > 64")
+    strides = [s for x, name in ((q, "q"), (k, "k"), (v, "v"))
+               for s in _token_major_strides(x, name)]
+    mask_ptr = None
+    if key_mask is not None:
+        _require(key_mask.dtype == torch.bool and key_mask.shape == (b, nk)
+                 and key_mask.device == q.device
+                 and key_mask.is_contiguous(),
+                 "pairwise attention: key_mask must be (B, Nk) bool")
+        mask_ptr = key_mask.data_ptr()
+    return strides, mask_ptr
 
 
 def pairwise_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -167,32 +229,41 @@ def pairwise_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K1 forward: q (Nq, B, D), k and v (Nk, B, D) on one CUDA device,
     float32 or bfloat16, unit stride along D; key_mask optional (B, Nk)
     bool, True = visible. Returns (Nq, B, D) in q's dtype."""
-    _no_grad("pairwise_attention_fwd", q, k, v)
-    nq, b, d = q.shape
-    nk = k.shape[0]
-    _require(q.is_cuda and k.device == q.device and v.device == q.device,
-             "pairwise_attention_fwd: q, k, v must lie on one CUDA device")
-    _require(q.dtype in _ATTN_DTYPES and k.dtype == q.dtype
-             and v.dtype == q.dtype,
-             "pairwise_attention_fwd: q, k, v must share float32 or bfloat16")
-    _require(k.shape == v.shape == (nk, b, d),
-             "pairwise_attention_fwd: k and v must be (Nk, B, D) like q")
-    _require(d % n_heads == 0 and (d // n_heads) % 2 == 0,
-             "pairwise_attention_fwd: head dim must be even")
-    _require(1 <= nk and nq * nk <= 64, "pairwise_attention_fwd: Nq*Nk > 64")
-    strides = [s for x, name in ((q, "q"), (k, "k"), (v, "v"))
-               for s in _token_major_strides(x, name)]
-    mask_ptr = None
     if key_mask is not None:
-        _require(key_mask.dtype == torch.bool and key_mask.shape == (b, nk)
-                 and key_mask.device == q.device,
-                 "pairwise_attention_fwd: key_mask must be (B, Nk) bool")
         key_mask = key_mask.contiguous()
-        mask_ptr = key_mask.data_ptr()
+    strides, mask_ptr = _attention_inputs(q, k, v, n_heads, key_mask)
+    nq, b, d = q.shape
     out = torch.empty((nq, b, d), device=q.device, dtype=q.dtype)
     rc = library().pairwise_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-        nq, nk, b, n_heads, d // n_heads, *strides, float(scale),
+        nq, k.shape[0], b, n_heads, d // n_heads, *strides, float(scale),
         _ATTN_DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _check("pairwise_attention_fwd", rc)
     return out
+
+
+def pairwise_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           dout: torch.Tensor, n_heads: int, scale: float,
+                           key_mask: Optional[torch.Tensor] = None):
+    """K1 backward: the forward's inputs plus dout (Nq, B, D), the gradient
+    of its output, in q's dtype. Returns (dq, dk, dv), contiguous, in q's
+    dtype."""
+    if key_mask is not None:
+        key_mask = key_mask.contiguous()
+    strides, mask_ptr = _attention_inputs(q, k, v, n_heads, key_mask)
+    nq, b, d = q.shape
+    nk = k.shape[0]
+    _require(dout.shape == q.shape and dout.dtype == q.dtype
+             and dout.device == q.device,
+             "pairwise_attention_bwd: dout must be (Nq, B, D) like q")
+    dout = dout.contiguous()
+    dq = torch.empty((nq, b, d), device=q.device, dtype=q.dtype)
+    dk = torch.empty((nk, b, d), device=q.device, dtype=q.dtype)
+    dv = torch.empty((nk, b, d), device=q.device, dtype=q.dtype)
+    rc = library().pairwise_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mask_ptr,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), nq, nk, b, n_heads,
+        d // n_heads, *strides, float(scale), _ATTN_DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check("pairwise_attention_bwd", rc)
+    return dq, dk, dv

@@ -18,47 +18,21 @@
 // elements of the head (Dh = 64 is one pair per lane; larger Dh loops), so a
 // warp reads one head's Dh contiguous elements per token in one coalesced
 // transaction. Each score is a per-lane fp32 partial dot product finished by
-// a butterfly shuffle reduction, which leaves the same value in every lane.
+// a butterfly shuffle reduction, which leaves the same value in every lane
+// (softmax_row in pairwise_attention.cuh, shared with the backward).
 // The softmax runs in fp32 over the Nk scores kept in shared memory; the
 // output accumulates p_j * v_j in fp32 registers and is rounded once to the
 // input type. Masked keys score NEG_INF = -1e30 like the JAX code, and a row
 // with no visible key writes zeros. The k and v rows are re-read for each
 // query from L1; at Nq = 3 that costs cache bandwidth, not HBM bytes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "pairwise_attention.cuh"
+
+using namespace pairwise;
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxKeys = 64;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-struct Strides {  // element strides of a token-major (N, B, D) operand
-  int64_t tok, row;
-};
-
-template <typename T>
+template <typename T, bool MASKED>
 __global__ void pairwise_attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const uint8_t* __restrict__ key_mask, T* __restrict__ out, int nq, int nk,
@@ -74,36 +48,15 @@ __global__ void pairwise_attention_fwd_kernel(
   const int64_t d_model = static_cast<int64_t>(n_heads) * head_dim;
   const int half = head_dim / 2;
   float* probs = probs_smem[warp];
-
-  bool any_visible = key_mask == nullptr;
-  if (key_mask != nullptr)
-    for (int j = 0; j < nk; ++j) any_visible |= key_mask[b * nk + j] != 0;
+  const uint8_t* mask_row = MASKED ? key_mask + b * nk : nullptr;
+  const bool visible = any_visible<MASKED>(mask_row, nk);
 
   const T* krow = k + b * ks.row + col;
   const T* vrow = v + b * vs.row + col;
   for (int i = 0; i < nq; ++i) {
     const T* qi = q + i * qs.tok + b * qs.row + col;
-    float m = kNegInf;
-    for (int j = 0; j < nk; ++j) {
-      const T* kj = krow + j * ks.tok;
-      float part = 0.0f;
-      for (int e = lane; e < half; e += 32) {
-        const float2 a = load2(qi + 2 * e);
-        const float2 c = load2(kj + 2 * e);
-        part = fmaf(a.x, c.x, part);
-        part = fmaf(a.y, c.y, part);
-      }
-      float s = warp_sum(part) * scale;
-      if (key_mask != nullptr && key_mask[b * nk + j] == 0) s = kNegInf;
-      if (lane == 0) probs[j] = s;
-      m = fmaxf(m, s);
-    }
-    __syncwarp();
-    float denom = 0.0f;
-    for (int j = 0; j < nk; ++j) denom += expf(probs[j] - m);
-    __syncwarp();
-    for (int j = lane; j < nk; j += 32) probs[j] = expf(probs[j] - m) / denom;
-    __syncwarp();
+    softmax_row<MASKED>(qi, krow, ks.tok, mask_row, nk, half, lane, scale,
+                        probs);
 
     T* oi = out + (static_cast<int64_t>(i) * batch + b) * d_model + col;
     for (int e = lane; e < half; e += 32) {
@@ -114,11 +67,30 @@ __global__ void pairwise_attention_fwd_kernel(
         ax = fmaf(pj, c.x, ax);
         ay = fmaf(pj, c.y, ay);
       }
-      if (!any_visible) ax = ay = 0.0f;
+      if (!visible) ax = ay = 0.0f;
       store2(oi + 2 * e, ax, ay);
     }
     __syncwarp();  // the next query overwrites probs
   }
+}
+
+// One instantiation for rows with a key mask and one without.
+template <typename T>
+void launch(const void* q, const void* k, const void* v, const void* key_mask,
+            void* out, int nq, int nk, int batch, int n_heads, int head_dim,
+            Strides qs, Strides ks, Strides vs, float scale,
+            cudaStream_t stream) {
+  const int64_t pairs = static_cast<int64_t>(batch) * n_heads;
+  const unsigned blocks =
+      static_cast<unsigned>((pairs + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const auto kernel = key_mask != nullptr
+                          ? pairwise_attention_fwd_kernel<T, true>
+                          : pairwise_attention_fwd_kernel<T, false>;
+  kernel<<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const uint8_t*>(key_mask),
+      static_cast<T*>(out), nq, nk, batch, n_heads, head_dim, qs, ks, vs,
+      scale);
 }
 
 }  // namespace
@@ -136,26 +108,14 @@ extern "C" int pairwise_attention_fwd(
     return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0 || batch == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  const int64_t pairs = static_cast<int64_t>(batch) * n_heads;
-  const unsigned blocks =
-      static_cast<unsigned>((pairs + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const Strides qs{q_tok, q_row}, ks{k_tok, k_row}, vs{v_tok, v_row};
-  const auto* m = static_cast<const uint8_t*>(key_mask);
-  if (dtype == 0) {
-    pairwise_attention_fwd_kernel<float><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), m, static_cast<float*>(out), nq, nk,
-        batch, n_heads, head_dim, qs, ks, vs, scale);
-  } else if (dtype == 1) {
-    pairwise_attention_fwd_kernel<__nv_bfloat16>
-        <<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-            static_cast<const __nv_bfloat16*>(q),
-            static_cast<const __nv_bfloat16*>(k),
-            static_cast<const __nv_bfloat16*>(v), m,
-            static_cast<__nv_bfloat16*>(out), nq, nk, batch, n_heads,
-            head_dim, qs, ks, vs, scale);
-  } else {
+  if (dtype == 0)
+    launch<float>(q, k, v, key_mask, out, nq, nk, batch, n_heads, head_dim,
+                  qs, ks, vs, scale, s);
+  else if (dtype == 1)
+    launch<__nv_bfloat16>(q, k, v, key_mask, out, nq, nk, batch, n_heads,
+                          head_dim, qs, ks, vs, scale, s);
+  else
     return static_cast<int>(cudaErrorInvalidValue);
-  }
   return static_cast<int>(cudaGetLastError());
 }

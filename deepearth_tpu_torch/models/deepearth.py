@@ -13,7 +13,7 @@ Batch schema (torch tensors on the model's device):
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -83,7 +83,12 @@ class DeepEarthModel(nn.Module):
             self.add_module(f"decoder_{name}",
                             ModalityDecoder(D, m.vocab_size, init, cd))
 
-    def forward(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+    def forward(self, batch: Dict[str, Any],
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Any]:
+        """In training mode (``model.train()``) the fusion stack applies
+        dropout with masks drawn from ``generator``, which lies on the
+        model's device; in eval mode the forward is deterministic."""
         cfg = self.config
         xyzt = batch["xyzt"]
         B = xyzt.shape[0]
@@ -113,7 +118,8 @@ class DeepEarthModel(nn.Module):
             for name, tok in tokens.items():
                 temporal_positions.setdefault(
                     name, xyzt[:, None, 3:4].expand(B, tok.shape[1], 1))
-        fusion_out = self.fusion(tokens, None, temporal_positions or None)
+        fusion_out = self.fusion(tokens, None, temporal_positions or None,
+                                 generator=generator)
 
         st_fused = fusion_out["modality_tokens"]["spacetime"].mean(dim=1)
         recon = {"spatial": self.spatial_decoder(st_fused),

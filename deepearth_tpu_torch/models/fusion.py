@@ -6,7 +6,9 @@ embeddings) run through pre-norm layers: self-attention in every layer,
 cross-attention to the pre-fusion tokens every ``cross_attention_freq``
 layers, and a SiLU-gated MLP. With at most ``token_major_max_tokens`` tokens
 the stack runs token-major, (N, B, D), and every attention site is
-:func:`pairwise_token_attention`.
+:func:`pairwise_token_attention`. In training mode dropout (``cfg.dropout``)
+follows each attention output and the MLP, as in the JAX package; its masks
+come from the generator the caller passes to ``forward``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from torch import nn
 
 from ..configs import FusionConfig, TransformerConfig
 from ..ops.attention_smallseq import pairwise_token_attention, rope_token_major
-from .layers import Dense, Init, LayerNorm
+from .layers import Dense, Init, LayerNorm, dropout
 from .transformer import GatedMLP, KernelParam, MLP
 
 BATCH_MAJOR_TODO = (
@@ -102,7 +104,8 @@ class FusionAttention(nn.Module):
 
     def forward(self, query: torch.Tensor,
                 key_value: Optional[torch.Tensor] = None,
-                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg, cd = self.cfg, self.compute_dtype
         H = cfg.num_heads
         Dh = query.shape[-1] // H
@@ -119,7 +122,8 @@ class FusionAttention(nn.Module):
             k = rope_token_major(k, H)
         out = pairwise_token_attention(q, k, v, n_heads=H, scale=Dh ** -0.5,
                                        key_mask=key_mask)
-        return F.linear(out, self.out_proj().to(cd))
+        out = F.linear(out, self.out_proj().to(cd))
+        return dropout(out, cfg.dropout, self.training, generator)
 
 
 class FusionLayer(nn.Module):
@@ -137,7 +141,7 @@ class FusionLayer(nn.Module):
             self.cross_attn = FusionAttention(cfg, init, cd)
         self.mlp_norm = LayerNorm(D, eps, init, cd)
         if cfg.use_gated_mlp:
-            self.mlp = GatedMLP(D, cfg.mlp_ratio, init, cd)
+            self.mlp = GatedMLP(D, cfg.mlp_ratio, init, cd, cfg.dropout)
         else:
             tcfg = TransformerConfig(hidden_dim=D, mlp_ratio=cfg.mlp_ratio,
                                      dropout=cfg.dropout)
@@ -145,12 +149,15 @@ class FusionLayer(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
-                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.self_attn(self.self_attn_norm(x), key_mask=key_mask)
+                key_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + self.self_attn(self.self_attn_norm(x), key_mask=key_mask,
+                               generator=generator)
         if self.use_cross_attention and encoder_hidden_states is not None:
             x = x + self.cross_attn(self.cross_attn_norm(x),
-                                    key_value=encoder_hidden_states)
-        return x + self.mlp(self.mlp_norm(x))
+                                    key_value=encoder_hidden_states,
+                                    generator=generator)
+        return x + self.mlp(self.mlp_norm(x), generator)
 
 
 class CrossModalFusion(nn.Module):
@@ -176,10 +183,12 @@ class CrossModalFusion(nn.Module):
 
     def forward(self, modality_tokens: Dict[str, torch.Tensor],
                 spatial_positions: Optional[Dict[str, torch.Tensor]] = None,
-                temporal_positions: Optional[Dict[str, torch.Tensor]] = None
+                temporal_positions: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, object]:
-        """modality_tokens: {name: (B, n, D)}. Returns the fused CLS token
-        (B, D), all tokens (B, N, D) and each modality's tokens."""
+        """modality_tokens: {name: (B, n, D)}; generator: dropout masks in
+        training mode. Returns the fused CLS token (B, D), all tokens
+        (B, N, D) and each modality's tokens."""
         cfg, cd = self.cfg, self.compute_dtype
         names = [n for n in self.modality_names if n in modality_tokens]
         B = next(iter(modality_tokens.values())).shape[0]
@@ -207,7 +216,7 @@ class CrossModalFusion(nn.Module):
             ctx = None
             if layer.use_cross_attention:
                 ctx = h_inputs if cfg.cross_attention_context == "inputs" else h
-            h = layer(h, ctx)
+            h = layer(h, ctx, generator=generator)
         h = self.final_norm(h).transpose(0, 1)  # (B, N, D)
 
         return {

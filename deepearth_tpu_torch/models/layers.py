@@ -1,4 +1,5 @@
-"""Parameter factory and the flax layer equivalents the port's modules use.
+"""Parameter factory, dropout, and the flax layer equivalents the port's
+modules use.
 
 ``Dense``, ``LayerNorm`` and ``Embed`` hold their parameters in the parameter
 dtype and compute in the compute dtype, as flax's ``nn.Dense(dtype=...,
@@ -9,6 +10,7 @@ param_dtype=...)`` and friends do. Dense weights are stored (out, in), as
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +49,23 @@ class Init:
 
     def ones(self, shape) -> nn.Parameter:
         return nn.Parameter(self.empty(shape).fill_(1.0))
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: in training mode keep each element with
+    probability 1 - p and scale it by 1 / (1 - p); the identity in eval mode
+    or at p = 0. The mask comes from ``generator`` (on x's device), never
+    from the global generator, as flax's comes from the 'dropout' rng."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator")
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.bernoulli(
+        torch.full(x.shape, 1.0 - p, device=x.device), generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
 
 
 class Dense(nn.Module):

@@ -5,10 +5,13 @@ stack's few universal tokens run token-major, (N, B, D) with D = H * Dh, and
 every attention site is a softmax over the Nk keys of each (query, batch
 row, head).
 
-:func:`pairwise_token_attention` dispatches on the device of its input: a
-CUDA tensor goes to the hand-written kernel
-(``kernels/csrc/pairwise_attention.cu``), a CPU tensor to
-:func:`pairwise_token_attention_plain`, the plain PyTorch version.
+:func:`pairwise_token_attention` is a ``torch.autograd.Function`` that
+dispatches on the device of its input: for a CUDA tensor the forward and
+backward are the hand-written kernels K1-fwd and K1-bwd
+(``kernels/csrc/pairwise_attention.cu``, ``pairwise_attention_bwd.cu``), for
+a CPU tensor their plain PyTorch versions
+:func:`pairwise_token_attention_plain` and
+:func:`pairwise_token_attention_bwd_plain`.
 """
 
 from __future__ import annotations
@@ -51,25 +54,32 @@ def rope_token_major(x: torch.Tensor, n_heads: int,
     return (xh * cos + rotated * sin).reshape(n, b, d)
 
 
-def pairwise_token_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, n_heads: int,
-    scale: float, key_mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Plain PyTorch version of :func:`pairwise_token_attention` (any device)."""
-    nq, b, d = q.shape
-    nk = k.shape[0]
-    dh = d // n_heads
-    qf = q.float().reshape(nq, b, n_heads, dh)
-    kf = k.float().reshape(nk, b, n_heads, dh)
-    vf = v.float().reshape(nk, b, n_heads, dh)
-    scores = torch.einsum("ibhd,jbhd->ijbh", qf, kf) * scale  # (Nq, Nk, B, H)
+def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(N, B, D) -> (N, B, H, Dh) in float32."""
+    n, b, d = x.shape
+    return x.float().reshape(n, b, n_heads, d // n_heads)
+
+
+def _probs(qf, kf, scale, key_mask):
+    """fp32 softmax over the keys: (Nq, Nk, B, H)."""
+    scores = torch.einsum("ibhd,jbhd->ijbh", qf, kf) * scale
     if key_mask is not None:
         scores = torch.where(key_mask.T[None, :, :, None], scores,
                              torch.full_like(scores, NEG_INF))
     m = scores.amax(dim=1, keepdim=True)
     e = torch.exp(scores - m)
-    probs = e / e.sum(dim=1, keepdim=True)
-    out = torch.einsum("ijbh,jbhd->ibhd", probs, vf).reshape(nq, b, d)
+    return e / e.sum(dim=1, keepdim=True)
+
+
+def pairwise_token_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, n_heads: int,
+    scale: float, key_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K1-fwd (any device, differentiable)."""
+    nq, b, d = q.shape
+    probs = _probs(_heads(q, n_heads), _heads(k, n_heads), scale, key_mask)
+    out = torch.einsum("ijbh,jbhd->ibhd", probs, _heads(v, n_heads))
+    out = out.reshape(nq, b, d)
     if key_mask is not None:
         # a query with no visible key outputs zero
         out = torch.where(key_mask.any(dim=1)[None, :, None], out,
@@ -77,11 +87,71 @@ def pairwise_token_attention_plain(
     return out.to(q.dtype)
 
 
+def pairwise_token_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
+    n_heads: int, scale: float, key_mask: Optional[torch.Tensor] = None,
+):
+    """Plain PyTorch version of K1-bwd, the formulas of the JAX package's
+    ``_pw_bwd_kernel``: recompute the probabilities, then in fp32
+
+        dv_j = sum_i p_ij do_i            dp_ij = do_i . v_j
+        delta_i = sum_j p_ij dp_ij        ds_ij = p_ij (dp_ij - delta_i) scale
+        dq_i = sum_j ds_ij k_j            dk_j = sum_i ds_ij q_i
+
+    A batch row with no visible key produced zeros, so all its gradients
+    are zero. Returns (dq, dk, dv) in the inputs' dtype.
+    """
+    nq, b, d = q.shape
+    nk = k.shape[0]
+    qf, kf, vf = (_heads(x, n_heads) for x in (q, k, v))
+    dof = _heads(do, n_heads)
+    probs = _probs(qf, kf, scale, key_mask)
+    if key_mask is not None:
+        probs = probs * key_mask.any(dim=1)[None, None, :, None]
+    dv = torch.einsum("ijbh,ibhd->jbhd", probs, dof)
+    dp = torch.einsum("ibhd,jbhd->ijbh", dof, vf)
+    delta = (probs * dp).sum(dim=1, keepdim=True)
+    ds = probs * (dp - delta) * scale
+    dq = torch.einsum("ijbh,jbhd->ibhd", ds, kf)
+    dk = torch.einsum("ijbh,ibhd->jbhd", ds, qf)
+    return (dq.reshape(nq, b, d).to(q.dtype), dk.reshape(nk, b, d).to(k.dtype),
+            dv.reshape(nk, b, d).to(v.dtype))
+
+
+class _PairwiseAttention(torch.autograd.Function):
+    """(K1-fwd, K1-bwd) for CUDA tensors, their plain versions for CPU
+    tensors. q, k, v are saved as given: the strided views of the fused qkv
+    projection go to the backward kernel without a copy."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, n_heads, scale):
+        ctx.save_for_backward(q, k, v, key_mask)
+        ctx.n_heads, ctx.scale = n_heads, scale
+        if q.device.type == "cpu":
+            return pairwise_token_attention_plain(
+                q, k, v, n_heads=n_heads, scale=scale, key_mask=key_mask)
+        return kernels.pairwise_attention_fwd(q, k, v, n_heads, scale,
+                                              key_mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_mask = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = pairwise_token_attention_bwd_plain(
+                q, k, v, dout, n_heads=ctx.n_heads, scale=ctx.scale,
+                key_mask=key_mask)
+        else:
+            dq, dk, dv = kernels.pairwise_attention_bwd(
+                q, k, v, dout, ctx.n_heads, ctx.scale, key_mask)
+        return dq, dk, dv, None, None, None
+
+
 def pairwise_token_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, n_heads: int,
     scale: float, key_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Multi-head attention, token-major, tiny static N.
+    """Multi-head attention, token-major, tiny static N, differentiable
+    with respect to q, k and v.
 
     Args:
         q: (Nq, B, D); k, v: (Nk, B, D), flat head layout D = H * Dh.
@@ -89,7 +159,4 @@ def pairwise_token_attention(
 
     Returns (Nq, B, D) in q's dtype; the softmax runs in float32.
     """
-    if q.device.type == "cpu":
-        return pairwise_token_attention_plain(
-            q, k, v, n_heads=n_heads, scale=scale, key_mask=key_mask)
-    return kernels.pairwise_attention_fwd(q, k, v, n_heads, scale, key_mask)
+    return _PairwiseAttention.apply(q, k, v, key_mask, n_heads, scale)

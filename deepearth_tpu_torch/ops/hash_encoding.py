@@ -5,10 +5,11 @@ uint32 hash, level stacking into one (L, T, F) table, corner order and
 d-linear weight order, so fp32 results agree with the JAX package to
 rounding.
 
-:func:`hash_encode` dispatches on the device of its input: a CUDA tensor
-goes to the hand-written kernel (``kernels/csrc/hash_encode.cu``), a CPU
-tensor to :func:`hash_encode_plain`, the plain PyTorch version of the same
-function.
+:func:`hash_encode` is a ``torch.autograd.Function`` that dispatches on
+the device of its input: for a CUDA tensor the forward and the table
+gradient are the hand-written kernels K2-fwd and K2-bwd
+(``kernels/csrc/hash_encode.cu``), for a CPU tensor their plain PyTorch
+versions :func:`hash_encode_plain` and :func:`hash_encode_bwd_plain`.
 """
 
 from __future__ import annotations
@@ -56,51 +57,121 @@ def hash_grid_indices(grid_coords: torch.Tensor, table_size: int,
     return h % table_size
 
 
+def _cell_corners(coords: torch.Tensor, resolutions: torch.Tensor, L: int,
+                  T: int, table_size: int, interpolation: str):
+    """The table rows each point reads on each level, and their weights.
+
+    Yields one (idx, w) per corner in the JAX corner order: idx (N, L) int64
+    rows of the flattened (L*T, F) table, w (N, L) fp32 d-linear weights
+    (None for nearest, whose one corner has weight 1). The forward and the
+    backward both walk these, so the backward scatters to exactly the rows,
+    with exactly the weights, that the forward gathered.
+    """
+    if interpolation not in ("linear", "nearest"):
+        raise ValueError(f"unknown interpolation {interpolation!r}")
+    D = coords.shape[-1]
+    # (N, L, D): one fp32 multiply then floor, as the JAX code does
+    scaled = coords[:, None, :] * resolutions.to(torch.float32)[None, :, None]
+    floor = torch.floor(scaled)
+    grid = floor.to(torch.int32)
+    level_offset = torch.arange(L, device=coords.device) * T
+
+    def index(bits):
+        corner = torch.stack([grid[..., d] + bits[d] for d in range(D)], -1)
+        return hash_grid_indices(corner, table_size, D) + level_offset
+
+    if interpolation == "nearest":
+        yield index([0] * D), None
+        return
+    frac = scaled - floor
+    for bits in _corner_offsets(D):
+        w = torch.ones_like(frac[..., 0])
+        for d in range(D):
+            w = w * (frac[..., d] if bits[d] else 1.0 - frac[..., d])
+        yield index(bits), w
+
+
 def hash_encode_plain(coords: torch.Tensor, tables: torch.Tensor,
                       resolutions: torch.Tensor, *,
                       interpolation: str = "linear",
                       table_size: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`hash_encode` (any device)."""
-    if interpolation not in ("linear", "nearest"):
-        raise ValueError(f"unknown interpolation {interpolation!r}")
+    """Plain PyTorch version of K2-fwd (any device)."""
     L, T, F = tables.shape
-    table_size = table_size or T
     D = coords.shape[-1]
     batch_shape = coords.shape[:-1]
     flat = coords.reshape(-1, D).to(torch.float32)
-    # (N, L, D): one fp32 multiply then floor, as the JAX code does
-    scaled = flat[:, None, :] * resolutions.to(torch.float32)[None, :, None]
-    floor = torch.floor(scaled)
-    grid = floor.to(torch.int32)
-    level_offset = torch.arange(L, device=coords.device) * T
     tflat = tables.reshape(L * T, F)
-
-    def fetch(bits):  # (N, L, F)
-        corner = torch.stack([grid[..., d] + bits[d] for d in range(D)], -1)
-        idx = hash_grid_indices(corner, table_size, D) + level_offset
-        return tflat[idx]
-
+    corners = _cell_corners(flat, resolutions, L, T, table_size or T,
+                            interpolation)
     if interpolation == "nearest":
-        out = fetch([0] * D)
+        out = tflat[next(corners)[0]]
     else:
-        frac = scaled - floor
         out = torch.zeros((flat.shape[0], L, F), dtype=torch.float32,
                           device=coords.device)
-        for bits in _corner_offsets(D):
-            w = torch.ones_like(frac[..., 0])
-            for d in range(D):
-                w = w * (frac[..., d] if bits[d] else 1.0 - frac[..., d])
-            out = out + w[..., None] * fetch(bits)
+        for idx, w in corners:
+            out = out + w[..., None] * tflat[idx]
     return out.reshape(*batch_shape, L * F)
+
+
+def hash_encode_bwd_plain(coords: torch.Tensor, grad_out: torch.Tensor,
+                          resolutions: torch.Tensor, tables_shape, *,
+                          interpolation: str = "linear",
+                          table_size: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of K2-bwd, the twin of the JAX package's
+    ``_packed_gather_bwd``: the gradient of :func:`hash_encode_plain` with
+    respect to the tables, an ``index_add_`` of w * grad_out into an fp32
+    (L, T, F) table. coords (..., D), grad_out (..., L*F)."""
+    L, T, F = tables_shape
+    D = coords.shape[-1]
+    flat = coords.reshape(-1, D).to(torch.float32)
+    g = grad_out.reshape(-1, L, F).to(torch.float32)
+    grad = torch.zeros((L * T, F), dtype=torch.float32, device=coords.device)
+    for idx, w in _cell_corners(flat, resolutions, L, T, table_size or T,
+                                interpolation):
+        src = g if w is None else w[..., None] * g
+        grad.index_add_(0, idx.reshape(-1), src.reshape(-1, F))
+    return grad.reshape(L, T, F)
+
+
+class _HashEncode(torch.autograd.Function):
+    """(K2-fwd, K2-bwd) for CUDA tensors, their plain versions for CPU
+    tensors; differentiable with respect to the tables only."""
+
+    @staticmethod
+    def forward(ctx, coords, tables, resolutions, table_size, interpolation):
+        ctx.save_for_backward(coords, resolutions)
+        ctx.tables_shape, ctx.tables_dtype = tuple(tables.shape), tables.dtype
+        ctx.table_size, ctx.interpolation = table_size, interpolation
+        if coords.device.type == "cpu":
+            return hash_encode_plain(coords, tables, resolutions,
+                                     interpolation=interpolation,
+                                     table_size=table_size)
+        return kernels.hash_encode_fwd(coords, tables, resolutions,
+                                       table_size, interpolation == "linear")
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        coords, resolutions = ctx.saved_tensors
+        if coords.device.type == "cpu":
+            grad = hash_encode_bwd_plain(
+                coords, grad_out, resolutions, ctx.tables_shape,
+                interpolation=ctx.interpolation, table_size=ctx.table_size)
+        else:
+            grad = kernels.hash_encode_bwd(
+                coords, grad_out, resolutions, ctx.tables_shape,
+                ctx.table_size, ctx.interpolation == "linear")
+        return None, grad.to(ctx.tables_dtype), None, None, None
 
 
 def hash_encode(coords: torch.Tensor, tables: torch.Tensor,
                 resolutions: torch.Tensor, *, interpolation: str = "linear",
                 table_size: Optional[int] = None) -> torch.Tensor:
-    """Encode continuous coordinates with a multi-level hash grid.
+    """Encode continuous coordinates with a multi-level hash grid,
+    differentiable with respect to the tables.
 
     Args:
-        coords: (..., D) coordinates, typically in [0, 1].
+        coords: (..., D) coordinates, typically in [0, 1]. The JAX train
+            step differentiates params only, so coords may not require grad.
         tables: (L, T, F) fp32 feature tables for all levels.
         resolutions: (L,) fp32 per-level grid resolutions.
         interpolation: 'linear' (d-linear over the 2^D corners) or 'nearest'.
@@ -109,17 +180,16 @@ def hash_encode(coords: torch.Tensor, tables: torch.Tensor,
     Returns:
         (..., L * F) fp32, point-major, then level, then feature.
     """
-    if coords.device.type == "cpu":
-        return hash_encode_plain(coords, tables, resolutions,
-                                 interpolation=interpolation,
-                                 table_size=table_size)
     if interpolation not in ("linear", "nearest"):
         raise ValueError(f"unknown interpolation {interpolation!r}")
+    if torch.is_grad_enabled() and coords.requires_grad:
+        raise NotImplementedError(
+            "hash_encode has no gradient with respect to coords; only the "
+            "tables are differentiated, as in the JAX train step")
     L, T, F = tables.shape
     D = coords.shape[-1]
-    out = kernels.hash_encode_fwd(
-        coords.reshape(-1, D).to(torch.float32), tables, resolutions,
-        table_size or T, interpolation == "linear")
+    out = _HashEncode.apply(coords.reshape(-1, D).to(torch.float32), tables,
+                            resolutions, table_size or T, interpolation)
     return out.reshape(*coords.shape[:-1], L * F)
 
 

@@ -16,7 +16,12 @@ import torch
 import bench
 from deepearth_tpu import configs as jcfg
 from deepearth_tpu.models import DeepEarthModel as JaxModel
-from deepearth_tpu_torch import config_from_json, kernels, load_flax_params
+from deepearth_tpu_torch import (
+    config_from_json,
+    config_to_json,
+    kernels,
+    load_flax_params,
+)
 from deepearth_tpu_torch.models import DeepEarthModel
 from deepearth_tpu_torch.ops import (
     hash_encode,
@@ -141,6 +146,29 @@ def test_config_from_json_reads_a_file(tmp_path):
     _assert_same_fields(config_from_json(str(path)), jax_cfg)
 
 
+@pytest.mark.parametrize("make", [
+    lambda: bench.build_astack(batch_size=1)[0],
+    jcfg.tiny_config,
+    lambda: jcfg.DeepEarthConfig(
+        optimizer=jcfg.OptimizerConfig(schedule="onecycle",
+                                       second_moment="factored"),
+        masking=jcfg.MaskingConfig(spatial_mask_prob=0.3)),
+], ids=["astack", "tiny", "training_sections"])
+def test_config_to_json_round_trips_through_jax(make):
+    """The port writes the JAX package's schema: JAX reads it back to the
+    config it started from."""
+    jax_json = jcfg.config_to_json(make())
+    port = config_from_json(jax_json)
+    back = jcfg.config_from_json(config_to_json(port))
+    # JAX's own round trip (it too turns tuples into lists)
+    ref = jcfg.config_from_json(jax_json)
+    for name in ("grid4d", "hidden_dim", "modalities", "modality_encoder",
+                 "fusion", "masking", "optimizer", "param_dtype",
+                 "compute_dtype"):
+        assert getattr(back, name) == getattr(ref, name), name
+    assert config_from_json(config_to_json(port)) == port
+
+
 def test_chip_smoke_runs_the_bench_astack_config():
     """chip_smoke.py builds the model bench.build_astack defines."""
     sys.path.insert(0, REPO)
@@ -161,7 +189,8 @@ def test_port_and_chip_smoke_import_without_jax():
         "    sys.modules[m] = None\n"
         "import deepearth_tpu_torch, deepearth_tpu_torch.kernels\n"
         "import deepearth_tpu_torch.ops, deepearth_tpu_torch.models\n"
-        "import deepearth_tpu_torch.convert, chip_smoke\n"
+        "import deepearth_tpu_torch.convert, deepearth_tpu_torch.training\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'deepearth_tpu') and sys.modules[m]]\n"
         "assert not bad, bad\n"
@@ -184,5 +213,7 @@ def test_launch_counters_stay_zero_on_cpu(small):
                     torch.tensor([16.0, 32.0]))
         q = torch.randn(3, 2, 64)
         pairwise_token_attention(q, q, q, n_heads=4, scale=0.25)
-    assert kernels.launch_counts == {"hash_encode_fwd": 0,
-                                     "pairwise_attention_fwd": 0}
+    assert set(kernels.launch_counts.values()) == {0}
+    assert set(kernels.launch_counts) == {
+        "hash_encode_fwd", "hash_encode_bwd", "pairwise_attention_fwd",
+        "pairwise_attention_bwd"}

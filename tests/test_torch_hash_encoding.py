@@ -1,5 +1,6 @@
-"""The PyTorch port's hash encoding against the JAX package, on the CPU. The
-K2 CUDA kernel is held against its plain version in
+"""The PyTorch port's hash encoding against the JAX package, on the CPU,
+forward and table gradient (jax.vjp against the port's autograd.Function).
+The K2 CUDA kernels are held against their plain versions in
 tests/test_torch_kernels_cuda.py.
 
 Indices must be exactly equal. Encodings use the same fp32 operations in the
@@ -126,3 +127,75 @@ def test_other_devices_raise_instead_of_falling_back():
     tables = torch.empty((2, 256, 2), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         the.hash_encode(coords, tables, torch.empty(2, device="meta"))
+
+
+# --------------------------------------------------------------------------- #
+# the table gradient (K2-bwd's plain version and the autograd.Function)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("interpolation", ["linear", "nearest"])
+@pytest.mark.parametrize("d,levels,table,f", [
+    (1, 4, 256, 2),  # the temporal stack's D, through _packed_gather_bwd
+    (3, 4, 1024, 2),  # the spatial stack's D
+    (3, 3, 3001, 2),  # T not a power of two
+    (4, 2, 1024, 2),
+    (3, 3, 512, 3),  # F != 2: JAX transposes a jnp.take instead
+])
+def test_table_gradient_matches_jax_vjp(interpolation, d, levels, table, f):
+    """Scatter sums in another order: rtol 1e-5 of the largest entry."""
+    coords = coords_np(d + 10, 512, d)
+    tables = tables_np(levels, levels, table, f)
+    res = np.array([2.0 ** (4 + i) for i in range(levels)], np.float32)
+    grad_out = np.random.default_rng(d).standard_normal(
+        (512, levels * f)).astype(np.float32)
+    _, vjp = jax.vjp(lambda t: jhe.hash_encode(
+        jnp.asarray(coords), t, jnp.asarray(res),
+        interpolation=interpolation, table_size=table), jnp.asarray(tables))
+    ref = np.asarray(vjp(jnp.asarray(grad_out))[0])
+    t = torch.from_numpy(tables).requires_grad_()
+    the.hash_encode(torch.from_numpy(coords), t, torch.from_numpy(res),
+                    interpolation=interpolation, table_size=table).backward(
+        torch.from_numpy(grad_out))
+    assert t.grad.shape == tables.shape and t.grad.dtype == torch.float32
+    np.testing.assert_allclose(t.grad.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    plain = the.hash_encode_bwd_plain(
+        torch.from_numpy(coords), torch.from_numpy(grad_out),
+        torch.from_numpy(res), tables.shape, interpolation=interpolation,
+        table_size=table)
+    assert torch.equal(plain, t.grad)
+
+
+def test_table_gradient_with_batch_shape_and_partial_table():
+    """A leading batch shape and a hash modulus below the table's length:
+    rows past the modulus get no gradient."""
+    coords = coords_np(30, 60, 3).reshape(4, 15, 3)
+    tables = tables_np(31, 2, 1024)
+    res = np.array([16.0, 32.0], np.float32)
+    grad_out = np.ones((4, 15, 4), np.float32)
+    _, vjp = jax.vjp(lambda t: jhe.hash_encode(
+        jnp.asarray(coords), t, jnp.asarray(res), table_size=1000),
+        jnp.asarray(tables))
+    ref = np.asarray(vjp(jnp.asarray(grad_out))[0])
+    t = torch.from_numpy(tables).requires_grad_()
+    the.hash_encode(torch.from_numpy(coords), t, torch.from_numpy(res),
+                    table_size=1000).backward(torch.from_numpy(grad_out))
+    np.testing.assert_allclose(t.grad.numpy(), ref, rtol=0, atol=1e-6)
+    assert (t.grad[:, 1000:] == 0).all()
+
+
+def test_coords_gradient_raises():
+    coords = torch.rand((8, 3), requires_grad=True)
+    tables = torch.zeros((2, 256, 2), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="coords"):
+        the.hash_encode(coords, tables, torch.tensor([16.0, 32.0]))
+    with torch.no_grad():  # no graph, no gradient asked for
+        the.hash_encode(coords, tables, torch.tensor([16.0, 32.0]))
+
+
+def test_module_gradient_reaches_the_tables():
+    cfg = HashEncodingConfig(n_levels=3, hash_table_size=256, coords_dim=1)
+    mod = the.HashEncoding(cfg, generator=torch.Generator().manual_seed(2))
+    mod(torch.from_numpy(coords_np(3, 32, 1))).square().sum().backward()
+    assert mod.tables.grad is not None and mod.tables.grad.abs().sum() > 0

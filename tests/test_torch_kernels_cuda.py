@@ -7,23 +7,32 @@ so there run it without the conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: K2 does the plain version's fp32 operations in the same order,
-so it must be bit-identical. K1 sums in another order: 1e-5 in fp32; in
-bf16 one ulp at |x| < 4 (2^-6), since an fp32 value near a rounding
-boundary may round either way.
+Tolerances: K2-fwd does the plain version's fp32 operations in the same
+order, so it must be bit-identical. K1-fwd sums in another order: 1e-5 in
+fp32; in bf16 one ulp at |x| < 4 (2^-6), since an fp32 value near a
+rounding boundary may round either way. K1-bwd: the same reasons,
+elementwise (ATTN_BWD_TOL). K2-bwd adds with atomics in an order that
+changes from run to run: 1e-5 of the sum of |terms| of each row.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from deepearth_tpu_torch import kernels
+from deepearth_tpu_torch.models import DeepEarthModel
 from deepearth_tpu_torch.ops import attention_smallseq as tattn
 from deepearth_tpu_torch.ops import hash_encoding as the
+from deepearth_tpu_torch.training import Trainer
 
 pytestmark = pytest.mark.cuda
 
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+ATTN_BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -7, 1e-4)}
+HASH_BWD_TOL = 1e-5
 
 
 @pytest.fixture
@@ -108,14 +117,130 @@ def test_pairwise_attention_takes_strided_views(cuda):
     torch.testing.assert_close(out, ref, rtol=0, atol=ATTN_TOL[torch.float32])
 
 
-def test_kernels_refuse_autograd(cuda):
-    tables = torch.zeros((2, 256, 2), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        the.hash_encode(torch.rand((4, 3), device=cuda), tables,
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("nq,nk,b,d,heads,mask,fused", [
+    (3, 3, 4096, 768, 12, False, True),  # the A-stack site, qkv views
+    (3, 3, 4096, 768, 12, True, False),
+    (3, 3, 1000, 768, 12, False, False),  # odd B
+    (2, 5, 999, 768, 12, True, False),  # Nq != Nk
+    (3, 3, 100, 640, 4, False, False),  # Dh = 160
+])
+def test_pairwise_attention_bwd_matches_plain(cuda, dtype, nq, nk, b, d,
+                                              heads, mask, fused):
+    g = torch.Generator(device=cuda).manual_seed(b + nk)
+    if fused:
+        q, k, v = torch.randn((nq, b, 3 * d), generator=g, device=cuda).to(
+            dtype).chunk(3, dim=-1)
+    else:
+        q = torch.randn((nq, b, d), generator=g, device=cuda).to(dtype)
+        k, v = (torch.randn((nk, b, d), generator=g, device=cuda).to(dtype)
+                for _ in range(2))
+    do = torch.randn((nq, b, d), generator=g, device=cuda).to(dtype)
+    key_mask = None
+    if mask:
+        key_mask = torch.rand((b, nk), generator=g, device=cuda) > 0.4
+        key_mask[:17] = False
+    scale = (d // heads) ** -0.5
+    kernels.reset_launch_counts()
+    got = kernels.pairwise_attention_bwd(q, k, v, do, heads, scale, key_mask)
+    ref = tattn.pairwise_token_attention_bwd_plain(
+        q, k, v, do, n_heads=heads, scale=scale, key_mask=key_mask)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["pairwise_attention_bwd"] == 1
+    rtol, atol = ATTN_BWD_TOL[dtype]
+    for a, r in zip(got, ref):
+        assert a.dtype == dtype and a.shape == r.shape and a.is_contiguous()
+        diff = (a.float() - r.float()).abs()
+        assert bool((diff <= rtol * r.float().abs() + atol).all()), \
+            diff.max().item()
+        if mask:
+            assert bool((a[:, :17] == 0).all())
+
+
+def test_autograd_goes_through_both_kernels(cuda):
+    """Gradients through the autograd.Functions on the card equal autograd
+    through the plain forwards."""
+    q, k, v = torch.randn((3, 4 * 3, 256), device=cuda).chunk(3, dim=1)
+    leaves = [x.contiguous().requires_grad_() for x in (q, k, v)]
+    tables = torch.rand((2, 512, 2), device=cuda).requires_grad_()
+    coords = torch.rand((64, 3), device=cuda)
+    res = torch.tensor([16.0, 32.0], device=cuda)
+    grads = {}
+    for name, attn, enc in (
+            ("kernel", tattn.pairwise_token_attention, the.hash_encode),
+            ("plain", tattn.pairwise_token_attention_plain,
+             the.hash_encode_plain)):
+        kernels.reset_launch_counts()
+        out = attn(*leaves, n_heads=4, scale=0.125)
+        (out.square().sum() + enc(coords, tables, res).sum()).backward()
+        grads[name] = [x.grad.clone() for x in (*leaves, tables)]
+        for x in (*leaves, tables):
+            x.grad = None
+        torch.cuda.synchronize()
+        assert set(kernels.launch_counts.values()) == (
+            {1} if name == "kernel" else {0})
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("interpolation", ["linear", "nearest"])
+@pytest.mark.parametrize("d,levels,table,f,table_size", [
+    (3, 16, 2 ** 19, 2, None),  # A-stack spatial
+    (1, 8, 2 ** 17, 2, None),  # A-stack temporal
+    (3, 4, 3001, 2, None),
+    (2, 3, 1024, 3, None),
+    (4, 2, 1024, 1, 1000),
+])
+def test_hash_encode_bwd_matches_plain(cuda, interpolation, d, levels, table,
+                                       f, table_size):
+    x = coords(d + 5, 4096, d, cuda)
+    g = torch.Generator(device=cuda).manual_seed(levels)
+    grad_out = torch.randn((4096, levels * f), generator=g, device=cuda)
+    res = torch.tensor([2.0 ** (4 + i) for i in range(levels)], device=cuda)
+    shape = (levels, table, f)
+    kw = dict(interpolation=interpolation, table_size=table_size)
+    kernels.reset_launch_counts()
+    got = kernels.hash_encode_bwd(x, grad_out, res, shape, table_size or table,
+                                  interpolation == "linear")
+    ref = the.hash_encode_bwd_plain(x, grad_out, res, shape, **kw)
+    abs_sum = the.hash_encode_bwd_plain(x, grad_out.abs(), res, shape, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["hash_encode_bwd"] == 1
+    assert got.shape == shape
+    assert bool(((got - ref).abs() <= HASH_BWD_TOL * abs_sum).all())
+    if table_size:
+        assert bool((got[:, table_size:] == 0).all())
+
+
+def test_hash_encode_refuses_coords_gradient(cuda):
+    with pytest.raises(NotImplementedError, match="coords"):
+        the.hash_encode(torch.rand((4, 3), device=cuda, requires_grad=True),
+                        torch.zeros((2, 256, 2), device=cuda),
                         torch.tensor([16.0, 32.0], device=cuda))
-    q = torch.randn((3, 4, 64), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tattn.pairwise_token_attention(q, q, q, n_heads=2, scale=0.125)
+
+
+def test_astack_train_step_launches_every_kernel(cuda):
+    """One train step of the A-stack model at B=4096 with masking: K2-fwd 2,
+    K2-bwd 2, K1-fwd 16, K1-bwd 16 launches, and a finite loss."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import astack_config, make_batch
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cfg = astack_config()
+    model = DeepEarthModel(cfg, generator=gen, device=cuda)
+    trainer = Trainer(model, cfg)
+    state = trainer.init_state()
+    batch = make_batch(gen, 4096)
+    kernels.reset_launch_counts()
+    state, metrics = trainer.train_step(state, batch, gen)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == {
+        "hash_encode_fwd": 2, "hash_encode_bwd": 2,
+        "pairwise_attention_fwd": 16, "pairwise_attention_bwd": 16}
+    assert np.isfinite(metrics["loss/total"].item())
+    assert np.isfinite(metrics["grad_norm"].item())
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

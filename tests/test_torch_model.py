@@ -24,7 +24,9 @@ from deepearth_tpu.models.grid4d import Grid4DEncoder as JaxGrid4D
 from deepearth_tpu_torch import config_from_json, kernels, load_flax_params
 from deepearth_tpu_torch.models import CrossModalFusion as TorchFusion
 from deepearth_tpu_torch.models import DeepEarthModel
-from deepearth_tpu_torch.models.layers import Init
+from deepearth_tpu_torch.models import fusion as tfusion
+from deepearth_tpu_torch.models import transformer as ttransformer
+from deepearth_tpu_torch.models.layers import Init, dropout
 
 torch.set_num_threads(2)
 
@@ -108,8 +110,7 @@ def test_full_forward_matches_jax(pair, masks):
     for name, value in ref["input_tokens"].items():
         close(out["input_tokens"][name], value)
     # CPU tensors take the plain versions: no kernel launched
-    assert kernels.launch_counts == {"hash_encode_fwd": 0,
-                                     "pairwise_attention_fwd": 0}
+    assert set(kernels.launch_counts.values()) == {0}
 
 
 def test_extract_features_matches_jax(pair):
@@ -250,3 +251,76 @@ def test_unported_branches_raise(what):
         cfg.modalities["species"].encoding_type = what
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DeepEarthModel(cfg, generator=torch.Generator().manual_seed(0))
+
+
+# --------------------------------------------------------------------------- #
+# dropout: the JAX package's sites, active in training mode only
+# --------------------------------------------------------------------------- #
+
+
+def dropout_model(p, gated=True):
+    jax_cfg = small_jax_config()
+    jax_cfg.fusion.dropout = p
+    jax_cfg.fusion.use_gated_mlp = gated
+    return DeepEarthModel(config_from_json(jcfg.config_to_json(jax_cfg)),
+                          generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("gated", [True, False], ids=["gated_mlp", "mlp"])
+def test_dropout_sites_match_jax(monkeypatch, gated):
+    """Each attention output and the MLP: gated, one site after the down
+    projection (transformer.py:141); GELU MLP, after the activation and
+    after fc2 (:111, :116); attention after out_proj (fusion.py:147)."""
+    calls = []
+
+    def counting(x, p, training, generator):
+        calls.append((p, training))
+        return dropout(x, p, training, generator)
+
+    monkeypatch.setattr(tfusion, "dropout", counting)
+    monkeypatch.setattr(ttransformer, "dropout", counting)
+    model = dropout_model(0.25, gated).train()
+    model(to_torch(numpy_batch(8)), generator=torch.Generator())
+    # 4 layers of self-attention, cross-attention at layers 0 and 3
+    mlp_sites = 1 if gated else 2
+    assert len(calls) == 4 + 2 + 4 * mlp_sites
+    assert set(calls) == {(0.25, True)}
+
+
+def test_dropout_zero_is_bit_identical_to_eval():
+    model = dropout_model(0.0)
+    batch = to_torch(numpy_batch(9, masks=True))
+    with torch.no_grad():
+        ref = model.eval()(batch)["fused_representation"]
+        out = model.train()(batch)["fused_representation"]
+    assert torch.equal(out, ref)
+
+
+def test_dropout_active_only_in_training_and_reproducible():
+    model = dropout_model(0.5)
+    batch = to_torch(numpy_batch(10))
+    with torch.no_grad():
+        ref = model.eval()(batch)["fused_representation"]
+        model.train()
+        a = model(batch, generator=torch.Generator().manual_seed(3))
+        b = model(batch, generator=torch.Generator().manual_seed(3))
+        c = model(batch, generator=torch.Generator().manual_seed(4))
+        with pytest.raises(ValueError, match="Generator"):
+            model(batch)
+    a, b, c = (x["fused_representation"] for x in (a, b, c))
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c) and not torch.equal(a, ref)
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5, 0.9])
+def test_dropout_keep_fraction_and_scaling(p):
+    """flax's statistics (its bits differ): each element kept with
+    probability 1 - p and scaled by 1 / (1 - p)."""
+    x = torch.full((200, 500), 2.0)
+    y = dropout(x, p, True, torch.Generator().manual_seed(0))
+    kept = y != 0
+    # binomial standard error at n=1e5 is <= 0.0016: allow 4 of them
+    assert abs(kept.float().mean().item() - (1 - p)) < 0.0064
+    torch.testing.assert_close(y[kept], torch.full_like(y[kept],
+                                                        2.0 / (1 - p)))
+    assert dropout(x, p, False, None) is x
