@@ -20,6 +20,15 @@ Phases, each printing one line:
      K2-fwd 2, K2-bwd 2, K1-fwd 16 and K1-bwd 16 times; 3 steps with the
      kernels must agree with 3 steps through the plain versions from the
      same state; the loss must fall over 30 steps on one repeated batch;
+  8. K3-fwd (vmem_attention_fwd) against its plain PyTorch version, in bf16
+     and fp32, at the multimodal slice's two sites (B=512), a ragged masked
+     case with an all-masked row (exactly 0) and Nk = 1024;
+  9. the multimodal serving slice: DeepEarthModel at the configuration of
+     tools/bench_multimodal.py (universal dim 512, 8 heads, 4 fusion layers,
+     species + vision (576 V-JEPA2 patches of 1408) + language (7168), bf16)
+     answers requests of 1, 32 and 512 observations; every forward must
+     launch K3-fwd 2, K2-fwd 2 and K1-fwd 0 times and never reach a plain
+     version, and its outputs must agree with the plain path's;
 then a JSON line of the kernels, the card's name and power limit, and
 {"ok": true, ...} as the last line. Any failure raises and exits non-zero.
 Weights are random, drawn from a seeded generator on the card.
@@ -38,6 +47,7 @@ import time
 from unittest import mock
 
 import torch
+import torch.nn.functional as F
 
 from deepearth_tpu_torch import kernels
 from deepearth_tpu_torch.configs import (
@@ -47,7 +57,11 @@ from deepearth_tpu_torch.configs import (
     TransformerConfig,
 )
 from deepearth_tpu_torch.models import DeepEarthModel, fusion
-from deepearth_tpu_torch.ops import attention_smallseq, hash_encoding
+from deepearth_tpu_torch.ops import (
+    attention_smallseq,
+    attention_vmem,
+    hash_encoding,
+)
 from deepearth_tpu_torch.training import (
     LossWeights,
     Trainer,
@@ -81,6 +95,33 @@ TRAIN_BATCH, TRAIN_STEPS, LOSS_FALL_STEPS = 4096, 3, 30
 # a gradient at rounding-noise level can flip its sign, so they agree to
 # 3 * sum(lr) absolute (the default warmup gives lr 0, 1e-6, 2e-6).
 TRAIN_TOL = {"loss": 2e-3, "grad_norm": 2e-2}
+# K3-fwd: fp32 sums in another order; in bf16 the output rounds once, one
+# ulp at |x| < 4 (2^-6), and a probability may round to the other bf16
+# neighbour when exp differs in its last fp32 bit.
+VMEM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+MM_BATCH, MM_REQUEST_SIZES, VISION_PATCHES = 512, (1, 32, 512), 576
+K3_PER_FORWARD = 2
+# bf16 through the vision encoder (one MLA layer over 576 patches), the
+# token cross-attention and 4 fusion layers: kernel and plain round
+# differently, and the residual streams carry each difference on.
+MM_SLICE_TOL = {"max_abs": 0.25, "mean_abs": 0.02}
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s of HBM and
+# operations/s by type; fp32 without the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def bound(bytes_moved: float, flops: float, dtype) -> dict:
+    """The least time the card needs: the larger of moving the bytes at the
+    HBM rate and doing the operations at the type's peak."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def astack_config() -> DeepEarthConfig:
@@ -149,7 +190,21 @@ def plain_versions():
     with mock.patch.object(hash_encoding, "hash_encode",
                            hash_encoding.hash_encode_plain), \
          mock.patch.object(fusion, "pairwise_token_attention",
-                           attention_smallseq.pairwise_token_attention_plain):
+                           attention_smallseq.pairwise_token_attention_plain), \
+         mock.patch.object(attention_vmem, "vmem_attention",
+                           attention_vmem.vmem_attention_plain):
+        yield
+
+
+@contextlib.contextmanager
+def plain_versions_refused():
+    """Make every plain version raise: a run inside reaches none of them."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's path")
+    with mock.patch.object(hash_encoding, "hash_encode_plain", refuse), \
+         mock.patch.object(attention_smallseq,
+                           "pairwise_token_attention_plain", refuse), \
+         mock.patch.object(attention_vmem, "vmem_attention_plain", refuse):
         yield
 
 
@@ -213,6 +268,10 @@ def phase_hash(gen) -> dict:
                            device="cuda")
         pool = [torch.rand((n, hcfg.coords_dim), generator=gen, device="cuda")
                 for _ in range(16)]
+        if name == "spatial":
+            k2_bound = bound(hash_fwd_bytes(pool, tables, res, hcfg),
+                             2 * n * hcfg.output_dim * 2 ** hcfg.coords_dim,
+                             torch.float32)
         for label, fn in (("kernel", hash_encoding.hash_encode),
                           ("plain", hash_encoding.hash_encode_plain)):
             coords = itertools.cycle(pool)
@@ -222,9 +281,26 @@ def phase_hash(gen) -> dict:
     print(f"[2 K2 hash_encode_fwd] max_abs_err {worst:.3g} (tol {HASH_TOL}) "
           f"over {len(cases)} cases | ms at N=4096 (device; eager with host "
           "launch cost): " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
-          + f" | {card()}")
+          + f" | spatial bound {k2_bound['bound_ms']:.4f} ms "
+          f"({k2_bound['bound_by']}) | {card()}")
     return {"max_abs_err": worst, "ms": times["spatial_kernel"],
-            "plain_ms": times["spatial_plain"]}
+            "plain_ms": times["spatial_plain"], "library_ms": None,
+            **k2_bound}
+
+
+def hash_fwd_bytes(pool, tables, res, hcfg) -> float:
+    """Mean bytes one K2-fwd call over the pool must move: coords and
+    resolutions in, the distinct table rows its points touch (each read
+    once), the features out."""
+    levels, table, feats = tables.shape
+    total = 0
+    for coords in pool:
+        rows = torch.cat([idx.flatten() for idx, _ in hash_encoding._cell_corners(
+            coords, res, levels, table, hcfg.hash_table_size,
+            hcfg.interpolation)])
+        total += (nbytes(coords, res) + rows.unique().numel() * feats * 4
+                  + coords.shape[0] * levels * feats * 4)
+    return total / len(pool)
 
 
 def phase_attention(gen) -> dict:
@@ -272,13 +348,29 @@ def phase_attention(gen) -> dict:
         call = lambda: fn(q, k, v, n_heads=12, scale=64 ** -0.5)  # noqa: E731
         times[label] = graph_ms(call)
         times[f"{label}_eager"] = cuda_ms(call)
+    # the library's fused attention on the same values in its own
+    # (B, H, N, Dh) layout, timed as a yardstick only
+    qh, kh, vh = (bhnd(x, 12) for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, scale=64 ** -0.5)
+    times["library"] = graph_ms(sdpa)
+    k1_bound = bound(nbytes(q, k, v, q), 4 * 3 * 3 * b * 768, torch.bfloat16)
     print("[3 K1 pairwise_attention_fwd] max_abs_err " + ", ".join(
         f"{k} {v:.3g}" for k, v in errs.items())
         + " | ms at (3, 4096, 768) bf16 (device; eager with host launch "
-        "cost): " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
-        + f" | {card()}")
+        "cost; library = scaled_dot_product_attention): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in times.items())
+        + f" | bound {k1_bound['bound_ms']:.4f} ms ({k1_bound['bound_by']})"
+        f" | {card()}")
     return {"max_abs_err": max(errs.values()), "ms": times["kernel"],
-            "plain_ms": times["plain"]}
+            "plain_ms": times["plain"], "library_ms": times["library"],
+            **k1_bound}
+
+
+def bhnd(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """A token-major (N, B, D) tensor as a contiguous (B, H, N, Dh) one."""
+    n, b, d = x.shape
+    return x.view(n, b, n_heads, d // n_heads).permute(1, 2, 0, 3).contiguous()
 
 
 def output_diff(out: dict, ref: dict) -> dict:
@@ -318,7 +410,7 @@ def phase_slice(gen) -> dict:
             want = {"hash_encode_fwd": 2 * K2_PER_FORWARD,
                     "hash_encode_bwd": 0,
                     "pairwise_attention_fwd": 2 * K1_PER_FORWARD,
-                    "pairwise_attention_bwd": 0}
+                    "pairwise_attention_bwd": 0, "vmem_attention_fwd": 0}
             if got != want:
                 raise AssertionError(f"launches per request {got} != {want}")
             if not torch.equal(feats, outs[-1]["fused_representation"]):
@@ -433,6 +525,15 @@ def phase_attention_bwd(gen) -> dict:
     for label, call in calls.items():
         times[label] = graph_ms(call)
         times[f"{label}_eager"] = cuda_ms(call)
+    # the library's attention backward on the same values, (B, H, N, Dh),
+    # eager: its graph is the autograd graph of one forward call
+    qh, kh, vh = (bhnd(x, 12).requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qh, kh, vh, scale=0.125)
+    doh = bhnd(do, 12)
+    times["library_eager"] = cuda_ms(lambda: torch.autograd.grad(
+        out, (qh, kh, vh), doh, retain_graph=True))
+    k1b_bound = bound(nbytes(q, k, v, do, q, k, v), 10 * 3 * 3 * b * 768,
+                      torch.bfloat16)
     worst = {k: max(v for n, v in errs.items() if n.endswith(k))
              for k in ("dq", "dk", "dv")}
     print("[5 K1-bwd pairwise_attention_bwd] max_abs_err over "
@@ -440,10 +541,13 @@ def phase_attention_bwd(gen) -> dict:
               f"{k} {v:.3g}" for k, v in worst.items())
           + " (per case: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
           + ") | ms at (3, 4096, 768) bf16 (device; eager with host launch "
-          "cost): " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
-          + f" | {card()}")
+          "cost; library = backward of scaled_dot_product_attention): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + f" | bound {k1b_bound['bound_ms']:.4f} ms "
+          f"({k1b_bound['bound_by']}) | {card()}")
     return {"max_abs_err": max(errs.values()), "ms": times["kernel"],
-            "plain_ms": times["plain"]}
+            "plain_ms": times["plain"], "library_ms": times["library_eager"],
+            **k1b_bound}
 
 
 def _hash_bwd_case(gen, n, levels, table, d, f=2, interpolation="linear",
@@ -502,6 +606,11 @@ def phase_hash_bwd(gen) -> dict:
                             device="cuda"),
                  torch.randn((n, hcfg.output_dim), generator=gen,
                              device="cuda")) for _ in range(16)]
+        if name == "spatial":
+            # coords, grad_out, resolutions in; the dense table gradient out
+            k2b_bound = bound(
+                nbytes(*pool[0], res) + 4 * math.prod(shape),
+                2 * n * hcfg.output_dim * 2 ** hcfg.coords_dim, torch.float32)
         calls = {
             "kernel": lambda c, g: kernels.hash_encode_bwd(
                 c, g, res, shape, hcfg.hash_table_size, True),
@@ -520,9 +629,11 @@ def phase_hash_bwd(gen) -> dict:
           + " | ms at N=4096 (device; eager with host launch cost; each "
           "includes zeroing the table gradient): "
           + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
-          + f" | {card()}")
+          + f" | spatial bound {k2b_bound['bound_ms']:.4f} ms "
+          f"({k2b_bound['bound_by']}) | {card()}")
     return {"max_abs_err": max(errs.values()), "ms": times["spatial_kernel"],
-            "plain_ms": times["spatial_plain"]}
+            "plain_ms": times["spatial_plain"], "library_ms": None,
+            **k2b_bound}
 
 
 def _run_steps(trainer, state, batches, seed):
@@ -556,7 +667,8 @@ def phase_train(gen) -> dict:
     want = {"hash_encode_fwd": K2_PER_FORWARD * (TRAIN_STEPS + 2),
             "hash_encode_bwd": K2_PER_FORWARD * TRAIN_STEPS,
             "pairwise_attention_fwd": K1_PER_FORWARD * (TRAIN_STEPS + 2),
-            "pairwise_attention_bwd": K1_PER_FORWARD * TRAIN_STEPS}
+            "pairwise_attention_bwd": K1_PER_FORWARD * TRAIN_STEPS,
+            "vmem_attention_fwd": 0}
     if launches != want:
         raise AssertionError(f"launches over {TRAIN_STEPS} steps and 2 eval "
                              f"batches {launches} != {want}")
@@ -629,6 +741,261 @@ def phase_train(gen) -> dict:
     return {"launches": launches}
 
 
+def _vmem_inputs(gen, b, h, nq, nk, dqk, dv, dtype, mask=False):
+    q = torch.randn((b, h, nq, dqk), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, h, nk, dqk), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, h, nk, dv), generator=gen, device="cuda").to(dtype)
+    key_mask = None
+    if mask:
+        key_mask = torch.rand((b, nk), generator=gen, device="cuda") > 0.3
+        key_mask[0] = False  # a row that sees no key at all
+    return q, k, v, key_mask
+
+
+def phase_vmem(gen) -> dict:
+    errs = {}
+    cases = {  # name: (B, H, Nq, Nk, Dqk, Dv, key mask)
+        "MLA site B=512 576x576 Dqk48 Dv32": (MM_BATCH, 8, 576, 576, 48, 32,
+                                               False),
+        "cross site B=512 16x576 Dh64": (MM_BATCH, 8, 16, 576, 64, 64, False),
+        "ragged 100x260 Dqk48 Dv80 masked": (4, 3, 100, 260, 48, 80, True),
+        "Nk=1024 Dh128 masked": (8, 4, 64, 1024, 128, 128, True),
+    }
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        for name, (b, h, nq, nk, dqk, dv, mask) in cases.items():
+            q, k, v, key_mask = _vmem_inputs(gen, b, h, nq, nk, dqk, dv,
+                                             dtype, mask)
+            kw = dict(scale=dqk ** -0.5, key_mask=key_mask)
+            out = attention_vmem.vmem_attention(q, k, v, **kw)
+            ref = attention_vmem.vmem_attention_plain(q, k, v, **kw)
+            if out.shape != (b, h, nq, dv) or out.dtype != dtype:
+                raise AssertionError(f"K3 {name}: {out.shape} {out.dtype}")
+            if mask and not bool((out[0] == 0).all()):
+                raise AssertionError(f"K3 {name}: the all-masked row is not 0")
+            err = max_err(out, ref)
+            errs[f"{name} {tag}"] = err
+            if err > VMEM_TOL[dtype]:
+                raise AssertionError(f"K3 {name} {tag}: max_abs_err {err} > "
+                                     f"{VMEM_TOL[dtype]}")
+            del q, k, v, out, ref
+
+    # the slice's two sites at B=512 in bf16: kernel, plain, the library's
+    # fused attention on the same tensors (a yardstick only), and the bound
+    sites = {}
+    for name, (nq, dqk, dv) in {"mla": (576, 48, 32),
+                                "cross": (16, 64, 64)}.items():
+        q, k, v, _ = _vmem_inputs(gen, MM_BATCH, 8, nq, VISION_PATCHES, dqk,
+                                  dv, torch.bfloat16)
+        sc = dqk ** -0.5
+        t = {
+            "ms": cuda_ms(lambda: kernels.vmem_attention_fwd(q, k, v, sc),
+                          iters=10, warmup=2),
+            "plain_ms": cuda_ms(lambda: attention_vmem.vmem_attention_plain(
+                q, k, v, scale=sc), iters=5, warmup=1),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=sc), iters=10, warmup=2),
+        }
+        flops = 2 * MM_BATCH * 8 * nq * VISION_PATCHES * (dqk + dv)
+        t.update(bound(nbytes(q, k, v) + MM_BATCH * 8 * nq * dv * 2, flops,
+                       torch.bfloat16))
+        t["tflops"] = flops / t["ms"] / 1e9
+        sites[name] = t
+        del q, k, v
+    print("[8 K3 vmem_attention_fwd] max_abs_err " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol {dict((str(k).split('.')[-1], v) for k, v in VMEM_TOL.items())})"
+        + " | ms at B=512 bf16 (device, CUDA events; library = "
+        "scaled_dot_product_attention): " + ", ".join(
+            f"{n} kernel {t['ms']:.4f} ({t['tflops']:.2f} TFLOP/s), plain "
+            f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
+            f"{t['bound_ms']:.4f} ({t['bound_by']})" for n, t in sites.items())
+        + f" | {card()}")
+    per_forward = {key: sum(t[key] for t in sites.values())
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by_bytes = sum(t["bound_ms"] for t in sites.values()
+                   if t["bound_by"] == "bytes")
+    return {"max_abs_err": max(errs.values()), **per_forward,
+            "bound_by": "bytes" if 2 * by_bytes >= per_forward["bound_ms"]
+            else "operations", "sites": sites}
+
+
+def multimodal_config() -> DeepEarthConfig:
+    """The configuration of tools/bench_multimodal.py, bf16 compute."""
+    cfg = DeepEarthConfig(
+        hidden_dim=512, n_heads=8, n_layers=4,
+        grid4d=Grid4DConfig(n_spatial_levels=16, n_temporal_levels=8,
+                            hash_table_size=2 ** 19),
+        modality_encoder=TransformerConfig(hidden_dim=256, n_heads=4,
+                                           n_layers=2),
+        compute_dtype=torch.bfloat16,
+    )
+    cfg.add_modality(ModalityConfig(
+        name="species", encoding_type="learned_embedding",
+        input_type="categorical", vocab_size=232))
+    cfg.add_modality(ModalityConfig(name="vision", input_dim=1408,
+                                    n_tokens=16, encoder_layers=1,
+                                    encoder_heads=8))
+    cfg.add_modality(ModalityConfig(name="language", input_dim=7168,
+                                    n_tokens=4, encoder_layers=1,
+                                    encoder_heads=8))
+    return cfg
+
+
+def make_mm_batch(gen, n):
+    """One request: n observations, each with a place and time, a species,
+    576 V-JEPA2 patch embeddings and one language embedding."""
+    return {
+        "xyzt": torch.rand((n, 4), generator=gen, device="cuda"),
+        "modalities": {
+            "species": torch.randint(0, 232, (n,), generator=gen,
+                                     device="cuda"),
+            "vision": torch.randn((n, VISION_PATCHES, 1408), generator=gen,
+                                  device="cuda").to(torch.bfloat16),
+            "language": torch.randn((n, 7168), generator=gen,
+                                    device="cuda").to(torch.bfloat16),
+        },
+    }
+
+
+def host_ms(fn, iters: int = 10) -> list:
+    """Synchronised host wall time of each of ``iters`` calls, in ms."""
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def kernel_breakdown(fn, n_calls: int = 3):
+    """From torch.profiler over ``n_calls`` calls: (kernel name, device ms
+    per call, launches per call) and (torch op, device ms of the kernels it
+    launched itself per call, calls per call), each the largest first."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_calls):
+            fn()
+        torch.cuda.synchronize()
+    kernel_rows, op_rows = [], []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us <= 0:
+            continue
+        row = (e.key, dev_us / 1e3 / n_calls, e.count / n_calls)
+        (kernel_rows if "CUDA" in str(e.device_type) else op_rows).append(row)
+    return (sorted(kernel_rows, key=lambda r: -r[1]),
+            sorted(op_rows, key=lambda r: -r[1]))
+
+
+def phase_multimodal(gen) -> dict:
+    cfg = multimodal_config()
+    model = DeepEarthModel(cfg, generator=gen, device="cuda",
+                           native_seq_lens={"vision": VISION_PATCHES}).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    batches = [make_mm_batch(gen, n) for n in MM_REQUEST_SIZES]
+    want = {"hash_encode_fwd": 2 * 2, "hash_encode_bwd": 0,
+            "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
+            "vmem_attention_fwd": 2 * K3_PER_FORWARD}
+
+    # the main path: requests through the user's entry points, counted, with
+    # every plain version made to raise
+    kernels.reset_launch_counts()
+    outs = []
+    with torch.inference_mode(), plain_versions_refused():
+        for batch in batches:
+            before = dict(kernels.launch_counts)
+            outs.append(model(batch))
+            feats = model.extract_features(batch)
+            got = {k: kernels.launch_counts[k] - before[k] for k in before}
+            if got != want:
+                raise AssertionError(f"launches per request {got} != {want}")
+            if not torch.equal(feats, outs[-1]["fused_representation"]):
+                raise AssertionError("extract_features != forward")
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+
+    errs, repeat = {}, {}
+    with torch.inference_mode():
+        for batch, out in zip(batches, outs):
+            n = batch["xyzt"].shape[0]
+            shapes = {"fused_representation": (n, 512),
+                      "all_tokens": (n, 23, 512), "spatial": (n, 3),
+                      "temporal": (n, 1), "species": (n, 232),
+                      "vision": (n, 1408), "language": (n, 7168)}
+            got = {"fused_representation": out["fused_representation"],
+                   "all_tokens": out["all_tokens"], **out["reconstructions"]}
+            for key, shape in shapes.items():
+                t = got[key]
+                if tuple(t.shape) != shape or not bool(t.isfinite().all()):
+                    raise AssertionError(f"B={n} {key}: shape {tuple(t.shape)}"
+                                         f" or non-finite values")
+            kernels.reset_launch_counts()
+            with plain_versions():
+                ref = model(batch)
+            if any(kernels.launch_counts.values()):
+                raise AssertionError("the plain run launched a kernel")
+            errs[n] = output_diff(out, ref)
+            del ref
+            repeat[n] = output_diff(out, model(batch))
+    for n, e in errs.items():
+        if any(e[k] > MM_SLICE_TOL[k] for k in MM_SLICE_TOL):
+            raise AssertionError(f"kernel path vs plain path: {errs}")
+
+    timing = {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for batch in batches:
+            n = batch["xyzt"].shape[0]
+            walls = sorted(host_ms(lambda: model.extract_features(batch)))
+            timing[n] = {
+                "host_median_ms": walls[len(walls) // 2],
+                "host_max_ms": walls[-1],
+                "device_ms": cuda_ms(lambda: model.extract_features(batch),
+                                     iters=10, warmup=2)}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30  # kernel path
+        big = batches[-1]
+        breakdown, by_op = kernel_breakdown(
+            lambda: model.extract_features(big))
+        with plain_versions():
+            timing["plain_ms"] = cuda_ms(lambda: model.extract_features(big),
+                                         iters=5, warmup=1)
+    obs_per_s = MM_BATCH / timing[MM_BATCH]["device_ms"] * 1e3
+    print(f"[9 slice multimodal] {n_params / 1e6:.1f}M params | requests "
+          f"{MM_REQUEST_SIZES} finite, launches per forward K3 "
+          f"{K3_PER_FORWARD} K2 2 K1 0, no plain version reached | vs plain "
+          "path " + ", ".join(
+              f"B={k} max {v['max_abs']:.4g} mean {v['mean_abs']:.3g}"
+              for k, v in errs.items())
+          + f" (tol {MM_SLICE_TOL}; kernel path run twice: " + ", ".join(
+              f"B={k} max {v['max_abs']:.4g} mean {v['mean_abs']:.3g}"
+              for k, v in repeat.items())
+          + ") | per request, host wall median/max and CUDA-event ms: "
+          + ", ".join(f"B={n} {timing[n]['host_median_ms']:.3f}/"
+                      f"{timing[n]['host_max_ms']:.3f}, "
+                      f"{timing[n]['device_ms']:.3f}"
+                      for n in MM_REQUEST_SIZES)
+          + f" | B={MM_BATCH}: {obs_per_s:.0f} obs/s, plain versions "
+          f"{timing['plain_ms']:.3f} ms | peak mem of the kernel path "
+          f"{peak:.2f} GiB | {card()}")
+    print(f"[9 kernels by device time, B={MM_BATCH} forward, ms per forward "
+          "(launches)] " + "; ".join(
+              f"{name[:60]} {ms:.4f} ({cnt:.0f})"
+              for name, ms, cnt in breakdown[:25])
+          + f" | total {sum(r[1] for r in breakdown):.3f} ms in "
+          f"{sum(r[2] for r in breakdown):.0f} launches")
+    print(f"[9 torch ops by the device time of their kernels, B={MM_BATCH} "
+          "forward, ms per forward (calls)] " + "; ".join(
+              f"{name} {ms:.4f} ({cnt:.0f})" for name, ms, cnt in by_op[:20]))
+    return {"launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -642,6 +1009,8 @@ def main() -> None:
     k1b = phase_attention_bwd(gen)
     k2b = phase_hash_bwd(gen)
     tr = phase_train(gen)
+    k3 = phase_vmem(gen)
+    mm = phase_multimodal(gen)
     report = {"kernels": [
         {"name": "hash_encode_fwd", "route": "cuda",
          "source": "deepearth_tpu_torch/kernels/csrc/hash_encode.cu",
@@ -667,7 +1036,18 @@ def main() -> None:
          "launches": tr["launches"]["hash_encode_bwd"],
          "max_abs_err": k2b["max_abs_err"], "ms": k2b["ms"],
          "plain_ms": k2b["plain_ms"]},
+        {"name": "vmem_attention_fwd", "route": "cuda",
+         "source": "deepearth_tpu_torch/kernels/csrc/attention_vmem.cu",
+         "replaces": "deepearth_tpu/ops/attention_vmem.py:64",
+         "launches": mm["launches"]["vmem_attention_fwd"],
+         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"]},
     ]}
+    # each kernel's bound and library call; K3's numbers are per forward,
+    # its MLA and cross sites at B=512 added
+    for entry, phase in zip(report["kernels"], (k2, k1, k1b, k2b, k3)):
+        entry.update({key: phase[key] for key in
+                      ("bound_ms", "bound_by", "library_ms")})
     for k in report["kernels"]:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")

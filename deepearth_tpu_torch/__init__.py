@@ -2,20 +2,26 @@
 
 A port of ``deepearth_tpu`` (JAX, the reference) that mirrors its module
 names. It imports neither JAX nor the JAX package. Ported so far:
-``DeepEarthModel`` for learned-embedding modalities and its masked-
-reconstruction train step (``training``), with CUDA kernels for the
-hash-grid encoding and the token-major pairwise attention, forward and
-backward (see ROADMAP.md for what is still to come).
+``DeepEarthModel`` with learned-embedding modalities and continuous
+modalities through universal-token encoders (MLA + SwiGLU), token-major and
+batch-major fusion, and the masked-reconstruction train step (``training``),
+with CUDA kernels for the hash-grid encoding and the token-major pairwise
+attention, forward and backward, and for mid-length attention, forward (see
+ROADMAP.md for what is still to come).
 """
 
 from .configs import (
     DeepEarthConfig,
+    DeepSeekBlockConfig,
     FusionConfig,
     Grid4DConfig,
     HashEncodingConfig,
+    MLAConfig,
     ModalityConfig,
     MaskingConfig,
+    MoEConfig,
     OptimizerConfig,
+    RopeScalingConfig,
     TransformerConfig,
     config_from_json,
     config_to_json,
@@ -28,8 +34,9 @@ from .convert import (
 from .models import DeepEarthModel
 
 __all__ = [
-    "DeepEarthConfig", "FusionConfig", "Grid4DConfig", "HashEncodingConfig",
-    "MaskingConfig", "ModalityConfig", "OptimizerConfig", "TransformerConfig",
+    "DeepEarthConfig", "DeepSeekBlockConfig", "FusionConfig", "Grid4DConfig",
+    "HashEncodingConfig", "MLAConfig", "MaskingConfig", "ModalityConfig",
+    "MoEConfig", "OptimizerConfig", "RopeScalingConfig", "TransformerConfig",
     "config_from_json", "config_to_json", "flax_params_from_model",
     "load_flax_opt_state", "load_flax_params", "DeepEarthModel",
 ]

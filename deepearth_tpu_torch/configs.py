@@ -5,8 +5,8 @@ The fields and ``__post_init__`` derivations are those of
 read; dtypes are torch dtypes. :func:`config_from_json` reads the JSON that
 the JAX package's ``config_to_json`` writes, and :func:`config_to_json`
 writes the same schema, so a checkpoint's config travels between the two
-packages. Sections the port does not read yet (sharding, the DeepSeek fusion
-block) are kept as plain dicts.
+packages. The MoE section is read and written but not run yet; the
+sharding section is kept as a plain dict.
 """
 
 from __future__ import annotations
@@ -133,6 +133,94 @@ class TransformerConfig:
 
 
 @dataclass
+class RopeScalingConfig:
+    """RoPE scaling family."""
+
+    type: str = "none"  # 'none' | 'linear' | 'dynamic' | 'yarn'
+    factor: float = 1.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclass
+class MLAConfig:
+    """Multi-head Latent Attention."""
+
+    hidden_dim: int = 512
+    n_heads: int = 8
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: int = 128
+    qk_rope_head_dim: int = 32
+    qk_nope_head_dim: int = 64
+    v_head_dim: int = 64
+    rope_theta: float = 10000.0
+    rope_scaling: RopeScalingConfig = field(default_factory=RopeScalingConfig)
+    attention_dropout: float = 0.0
+    attention_bias: bool = False
+    max_position_embeddings: int = 4096
+    # sequences of at least flash_min_seq go to the flash kernel (K4, not
+    # ported yet: on the card MLAttention raises there)
+    use_flash_attention: bool = False
+    flash_min_seq: int = 1024
+    # ring attention over a mesh axis (not ported yet: the port has no mesh)
+    sequence_axis: Optional[str] = None
+    ring_batch_axis: str = "data"
+    ring_min_seq: int = 512
+
+    @property
+    def q_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclass
+class MoEConfig:
+    """Sigmoid group-limited top-k MoE, kept as data: the port does not run
+    MoE layers yet (ROADMAP.md Queue 1, item 12)."""
+
+    n_routed_experts: int = 8
+    num_experts_per_tok: int = 2
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = True
+    n_shared_experts: Optional[int] = 1
+    moe_intermediate_size: int = 512
+    hidden_dim: int = 512
+    capacity_factor: Optional[float] = 2.0
+    dispatch_mode: str = "auto"  # 'auto' | 'dense' | 'scatter' | 'ragged'
+    aux_loss_weight: float = 0.0
+    dense_all_max_bytes: Optional[int] = None
+    allow_ragged: bool = True
+
+
+@dataclass
+class DeepSeekBlockConfig:
+    """DeepSeek-style decoder stack: MLA attention + (dense | MoE) MLP."""
+
+    hidden_dim: int = 512
+    n_layers: int = 4
+    intermediate_size: int = 2048
+    mla: MLAConfig = None
+    moe: Optional[MoEConfig] = None
+    first_k_dense_replace: int = 1
+    moe_layer_freq: int = 1
+    rms_norm_eps: float = 1e-6
+    dropout: float = 0.0
+    # GPipe over the layer stack (not ported yet: ROADMAP.md item 15)
+    pipeline_stages: int = 0
+    pipeline_microbatches: int = 0
+
+    def __post_init__(self):
+        if self.mla is None:
+            self.mla = MLAConfig(hidden_dim=self.hidden_dim)
+        if self.moe is not None and self.moe.hidden_dim != self.hidden_dim:
+            self.moe = dataclasses.replace(self.moe, hidden_dim=self.hidden_dim)
+
+
+@dataclass
 class FusionConfig:
     """Cross-modal fusion stack."""
 
@@ -157,8 +245,9 @@ class FusionConfig:
     remat_policy: str = "full"
     max_seq_length: int = 8192
     max_spatial_resolution: int = 64
-    # DeepSeek MLA/MoE fusion blocks, kept as plain data (not on this port yet)
-    deepseek_block: Optional[Dict[str, Any]] = None
+    # DeepSeek MLA/MoE simulator after the fusion stack (not run by the port
+    # yet: DeepEarthModel raises, ROADMAP.md Queue 1, item 12)
+    deepseek_block: Optional[DeepSeekBlockConfig] = None
 
 
 @dataclass
@@ -264,6 +353,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 _CLASSES = {
     c.__name__: c
     for c in (HashEncodingConfig, Grid4DConfig, TransformerConfig,
+              RopeScalingConfig, MLAConfig, MoEConfig, DeepSeekBlockConfig,
               FusionConfig, ModalityConfig, MaskingConfig, OptimizerConfig,
               DeepEarthConfig)
 }

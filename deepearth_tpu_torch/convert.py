@@ -4,8 +4,10 @@ trees and the PyTorch port, both ways.
 The port names its submodules after the flax modules, so a flax path maps to
 a torch parameter name by joining with dots and renaming the leaf: Dense
 ``kernel`` -> ``weight`` (transposed from (in, out) to (out, in)), LayerNorm
-``scale`` -> ``weight``, Embed ``embedding`` -> ``weight``. Every other leaf
-(``tables``, ``cls_token``, ``modality_embed_*``, ...) keeps its name.
+``scale`` -> ``weight``, Embed ``embedding`` -> ``weight``; RMSNorm's
+``weight`` is ``weight`` in both. Every other leaf (``tables``,
+``cls_token``, ``modality_embed_*``, ``position_embedding``,
+``query_tokens``, ``pool_query``, ``spatial_embed_x``, ...) keeps its name.
 Nothing here imports JAX: trees are nested mappings of numpy arrays.
 """
 
@@ -75,9 +77,10 @@ def _flax_leaves_of(model: nn.Module
     transposed), from the type of the module that owns it."""
     from .models.layers import Dense, Embed, LayerNorm
     from .models.transformer import KernelParam
+    from .ops.norms import RMSNorm
 
     weight_leaf = {Dense: "kernel", KernelParam: "kernel",
-                   LayerNorm: "scale", Embed: "embedding"}
+                   LayerNorm: "scale", Embed: "embedding", RMSNorm: "weight"}
     out = {}
     for mod_name, mod in model.named_modules():
         modules = tuple(mod_name.split(".")) if mod_name else ()

@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Launches per kernel since the last reset_launch_counts().
 launch_counts = {"hash_encode_fwd": 0, "hash_encode_bwd": 0,
-                 "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0}
+                 "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
+                 "vmem_attention_fwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -46,6 +47,9 @@ _SIGNATURES = {
     "pairwise_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I64, _I64, _I64, _I64, _I64, _I64, _F, _I,
                                _P],
+    "attention_vmem_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                           _I64, _F, _I, _P],
 }
 
 
@@ -267,3 +271,52 @@ def pairwise_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check("pairwise_attention_bwd", rc)
     return dq, dk, dv
+
+
+VMEM_MAX_SEQ, VMEM_MAX_DIM = 1024, 128
+
+
+def vmem_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float, key_mask: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """K3 forward: q (B, H, Nq, Dqk), k (B, H, Nk, Dqk), v (B, H, Nk, Dv) on
+    one CUDA device, float32 or bfloat16, unit stride along the head dim
+    (any strides along B, H, N); 1 <= Nk <= 1024, Nq <= 1024, Dqk and Dv <=
+    128; key_mask optional (B, Nk) bool, True = visible. Returns
+    (B, H, Nq, Dv), contiguous, in q's dtype."""
+    _require(q.is_cuda and k.device == q.device and v.device == q.device,
+             "vmem attention: q, k, v must lie on one CUDA device")
+    _require(q.dtype in _ATTN_DTYPES and k.dtype == q.dtype
+             and v.dtype == q.dtype,
+             "vmem attention: q, k, v must share float32 or bfloat16")
+    _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
+             "vmem attention: q, k, v must be (B, H, N, D)")
+    b, h, nq, dqk = q.shape
+    nk, dv = k.shape[2], v.shape[3]
+    _require(k.shape == (b, h, nk, dqk) and v.shape == (b, h, nk, dv),
+             "vmem attention: k must be (B, H, Nk, Dqk) and v (B, H, Nk, Dv)")
+    _require(1 <= nk <= VMEM_MAX_SEQ and nq <= VMEM_MAX_SEQ,
+             f"vmem attention: Nq {nq} and Nk {nk} must be at most "
+             f"{VMEM_MAX_SEQ}, Nk at least 1")
+    _require(1 <= dqk <= VMEM_MAX_DIM and 1 <= dv <= VMEM_MAX_DIM,
+             f"vmem attention: head dims {dqk}, {dv} must be at most "
+             f"{VMEM_MAX_DIM}")
+    _require(b <= 65535 and h <= 65535,
+             "vmem attention: B and H must be at most 65535")
+    _require(all(x.stride(3) == 1 for x in (q, k, v)),
+             "vmem attention: q, k, v need unit stride along the head dim")
+    mask_ptr = None
+    if key_mask is not None:
+        key_mask = key_mask.contiguous()
+        _require(key_mask.dtype == torch.bool and key_mask.shape == (b, nk)
+                 and key_mask.device == q.device,
+                 "vmem attention: key_mask must be (B, Nk) bool")
+        mask_ptr = key_mask.data_ptr()
+    out = torch.empty((b, h, nq, dv), device=q.device, dtype=q.dtype)
+    strides = [s for x in (q, k, v) for s in x.stride()[:3]]
+    rc = library().attention_vmem_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+        b, h, nq, nk, dqk, dv, *strides, float(scale), _ATTN_DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check("vmem_attention_fwd", rc)
+    return out

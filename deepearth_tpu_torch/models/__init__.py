@@ -1,5 +1,7 @@
 from .decoders import ModalityDecoder, SpatiotemporalDecoder
 from .deepearth import DeepEarthModel
+from .deepseek import DeepSeekBlock, DeepSeekTransformer, MLAttention, SwiGLUMLP
+from .encoders import UniversalTokenEncoder
 from .fusion import (
     CrossModalFusion,
     FusionAttention,
@@ -11,7 +13,8 @@ from .transformer import GatedMLP, KernelParam, MLP
 
 __all__ = [
     "ModalityDecoder", "SpatiotemporalDecoder", "DeepEarthModel",
-    "CrossModalFusion", "FusionAttention", "FusionLayer",
-    "SpatialTemporalEmbedding", "Grid4DEncoder", "GatedMLP", "KernelParam",
-    "MLP",
+    "DeepSeekBlock", "DeepSeekTransformer", "MLAttention", "SwiGLUMLP",
+    "UniversalTokenEncoder", "CrossModalFusion", "FusionAttention",
+    "FusionLayer", "SpatialTemporalEmbedding", "Grid4DEncoder", "GatedMLP",
+    "KernelParam", "MLP",
 ]

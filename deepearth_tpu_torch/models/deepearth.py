@@ -1,36 +1,42 @@
-"""DeepEarthModel, PyTorch port of ``deepearth_tpu/models/deepearth.py`` for
-learned-embedding modalities.
+"""DeepEarthModel, PyTorch port of ``deepearth_tpu/models/deepearth.py``.
 
 Batch schema (torch tensors on the model's device):
-    xyzt:               (B, 4) normalized coordinates
-    modalities:         {name: (B,) int category ids}
-    modality_masks:     {name: (B,) bool} True = visible (False -> mask token)
-    spatial_mask:       (B,) bool True = visible
-    temporal_mask:      (B,) bool True = visible
-    temporal_positions: optional {name: (B, n, 1)}; defaults to the
-                        observation's time for every token
+    xyzt:                 (B, 4) normalized coordinates
+    modalities:           {name: (B,) int category ids | (B, Din) |
+                          (B, S, Din) native features}
+    modality_masks:       {name: (B,) bool} True = visible (False -> mask
+                          token)
+    modality_patch_masks: {name: (B, S) bool} True = visible patch; a hidden
+                          patch of a (B, S, Din) input contributes zeros
+    spatial_mask:         (B,) bool True = visible
+    temporal_mask:        (B,) bool True = visible
+    spatial_positions:    optional {name: (B, n, 2)}; a modality with a
+                          square token count n > 1 defaults to a grid
+    temporal_positions:   optional {name: (B, n, 1)}; defaults to the
+                          observation's time for every token
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 from torch import nn
 
-from ..configs import DeepEarthConfig
+from ..configs import DeepEarthConfig, ModalityConfig
 from .decoders import ModalityDecoder, SpatiotemporalDecoder
+from .encoders import UniversalTokenEncoder
 from .fusion import CrossModalFusion
 from .grid4d import Grid4DEncoder
 from .layers import Dense, Embed, Init
 
 _TODO = {
-    "token_sequence": "models/encoders.py (ROADMAP.md Queue 1, Slice 2)",
-    "continuous_values": "models/encoders.py (ROADMAP.md Queue 1, Slice 2)",
-    "decode_sequence": "TokenSequenceDecoder with models/encoders.py "
-                       "(ROADMAP.md Queue 1, Slice 2)",
-    "deepseek_block": "the DeepSeek simulator, models/deepseek.py "
-                      "(ROADMAP.md Queue 1, Slice 3)",
+    "token_sequence": "models/encoders.py token_sequence inputs "
+                      "(ROADMAP.md Queue 1, item 9)",
+    "decode_sequence": "TokenSequenceDecoder (ROADMAP.md Queue 1, item 9)",
+    "deepseek_block": "the DeepSeek simulator with MoE, models/deepseek.py "
+                      "(ROADMAP.md Queue 1, item 12)",
 }
 
 
@@ -38,31 +44,55 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: {_TODO[what]}")
 
 
+def _native_dim(m: ModalityConfig) -> int:
+    if m.encoding_type in ("learned_embedding", "token_sequence"):
+        return m.vocab_size
+    return m.input_dim
+
+
+def _n_tokens(m: ModalityConfig) -> int:
+    """Universal tokens a modality contributes to the fusion stack."""
+    return 1 if m.encoding_type == "learned_embedding" else max(1, m.n_tokens)
+
+
+def _square_side(n: int) -> Optional[int]:
+    side = math.isqrt(n)
+    return side if n > 1 and side * side == n else None
+
+
 class DeepEarthModel(nn.Module):
-    """Grid4D spacetime token + learned modality tokens -> fusion ->
-    reconstruction decoders.
+    """Grid4D spacetime token + per-modality universal tokens (learned
+    embeddings, or universal-token encoders over native features) -> fusion
+    -> reconstruction decoders.
 
     Args:
         config: the model configuration.
         generator: every parameter is drawn from it; it must belong to
             ``device``.
-        device: where the parameters live.
+        device: where the parameters live: the card unless the caller asks
+            for another device (``device="cpu"``).
+        native_seq_lens: each continuous modality's native sequence length S
+            for (B, S, Din) inputs (1, the default, for (B, Din) inputs). It
+            sizes the encoder's position table, as the first batch does in
+            the JAX package; longer inputs interpolate the table.
     """
 
     def __init__(self, config: DeepEarthConfig, *,
-                 generator: torch.Generator, device=None):
+                 generator: torch.Generator, device="cuda",
+                 native_seq_lens: Optional[Mapping[str, int]] = None):
         super().__init__()
         cfg = config
         if cfg.fusion.deepseek_block is not None:
             raise _not_ported("deepseek_block")
         for m in cfg.modalities.values():
-            if m.encoding_type != "learned_embedding":
-                raise _not_ported(m.encoding_type)
+            if m.encoding_type == "token_sequence":
+                raise _not_ported("token_sequence")
             if m.decode_sequence:
                 raise _not_ported("decode_sequence")
         self.config = cfg
         cd = cfg.compute_dtype
         D = cfg.fusion.universal_dim
+        native_seq_lens = dict(native_seq_lens or {})
         init = Init(generator, device, cfg.param_dtype)
         self.grid4d = Grid4DEncoder(cfg.grid4d, cfg.hidden_dim, init, cd)
         if cfg.hidden_dim != D:
@@ -71,17 +101,25 @@ class DeepEarthModel(nn.Module):
         self.modality_names = sorted(cfg.modalities)
         for name in self.modality_names:
             m = cfg.modalities[name]
-            self.add_module(f"embed_{name}", Embed(m.vocab_size, D, init, cd))
-        # learned-embedding modalities give one token each, so no modality
-        # gets the binned spatial position tables (square token grids only)
+            if m.encoding_type == "learned_embedding":
+                self.add_module(f"embed_{name}",
+                                Embed(m.vocab_size, D, init, cd))
+            else:
+                self.add_module(f"encoder_{name}", UniversalTokenEncoder(
+                    m, D, init, cd,
+                    native_seq_len=native_seq_lens.get(name, 1)))
+        # binned spatial position tables exist when a modality's tokens get
+        # the default grid: a square token count above 1
+        spatial = cfg.fusion.spatial_aware and any(
+            _square_side(_n_tokens(m)) for m in cfg.modalities.values())
         self.fusion = CrossModalFusion(
-            cfg.fusion, ["spacetime"] + self.modality_names, init, cd)
+            cfg.fusion, ["spacetime"] + self.modality_names, init, cd,
+            spatial=spatial)
         self.spatial_decoder = SpatiotemporalDecoder(D, 3, init, cd)
         self.temporal_decoder = SpatiotemporalDecoder(D, 1, init, cd)
         for name in self.modality_names:
-            m = cfg.modalities[name]
-            self.add_module(f"decoder_{name}",
-                            ModalityDecoder(D, m.vocab_size, init, cd))
+            self.add_module(f"decoder_{name}", ModalityDecoder(
+                D, _native_dim(cfg.modalities[name]), init, cd))
 
     def forward(self, batch: Dict[str, Any],
                 generator: Optional[torch.Generator] = None
@@ -94,9 +132,7 @@ class DeepEarthModel(nn.Module):
         B = xyzt.shape[0]
         modalities = batch.get("modalities", {})
         masks = batch.get("modality_masks", {})
-        if batch.get("spatial_positions"):
-            raise ValueError("spatial_positions need spatial tables, which "
-                             "single-token modalities do not build")
+        patch_masks = batch.get("modality_patch_masks", {})
 
         st_emb = self.grid4d(xyzt, batch.get("spatial_mask"),
                              batch.get("temporal_mask"))
@@ -106,19 +142,39 @@ class DeepEarthModel(nn.Module):
         for name in self.modality_names:
             if name not in modalities:
                 continue
-            tok = getattr(self, f"embed_{name}")(modalities[name])[:, None, :]
+            x = modalities[name]
+            if name in patch_masks and x.dim() == 3:
+                # MAE-style patch masking: hidden patches contribute zeros
+                x = x * patch_masks[name][..., None].to(x.dtype)
+            if cfg.modalities[name].encoding_type == "learned_embedding":
+                tok = getattr(self, f"embed_{name}")(x)[:, None, :]
+            else:
+                tok = getattr(self, f"encoder_{name}")(x, generator)
             if name in masks:
                 keep = masks[name][:, None, None]
                 tok = torch.where(keep, tok, self.mask_token.to(tok.dtype))
             tokens[name] = tok
 
-        # every token inherits the observation's time unless the batch says
+        # default positions: a square token count above 1 gets a grid of
+        # spatial positions, and every token inherits the observation's
+        # time; positions in the batch win
+        spatial_positions = dict(batch.get("spatial_positions") or {})
         temporal_positions = dict(batch.get("temporal_positions") or {})
-        if cfg.fusion.temporal_aware:
-            for name, tok in tokens.items():
-                temporal_positions.setdefault(
-                    name, xyzt[:, None, 3:4].expand(B, tok.shape[1], 1))
-        fusion_out = self.fusion(tokens, None, temporal_positions or None,
+        for name, tok in tokens.items():
+            n_tok = tok.shape[1]
+            side = _square_side(n_tok)
+            if (cfg.fusion.spatial_aware and side
+                    and name not in spatial_positions):
+                g = (torch.arange(side, dtype=torch.float32,
+                                  device=xyzt.device) + 0.5) / side
+                gy, gx = torch.meshgrid(g, g, indexing="ij")
+                grid = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
+                spatial_positions[name] = grid[None].expand(B, n_tok, 2)
+            if cfg.fusion.temporal_aware and name not in temporal_positions:
+                temporal_positions[name] = xyzt[:, None, 3:4].expand(
+                    B, n_tok, 1)
+        fusion_out = self.fusion(tokens, spatial_positions or None,
+                                 temporal_positions or None,
                                  generator=generator)
 
         st_fused = fusion_out["modality_tokens"]["spacetime"].mean(dim=1)

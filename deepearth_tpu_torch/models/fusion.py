@@ -1,14 +1,16 @@
 """Cross-modal fusion over universal tokens, PyTorch port of
-``deepearth_tpu/models/fusion.py`` for the token-major layout.
+``deepearth_tpu/models/fusion.py``.
 
-A CLS token plus per-modality tokens (with temporal and modality
+A CLS token plus per-modality tokens (with spatial, temporal and modality
 embeddings) run through pre-norm layers: self-attention in every layer,
 cross-attention to the pre-fusion tokens every ``cross_attention_freq``
 layers, and a SiLU-gated MLP. With at most ``token_major_max_tokens`` tokens
 the stack runs token-major, (N, B, D), and every attention site is
-:func:`pairwise_token_attention`. In training mode dropout (``cfg.dropout``)
-follows each attention output and the MLP, as in the JAX package; its masks
-come from the generator the caller passes to ``forward``.
+:func:`pairwise_token_attention`; with more it runs batch-major, (B, N, D),
+and every site is :func:`dot_product_attention`. Parameters do not depend
+on the layout. In training mode dropout (``cfg.dropout``) follows each
+attention output and the MLP, as in the JAX package; its masks come from the
+generator the caller passes to ``forward``.
 """
 
 from __future__ import annotations
@@ -20,14 +22,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import FusionConfig, TransformerConfig
+from ..ops.attention import dot_product_attention
 from ..ops.attention_smallseq import pairwise_token_attention, rope_token_major
+from ..ops.rope import apply_rope_half, rope_tables
 from .layers import Dense, Init, LayerNorm, dropout
 from .transformer import GatedMLP, KernelParam, MLP
-
-BATCH_MAJOR_TODO = (
-    "the batch-major fusion layout (more tokens than token_major_max_tokens) "
-    "needs ops/rope.py and ops/attention.py with the K3 kernel, which are not "
-    "ported yet (ROADMAP.md Queue 1, ops/rope.py and ops/attention.py)")
 
 
 class SpatialTemporalEmbedding(nn.Module):
@@ -88,8 +87,9 @@ class SpatialTemporalEmbedding(nn.Module):
 
 
 class FusionAttention(nn.Module):
-    """Self- or cross-attention with rotate-half RoPE, token-major (N, B, D).
-    RoPE rotates q and k separately, each over its own positions."""
+    """Self- or cross-attention with rotate-half RoPE, token-major (N, B, D)
+    or batch-major (B, N, D). RoPE rotates q and k separately, each over its
+    own positions."""
 
     def __init__(self, cfg: FusionConfig, init: Init,
                  compute_dtype: torch.dtype):
@@ -105,10 +105,12 @@ class FusionAttention(nn.Module):
     def forward(self, query: torch.Tensor,
                 key_value: Optional[torch.Tensor] = None,
                 key_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                token_major: bool = True) -> torch.Tensor:
         cfg, cd = self.cfg, self.compute_dtype
         H = cfg.num_heads
-        Dh = query.shape[-1] // H
+        D = query.shape[-1]
+        Dh = D // H
         wq, wk, wv = self.q_proj(), self.k_proj(), self.v_proj()
         if key_value is None:
             qkv = F.linear(query.to(cd), torch.cat([wq, wk, wv]).to(cd))
@@ -117,11 +119,25 @@ class FusionAttention(nn.Module):
             q = F.linear(query.to(cd), wq.to(cd))
             kv = F.linear(key_value.to(cd), torch.cat([wk, wv]).to(cd))
             k, v = kv.chunk(2, dim=-1)
-        if cfg.use_rotary_embeddings:
-            q = rope_token_major(q, H)
-            k = rope_token_major(k, H)
-        out = pairwise_token_attention(q, k, v, n_heads=H, scale=Dh ** -0.5,
-                                       key_mask=key_mask)
+        if token_major:
+            if cfg.use_rotary_embeddings:
+                q = rope_token_major(q, H)
+                k = rope_token_major(k, H)
+            out = pairwise_token_attention(q, k, v, n_heads=H,
+                                           scale=Dh ** -0.5,
+                                           key_mask=key_mask)
+        else:
+            B, Nq, Nk = q.shape[0], q.shape[1], k.shape[1]
+            q, k, v = (x.unflatten(-1, (H, Dh)).transpose(1, 2)
+                       for x in (q, k, v))
+            if cfg.use_rotary_embeddings:
+                cos_q, sin_q = rope_tables(Nq, Dh, device=q.device)
+                cos_k, sin_k = rope_tables(Nk, Dh, device=k.device)
+                q = apply_rope_half(q, cos_q, sin_q).to(v.dtype)
+                k = apply_rope_half(k, cos_k, sin_k).to(v.dtype)
+            out = dot_product_attention(q, k, v, scale=Dh ** -0.5,
+                                        key_mask=key_mask)
+            out = out.transpose(1, 2).reshape(B, Nq, D)
         out = F.linear(out, self.out_proj().to(cd))
         return dropout(out, cfg.dropout, self.training, generator)
 
@@ -150,13 +166,15 @@ class FusionLayer(nn.Module):
     def forward(self, x: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
                 key_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                token_major: bool = True) -> torch.Tensor:
         x = x + self.self_attn(self.self_attn_norm(x), key_mask=key_mask,
-                               generator=generator)
+                               generator=generator, token_major=token_major)
         if self.use_cross_attention and encoder_hidden_states is not None:
             x = x + self.cross_attn(self.cross_attn_norm(x),
                                     key_value=encoder_hidden_states,
-                                    generator=generator)
+                                    generator=generator,
+                                    token_major=token_major)
         return x + self.mlp(self.mlp_norm(x), generator)
 
 
@@ -196,28 +214,33 @@ class CrossModalFusion(nn.Module):
         spatial_positions = spatial_positions or {}
         temporal_positions = temporal_positions or {}
 
-        parts = [self.cls_token.to(cd).expand(1, B, D)]  # token-major
+        parts = [self.cls_token.to(cd).expand(B, 1, D)]
         boundaries = {}
         idx = 1
         for name in names:
             tokens = self.st_embedding(
                 modality_tokens[name].to(cd), name,
                 spatial_positions.get(name), temporal_positions.get(name))
-            parts.append(tokens.transpose(0, 1))
+            parts.append(tokens)
             boundaries[name] = (idx, idx + tokens.shape[1])
             idx += tokens.shape[1]
-        if idx > cfg.token_major_max_tokens:
-            raise NotImplementedError(BATCH_MAJOR_TODO)
 
-        h = torch.cat(parts, dim=0)  # (N, B, D)
+        # the layout follows the token count, as in the JAX package
+        token_major = idx <= cfg.token_major_max_tokens
+        if token_major:
+            h = torch.cat([p.transpose(0, 1) for p in parts], dim=0)  # (N,B,D)
+        else:
+            h = torch.cat(parts, dim=1)  # (B, N, D)
         h_inputs = h  # pre-fusion embedded tokens: the cross-attention context
         for i in range(cfg.num_fusion_layers):
             layer = getattr(self, f"layer_{i}")
             ctx = None
             if layer.use_cross_attention:
                 ctx = h_inputs if cfg.cross_attention_context == "inputs" else h
-            h = layer(h, ctx, generator=generator)
-        h = self.final_norm(h).transpose(0, 1)  # (B, N, D)
+            h = layer(h, ctx, generator=generator, token_major=token_major)
+        h = self.final_norm(h)
+        if token_major:
+            h = h.transpose(0, 1)  # (B, N, D)
 
         return {
             "fused_representation": h[:, 0],

@@ -20,14 +20,23 @@ from torch import nn
 class Init:
     """Where new parameters live and the generator every draw comes from.
 
-    The generator must belong to ``device`` (``torch.Generator(device=...)``),
-    so that a model is made directly on its card from a seed.
+    Parameters go to the card unless the caller names another device
+    (``device="cpu"``); without a card that default raises rather than
+    building on the CPU. The generator must belong to ``device``
+    (``torch.Generator(device=...)``), so that a model is made directly on
+    its card from a seed.
     """
 
-    def __init__(self, generator: torch.Generator, device=None,
+    def __init__(self, generator: torch.Generator, device="cuda",
                  dtype: torch.dtype = torch.float32):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the model is built on the card by default; "
+                "pass device='cpu' (and a CPU generator) to build it on the "
+                "CPU")
         self.generator = generator
-        self.device = torch.device(device) if device is not None else None
+        self.device = device
         self.dtype = dtype
 
     def empty(self, shape, dtype=None) -> torch.Tensor:

@@ -26,6 +26,7 @@ from deepearth_tpu_torch.models import DeepEarthModel
 from deepearth_tpu_torch.ops import (
     hash_encode,
     pairwise_token_attention,
+    vmem_attention,
 )
 
 torch.set_num_threads(2)
@@ -52,7 +53,8 @@ def small():
 
 
 def fresh(cfg):
-    return DeepEarthModel(cfg, generator=torch.Generator().manual_seed(1))
+    return DeepEarthModel(cfg, generator=torch.Generator().manual_seed(1),
+                          device="cpu")
 
 
 def test_load_is_total_and_copies_every_leaf(small):
@@ -190,6 +192,11 @@ def test_port_and_chip_smoke_import_without_jax():
         "import deepearth_tpu_torch, deepearth_tpu_torch.kernels\n"
         "import deepearth_tpu_torch.ops, deepearth_tpu_torch.models\n"
         "import deepearth_tpu_torch.convert, deepearth_tpu_torch.training\n"
+        "import deepearth_tpu_torch.ops.rope, deepearth_tpu_torch.ops.norms\n"
+        "import deepearth_tpu_torch.ops.attention\n"
+        "import deepearth_tpu_torch.ops.attention_vmem\n"
+        "import deepearth_tpu_torch.models.deepseek\n"
+        "import deepearth_tpu_torch.models.encoders\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'deepearth_tpu') and sys.modules[m]]\n"
@@ -213,7 +220,10 @@ def test_launch_counters_stay_zero_on_cpu(small):
                     torch.tensor([16.0, 32.0]))
         q = torch.randn(3, 2, 64)
         pairwise_token_attention(q, q, q, n_heads=4, scale=0.25)
+        q = torch.randn(1, 2, 16, 32)
+        k = torch.randn(1, 2, 300, 32)
+        vmem_attention(q, k, k, scale=0.25)
     assert set(kernels.launch_counts.values()) == {0}
     assert set(kernels.launch_counts) == {
         "hash_encode_fwd", "hash_encode_bwd", "pairwise_attention_fwd",
-        "pairwise_attention_bwd"}
+        "pairwise_attention_bwd", "vmem_attention_fwd"}

@@ -12,7 +12,9 @@ order, so it must be bit-identical. K1-fwd sums in another order: 1e-5 in
 fp32; in bf16 one ulp at |x| < 4 (2^-6), since an fp32 value near a
 rounding boundary may round either way. K1-bwd: the same reasons,
 elementwise (ATTN_BWD_TOL). K2-bwd adds with atomics in an order that
-changes from run to run: 1e-5 of the sum of |terms| of each row.
+changes from run to run: 1e-5 of the sum of |terms| of each row. K3-fwd
+sums in another order than its plain version: 1e-5 in fp32, one bf16 ulp at
+|x| < 4 in bf16 (VMEM_TOL); a row whose keys are all masked is exactly 0.
 """
 
 import os
@@ -24,7 +26,12 @@ import torch
 
 from deepearth_tpu_torch import kernels
 from deepearth_tpu_torch.models import DeepEarthModel
+from deepearth_tpu_torch.configs import MLAConfig
+from deepearth_tpu_torch.models.deepseek import MLAttention
+from deepearth_tpu_torch.models.layers import Init
+from deepearth_tpu_torch.ops import attention as tdpa
 from deepearth_tpu_torch.ops import attention_smallseq as tattn
+from deepearth_tpu_torch.ops import attention_vmem as tvmem
 from deepearth_tpu_torch.ops import hash_encoding as the
 from deepearth_tpu_torch.training import Trainer
 
@@ -33,6 +40,15 @@ pytestmark = pytest.mark.cuda
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 ATTN_BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -7, 1e-4)}
 HASH_BWD_TOL = 1e-5
+VMEM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _smoke():
+    """chip_smoke.py, at the repository's root, as a module."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    return chip_smoke
 
 
 @pytest.fixture
@@ -178,7 +194,9 @@ def test_autograd_goes_through_both_kernels(cuda):
         for x in (*leaves, tables):
             x.grad = None
         torch.cuda.synchronize()
-        assert set(kernels.launch_counts.values()) == (
+        assert {kernels.launch_counts[k] for k in (
+            "pairwise_attention_fwd", "pairwise_attention_bwd",
+            "hash_encode_fwd", "hash_encode_bwd")} == (
             {1} if name == "kernel" else {0})
     for a, b in zip(grads["kernel"], grads["plain"]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
@@ -223,22 +241,20 @@ def test_hash_encode_refuses_coords_gradient(cuda):
 def test_astack_train_step_launches_every_kernel(cuda):
     """One train step of the A-stack model at B=4096 with masking: K2-fwd 2,
     K2-bwd 2, K1-fwd 16, K1-bwd 16 launches, and a finite loss."""
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    from chip_smoke import astack_config, make_batch
-
+    smoke = _smoke()
     gen = torch.Generator(device=cuda).manual_seed(0)
-    cfg = astack_config()
+    cfg = smoke.astack_config()
     model = DeepEarthModel(cfg, generator=gen, device=cuda)
     trainer = Trainer(model, cfg)
     state = trainer.init_state()
-    batch = make_batch(gen, 4096)
+    batch = smoke.make_batch(gen, 4096)
     kernels.reset_launch_counts()
     state, metrics = trainer.train_step(state, batch, gen)
     torch.cuda.synchronize()
     assert kernels.launch_counts == {
         "hash_encode_fwd": 2, "hash_encode_bwd": 2,
-        "pairwise_attention_fwd": 16, "pairwise_attention_bwd": 16}
+        "pairwise_attention_fwd": 16, "pairwise_attention_bwd": 16,
+        "vmem_attention_fwd": 0}
     assert np.isfinite(metrics["loss/total"].item())
     assert np.isfinite(metrics["grad_norm"].item())
 
@@ -255,3 +271,114 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         the.hash_encode(torch.rand((4, 5), device=cuda),
                         torch.zeros((2, 256, 2), device=cuda),
                         torch.tensor([16.0, 32.0], device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,nq,nk,dqk,dv,mask,strided", [
+    (16, 8, 576, 576, 48, 32, False, True),  # the MLA site, v a view
+    (16, 8, 16, 576, 64, 64, False, False),  # the cross site
+    (3, 2, 100, 260, 48, 80, True, False),  # ragged, masked
+    (2, 2, 33, 1024, 128, 128, True, False),  # the longest row, widest head
+    (1, 1, 1, 1, 8, 8, False, False),  # one key
+])
+def test_vmem_attention_matches_plain(cuda, dtype, b, h, nq, nk, dqk, dv,
+                                      mask, strided):
+    g = torch.Generator(device=cuda).manual_seed(nq + nk)
+    q = torch.randn((b, h, nq, dqk), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, h, nk, dqk), generator=g, device=cuda).to(dtype)
+    if strided:  # (B, N, H, 2 Dv) sliced and transposed, as MLA leaves v
+        v = torch.randn((b, nk, h, 2 * dv), generator=g, device=cuda).to(
+            dtype)[..., dv:].transpose(1, 2)
+    else:
+        v = torch.randn((b, h, nk, dv), generator=g, device=cuda).to(dtype)
+    key_mask = None
+    if mask:
+        key_mask = torch.rand((b, nk), generator=g, device=cuda) > 0.3
+        key_mask[0] = False
+    kw = dict(scale=dqk ** -0.5, key_mask=key_mask)
+    kernels.reset_launch_counts()
+    out = tvmem.vmem_attention(q, k, v, **kw)
+    ref = tvmem.vmem_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["vmem_attention_fwd"] == 1
+    assert out.dtype == dtype and out.shape == (b, h, nq, dv)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=VMEM_TOL[dtype])
+    if mask:
+        assert bool((out[0] == 0).all())
+
+
+def test_dot_product_attention_routes_k3_shapes_to_the_kernel(cuda):
+    q = torch.randn((2, 2, 16, 32), device=cuda)
+    k = torch.randn((2, 2, 300, 32), device=cuda)
+    kernels.reset_launch_counts()
+    out = tdpa.dot_product_attention(q, k, k, scale=0.2)
+    ref = tvmem.vmem_attention_plain(q, k, k, scale=0.2)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["vmem_attention_fwd"] == 1
+    torch.testing.assert_close(out, ref, rtol=0, atol=VMEM_TOL[torch.float32])
+    short = torch.randn((2, 2, 23, 32), device=cuda)
+    tdpa.dot_product_attention(short, short, short, scale=0.2)
+    assert kernels.launch_counts["vmem_attention_fwd"] == 1  # plain at 23
+
+
+def test_vmem_attention_backward_raises_on_the_card(cuda):
+    q = torch.randn((1, 1, 8, 32), device=cuda, requires_grad=True)
+    k = torch.randn((1, 1, 300, 32), device=cuda, requires_grad=True)
+    out = tvmem.vmem_attention(q, k, k, scale=0.2)
+    with pytest.raises(NotImplementedError, match="K3-bwd"):
+        out.sum().backward()
+
+
+def test_mla_flash_gate_raises_on_the_card(cuda):
+    cfg = MLAConfig(hidden_dim=64, n_heads=4, kv_lora_rank=16,
+                    qk_rope_head_dim=8, qk_nope_head_dim=16, v_head_dim=16,
+                    use_flash_attention=True, flash_min_seq=1024)
+    mla = MLAttention(cfg, Init(torch.Generator(device=cuda), cuda),
+                      torch.bfloat16)
+    with torch.no_grad():
+        assert mla(torch.randn((1, 1023, 64), device=cuda)).shape == (
+            1, 1023, 64)
+        with pytest.raises(NotImplementedError, match="K4"):
+            mla(torch.randn((1, 1024, 64), device=cuda))
+
+
+def test_multimodal_forward_launches_k3_twice(cuda):
+    """The multimodal model at full width, one small request: K3-fwd 2,
+    K2-fwd 2, K1-fwd 0 launches, finite features, no plain version."""
+    smoke = _smoke()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = DeepEarthModel(smoke.multimodal_config(), generator=gen,
+                           device=cuda,
+                           native_seq_lens={"vision": 576}).eval()
+    batch = smoke.make_mm_batch(gen, 3)
+    kernels.reset_launch_counts()
+    with smoke.plain_versions_refused():
+        feats = model.extract_features(batch)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == {
+        "hash_encode_fwd": 2, "hash_encode_bwd": 0,
+        "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
+        "vmem_attention_fwd": 2}
+    assert feats.shape == (3, 512) and bool(feats.isfinite().all())
+
+
+def test_vmem_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.randn((1, 1, 8, 32), device=cuda)
+    k = torch.randn((1, 1, 300, 32), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kernels.vmem_attention_fwd(q.half(), k.half(), k.half(), 0.2)
+    with pytest.raises(ValueError, match="at most 1024"):
+        long = torch.randn((1, 1, 1025, 32), device=cuda)
+        kernels.vmem_attention_fwd(q, long, long, 0.2)
+    with pytest.raises(ValueError, match="head dims"):
+        wide = torch.randn((1, 1, 300, 129), device=cuda)
+        kernels.vmem_attention_fwd(q, k, wide, 0.2)
+    with pytest.raises(ValueError, match="unit stride"):
+        kernels.vmem_attention_fwd(q, k, k.transpose(2, 3).contiguous()
+                                   .transpose(2, 3), 0.2)
+    with pytest.raises(ValueError, match="key_mask"):
+        kernels.vmem_attention_fwd(q, k, k, 0.2,
+                                   torch.ones((1, 299), dtype=torch.bool,
+                                              device=cuda))

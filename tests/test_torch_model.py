@@ -79,7 +79,8 @@ def build_pair(jax_cfg):
     params = jmodel.init(jax.random.PRNGKey(0), to_jax(numpy_batch(0)))["params"]
     params_np = jax.tree_util.tree_map(np.asarray, params)
     cfg = config_from_json(jcfg.config_to_json(jax_cfg))
-    model = DeepEarthModel(cfg, generator=torch.Generator().manual_seed(0))
+    model = DeepEarthModel(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
     load_flax_params(model, params_np)
     return jmodel, params, model
 
@@ -205,7 +206,7 @@ def test_fusion_variants_match_jax(variant):
                         None if spos is None else to_jax(spos), to_jax(tpos))
     port_cfg = config_from_json(jcfg.config_to_json(cfg))
     fusion = TorchFusion(port_cfg, names,
-                         Init(torch.Generator().manual_seed(0)),
+                         Init(torch.Generator().manual_seed(0), "cpu"),
                          torch.float32, spatial=spos is not None)
     load_flax_params(fusion, jax.tree_util.tree_map(np.asarray, params))
     with torch.no_grad():
@@ -235,22 +236,44 @@ def test_decoders_match_jax(pair, which):
 
 
 def test_batch_major_layout_not_ported(pair):
-    _, _, model = pair
-    toks = {"spacetime": torch.zeros(2, 9, 128)}
-    with pytest.raises(NotImplementedError, match="ops/attention.py"):
-        model.fusion(toks)
+    """More tokens than token_major_max_tokens: the batch-major layout,
+    ported since, matches JAX (it no longer raises)."""
+    jmodel, params, model = pair
+    rng = np.random.default_rng(11)
+    toks = {"spacetime": rng.standard_normal((2, 9, 128)).astype(np.float32)}
+    fusion = JaxFusion(jmodel.config.fusion, ("spacetime", "species"),
+                       jnp.float32, jnp.float32)
+    ref = fusion.apply({"params": params["fusion"]}, to_jax(toks))
+    with torch.no_grad():
+        out = model.fusion(to_torch(toks))
+    assert out["all_tokens"].shape == (2, 10, 128)
+    close(out["all_tokens"], ref["all_tokens"])
 
 
 @pytest.mark.parametrize("what", ["continuous_values", "token_sequence",
                                   "deepseek_block"])
 def test_unported_branches_raise(what):
+    """continuous_values is ported; its MoE projection is not."""
     cfg = config_from_json(jcfg.config_to_json(small_jax_config()))
     if what == "deepseek_block":
         cfg.fusion.deepseek_block = {"hidden_dim": 128}
     else:
         cfg.modalities["species"].encoding_type = what
+        cfg.modalities["species"].use_moe_projection = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DeepEarthModel(cfg, generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+
+
+def test_model_without_a_device_needs_a_card(monkeypatch):
+    """The model is built on the card unless the caller names a device;
+    without a card that default raises instead of building on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = config_from_json(jcfg.config_to_json(small_jax_config()))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         DeepEarthModel(cfg, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Init(torch.Generator())
 
 
 # --------------------------------------------------------------------------- #
@@ -263,7 +286,8 @@ def dropout_model(p, gated=True):
     jax_cfg.fusion.dropout = p
     jax_cfg.fusion.use_gated_mlp = gated
     return DeepEarthModel(config_from_json(jcfg.config_to_json(jax_cfg)),
-                          generator=torch.Generator().manual_seed(0))
+                          generator=torch.Generator().manual_seed(0),
+                          device="cpu")
 
 
 @pytest.mark.parametrize("gated", [True, False], ids=["gated_mlp", "mlp"])

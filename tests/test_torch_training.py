@@ -150,7 +150,8 @@ def setup():
 
 def port_model(s, params=None):
     model = DeepEarthModel(s["port_cfg"],
-                           generator=torch.Generator().manual_seed(0))
+                           generator=torch.Generator().manual_seed(0),
+                           device="cpu")
     load_flax_params(model, jax.tree_util.tree_map(
         np.asarray, s["params"] if params is None else params))
     return model
