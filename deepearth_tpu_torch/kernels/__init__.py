@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their launch wrappers.
 
-The sources in ``csrc/`` have a plain C interface. At first use they are
-compiled with ``nvcc`` into one shared library under ``build/kernels/`` at the
-repository root, named by a hash of the sources, and loaded with ctypes. No
-PyTorch header is compiled, so a build takes seconds.
+The sources in ``csrc/`` have a plain C interface. At first use each ``.cu``
+is compiled with its own ``nvcc``, all at once, and the objects are linked
+into one shared library under ``build/kernels/`` at the repository root,
+named by a hash of the sources, and loaded with ctypes. No PyTorch header is
+compiled, so a build takes seconds.
 
 Each wrapper checks its inputs, allocates the output with ``torch.empty``
 (``torch.zeros`` for the scatter-add), launches on the current stream,
@@ -30,12 +31,13 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Launches per kernel since the last reset_launch_counts().
 launch_counts = {"hash_encode_fwd": 0, "hash_encode_bwd": 0,
                  "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
-                 "vmem_attention_fwd": 0}
+                 "vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
+                 "flash_attention_fwd": 0, "flash_attention_bwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -48,8 +50,12 @@ _SIGNATURES = {
                                _I, _I64, _I64, _I64, _I64, _I64, _I64, _F, _I,
                                _P],
     "attention_vmem_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-                           _I64, _F, _I, _P],
+                           *[_I64] * 9, _F, _I, _P],
+    "attention_vmem_bwd": [*[_P] * 10, *[_I] * 6, *[_I64] * 9, _F, _I, _P],
+    "flash_attention_fwd": [*[_P] * 6, *[_I] * 6, *[_I64] * 9, _F, _I, _I,
+                            _P],
+    "flash_attention_bwd": [*[_P] * 11, *[_I] * 6, *[_I64] * 9, _F, _I, _I,
+                            _P],
 }
 
 
@@ -85,16 +91,30 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    Path(str(lib) + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for name, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        so = os.path.join(tmp, lib.name)
+        proc = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", so,
+                               *objs], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{proc.stderr}")
+        Path(str(lib) + ".log").write_text("\n".join(log))
+        os.replace(so, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 
 
@@ -273,7 +293,52 @@ def pairwise_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-VMEM_MAX_SEQ, VMEM_MAX_DIM = 1024, 128
+VMEM_MAX_SEQ, ATTN_MAX_DIM = 1024, 128
+
+
+def _bhnd_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, key_mask: Optional[torch.Tensor]):
+    """Checks shared by K3 and K4 (both directions). Returns (B, H, Nq, Nk,
+    Dqk, Dv), the (B, H, N) strides of q, k and v, and the key mask, made
+    contiguous, or None."""
+    _require(q.is_cuda and k.device == q.device and v.device == q.device,
+             f"{name}: q, k, v must lie on one CUDA device")
+    _require(q.dtype in _ATTN_DTYPES and k.dtype == q.dtype
+             and v.dtype == q.dtype,
+             f"{name}: q, k, v must share float32 or bfloat16")
+    _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
+             f"{name}: q, k, v must be (B, H, N, D)")
+    b, h, nq, dqk = q.shape
+    nk, dv = k.shape[2], v.shape[3]
+    _require(k.shape == (b, h, nk, dqk) and v.shape == (b, h, nk, dv),
+             f"{name}: k must be (B, H, Nk, Dqk) and v (B, H, Nk, Dv)")
+    _require(nk >= 1, f"{name}: Nk must be at least 1")
+    _require(1 <= dqk <= ATTN_MAX_DIM and 1 <= dv <= ATTN_MAX_DIM,
+             f"{name}: head dims {dqk}, {dv} must be at most "
+             f"{ATTN_MAX_DIM}")
+    _require(b <= 65535 and h <= 65535,
+             f"{name}: B and H must be at most 65535")
+    _require(all(x.stride(3) == 1 for x in (q, k, v)),
+             f"{name}: q, k, v need unit stride along the head dim")
+    if key_mask is not None:
+        key_mask = key_mask.contiguous()
+        _require(key_mask.dtype == torch.bool and key_mask.shape == (b, nk)
+                 and key_mask.device == q.device,
+                 f"{name}: key_mask must be (B, Nk) bool")
+    strides = [s for x in (q, k, v) for s in x.stride()[:3]]
+    return (b, h, nq, nk, dqk, dv), strides, key_mask
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _like_output(name: str, x: torch.Tensor, q: torch.Tensor, shape,
+                 dtype) -> torch.Tensor:
+    _require(tuple(x.shape) == tuple(shape) and x.dtype == dtype
+             and x.device == q.device,
+             f"{name}: must be {tuple(shape)} {dtype} on q's device")
+    return x.contiguous()
 
 
 def vmem_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -284,39 +349,95 @@ def vmem_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (any strides along B, H, N); 1 <= Nk <= 1024, Nq <= 1024, Dqk and Dv <=
     128; key_mask optional (B, Nk) bool, True = visible. Returns
     (B, H, Nq, Dv), contiguous, in q's dtype."""
-    _require(q.is_cuda and k.device == q.device and v.device == q.device,
-             "vmem attention: q, k, v must lie on one CUDA device")
-    _require(q.dtype in _ATTN_DTYPES and k.dtype == q.dtype
-             and v.dtype == q.dtype,
-             "vmem attention: q, k, v must share float32 or bfloat16")
-    _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
-             "vmem attention: q, k, v must be (B, H, N, D)")
-    b, h, nq, dqk = q.shape
-    nk, dv = k.shape[2], v.shape[3]
-    _require(k.shape == (b, h, nk, dqk) and v.shape == (b, h, nk, dv),
-             "vmem attention: k must be (B, H, Nk, Dqk) and v (B, H, Nk, Dv)")
-    _require(1 <= nk <= VMEM_MAX_SEQ and nq <= VMEM_MAX_SEQ,
+    (b, h, nq, nk, dqk, dv), strides, key_mask = _bhnd_inputs(
+        "vmem attention", q, k, v, key_mask)
+    _require(nk <= VMEM_MAX_SEQ and nq <= VMEM_MAX_SEQ,
              f"vmem attention: Nq {nq} and Nk {nk} must be at most "
-             f"{VMEM_MAX_SEQ}, Nk at least 1")
-    _require(1 <= dqk <= VMEM_MAX_DIM and 1 <= dv <= VMEM_MAX_DIM,
-             f"vmem attention: head dims {dqk}, {dv} must be at most "
-             f"{VMEM_MAX_DIM}")
-    _require(b <= 65535 and h <= 65535,
-             "vmem attention: B and H must be at most 65535")
-    _require(all(x.stride(3) == 1 for x in (q, k, v)),
-             "vmem attention: q, k, v need unit stride along the head dim")
-    mask_ptr = None
-    if key_mask is not None:
-        key_mask = key_mask.contiguous()
-        _require(key_mask.dtype == torch.bool and key_mask.shape == (b, nk)
-                 and key_mask.device == q.device,
-                 "vmem attention: key_mask must be (B, Nk) bool")
-        mask_ptr = key_mask.data_ptr()
+             f"{VMEM_MAX_SEQ}")
     out = torch.empty((b, h, nq, dv), device=q.device, dtype=q.dtype)
-    strides = [s for x in (q, k, v) for s in x.stride()[:3]]
     rc = library().attention_vmem_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-        b, h, nq, nk, dqk, dv, *strides, float(scale), _ATTN_DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+        out.data_ptr(), b, h, nq, nk, dqk, dv, *strides, float(scale),
+        _ATTN_DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _check("vmem_attention_fwd", rc)
     return out
+
+
+def vmem_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor, scale: float,
+                       key_mask: Optional[torch.Tensor] = None):
+    """K3 backward: the forward's inputs plus dout (B, H, Nq, Dv), the
+    gradient of its output, in q's dtype. Returns (dq, dk, dv), contiguous,
+    in q's dtype."""
+    (b, h, nq, nk, dqk, dv), strides, key_mask = _bhnd_inputs(
+        "vmem attention", q, k, v, key_mask)
+    _require(nk <= VMEM_MAX_SEQ and nq <= VMEM_MAX_SEQ,
+             f"vmem attention: Nq {nq} and Nk {nk} must be at most "
+             f"{VMEM_MAX_SEQ}")
+    dout = _like_output("vmem_attention_bwd: dout", dout, q, (b, h, nq, dv),
+                        q.dtype)
+    grads = [torch.empty(shape, device=q.device, dtype=q.dtype) for shape in
+             ((b, h, nq, dqk), (b, h, nk, dqk), (b, h, nk, dv))]
+    # per query row: the log-sum-exp and delta, written by the dq kernel for
+    # the dk/dv kernel
+    lse, delta = (torch.empty((b, h, nq), device=q.device,
+                              dtype=torch.float32) for _ in range(2))
+    rc = library().attention_vmem_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+        dout.data_ptr(), *(g.data_ptr() for g in grads), lse.data_ptr(),
+        delta.data_ptr(), b, h, nq, nk, dqk, dv, *strides, float(scale),
+        _ATTN_DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _check("vmem_attention_bwd", rc)
+    return tuple(grads)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float, key_mask: Optional[torch.Tensor] = None,
+                        causal: bool = False):
+    """K4 forward: q (B, H, Nq, Dqk), k (B, H, Nk, Dqk), v (B, H, Nk, Dv) on
+    one CUDA device, float32 or bfloat16, unit stride along the head dim;
+    any N >= 1, Dqk and Dv <= 128; key_mask optional (B, Nk) bool; causal:
+    key j visible to query i iff j <= i. Returns (out (B, H, Nq, Dv) in q's
+    dtype, lse (B, H, Nq) float32), both contiguous; a row whose keys are
+    all masked gives out 0 and lse +inf."""
+    (b, h, nq, nk, dqk, dv), strides, key_mask = _bhnd_inputs(
+        "flash attention", q, k, v, key_mask)
+    out = torch.empty((b, h, nq, dv), device=q.device, dtype=q.dtype)
+    lse = torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
+    rc = library().flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+        out.data_ptr(), lse.data_ptr(), b, h, nq, nk, dqk, dv, *strides,
+        float(scale), int(causal), _ATTN_DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check("flash_attention_fwd", rc)
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, scale: float,
+                        key_mask: Optional[torch.Tensor] = None,
+                        causal: bool = False):
+    """K4 backward: the forward's inputs, its out and lse, and dout
+    (B, H, Nq, Dv) in q's dtype. Returns (dq, dk, dv), contiguous, in q's
+    dtype. One launch of the dq kernel and one of the dk/dv kernel, counted
+    as one."""
+    (b, h, nq, nk, dqk, dv), strides, key_mask = _bhnd_inputs(
+        "flash attention", q, k, v, key_mask)
+    out = _like_output("flash_attention_bwd: out", out, q, (b, h, nq, dv),
+                       q.dtype)
+    dout = _like_output("flash_attention_bwd: dout", dout, q, (b, h, nq, dv),
+                        q.dtype)
+    lse = _like_output("flash_attention_bwd: lse", lse, q, (b, h, nq),
+                       torch.float32)
+    grads = [torch.empty(shape, device=q.device, dtype=q.dtype) for shape in
+             ((b, h, nq, dqk), (b, h, nk, dqk), (b, h, nk, dv))]
+    delta = torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
+    rc = library().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        *(g.data_ptr() for g in grads), delta.data_ptr(), b, h, nq, nk, dqk,
+        dv, *strides, float(scale), int(causal), _ATTN_DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check("flash_attention_bwd", rc)
+    return tuple(grads)

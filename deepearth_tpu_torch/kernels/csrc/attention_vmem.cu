@@ -52,11 +52,7 @@
 // Neither pads anything in device memory: ragged query rows, key tiles and
 // head dims are masked inside the kernels.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <float.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
@@ -88,10 +84,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
-
-struct Strides {  // element strides of a (B, H, N, D) operand along B, H, N
-  int64_t b, h, n;
-};
 
 // Stage rows [row0, row0 + rows) of one (b, h) slice of x into dst, `width`
 // elements each, rows ld floats apart; rows past `n` become zeros.
@@ -223,18 +215,12 @@ __global__ void __launch_bounds__(kThreads) attention_vmem_fwd_fp32_kernel(
 // bf16 on the tensor cores
 // -------------------------------------------------------------------------- //
 
-using bf16 = __nv_bfloat16;
 // A warp owns 16 query rows, a block at most 6 warps (576 queries: 6 blocks
 // with no idle row); the small-head instantiations are held to 3 blocks per
 // SM by their launch bounds, which ran faster at the MLA site than 8-warp
 // blocks at 2 per SM.
 constexpr int kMmaMaxWarps = 6;
-constexpr int kMmaKeys = 64;       // keys per staged tile (128 ran slower:
-                                   // registers)
-constexpr int kNT = kMmaKeys / 8;  // its n-tiles of 8 keys
-constexpr int kRowPad = 8;  // bf16 padding of staged rows: fragment loads of
-                            // the 8 row groups land in distinct banks
-constexpr float kLog2e = 1.4426950408889634f;
+// Keys per staged tile: kMmaKeys (128 ran slower: registers).
 
 // Shared memory of a block: its q rows, two k tiles, two v tiles (row-major)
 // and two tiles of key biases (the double buffer of the key loop).
@@ -244,79 +230,6 @@ __host__ __device__ constexpr size_t mma_smem_bytes(int warps, int dqk,
                              ((dqk + 15) / 16 * 16 + kRowPad) +
                          2 * kMmaKeys * ((dv + 7) / 8 * 8 + kRowPad)) +
          sizeof(float) * 2 * kMmaKeys;
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// d += a (16 x 16, row-major fragment) . b (16 x 8, column fragment)
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The B fragment of a 16 x 8 block of a row-major (k, n) matrix in shared
-// memory, transposed on the way by ldmatrix; p: this lane's row (lane % 16).
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&b)[2],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(b[0]), "=r"(b[1])
-      : "r"(smem_addr(p)));
-}
-
-// 16 bytes from global to shared memory without passing through registers;
-// zeros when `valid` is false.
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Stage rows [row0, row0 + rows) of x into dst (bf16, ld elements apart),
-// `width` elements each, zero-padded to width_pad; rows past n are zeros.
-// `vec` elements move per load: the host picks the widest that the width,
-// the strides and the base's alignment allow. 16-byte moves go through
-// cp.async and land by the next cp_async_wait; narrower ones are stores.
-__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* x,
-                                           int64_t n_stride, int row0,
-                                           int rows, int n, int width,
-                                           int width_pad, int vec) {
-  const int chunks = width_pad / vec;
-  for (int idx = threadIdx.x; idx < rows * chunks; idx += blockDim.x) {
-    const int r = idx / chunks, d = vec * (idx % chunks);
-    const bool valid = row0 + r < n && d < width;
-    const bf16* src = valid ? x + (row0 + r) * n_stride + d : x;
-    bf16* to = dst + r * ld + d;
-    if (vec == 8) {
-      cp_async16(to, src, valid);
-    } else if (vec == 2) {
-      *reinterpret_cast<uint32_t*>(to) = valid ? ld32(src) : 0u;
-    } else {
-      *to = valid ? *src : __float2bfloat16_rn(0.0f);
-    }
-  }
 }
 
 // The warp's 16 x 64 scores of the staged key tile: q.k * scale + bias, in
@@ -329,19 +242,7 @@ __device__ __forceinline__ void tile_scores(float (&s)[kNT][4],
                                             const bf16* k_s, int ldq, int kq,
                                             const float* bias_s, int g,
                                             int c, float scale) {
-#pragma unroll
-  for (int j = 0; j < kNT; ++j)
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-  for (int t = 0; t < KQ; ++t) {
-    if (t >= kq) break;
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const bf16* kr = k_s + (8 * j + g) * ldq + 16 * t + 2 * c;
-      const uint32_t kb[2] = {ld32(kr), ld32(kr + 8)};
-      mma_16816(s[j], qa[t], kb);
-    }
-  }
+  product_nt<KQ>(s, qa, k_s, ldq, kq, g, c);
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
     const float b0 = bias_s[8 * j + 2 * c], b1 = bias_s[8 * j + 2 * c + 1];
@@ -352,22 +253,6 @@ __device__ __forceinline__ void tile_scores(float (&s)[kNT][4],
   }
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// One MUFU.EX2; a result below 2^-126 flushes to 0 (such a probability
-// would vanish beside the row's largest, which is at least 1 / Nk).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 // exp(s - m) as exp2(s log2 e - m log2 e): one FFMA and one MUFU.EX2
 __device__ __forceinline__ float exp_shifted(float s, float m_log2e) {
   return exp2_approx(fmaf(s, kLog2e, -m_log2e));
@@ -435,15 +320,7 @@ __global__ void __launch_bounds__(32 * kMmaMaxWarps,
   cp_async_wait<1>();  // q landed
   __syncthreads();
   uint32_t qa[KQ][4];
-  const bf16* qw = q_s + 16 * warp * ldq;
-#pragma unroll
-  for (int t = 0; t < KQ; ++t) {
-    if (t >= kq) break;
-    qa[t][0] = ld32(qw + g * ldq + 16 * t + 2 * c);
-    qa[t][1] = ld32(qw + (g + 8) * ldq + 16 * t + 2 * c);
-    qa[t][2] = ld32(qw + g * ldq + 16 * t + 8 + 2 * c);
-    qa[t][3] = ld32(qw + (g + 8) * ldq + 16 * t + 8 + 2 * c);
-  }
+  load_a_frags<KQ>(qa, q_s + 16 * warp * ldq, ldq, kq, g, c);
 
   // pass 1: the row max m (at least -1e30) and the sum l of exp(s - m);
   // tile i + 1 loads while tile i is computed
@@ -503,68 +380,17 @@ __global__ void __launch_bounds__(32 * kMmaMaxWarps,
     tile_scores<KQ>(s, qa, k_s + (i & 1) * kMmaKeys * ldq, ldq, kq,
                     bias_s + (i & 1) * kMmaKeys, g, c, scale);
 #pragma unroll
-    for (int t = 0; t < kMmaKeys / 16; ++t) {
-      // keys 16 t .. 16 t + 15 are the n-tiles 2 t and 2 t + 1
-      uint32_t pa[4];
+    for (int j = 0; j < kNT; ++j) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          pa[2 * half + r] = pack_bf16(
-              exp_shifted(s[2 * t + half][2 * r], m_log2e[r]) * inv_l[r],
-              exp_shifted(s[2 * t + half][2 * r + 1], m_log2e[r]) * inv_l[r]);
-      }
-#pragma unroll
-      for (int n = 0; n < NV; ++n) {
-        if (n >= nv) break;
-        uint32_t vb[2];
-        ldsm_x2_trans(vb, vt + (16 * t + (lane & 15)) * ldv + 8 * n);
-        mma_16816(o[n], pa, vb);
-      }
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = exp_shifted(s[j][e], m_log2e[e >> 1]) * inv_l[e >> 1];
     }
+    product_pn<NV>(o, s, vt, ldv, nv, lane);
     __syncthreads();
   }
 
   bf16* obh = out + (static_cast<int64_t>(b) * n_heads + h) * nq * dv;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 16 * warp + g + 8 * r;
-    if (row >= nq) continue;
-#pragma unroll
-    for (int n = 0; n < NV; ++n) {
-      if (n >= nv) break;
-      const int col = 8 * n + 2 * c;
-      bf16* dst = obh + static_cast<int64_t>(row) * dv + col;
-      if (col < dv) dst[0] = __float2bfloat16_rn(o[n][2 * r]);
-      if (col + 1 < dv) dst[1] = __float2bfloat16_rn(o[n][2 * r + 1]);
-    }
-  }
-}
-
-// The widest staging load (8, 2 or 1 elements) that the width, the strides
-// and the base's alignment allow.
-int staging_vec(const void* base, const Strides& s, int width) {
-  const int widest[2] = {8, 2};
-  for (const int vec : widest) {
-    if (width % vec == 0 && s.b % vec == 0 && s.h % vec == 0 &&
-        s.n % vec == 0 &&
-        reinterpret_cast<uintptr_t>(base) % (sizeof(bf16) * vec) == 0)
-      return vec;
-  }
-  return 1;
-}
-
-// Warps per block: 16 query rows each, at most 8, chosen to leave the
-// fewest idle rows in the last block (nq = 576 takes 6 warps, 16 takes 1).
-int mma_warps(int nq) {
-  const int groups = (nq + 15) / 16;
-  const int most = groups < kMmaMaxWarps ? groups : kMmaMaxWarps;
-  int best = most, best_idle = 1 << 30;
-  for (int w = most; w >= (most + 1) / 2; --w) {
-    const int idle = (groups + w - 1) / w * w - groups;
-    if (idle < best_idle) best = w, best_idle = idle;
-  }
-  return best;
+  store_rows<NV>(obh, o, row0 + 16 * warp, nq, dv, g, c);
 }
 
 template <int KQ, int NV>
@@ -579,7 +405,7 @@ int launch_mma(const void* q, const void* k, const void* v,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const Vecs vec{staging_vec(q, qs, dqk), staging_vec(k, ks, dqk),
                  staging_vec(v, vs, dv)};
-  const int warps = mma_warps(nq);
+  const int warps = mma_warps(nq, kMmaMaxWarps);
   const dim3 grid((nq + 16 * warps - 1) / (16 * warps), n_heads, batch);
   kernel<<<grid, 32 * warps, mma_smem_bytes(warps, dqk, dv), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),

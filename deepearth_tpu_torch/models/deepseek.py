@@ -2,10 +2,13 @@
 ``deepearth_tpu/models/deepseek.py``: MLA attention, the SwiGLU MLP, the
 decoder block and the sequential stack.
 
-Not ported yet, and refused where a config asks for them: MoE layers
-(ROADMAP.md Queue 1, item 12), the flash kernel K4 for sequences of at
-least ``flash_min_seq`` on the card (item 12), ring attention over a mesh
-and pipelined stages (item 15).
+MLA attention over at least ``flash_min_seq`` tokens (with
+``use_flash_attention``) runs the flash kernels K4-fwd/K4-bwd on the card,
+as the JAX package runs its library flash kernel on the TPU; on the CPU it
+stays on ``dot_product_attention``, as the JAX package does there. Not
+ported yet, and refused where a config asks for them: MoE layers
+(ROADMAP.md Queue 1, item 12), ring attention over a mesh and pipelined
+stages (item 15).
 """
 
 from __future__ import annotations
@@ -17,15 +20,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import DeepSeekBlockConfig, MLAConfig
+from ..ops import flash_attention as flash
 from ..ops.attention import dot_product_attention
 from ..ops.norms import RMSNorm
 from ..ops.rope import apply_rope_deepseek, rope_tables, yarn_get_mscale
 from .layers import Dense, Init, dropout
 
-FLASH_TODO = (
+FLASH_SHAPE = (
     "MLA attention over {n} >= flash_min_seq={m} tokens runs the flash "
-    "kernel K4, which is not ported yet (ROADMAP.md Queue 2, K4, with item "
-    "12)")
+    "kernel K4 on the card, which takes head dims up to {most}, not Dqk "
+    "{qh} and Dv {vh}: wider heads (DeepSeek-V3's 192) wait for ROADMAP.md "
+    "Queue 1, item 13")
 MOE_TODO = ("MoE layers are not ported yet (ROADMAP.md Queue 1, item 12: "
             "ops/moe.py and the MoE block of models/deepseek.py)")
 PIPELINE_TODO = ("pipelined DeepSeek stacks (pipeline_stages > 1) are not "
@@ -70,9 +75,12 @@ class MLAttention(nn.Module):
         B, N, _ = x.shape
         H, rope_d = cfg.n_heads, cfg.qk_rope_head_dim
         qh, nope, vh = cfg.q_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim
-        if cfg.use_flash_attention and N >= cfg.flash_min_seq and x.is_cuda:
-            raise NotImplementedError(FLASH_TODO.format(n=N,
-                                                        m=cfg.flash_min_seq))
+        # the gate decides from the config and the device type alone
+        use_flash = (cfg.use_flash_attention and N >= cfg.flash_min_seq
+                     and x.is_cuda)
+        if use_flash and not flash.supported(qh, vh):
+            raise ValueError(FLASH_SHAPE.format(
+                n=N, m=cfg.flash_min_seq, most=flash.MAX_DIM, qh=qh, vh=vh))
 
         if cfg.q_lora_rank is None:
             q = self.q_proj(x)
@@ -102,8 +110,14 @@ class MLAttention(nn.Module):
             ms = yarn_get_mscale(rs.factor, rs.mscale_all_dim)
             scale = scale * ms * ms
 
-        out = dot_product_attention(query, key, v, scale=scale,
-                                    key_mask=key_mask, is_causal=is_causal)
+        if use_flash:
+            out = flash.flash_attention(
+                query, key.to(query.dtype), v.to(query.dtype), scale=scale,
+                key_mask=key_mask, causal=is_causal).to(v.dtype)
+        else:
+            out = dot_product_attention(query, key, v, scale=scale,
+                                        key_mask=key_mask,
+                                        is_causal=is_causal)
         out = self.o_proj(out.transpose(1, 2).reshape(B, N, H * vh))
         return dropout(out, cfg.attention_dropout, self.training, generator)
 

@@ -3,9 +3,11 @@
 
 For a CUDA tensor whose shapes pass :func:`attention_vmem.supported`
 (non-causal, no bias, 256 <= Nk <= 1024, head dims <= 128) the call goes to
-the hand-written kernel K3-fwd, as the JAX package sends those shapes to its
-Pallas kernel on the TPU. Everything else is plain torch ops with an fp32
-softmax, as the JAX package leaves it to XLA.
+the hand-written kernels K3-fwd and K3-bwd, as the JAX package sends those
+shapes to its Pallas kernels on the TPU. Everything else is plain torch ops
+with an fp32 softmax, as the JAX package leaves it to XLA. Longer sequences
+reach the flash kernels K4 through the MLA gate of ``models/deepseek.py``,
+not through this function, as in the JAX package.
 """
 
 from __future__ import annotations

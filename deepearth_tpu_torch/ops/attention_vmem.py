@@ -8,10 +8,10 @@ its Pallas kernel on the TPU.
 
 :func:`vmem_attention` is a ``torch.autograd.Function``: for a CUDA tensor
 the forward is the hand-written kernel K3-fwd
-(``kernels/csrc/attention_vmem.cu``), for a CPU tensor its plain PyTorch
-version :func:`vmem_attention_plain`. The backward kernel K3-bwd is not
-ported yet: on the card the backward raises; on the CPU it differentiates
-the plain version.
+(``kernels/csrc/attention_vmem.cu``) and the backward K3-bwd
+(``kernels/csrc/attention_vmem_bwd.cu``); for a CPU tensor their plain
+PyTorch versions :func:`vmem_attention_plain` and
+:func:`vmem_attention_bwd_plain`.
 """
 
 from __future__ import annotations
@@ -25,10 +25,6 @@ from .. import kernels
 NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_SEQ = kernels.VMEM_MAX_SEQ
 
-K3_BWD_TODO = (
-    "the K3 backward kernel (K3-bwd, attention_vmem.py _bwd_kernel) is not "
-    "ported yet (ROADMAP.md Queue 2, K3-bwd, with the multimodal train step)")
-
 
 def supported(nq: int, nk: int, dh: int, dv: int, is_causal: bool,
               has_bias: bool) -> bool:
@@ -36,7 +32,20 @@ def supported(nq: int, nk: int, dh: int, dv: int, is_causal: bool,
     truth table)."""
     return (not is_causal and not has_bias
             and 256 <= nk <= MAX_SEQ and nq <= MAX_SEQ
-            and dh <= kernels.VMEM_MAX_DIM and dv <= kernels.VMEM_MAX_DIM)
+            and dh <= kernels.ATTN_MAX_DIM and dv <= kernels.ATTN_MAX_DIM)
+
+
+def _probs(q, k, scale, key_mask):
+    """fp32 scores plus the 0 / NEG_BIG key mask through the guarded
+    softmax: (B, H, Nq, Nk) fp32 probabilities, a row of zeros where every
+    key is masked."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if key_mask is not None:
+        bias = torch.where(key_mask, 0.0, NEG_BIG).to(torch.float32)
+        s = s + bias[:, None, None, :]
+    m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
+    p = torch.exp(s - m)
+    return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
 
 
 def vmem_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -48,19 +57,34 @@ def vmem_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (m >= -1e30, l >= 1e-30, so an all-masked row gives zeros), the
     probabilities rounded to v's dtype, then P.V in fp32, rounded once to
     q's dtype."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if key_mask is not None:
-        bias = torch.where(key_mask, 0.0, NEG_BIG).to(torch.float32)
-        s = s + bias[:, None, None, :]
-    m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    p = (p / l).to(v.dtype)
+    p = _probs(q, k, scale, key_mask).to(v.dtype)
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
+def vmem_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, dout: torch.Tensor, *,
+                             scale: float,
+                             key_mask: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K3-bwd, step by step the JAX package's
+    ``_bwd_kernel``: p recomputed in fp32 with the guarded softmax;
+    dv = (p -> dout's dtype)^T . dout; dp = dout . v^T in fp32;
+    delta = rowsum(dp o p) from the fp32 p; ds = (p (dp - delta) scale) ->
+    q's dtype; dq = ds . k; dk = ds^T . q. Each product sums in fp32 and
+    rounds once. Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    p = _probs(q, k, scale, key_mask)
+    do = dout.float()
+    dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    delta = (dp * p).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 class _VmemAttention(torch.autograd.Function):
-    """K3-fwd for CUDA tensors, its plain version for CPU tensors."""
+    """K3-fwd and K3-bwd for CUDA tensors, their plain versions for CPU
+    tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, scale):
@@ -74,13 +98,12 @@ class _VmemAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, key_mask = ctx.saved_tensors
-        if q.device.type != "cpu":
-            raise NotImplementedError(K3_BWD_TODO)
-        with torch.enable_grad():
-            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-            out = vmem_attention_plain(*leaves, scale=ctx.scale,
-                                       key_mask=key_mask)
-            dq, dk, dv = torch.autograd.grad(out, leaves, dout)
+        if q.device.type == "cpu":
+            dq, dk, dv = vmem_attention_bwd_plain(
+                q, k, v, dout, scale=ctx.scale, key_mask=key_mask)
+        else:
+            dq, dk, dv = kernels.vmem_attention_bwd(q, k, v, dout, ctx.scale,
+                                                    key_mask)
         return dq, dk, dv, None, None
 
 

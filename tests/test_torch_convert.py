@@ -24,6 +24,7 @@ from deepearth_tpu_torch import (
 )
 from deepearth_tpu_torch.models import DeepEarthModel
 from deepearth_tpu_torch.ops import (
+    flash_attention,
     hash_encode,
     pairwise_token_attention,
     vmem_attention,
@@ -223,7 +224,9 @@ def test_launch_counters_stay_zero_on_cpu(small):
         q = torch.randn(1, 2, 16, 32)
         k = torch.randn(1, 2, 300, 32)
         vmem_attention(q, k, k, scale=0.25)
+        flash_attention.flash_attention(k, k, k, scale=0.25, causal=True)
     assert set(kernels.launch_counts.values()) == {0}
     assert set(kernels.launch_counts) == {
         "hash_encode_fwd", "hash_encode_bwd", "pairwise_attention_fwd",
-        "pairwise_attention_bwd", "vmem_attention_fwd"}
+        "pairwise_attention_bwd", "vmem_attention_fwd", "vmem_attention_bwd",
+        "flash_attention_fwd", "flash_attention_bwd"}

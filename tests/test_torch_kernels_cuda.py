@@ -15,8 +15,17 @@ elementwise (ATTN_BWD_TOL). K2-bwd adds with atomics in an order that
 changes from run to run: 1e-5 of the sum of |terms| of each row. K3-fwd
 sums in another order than its plain version: 1e-5 in fp32, one bf16 ulp at
 |x| < 4 in bf16 (VMEM_TOL); a row whose keys are all masked is exactly 0.
+K4-fwd rounds the unnormalised p of each key tile (the library's online
+softmax) where its plain version rounds the normalised p of the full row;
+it is held by chip_smoke.check_flash_out: 1e-5 in fp32, two bf16 ulps of
+the output's largest entry in bf16, and the mean error within 2^-8 of the
+mean |plain|; its log-sum-exp within 1e-4. K3-bwd and K4-bwd are
+held by chip_smoke.check_grads: each gradient within BWD_TOL of its largest
+entry (1e-5 in fp32, two bf16 ulps of it in bf16) plus 1e-6; dq exactly 0
+where no key is visible, dk and dv exactly 0 for a masked key.
 """
 
+import contextlib
 import os
 import sys
 
@@ -32,6 +41,7 @@ from deepearth_tpu_torch.models.layers import Init
 from deepearth_tpu_torch.ops import attention as tdpa
 from deepearth_tpu_torch.ops import attention_smallseq as tattn
 from deepearth_tpu_torch.ops import attention_vmem as tvmem
+from deepearth_tpu_torch.ops import flash_attention as tflash
 from deepearth_tpu_torch.ops import hash_encoding as the
 from deepearth_tpu_torch.training import Trainer
 
@@ -41,6 +51,8 @@ ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 ATTN_BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -7, 1e-4)}
 HASH_BWD_TOL = 1e-5
 VMEM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+NO_K3_K4 = {"vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
 
 
 def _smoke():
@@ -254,7 +266,7 @@ def test_astack_train_step_launches_every_kernel(cuda):
     assert kernels.launch_counts == {
         "hash_encode_fwd": 2, "hash_encode_bwd": 2,
         "pairwise_attention_fwd": 16, "pairwise_attention_bwd": 16,
-        "vmem_attention_fwd": 0}
+        **NO_K3_K4}
     assert np.isfinite(metrics["loss/total"].item())
     assert np.isfinite(metrics["grad_norm"].item())
 
@@ -323,25 +335,176 @@ def test_dot_product_attention_routes_k3_shapes_to_the_kernel(cuda):
     assert kernels.launch_counts["vmem_attention_fwd"] == 1  # plain at 23
 
 
-def test_vmem_attention_backward_raises_on_the_card(cuda):
-    q = torch.randn((1, 1, 8, 32), device=cuda, requires_grad=True)
-    k = torch.randn((1, 1, 300, 32), device=cuda, requires_grad=True)
-    out = tvmem.vmem_attention(q, k, k, scale=0.2)
-    with pytest.raises(NotImplementedError, match="K3-bwd"):
-        out.sum().backward()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,nq,nk,dqk,dv,mask,strided", [
+    (16, 8, 576, 576, 48, 32, False, True),  # the MLA site, v a view
+    (16, 8, 16, 576, 64, 64, False, False),  # the cross site
+    (3, 2, 100, 260, 48, 80, True, False),  # ragged, masked
+    (2, 2, 33, 1024, 128, 128, True, False),  # the longest row, widest head
+    (1, 1, 1, 1, 8, 8, False, False),  # one key
+])
+def test_vmem_attention_bwd_matches_plain(cuda, dtype, b, h, nq, nk, dqk, dv,
+                                          mask, strided):
+    smoke = _smoke()
+    g = torch.Generator(device=cuda).manual_seed(nq + nk + 1)
+    q, k, v, dout, key_mask = smoke.attention_case(g, b, h, nq, nk, dqk, dv,
+                                                   dtype, mask, strided)
+    kernels.reset_launch_counts()
+    got = kernels.vmem_attention_bwd(q, k, v, dout, dqk ** -0.5, key_mask)
+    ref = tvmem.vmem_attention_bwd_plain(q, k, v, dout, scale=dqk ** -0.5,
+                                         key_mask=key_mask)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["vmem_attention_bwd"] == 1
+    smoke.check_grads("K3-bwd", got, ref, dtype, key_mask)
 
 
-def test_mla_flash_gate_raises_on_the_card(cuda):
+def test_vmem_attention_autograd_runs_k3_bwd(cuda):
+    """Autograd through K3 on the card launches K3-fwd and K3-bwd once each
+    and gives the plain backward's gradients."""
+    smoke = _smoke()
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, dout, _ = smoke.attention_case(g, 4, 8, 576, 576, 48, 32,
+                                            torch.bfloat16, strided=True)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    kernels.reset_launch_counts()
+    out = tvmem.vmem_attention(*leaves, scale=48 ** -0.5)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["vmem_attention_fwd"] == 1
+    assert kernels.launch_counts["vmem_attention_bwd"] == 1
+    ref = tvmem.vmem_attention_bwd_plain(q, k, v, dout, scale=48 ** -0.5)
+    # .grad keeps each leaf's strides (v is a strided view)
+    smoke.check_grads("K3 autograd", [x.grad.contiguous() for x in leaves],
+                      ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,n,dqk,dv,mask,causal,strided", [
+    (2, 8, 4608, 48, 32, False, False, True),  # the 4608-patch MLA site
+    (2, 4, 2048, 64, 64, False, True, False),  # causal
+    (3, 2, 1000, 48, 32, True, False, False),  # ragged N, masked keys
+    (2, 2, 1500, 128, 128, True, True, False),  # widest heads, both masks
+    (2, 2, 1, 8, 8, False, True, False),  # one token
+])
+def test_flash_attention_matches_plain(cuda, dtype, b, h, n, dqk, dv, mask,
+                                       causal, strided):
+    smoke = _smoke()
+    g = torch.Generator(device=cuda).manual_seed(n + dqk)
+    q, k, v, dout, key_mask = smoke.attention_case(g, b, h, n, n, dqk, dv,
+                                                   dtype, mask, strided)
+    kw = dict(scale=dqk ** -0.5, key_mask=key_mask, causal=causal)
+    kernels.reset_launch_counts()
+    out, lse = kernels.flash_attention_fwd(q, k, v, kw["scale"], key_mask,
+                                           causal)
+    ref, ref_lse = tflash.flash_attention_plain(q, k, v, return_lse=True,
+                                                **kw)
+    got = kernels.flash_attention_bwd(q, k, v, out, lse, dout, kw["scale"],
+                                      key_mask, causal)
+    ref_grads = tflash.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                 **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_attention_fwd"] == 1
+    assert kernels.launch_counts["flash_attention_bwd"] == 1
+    assert out.dtype == dtype and out.shape == (b, h, n, dv)
+    smoke.check_flash_out("K4-fwd", out, ref, dtype)
+    assert torch.equal(lse.isinf(), ref_lse.isinf())
+    finite = ref_lse.isfinite()
+    torch.testing.assert_close(lse[finite], ref_lse[finite], rtol=0,
+                               atol=1e-4)
+    if mask:
+        assert bool((out[0] == 0).all())  # the library would give mean(v)
+    smoke.check_grads("K4-bwd", got, ref_grads, dtype, key_mask)
+
+
+def test_mla_flash_gate_runs_k4_on_the_card(cuda):
+    """At N >= flash_min_seq the MLA runs K4-fwd and, under autograd,
+    K4-bwd, and agrees with the same module on the plain path; below it,
+    neither kernel runs."""
     cfg = MLAConfig(hidden_dim=64, n_heads=4, kv_lora_rank=16,
                     qk_rope_head_dim=8, qk_nope_head_dim=16, v_head_dim=16,
                     use_flash_attention=True, flash_min_seq=1024)
-    mla = MLAttention(cfg, Init(torch.Generator(device=cuda), cuda),
-                      torch.bfloat16)
+    mla = MLAttention(cfg, Init(torch.Generator(device=cuda).manual_seed(0),
+                                cuda), torch.bfloat16)
+    kernels.reset_launch_counts()
     with torch.no_grad():
         assert mla(torch.randn((1, 1023, 64), device=cuda)).shape == (
             1, 1023, 64)
-        with pytest.raises(NotImplementedError, match="K4"):
-            mla(torch.randn((1, 1024, 64), device=cuda))
+    assert kernels.launch_counts["flash_attention_fwd"] == 0
+    x = torch.randn((2, 1100, 64), device=cuda)
+    grads = {}
+    for label in ("kernel", "plain"):
+        mla.zero_grad()
+        kernels.reset_launch_counts()
+        with (_smoke().plain_versions() if label == "plain"
+              else contextlib.nullcontext()):
+            out = mla(x)
+            out.float().square().mean().backward()
+        torch.cuda.synchronize()
+        want = 1 if label == "kernel" else 0
+        assert kernels.launch_counts["flash_attention_fwd"] == want
+        assert kernels.launch_counts["flash_attention_bwd"] == want
+        grads[label] = (out.detach(),
+                        [p.grad.clone() for p in mla.parameters()])
+    (out_k, g_k), (out_p, g_p) = grads["kernel"], grads["plain"]
+    assert (out_k.float() - out_p.float()).abs().max().item() < 2e-2
+    for a, r in zip(g_k, g_p):
+        err = (a - r).abs().max().item()
+        assert err <= 2e-2 * r.abs().max().item() + 1e-6, err
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.randn((1, 2, 40, 48), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        wide = torch.randn((1, 2, 40, 192), device=cuda, dtype=torch.bfloat16)
+        kernels.flash_attention_fwd(wide, wide, q, 0.1)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kernels.flash_attention_fwd(q.half(), q.half(), q.half(), 0.1)
+    with pytest.raises(ValueError, match="key_mask"):
+        kernels.flash_attention_fwd(q, q, q, 0.1,
+                                    torch.ones((1, 39), dtype=torch.bool,
+                                               device=cuda))
+    with pytest.raises(ValueError, match="unit stride"):
+        kernels.flash_attention_fwd(q, q, q.transpose(2, 3).contiguous()
+                                    .transpose(2, 3), 0.1)
+    out, lse = kernels.flash_attention_fwd(q, q, q, 0.1)
+    with pytest.raises(ValueError, match="lse"):
+        kernels.flash_attention_bwd(q, q, q, out, lse[:, :1], out, 0.1)
+    cfg = MLAConfig(hidden_dim=64, n_heads=2, kv_lora_rank=16,
+                    qk_rope_head_dim=64, qk_nope_head_dim=128, v_head_dim=128,
+                    use_flash_attention=True, flash_min_seq=16)
+    mla = MLAttention(cfg, Init(torch.Generator(device=cuda), cuda),
+                      torch.bfloat16)
+    with torch.no_grad(), pytest.raises(ValueError, match="item 13"):
+        mla(torch.randn((1, 32, 64), device=cuda))
+
+
+def test_multimodal_train_steps_launch_k3_and_k4(cuda):
+    """One train step of the multimodal model at universal dim 64 with
+    vision at 576 patches (K3-fwd 2, K3-bwd 2, K2 2/2) and at 4608 patches
+    (K4-fwd 1, K4-bwd 1, K2 2/2), masking on, no plain version reached."""
+    smoke = _smoke()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cfg = smoke.multimodal_config(hidden_dim=64)
+    for patches, want in (
+            (576, {"vmem_attention_fwd": 2, "vmem_attention_bwd": 2}),
+            (4608, {"flash_attention_fwd": 1, "flash_attention_bwd": 1})):
+        model = DeepEarthModel(cfg, generator=gen, device=cuda,
+                               native_seq_lens={"vision": patches})
+        trainer = Trainer(model, cfg, smoke.MM_LOSS_WEIGHTS)
+        state = trainer.init_state()
+        batch = smoke.make_mm_batch(gen, 4, patches)
+        kernels.reset_launch_counts()
+        with smoke.plain_versions_refused():
+            state, metrics = trainer.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts == {
+            "hash_encode_fwd": 2, "hash_encode_bwd": 2,
+            "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
+            **NO_K3_K4, **want}
+        assert np.isfinite(metrics["loss/total"].item())
+        assert np.isfinite(metrics["grad_norm"].item())
 
 
 def test_multimodal_forward_launches_k3_twice(cuda):
@@ -360,7 +523,7 @@ def test_multimodal_forward_launches_k3_twice(cuda):
     assert kernels.launch_counts == {
         "hash_encode_fwd": 2, "hash_encode_bwd": 0,
         "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
-        "vmem_attention_fwd": 2}
+        **NO_K3_K4, "vmem_attention_fwd": 2}
     assert feats.shape == (3, 512) and bool(feats.isfinite().all())
 
 
