@@ -45,6 +45,22 @@ Phases, each printing one line:
      and 16 (K4-fwd 1, K2-fwd 2 per forward) and Trainer.fit at B=64 (K4-fwd
      1, K4-bwd 1, K2-fwd 2, K2-bwd 2 per step), no plain version reached;
      forward and 3 train steps against the plain path at B=4; times;
+ 14. K5-fwd (grouped_matmul_fwd) against its plain PyTorch version, in bf16
+     and fp32: the flagship simulator's shape at B=64 (2816 sorted rows, 8
+     experts, 2048 x 2048), empty groups, tiles that cross groups, M = 1,
+     K and N off the 8-element grid, rows past the last group; its time,
+     bound and a library grouped matmul's;
+ 15. the flagship's serving slice: DeepEarthModel at
+     integrated_config(use_deepseek_fusion=True) (5.04B parameters, bf16,
+     24 fusion layers, a 24-layer MLA + MoE simulator, vision (B, 4608,
+     1408) and language (B, 16, 7168) through MoE-projected encoders)
+     answers requests of 1, 16 and 64 observations; per forward K4-fwd 2,
+     K2-fwd 2 and, at B=64 where the simulator takes the ragged path, K5
+     69 (none at B <= 16), no plain version reached; each MoE site's
+     dispatch mode, times, peak memory, a per-op profile at B=64; the
+     simulator alone at B=64 and the whole model at B=8 (simulator forced
+     ragged) against the plain path, holding the observations whose
+     routing no near-tie flipped;
 then a JSON line of the kernels, the card's name and power limit, and
 {"ok": true, ...} as the last line. Any failure raises and exits non-zero.
 Weights are random, drawn from a seeded generator on the card.
@@ -55,6 +71,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -72,13 +89,16 @@ from deepearth_tpu_torch.configs import (
     Grid4DConfig,
     ModalityConfig,
     TransformerConfig,
+    integrated_config,
 )
-from deepearth_tpu_torch.models import DeepEarthModel, fusion
+from deepearth_tpu_torch.models import DeepEarthModel, MoELayer, fusion
 from deepearth_tpu_torch.ops import (
     attention_smallseq,
     attention_vmem,
     flash_attention,
+    grouped_matmul,
     hash_encoding,
+    moe,
 )
 from deepearth_tpu_torch.training import (
     LossWeights,
@@ -152,6 +172,31 @@ K3_PER_FORWARD = 2
 # token cross-attention and 4 fusion layers: kernel and plain round
 # differently, and the residual streams carry each difference on.
 MM_SLICE_TOL = {"max_abs": 0.25, "mean_abs": 0.02}
+# K5 returns fp32 in both types, and kernel and plain version differ only in
+# the order of their fp32 sums; held as K4 is: in bf16 the largest error
+# within K4_MAX_REL of the plain output's largest entry and the mean error
+# within K4_MEAN_REL of the mean |plain| (a k-tile of 32 left out of 2048
+# would move it by ~12%); in fp32 within K5_FP32_REL of the largest entry.
+K5_FP32_REL = 1e-5
+# the flagship: bench_flagship.py's request of 16 observations, one and the
+# train plan's 64; each observation a V-JEPA2 clip and 16 language rows
+FLAGSHIP_REQUEST_SIZES, FLAGSHIP_PLAIN_BATCH = (1, 16, 64), 8
+FLAGSHIP_TOKENS = 22  # CLS, spacetime, 16 vision, 4 language
+# 23 MoE layers in the simulator (layer 0 is dense), 3 K5 launches each when
+# it takes the ragged path: at B=64 (1408 tokens, S E C > 2^22), not at
+# B <= 16, where capacity dispatch's one-hot einsums are small
+K5_PER_RAGGED_FORWARD = 69
+K5_PER_FORWARD = {1: 0, 16: 0, 64: K5_PER_RAGGED_FORWARD}
+FLAGSHIP_PER_FORWARD = {"flash_attention_fwd": 2, "hash_encode_fwd": 2}
+# kernel vs plain path of the flagship with the plain run routed as the
+# kernel run was (bf16 through 24 fusion and 24 simulator layers): read max
+# 0.125 and mean 0.0103 (the simulator alone at B=64) and 0.0118 (the whole
+# model at B=8) on an H100 (PERF.md), held at about twice that. The share of
+# tokens whose own routing would flip at an MoE site read at most 0.0156
+# (the simulator alone) and 0.0511 (a late simulator layer of the whole
+# model); held at 0.1: routing on unrelated inputs would flip most tokens.
+FLAGSHIP_TOL = {"max_abs": 0.25, "mean_abs": 0.02}
+FLAGSHIP_MAX_FLIPPED = 0.1
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s of HBM and
 # operations/s by type; fp32 without the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -251,7 +296,8 @@ def plain_versions():
          mock.patch.object(attention_vmem, "vmem_attention",
                            attention_vmem.vmem_attention_plain), \
          mock.patch.object(flash_attention, "flash_attention",
-                           flash_attention.flash_attention_plain):
+                           flash_attention.flash_attention_plain), \
+         mock.patch.object(grouped_matmul, "gmm", grouped_matmul.gmm_plain):
         yield
 
 
@@ -268,7 +314,9 @@ def plain_versions_refused():
                            refuse), \
          mock.patch.object(flash_attention, "flash_attention_plain", refuse), \
          mock.patch.object(flash_attention, "flash_attention_bwd_plain",
-                           refuse):
+                           refuse), \
+         mock.patch.object(grouped_matmul, "gmm_plain", refuse), \
+         mock.patch.object(grouped_matmul, "gmm_bwd_plain", refuse):
         yield
 
 
@@ -1542,6 +1590,350 @@ def phase_clip(gen) -> dict:
     return {"launches": launches}
 
 
+def gmm_case(gen, sizes, k, n, dtype, m=None):
+    """lhs (M, K), rhs (E, K, N) and the sizes on the card; M defaults to
+    the sum of the sizes."""
+    sizes = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    m = int(sizes.sum()) if m is None else m
+    lhs = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    rhs = torch.randn((len(sizes), k, n), generator=gen, device="cuda").to(
+        dtype)
+    return lhs, rhs, sizes
+
+
+def check_gmm(name, out, ref, dtype) -> tuple:
+    """K5's output against its plain version's (K5_FP32_REL in fp32, K4's
+    relative limits in bf16). Returns the largest error and the mean error
+    over the mean |plain|."""
+    if out.shape != ref.shape or out.dtype != torch.float32:
+        raise AssertionError(f"K5 {name}: {out.shape} {out.dtype}")
+    err = (out - ref).abs()
+    top = ref.abs()
+    rel = K5_FP32_REL if dtype == torch.float32 else K4_MAX_REL
+    tol = rel * top.max().item() + 1e-6
+    mean_rel = err.mean().item() / max(top.mean().item(), 1e-30)
+    if not (err.max().item() <= tol and mean_rel <= K4_MEAN_REL):
+        raise AssertionError(f"K5 {name}: max_abs_err {err.max().item()} "
+                             f"(tol {tol}), mean over mean |plain| {mean_rel}"
+                             f" (tol {K4_MEAN_REL})")
+    return err.max().item(), mean_rel
+
+
+def flagship_group_sizes(gen, n_tokens: int = 64 * FLAGSHIP_TOKENS,
+                         k: int = 2, e: int = 8) -> list:
+    """Expert loads of a top-2 choice over 8 experts for the simulator's
+    tokens at B=64: each token's two distinct experts drawn at random."""
+    scores = torch.rand((n_tokens, e), generator=gen, device="cuda")
+    chosen = scores.topk(k, dim=-1).indices.reshape(-1)
+    return torch.bincount(chosen, minlength=e).tolist()
+
+
+def library_gmm(lhs, rhs, sizes):
+    """(name, call) of one PyTorch grouped matmul on the same inputs, a
+    yardstick only: torch._grouped_mm with offsets where this torch has it
+    and takes the inputs, else one torch.mm per group."""
+    offs = torch.cumsum(sizes, dim=0).to(torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            torch._grouped_mm(lhs, rhs, offs=offs)
+            return "torch._grouped_mm", lambda: torch._grouped_mm(
+                lhs, rhs, offs=offs)
+        except (RuntimeError, TypeError, NotImplementedError):
+            pass
+    bounds = [0] + offs.tolist()
+    segments = [(g, bounds[g], bounds[g + 1]) for g in range(len(sizes))
+                if bounds[g + 1] > bounds[g]]
+    return "torch.mm per group", lambda: [
+        torch.mm(lhs[s:e], rhs[g]) for g, s, e in segments]
+
+
+def phase_gmm(gen) -> dict:
+    torch.cuda.empty_cache()
+    errs, means = {}, {}
+    flagship = flagship_group_sizes(gen)
+    cases = {  # name: (group sizes, K, N, M or None for their sum)
+        f"flagship 2816 E8 2048x2048 {flagship}": (flagship, 2048, 2048,
+                                                   None),
+        "empty groups, tiles across groups": ([0, 70, 0, 130, 100, 0], 96,
+                                              200, None),
+        "M=1": ([0, 1, 0, 0], 64, 64, None),
+        "K=100 N=130 (2-element loads)": ([100, 57, 100], 100, 130, None),
+        "K=33 N=31 (1-element loads)": ([5, 40, 19], 33, 31, None),
+        "rows past the last group are 0": ([30, 20], 64, 128, 100),
+    }
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        for name, (sizes, k, n, m) in cases.items():
+            lhs, rhs, gs = gmm_case(gen, sizes, k, n, dtype, m)
+            out = kernels.grouped_matmul_fwd(lhs, rhs, gs)
+            ref = grouped_matmul.gmm_plain(lhs, rhs, gs)
+            errs[f"{name} {tag}"], means[f"{name} {tag}"] = check_gmm(
+                name, out, ref, dtype)
+            if m is not None and not bool((out[sum(sizes):] == 0).all()):
+                raise AssertionError(f"K5 {name}: rows past the groups")
+    before = kernels.launch_counts["grouped_matmul_fwd"]
+    empty = kernels.grouped_matmul_fwd(*gmm_case(gen, [0, 0], 64, 64,
+                                                 torch.bfloat16))
+    if empty.shape != (0, 64) or \
+            kernels.launch_counts["grouped_matmul_fwd"] != before:
+        raise AssertionError("K5: M = 0 launched a kernel")
+
+    # the flagship shape in bf16: kernel, plain, a library grouped matmul,
+    # and the bound (the weights of the groups with rows, lhs and the sizes
+    # read once, the fp32 output written once)
+    lhs, rhs, gs = gmm_case(gen, flagship, 2048, 2048, torch.bfloat16)
+    library_name, library_call = library_gmm(lhs, rhs, gs)
+    t = {"ms": cuda_ms(lambda: kernels.grouped_matmul_fwd(lhs, rhs, gs),
+                       iters=20, warmup=3),
+         "plain_ms": cuda_ms(lambda: grouped_matmul.gmm_plain(lhs, rhs, gs),
+                             iters=10, warmup=2),
+         "library_ms": cuda_ms(library_call, iters=20, warmup=3)}
+    used = sum(1 for s in flagship if s > 0)
+    flops = 2 * lhs.shape[0] * 2048 * 2048
+    t.update(bound(nbytes(lhs, gs) + used * 2048 * 2048 * 2
+                   + lhs.shape[0] * 2048 * 4, flops, torch.bfloat16))
+    t["tflops"] = flops / t["ms"] / 1e9
+    print("[14 K5 grouped_matmul_fwd] max_abs_err " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol fp32 {K5_FP32_REL}, bf16 {K4_MAX_REL} of the largest entry)"
+        " | mean error over mean |plain| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in means.items())
+        + f" (tol {K4_MEAN_REL}) | M=0 launches nothing | ms at the flagship "
+        f"simulator's B=64 shape, bf16 (device, CUDA events): kernel "
+        f"{t['ms']:.4f} ({t['tflops']:.1f} TFLOP/s), plain "
+        f"{t['plain_ms']:.4f}, library ({library_name}) "
+        f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} "
+        f"({t['bound_by']}) | {card()}")
+    return {"max_abs_err": max(errs.values()), "library": library_name, **t}
+
+
+def make_flagship_batch(gen, n):
+    """One request of the flagship: n observations, each with a place and
+    time, a V-JEPA2 clip's 4608 patch embeddings of 1408 and 16 language
+    rows of 7168, in bf16 (tools/bench_flagship.py's inputs)."""
+    dev = gen.device
+    return {
+        "xyzt": torch.rand((n, 4), generator=gen, device=dev),
+        "modalities": {
+            "vision": torch.randn((n, CLIP_PATCHES, 1408), generator=gen,
+                                  device=dev).to(torch.bfloat16),
+            "language": torch.randn((n, 16, 7168), generator=gen,
+                                    device=dev).to(torch.bfloat16),
+        },
+    }
+
+
+def moe_sites(model) -> dict:
+    return {name: mod for name, mod in model.named_modules()
+            if isinstance(mod, MoELayer)}
+
+
+def site_modes(model) -> dict:
+    """The dispatch mode each MoE site took in the last forward; the
+    simulator's layers as one entry, counted."""
+    modes = {}
+    for name, mod in moe_sites(model).items():
+        key = "simulator" if name.startswith("simulator.") else name
+        modes.setdefault(key, []).append(mod.mode)
+    return {k: (v[0] if len(v) == 1 else
+                ", ".join(f"{m} x{v.count(m)}" for m in sorted(set(v))))
+            for k, v in modes.items()}
+
+
+@contextlib.contextmanager
+def gate_log(pinned: Optional[list] = None):
+    """Log every MoE gate's top-k choice made inside, in call order. With
+    ``pinned``, the log of an earlier run, each call routes as that run did
+    (its weights from this run's own scores), and the log keeps this run's
+    own choice: the difference between two runs is then their arithmetic,
+    and a flipped near-tie is counted, not propagated."""
+    real, log = moe.moe_gate, []
+
+    def gate(logits, bias, **kw):
+        g = real(logits, bias, **kw)
+        log.append(g.topk_idx)
+        if pinned is None:
+            return g
+        idx = pinned[len(log) - 1]
+        w = torch.gather(g.scores, 1, idx.long())
+        if kw["top_k"] > 1 and kw["norm_topk_prob"]:
+            w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+        return moe.GateResult(idx, w * kw["routed_scaling_factor"], g.scores)
+    with mock.patch.object(moe, "moe_gate", gate):
+        yield log
+
+
+def flipped_shares(names, a: list, b: list) -> dict:
+    """Per MoE site (in call order), the share of tokens whose expert set
+    differs between two gate logs."""
+    if len(a) != len(names) or len(b) != len(names):
+        raise AssertionError(f"{len(a)} and {len(b)} gate calls for "
+                             f"{len(names)} MoE sites")
+    return {n: (x.sort(dim=-1).values != y.sort(dim=-1).values).any(dim=-1)
+            .float().mean().item() for n, x, y in zip(names, a, b)}
+
+
+@contextlib.contextmanager
+def simulator_mode(model, mode: str):
+    """Force the simulator's MoE layers to one dispatch mode inside."""
+    layers = [m for n, m in moe_sites(model).items()
+              if n.startswith("simulator.")]
+    saved = [m.cfg for m in layers]
+    for m in layers:
+        m.cfg = dataclasses.replace(m.cfg, dispatch_mode=mode)
+    try:
+        yield
+    finally:
+        for m, cfg in zip(layers, saved):
+            m.cfg = cfg
+
+
+def phase_flagship(gen) -> dict:
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = integrated_config(use_deepseek_fusion=True,
+                            param_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = DeepEarthModel(cfg, generator=gen, device=gen.device,
+                           native_seq_lens={"vision": CLIP_PATCHES,
+                                            "language": 16}).eval()
+    D = cfg.fusion.universal_dim
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    requests = [make_flagship_batch(gen, n) for n in FLAGSHIP_REQUEST_SIZES]
+
+    # the main path: requests through the user's entry points, counted, with
+    # every plain version made to raise
+    kernels.reset_launch_counts()
+    modes, counted = {}, {}
+    with torch.inference_mode(), plain_versions_refused():
+        for batch in requests:
+            n = batch["xyzt"].shape[0]
+            before = dict(kernels.launch_counts)
+            out = model(batch)
+            feats = model.extract_features(batch)
+            got = {k: kernels.launch_counts[k] - before[k] for k in before}
+            per_forward = {**FLAGSHIP_PER_FORWARD,
+                           "grouped_matmul_fwd": K5_PER_FORWARD[n]}
+            want = expected_launches(**{k: 2 * v for k, v in
+                                        per_forward.items()})
+            if got != want:
+                raise AssertionError(f"B={n}: launches per request {got} != "
+                                     f"{want}")
+            if not torch.equal(feats, out["fused_representation"]):
+                raise AssertionError("extract_features != forward")
+            shapes = {"fused_representation": (n, D),
+                      "all_tokens": (n, FLAGSHIP_TOKENS, D),
+                      "spatial": (n, 3), "temporal": (n, 1),
+                      "vision": (n, 1408), "language": (n, 7168)}
+            outs = {"fused_representation": out["fused_representation"],
+                    "all_tokens": out["all_tokens"], **out["reconstructions"]}
+            for key, shape in shapes.items():
+                if tuple(outs[key].shape) != shape or not bool(
+                        outs[key].isfinite().all()):
+                    raise AssertionError(f"B={n} {key}: shape "
+                                         f"{tuple(outs[key].shape)} or "
+                                         "non-finite values")
+            modes[n] = site_modes(model)
+            counted[n] = {k: v for k, v in got.items() if v}
+            del out, feats, outs
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+
+    # per request: host wall time, CUDA-event time, peak memory
+    timing = {}
+    with torch.inference_mode():
+        for batch in requests:
+            n = batch["xyzt"].shape[0]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            walls = sorted(host_ms(lambda: model.extract_features(batch),
+                                   iters=5))
+            timing[n] = {
+                "host_median_ms": walls[len(walls) // 2],
+                "host_max_ms": walls[-1],
+                "device_ms": cuda_ms(lambda: model.extract_features(batch),
+                                     iters=3, warmup=1),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        big = requests[-1]
+        breakdown, by_op = kernel_breakdown(
+            lambda: model.extract_features(big), n_calls=1)
+
+    # kernel vs plain, the plain run routed as the kernel run was: the
+    # simulator alone at B=64 on one fusion output (K5 against its plain
+    # version), then the whole model at FLAGSHIP_PLAIN_BATCH with the
+    # simulator forced ragged (K4, K5 and K2 against their plain versions)
+    fused = {}
+    hook = model.fusion.register_forward_hook(
+        lambda mod, args, out: fused.update(h=out["all_tokens"]))
+    sites = list(moe_sites(model))
+    with torch.inference_mode():
+        model(big)
+        hook.remove()
+        with gate_log() as log_k:
+            sim_k = model.simulator(fused["h"])
+        with gate_log(log_k) as log_p, plain_versions():
+            sim_p = model.simulator(fused["h"])
+        sim_shares = flipped_shares(
+            [n for n in sites if n.startswith("simulator.")], log_k, log_p)
+        diffs = {"simulator B=64": output_diff(
+            {"fused_representation": sim_k, "reconstructions": {}},
+            {"fused_representation": sim_p, "reconstructions": {}})}
+        del sim_k, sim_p, fused
+        small = make_flagship_batch(gen, FLAGSHIP_PLAIN_BATCH)
+        with simulator_mode(model, "ragged"):
+            kernels.reset_launch_counts()
+            with gate_log() as log_k:
+                out_k = model(small)
+            k5_small = kernels.launch_counts["grouped_matmul_fwd"]
+            torch.cuda.empty_cache()
+            with gate_log(log_k) as log_p, plain_versions():
+                out_p = model(small)
+        shares = flipped_shares(sites, log_k, log_p)
+        diffs[f"model B={FLAGSHIP_PLAIN_BATCH}"] = output_diff(out_k, out_p)
+        del out_k, out_p
+    if k5_small != K5_PER_RAGGED_FORWARD:
+        raise AssertionError(f"the ragged B={FLAGSHIP_PLAIN_BATCH} forward "
+                             f"launched K5 {k5_small} times")
+
+    def worst(shares):
+        return (f"mean {sum(shares.values()) / len(shares):.3g}, by site in "
+                "call order " + " ".join(f"{v:.3g}" for v in shares.values()))
+    print(f"[15 flagship serving] {n_params / 1e9:.4f}B params (bf16), "
+          f"built in {build_s:.1f} s | requests {FLAGSHIP_REQUEST_SIZES} "
+          f"finite; launches per request (forward and extract_features) "
+          f"{counted}, as expected: per forward K4-fwd 2, K2-fwd 2, K5 "
+          f"{K5_PER_RAGGED_FORWARD} at B=64 and 0 at B <= 16 (the simulator "
+          "dense there); no plain version reached | dispatch modes: "
+          + "; ".join(f"B={n} " + ", ".join(f"{k} {v}" for k, v in m.items())
+                      for n, m in modes.items())
+          + " | per request, host wall median/max, CUDA-event ms, peak mem, "
+          "obs/s: " + ", ".join(
+              f"B={n} {t['host_median_ms']:.2f}/{t['host_max_ms']:.2f}, "
+              f"{t['device_ms']:.2f}, {t['peak_gib']:.2f} GiB, "
+              f"{n / t['device_ms'] * 1e3:.1f}" for n, t in timing.items())
+          + " | kernel vs plain, the plain run routed as the kernel run: "
+          f"simulator alone at B=64 (its own routing would flip for tokens "
+          f"{worst(sim_shares)}); the whole model at "
+          f"B={FLAGSHIP_PLAIN_BATCH}, simulator ragged, K5 {k5_small} "
+          f"launches (flips {worst(shares)}); outputs " + ", ".join(
+              f"{k} max {v['max_abs']:.4g} mean {v['mean_abs']:.3g}"
+              for k, v in diffs.items())
+          + f" (tol {FLAGSHIP_TOL}; flipped share at most "
+          f"{FLAGSHIP_MAX_FLIPPED}) | {card()}")
+    print_breakdown(15, "B=64 forward", "forward", breakdown, by_op)
+    for name, d in diffs.items():
+        if any(d[k] > FLAGSHIP_TOL[k] for k in FLAGSHIP_TOL):
+            raise AssertionError(f"flagship kernel vs plain, {name}: {d} "
+                                 f"(tol {FLAGSHIP_TOL})")
+    for name, share in {**sim_shares, **shares}.items():
+        if share > FLAGSHIP_MAX_FLIPPED:
+            raise AssertionError(f"routing flipped for {share:.4f} of the "
+                                 f"tokens at {name}")
+    return {"launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -1561,6 +1953,8 @@ def main() -> None:
     k4, k4b = phase_flash(gen)
     mmt = phase_mm_train(gen)
     clip = phase_clip(gen)
+    k5 = phase_gmm(gen)
+    flag = phase_flagship(gen)
     report = {"kernels": [
         {"name": "hash_encode_fwd", "route": "cuda",
          "source": "deepearth_tpu_torch/kernels/csrc/hash_encode.cu",
@@ -1612,12 +2006,20 @@ def main() -> None:
          "launches": clip["launches"]["flash_attention_bwd"],
          "max_abs_err": k4b["max_abs_err"], "ms": k4b["ms"],
          "plain_ms": k4b["plain_ms"]},
+        {"name": "grouped_matmul_fwd", "route": "cuda",
+         "source": "deepearth_tpu_torch/kernels/csrc/grouped_matmul.cu",
+         "replaces": "jax/experimental/pallas/ops/tpu/megablox/gmm.py:314 "
+                     "(called at deepearth_tpu/ops/moe.py:359, :362, :366)",
+         "launches": flag["launches"]["grouped_matmul_fwd"],
+         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
+         "plain_ms": k5["plain_ms"]},
     ]}
     # each kernel's bound and library call; K3's numbers add its MLA and
     # cross sites at B=512 (per forward, per step); K4's are at
-    # CLIP_PLAIN_BATCH, where the plain version fits
+    # CLIP_PLAIN_BATCH, where the plain version fits; K5's at the flagship
+    # simulator's B=64 shape
     for entry, phase in zip(report["kernels"],
-                            (k2, k1, k1b, k2b, k3, k3b, k4, k4b)):
+                            (k2, k1, k1b, k2b, k3, k3b, k4, k4b, k5)):
         entry.update({key: phase[key] for key in
                       ("bound_ms", "bound_by", "library_ms")})
     for k in report["kernels"]:

@@ -3,11 +3,13 @@
 A port of ``deepearth_tpu`` (JAX, the reference) that mirrors its module
 names. It imports neither JAX nor the JAX package. Ported so far:
 ``DeepEarthModel`` with learned-embedding modalities and continuous
-modalities through universal-token encoders (MLA + SwiGLU), token-major and
-batch-major fusion, and the masked-reconstruction train step (``training``),
-with CUDA kernels for the hash-grid encoding and the token-major pairwise
-attention, forward and backward, and for mid-length attention, forward (see
-ROADMAP.md for what is still to come).
+modalities through universal-token encoders (MLA + SwiGLU, optionally an MoE
+projection), token-major and batch-major fusion, the DeepSeek MLA/MoE
+simulator of the flagship (``integrated_config(use_deepseek_fusion=True)``),
+and the masked-reconstruction train step (``training``), with CUDA kernels
+for the hash-grid encoding, the token-major pairwise attention, mid-length
+and flash attention (forward and backward) and the grouped matmul of the
+ragged expert path (forward); see ROADMAP.md for what is still to come.
 """
 
 from .configs import (
@@ -25,6 +27,8 @@ from .configs import (
     TransformerConfig,
     config_from_json,
     config_to_json,
+    integrated_config,
+    simulator_config,
 )
 from .convert import (
     flax_params_from_model,
@@ -37,6 +41,7 @@ __all__ = [
     "DeepEarthConfig", "DeepSeekBlockConfig", "FusionConfig", "Grid4DConfig",
     "HashEncodingConfig", "MLAConfig", "MaskingConfig", "ModalityConfig",
     "MoEConfig", "OptimizerConfig", "RopeScalingConfig", "TransformerConfig",
-    "config_from_json", "config_to_json", "flax_params_from_model",
+    "config_from_json", "config_to_json", "integrated_config",
+    "simulator_config", "flax_params_from_model",
     "load_flax_opt_state", "load_flax_params", "DeepEarthModel",
 ]

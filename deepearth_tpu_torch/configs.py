@@ -5,8 +5,9 @@ The fields and ``__post_init__`` derivations are those of
 read; dtypes are torch dtypes. :func:`config_from_json` reads the JSON that
 the JAX package's ``config_to_json`` writes, and :func:`config_to_json`
 writes the same schema, so a checkpoint's config travels between the two
-packages. The MoE section is read and written but not run yet; the
-sharding section is kept as a plain dict.
+packages. The sharding section is kept as a plain dict. The presets
+(:func:`integrated_config`, the flagship; :func:`simulator_config`) are those
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -161,8 +162,8 @@ class MLAConfig:
     attention_dropout: float = 0.0
     attention_bias: bool = False
     max_position_embeddings: int = 4096
-    # sequences of at least flash_min_seq go to the flash kernel (K4, not
-    # ported yet: on the card MLAttention raises there)
+    # on the card, sequences of at least flash_min_seq go to the flash
+    # kernel K4
     use_flash_attention: bool = False
     flash_min_seq: int = 1024
     # ring attention over a mesh axis (not ported yet: the port has no mesh)
@@ -177,8 +178,9 @@ class MLAConfig:
 
 @dataclass
 class MoEConfig:
-    """Sigmoid group-limited top-k MoE, kept as data: the port does not run
-    MoE layers yet (ROADMAP.md Queue 1, item 12)."""
+    """Sigmoid group-limited top-k MoE (``models/deepseek.py`` ``MoELayer``).
+    ``dense_all_max_bytes=None`` takes the budget from the device type
+    (``models/deepseek.py`` ``dense_all_budget_bytes``)."""
 
     n_routed_experts: int = 8
     num_experts_per_tok: int = 2
@@ -190,7 +192,8 @@ class MoEConfig:
     moe_intermediate_size: int = 512
     hidden_dim: int = 512
     capacity_factor: Optional[float] = 2.0
-    dispatch_mode: str = "auto"  # 'auto' | 'dense' | 'scatter' | 'ragged'
+    # 'auto' | 'dense_all' | 'dense' | 'scatter' | 'ragged'
+    dispatch_mode: str = "auto"
     aux_loss_weight: float = 0.0
     dense_all_max_bytes: Optional[int] = None
     allow_ragged: bool = True
@@ -245,8 +248,7 @@ class FusionConfig:
     remat_policy: str = "full"
     max_seq_length: int = 8192
     max_spatial_resolution: int = 64
-    # DeepSeek MLA/MoE simulator after the fusion stack (not run by the port
-    # yet: DeepEarthModel raises, ROADMAP.md Queue 1, item 12)
+    # DeepSeek MLA/MoE simulator after the fusion stack
     deepseek_block: Optional[DeepSeekBlockConfig] = None
 
 
@@ -272,6 +274,33 @@ class ModalityConfig:
     encoder_ring_min_seq: int = 512
     loss_weight: float = 1.0
     mask_prob: float = 0.15
+
+
+# Named modality presets of the JAX package.
+PRESET_MODALITIES: Dict[str, ModalityConfig] = {
+    "vision_standard": ModalityConfig(
+        name="vision", input_dim=1408, n_tokens=16, use_moe_projection=True
+    ),
+    "vision_satellite": ModalityConfig(
+        name="vision", input_dim=1408, n_tokens=64, use_moe_projection=True
+    ),
+    "language_standard": ModalityConfig(
+        name="language", input_dim=7168, n_tokens=4, use_moe_projection=True
+    ),
+    "weather": ModalityConfig(name="weather", input_dim=5, n_tokens=1),
+    "soil": ModalityConfig(name="soil", input_dim=10, n_tokens=1),
+    "species": ModalityConfig(
+        name="species",
+        encoding_type="learned_embedding",
+        input_type="categorical",
+        vocab_size=232,
+        n_tokens=1,
+    ),
+    "ndvi_timeseries": ModalityConfig(name="ndvi", input_dim=24, n_tokens=2),
+    "hyperspectral": ModalityConfig(
+        name="hyperspectral", input_dim=224, n_tokens=4, use_moe_projection=True
+    ),
+}
 
 
 @dataclass
@@ -341,6 +370,94 @@ class DeepEarthConfig:
     def add_modality(self, cfg: ModalityConfig) -> "DeepEarthConfig":
         self.modalities[cfg.name] = cfg
         return self
+
+
+# --------------------------------------------------------------------------- #
+# Presets
+# --------------------------------------------------------------------------- #
+
+
+def integrated_config(
+    universal_dim: int = 2048,
+    num_fusion_layers: int = 24,
+    use_deepseek_fusion: bool = False,
+    **overrides,
+) -> DeepEarthConfig:
+    """The flagship: 2048-d universal tokens, 24 fusion layers, vision and
+    language through MoE-projected universal-token encoders; with
+    ``use_deepseek_fusion`` a 24-layer MLA + MoE simulator (8 experts, top-2
+    in 2 groups, one shared expert) after the fusion stack."""
+    ds = None
+    if use_deepseek_fusion:
+        ds = DeepSeekBlockConfig(
+            hidden_dim=universal_dim,
+            n_layers=num_fusion_layers,
+            intermediate_size=universal_dim * 4,
+            mla=MLAConfig(
+                hidden_dim=universal_dim,
+                n_heads=16,
+                q_lora_rank=universal_dim // 2,
+                kv_lora_rank=512,
+                qk_rope_head_dim=64,
+                qk_nope_head_dim=128,
+                v_head_dim=128,
+            ),
+            moe=MoEConfig(
+                n_routed_experts=8,
+                num_experts_per_tok=2,
+                n_group=2,
+                topk_group=1,
+                moe_intermediate_size=universal_dim,
+                hidden_dim=universal_dim,
+            ),
+        )
+    cfg = DeepEarthConfig(
+        hidden_dim=universal_dim,
+        n_heads=16,
+        n_layers=num_fusion_layers,
+        fusion=FusionConfig(
+            universal_dim=universal_dim,
+            num_fusion_layers=num_fusion_layers,
+            num_heads=16,
+            deepseek_block=ds,
+        ),
+        **overrides,
+    )
+    cfg.add_modality(dataclasses.replace(PRESET_MODALITIES["vision_standard"]))
+    cfg.add_modality(dataclasses.replace(PRESET_MODALITIES["language_standard"]))
+    return cfg
+
+
+# Inductive-simulator presets of the JAX package.
+SIMULATOR_PRESETS: Dict[str, Dict[str, int]] = {
+    "standard": dict(n_layers=24, hidden_dim=2048, n_heads=16, n_experts=8),
+    "high_precision": dict(n_layers=32, hidden_dim=2560, n_heads=20, n_experts=16),
+    "fast": dict(n_layers=12, hidden_dim=1024, n_heads=8, n_experts=4),
+    "ultra": dict(n_layers=48, hidden_dim=4096, n_heads=32, n_experts=128),
+}
+
+
+def simulator_config(preset: str = "standard") -> DeepSeekBlockConfig:
+    p = SIMULATOR_PRESETS[preset]
+    return DeepSeekBlockConfig(
+        hidden_dim=p["hidden_dim"],
+        n_layers=p["n_layers"],
+        intermediate_size=p["hidden_dim"] * 4,
+        mla=MLAConfig(
+            hidden_dim=p["hidden_dim"],
+            n_heads=p["n_heads"],
+            kv_lora_rank=min(512, p["hidden_dim"] // 4),
+            qk_rope_head_dim=64,
+            qk_nope_head_dim=128,
+            v_head_dim=128,
+        ),
+        moe=MoEConfig(
+            n_routed_experts=p["n_experts"],
+            num_experts_per_tok=min(2, p["n_experts"]),
+            moe_intermediate_size=p["hidden_dim"],
+            hidden_dim=p["hidden_dim"],
+        ),
+    )
 
 
 # --------------------------------------------------------------------------- #

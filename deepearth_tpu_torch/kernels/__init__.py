@@ -37,7 +37,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launch_counts = {"hash_encode_fwd": 0, "hash_encode_bwd": 0,
                  "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
                  "vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
-                 "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+                 "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                 "grouped_matmul_fwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -56,6 +57,7 @@ _SIGNATURES = {
                             _P],
     "flash_attention_bwd": [*[_P] * 11, *[_I] * 6, *[_I64] * 9, _F, _I, _I,
                             _P],
+    "grouped_matmul_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -441,3 +443,41 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check("flash_attention_bwd", rc)
     return tuple(grads)
+
+
+GMM_MAX_GROUPS = 1024
+
+
+def grouped_matmul_fwd(lhs: torch.Tensor, rhs: torch.Tensor,
+                       group_sizes: torch.Tensor) -> torch.Tensor:
+    """K5 forward: lhs (M, K) and rhs (E, K, N), both float32 or both
+    bfloat16, and group_sizes (E,) int32, all on one CUDA device; rows
+    [offset_g, offset_g + size_g) of lhs go through rhs[g]. Returns (M, N)
+    float32, rows past the sum of the sizes 0. The sizes stay on the device:
+    the kernel reads them itself. M = 0 launches nothing."""
+    _require(lhs.is_cuda and rhs.device == lhs.device
+             and group_sizes.device == lhs.device,
+             "grouped_matmul_fwd: inputs must lie on one CUDA device")
+    _require(lhs.dtype in _ATTN_DTYPES and rhs.dtype == lhs.dtype,
+             "grouped_matmul_fwd: lhs and rhs must share float32 or bfloat16")
+    _require(lhs.dim() == 2 and rhs.dim() == 3 and rhs.shape[1] == lhs.shape[1],
+             "grouped_matmul_fwd: lhs must be (M, K) and rhs (E, K, N)")
+    n_groups = rhs.shape[0]
+    _require(group_sizes.dtype == torch.int32
+             and tuple(group_sizes.shape) == (n_groups,),
+             "grouped_matmul_fwd: group_sizes must be (E,) int32")
+    _require(1 <= n_groups <= GMM_MAX_GROUPS,
+             f"grouped_matmul_fwd: E must be in 1..{GMM_MAX_GROUPS}")
+    m, k = lhs.shape
+    n = rhs.shape[2]
+    out = torch.empty((m, n), device=lhs.device, dtype=torch.float32)
+    if m == 0 or n == 0:
+        return out
+    lhs, rhs, group_sizes = (lhs.contiguous(), rhs.contiguous(),
+                             group_sizes.contiguous())
+    rc = library().grouped_matmul_fwd(
+        lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
+        out.data_ptr(), m, k, n, n_groups, _ATTN_DTYPES[lhs.dtype],
+        torch.cuda.current_stream(lhs.device).cuda_stream)
+    _check("grouped_matmul_fwd", rc)
+    return out

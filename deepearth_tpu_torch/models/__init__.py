@@ -1,6 +1,13 @@
 from .decoders import ModalityDecoder, SpatiotemporalDecoder
 from .deepearth import DeepEarthModel
-from .deepseek import DeepSeekBlock, DeepSeekTransformer, MLAttention, SwiGLUMLP
+from .deepseek import (
+    DeepSeekBlock,
+    DeepSeekTransformer,
+    MLAttention,
+    MoELayer,
+    SwiGLUMLP,
+    select_dispatch_mode,
+)
 from .encoders import UniversalTokenEncoder
 from .fusion import (
     CrossModalFusion,
@@ -13,7 +20,8 @@ from .transformer import GatedMLP, KernelParam, MLP
 
 __all__ = [
     "ModalityDecoder", "SpatiotemporalDecoder", "DeepEarthModel",
-    "DeepSeekBlock", "DeepSeekTransformer", "MLAttention", "SwiGLUMLP",
+    "DeepSeekBlock", "DeepSeekTransformer", "MLAttention", "MoELayer",
+    "SwiGLUMLP", "select_dispatch_mode",
     "UniversalTokenEncoder", "CrossModalFusion", "FusionAttention",
     "FusionLayer", "SpatialTemporalEmbedding", "Grid4DEncoder", "GatedMLP",
     "KernelParam", "MLP",

@@ -26,6 +26,7 @@ from torch import nn
 
 from ..configs import DeepEarthConfig, ModalityConfig
 from .decoders import ModalityDecoder, SpatiotemporalDecoder
+from .deepseek import DeepSeekTransformer
 from .encoders import UniversalTokenEncoder
 from .fusion import CrossModalFusion
 from .grid4d import Grid4DEncoder
@@ -35,8 +36,6 @@ _TODO = {
     "token_sequence": "models/encoders.py token_sequence inputs "
                       "(ROADMAP.md Queue 1, item 9)",
     "decode_sequence": "TokenSequenceDecoder (ROADMAP.md Queue 1, item 9)",
-    "deepseek_block": "the DeepSeek simulator with MoE, models/deepseek.py "
-                      "(ROADMAP.md Queue 1, item 12)",
 }
 
 
@@ -63,7 +62,8 @@ def _square_side(n: int) -> Optional[int]:
 class DeepEarthModel(nn.Module):
     """Grid4D spacetime token + per-modality universal tokens (learned
     embeddings, or universal-token encoders over native features) -> fusion
-    -> reconstruction decoders.
+    -> (with ``fusion.deepseek_block``, the DeepSeek MLA/MoE simulator over
+    the fused tokens) -> reconstruction decoders.
 
     Args:
         config: the model configuration.
@@ -82,8 +82,6 @@ class DeepEarthModel(nn.Module):
                  native_seq_lens: Optional[Mapping[str, int]] = None):
         super().__init__()
         cfg = config
-        if cfg.fusion.deepseek_block is not None:
-            raise _not_ported("deepseek_block")
         for m in cfg.modalities.values():
             if m.encoding_type == "token_sequence":
                 raise _not_ported("token_sequence")
@@ -115,6 +113,9 @@ class DeepEarthModel(nn.Module):
         self.fusion = CrossModalFusion(
             cfg.fusion, ["spacetime"] + self.modality_names, init, cd,
             spatial=spatial)
+        if cfg.fusion.deepseek_block is not None:
+            self.simulator = DeepSeekTransformer(cfg.fusion.deepseek_block,
+                                                 init, cd)
         self.spatial_decoder = SpatiotemporalDecoder(D, 3, init, cd)
         self.temporal_decoder = SpatiotemporalDecoder(D, 1, init, cd)
         for name in self.modality_names:
@@ -176,6 +177,8 @@ class DeepEarthModel(nn.Module):
         fusion_out = self.fusion(tokens, spatial_positions or None,
                                  temporal_positions or None,
                                  generator=generator)
+        if cfg.fusion.deepseek_block is not None:
+            fusion_out = self._simulate(fusion_out, tokens, generator)
 
         st_fused = fusion_out["modality_tokens"]["spacetime"].mean(dim=1)
         recon = {"spatial": self.spatial_decoder(st_fused),
@@ -191,6 +194,21 @@ class DeepEarthModel(nn.Module):
             "modality_tokens": fusion_out["modality_tokens"],
             "input_tokens": tokens,
         }
+
+    def _simulate(self, fusion_out, tokens, generator):
+        """The simulator over all fused tokens: its output becomes
+        ``all_tokens``, its first token the fused representation, and each
+        modality's tokens are sliced from it again, from index 1 in the
+        order spacetime, then the modalities by name."""
+        h = self.simulator(fusion_out["all_tokens"], generator=generator)
+        idx, per_modality = 1, {}
+        for name in ["spacetime"] + self.modality_names:
+            if name in tokens:
+                n = tokens[name].shape[1]
+                per_modality[name] = h[:, idx:idx + n]
+                idx += n
+        return {**fusion_out, "all_tokens": h, "fused_representation": h[:, 0],
+                "modality_tokens": per_modality}
 
     @torch.inference_mode()
     def extract_features(self, batch: Dict[str, Any]) -> torch.Tensor:

@@ -1,26 +1,30 @@
-"""DeepSeek-style components, PyTorch port of the dense parts of
+"""DeepSeek-style components, PyTorch port of
 ``deepearth_tpu/models/deepseek.py``: MLA attention, the SwiGLU MLP, the
-decoder block and the sequential stack.
+MoE layer and its dispatch rule, the decoder block and the sequential stack.
 
 MLA attention over at least ``flash_min_seq`` tokens (with
 ``use_flash_attention``) runs the flash kernels K4-fwd/K4-bwd on the card,
 as the JAX package runs its library flash kernel on the TPU; on the CPU it
-stays on ``dot_product_attention``, as the JAX package does there. Not
-ported yet, and refused where a config asks for them: MoE layers
-(ROADMAP.md Queue 1, item 12), ring attention over a mesh and pipelined
-stages (item 15).
+stays on ``dot_product_attention``, as the JAX package does there. An MoE
+layer's ``auto`` dispatch takes the ragged path (the grouped matmul K5) on
+the card where the JAX package takes it on the TPU, and ``scatter`` on the
+CPU, as the JAX package does there. Not ported yet, and refused where a
+config asks for them: ring attention over a mesh and pipelined stages
+(ROADMAP.md Queue 1, item 15).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..configs import DeepSeekBlockConfig, MLAConfig
+from ..configs import DeepSeekBlockConfig, MLAConfig, MoEConfig
 from ..ops import flash_attention as flash
+from ..ops import moe as moe_ops
 from ..ops.attention import dot_product_attention
 from ..ops.norms import RMSNorm
 from ..ops.rope import apply_rope_deepseek, rope_tables, yarn_get_mscale
@@ -31,8 +35,6 @@ FLASH_SHAPE = (
     "kernel K4 on the card, which takes head dims up to {most}, not Dqk "
     "{qh} and Dv {vh}: wider heads (DeepSeek-V3's 192) wait for ROADMAP.md "
     "Queue 1, item 13")
-MOE_TODO = ("MoE layers are not ported yet (ROADMAP.md Queue 1, item 12: "
-            "ops/moe.py and the MoE block of models/deepseek.py)")
 PIPELINE_TODO = ("pipelined DeepSeek stacks (pipeline_stages > 1) are not "
                  "ported yet (ROADMAP.md Queue 1, item 15)")
 
@@ -145,28 +147,168 @@ class SwiGLUMLP(nn.Module):
         return self.down_proj(F.silu(gate) * up)
 
 
+def dense_all_activation_bytes(cfg: MoEConfig, n_tokens: int,
+                               itemsize: int = 2) -> int:
+    """The JAX package's reckoning of dense_all's live (E, S, F)-class
+    buffers under grad: 4 of E S F plus one of E S D."""
+    E, F_, D = cfg.n_routed_experts, cfg.moe_intermediate_size, cfg.hidden_dim
+    return itemsize * (4 * E * n_tokens * F_ + E * n_tokens * D)
+
+
+def dense_all_budget_bytes(cfg: MoEConfig, device,
+                           total_memory: Optional[int] = None) -> int:
+    """Activation budget for dense_all, from the config and the device type
+    alone: ``cfg.dense_all_max_bytes`` if set; on a card 37.5% of its total
+    memory (``total_memory``, else the card's own), at least 256 MiB; 6 GiB
+    on the CPU (the JAX package's value where the backend gives no memory
+    stats). Never the free or allocated memory: the dispatch algorithm, and
+    so which tokens are dropped, must not depend on what else is resident."""
+    if cfg.dense_all_max_bytes is not None:
+        return int(cfg.dense_all_max_bytes)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 6 * 2 ** 30
+    if total_memory is None:
+        total_memory = torch.cuda.get_device_properties(device).total_memory
+    return max(int(0.375 * total_memory), 256 * 2 ** 20)
+
+
+def select_dispatch_mode(cfg: MoEConfig, n_tokens: int, device="cpu",
+                         total_memory: Optional[int] = None) -> str:
+    """Resolve ``dispatch_mode='auto'`` for a token count, the JAX package's
+    rule with the card in the TPU's place.
+
+    ``dense_all`` while E is within ~1.1 capacity_factor K of the routed
+    minimum (always for exact mode) and its activations fit the budget;
+    else ``dense`` (one-hot capacity dispatch) while S E C <= 2^22; else
+    ``ragged`` (drop-free, the grouped matmul K5) on a card when
+    ``allow_ragged``; else ``scatter``.
+    """
+    E, K = cfg.n_routed_experts, cfg.num_experts_per_tok
+    S = n_tokens
+    flops_ok = (cfg.capacity_factor is None
+                or E <= math.ceil(1.1 * cfg.capacity_factor * K))
+    if flops_ok and dense_all_activation_bytes(cfg, S) <= \
+            dense_all_budget_bytes(cfg, device, total_memory):
+        return "dense_all"
+    if S * E * capacity(cfg, S) <= 2 ** 22:
+        return "dense"
+    if cfg.allow_ragged and torch.device(device).type == "cuda":
+        return "ragged"
+    return "scatter"
+
+
+def capacity(cfg: MoEConfig, n_tokens: int) -> int:
+    """Slots per expert of the capacity modes: S K when drop-free
+    (capacity_factor None), else max(K, ceil(S K / E * capacity_factor))."""
+    K = cfg.num_experts_per_tok
+    if cfg.capacity_factor is None:
+        return n_tokens * K
+    return max(K, int(math.ceil(n_tokens * K / cfg.n_routed_experts
+                                * cfg.capacity_factor)))
+
+
+class MoELayer(nn.Module):
+    """Routed experts (stacked (E, D, F) weights) plus optional shared
+    experts. The router's weight and bias stay float32 whatever the
+    parameter type, as in the JAX package.
+
+    After each call the layer keeps, where a caller can read them (flax
+    sows the first two): ``aux_loss``, the load-balance loss; ``load``, the
+    (E,) tokens routed per expert; ``mode``, the dispatch mode it took.
+    """
+
+    def __init__(self, cfg: MoEConfig, init: Init,
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        E, D, F_ = (cfg.n_routed_experts, cfg.hidden_dim,
+                    cfg.moe_intermediate_size)
+        # kaiming_uniform(a=sqrt(5)) over (E, D)
+        bound = math.sqrt(3.0) * math.sqrt(2.0 / 6.0) / math.sqrt(D)
+        self.router_weight = nn.Parameter(
+            init.empty((E, D), torch.float32).uniform_(
+                -bound, bound, generator=init.generator))
+        self.e_score_correction_bias = nn.Parameter(
+            init.empty((E,), torch.float32).zero_())
+        self.w_gate = init.normal((E, D, F_))
+        self.w_up = init.normal((E, D, F_))
+        self.w_down = init.normal((E, F_, D))
+        if cfg.n_shared_experts:
+            self.shared_experts = SwiGLUMLP(D, F_ * cfg.n_shared_experts,
+                                            init, compute_dtype)
+        self.aux_loss = self.load = self.mode = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg, cd = self.cfg, self.compute_dtype
+        xf = x.reshape(-1, x.shape[-1])
+        S = xf.shape[0]
+        gate = moe_ops.moe_gate(
+            xf.float() @ self.router_weight.T, self.e_score_correction_bias,
+            top_k=cfg.num_experts_per_tok, n_group=cfg.n_group,
+            topk_group=cfg.topk_group, norm_topk_prob=cfg.norm_topk_prob,
+            routed_scaling_factor=cfg.routed_scaling_factor)
+        mode = cfg.dispatch_mode
+        if mode == "auto":
+            mode = select_dispatch_mode(cfg, S, xf.device)
+        xc = xf.to(cd)
+        weights = [w.to(cd) for w in (self.w_gate, self.w_up, self.w_down)]
+        if mode == "dense_all":
+            y, load = moe_ops.dense_all_expert_ffn(
+                xc, gate.topk_idx, gate.topk_weight, *weights)
+        elif mode == "ragged":
+            y = moe_ops.ragged_expert_ffn(xc, gate.topk_idx,
+                                          gate.topk_weight, *weights)
+            load = moe_ops.expert_load(gate.topk_idx, cfg.n_routed_experts)
+        elif mode == "scatter":
+            y, load = moe_ops.scatter_dispatch_ffn(
+                xc, gate.topk_idx, gate.topk_weight, *weights,
+                capacity(cfg, S))
+        elif mode == "dense":
+            dispatch, combine, load = moe_ops.make_dispatch_combine(
+                gate.topk_idx, gate.topk_weight,
+                n_experts=cfg.n_routed_experts, capacity=capacity(cfg, S))
+            expert_in = torch.einsum("sec,sd->ecd", dispatch.to(cd), xc)
+            expert_out = moe_ops.expert_ffn(expert_in, *weights)
+            y = torch.einsum("sec,ecd->sd", combine.to(cd), expert_out)
+        else:
+            raise ValueError(f"unknown dispatch_mode {mode!r}")
+        if cfg.n_shared_experts:
+            y = y + self.shared_experts(xf)
+        self.aux_loss = moe_ops.load_balance_aux_loss(
+            gate.scores, gate.topk_idx, cfg.n_routed_experts)
+        self.load, self.mode = load, mode
+        return y.reshape(x.shape).to(x.dtype)
+
+
 def layer_uses_moe(cfg: DeepSeekBlockConfig, i: int) -> bool:
     return (cfg.moe is not None and i >= cfg.first_k_dense_replace
             and i % cfg.moe_layer_freq == 0)
 
 
 class DeepSeekBlock(nn.Module):
-    """Pre-RMSNorm decoder block: MLA + dense SwiGLU MLP. A layer that the
-    config makes an MoE layer raises."""
+    """Pre-RMSNorm decoder block: MLA + (dense SwiGLU | MoE) MLP. Which one
+    follows the layer's place in the stack (``first_k_dense_replace``,
+    ``moe_layer_freq``) unless ``force_moe`` says."""
 
     def __init__(self, cfg: DeepSeekBlockConfig, layer_idx: int, init: Init,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype,
+                 force_moe: Optional[bool] = None):
         super().__init__()
-        if layer_uses_moe(cfg, layer_idx):
-            raise NotImplementedError(MOE_TODO)
+        use_moe = (layer_uses_moe(cfg, layer_idx) if force_moe is None
+                   else force_moe)
         dev = init.device
         self.input_layernorm = RMSNorm(cfg.hidden_dim, cfg.rms_norm_eps,
                                        device=dev)
         self.self_attn = MLAttention(cfg.mla, init, compute_dtype)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_dim,
                                                 cfg.rms_norm_eps, device=dev)
-        self.mlp = SwiGLUMLP(cfg.hidden_dim, cfg.intermediate_size, init,
-                             compute_dtype)
+        if use_moe:
+            self.moe = MoELayer(cfg.moe, init, compute_dtype)
+        else:
+            self.mlp = SwiGLUMLP(cfg.hidden_dim, cfg.intermediate_size, init,
+                                 compute_dtype)
 
     def forward(self, x: torch.Tensor,
                 key_mask: Optional[torch.Tensor] = None,
@@ -174,7 +316,8 @@ class DeepSeekBlock(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x + self.self_attn(self.input_layernorm(x), key_mask, is_causal,
                                generator)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        h = self.post_attention_layernorm(x)
+        return x + (self.moe(h) if hasattr(self, "moe") else self.mlp(h))
 
 
 class DeepSeekTransformer(nn.Module):

@@ -2,7 +2,8 @@
 and ``_CrossAttention`` in ``deepearth_tpu/models/encoders.py``.
 
 Native embeddings (B, S, input_dim) or (B, input_dim) are projected to the
-universal dim, given learned positions, run through a DeepSeek transformer
+universal dim (plus, with ``use_moe_projection``, a 4-expert top-2 MoE of the
+projection), given learned positions, run through a DeepSeek transformer
 (MLA + SwiGLU) and reduced to ``n_tokens`` universal tokens: learned query
 tokens cross-attend into the sequence (``n_tokens > 1``), or attention
 pooling makes one token. The result is RMSNorm'd.
@@ -19,10 +20,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..configs import DeepSeekBlockConfig, MLAConfig, ModalityConfig
+from ..configs import DeepSeekBlockConfig, MLAConfig, ModalityConfig, MoEConfig
 from ..ops.attention import dot_product_attention
 from ..ops.norms import RMSNorm
-from .deepseek import DeepSeekTransformer, MOE_TODO
+from .deepseek import DeepSeekTransformer, MoELayer
 from .layers import Dense, Init
 
 MAX_POSITIONS = 4608  # the longest native sequence (V-JEPA2 patches)
@@ -83,11 +84,15 @@ class UniversalTokenEncoder(nn.Module):
                  max_positions: int = MAX_POSITIONS):
         super().__init__()
         m, D = modality, universal_dim
-        if m.use_moe_projection:
-            raise NotImplementedError(f"use_moe_projection: {MOE_TODO}")
         self.modality = m
         self.compute_dtype = compute_dtype
         self.input_projection = Dense(m.input_dim, D, init, compute_dtype)
+        if m.use_moe_projection:
+            self.moe_projection = MoELayer(
+                MoEConfig(n_routed_experts=4, num_experts_per_tok=2,
+                          moe_intermediate_size=D, hidden_dim=D,
+                          n_shared_experts=None),
+                init, compute_dtype)
         n_pos = min(max_positions, max(native_seq_len, m.n_tokens))
         self.position_embedding = init.normal((n_pos, D))
         self.transformer = DeepSeekTransformer(
@@ -123,6 +128,8 @@ class UniversalTokenEncoder(nn.Module):
             native = native[:, None, :]
         B, S, _ = native.shape
         x = self.input_projection(native.to(cd))
+        if m.use_moe_projection:
+            x = x + self.moe_projection(x)
         x = x + self.positions(S).to(x.dtype)[None]
         x = self.transformer(x, generator=generator)
         if m.n_tokens > 1:

@@ -14,6 +14,7 @@ from .attention_vmem import (
 # ops.flash_attention stays the module (its function flash_attention would
 # shadow it here), as ops.attention_vmem is
 from .flash_attention import flash_attention_bwd_plain, flash_attention_plain
+from .grouped_matmul import gmm, gmm_bwd_plain, gmm_plain
 from .hash_encoding import (
     HashEncoding,
     hash_encode,
@@ -21,6 +22,17 @@ from .hash_encoding import (
     hash_encode_plain,
     hash_grid_indices,
     init_hash_tables,
+)
+from .moe import (
+    GateResult,
+    dense_all_expert_ffn,
+    expert_ffn,
+    load_balance_aux_loss,
+    make_dispatch_combine,
+    moe_gate,
+    position_in_expert,
+    ragged_expert_ffn,
+    scatter_dispatch_ffn,
 )
 from .norms import RMSNorm
 from .rope import (
@@ -37,8 +49,12 @@ __all__ = [
     "pairwise_token_attention_bwd_plain", "pairwise_token_attention_plain",
     "rope_token_major", "supported", "vmem_attention",
     "vmem_attention_bwd_plain", "vmem_attention_plain", "flash_attention",
-    "flash_attention_bwd_plain", "flash_attention_plain", "HashEncoding", "hash_encode",
+    "flash_attention_bwd_plain", "flash_attention_plain", "gmm",
+    "gmm_bwd_plain", "gmm_plain", "HashEncoding", "hash_encode",
     "hash_encode_bwd_plain", "hash_encode_plain", "hash_grid_indices",
-    "init_hash_tables", "RMSNorm", "apply_rope_deepseek", "apply_rope_half",
+    "init_hash_tables", "GateResult", "dense_all_expert_ffn", "expert_ffn",
+    "load_balance_aux_loss", "make_dispatch_combine", "moe_gate",
+    "position_in_expert", "ragged_expert_ffn", "scatter_dispatch_ffn",
+    "RMSNorm", "apply_rope_deepseek", "apply_rope_half",
     "apply_rope_interleaved", "rope_cos_sin", "rope_inv_freq", "rotate_half",
 ]

@@ -1,0 +1,111 @@
+"""Grouped matmul over expert-sorted rows, the PyTorch port of the megablox
+``gmm`` kernel that ``deepearth_tpu/ops/moe.py`` ``ragged_expert_ffn`` calls
+on the TPU.
+
+:func:`gmm` is a ``torch.autograd.Function``: for CUDA tensors the
+hand-written kernel K5-fwd (``kernels/csrc/grouped_matmul.cu``), for CPU
+tensors its plain PyTorch version :func:`gmm_plain`. The group sizes stay on
+the device: the kernel reads them itself, so a MoE layer costs no host
+synchronisation. The backward on the card (megablox's ``gmm`` with
+``transpose_rhs`` and ``tgmm``, K5-bwd) is the flagship train step's work;
+on the CPU :func:`gmm_bwd_plain` gives it.
+
+What the port does not copy from the JAX call site: the 128-row padding of
+the sorted rows into the last group and the tile table; the kernel takes any
+M and any group sizes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+
+K5_BWD_TODO = ("the backward of the grouped matmul on the card is K5-bwd "
+               "(megablox gmm with transpose_rhs and tgmm), the flagship "
+               "train step's kernel: ROADMAP.md Queue 1, item 12b")
+
+
+def supported(lhs: torch.Tensor, rhs: torch.Tensor,
+              group_sizes: torch.Tensor) -> bool:
+    """Inputs the kernel takes: lhs (M, K) and rhs (E, K, N) of one type,
+    float32 or bfloat16, group_sizes (E,) int32 with 1 <= E <= 1024."""
+    return (lhs.dim() == 2 and rhs.dim() == 3
+            and rhs.shape[1] == lhs.shape[1]
+            and lhs.dtype in (torch.float32, torch.bfloat16)
+            and rhs.dtype == lhs.dtype and group_sizes.dtype == torch.int32
+            and tuple(group_sizes.shape) == (rhs.shape[0],)
+            and 1 <= rhs.shape[0] <= kernels.GMM_MAX_GROUPS)
+
+
+def _segments(group_sizes: torch.Tensor, m: int):
+    """(group, first row, end row) of each non-empty group, cut at M. Reads
+    the sizes on the host: the plain versions only."""
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        end = min(start + max(size, 0), m)
+        if end > start:
+            yield g, start, end
+        start = end
+
+
+def gmm_plain(lhs: torch.Tensor, rhs: torch.Tensor,
+              group_sizes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K5-fwd: for each group g, rows
+    [offset_g, offset_g + size_g) of lhs times rhs[g] in fp32 (a bf16.bf16
+    product is exact in fp32, so each sum rounds only where the kernel's
+    does); rows past the sum of the sizes are 0. Returns (M, N) float32."""
+    m = lhs.shape[0]
+    out = torch.zeros((m, rhs.shape[2]), dtype=torch.float32,
+                      device=lhs.device)
+    for g, start, end in _segments(group_sizes, m):
+        out[start:end] = lhs[start:end].float() @ rhs[g].float()
+    return out
+
+
+def gmm_bwd_plain(lhs: torch.Tensor, rhs: torch.Tensor,
+                  group_sizes: torch.Tensor, dout: torch.Tensor):
+    """Plain PyTorch version of K5-bwd (megablox ``_gmm_bwd``): dlhs rows of
+    group g = dout rows . rhs[g]^T, rounded to lhs's type; drhs[g] = lhs
+    rows^T . dout rows, rounded to rhs's type (0 for an empty group); fp32
+    sums."""
+    dout = dout.float()
+    dlhs = torch.zeros(lhs.shape, dtype=torch.float32, device=lhs.device)
+    drhs = torch.zeros(rhs.shape, dtype=torch.float32, device=rhs.device)
+    for g, start, end in _segments(group_sizes, lhs.shape[0]):
+        dlhs[start:end] = dout[start:end] @ rhs[g].float().T
+        drhs[g] = lhs[start:end].float().T @ dout[start:end]
+    return dlhs.to(lhs.dtype), drhs.to(rhs.dtype)
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """K5-fwd for CUDA tensors, the plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes):
+        ctx.save_for_backward(lhs, rhs, group_sizes)
+        if lhs.device.type == "cpu":
+            return gmm_plain(lhs, rhs, group_sizes)
+        return kernels.grouped_matmul_fwd(lhs, rhs, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dout):
+        lhs, rhs, group_sizes = ctx.saved_tensors
+        if lhs.device.type != "cpu":
+            raise NotImplementedError(K5_BWD_TODO)
+        return (*gmm_bwd_plain(lhs, rhs, group_sizes, dout), None)
+
+
+def gmm(lhs: torch.Tensor, rhs: torch.Tensor,
+        group_sizes: torch.Tensor) -> torch.Tensor:
+    """Grouped matmul, megablox's ``gmm`` with fp32 output.
+
+    Args:
+        lhs: (M, K) rows sorted by group, float32 or bfloat16.
+        rhs: (E, K, N), lhs's type.
+        group_sizes: (E,) int32, on lhs's device; group g holds rows
+            [sum of sizes before g, + size_g).
+
+    Returns (M, N) float32: row r of group g is lhs[r] . rhs[g].
+    """
+    return _GroupedMatmul.apply(lhs, rhs, group_sizes)

@@ -21,9 +21,8 @@ import torch.nn.functional as F
 from ..configs import DeepEarthConfig
 from .metrics import coordinate_error_meters, time_error_hours
 
-MOE_AUX_TODO = ("the MoE auxiliary loss needs the DeepSeek simulator's "
-                "intermediates, which are not ported yet (ROADMAP.md Queue 1, "
-                "item 12)")
+MOE_AUX_TODO = ("the MoE auxiliary loss belongs to the flagship train step, "
+                "not ported yet (ROADMAP.md Queue 1, item 12b)")
 
 
 @dataclass

@@ -25,6 +25,7 @@ from deepearth_tpu_torch import (
 from deepearth_tpu_torch.models import DeepEarthModel
 from deepearth_tpu_torch.ops import (
     flash_attention,
+    grouped_matmul,
     hash_encode,
     pairwise_token_attention,
     vmem_attention,
@@ -196,6 +197,7 @@ def test_port_and_chip_smoke_import_without_jax():
         "import deepearth_tpu_torch.ops.rope, deepearth_tpu_torch.ops.norms\n"
         "import deepearth_tpu_torch.ops.attention\n"
         "import deepearth_tpu_torch.ops.attention_vmem\n"
+        "import deepearth_tpu_torch.ops.moe, deepearth_tpu_torch.ops.grouped_matmul\n"
         "import deepearth_tpu_torch.models.deepseek\n"
         "import deepearth_tpu_torch.models.encoders\n"
         "import chip_smoke\n"
@@ -225,8 +227,10 @@ def test_launch_counters_stay_zero_on_cpu(small):
         k = torch.randn(1, 2, 300, 32)
         vmem_attention(q, k, k, scale=0.25)
         flash_attention.flash_attention(k, k, k, scale=0.25, causal=True)
+        grouped_matmul.gmm(torch.randn(7, 8), torch.randn(3, 8, 5),
+                           torch.tensor([2, 0, 5], dtype=torch.int32))
     assert set(kernels.launch_counts.values()) == {0}
     assert set(kernels.launch_counts) == {
         "hash_encode_fwd", "hash_encode_bwd", "pairwise_attention_fwd",
         "pairwise_attention_bwd", "vmem_attention_fwd", "vmem_attention_bwd",
-        "flash_attention_fwd", "flash_attention_bwd"}
+        "flash_attention_fwd", "flash_attention_bwd", "grouped_matmul_fwd"}

@@ -264,18 +264,22 @@ def test_encoder_derives_the_jax_head_dims():
 
 @pytest.mark.parametrize("what", ["moe_layer", "moe_projection", "pipeline"])
 def test_unported_deepseek_options_raise(what):
+    """MoE layers and the MoE projection are ported (they build); pipelined
+    stacks, with or without MoE layers, still raise."""
     _, tc_mla = mla_cfgs()
     if what == "moe_projection":
         m = tcfg.ModalityConfig(name="v", input_dim=8, use_moe_projection=True)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tenc.UniversalTokenEncoder(m, D, port_init(), torch.float32)
+        enc = tenc.UniversalTokenEncoder(m, D, port_init(), torch.float32)
+        assert enc.moe_projection.cfg.n_routed_experts == 4
         return
-    cfg = tcfg.DeepSeekBlockConfig(
-        hidden_dim=D, n_layers=2, mla=tc_mla,
-        moe=tcfg.MoEConfig() if what == "moe_layer" else None,
-        pipeline_stages=2 if what == "pipeline" else 0)
-    with pytest.raises(NotImplementedError,
-                       match="item 12" if what == "moe_layer" else "item 15"):
+    moe = tcfg.MoEConfig() if what == "moe_layer" else None
+    cfg = tcfg.DeepSeekBlockConfig(hidden_dim=D, n_layers=2, mla=tc_mla,
+                                   moe=moe)
+    if moe is not None:
+        assert hasattr(tds.DeepSeekTransformer(cfg, port_init(),
+                                               torch.float32).layer_1, "moe")
+    cfg.pipeline_stages = 2
+    with pytest.raises(NotImplementedError, match="item 15"):
         tds.DeepSeekTransformer(cfg, port_init(), torch.float32)
 
 

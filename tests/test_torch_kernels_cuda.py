@@ -22,7 +22,10 @@ the output's largest entry in bf16, and the mean error within 2^-8 of the
 mean |plain|; its log-sum-exp within 1e-4. K3-bwd and K4-bwd are
 held by chip_smoke.check_grads: each gradient within BWD_TOL of its largest
 entry (1e-5 in fp32, two bf16 ulps of it in bf16) plus 1e-6; dq exactly 0
-where no key is visible, dk and dv exactly 0 for a masked key.
+where no key is visible, dk and dv exactly 0 for a masked key. K5-fwd
+returns fp32 in both types and differs from its plain version only in the
+order of fp32 sums: chip_smoke.check_gmm, 1e-5 of the largest entry in
+fp32, K4's relative limits in bf16.
 """
 
 import contextlib
@@ -35,13 +38,14 @@ import torch
 
 from deepearth_tpu_torch import kernels
 from deepearth_tpu_torch.models import DeepEarthModel
-from deepearth_tpu_torch.configs import MLAConfig
-from deepearth_tpu_torch.models.deepseek import MLAttention
+from deepearth_tpu_torch.configs import MLAConfig, MoEConfig
+from deepearth_tpu_torch.models.deepseek import MLAttention, MoELayer
 from deepearth_tpu_torch.models.layers import Init
 from deepearth_tpu_torch.ops import attention as tdpa
 from deepearth_tpu_torch.ops import attention_smallseq as tattn
 from deepearth_tpu_torch.ops import attention_vmem as tvmem
 from deepearth_tpu_torch.ops import flash_attention as tflash
+from deepearth_tpu_torch.ops import grouped_matmul as tgmm
 from deepearth_tpu_torch.ops import hash_encoding as the
 from deepearth_tpu_torch.training import Trainer
 
@@ -545,3 +549,73 @@ def test_vmem_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         kernels.vmem_attention_fwd(q, k, k, 0.2,
                                    torch.ones((1, 299), dtype=torch.bool,
                                               device=cuda))
+
+
+# K5: fp32 output in both types; chip_smoke.check_gmm holds it (1e-5 of the
+# largest entry in fp32, K4's relative limits in bf16)
+GMM_CASES = {  # group sizes, K, N, M (None: the sum of the sizes)
+    "empty groups, tiles across groups": ([0, 70, 0, 130, 100, 0], 96, 200,
+                                          None),
+    "M=1": ([0, 1, 0], 64, 64, None),
+    "K and N off the 8-element grid": ([100, 57, 100], 100, 130, None),
+    "odd K and N": ([5, 40, 19], 33, 31, None),
+    "rows past the last group": ([30, 20], 64, 128, 100),
+    "flagship 2816 E8 2048x2048": ([352, 420, 318, 360, 300, 380, 346, 340],
+                                   2048, 2048, None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(GMM_CASES))
+def test_grouped_matmul_matches_plain(cuda, dtype, case):
+    smoke = _smoke()
+    sizes, k, n, m = GMM_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lhs, rhs, gs = smoke.gmm_case(gen, sizes, k, n, dtype, m)
+    kernels.reset_launch_counts()
+    out = tgmm.gmm(lhs, rhs, gs)
+    assert kernels.launch_counts["grouped_matmul_fwd"] == 1
+    smoke.check_gmm(case, out, tgmm.gmm_plain(lhs, rhs, gs), dtype)
+    if m is not None:
+        assert bool((out[sum(sizes):] == 0).all())
+
+
+def test_grouped_matmul_refusals_and_card_backward(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lhs, rhs, gs = _smoke().gmm_case(gen, [3, 5], 16, 8, torch.bfloat16)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.grouped_matmul_fwd(lhs, rhs, gs.long())
+    with pytest.raises(ValueError, match="share"):
+        kernels.grouped_matmul_fwd(lhs.float(), rhs, gs)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kernels.grouped_matmul_fwd(lhs, rhs, gs.cpu())
+    kernels.reset_launch_counts()
+    empty = kernels.grouped_matmul_fwd(lhs[:0], rhs, torch.zeros_like(gs))
+    assert empty.shape == (0, 8) and kernels.launch_counts[
+        "grouped_matmul_fwd"] == 0
+    out = tgmm.gmm(lhs.requires_grad_(), rhs, gs)
+    with pytest.raises(NotImplementedError, match="K5-bwd"):
+        out.sum().backward()
+
+
+def test_ragged_moe_layer_launches_k5_three_times(cuda):
+    """A bf16 MoE layer forced ragged: gate, up and down through K5 with no
+    plain version reached; its output close to the plain path's."""
+    smoke = _smoke()
+    cfg = MoEConfig(n_routed_experts=8, num_experts_per_tok=2, n_group=2,
+                    topk_group=1, moe_intermediate_size=256, hidden_dim=128,
+                    dispatch_mode="ragged")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    layer = MoELayer(cfg, Init(gen, "cuda", torch.bfloat16), torch.bfloat16)
+    x = torch.randn((4, 300, 128), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kernels.reset_launch_counts()
+    with torch.inference_mode(), smoke.plain_versions_refused():
+        out = layer(x)
+    assert kernels.launch_counts["grouped_matmul_fwd"] == 3
+    assert layer.mode == "ragged" and out.shape == x.shape
+    with torch.inference_mode(), smoke.plain_versions():
+        ref = layer(x)
+    err = (out.float() - ref.float()).abs()
+    assert err.max().item() <= 2 ** -6 * ref.float().abs().max().item()

@@ -21,7 +21,12 @@ from deepearth_tpu.models.decoders import (
 )
 from deepearth_tpu.models.fusion import CrossModalFusion as JaxFusion
 from deepearth_tpu.models.grid4d import Grid4DEncoder as JaxGrid4D
-from deepearth_tpu_torch import config_from_json, kernels, load_flax_params
+from deepearth_tpu_torch import (
+    DeepSeekBlockConfig,
+    config_from_json,
+    kernels,
+    load_flax_params,
+)
 from deepearth_tpu_torch.models import CrossModalFusion as TorchFusion
 from deepearth_tpu_torch.models import DeepEarthModel
 from deepearth_tpu_torch.models import fusion as tfusion
@@ -253,13 +258,17 @@ def test_batch_major_layout_not_ported(pair):
 @pytest.mark.parametrize("what", ["continuous_values", "token_sequence",
                                   "deepseek_block"])
 def test_unported_branches_raise(what):
-    """continuous_values is ported; its MoE projection is not."""
+    """continuous_values is ported, with its MoE projection, and so is the
+    simulator; a continuous modality's sequence decoder, token sequences
+    and a pipelined simulator are not."""
     cfg = config_from_json(jcfg.config_to_json(small_jax_config()))
     if what == "deepseek_block":
-        cfg.fusion.deepseek_block = {"hidden_dim": 128}
+        cfg.fusion.deepseek_block = DeepSeekBlockConfig(hidden_dim=128,
+                                                        pipeline_stages=2)
     else:
         cfg.modalities["species"].encoding_type = what
         cfg.modalities["species"].use_moe_projection = True
+        cfg.modalities["species"].decode_sequence = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DeepEarthModel(cfg, generator=torch.Generator().manual_seed(0),
                        device="cpu")
