@@ -45,11 +45,13 @@ Phases, each printing one line:
      and 16 (K4-fwd 1, K2-fwd 2 per forward) and Trainer.fit at B=64 (K4-fwd
      1, K4-bwd 1, K2-fwd 2, K2-bwd 2 per step), no plain version reached;
      forward and 3 train steps against the plain path at B=4; times;
- 14. K5-fwd (grouped_matmul_fwd) against its plain PyTorch version, in bf16
+ 14. K5-fwd (grouped_matmul_fwd) and K5-bwd (grouped_matmul_bwd_dlhs and
+     grouped_matmul_bwd_drhs) against their plain PyTorch versions, in bf16
      and fp32: the flagship simulator's shape at B=64 (2816 sorted rows, 8
      experts, 2048 x 2048), empty groups, tiles that cross groups, M = 1,
-     K and N off the 8-element grid, rows past the last group; its time,
-     bound and a library grouped matmul's;
+     K and N off the 8-element grid, rows past the last group, an fp32
+     dout with genuine low bits; their times, bounds and a library grouped
+     matmul's;
  15. the flagship's serving slice: DeepEarthModel at
      integrated_config(use_deepseek_fusion=True) (5.04B parameters, bf16,
      24 fusion layers, a 24-layer MLA + MoE simulator, vision (B, 4608,
@@ -61,13 +63,28 @@ Phases, each printing one line:
      simulator alone at B=64 and the whole model at B=8 (simulator forced
      ragged) against the plain path, holding the observations whose
      routing no near-tie flipped;
+ 16. the flagship's train step: Trainer.fit on the same model with 576
+     V-JEPA2 patches per observation at B=64 (the train plan's batch), the
+     bench script's optimizer (bf16 first moment, factored second moment)
+     and LossWeights(contrastive=0, moe_aux=0.01), masking on; every step
+     must launch K5-fwd 69, K5-bwd 69 + 69, K3-fwd 2, K3-bwd 2, K2-fwd 2,
+     K2-bwd 2 and nothing else, and reach no plain version; each MoE site's
+     dispatch mode; 3 steps against the plain path from one start state
+     kept on the host, routing pinned as in phase 15; step time, peak
+     memory, a per-op profile with K5's share of the step;
 then a JSON line of the kernels, the card's name and power limit, and
 {"ok": true, ...} as the last line. Any failure raises and exits non-zero.
 Weights are random, drawn from a seeded generator on the card.
+
+    python3 chip_smoke.py --clip-batch-search
+
+runs only the flagship's train step at 4608 patches per observation and
+prints the largest batch that fits, without the last two lines.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import dataclasses
@@ -197,6 +214,37 @@ FLAGSHIP_PER_FORWARD = {"flash_attention_fwd": 2, "hash_encode_fwd": 2}
 # model); held at 0.1: routing on unrelated inputs would flip most tokens.
 FLAGSHIP_TOL = {"max_abs": 0.25, "mean_abs": 0.02}
 FLAGSHIP_MAX_FLIPPED = 0.1
+# K5-bwd sums in fp32 with dout kept at fp32 accuracy and rounds once, as
+# its plain version does: held as K5-fwd is, and in bf16 at least this share
+# of the entries must equal the plain version's (a kernel that rounded dout
+# to bf16 first would match about 58%)
+K5_BWD_MIN_EQUAL = 0.99
+# the flagship's train step: tools/bench_flagship.py's objective (no
+# contrastive term) plus the MoE aux term, at the train plan's batch with
+# 576 patches per observation; launches per step: the simulator's 23 MoE
+# layers through K5 (3 products each, forward and both gradients), the
+# vision encoder's two MLA layers over 576 patches through K3 (its
+# cross-attention, 8 heads of 256, is past K3's 128 and runs the plain
+# path, as in JAX), the Grid4D tables through K2
+FLAGSHIP_TRAIN_WEIGHTS = LossWeights(contrastive=0.0, moe_aux=0.01)
+FLAGSHIP_TRAIN_BATCH = 64
+FLAGSHIP_PER_STEP = {
+    "grouped_matmul_fwd": K5_PER_RAGGED_FORWARD,
+    "grouped_matmul_bwd_dlhs": K5_PER_RAGGED_FORWARD,
+    "grouped_matmul_bwd_drhs": K5_PER_RAGGED_FORWARD,
+    "vmem_attention_fwd": 2, "vmem_attention_bwd": 2,
+    "hash_encode_fwd": 2, "hash_encode_bwd": 2}
+# kernel vs plain train path of the flagship over TRAIN_STEPS steps, routing
+# pinned, the configured schedule (lr 0, 1e-6, 2e-6, as phase 7 compares):
+# per step relative differences of the loss, the aux term and the grad norm
+# read at most 5.71e-4, 1.38e-5 and 7.08e-3 on an H100 (PERF.md), held at
+# about twice that; the parameters as in phase 7, beyond one bf16 ulp of
+# each. A constant lr of 1e-4 instead moves every element by ~lr at once,
+# as the sign of its gradient says, and where that sign is rounding noise
+# the two runs part: 75.5% of one site's tokens routed apart by step 3.
+FLAGSHIP_TRAIN_TOL = {"loss": 1.2e-3, "moe_aux": 3e-5, "grad_norm": 1.5e-2}
+# the batches tried for the train step at 4608 patches, largest first
+CLIP_SEARCH_BATCHES = (64, 48, 32, 24, 16, 12, 8, 4, 2, 1)
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s of HBM and
 # operations/s by type; fp32 without the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -884,6 +932,9 @@ def phase_vmem(gen) -> dict:
         "cross site B=512 16x576 Dh64": (MM_BATCH, 8, 16, 576, 64, 64, False),
         "ragged 100x260 Dqk48 Dv80 masked": (4, 3, 100, 260, 48, 80, True),
         "Nk=1024 Dh128 masked": (8, 4, 64, 1024, 128, 128, True),
+        # the flagship's vision MLA at 576 patches (its train step)
+        "flagship MLA site B=64 576x576 Dh128": (FLAGSHIP_TRAIN_BATCH, 8,
+                                                 576, 576, 128, 128, False),
     }
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).split(".")[-1]
@@ -1009,7 +1060,11 @@ def kernel_breakdown(fn, n_calls: int = 3):
         if dev_us <= 0:
             continue
         row = (e.key, dev_us / 1e3 / n_calls, e.count / n_calls)
-        (kernel_rows if "CUDA" in str(e.device_type) else op_rows).append(row)
+        # a user annotation (the optimizer's step) spans kernels that are
+        # rows of their own: it goes with the ops
+        kernel = ("CUDA" in str(e.device_type)
+                  and not e.key.startswith("Optimizer."))
+        (kernel_rows if kernel else op_rows).append(row)
     return (sorted(kernel_rows, key=lambda r: -r[1]),
             sorted(op_rows, key=lambda r: -r[1]))
 
@@ -1184,6 +1239,9 @@ def phase_vmem_bwd(gen) -> dict:
         "ragged 100x260 Dqk48 Dv80 masked": (4, 3, 100, 260, 48, 80, True,
                                              False),
         "Nk=1024 Dh128 masked": (8, 4, 64, 1024, 128, 128, True, False),
+        "flagship MLA site B=64 576x576 Dh128": (FLAGSHIP_TRAIN_BATCH, 8,
+                                                 576, 576, 128, 128, False,
+                                                 True),
     }
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).split(".")[-1]
@@ -1306,6 +1364,9 @@ def phase_flash(gen) -> tuple:
         "masked N=1000 Dqk48 Dv32": (3, 2, 1000, 48, 32, True, False, False),
         "masked causal N=1500 Dh128": (2, 2, 1500, 128, 128, True, True,
                                        False),
+        # the flagship's vision MLA over a clip
+        "flagship MLA clip B=1 4608 Dh128": (1, 8, CLIP_PATCHES, 128, 128,
+                                             False, False, True),
     }
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).split(".")[-1]
@@ -1707,15 +1768,181 @@ def phase_gmm(gen) -> dict:
     return {"max_abs_err": max(errs.values()), "library": library_name, **t}
 
 
-def make_flagship_batch(gen, n):
+def check_gmm_bwd(name, got, ref, dtype) -> tuple:
+    """K5-bwd's (dlhs, drhs) against gmm_bwd_plain's: each within
+    K5_FP32_REL (fp32) or K4_MAX_REL (bf16) of its largest entry, the mean
+    error within K4_MEAN_REL of the mean |plain|, and in bf16 at least
+    K5_BWD_MIN_EQUAL of the entries equal. Returns the largest error, the
+    largest mean error over the mean |plain| and the smallest equal share
+    (1 in fp32, where the sums' order alone differs)."""
+    errs, means, shares = [], [], []
+    for part, out, r in zip(("dlhs", "drhs"), got, ref):
+        if out.shape != r.shape or out.dtype != dtype:
+            raise AssertionError(f"K5-bwd {name} {part}: {out.shape} "
+                                 f"{out.dtype}")
+        if out.numel() == 0:
+            continue
+        err = (out.float() - r.float()).abs()
+        top = r.float().abs()
+        rel = K5_FP32_REL if dtype == torch.float32 else K4_MAX_REL
+        tol = rel * top.max().item() + 1e-6
+        mean_rel = err.mean().item() / max(top.mean().item(), 1e-30)
+        share = (1.0 if dtype == torch.float32
+                 else (out == r).float().mean().item())
+        if not (err.max().item() <= tol and mean_rel <= K4_MEAN_REL
+                and share >= K5_BWD_MIN_EQUAL):
+            raise AssertionError(
+                f"K5-bwd {name} {part}: max_abs_err {err.max().item()} (tol "
+                f"{tol}), mean over mean |plain| {mean_rel} (tol "
+                f"{K4_MEAN_REL}), equal share {share} (at least "
+                f"{K5_BWD_MIN_EQUAL})")
+        errs.append(err.max().item())
+        means.append(mean_rel)
+        shares.append(share)
+    return max(errs, default=0.0), max(means, default=0.0), min(shares,
+                                                                default=1.0)
+
+
+def library_gmm_bwd(lhs, rhs, dout, sizes) -> dict:
+    """{"dlhs": (name, call), "drhs": (name, call)}: one PyTorch grouped
+    matmul per gradient on the same inputs with dout rounded to bf16 (it
+    computes less than K5-bwd), a yardstick only: torch._grouped_mm with
+    offsets where this torch has it and takes the inputs, else one torch.mm
+    per group."""
+    offs = torch.cumsum(sizes, dim=0).to(torch.int32)
+    d16 = dout.to(lhs.dtype)
+    rhs_t = rhs.transpose(1, 2)
+    lhs_t = lhs.t()
+    grouped = {"dlhs": lambda: torch._grouped_mm(d16, rhs_t, offs=offs),
+               "drhs": lambda: torch._grouped_mm(lhs_t, d16, offs=offs)}
+    bounds = [0] + offs.tolist()
+    segments = [(g, bounds[g], bounds[g + 1]) for g in range(len(sizes))
+                if bounds[g + 1] > bounds[g]]
+    per_group = {
+        "dlhs": lambda: [torch.mm(d16[s:e], rhs_t[g]) for g, s, e in segments],
+        "drhs": lambda: [torch.mm(lhs_t[:, s:e], d16[s:e])
+                         for g, s, e in segments]}
+    out = {}
+    for part in ("dlhs", "drhs"):
+        out[part] = ("torch.mm per group", per_group[part])
+        if hasattr(torch, "_grouped_mm"):
+            try:
+                grouped[part]()
+                out[part] = ("torch._grouped_mm", grouped[part])
+            except (RuntimeError, TypeError, NotImplementedError):
+                pass
+    return out
+
+
+def phase_gmm_bwd(gen) -> dict:
+    torch.cuda.empty_cache()
+    errs, means, shares = {}, {}, {}
+    flagship = flagship_group_sizes(gen)
+    cases = {  # name: (group sizes, K, N, M or None for their sum)
+        f"flagship 2816 E8 2048x2048 {flagship}": (flagship, 2048, 2048,
+                                                   None),
+        "empty groups, tiles across groups": ([0, 70, 0, 130, 100, 0], 96,
+                                              200, None),
+        "M=1": ([0, 1, 0, 0], 64, 64, None),
+        "K=100 N=130 (2-element loads)": ([100, 57, 100], 100, 130, None),
+        "K=33 N=31 (1-element loads)": ([5, 40, 19], 33, 31, None),
+        "rows past the last group": ([30, 20], 64, 128, 100),
+        "M=0": ([0, 0, 0], 64, 64, None),
+    }
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        for name, (sizes, k, n, m) in cases.items():
+            lhs, rhs, gs = gmm_case(gen, sizes, k, n, dtype, m)
+            # fp32 dout with genuine low bits, as the gate and up products'
+            # gradients are
+            dout = torch.randn((lhs.shape[0], n), generator=gen,
+                               device="cuda")
+            before = dict(kernels.launch_counts)
+            got = (kernels.grouped_matmul_bwd_dlhs(dout, rhs, gs),
+                   kernels.grouped_matmul_bwd_drhs(lhs, dout, gs))
+            launched = {part: kernels.launch_counts[f"grouped_matmul_bwd_{part}"]
+                        - before[f"grouped_matmul_bwd_{part}"]
+                        for part in ("dlhs", "drhs")}
+            if launched != {"dlhs": int(lhs.shape[0] > 0), "drhs": 1}:
+                raise AssertionError(f"K5-bwd {name}: launches {launched}")
+            ref = grouped_matmul.gmm_bwd_plain(lhs, rhs, gs, dout)
+            key = f"{name} {tag}"
+            errs[key], means[key], shares[key] = check_gmm_bwd(
+                key, got, ref, dtype)
+            for g, size in enumerate(sizes):
+                if size == 0 and not bool((got[1][g] == 0).all()):
+                    raise AssertionError(f"K5-bwd {key}: empty group {g}'s "
+                                         "drhs is not 0")
+            if m is not None and not bool((got[0][sum(sizes):] == 0).all()):
+                raise AssertionError(f"K5-bwd {key}: rows past the groups")
+            del lhs, rhs, gs, dout, got, ref
+
+    # the flagship shape in bf16: each kernel, its plain half, a library
+    # grouped matmul on bf16-rounded dout, and the bound (each input read
+    # once: dout, the weights of the groups with rows or lhs; each output
+    # written once: dlhs, or every group's drhs)
+    lhs, rhs, gs = gmm_case(gen, flagship, 2048, 2048, torch.bfloat16)
+    dout = torch.randn((lhs.shape[0], 2048), generator=gen, device="cuda")
+    # what rounding dout to bf16 before the product would have given
+    ref = grouped_matmul.gmm_bwd_plain(lhs, rhs, gs, dout)
+    rounded = grouped_matmul.gmm_bwd_plain(lhs, rhs, gs, dout.bfloat16())
+    rounded_share = min((a == b).float().mean().item()
+                        for a, b in zip(rounded, ref))
+    del ref, rounded
+    library = library_gmm_bwd(lhs, rhs, dout, gs)
+    m, used = lhs.shape[0], sum(1 for x in flagship if x > 0)
+    flops = 2 * m * 2048 * 2048
+    parts = {
+        "dlhs": (lambda: kernels.grouped_matmul_bwd_dlhs(dout, rhs, gs),
+                 lambda: grouped_matmul.gmm_bwd_plain(lhs, rhs, gs, dout,
+                                                      need_rhs=False),
+                 nbytes(dout, gs) + used * 2048 * 2048 * 2 + m * 2048 * 2),
+        "drhs": (lambda: kernels.grouped_matmul_bwd_drhs(lhs, dout, gs),
+                 lambda: grouped_matmul.gmm_bwd_plain(lhs, rhs, gs, dout,
+                                                      need_lhs=False),
+                 nbytes(lhs, dout, gs) + nbytes(rhs)),
+    }
+    times = {}
+    for part, (kernel, plain, moved) in parts.items():
+        t = {"ms": cuda_ms(kernel, iters=20, warmup=3),
+             "plain_ms": cuda_ms(plain, iters=10, warmup=2),
+             "library": library[part][0],
+             "library_ms": cuda_ms(library[part][1], iters=20, warmup=3)}
+        t.update(bound(moved, flops, torch.bfloat16))
+        t["tflops"] = flops / t["ms"] / 1e9
+        times[part] = t
+    print("[14 K5-bwd grouped_matmul_bwd_dlhs/drhs] max_abs_err " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol fp32 {K5_FP32_REL}, bf16 {K4_MAX_REL} of the largest entry)"
+        " | mean error over mean |plain| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in means.items())
+        + f" (tol {K4_MEAN_REL}) | bf16 entries equal to the plain "
+        "version's: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in shares.items() if "bfloat16" in k)
+        + f" (at least {K5_BWD_MIN_EQUAL}; dout rounded to bf16 first would "
+        f"give {rounded_share:.4f} at the flagship shape) | empty groups' "
+        "drhs exactly 0, rows past the groups 0, M=0 launches dlhs nothing "
+        "| ms at the flagship simulator's B=64 shape, bf16 lhs/rhs, fp32 "
+        "dout (device, CUDA events): " + "; ".join(
+            f"{part} kernel {t['ms']:.4f} ({t['tflops']:.1f} TFLOP/s), plain "
+            f"{t['plain_ms']:.4f}, library ({t['library']}, dout in bf16) "
+            f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} "
+            f"({t['bound_by']})" for part, t in times.items())
+        + f" | {card()}")
+    return {part: {"max_abs_err": max(errs.values()), **t}
+            for part, t in times.items()}
+
+
+def make_flagship_batch(gen, n, patches=CLIP_PATCHES):
     """One request of the flagship: n observations, each with a place and
-    time, a V-JEPA2 clip's 4608 patch embeddings of 1408 and 16 language
-    rows of 7168, in bf16 (tools/bench_flagship.py's inputs)."""
+    time, V-JEPA2 patch embeddings of 1408 (a clip's 4608 by default, an
+    image's 576) and 16 language rows of 7168, in bf16
+    (tools/bench_flagship.py's inputs)."""
     dev = gen.device
     return {
         "xyzt": torch.rand((n, 4), generator=gen, device=dev),
         "modalities": {
-            "vision": torch.randn((n, CLIP_PATCHES, 1408), generator=gen,
+            "vision": torch.randn((n, patches, 1408), generator=gen,
                                   device=dev).to(torch.bfloat16),
             "language": torch.randn((n, 16, 7168), generator=gen,
                                     device=dev).to(torch.bfloat16),
@@ -1934,13 +2161,230 @@ def phase_flagship(gen) -> dict:
     return {"launches": launches}
 
 
+def flagship_train_config() -> DeepEarthConfig:
+    """The flagship as tools/bench_flagship.py trains it: bf16 parameters
+    and compute, the fused AdamW with a bf16 first moment and a factored
+    second moment."""
+    cfg = integrated_config(use_deepseek_fusion=True,
+                            param_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16)
+    cfg.optimizer.moment_dtype = "bfloat16"
+    cfg.optimizer.second_moment = "factored"
+    cfg.optimizer.fused = True
+    return cfg
+
+
+def free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def flagship_train_run(trainer, model, start, batches, pinned=None,
+                       plain=False):
+    """TRAIN_STEPS train steps from the host state ``start`` with a fresh
+    optimizer (the configured schedule) and the masks of one seed, with the
+    kernels or through the plain versions; with ``pinned`` (a gate log)
+    routed as that run was. Returns per-step (loss, aux term, grad norm),
+    the gate log, the parameters after the last step (on the host) and the
+    learning rates used."""
+    model.load_state_dict(start)
+    st = trainer.init_state()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    steps = []
+    with gate_log(pinned) as log, (plain_versions() if plain
+                                   else contextlib.nullcontext()):
+        for batch in batches:
+            st, m = trainer.train_step(st, batch, g)
+            steps.append(tuple(m[k].item() for k in
+                               ("loss/total", "loss/moe_aux", "grad_norm")))
+    params = {n: p.detach().to("cpu", copy=True)
+              for n, p in model.named_parameters()}
+    lrs = [st.optimizer.learning_rate(i) for i in range(len(batches))]
+    del st
+    model.zero_grad(set_to_none=True)
+    free_cuda()
+    return steps, log, params, lrs
+
+
+def phase_flagship_train(gen) -> dict:
+    free_cuda()
+    cfg = flagship_train_config()
+    t0 = time.perf_counter()
+    model = DeepEarthModel(cfg, generator=gen, device=gen.device,
+                           native_seq_lens={"vision": VISION_PATCHES,
+                                            "language": 16})
+    build_s = time.perf_counter() - t0
+    trainer = Trainer(model, cfg, FLAGSHIP_TRAIN_WEIGHTS, seed=SEED)
+    start = {k: v.detach().to("cpu", copy=True)
+             for k, v in model.state_dict().items()}  # ~10 GB, on the host
+    b = FLAGSHIP_TRAIN_BATCH
+    batches = [make_flagship_batch(gen, b, VISION_PATCHES)
+               for _ in range(TRAIN_STEPS)]
+
+    # the main path: Trainer.fit, counted, with every plain version made to
+    # raise
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_versions_refused():
+        state, fit_metrics = trainer.fit(trainer.init_state(), iter(batches),
+                                         TRAIN_STEPS, log_every=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    fit_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(kernels.launch_counts)
+    want = expected_launches(
+        **{name: n * TRAIN_STEPS for name, n in FLAGSHIP_PER_STEP.items()})
+    if launches != want:
+        raise AssertionError(f"launches over {TRAIN_STEPS} steps {launches} "
+                             f"!= {want}")
+    modes = site_modes(model)
+    if "loss/moe_aux" not in fit_metrics:
+        raise AssertionError(f"no aux term in {sorted(fit_metrics)}")
+    for name, v in fit_metrics.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"{name} = {v}")
+    del state
+    model.zero_grad(set_to_none=True)
+    free_cuda()
+
+    # kernel vs plain over TRAIN_STEPS steps from one start state, the plain
+    # run routed as the kernel run was
+    runs, logs, params = {}, {}, {}
+    runs["kernel"], logs["kernel"], params["kernel"], lrs = \
+        flagship_train_run(trainer, model, start, batches)
+    runs["plain"], logs["plain"], params["plain"], _ = flagship_train_run(
+        trainer, model, start, batches, pinned=logs["kernel"], plain=True)
+    names = list(moe_sites(model))
+    sites = [f"{name} step {i + 1}" for i in range(TRAIN_STEPS)
+             for name in names]
+    shares = flipped_shares(sites, logs["kernel"], logs["plain"])
+    del logs
+    rel = {key: max(abs(a[i] - p[i]) / max(abs(p[i]), 1e-30)
+                    for a, p in zip(runs["kernel"], runs["plain"]))
+           for i, key in enumerate(("loss", "moe_aux", "grad_norm"))}
+    # Adam moves an element by at most ~lr a step, and a bf16 parameter
+    # rounds its update to a neighbour: |kernel - plain| beyond one bf16
+    # ulp of the parameter (2^-7 of it), against 3 * sum(lr)
+    leaf_err = {n: ((params["kernel"][n].float() - params["plain"][n].float())
+                    .abs() - 2 ** -7 * params["plain"][n].float().abs())
+                .max().item() for n in params["plain"]}
+    param_err, param_tol = max(leaf_err.values()), 3 * sum(lrs)
+    worst_leaf = max(leaf_err, key=leaf_err.get)
+    del params
+    model.load_state_dict(start)
+    del start
+    free_cuda()
+
+    # times: CUDA events over 3 steps after a warm-up step, peak memory, and
+    # a per-op profile of one step
+    timing = train_timing(trainer, batches[0], iters=3, plain=False)
+    free_cuda()
+    st = trainer.init_state()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    breakdown, by_op = kernel_breakdown(
+        lambda: trainer.train_step(st, batches[0], g), n_calls=1)
+    del st
+    model.zero_grad(set_to_none=True)
+    free_cuda()
+    step_ms = sum(r[1] for r in breakdown)
+    k5 = {part: sum(r[1] for r in breakdown if key in r[0])
+          for part, key in (("fwd", "grouped_matmul_bf16_kernel"),
+                            ("dlhs", "gmm_dlhs_bf16_kernel"),
+                            ("drhs", "gmm_drhs_bf16_kernel"))}
+    print(f"[16 flagship train step] {sum(p.numel() for p in model.parameters()) / 1e9:.4f}B "
+          f"params (bf16), built in {build_s:.1f} s | B={b}, {VISION_PATCHES} "
+          f"patches, masking on, {FLAGSHIP_TRAIN_WEIGHTS}, bf16 first moment, "
+          f"factored second moment; fit {TRAIN_STEPS} steps: launches per "
+          f"step {FLAGSHIP_PER_STEP}, nothing else, no plain version reached "
+          f"| dispatch modes: " + ", ".join(f"{k} {v}" for k, v in
+                                             modes.items())
+          + f" | fit loss {fit_metrics['loss/total']:.4f}, moe_aux "
+          f"{fit_metrics['loss/moe_aux']:.4f}, peak mem {fit_peak:.2f} GiB | "
+          f"kernel vs plain over {TRAIN_STEPS} steps (lr {lrs}), the plain "
+          f"run routed as the kernel run (loss, moe_aux, grad_norm): kernel "
+          f"{runs['kernel']}, plain {runs['plain']}; rel diff "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+          + f" (tol {FLAGSHIP_TRAIN_TOL}); params beyond a bf16 ulp "
+          f"{param_err:.3g} at {worst_leaf} (tol 3*sum(lr) = "
+          f"{param_tol:.3g}); routing that would flip on its own, by step "
+          "(mean, max over sites): " + ", ".join(
+              f"{i + 1}: {sum(v) / len(v):.3g}, {max(v):.3g}" for i, v in
+              enumerate([[shares[f'{n} step {i + 1}'] for n in names]
+                         for i in range(TRAIN_STEPS)]))
+          + f"; the largest: " + ", ".join(
+              f"{k} {v:.3g}" for k, v in sorted(
+                  shares.items(), key=lambda kv: -kv[1])[:4])
+          + f" (tol {FLAGSHIP_MAX_FLIPPED}) | step ms "
+          f"eager (CUDA events over 3 steps): {turns(timing)}, "
+          f"{b / timing['step_ms'] * 1e3:.1f} obs/s, peak mem "
+          f"{timing['peak_gib']:.2f} GiB | profiled step: {step_ms:.2f} ms of "
+          f"kernels; K5-fwd {k5['fwd']:.2f} ms, K5-bwd dlhs {k5['dlhs']:.2f} "
+          f"and drhs {k5['drhs']:.2f} ms, "
+          f"{sum(k5.values()) / max(step_ms, 1e-9):.1%} of it | {card()}")
+    print_breakdown(16, f"B={b} train step", "step", breakdown, by_op)
+    if (any(rel[k] > FLAGSHIP_TRAIN_TOL[k] for k in FLAGSHIP_TRAIN_TOL)
+            or param_err > param_tol):
+        raise AssertionError(f"flagship kernel vs plain train path: {rel}, "
+                             f"params {param_err} (tol {FLAGSHIP_TRAIN_TOL}"
+                             f", params {param_tol})")
+    for name, share in shares.items():
+        if share > FLAGSHIP_MAX_FLIPPED:
+            raise AssertionError(f"routing flipped for {share:.4f} of the "
+                                 f"tokens at {name}")
+    del model, trainer, batches
+    free_cuda()
+    return {"launches": launches}
+
+
+def clip_batch_search(gen) -> None:
+    """The flagship's train step at 4608 patches per observation, without
+    activation checkpointing: the largest batch of CLIP_SEARCH_BATCHES that
+    fits on the card, its step time, peak memory and dispatch modes."""
+    cfg = flagship_train_config()
+    model = DeepEarthModel(cfg, generator=gen, device=gen.device,
+                           native_seq_lens={"vision": CLIP_PATCHES,
+                                            "language": 16})
+    trainer = Trainer(model, cfg, FLAGSHIP_TRAIN_WEIGHTS, seed=SEED)
+    tried = []
+    for b in CLIP_SEARCH_BATCHES:
+        batch = make_flagship_batch(gen, b, CLIP_PATCHES)
+        failed = False
+        try:
+            timing = train_timing(trainer, batch, iters=2, plain=False)
+        except torch.cuda.OutOfMemoryError:
+            failed = True
+        model.zero_grad(set_to_none=True)
+        del batch
+        free_cuda()
+        if failed:
+            tried.append(f"B={b} out of memory")
+            continue
+        print(f"[clip batch search] flagship train step at {CLIP_PATCHES} "
+              f"patches, no activation checkpointing: "
+              + "; ".join(tried + [f"B={b} fits"])
+              + f" | B={b}: step ms eager (CUDA events over 2 steps) "
+              f"{turns(timing)}, {b / timing['step_ms'] * 1e3:.2f} obs/s, "
+              f"peak mem {timing['peak_gib']:.2f} GiB | dispatch modes: "
+              + ", ".join(f"{k} {v}" for k, v in site_modes(model).items())
+              + f" | {card()}")
+        return
+    raise AssertionError(f"no batch fits: {tried}")
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--clip-batch-search", action="store_true",
+                        help="only the flagship's train step at 4608 patches"
+                             ": the largest batch that fits")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     phase_build()
+    if args.clip_batch_search:
+        clip_batch_search(gen)
+        return
     k2 = phase_hash(gen)
     k1 = phase_attention(gen)
     sl = phase_slice(gen)
@@ -1954,7 +2398,9 @@ def main() -> None:
     mmt = phase_mm_train(gen)
     clip = phase_clip(gen)
     k5 = phase_gmm(gen)
+    k5b = phase_gmm_bwd(gen)
     flag = phase_flagship(gen)
+    flag_train = phase_flagship_train(gen)
     report = {"kernels": [
         {"name": "hash_encode_fwd", "route": "cuda",
          "source": "deepearth_tpu_torch/kernels/csrc/hash_encode.cu",
@@ -2013,13 +2459,28 @@ def main() -> None:
          "launches": flag["launches"]["grouped_matmul_fwd"],
          "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
          "plain_ms": k5["plain_ms"]},
+        {"name": "grouped_matmul_bwd_dlhs", "route": "cuda",
+         "source": "deepearth_tpu_torch/kernels/csrc/grouped_matmul_bwd.cu",
+         "replaces": "jax/experimental/pallas/ops/tpu/megablox/ops.py:63 "
+                     "(_gmm_bwd: gmm with transpose_rhs at :80)",
+         "launches": flag_train["launches"]["grouped_matmul_bwd_dlhs"],
+         "max_abs_err": k5b["dlhs"]["max_abs_err"], "ms": k5b["dlhs"]["ms"],
+         "plain_ms": k5b["dlhs"]["plain_ms"]},
+        {"name": "grouped_matmul_bwd_drhs", "route": "cuda",
+         "source": "deepearth_tpu_torch/kernels/csrc/grouped_matmul_bwd.cu",
+         "replaces": "jax/experimental/pallas/ops/tpu/megablox/ops.py:63 "
+                     "(_gmm_bwd: tgmm at :90, megablox/gmm.py:573)",
+         "launches": flag_train["launches"]["grouped_matmul_bwd_drhs"],
+         "max_abs_err": k5b["drhs"]["max_abs_err"], "ms": k5b["drhs"]["ms"],
+         "plain_ms": k5b["drhs"]["plain_ms"]},
     ]}
     # each kernel's bound and library call; K3's numbers add its MLA and
     # cross sites at B=512 (per forward, per step); K4's are at
     # CLIP_PLAIN_BATCH, where the plain version fits; K5's at the flagship
     # simulator's B=64 shape
     for entry, phase in zip(report["kernels"],
-                            (k2, k1, k1b, k2b, k3, k3b, k4, k4b, k5)):
+                            (k2, k1, k1b, k2b, k3, k3b, k4, k4b, k5,
+                             k5b["dlhs"], k5b["drhs"])):
         entry.update({key: phase[key] for key in
                       ("bound_ms", "bound_by", "library_ms")})
     for k in report["kernels"]:

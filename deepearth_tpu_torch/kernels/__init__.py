@@ -38,7 +38,8 @@ launch_counts = {"hash_encode_fwd": 0, "hash_encode_bwd": 0,
                  "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
                  "vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
                  "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-                 "grouped_matmul_fwd": 0}
+                 "grouped_matmul_fwd": 0, "grouped_matmul_bwd_dlhs": 0,
+                 "grouped_matmul_bwd_drhs": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -58,6 +59,8 @@ _SIGNATURES = {
     "flash_attention_bwd": [*[_P] * 11, *[_I] * 6, *[_I64] * 9, _F, _I, _I,
                             _P],
     "grouped_matmul_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "grouped_matmul_bwd_dlhs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "grouped_matmul_bwd_drhs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -448,6 +451,29 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 GMM_MAX_GROUPS = 1024
 
 
+def _gmm_inputs(name: str, dtype, group_sizes: torch.Tensor, n_groups: int,
+                *tensors: torch.Tensor) -> None:
+    """Checks shared by K5's wrappers: every tensor on one CUDA device, lhs
+    and rhs of one type, float32 or bfloat16, group_sizes (E,) int32 with
+    1 <= E <= GMM_MAX_GROUPS."""
+    _require(all(x.is_cuda and x.device == tensors[0].device
+                 for x in (*tensors, group_sizes)),
+             f"{name}: inputs must lie on one CUDA device")
+    _require(dtype in _ATTN_DTYPES,
+             f"{name}: lhs and rhs must share float32 or bfloat16")
+    _require(group_sizes.dtype == torch.int32
+             and tuple(group_sizes.shape) == (n_groups,),
+             f"{name}: group_sizes must be (E,) int32")
+    _require(1 <= n_groups <= GMM_MAX_GROUPS,
+             f"{name}: E must be in 1..{GMM_MAX_GROUPS}")
+
+
+def _gmm_dout(name: str, dout: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    _require(dout.dtype == torch.float32 and tuple(dout.shape) == (m, n),
+             f"{name}: dout must be (M, N) float32, the forward's output")
+    return dout.contiguous()
+
+
 def grouped_matmul_fwd(lhs: torch.Tensor, rhs: torch.Tensor,
                        group_sizes: torch.Tensor) -> torch.Tensor:
     """K5 forward: lhs (M, K) and rhs (E, K, N), both float32 or both
@@ -455,21 +481,12 @@ def grouped_matmul_fwd(lhs: torch.Tensor, rhs: torch.Tensor,
     [offset_g, offset_g + size_g) of lhs go through rhs[g]. Returns (M, N)
     float32, rows past the sum of the sizes 0. The sizes stay on the device:
     the kernel reads them itself. M = 0 launches nothing."""
-    _require(lhs.is_cuda and rhs.device == lhs.device
-             and group_sizes.device == lhs.device,
-             "grouped_matmul_fwd: inputs must lie on one CUDA device")
-    _require(lhs.dtype in _ATTN_DTYPES and rhs.dtype == lhs.dtype,
-             "grouped_matmul_fwd: lhs and rhs must share float32 or bfloat16")
+    name = "grouped_matmul_fwd"
     _require(lhs.dim() == 2 and rhs.dim() == 3 and rhs.shape[1] == lhs.shape[1],
-             "grouped_matmul_fwd: lhs must be (M, K) and rhs (E, K, N)")
-    n_groups = rhs.shape[0]
-    _require(group_sizes.dtype == torch.int32
-             and tuple(group_sizes.shape) == (n_groups,),
-             "grouped_matmul_fwd: group_sizes must be (E,) int32")
-    _require(1 <= n_groups <= GMM_MAX_GROUPS,
-             f"grouped_matmul_fwd: E must be in 1..{GMM_MAX_GROUPS}")
-    m, k = lhs.shape
-    n = rhs.shape[2]
+             f"{name}: lhs must be (M, K) and rhs (E, K, N)")
+    _gmm_inputs(name, lhs.dtype if lhs.dtype == rhs.dtype else None,
+                group_sizes, rhs.shape[0], lhs, rhs)
+    (m, k), n, n_groups = lhs.shape, rhs.shape[2], rhs.shape[0]
     out = torch.empty((m, n), device=lhs.device, dtype=torch.float32)
     if m == 0 or n == 0:
         return out
@@ -479,5 +496,60 @@ def grouped_matmul_fwd(lhs: torch.Tensor, rhs: torch.Tensor,
         lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
         out.data_ptr(), m, k, n, n_groups, _ATTN_DTYPES[lhs.dtype],
         torch.cuda.current_stream(lhs.device).cuda_stream)
-    _check("grouped_matmul_fwd", rc)
+    _check(name, rc)
     return out
+
+
+def grouped_matmul_bwd_dlhs(dout: torch.Tensor, rhs: torch.Tensor,
+                            group_sizes: torch.Tensor) -> torch.Tensor:
+    """K5-bwd, the gradient of lhs: dout (M, N) float32, rhs (E, K, N)
+    float32 or bfloat16 and group_sizes (E,) int32, all on one CUDA device.
+    Returns (M, K) in rhs's type (lhs's): row r of group g is
+    dout[r] . rhs[g]^T, summed in fp32 with dout kept at fp32 accuracy and
+    rounded once; rows past the sum of the sizes 0. M = 0 launches
+    nothing."""
+    name = "grouped_matmul_bwd_dlhs"
+    _require(dout.dim() == 2 and rhs.dim() == 3
+             and rhs.shape[2] == dout.shape[1],
+             f"{name}: dout must be (M, N) and rhs (E, K, N)")
+    _gmm_inputs(name, rhs.dtype, group_sizes, rhs.shape[0], rhs, dout)
+    (m, n), k, n_groups = dout.shape, rhs.shape[1], rhs.shape[0]
+    dout = _gmm_dout(name, dout, m, n)
+    dlhs = torch.empty((m, k), device=rhs.device, dtype=rhs.dtype)
+    if m == 0 or k == 0:
+        return dlhs
+    rhs, group_sizes = rhs.contiguous(), group_sizes.contiguous()
+    rc = library().grouped_matmul_bwd_dlhs(
+        dout.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
+        dlhs.data_ptr(), m, k, n, n_groups, _ATTN_DTYPES[rhs.dtype],
+        torch.cuda.current_stream(rhs.device).cuda_stream)
+    _check(name, rc)
+    return dlhs
+
+
+def grouped_matmul_bwd_drhs(lhs: torch.Tensor, dout: torch.Tensor,
+                            group_sizes: torch.Tensor) -> torch.Tensor:
+    """K5-bwd, the gradient of rhs: lhs (M, K) float32 or bfloat16, dout
+    (M, N) float32 and group_sizes (E,) int32, all on one CUDA device.
+    Returns (E, K, N) in lhs's type (rhs's): drhs[g] = lhs[rows of g]^T .
+    dout[rows of g], summed in fp32 with dout kept at fp32 accuracy and
+    rounded once; an empty group's exactly 0 (the kernel writes every
+    element). K = 0 or N = 0 launches nothing."""
+    name = "grouped_matmul_bwd_drhs"
+    _require(lhs.dim() == 2 and dout.dim() == 2
+             and dout.shape[0] == lhs.shape[0] and group_sizes.dim() == 1,
+             f"{name}: lhs must be (M, K), dout (M, N), group_sizes (E,)")
+    _gmm_inputs(name, lhs.dtype, group_sizes, group_sizes.shape[0], lhs,
+                dout)
+    (m, k), n, n_groups = lhs.shape, dout.shape[1], group_sizes.shape[0]
+    dout = _gmm_dout(name, dout, m, n)
+    drhs = torch.empty((n_groups, k, n), device=lhs.device, dtype=lhs.dtype)
+    if k == 0 or n == 0:
+        return drhs
+    lhs, group_sizes = lhs.contiguous(), group_sizes.contiguous()
+    rc = library().grouped_matmul_bwd_drhs(
+        lhs.data_ptr(), dout.data_ptr(), group_sizes.data_ptr(),
+        drhs.data_ptr(), m, k, n, n_groups, _ATTN_DTYPES[lhs.dtype],
+        torch.cuda.current_stream(lhs.device).cuda_stream)
+    _check(name, rc)
+    return drhs

@@ -43,52 +43,9 @@
 //
 // Simple first: no wgmma, TMA or fused SwiGLU epilogue yet (PERF.md).
 
-#include "attention_common.cuh"
+#include "grouped_matmul.cuh"
 
 namespace {
-
-constexpr int kMaxGroups = 1024;
-
-// The row segment of the block's tile: rows [lo, hi) of group g, or g = -1
-// for the zero-filled rows past the last group; lo == hi for a surplus
-// block.
-struct TileRows {
-  int g, lo, hi;
-};
-
-// Thread 0 walks the sizes (staged in shared memory by the whole block);
-// every thread gets the result through shared memory.
-template <int BM>
-__device__ TileRows find_tile(const int* group_sizes, int n_groups, int m) {
-  __shared__ int sizes[kMaxGroups];
-  __shared__ TileRows found;
-  for (int e = threadIdx.x; e < n_groups; e += blockDim.x)
-    sizes[e] = group_sizes[e];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int t = blockIdx.x;
-    TileRows r{-1, 0, 0};
-    int tiles = 0, start = 0;
-    bool done = false;
-    for (int e = 0; e <= n_groups && !done; ++e) {
-      // e == n_groups: the rows past the last group, written as zeros
-      const int size = e < n_groups ? max(sizes[e], 0) : m - start;
-      const int64_t stop = static_cast<int64_t>(start) + size;
-      const int end = stop < m ? static_cast<int>(stop) : m;
-      const int n_tiles = (end - start + BM - 1) / BM;
-      if (t < tiles + n_tiles) {
-        const int lo = start + (t - tiles) * BM;
-        r = TileRows{e < n_groups ? e : -1, lo, min(lo + BM, end)};
-        done = true;
-      }
-      tiles += n_tiles;
-      start = end;
-    }
-    found = r;
-  }
-  __syncthreads();
-  return found;
-}
 
 // ---------------------------------------------------------------- bf16 ----
 
@@ -178,17 +135,6 @@ __global__ void __launch_bounds__(kThreadsMma)
       }
     }
   }
-}
-
-// The widest staging load (8, 2 or 1 elements) for rows `ld` elements apart
-// from a base pointer: cp.async moves 16 aligned bytes.
-int row_vec(const void* base, int64_t ld) {
-  const int widest[2] = {8, 2};
-  for (const int vec : widest)
-    if (ld % vec == 0 &&
-        reinterpret_cast<uintptr_t>(base) % (sizeof(bf16) * vec) == 0)
-      return vec;
-  return 1;
 }
 
 // ---------------------------------------------------------------- fp32 ----
@@ -283,7 +229,7 @@ extern "C" int grouped_matmul_fwd(const void* lhs, const void* rhs,
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   grouped_matmul_bf16_kernel<<<grid, kThreadsMma, 0, s>>>(
       static_cast<const bf16*>(lhs), static_cast<const bf16*>(rhs), sizes,
-      static_cast<float*>(out), m, k, n, n_groups, row_vec(lhs, k),
-      row_vec(rhs, n));
+      static_cast<float*>(out), m, k, n, n_groups, row_vec<bf16>(lhs, k),
+      row_vec<bf16>(rhs, n));
   return static_cast<int>(cudaGetLastError());
 }

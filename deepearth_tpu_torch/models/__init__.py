@@ -6,6 +6,7 @@ from .deepseek import (
     MLAttention,
     MoELayer,
     SwiGLUMLP,
+    collect_moe_aux_losses,
     select_dispatch_mode,
 )
 from .encoders import UniversalTokenEncoder
@@ -21,7 +22,7 @@ from .transformer import GatedMLP, KernelParam, MLP
 __all__ = [
     "ModalityDecoder", "SpatiotemporalDecoder", "DeepEarthModel",
     "DeepSeekBlock", "DeepSeekTransformer", "MLAttention", "MoELayer",
-    "SwiGLUMLP", "select_dispatch_mode",
+    "SwiGLUMLP", "collect_moe_aux_losses", "select_dispatch_mode",
     "UniversalTokenEncoder", "CrossModalFusion", "FusionAttention",
     "FusionLayer", "SpatialTemporalEmbedding", "Grid4DEncoder", "GatedMLP",
     "KernelParam", "MLP",

@@ -210,7 +210,14 @@ class DeepEarthModel(nn.Module):
         return {**fusion_out, "all_tokens": h, "fused_representation": h[:, 0],
                 "modality_tokens": per_modality}
 
-    @torch.inference_mode()
     def extract_features(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """Frozen-feature extraction: the fused CLS representation (B, D)."""
-        return self(batch)["fused_representation"]
+        """Frozen-feature extraction: the fused CLS representation (B, D),
+        always in eval mode (JAX's ``deterministic=True``); the caller's
+        mode is restored after."""
+        was_training = self.training
+        self.eval()
+        try:
+            with torch.inference_mode():
+                return self(batch)["fused_representation"]
+        finally:
+            self.train(was_training)

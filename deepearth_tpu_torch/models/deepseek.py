@@ -15,8 +15,9 @@ config asks for them: ring attention over a mesh and pipelined stages
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -214,8 +215,11 @@ class MoELayer(nn.Module):
     parameter type, as in the JAX package.
 
     After each call the layer keeps, where a caller can read them (flax
-    sows the first two): ``aux_loss``, the load-balance loss; ``load``, the
-    (E,) tokens routed per expert; ``mode``, the dispatch mode it took.
+    sows the first two, as ``moe_aux_loss`` and ``moe_load``): ``aux_loss``,
+    the load-balance loss, differentiable through the router's scores;
+    ``load``, the (E,) tokens routed per expert; ``mode``, the dispatch mode
+    it took. :func:`collect_moe_aux_losses` gathers ``aux_loss`` over every
+    call of a forward.
     """
 
     def __init__(self, cfg: MoEConfig, init: Init,
@@ -280,6 +284,22 @@ class MoELayer(nn.Module):
             gate.scores, gate.topk_idx, cfg.n_routed_experts)
         self.load, self.mode = load, mode
         return y.reshape(x.shape).to(x.dtype)
+
+
+@contextlib.contextmanager
+def collect_moe_aux_losses(model: nn.Module) -> Iterator[List[torch.Tensor]]:
+    """Inside, every call of a :class:`MoELayer` of ``model`` appends its
+    ``aux_loss`` to the yielded list, in call order: the values flax sows
+    as ``moe_aux_loss``, one per call."""
+    values: List[torch.Tensor] = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: values.append(mod.aux_loss))
+        for m in model.modules() if isinstance(m, MoELayer)]
+    try:
+        yield values
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def layer_uses_moe(cfg: DeepSeekBlockConfig, i: int) -> bool:

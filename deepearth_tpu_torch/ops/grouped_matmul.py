@@ -1,14 +1,15 @@
 """Grouped matmul over expert-sorted rows, the PyTorch port of the megablox
 ``gmm`` kernel that ``deepearth_tpu/ops/moe.py`` ``ragged_expert_ffn`` calls
-on the TPU.
+on the TPU, and of its VJP.
 
-:func:`gmm` is a ``torch.autograd.Function``: for CUDA tensors the
-hand-written kernel K5-fwd (``kernels/csrc/grouped_matmul.cu``), for CPU
-tensors its plain PyTorch version :func:`gmm_plain`. The group sizes stay on
-the device: the kernel reads them itself, so a MoE layer costs no host
-synchronisation. The backward on the card (megablox's ``gmm`` with
-``transpose_rhs`` and ``tgmm``, K5-bwd) is the flagship train step's work;
-on the CPU :func:`gmm_bwd_plain` gives it.
+:func:`gmm` is a ``torch.autograd.Function``. For CUDA tensors its forward
+is the hand-written kernel K5-fwd (``kernels/csrc/grouped_matmul.cu``) and
+its backward K5-bwd (``kernels/csrc/grouped_matmul_bwd.cu``: megablox's
+``gmm`` with ``transpose_rhs`` for dlhs and ``tgmm`` for drhs, one launch
+each, only for the inputs that need a gradient); for CPU tensors their plain
+PyTorch versions :func:`gmm_plain` and :func:`gmm_bwd_plain`. The group
+sizes stay on the device: the kernels read them themselves, so a MoE layer
+costs no host synchronisation, forward or backward.
 
 What the port does not copy from the JAX call site: the 128-row padding of
 the sorted rows into the last group and the tile table; the kernel takes any
@@ -20,11 +21,6 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-
-K5_BWD_TODO = ("the backward of the grouped matmul on the card is K5-bwd "
-               "(megablox gmm with transpose_rhs and tgmm), the flagship "
-               "train step's kernel: ROADMAP.md Queue 1, item 12b")
-
 
 def supported(lhs: torch.Tensor, rhs: torch.Tensor,
               group_sizes: torch.Tensor) -> bool:
@@ -64,22 +60,30 @@ def gmm_plain(lhs: torch.Tensor, rhs: torch.Tensor,
 
 
 def gmm_bwd_plain(lhs: torch.Tensor, rhs: torch.Tensor,
-                  group_sizes: torch.Tensor, dout: torch.Tensor):
+                  group_sizes: torch.Tensor, dout: torch.Tensor,
+                  need_lhs: bool = True, need_rhs: bool = True):
     """Plain PyTorch version of K5-bwd (megablox ``_gmm_bwd``): dlhs rows of
-    group g = dout rows . rhs[g]^T, rounded to lhs's type; drhs[g] = lhs
-    rows^T . dout rows, rounded to rhs's type (0 for an empty group); fp32
-    sums."""
+    group g = dout rows . rhs[g]^T, rounded to lhs's type (rows past the
+    last group 0); drhs[g] = lhs rows^T . dout rows, rounded to rhs's type
+    (0 for an empty group); fp32 sums. Returns (dlhs, drhs), each None when
+    not needed."""
     dout = dout.float()
-    dlhs = torch.zeros(lhs.shape, dtype=torch.float32, device=lhs.device)
-    drhs = torch.zeros(rhs.shape, dtype=torch.float32, device=rhs.device)
+    dlhs = (torch.zeros(lhs.shape, dtype=torch.float32, device=lhs.device)
+            if need_lhs else None)
+    drhs = (torch.zeros(rhs.shape, dtype=torch.float32, device=rhs.device)
+            if need_rhs else None)
     for g, start, end in _segments(group_sizes, lhs.shape[0]):
-        dlhs[start:end] = dout[start:end] @ rhs[g].float().T
-        drhs[g] = lhs[start:end].float().T @ dout[start:end]
-    return dlhs.to(lhs.dtype), drhs.to(rhs.dtype)
+        if need_lhs:
+            dlhs[start:end] = dout[start:end] @ rhs[g].float().T
+        if need_rhs:
+            drhs[g] = lhs[start:end].float().T @ dout[start:end]
+    return (None if dlhs is None else dlhs.to(lhs.dtype),
+            None if drhs is None else drhs.to(rhs.dtype))
 
 
 class _GroupedMatmul(torch.autograd.Function):
-    """K5-fwd for CUDA tensors, the plain versions for CPU tensors."""
+    """K5-fwd and K5-bwd for CUDA tensors, the plain versions for CPU
+    tensors."""
 
     @staticmethod
     def forward(ctx, lhs, rhs, group_sizes):
@@ -91,9 +95,15 @@ class _GroupedMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         lhs, rhs, group_sizes = ctx.saved_tensors
-        if lhs.device.type != "cpu":
-            raise NotImplementedError(K5_BWD_TODO)
-        return (*gmm_bwd_plain(lhs, rhs, group_sizes, dout), None)
+        need_lhs, need_rhs = ctx.needs_input_grad[:2]
+        if lhs.device.type == "cpu":
+            return (*gmm_bwd_plain(lhs, rhs, group_sizes, dout, need_lhs,
+                                   need_rhs), None)
+        dlhs = (kernels.grouped_matmul_bwd_dlhs(dout, rhs, group_sizes)
+                if need_lhs else None)
+        drhs = (kernels.grouped_matmul_bwd_drhs(lhs, dout, group_sizes)
+                if need_rhs else None)
+        return dlhs, drhs, None
 
 
 def gmm(lhs: torch.Tensor, rhs: torch.Tensor,

@@ -4,7 +4,8 @@
 A weighted sum of masked spatial and temporal MSE, a per-modality loss
 (cross-entropy for learned embeddings, MLM cross-entropy for token
 sequences, MAE MSE for decoded sequences, pooled MSE otherwise), CLIP-style
-contrastive alignment and species-aware supervised contrastive.
+contrastive alignment, species-aware supervised contrastive, and the MoE
+layers' load-balance loss.
 
 Masked-row convention: a loss averages over the rows whose mask is False,
 the entries the model had to reconstruct.
@@ -13,17 +14,13 @@ the entries the model had to reconstruct.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs import DeepEarthConfig
 from .metrics import coordinate_error_meters, time_error_hours
-
-MOE_AUX_TODO = ("the MoE auxiliary loss belongs to the flagship train step, "
-                "not ported yet (ROADMAP.md Queue 1, item 12b)")
-
 
 @dataclass
 class LossWeights:
@@ -92,6 +89,21 @@ def species_contrastive_loss(emb: torch.Tensor, labels: torch.Tensor,
     return per_anchor.sum() / (pos_count > 0).sum().clamp_min(1)
 
 
+def _leaves_under(tree: Any, name: str, inside: bool = False
+                  ) -> Iterator[Any]:
+    """The leaves of a tree of mappings, lists and tuples whose path has a
+    key containing ``name``, in order (flax's sown intermediates: a tuple
+    of values per module and name)."""
+    if isinstance(tree, Mapping):
+        for key, value in tree.items():
+            yield from _leaves_under(value, name, inside or name in str(key))
+    elif isinstance(tree, (list, tuple)):
+        for value in tree:
+            yield from _leaves_under(value, name, inside)
+    elif inside:
+        yield tree
+
+
 def deepearth_loss(outputs: Dict[str, Any], batch: Dict[str, Any],
                    config: DeepEarthConfig,
                    weights: Optional[LossWeights] = None,
@@ -101,6 +113,10 @@ def deepearth_loss(outputs: Dict[str, Any], batch: Dict[str, Any],
 
     Targets come from the unmasked batch; masks say which rows were hidden
     from the model (mask False = hidden = contributes to the loss).
+    ``intermediates``: values the forward recorded, as flax sows them; with
+    ``weights.moe_aux > 0`` every value under a ``moe_aux_loss`` key (one
+    per MoE layer call, ``models.collect_moe_aux_losses``) enters as the
+    mean over values of each value's mean.
     """
     w = weights or LossWeights()
     recon = outputs["reconstructions"]
@@ -187,8 +203,14 @@ def deepearth_loss(outputs: Dict[str, Any], batch: Dict[str, Any],
         metrics["loss/species_contrastive"] = l_sc
         total = total + w.species_contrastive * l_sc
 
+    # -- MoE load balance ---------------------------------------------------- #
     if w.moe_aux > 0 and intermediates:
-        raise NotImplementedError(MOE_AUX_TODO)
+        aux_terms = [torch.as_tensor(v).float().mean()
+                     for v in _leaves_under(intermediates, "moe_aux_loss")]
+        if aux_terms:
+            l_aux = sum(aux_terms) / len(aux_terms)
+            metrics["loss/moe_aux"] = l_aux
+            total = total + w.moe_aux * l_aux
 
     # -- human-unit error metrics ------------------------------------------- #
     if "spatial_span_m" in batch:

@@ -3,8 +3,7 @@ the optimizer and its schedules, the train and eval steps, and the
 :class:`Trainer` loop with checkpoint rotation.
 
 The train step runs eagerly: sample masks, forward, loss, backward (through
-the K1 and K2 backward kernels on a card), then the optimizer's update in
-place. Randomness comes from an explicit ``torch.Generator`` on the model's
+the kernels' backward on a card), then the optimizer's update in place. Randomness comes from an explicit ``torch.Generator`` on the model's
 device: the masks first, then the dropout masks of the forward.
 """
 
@@ -24,6 +23,7 @@ import torch
 from torch import nn
 
 from ..configs import DeepEarthConfig, OptimizerConfig, config_to_json
+from ..models.deepseek import collect_moe_aux_losses
 from .losses import LossWeights, deepearth_loss
 from .masking import mae_patch_mask, mlm_token_mask, sample_masks
 from .metrics import MetricAccumulator, format_epoch_line
@@ -213,6 +213,8 @@ def make_train_step(model: nn.Module, config: DeepEarthConfig,
 
     ``metrics`` holds the loss terms and ``grad_norm``, the global norm of
     the gradients before clipping, as 0-dim tensors on the model's device.
+    The loss sees the load-balance loss of every MoE layer call of the
+    forward (JAX's ``mutable=["intermediates"]``).
     ``microbatch_steps=k`` splits the batch into k equal microbatches (each
     batch leaf whose first axis is the batch), accumulates their gradients
     and averages them, so the update sees the full-batch mean gradient;
@@ -248,8 +250,11 @@ def make_train_step(model: nn.Module, config: DeepEarthConfig,
     def backward(batch, generator):
         if apply_masking:
             batch = mask_batch(batch, generator)
-        out = model(batch, generator=generator)
-        loss, metrics = deepearth_loss(out, batch, config, weights)
+        with collect_moe_aux_losses(model) as aux:
+            out = model(batch, generator=generator)
+        loss, metrics = deepearth_loss(
+            out, batch, config, weights,
+            {"moe_aux_loss": aux} if aux else None)
         loss.backward()
         return {name: v.detach() for name, v in metrics.items()}
 

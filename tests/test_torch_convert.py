@@ -229,8 +229,13 @@ def test_launch_counters_stay_zero_on_cpu(small):
         flash_attention.flash_attention(k, k, k, scale=0.25, causal=True)
         grouped_matmul.gmm(torch.randn(7, 8), torch.randn(3, 8, 5),
                            torch.tensor([2, 0, 5], dtype=torch.int32))
+    grouped_matmul.gmm(torch.randn(7, 8, requires_grad=True),
+                       torch.randn(3, 8, 5, requires_grad=True),
+                       torch.tensor([2, 0, 5], dtype=torch.int32)
+                       ).sum().backward()
     assert set(kernels.launch_counts.values()) == {0}
     assert set(kernels.launch_counts) == {
         "hash_encode_fwd", "hash_encode_bwd", "pairwise_attention_fwd",
         "pairwise_attention_bwd", "vmem_attention_fwd", "vmem_attention_bwd",
-        "flash_attention_fwd", "flash_attention_bwd", "grouped_matmul_fwd"}
+        "flash_attention_fwd", "flash_attention_bwd", "grouped_matmul_fwd",
+        "grouped_matmul_bwd_dlhs", "grouped_matmul_bwd_drhs"}

@@ -25,7 +25,10 @@ entry (1e-5 in fp32, two bf16 ulps of it in bf16) plus 1e-6; dq exactly 0
 where no key is visible, dk and dv exactly 0 for a masked key. K5-fwd
 returns fp32 in both types and differs from its plain version only in the
 order of fp32 sums: chip_smoke.check_gmm, 1e-5 of the largest entry in
-fp32, K4's relative limits in bf16.
+fp32, K4's relative limits in bf16. K5-bwd sums in fp32 with dout kept at
+fp32 accuracy and rounds once, as its plain version does:
+chip_smoke.check_gmm_bwd, K5-fwd's limits, and in bf16 at least 99% of the
+entries equal to the plain version's.
 """
 
 import contextlib
@@ -55,8 +58,10 @@ ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 ATTN_BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -7, 1e-4)}
 HASH_BWD_TOL = 1e-5
 VMEM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-NO_K3_K4 = {"vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
-            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+NO_K3_TO_K5 = {"vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
+               "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+               "grouped_matmul_fwd": 0, "grouped_matmul_bwd_dlhs": 0,
+               "grouped_matmul_bwd_drhs": 0}
 
 
 def _smoke():
@@ -270,7 +275,7 @@ def test_astack_train_step_launches_every_kernel(cuda):
     assert kernels.launch_counts == {
         "hash_encode_fwd": 2, "hash_encode_bwd": 2,
         "pairwise_attention_fwd": 16, "pairwise_attention_bwd": 16,
-        **NO_K3_K4}
+        **NO_K3_TO_K5}
     assert np.isfinite(metrics["loss/total"].item())
     assert np.isfinite(metrics["grad_norm"].item())
 
@@ -297,6 +302,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     (3, 2, 100, 260, 48, 80, True, False),  # ragged, masked
     (2, 2, 33, 1024, 128, 128, True, False),  # the longest row, widest head
     (1, 1, 1, 1, 8, 8, False, False),  # one key
+    (8, 8, 576, 576, 128, 128, False, True),  # the flagship's vision MLA
 ])
 def test_vmem_attention_matches_plain(cuda, dtype, b, h, nq, nk, dqk, dv,
                                       mask, strided):
@@ -347,6 +353,7 @@ def test_dot_product_attention_routes_k3_shapes_to_the_kernel(cuda):
     (3, 2, 100, 260, 48, 80, True, False),  # ragged, masked
     (2, 2, 33, 1024, 128, 128, True, False),  # the longest row, widest head
     (1, 1, 1, 1, 8, 8, False, False),  # one key
+    (8, 8, 576, 576, 128, 128, False, True),  # the flagship's vision MLA
 ])
 def test_vmem_attention_bwd_matches_plain(cuda, dtype, b, h, nq, nk, dqk, dv,
                                           mask, strided):
@@ -391,6 +398,7 @@ def test_vmem_attention_autograd_runs_k3_bwd(cuda):
     (3, 2, 1000, 48, 32, True, False, False),  # ragged N, masked keys
     (2, 2, 1500, 128, 128, True, True, False),  # widest heads, both masks
     (2, 2, 1, 8, 8, False, True, False),  # one token
+    (1, 8, 4608, 128, 128, False, False, True),  # the flagship's clip MLA
 ])
 def test_flash_attention_matches_plain(cuda, dtype, b, h, n, dqk, dv, mask,
                                        causal, strided):
@@ -506,7 +514,7 @@ def test_multimodal_train_steps_launch_k3_and_k4(cuda):
         assert kernels.launch_counts == {
             "hash_encode_fwd": 2, "hash_encode_bwd": 2,
             "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
-            **NO_K3_K4, **want}
+            **NO_K3_TO_K5, **want}
         assert np.isfinite(metrics["loss/total"].item())
         assert np.isfinite(metrics["grad_norm"].item())
 
@@ -527,7 +535,7 @@ def test_multimodal_forward_launches_k3_twice(cuda):
     assert kernels.launch_counts == {
         "hash_encode_fwd": 2, "hash_encode_bwd": 0,
         "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
-        **NO_K3_K4, "vmem_attention_fwd": 2}
+        **NO_K3_TO_K5, "vmem_attention_fwd": 2}
     assert feats.shape == (3, 512) and bool(feats.isfinite().all())
 
 
@@ -582,8 +590,9 @@ def test_grouped_matmul_matches_plain(cuda, dtype, case):
 
 
 def test_grouped_matmul_refusals_and_card_backward(cuda):
+    smoke = _smoke()
     gen = torch.Generator(device="cuda").manual_seed(1)
-    lhs, rhs, gs = _smoke().gmm_case(gen, [3, 5], 16, 8, torch.bfloat16)
+    lhs, rhs, gs = smoke.gmm_case(gen, [3, 5], 16, 8, torch.bfloat16)
     with pytest.raises(ValueError, match="int32"):
         kernels.grouped_matmul_fwd(lhs, rhs, gs.long())
     with pytest.raises(ValueError, match="share"):
@@ -594,9 +603,61 @@ def test_grouped_matmul_refusals_and_card_backward(cuda):
     empty = kernels.grouped_matmul_fwd(lhs[:0], rhs, torch.zeros_like(gs))
     assert empty.shape == (0, 8) and kernels.launch_counts[
         "grouped_matmul_fwd"] == 0
-    out = tgmm.gmm(lhs.requires_grad_(), rhs, gs)
-    with pytest.raises(NotImplementedError, match="K5-bwd"):
-        out.sum().backward()
+    # autograd on the card: K5-bwd's two kernels, once each, and only for
+    # the inputs that need a gradient
+    for needs in ((True, True), (True, False), (False, True)):
+        leaves = [x.detach().clone().requires_grad_(r)
+                  for x, r in zip((lhs, rhs), needs)]
+        kernels.reset_launch_counts()
+        with smoke.plain_versions_refused():
+            tgmm.gmm(*leaves, gs).sum().backward()
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["grouped_matmul_bwd_dlhs"] == needs[0]
+        assert kernels.launch_counts["grouped_matmul_bwd_drhs"] == needs[1]
+        ref = tgmm.gmm_bwd_plain(lhs, rhs, gs, torch.ones((8, 8),
+                                                          device=cuda))
+        for leaf, r in zip(leaves, ref):
+            if leaf.requires_grad:
+                smoke.check_gmm_bwd("autograd", (leaf.grad, leaf.grad),
+                                    (r, r), torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.grouped_matmul_bwd_dlhs(torch.ones((8, 8), device=cuda,
+                                                   dtype=torch.bfloat16),
+                                        rhs, gs)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.grouped_matmul_bwd_drhs(lhs, torch.ones((8, 8), device=cuda),
+                                        gs.long())
+
+
+K5_BWD_CASES = {**GMM_CASES, "M=0": ([0, 0, 0], 64, 64, None)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(K5_BWD_CASES))
+def test_grouped_matmul_bwd_matches_plain(cuda, dtype, case):
+    """K5-bwd's dlhs and drhs on an fp32 dout with genuine low bits: an
+    empty group's drhs exactly 0 (from a torch.empty output), dlhs of the
+    rows past the last group 0, M = 0 launches dlhs nothing."""
+    smoke = _smoke()
+    sizes, k, n, m = K5_BWD_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lhs, rhs, gs = smoke.gmm_case(gen, sizes, k, n, dtype, m)
+    dout = torch.randn((lhs.shape[0], n), generator=gen, device=cuda)
+    kernels.reset_launch_counts()
+    got = (kernels.grouped_matmul_bwd_dlhs(dout, rhs, gs),
+           kernels.grouped_matmul_bwd_drhs(lhs, dout, gs))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["grouped_matmul_bwd_dlhs"] == int(
+        lhs.shape[0] > 0)
+    assert kernels.launch_counts["grouped_matmul_bwd_drhs"] == 1
+    smoke.check_gmm_bwd(case, got, tgmm.gmm_bwd_plain(lhs, rhs, gs, dout),
+                        dtype)
+    for g, size in enumerate(sizes):
+        if size == 0:
+            assert bool((got[1][g] == 0).all())
+    if m is not None:
+        assert bool((got[0][sum(sizes):] == 0).all())
 
 
 def test_ragged_moe_layer_launches_k5_three_times(cuda):
@@ -619,3 +680,32 @@ def test_ragged_moe_layer_launches_k5_three_times(cuda):
         ref = layer(x)
     err = (out.float() - ref.float()).abs()
     assert err.max().item() <= 2 ** -6 * ref.float().abs().max().item()
+
+
+def test_ragged_moe_layer_backward_launches_k5_bwd(cuda):
+    """A bf16 MoE layer forced ragged, trained one backward: K5-fwd 3 times
+    and K5-bwd's dlhs and drhs 3 times each (gate, up, down), no plain
+    version reached; the router gets its aux term's gradient."""
+    smoke = _smoke()
+    cfg = MoEConfig(n_routed_experts=8, num_experts_per_tok=2, n_group=2,
+                    topk_group=1, moe_intermediate_size=256, hidden_dim=128,
+                    dispatch_mode="ragged")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    layer = MoELayer(cfg, Init(gen, "cuda", torch.bfloat16), torch.bfloat16)
+    x = torch.randn((4, 300, 128), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    kernels.reset_launch_counts()
+    with smoke.plain_versions_refused():
+        out = layer(x)
+        (out.float().square().mean() + 0.01 * layer.aux_loss).backward()
+    torch.cuda.synchronize()
+    assert layer.mode == "ragged"
+    assert {k: kernels.launch_counts[k] for k in (
+        "grouped_matmul_fwd", "grouped_matmul_bwd_dlhs",
+        "grouped_matmul_bwd_drhs")} == {"grouped_matmul_fwd": 3,
+                                        "grouped_matmul_bwd_dlhs": 3,
+                                        "grouped_matmul_bwd_drhs": 3}
+    for name, p in layer.named_parameters():
+        if name != "e_score_correction_bias":
+            assert p.grad is not None and bool(p.grad.isfinite().all()), name
+    assert x.grad is not None and bool(x.grad.isfinite().all())

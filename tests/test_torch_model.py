@@ -357,3 +357,16 @@ def test_dropout_keep_fraction_and_scaling(p):
     torch.testing.assert_close(y[kept], torch.full_like(y[kept],
                                                         2.0 / (1 - p)))
     assert dropout(x, p, False, None) is x
+
+
+def test_extract_features_runs_in_eval_mode_and_restores_the_mode():
+    """JAX's extract_features always runs deterministic: with dropout > 0
+    the port's gives the same features after model.train() as after
+    model.eval(), needs no generator, and leaves the caller's mode."""
+    model = dropout_model(0.5)
+    batch = to_torch(numpy_batch(11))
+    ref = model.eval().extract_features(batch)
+    assert not model.training
+    out = model.train().extract_features(batch)
+    assert model.training
+    assert torch.equal(out, ref)

@@ -28,6 +28,7 @@ from deepearth_tpu.models import deepseek as jds
 from deepearth_tpu.ops import moe as jmoe
 from deepearth_tpu_torch import configs as tcfg
 from deepearth_tpu_torch import load_flax_params
+from deepearth_tpu_torch.convert import _leaves, _torch_name
 from deepearth_tpu_torch.models import deepseek as tds
 from deepearth_tpu_torch.models.layers import Init
 from deepearth_tpu_torch.ops import grouped_matmul as tgmm
@@ -120,6 +121,61 @@ def test_gmm_cpu_backward_is_the_plain_backward():
     close_rel(lhs.grad.numpy(), lhs2.grad.numpy())
     close_rel(rhs.grad.numpy(), rhs2.grad.numpy())
     assert bool((rhs.grad[1] == 0).all())
+
+
+def megablox_vjp(lhs, rhs, sizes, dout, jdt):
+    """jax.vjp of the megablox gmm in interpret mode, as ragged_expert_ffn
+    calls it: rows padded to 128 into the last group on JAX's side (their
+    cotangent 0, their dlhs sliced away), tiling clamped to the shape."""
+    m, k = lhs.shape
+    n = rhs.shape[2]
+    pad = (-m) % 128
+    jsizes = sizes.copy()
+    jsizes[-1] += pad
+
+    def f(l, r):
+        return jax_gmm(l, r, jnp.asarray(jsizes),
+                       preferred_element_type=jnp.float32,
+                       tiling=(128, k, n), interpret=True)
+
+    _, vjp = jax.vjp(f, jnp.asarray(np.pad(lhs, ((0, pad), (0, 0))), jdt),
+                     jnp.asarray(rhs, jdt))
+    dlhs, drhs = vjp(jnp.asarray(np.pad(dout, ((0, pad), (0, 0)))))
+    return (np.asarray(dlhs.astype(jnp.float32))[:m],
+            np.asarray(drhs.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(GMM_CASES))
+def test_gmm_bwd_plain_matches_megablox_vjp(case, dtype):
+    """K5-bwd's plain version against megablox's VJP (gmm with transpose_rhs
+    for dlhs, tgmm for drhs) on an fp32 dout with genuine low bits: in bf16
+    within one bf16 ulp of each output's largest entry (both sum in fp32 and
+    round once), an empty group's drhs exactly 0."""
+    sizes = np.array(GMM_CASES[case], np.int32)
+    m = int(sizes.sum())
+    lhs, rhs = features(6, m, D), features(7, len(sizes), D, F)
+    dout = features(8, m, F)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref_dlhs, ref_drhs = megablox_vjp(lhs, rhs, sizes, dout, jdt)
+    dlhs, drhs = tgmm.gmm_bwd_plain(t(lhs).to(tdt), t(rhs).to(tdt), t(sizes),
+                                    t(dout))
+    assert dlhs.dtype == drhs.dtype == tdt
+    assert dlhs.shape == (m, D) and drhs.shape == (len(sizes), D, F)
+    for out, ref in ((dlhs, ref_dlhs), (drhs, ref_drhs)):
+        tol = REL if dtype == "float32" else (bf16_ulp(ref)
+                                              / np.abs(ref).max())
+        close_rel(out.float().numpy(), ref, tol)
+    for g in np.flatnonzero(sizes == 0):
+        assert bool((drhs[g] == 0).all()) and not ref_drhs[g].any()
+
+
+def test_gmm_backward_honours_needs_input_grad():
+    sizes = t(np.array([5, 0, 9, 2], np.int32))
+    lhs = t(features(3, 16, D)).requires_grad_()
+    rhs = t(features(4, 4, D, F))
+    tgmm.gmm(lhs, rhs, sizes).sum().backward()
+    assert lhs.grad is not None and rhs.grad is None
 
 
 # --------------------------------------------------------------------------- #
@@ -237,6 +293,35 @@ def test_ragged_expert_ffn_matches_jax(dtype):
                                    atol=bf16_ulp(ref), rtol=0)
 
 
+def test_ragged_expert_ffn_gradients_match_jax_vjp():
+    """All five differentiable inputs (tokens, gate weights, the three
+    expert weights) in fp32, through gmm_bwd_plain on the port's side and
+    megablox's VJP in interpret mode on JAX's: within 1e-4 of each
+    gradient's largest entry. An expert no token chose gets 0."""
+    idx, w = routing(25)
+    idx[idx == 5] = 6  # expert 5 gets nothing
+    xf = features(26, S, D)
+    ws = expert_weights(27)
+    dy = features(28, S, D)
+    args = (xf, w, *ws)
+
+    def jf(x_, w_, g_, u_, d_):
+        return jmoe.ragged_expert_ffn(x_, jnp.asarray(idx), w_, g_, u_, d_)
+
+    _, vjp = jax.vjp(jf, *(jnp.asarray(a) for a in args))
+    refs = [np.asarray(r) for r in vjp(jnp.asarray(dy))]
+    leaves = [t(a).requires_grad_() for a in args]
+    out = tmoe.ragged_expert_ffn(leaves[0], t(idx), leaves[1], *leaves[2:])
+    out.backward(t(dy))
+    for name, leaf, ref in zip(("xf", "topk_weight", "w_gate", "w_up",
+                                "w_down"), leaves, refs):
+        np.testing.assert_allclose(leaf.grad.numpy(), ref, rtol=0,
+                                   atol=1e-4 * np.abs(ref).max(),
+                                   err_msg=name)
+    for w_ in leaves[2:]:
+        assert bool((w_.grad[5] == 0).all())
+
+
 # --------------------------------------------------------------------------- #
 # MoELayer and its dispatch rule
 # --------------------------------------------------------------------------- #
@@ -277,6 +362,51 @@ def test_moe_layer_matches_jax(mode, layer_inputs):
     np.testing.assert_array_equal(mod.load.numpy(),
                                   np.asarray(inter["moe_load"][0]))
     assert mod.mode == mode
+
+
+@pytest.mark.parametrize("mode", ["dense", "ragged"])
+def test_moe_layer_gradients_with_aux_loss_match_jax(mode, layer_inputs):
+    """The layer's output dotted with a cotangent plus 0.1 times its aux
+    loss (the sown moe_aux_loss), differentiated against JAX's: every
+    parameter and the input within 1e-4 of its largest entry. The aux term
+    reaches the router through the gate's scores."""
+    jc, tc = moe_cfgs(dispatch_mode=mode)
+    x = layer_inputs
+    dy = features(32, *x.shape)
+    jmod = jds.MoELayer(jc, jnp.float32, jnp.float32)
+    params = jax.jit(jmod.init)(jax.random.PRNGKey(1), jnp.asarray(x))
+    params = params["params"]
+
+    def jloss(p, x_):
+        y, state = jmod.apply({"params": p}, x_, mutable=["intermediates"])
+        aux = state["intermediates"]["moe_aux_loss"][0]
+        return jnp.sum(y * jnp.asarray(dy)) + 0.1 * aux
+
+    ref_params, ref_x = jax.grad(jloss, argnums=(0, 1))(params,
+                                                         jnp.asarray(x))
+    mod = tds.MoELayer(tc, Init(torch.Generator().manual_seed(0), "cpu"),
+                       torch.float32)
+    load_flax_params(mod, jax.tree_util.tree_map(np.asarray, params))
+    tx = t(x).requires_grad_()
+    with tds.collect_moe_aux_losses(mod) as aux:
+        y = mod(tx)
+    assert len(aux) == 1 and aux[0] is mod.aux_loss
+    ((y * t(dy)).sum() + 0.1 * aux[0]).backward()
+    assert mod.mode == mode
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(ref_x), rtol=0,
+                               atol=1e-4 * np.abs(np.asarray(ref_x)).max())
+    ref = {_torch_name(path): (v.T if path[-1] == "kernel" else v)
+           for path, v in _leaves(jax.tree_util.tree_map(np.asarray,
+                                                          ref_params))}
+    grads = {n: p.grad for n, p in mod.named_parameters()}
+    assert set(grads) == set(ref)
+    # the score-correction bias moves the choice only: JAX's gradient is 0
+    assert grads.pop("e_score_correction_bias") is None
+    assert not ref.pop("e_score_correction_bias").any()
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), ref[name], rtol=0,
+                                   atol=1e-4 * np.abs(ref[name]).max(),
+                                   err_msg=name)
 
 
 def test_moe_layer_router_stays_fp32_under_bf16_params():

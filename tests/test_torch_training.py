@@ -614,13 +614,53 @@ def test_contrastive_losses_match_jax():
 
 
 def test_moe_aux_with_intermediates_is_not_ported():
+    """Once refused, now ported: deepearth_loss with MoE intermediates as
+    flax sows them (a tuple of values per module, one a stacked (3,) value,
+    ``moe_load`` beside them) adds moe_aux times the mean over values of
+    each value's mean, as JAX's does; with moe_aux 0 it adds nothing."""
     cfg = _loss_config()
     outputs, batch = _loss_inputs(0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        deepearth_loss(to_torch(outputs), to_torch(batch),
-                       config_from_json(jcfg.config_to_json(cfg)),
-                       LossWeights(moe_aux=0.1),
-                       intermediates={"moe_aux_loss": torch.ones(())})
+    rng = np.random.default_rng(5)
+    inter = {
+        "encoder_vision": {"moe_projection": {
+            "moe_aux_loss": (np.float32(1.7),),
+            "moe_load": (rng.uniform(size=4).astype(np.float32),)}},
+        "simulator": {
+            "layer_1": {"moe": {"moe_aux_loss": (np.float32(2.3),
+                                                 np.float32(0.4))}},
+            "layer_2": {"moe": {"moe_aux_loss": (
+                rng.uniform(1.0, 3.0, 3).astype(np.float32),)}}},
+    }
+
+    def to_torch_tree(tree):
+        if isinstance(tree, dict):
+            return {k: to_torch_tree(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(torch.from_numpy(np.asarray(v)) for v in tree)
+        return tree
+
+    port_cfg = config_from_json(jcfg.config_to_json(cfg))
+    for moe_aux in (0.1, 0.0):
+        ref_total, ref = jlosses.deepearth_loss(
+            to_jax(outputs), to_jax(batch), cfg,
+            jlosses.LossWeights(moe_aux=moe_aux),
+            jax.tree_util.tree_map(jnp.asarray, inter))
+        total, got = deepearth_loss(to_torch(outputs), to_torch(batch),
+                                    port_cfg, LossWeights(moe_aux=moe_aux),
+                                    intermediates=to_torch_tree(inter))
+        assert set(got) == set(ref)
+        assert ("loss/moe_aux" in got) == (moe_aux > 0)
+        for k in ref:
+            rel_close(got[k], ref[k], 1e-5)
+        rel_close(total, ref_total, 1e-5)
+    plain, _ = deepearth_loss(to_torch(outputs), to_torch(batch), port_cfg,
+                              LossWeights())
+    with_aux, _ = deepearth_loss(to_torch(outputs), to_torch(batch),
+                                 port_cfg, LossWeights(moe_aux=0.1),
+                                 intermediates=to_torch_tree(inter))
+    rel_close(with_aux - plain, 0.1 * np.mean(
+        [1.7, 2.3, 0.4, inter["simulator"]["layer_2"]["moe"][
+            "moe_aux_loss"][0].mean()]), 1e-5)
 
 
 def test_metrics_match_jax():
