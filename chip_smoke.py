@@ -72,6 +72,22 @@ Phases, each printing one line:
      dispatch mode; 3 steps against the plain path from one start state
      kept on the host, routing pinned as in phase 15; step time, peak
      memory, a per-op profile with K5's share of the step;
+ 17. K6 (int8_bmm) and K7 (int4_bmm) against their plain PyTorch versions,
+     x in bf16 and fp32, at the decode path's shapes (dense E=1 at C 1, 5,
+     8, 32 for q_proj 2048 -> 3072 and kv_a_proj_with_mqa 2048 -> 576;
+     experts E=16 at C 4, 16, 32, 128 for 2048 -> 1024 and 1024 -> 2048);
+     two runs bitwise equal; times with the weights out of L2, bounds,
+     torch._weight_int8pack_mm where this torch has it on the card; one B=8
+     decode step's 177 products timed;
+ 18. decode at tools/bench_decode.py's config (2.424B parameters, bf16,
+     tied embeddings): bf16, int8 and int4 trees (the int8 / int4 ones by
+     quantize_decoder_params, their bytes BENCH_DECODE.json's), greedy
+     generate of 256 tokens after a 64-token prompt at B=1, 8, 32 over a
+     bf16 cache; per call K6 319 x 177 = 56,463 times (int8), K7 as many
+     (int4), neither at bf16, no plain version reached; wall time, tokens/s,
+     ms per step, peak memory, a per-op profile of one int8 step at B=8;
+     kernel vs plain at B=8: the prompt's logits teacher-forced with
+     routing pinned, flips counted, and the greedy tokens' agreement;
 then a JSON line of the kernels, the card's name and power limit, and
 {"ok": true, ...} as the last line. Any failure raises and exits non-zero.
 Weights are random, drawn from a seeded generator on the card.
@@ -85,6 +101,7 @@ prints the largest batch that fits, without the last two lines.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -103,12 +120,26 @@ import torch.nn.functional as F
 from deepearth_tpu_torch import kernels
 from deepearth_tpu_torch.configs import (
     DeepEarthConfig,
+    DeepSeekBlockConfig,
     Grid4DConfig,
+    MLAConfig,
     ModalityConfig,
+    MoEConfig,
     TransformerConfig,
     integrated_config,
 )
-from deepearth_tpu_torch.models import DeepEarthModel, MoELayer, fusion
+from deepearth_tpu_torch.models import (
+    DeepEarthModel,
+    DeepSeekForCausalLM,
+    MoELayer,
+    cache_bytes_per_token,
+    causal_lm_decode_step,
+    full_cache_bytes_per_token,
+    fusion,
+    generate,
+    init_cache,
+)
+from deepearth_tpu_torch.models.deepseek import capacity
 from deepearth_tpu_torch.ops import (
     attention_smallseq,
     attention_vmem,
@@ -116,6 +147,7 @@ from deepearth_tpu_torch.ops import (
     grouped_matmul,
     hash_encoding,
     moe,
+    quant,
 )
 from deepearth_tpu_torch.training import (
     LossWeights,
@@ -245,6 +277,56 @@ FLAGSHIP_PER_STEP = {
 FLAGSHIP_TRAIN_TOL = {"loss": 1.2e-3, "moe_aux": 3e-5, "grad_norm": 1.5e-2}
 # the batches tried for the train step at 4608 patches, largest first
 CLIP_SEARCH_BATCHES = (64, 48, 32, 24, 16, 12, 8, 4, 2, 1)
+# K6 / K7 against their plain versions (phase 17): (E, C, D, F) of the decode
+# path at tools/bench_decode.py's widths. Dense projections reach them at
+# E=1 with C the batch: q_proj 2048 -> 3072, kv_a_proj_with_mqa 2048 -> 576
+# (Fp 640); the experts at E=16, 2048 -> 1024 and 1024 -> 2048. With the
+# config's capacity_factor 2.0 an expert gets max(4, ceil(B / 2)) slots (4
+# at B <= 8, 16 at B=32); 32 and 128 are the drop-free slots of B=8 and 32.
+QUANT_CASES = {
+    "q_proj C1": (1, 1, 2048, 3072), "q_proj C5": (1, 5, 2048, 3072),
+    "q_proj C8": (1, 8, 2048, 3072), "q_proj C32": (1, 32, 2048, 3072),
+    "kv_a C1": (1, 1, 2048, 576), "kv_a C8": (1, 8, 2048, 576),
+    "kv_a C32": (1, 32, 2048, 576),
+    "experts up C4": (16, 4, 2048, 1024), "experts up C16": (16, 16, 2048, 1024),
+    "experts up C32": (16, 32, 2048, 1024),
+    "experts up C128": (16, 128, 2048, 1024),
+    "experts down C4": (16, 4, 1024, 2048),
+    "experts down C32": (16, 32, 1024, 2048),
+    "experts down C128": (16, 128, 1024, 2048),
+}
+# the kernels line's numbers: one dense decode projection at B=8
+QUANT_LINE_CASE = "q_proj C8"
+# K6 / K7 against their plain versions: fp32 outputs within 1e-5 of the
+# largest entry (fp32 sums in another order; every product is exact); bf16
+# outputs within one bf16 ulp of the largest entry (the same sums, rounded
+# once: a value near a rounding boundary may land on the other neighbour)
+QUANT_FP32_REL = 1e-5
+# decode at tools/bench_decode.py's config (phase 18): prefill 64 + 256 new
+# tokens, bf16 parameters and cache, greedy, tied embeddings
+DECODE_VOCAB, DECODE_PROMPT, DECODE_NEW = 32000, 64, 256
+DECODE_BATCHES = (1, 8, 32)
+DECODE_STEPS = DECODE_PROMPT + DECODE_NEW - 1
+# K6 (int8) or K7 (int4) calls per decode step, as tools/bench_decode.py's
+# config should give them (decode_products counts them from the tree): 3 MLA
+# projections x 20 layers, layer 0's 3 SwiGLU projections, 6 per MoE layer
+# x 19 (the shared expert's 3, the experts' 3); kv_b_proj is absorbed and
+# the tied LM head is the embedding, neither quantized
+QUANT_PER_STEP = 3 * 20 + 3 + 6 * 19
+# kernel vs plain decode at B=8, the prompt's logits teacher-forced with
+# routing pinned (bf16 through 20 layers: a K6 / K7 output near a rounding
+# boundary lands on the other neighbour, and the residual stream carries it
+# on): the largest difference in bf16 ulps of the largest logit, the mean
+# over the mean |plain|, and the share of (token, MoE layer) choices whose
+# own routing would flip. Readings of the kernels as they stand on an H100
+# (PERF.md): 2.75 and 2.50 ulps, 0.0161 and 0.0149, 0.0325 and 0.0271
+# (int8, int4); held at about twice that. The greedy tokens are reported, not held: a random
+# model's logits are near-ties, and one flip parts a row for the rest of it.
+DECODE_TOL = {"max_over_ulp": 6.0, "mean_rel": 0.035, "flipped": 0.07}
+# BENCH_DECODE.json's weight bytes of the three trees
+BENCH_DECODE_BYTES = {"bf16": 4_849_386_688, "int8": 2_542_049_472,
+                      "int4": 1_382_848_704}
+
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s of HBM and
 # operations/s by type; fp32 without the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -334,9 +416,8 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the model's two kernel sites to their plain PyTorch versions;
-    in training, autograd through those plain forwards gives the plain
-    backward."""
+    """Route every kernel site to its plain PyTorch version; in training,
+    autograd through those plain forwards gives the plain backward."""
     with mock.patch.object(hash_encoding, "hash_encode",
                            hash_encoding.hash_encode_plain), \
          mock.patch.object(fusion, "pairwise_token_attention",
@@ -345,7 +426,9 @@ def plain_versions():
                            attention_vmem.vmem_attention_plain), \
          mock.patch.object(flash_attention, "flash_attention",
                            flash_attention.flash_attention_plain), \
-         mock.patch.object(grouped_matmul, "gmm", grouped_matmul.gmm_plain):
+         mock.patch.object(grouped_matmul, "gmm", grouped_matmul.gmm_plain), \
+         mock.patch.object(kernels, "int8_bmm", quant.int8_bmm_plain), \
+         mock.patch.object(kernels, "int4_bmm", quant.int4_bmm_plain):
         yield
 
 
@@ -364,7 +447,9 @@ def plain_versions_refused():
          mock.patch.object(flash_attention, "flash_attention_bwd_plain",
                            refuse), \
          mock.patch.object(grouped_matmul, "gmm_plain", refuse), \
-         mock.patch.object(grouped_matmul, "gmm_bwd_plain", refuse):
+         mock.patch.object(grouped_matmul, "gmm_bwd_plain", refuse), \
+         mock.patch.object(quant, "int8_bmm_plain", refuse), \
+         mock.patch.object(quant, "int4_bmm_plain", refuse):
         yield
 
 
@@ -2370,6 +2455,346 @@ def clip_batch_search(gen) -> None:
     raise AssertionError(f"no batch fits: {tried}")
 
 
+def bf16_ulp(x: torch.Tensor) -> float:
+    """One bf16 ulp at the largest |x|."""
+    top = x.abs().max().item()
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def cold_ms(fn, copies: int) -> float:
+    """Device time of one call of ``fn(i)``: a CUDA graph of calls cycling
+    over ``copies`` copies of its weights, so that a call finds them out of
+    the L2 cache, as one decode step's weights (GBs) are, and the host's
+    launch cost is not in the number."""
+    calls = itertools.cycle(range(copies))
+    return graph_ms(lambda: fn(next(calls)), reps=max(16, copies))
+
+
+def weight_copies(q: torch.Tensor) -> list:
+    """q and enough copies of it to pass 100 MiB, twice the L2 cache."""
+    n = max(1, -(-(100 * 2 ** 20) // q.numel()))
+    return [q] + [q.clone() for _ in range(n - 1)]
+
+
+def quant_case(gen, e, c, d, f, bits, x_dtype):
+    """x (E, C, D) and an (E, D, F) weight quantized to ``bits`` on the
+    card, columns of different magnitudes."""
+    w = torch.randn((e, d, f), generator=gen, device="cuda") * torch.rand(
+        (e, 1, f), generator=gen, device="cuda").add_(0.05)
+    q, s = (quant.quantize_int8 if bits == 8 else quant.quantize_int4)(w)
+    x = torch.randn((e, c, d), generator=gen, device="cuda").to(x_dtype)
+    return x, q, s
+
+
+def library_int8(x, qs, s):
+    """(name, call of copy i) of torch._weight_int8pack_mm on the same E=1
+    product (weights (F, D) int8 and per-row scales made once, outside the
+    timing), or None where this torch has no CUDA version of it."""
+    if not hasattr(torch, "_weight_int8pack_mm") or x.shape[0] != 1:
+        return None
+    f = s.shape[-1]
+    wts = [q[0, :, :f].T.contiguous() for q in qs]
+    scales = s[0, 0].to(x.dtype)
+    x2 = x[0].contiguous()
+    try:
+        torch._weight_int8pack_mm(x2, wts[0], scales)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError):
+        return None
+    return "torch._weight_int8pack_mm", lambda i: torch._weight_int8pack_mm(
+        x2, wts[i], scales)
+
+
+def phase_quant(gen) -> dict:
+    """K6 (int8_bmm) and K7 (int4_bmm) against their plain versions."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, trees = {}, decode_trees_on_meta()
+    for bits, name in ((8, "int8_bmm"), (4, "int4_bmm")):
+        kernel = getattr(kernels, name)
+        plain = quant.int8_bmm_plain if bits == 8 else quant.int4_bmm_plain
+        errs, times = {}, {}
+        for case, (e, c, d, f) in QUANT_CASES.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                x, q, s = quant_case(gen, e, c, d, f, bits, dtype)
+                got = kernel(x, q, s, dtype)
+                ref = plain(x, q, s, dtype)
+                if got.shape != ref.shape or got.dtype != dtype:
+                    raise AssertionError(f"{name} {case}: {got.shape} "
+                                         f"{got.dtype}")
+                err = max_err(got, ref)
+                tol = (QUANT_FP32_REL * ref.abs().max().item()
+                       if dtype == torch.float32 else bf16_ulp(ref))
+                if not err <= tol:
+                    raise AssertionError(f"{name} {case} {dtype}: "
+                                         f"max_abs_err {err} (tol {tol})")
+                errs[f"{case} {str(dtype).split('.')[-1]}"] = err
+            if not torch.equal(kernel(x, q, s, dtype), got):
+                raise AssertionError(f"{name} {case}: two runs differ")
+            # times in the decode path's type, bf16, weights cold
+            x, q, s = quant_case(gen, e, c, d, f, bits, torch.bfloat16)
+            qs = weight_copies(q)
+            t = {"ms": cold_ms(lambda i: kernel(x, qs[i], s), len(qs)),
+                 "plain_ms": cold_ms(lambda i: plain(x, qs[i], s), len(qs)),
+                 "library_ms": None, "library": None}
+            lib = library_int8(x, qs, s) if bits == 8 else None
+            if lib is not None:
+                t["library"] = lib[0]
+                t["library_ms"] = cold_ms(lib[1], len(qs))
+            t.update(bound(nbytes(x, q, s) + e * c * f * 2,
+                           2 * e * c * d * f, torch.bfloat16))
+            times[case] = t
+            del qs
+        # one decode step's products at B=8, each timed cold
+        step = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0}
+        products = decode_products(trees[bits], 8)
+        if set(k[0] for k in products) != {bits} \
+                or sum(products.values()) != QUANT_PER_STEP:
+            raise AssertionError(f"int{bits} tree's step products: "
+                                 f"{products}")
+        for (_, e, c, d, f), calls in products.items():
+            x, q, s = quant_case(gen, e, c, d, f, bits, torch.bfloat16)
+            qs = weight_copies(q)
+            step["ms"] += calls * cold_ms(lambda i: kernel(x, qs[i], s),
+                                          len(qs))
+            step["plain_ms"] += calls * cold_ms(
+                lambda i: plain(x, qs[i], s), len(qs))
+            step["bytes"] += calls * (nbytes(x, q, s) + e * c * f * 2)
+            del qs
+        step["bound_ms"] = step["bytes"] / HBM_BYTES_PER_S * 1e3
+        line = times[QUANT_LINE_CASE]
+        out[name] = {"max_abs_err": max(errs.values()), "times": times,
+                     "step": step, **{k: line[k] for k in (
+                         "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms")}}
+        print(f"[17 K{6 if bits == 8 else 7} {name}] max_abs_err "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f" (tol fp32 {QUANT_FP32_REL} of the largest entry, bf16 one"
+              " ulp of it) | two runs bitwise equal | ms, bf16 x, weights "
+              "out of L2 (CUDA-graph replays): " + ", ".join(
+                  f"{k} kernel {t['ms']:.4f} plain {t['plain_ms']:.4f} "
+                  f"bound {t['bound_ms']:.4f} ({t['bound_by']}) library "
+                  f"{fmt(t['library_ms'])}" for k, t in times.items())
+              + f" | library: {line['library'] or 'none'} | one decode "
+              f"step's {QUANT_PER_STEP} products at B=8: kernel "
+              f"{step['ms']:.3f} ms, plain {step['plain_ms']:.3f}, bound "
+              f"{step['bound_ms']:.3f} ({step['bytes'] / 1e9:.3f} GB) | "
+              f"{card()}")
+    return out
+
+
+def decode_config() -> DeepSeekBlockConfig:
+    """tools/bench_decode.py:67-86: 2.424B parameters, 20 layers of hidden
+    2048, MLA 16 heads (kv_lora 512, rope 64, nope 128, v 128), 16 experts
+    of 1024 with top-4 and a shared expert past layer 0."""
+    return DeepSeekBlockConfig(
+        hidden_dim=2048, n_layers=20, intermediate_size=8192,
+        mla=MLAConfig(hidden_dim=2048, n_heads=16, kv_lora_rank=512,
+                      qk_rope_head_dim=64, qk_nope_head_dim=128,
+                      v_head_dim=128),
+        moe=MoEConfig(n_routed_experts=16, num_experts_per_tok=4,
+                      moe_intermediate_size=1024, hidden_dim=2048,
+                      n_shared_experts=1),
+        first_k_dense_replace=1)
+
+
+def decode_trees_on_meta() -> dict:
+    """The int8 and int4 trees of decode_config()'s model on the meta
+    device: their shapes, and no memory."""
+    model = DeepSeekForCausalLM(decode_config(), DECODE_VOCAB,
+                                generator=torch.Generator(), device="meta",
+                                compute_dtype=torch.bfloat16,
+                                param_dtype=torch.bfloat16)
+    return {bits: quant.quantize_decoder_params(model, bits=bits)
+            for bits in (8, 4)}
+
+
+def decode_products(tree, batch: int) -> collections.Counter:
+    """(bits, E, C, D, F) -> calls of every K6 / K7 product of one decode
+    step of a quantized tree at ``batch`` tokens: each QuantDense once at
+    E=1, C=batch; each quantized MoE layer's w_gate, w_up and w_down at
+    E experts of capacity(batch) slots."""
+    out = collections.Counter()
+
+    def add(w4, w8, scale, e, c):
+        bits, w = (4, w4) if w4 is not None else (8, w8)
+        out[(bits, e, c, w.shape[-2] * (8 // bits), scale.shape[-1])] += 1
+
+    for m in tree.modules():
+        if isinstance(m, quant.QuantDense):
+            add(getattr(m, "kernel_q4", None), getattr(m, "kernel_q", None),
+                m.scale, 1, batch)
+        elif quant.is_quantized_moe(m):
+            c = capacity(m.cfg, batch)
+            for key in ("w_gate", "w_up", "w_down"):
+                add(getattr(m, key + "_q4", None),
+                    getattr(m, key + "_q", None),
+                    getattr(m, key + "_scale"), m.cfg.n_routed_experts, c)
+    return out
+
+
+def teacher_forced(model, ids, pinned=None, plain=False):
+    """Logits (B, S, vocab) of every prompt position through the decode
+    step, and the log of the MoE gates' choices (pinned to an earlier run's
+    with ``pinned``)."""
+    b, n = ids.shape
+    caches = [init_cache(model.cfg.mla, b, n, torch.bfloat16, ids.device)
+              for _ in range(model.cfg.n_layers)]
+    logits = []
+    with gate_log(pinned) as log, \
+            (plain_versions() if plain else contextlib.nullcontext()):
+        for t in range(n):
+            step, caches = causal_lm_decode_step(model, caches, ids[:, t], n)
+            logits.append(step)
+    return torch.stack(logits, dim=1), log
+
+
+def phase_decode(gen) -> dict:
+    """Greedy decode at tools/bench_decode.py's config over bf16, int8 and
+    int4 trees: the decode path's main run for K6 and K7."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, dev = decode_config(), gen.device
+    t0 = time.perf_counter()
+    model = DeepSeekForCausalLM(cfg, DECODE_VOCAB, generator=gen,
+                                device=dev, compute_dtype=torch.bfloat16,
+                                param_dtype=torch.bfloat16).eval()
+    trees = {"bf16": model,
+             "int8": quant.quantize_decoder_params(model, bits=8),
+             "int4": quant.quantize_decoder_params(model, bits=4)}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    tree_bytes = {k: quant.quantized_bytes(t) for k, t in trees.items()}
+    for tag, want in BENCH_DECODE_BYTES.items():
+        if tree_bytes[tag]["total_bytes"] != want:
+            raise AssertionError(f"{tag} tree: {tree_bytes[tag]} bytes, "
+                                 f"BENCH_DECODE.json counts {want}")
+    for tag, bits in (("int8", 8), ("int4", 4)):
+        products = decode_products(trees[tag], 1)
+        if set(k[0] for k in products) != {bits} \
+                or sum(products.values()) != QUANT_PER_STEP:
+            raise AssertionError(f"{tag} tree's step products: {products}")
+    prompts = {b: torch.randint(0, DECODE_VOCAB, (b, DECODE_PROMPT),
+                                generator=gen, device=dev)
+               for b in DECODE_BATCHES}
+
+    # the main path: generate through each tree, counted, no plain version
+    runs, tokens, launches = {}, {}, {}
+    for tag, tree in trees.items():
+        kernel = {"int8": "int8_bmm", "int4": "int4_bmm"}.get(tag)
+        want = expected_launches(**({kernel: DECODE_STEPS * QUANT_PER_STEP}
+                                    if kernel else {}))
+        for b, ids in prompts.items():
+            with torch.inference_mode(), plain_versions_refused():
+                generate(tree, ids[:, :2], 1,  # warm-up at this batch
+                         cache_dtype=torch.bfloat16)
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks = generate(tree, ids, DECODE_NEW,
+                                cache_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = dict(kernels.launch_counts)
+            if got != want:
+                raise AssertionError(f"{tag} B={b}: launches {got} != {want}")
+            if toks.shape != (b, DECODE_NEW) or toks.dtype != torch.int32 \
+                    or not bool(((toks >= 0) & (toks < DECODE_VOCAB)).all()):
+                raise AssertionError(f"{tag} B={b}: tokens {toks.shape} "
+                                     f"{toks.dtype} out of range")
+            runs[(tag, b)] = {
+                "wall_s": wall, "tokens_per_s": b * DECODE_NEW / wall,
+                "ms_per_step": wall / DECODE_STEPS * 1e3,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            tokens[(tag, b)] = toks
+            launches[(tag, b)] = got
+
+    # where one step's time goes: int8 at B=8, a step past the prompt
+    b8 = prompts[8]
+    with torch.inference_mode():
+        caches = [init_cache(cfg.mla, 8, DECODE_PROMPT + 8, torch.bfloat16,
+                             dev) for _ in range(cfg.n_layers)]
+        for t in range(DECODE_PROMPT):
+            _, caches = causal_lm_decode_step(trees["int8"], caches,
+                                              b8[:, t], DECODE_PROMPT + 8)
+        tok = b8[:, -1]
+        step_ms = host_ms(lambda: causal_lm_decode_step(
+            trees["int8"], caches, tok, DECODE_PROMPT + 8), iters=5)
+        breakdown, by_op = kernel_breakdown(lambda: causal_lm_decode_step(
+            trees["int8"], caches, tok, DECODE_PROMPT + 8), n_calls=3)
+    busy = sum(r[1] for r in breakdown)
+
+    # kernel vs plain at B=8: the prompt teacher-forced, the plain run
+    # routed as the kernel run was; then greedy tokens without pinning
+    compare = {}
+    with torch.inference_mode():
+        for tag in ("int8", "int4"):
+            lk, log_k = teacher_forced(trees[tag], b8)
+            lp, log_p = teacher_forced(trees[tag], b8, pinned=log_k,
+                                       plain=True)
+            flips = torch.stack([(x.sort(dim=-1).values
+                                  != y.sort(dim=-1).values).any(dim=-1)
+                                 for x, y in zip(log_k, log_p)]).float()
+            diff = (lk - lp).abs()
+            with plain_versions():
+                toks_p = generate(trees[tag], b8, DECODE_NEW,
+                                  cache_dtype=torch.bfloat16)
+            same = tokens[(tag, 8)] == toks_p
+            parted = (~same).int().argmax(dim=1)
+            compare[tag] = {
+                "max_abs": diff.max().item(),
+                "max_over_ulp": diff.max().item() / bf16_ulp(lp),
+                "mean_rel": diff.mean().item() / lp.abs().mean().item(),
+                "flipped": flips.mean().item(),
+                "flipped_max": flips.mean(dim=1).max().item(),
+                "greedy_agree": same.float().mean().item(),
+                "first_parted": [int(p) if not bool(s.all()) else None
+                                 for p, s in zip(parted, same)]}
+            del lk, lp
+
+    print(f"[18 decode] tools/bench_decode.py's config: {n_params / 1e9:.4f}B"
+          f" params (bf16, tied embeddings), 3 trees built in {build_s:.1f} s;"
+          " tree bytes " + ", ".join(
+              f"{k} {v['total_bytes']:,} ({v['int8_bytes'] / v['total_bytes']:.3f}"
+              f" quantized; floor {v['total_bytes'] / HBM_BYTES_PER_S * 1e3:.3f}"
+              " ms)" for k, v in tree_bytes.items())
+          + " = BENCH_DECODE.json's | cache bytes per token per layer "
+          f"{cache_bytes_per_token(cfg.mla, 2)} (bf16) vs full K/V "
+          f"{full_cache_bytes_per_token(cfg.mla, 2)} | prefill "
+          f"{DECODE_PROMPT} + {DECODE_NEW} new tokens, greedy, bf16 cache; "
+          "per generate call wall s, decode tokens/s, ms per step "
+          f"({DECODE_STEPS} steps), peak GiB: " + ", ".join(
+              f"{tag} B={b} {r['wall_s']:.3f}, {r['tokens_per_s']:.1f}, "
+              f"{r['ms_per_step']:.3f}, {r['peak_gib']:.2f}"
+              for (tag, b), r in runs.items())
+          + f" | launches per call: K6 {launches[('int8', 8)]['int8_bmm']} "
+          f"(int8), K7 {launches[('int4', 8)]['int4_bmm']} (int4), none at "
+          f"bf16 = {DECODE_STEPS} x {QUANT_PER_STEP}; no plain version "
+          f"reached | one int8 step at B=8: host {min(step_ms):.2f}-"
+          f"{max(step_ms):.2f} ms, kernels busy {busy:.3f} ms | kernel vs "
+          "plain at B=8, the prompt teacher-forced with routing pinned: "
+          + ", ".join(
+              f"{k} logits max {v['max_abs']:.4g} ({v['max_over_ulp']:.2f} "
+              f"bf16 ulps of the largest) mean/mean|plain| "
+              f"{v['mean_rel']:.3g}, routing flipped {v['flipped']:.4f} "
+              f"(worst step {v['flipped_max']:.4f}), greedy tokens agreeing "
+              f"{v['greedy_agree']:.4f} (rows part at {v['first_parted']})"
+              for k, v in compare.items())
+          + f" | {card()}")
+    print_breakdown(18, "one int8 decode step at B=8", "step", breakdown,
+                    by_op)
+    for tag, v in compare.items():
+        if any(v[k] > DECODE_TOL[k] for k in DECODE_TOL):
+            raise AssertionError(f"decode kernel vs plain, {tag}: {v} (tol "
+                                 f"{DECODE_TOL})")
+    return {"launches": {"int8_bmm": launches[("int8", 8)]["int8_bmm"],
+                         "int4_bmm": launches[("int4", 8)]["int4_bmm"]},
+            "runs": runs, "compare": compare}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--clip-batch-search", action="store_true",
@@ -2401,6 +2826,8 @@ def main() -> None:
     k5b = phase_gmm_bwd(gen)
     flag = phase_flagship(gen)
     flag_train = phase_flagship_train(gen)
+    k67 = phase_quant(gen)
+    dec = phase_decode(gen)
     report = {"kernels": [
         {"name": "hash_encode_fwd", "route": "cuda",
          "source": "deepearth_tpu_torch/kernels/csrc/hash_encode.cu",
@@ -2473,14 +2900,27 @@ def main() -> None:
          "launches": flag_train["launches"]["grouped_matmul_bwd_drhs"],
          "max_abs_err": k5b["drhs"]["max_abs_err"], "ms": k5b["drhs"]["ms"],
          "plain_ms": k5b["drhs"]["plain_ms"]},
+        {"name": "int8_bmm", "route": "cuda",
+         "source": "deepearth_tpu_torch/kernels/csrc/quant_matmul.cu",
+         "replaces": "deepearth_tpu/ops/quant.py:159",
+         "launches": dec["launches"]["int8_bmm"],
+         "max_abs_err": k67["int8_bmm"]["max_abs_err"],
+         "ms": k67["int8_bmm"]["ms"], "plain_ms": k67["int8_bmm"]["plain_ms"]},
+        {"name": "int4_bmm", "route": "cuda",
+         "source": "deepearth_tpu_torch/kernels/csrc/quant_matmul.cu",
+         "replaces": "deepearth_tpu/ops/quant.py:240",
+         "launches": dec["launches"]["int4_bmm"],
+         "max_abs_err": k67["int4_bmm"]["max_abs_err"],
+         "ms": k67["int4_bmm"]["ms"], "plain_ms": k67["int4_bmm"]["plain_ms"]},
     ]}
     # each kernel's bound and library call; K3's numbers add its MLA and
     # cross sites at B=512 (per forward, per step); K4's are at
     # CLIP_PLAIN_BATCH, where the plain version fits; K5's at the flagship
-    # simulator's B=64 shape
+    # simulator's B=64 shape; K6's and K7's at QUANT_LINE_CASE
     for entry, phase in zip(report["kernels"],
                             (k2, k1, k1b, k2b, k3, k3b, k4, k4b, k5,
-                             k5b["dlhs"], k5b["drhs"])):
+                             k5b["dlhs"], k5b["drhs"], k67["int8_bmm"],
+                             k67["int4_bmm"])):
         entry.update({key: phase[key] for key in
                       ("bound_ms", "bound_by", "library_ms")})
     for k in report["kernels"]:

@@ -6,10 +6,13 @@ names. It imports neither JAX nor the JAX package. Ported so far:
 modalities through universal-token encoders (MLA + SwiGLU, optionally an MoE
 projection), token-major and batch-major fusion, the DeepSeek MLA/MoE
 simulator of the flagship (``integrated_config(use_deepseek_fusion=True)``),
-and the masked-reconstruction train step (``training``), with CUDA kernels
-for the hash-grid encoding, the token-major pairwise attention, mid-length
-and flash attention (forward and backward) and the grouped matmul of the
-ragged expert path (forward); see ROADMAP.md for what is still to come.
+the masked-reconstruction train step (``training``), and language decoding
+(``models.DeepSeekForCausalLM``, ``models.generate`` over the compressed MLA
+cache, int8 / int4 weights by ``ops.quant``, ``serving.language_server``),
+with CUDA kernels for the hash-grid encoding, the token-major pairwise
+attention, mid-length and flash attention and the grouped matmul of the
+ragged expert path (each forward and backward), and the int8 / int4
+fused-dequant matmuls of decode; see ROADMAP.md for what is still to come.
 """
 
 from .configs import (

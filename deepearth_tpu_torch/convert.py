@@ -8,6 +8,10 @@ a torch parameter name by joining with dots and renaming the leaf: Dense
 ``weight`` is ``weight`` in both. Every other leaf (``tables``,
 ``cls_token``, ``modality_embed_*``, ``position_embedding``,
 ``query_tokens``, ``pool_query``, ``spatial_embed_x``, ...) keeps its name.
+So do the leaves of a quantized model (``ops.quant.quantize_decoder_params``
+on either side): ``kernel_q`` / ``kernel_q4`` (stored (D, Fp) as in JAX, not
+transposed), the ``scale`` beside them, and an MoE layer's ``w_*_q``,
+``w_*_q4`` and ``w_*_scale``; their int8 values stay int8.
 Nothing here imports JAX: trees are nested mappings of numpy arrays.
 """
 
@@ -20,6 +24,7 @@ import torch
 from torch import nn
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+_QUANT_KERNELS = ("kernel_q", "kernel_q4")
 
 
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
@@ -32,10 +37,13 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
             yield path, np.asarray(value)
 
 
-def _torch_name(flax_path: Tuple[str, ...]) -> str:
-    """The port's parameter name for a flax parameter path."""
+def _torch_name(flax_path: Tuple[str, ...], quant: bool = False) -> str:
+    """The port's parameter name for a flax parameter path; a quantized
+    Dense keeps its ``scale``."""
     *modules, leaf = flax_path
-    return ".".join([*modules, _LEAF_NAMES.get(leaf, leaf)])
+    if not quant:
+        leaf = _LEAF_NAMES.get(leaf, leaf)
+    return ".".join([*modules, leaf])
 
 
 def load_flax_params(model: nn.Module, tree: Mapping[str, Any]) -> None:
@@ -48,7 +56,8 @@ def load_flax_params(model: nn.Module, tree: Mapping[str, Any]) -> None:
     params: Dict[str, nn.Parameter] = dict(model.named_parameters())
     pending: Dict[str, np.ndarray] = {}
     for path, value in _leaves(tree):
-        name = _torch_name(path)
+        siblings = _get(tree, path[:-1])
+        name = _torch_name(path, any(k in siblings for k in _QUANT_KERNELS))
         if name not in params or name in pending:
             raise ValueError(f"flax leaf {'/'.join(path)} has no torch "
                              f"parameter {name!r} of its own")
@@ -58,8 +67,9 @@ def load_flax_params(model: nn.Module, tree: Mapping[str, Any]) -> None:
             raise ValueError(
                 f"{'/'.join(path)}: flax shape {value.shape} does not match "
                 f"torch {name} {tuple(params[name].shape)}")
-        # bfloat16 leaves (ml_dtypes) are not numpy floats torch can read
-        pending[name] = value if value.dtype.kind == "f" else value.astype(
+        # bfloat16 leaves (ml_dtypes) are not numpy floats torch can read;
+        # quantized weights stay int8
+        pending[name] = value if value.dtype.kind in "fi" else value.astype(
             np.float32)
     unfilled = set(params) - set(pending)
     if unfilled:

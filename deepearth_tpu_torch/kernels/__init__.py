@@ -1,4 +1,8 @@
-"""Hand-written CUDA kernels for Hopper (sm_90a) and their launch wrappers.
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their launch wrappers:
+K1 ``pairwise_attention_fwd`` / ``_bwd``, K2 ``hash_encode_fwd`` / ``_bwd``,
+K3 ``vmem_attention_fwd`` / ``_bwd``, K4 ``flash_attention_fwd`` / ``_bwd``,
+K5 ``grouped_matmul_fwd`` and ``grouped_matmul_bwd_dlhs`` / ``_drhs``, K6
+``int8_bmm`` and K7 ``int4_bmm``.
 
 The sources in ``csrc/`` have a plain C interface. At first use each ``.cu``
 is compiled with its own ``nvcc``, all at once, and the objects are linked
@@ -39,7 +43,7 @@ launch_counts = {"hash_encode_fwd": 0, "hash_encode_bwd": 0,
                  "vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
                  "flash_attention_fwd": 0, "flash_attention_bwd": 0,
                  "grouped_matmul_fwd": 0, "grouped_matmul_bwd_dlhs": 0,
-                 "grouped_matmul_bwd_drhs": 0}
+                 "grouped_matmul_bwd_drhs": 0, "int8_bmm": 0, "int4_bmm": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -61,6 +65,8 @@ _SIGNATURES = {
     "grouped_matmul_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "grouped_matmul_bwd_dlhs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "grouped_matmul_bwd_drhs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "int8_bmm": [*[_P] * 5, *[_I] * 10, _P],
+    "int4_bmm": [*[_P] * 5, *[_I] * 10, _P],
 }
 
 
@@ -553,3 +559,88 @@ def grouped_matmul_bwd_drhs(lhs: torch.Tensor, dout: torch.Tensor,
         torch.cuda.current_stream(lhs.device).cuda_stream)
     _check(name, rc)
     return drhs
+
+
+QUANT_SMS = 132  # the H100's SMs: the reduction split aims at 4 blocks each
+QUANT_COLS, QUANT_SUB = 128, 64  # quant_matmul.cu's tiles
+
+
+def quant_rows(c: int) -> int:
+    """Rows of x per block of K6 / K7: the fewest of 4, 8, 16 that hold C."""
+    return 4 if c <= 4 else 8 if c <= 8 else 16
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def quant_splits(e: int, c: int, rows: int, fp: int):
+    """(splits, chunk): the reduction rows of K6 / K7 cut into ``splits``
+    chunks of ``chunk`` rows (the last may be shorter), so that a product
+    with few column tiles still fills the card, with at least 128 rows a
+    chunk. A pure function of the shapes."""
+    tiles = _ceil_div(fp, QUANT_COLS) * e * _ceil_div(c, quant_rows(c))
+    splits = max(1, min(_ceil_div(4 * QUANT_SMS, tiles),
+                        _ceil_div(rows, 128)))
+    chunk = _ceil_div(_ceil_div(rows, splits), QUANT_SUB) * QUANT_SUB
+    return _ceil_div(rows, chunk), chunk
+
+
+def _quant_bmm(name: str, x: torch.Tensor, w: torch.Tensor,
+               scale: torch.Tensor, out_dtype, int4: bool) -> torch.Tensor:
+    _require(x.is_cuda and w.device == x.device and scale.device == x.device,
+             f"{name}: inputs must lie on one CUDA device")
+    _require(x.dim() == 3 and x.dtype in _ATTN_DTYPES,
+             f"{name}: x must be (E, C, D) float32 or bfloat16")
+    e, c, d = x.shape
+    rows = d // 2 if int4 else d
+    _require(not (int4 and d % 2), f"{name}: D must be even")
+    _require(w.dtype == torch.int8 and w.dim() == 3
+             and tuple(w.shape[:2]) == (e, rows),
+             f"{name}: w must be (E, {'D/2' if int4 else 'D'}, Fp) int8")
+    fp = w.shape[2]
+    _require(scale.dtype == torch.float32 and scale.dim() == 3
+             and tuple(scale.shape[:2]) == (e, 1) and scale.shape[2] <= fp,
+             f"{name}: scale must be (E, 1, F) float32 with F <= Fp")
+    _require(fp % 4 == 0, f"{name}: Fp must be a multiple of 4")
+    _require(out_dtype in _ATTN_DTYPES,
+             f"{name}: out_dtype must be float32 or bfloat16")
+    ct = quant_rows(c)
+    _require(e * _ceil_div(c, ct) <= 65535,
+             f"{name}: E * ceil(C / {ct}) must be at most 65535")
+    f = scale.shape[2]
+    out = torch.empty((e, c, f), device=x.device, dtype=out_dtype)
+    if out.numel() == 0:
+        return out
+    if rows == 0:
+        return out.zero_()
+    x, w, scale = x.contiguous(), w.contiguous(), scale.contiguous()
+    _require(w.data_ptr() % 4 == 0, f"{name}: w must be 4-byte aligned")
+    splits, chunk = quant_splits(e, c, rows, fp)
+    partial = (torch.empty((splits, e, c, f), device=x.device,
+                           dtype=torch.float32) if splits > 1 else None)
+    rc = getattr(library(), name)(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        _ptr(partial), e, c, d, fp, f, ct, splits, chunk,
+        _ATTN_DTYPES[x.dtype], _ATTN_DTYPES[out_dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check(name, rc)
+    return out
+
+
+def int8_bmm(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K6: x (E, C, D) float32 or bfloat16, w_q (E, D, Fp) int8 (Fp a
+    multiple of 4), scale (E, 1, F) float32 with F <= Fp, on one CUDA
+    device. Returns (E, C, F) in ``out_dtype`` (float32 or bfloat16):
+    scale times the fp32 sum of bf16(x) times w_q, the chunks of a split
+    reduction added in order (no atomics). One launch counted (two kernels
+    when the reduction is split)."""
+    return _quant_bmm("int8_bmm", x, w_q, scale, out_dtype, int4=False)
+
+
+def int4_bmm(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
+             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K7: as :func:`int8_bmm` over w_p (E, D/2, Fp) split-half int4 bytes
+    (row i in the low nibble, row i + D/2 in the high nibble); D even."""
+    return _quant_bmm("int4_bmm", x, w_p, scale, out_dtype, int4=True)

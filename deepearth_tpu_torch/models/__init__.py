@@ -2,6 +2,7 @@ from .decoders import ModalityDecoder, SpatiotemporalDecoder
 from .deepearth import DeepEarthModel
 from .deepseek import (
     DeepSeekBlock,
+    DeepSeekForCausalLM,
     DeepSeekTransformer,
     MLAttention,
     MoELayer,
@@ -16,14 +17,26 @@ from .fusion import (
     FusionLayer,
     SpatialTemporalEmbedding,
 )
+from .generation import causal_lm_decode_step, generate
 from .grid4d import Grid4DEncoder
+from .mla_decode import (
+    MLACache,
+    cache_bytes_per_token,
+    decode_sequence,
+    decode_step,
+    full_cache_bytes_per_token,
+    init_cache,
+)
 from .transformer import GatedMLP, KernelParam, MLP
 
 __all__ = [
     "ModalityDecoder", "SpatiotemporalDecoder", "DeepEarthModel",
-    "DeepSeekBlock", "DeepSeekTransformer", "MLAttention", "MoELayer",
+    "DeepSeekBlock", "DeepSeekForCausalLM", "DeepSeekTransformer",
+    "MLAttention", "MoELayer",
     "SwiGLUMLP", "collect_moe_aux_losses", "select_dispatch_mode",
     "UniversalTokenEncoder", "CrossModalFusion", "FusionAttention",
     "FusionLayer", "SpatialTemporalEmbedding", "Grid4DEncoder", "GatedMLP",
-    "KernelParam", "MLP",
+    "KernelParam", "MLP", "causal_lm_decode_step", "generate", "MLACache",
+    "cache_bytes_per_token", "decode_sequence", "decode_step",
+    "full_cache_bytes_per_token", "init_cache",
 ]

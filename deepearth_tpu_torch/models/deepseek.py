@@ -1,6 +1,7 @@
 """DeepSeek-style components, PyTorch port of
 ``deepearth_tpu/models/deepseek.py``: MLA attention, the SwiGLU MLP, the
-MoE layer and its dispatch rule, the decoder block and the sequential stack.
+MoE layer and its dispatch rule, the decoder block, the sequential stack and
+the causal LM over it (token decoding: ``models/generation.py``).
 
 MLA attention over at least ``flash_min_seq`` tokens (with
 ``use_flash_attention``) runs the flash kernels K4-fwd/K4-bwd on the card,
@@ -29,7 +30,7 @@ from ..ops import moe as moe_ops
 from ..ops.attention import dot_product_attention
 from ..ops.norms import RMSNorm
 from ..ops.rope import apply_rope_deepseek, rope_tables, yarn_get_mscale
-from .layers import Dense, Init, dropout
+from .layers import Dense, Embed, Init, dropout
 
 FLASH_SHAPE = (
     "MLA attention over {n} >= flash_min_seq={m} tokens runs the flash "
@@ -362,3 +363,42 @@ class DeepSeekTransformer(nn.Module):
         for i in range(self.n_layers):
             x = getattr(self, f"layer_{i}")(x, key_mask, is_causal, generator)
         return self.norm(x)
+
+
+class DeepSeekForCausalLM(nn.Module):
+    """Token embedding, the DeepSeek stack (causal) and the LM head: the
+    embedding's transpose when ``tie_embeddings`` (the default, as in JAX),
+    else an ``lm_head`` Dense. Parameters are made in ``param_dtype`` on
+    ``device`` (the card unless the caller names another) from
+    ``generator``."""
+
+    def __init__(self, cfg: DeepSeekBlockConfig, vocab_size: int, *,
+                 generator: torch.Generator, device="cuda",
+                 tie_embeddings: bool = True,
+                 compute_dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        init = Init(generator, device, param_dtype)
+        self.cfg, self.vocab_size = cfg, vocab_size
+        self.param_dtype = param_dtype
+        self.embed_tokens = Embed(vocab_size, cfg.hidden_dim, init,
+                                  compute_dtype)
+        self.model = DeepSeekTransformer(cfg, init, compute_dtype)
+        if not tie_embeddings:
+            self.lm_head = Dense(cfg.hidden_dim, vocab_size, init,
+                                 compute_dtype, use_bias=False)
+
+    @property
+    def tie_embeddings(self) -> bool:
+        return not hasattr(self, "lm_head")
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """input_ids (B, S) -> logits (B, S, vocab); attention_mask optional
+        (B, S) bool, True = a real token."""
+        h = self.model(self.embed_tokens(input_ids), key_mask=attention_mask,
+                       is_causal=True, generator=generator)
+        if self.tie_embeddings:
+            return self.embed_tokens.attend(h.to(self.param_dtype))
+        return self.lm_head(h)

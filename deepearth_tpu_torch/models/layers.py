@@ -124,3 +124,9 @@ class Embed(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids.long(), self.weight).to(self.compute_dtype)
+
+    def attend(self, query: torch.Tensor) -> torch.Tensor:
+        """flax ``Embed.attend``: query (..., dim) against every row, both in
+        the compute dtype; (..., vocab). The tied LM head."""
+        cd = self.compute_dtype
+        return query.to(cd) @ self.weight.to(cd).T

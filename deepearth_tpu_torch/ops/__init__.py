@@ -35,6 +35,22 @@ from .moe import (
     scatter_dispatch_ffn,
 )
 from .norms import RMSNorm
+from .quant import (
+    dequantize,
+    dequantize_int4,
+    expert_ffn_q,
+    int4_bmm,
+    int4_bmm_plain,
+    int4_matmul,
+    int8_bmm,
+    int8_bmm_plain,
+    int8_matmul,
+    linear_p,
+    quantize_decoder_params,
+    quantize_int4,
+    quantize_int8,
+    quantized_bytes,
+)
 from .rope import (
     apply_rope_deepseek,
     apply_rope_half,
@@ -55,6 +71,9 @@ __all__ = [
     "init_hash_tables", "GateResult", "dense_all_expert_ffn", "expert_ffn",
     "load_balance_aux_loss", "make_dispatch_combine", "moe_gate",
     "position_in_expert", "ragged_expert_ffn", "scatter_dispatch_ffn",
-    "RMSNorm", "apply_rope_deepseek", "apply_rope_half",
+    "RMSNorm", "dequantize", "dequantize_int4", "expert_ffn_q", "int4_bmm",
+    "int4_bmm_plain", "int4_matmul", "int8_bmm", "int8_bmm_plain",
+    "int8_matmul", "linear_p", "quantize_decoder_params", "quantize_int4",
+    "quantize_int8", "quantized_bytes", "apply_rope_deepseek", "apply_rope_half",
     "apply_rope_interleaved", "rope_cos_sin", "rope_inv_freq", "rotate_half",
 ]

@@ -28,6 +28,7 @@ from deepearth_tpu_torch.ops import (
     grouped_matmul,
     hash_encode,
     pairwise_token_attention,
+    quant,
     vmem_attention,
 )
 
@@ -200,6 +201,12 @@ def test_port_and_chip_smoke_import_without_jax():
         "import deepearth_tpu_torch.ops.moe, deepearth_tpu_torch.ops.grouped_matmul\n"
         "import deepearth_tpu_torch.models.deepseek\n"
         "import deepearth_tpu_torch.models.encoders\n"
+        "import deepearth_tpu_torch.ops.quant\n"
+        "import deepearth_tpu_torch.models.mla_decode\n"
+        "import deepearth_tpu_torch.models.generation\n"
+        "import deepearth_tpu_torch.models.hf_convert\n"
+        "import deepearth_tpu_torch.utils.logging\n"
+        "import deepearth_tpu_torch.serving.language_server\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'deepearth_tpu') and sys.modules[m]]\n"
@@ -229,6 +236,9 @@ def test_launch_counters_stay_zero_on_cpu(small):
         flash_attention.flash_attention(k, k, k, scale=0.25, causal=True)
         grouped_matmul.gmm(torch.randn(7, 8), torch.randn(3, 8, 5),
                            torch.tensor([2, 0, 5], dtype=torch.int32))
+        x = torch.randn(2, 3, 256)
+        quant.int8_bmm(x, *quant.quantize_int8(torch.randn(2, 256, 128)))
+        quant.int4_bmm(x, *quant.quantize_int4(torch.randn(2, 256, 128)))
     grouped_matmul.gmm(torch.randn(7, 8, requires_grad=True),
                        torch.randn(3, 8, 5, requires_grad=True),
                        torch.tensor([2, 0, 5], dtype=torch.int32)
@@ -238,4 +248,5 @@ def test_launch_counters_stay_zero_on_cpu(small):
         "hash_encode_fwd", "hash_encode_bwd", "pairwise_attention_fwd",
         "pairwise_attention_bwd", "vmem_attention_fwd", "vmem_attention_bwd",
         "flash_attention_fwd", "flash_attention_bwd", "grouped_matmul_fwd",
-        "grouped_matmul_bwd_dlhs", "grouped_matmul_bwd_drhs"}
+        "grouped_matmul_bwd_dlhs", "grouped_matmul_bwd_drhs", "int8_bmm",
+        "int4_bmm"}

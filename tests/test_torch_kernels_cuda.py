@@ -28,7 +28,10 @@ order of fp32 sums: chip_smoke.check_gmm, 1e-5 of the largest entry in
 fp32, K4's relative limits in bf16. K5-bwd sums in fp32 with dout kept at
 fp32 accuracy and rounds once, as its plain version does:
 chip_smoke.check_gmm_bwd, K5-fwd's limits, and in bf16 at least 99% of the
-entries equal to the plain version's.
+entries equal to the plain version's. K6 and K7 multiply bf16-rounded x by
+weights exact in bf16 and sum in fp32, as their plain versions do, in
+another order: 1e-5 of the largest entry in fp32 outputs, one bf16 ulp of
+it in bf16 outputs (chip_smoke.QUANT_FP32_REL, chip_smoke.bf16_ulp).
 """
 
 import contextlib
@@ -41,7 +44,11 @@ import torch
 
 from deepearth_tpu_torch import kernels
 from deepearth_tpu_torch.models import DeepEarthModel
-from deepearth_tpu_torch.configs import MLAConfig, MoEConfig
+from deepearth_tpu_torch.configs import (
+    DeepSeekBlockConfig,
+    MLAConfig,
+    MoEConfig,
+)
 from deepearth_tpu_torch.models.deepseek import MLAttention, MoELayer
 from deepearth_tpu_torch.models.layers import Init
 from deepearth_tpu_torch.ops import attention as tdpa
@@ -50,6 +57,7 @@ from deepearth_tpu_torch.ops import attention_vmem as tvmem
 from deepearth_tpu_torch.ops import flash_attention as tflash
 from deepearth_tpu_torch.ops import grouped_matmul as tgmm
 from deepearth_tpu_torch.ops import hash_encoding as the
+from deepearth_tpu_torch.ops import quant as tquant
 from deepearth_tpu_torch.training import Trainer
 
 pytestmark = pytest.mark.cuda
@@ -61,7 +69,7 @@ VMEM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 NO_K3_TO_K5 = {"vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
                "flash_attention_fwd": 0, "flash_attention_bwd": 0,
                "grouped_matmul_fwd": 0, "grouped_matmul_bwd_dlhs": 0,
-               "grouped_matmul_bwd_drhs": 0}
+               "grouped_matmul_bwd_drhs": 0, "int8_bmm": 0, "int4_bmm": 0}
 
 
 def _smoke():
@@ -709,3 +717,121 @@ def test_ragged_moe_layer_backward_launches_k5_bwd(cuda):
         if name != "e_score_correction_bias":
             assert p.grad is not None and bool(p.grad.isfinite().all()), name
     assert x.grad is not None and bool(x.grad.isfinite().all())
+
+
+# K6 / K7: the decode path's shapes at tools/bench_decode.py's widths (as
+# chip_smoke.QUANT_CASES) and a few off its grid
+QUANT_TEST_CASES = {
+    "q_proj C1": (1, 1, 2048, 3072), "q_proj C5": (1, 5, 2048, 3072),
+    "q_proj C32": (1, 32, 2048, 3072), "kv_a C8": (1, 8, 2048, 576),
+    "experts up C4": (16, 4, 2048, 1024),
+    "experts up C128": (16, 128, 2048, 1024),
+    "experts down C32": (16, 32, 1024, 2048),
+    "dense down C8": (1, 8, 8192, 2048),
+    "E3 C17 D512 F136 (ragged tiles)": (3, 17, 512, 136),
+    "E1 C1 D256 F4 (one column group)": (1, 1, 256, 4),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bits", [8, 4], ids=["K6", "K7"])
+@pytest.mark.parametrize("case", list(QUANT_TEST_CASES))
+def test_quant_bmm_matches_plain(cuda, dtype, bits, case):
+    smoke = _smoke()
+    e, c, d, f = QUANT_TEST_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x, q, s = smoke.quant_case(gen, e, c, d, f, bits, dtype)
+    name = "int8_bmm" if bits == 8 else "int4_bmm"
+    dispatch = tquant.int8_bmm if bits == 8 else tquant.int4_bmm
+    plain = tquant.int8_bmm_plain if bits == 8 else tquant.int4_bmm_plain
+    kernels.reset_launch_counts()
+    with smoke.plain_versions_refused():
+        out = dispatch(x, q, s, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts[name] == 1
+    ref = plain(x, q, s, dtype)
+    assert out.shape == (e, c, f) and out.dtype == dtype
+    tol = (smoke.QUANT_FP32_REL * ref.abs().max().item()
+           if dtype == torch.float32 else smoke.bf16_ulp(ref))
+    assert smoke.max_err(out, ref) <= tol
+    assert torch.equal(dispatch(x, q, s, out_dtype=dtype), out)
+    # fp32 x with a bf16 output, as a bf16 model over an fp32 cache asks
+    mixed = getattr(kernels, name)(x.float(), q, s, torch.bfloat16)
+    ref = plain(x.float(), q, s, torch.bfloat16)
+    assert smoke.max_err(mixed, ref) <= smoke.bf16_ulp(ref)
+
+
+def test_quant_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    smoke = _smoke()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x, q, s = smoke.quant_case(gen, 2, 3, 256, 130, 8, torch.bfloat16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kernels.int8_bmm(x, q.cpu(), s)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kernels.int8_bmm(x.half(), q, s)
+    with pytest.raises(ValueError, match="int8"):
+        kernels.int8_bmm(x, q.float(), s)
+    with pytest.raises(ValueError, match="D/2"):
+        kernels.int4_bmm(x, q, s)
+    with pytest.raises(ValueError, match="F <= Fp"):
+        kernels.int8_bmm(x, q[..., :128], s)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kernels.int8_bmm(x, q[..., :130].contiguous(), s)
+    kernels.reset_launch_counts()
+    empty = kernels.int8_bmm(x[:, :0], q, s)
+    assert empty.shape == (2, 0, 130)
+    assert kernels.launch_counts["int8_bmm"] == 0
+    # the einsum route (D not a multiple of 128) launches nothing, as the
+    # JAX package leaves its kernel there
+    x2, q2, s2 = smoke.quant_case(gen, 1, 4, 200, 64, 8, torch.bfloat16)
+    tquant.int8_bmm(x2, q2, s2)
+    assert kernels.launch_counts["int8_bmm"] == 0
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_quantized_decode_step_launches_its_kernel(cuda, bits):
+    """One decode step of a tiny bf16 LM quantized on the card: K6 (int8)
+    or K7 (int4) once per quantized product, no plain version reached, its
+    logits within a few bf16 ulps of the plain path's."""
+    from deepearth_tpu_torch.models import (
+        DeepSeekForCausalLM, causal_lm_decode_step, init_cache)
+
+    smoke = _smoke()
+    cfg = DeepSeekBlockConfig(
+        hidden_dim=256, n_layers=3, intermediate_size=512,
+        mla=MLAConfig(hidden_dim=256, n_heads=4, kv_lora_rank=256,
+                      qk_rope_head_dim=32, qk_nope_head_dim=64,
+                      v_head_dim=64),
+        moe=MoEConfig(n_routed_experts=4, num_experts_per_tok=2,
+                      moe_intermediate_size=256, hidden_dim=256),
+        first_k_dense_replace=1)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    model = DeepSeekForCausalLM(cfg, 512, generator=gen, device="cuda",
+                                compute_dtype=torch.bfloat16,
+                                param_dtype=torch.bfloat16)
+    qm = tquant.quantize_decoder_params(model, bits=bits)
+    per_step = 3 * 3 + 3 + 6 * 2  # MLA, layer 0's SwiGLU, 2 MoE layers
+    ids = torch.randint(0, 512, (4, 6), generator=gen, device="cuda")
+    name = "int8_bmm" if bits == 8 else "int4_bmm"
+
+    def run(plain, pinned=None):
+        caches = [init_cache(cfg.mla, 4, 6, torch.bfloat16, "cuda")
+                  for _ in range(3)]
+        logits = []
+        with torch.inference_mode(), smoke.gate_log(pinned) as log, (
+                smoke.plain_versions() if plain
+                else smoke.plain_versions_refused()):
+            for t in range(6):
+                out, caches = causal_lm_decode_step(qm, caches, ids[:, t], 6)
+                logits.append(out)
+        return torch.stack(logits), log
+
+    kernels.reset_launch_counts()
+    got, log = run(plain=False)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == {**{k: 0 for k in kernels.launch_counts},
+                                     name: 6 * per_step}
+    ref, _ = run(plain=True, pinned=log)
+    assert bool(got.isfinite().all())
+    assert smoke.max_err(got, ref) <= 8 * smoke.bf16_ulp(ref)
