@@ -45,13 +45,15 @@ Phases, each printing one line:
      and 16 (K4-fwd 1, K2-fwd 2 per forward) and Trainer.fit at B=64 (K4-fwd
      1, K4-bwd 1, K2-fwd 2, K2-bwd 2 per step), no plain version reached;
      forward and 3 train steps against the plain path at B=4; times;
- 14. K5-fwd (grouped_matmul_fwd) and K5-bwd (grouped_matmul_bwd_dlhs and
-     grouped_matmul_bwd_drhs) against their plain PyTorch versions, in bf16
-     and fp32: the flagship simulator's shape at B=64 (2816 sorted rows, 8
-     experts, 2048 x 2048), empty groups, tiles that cross groups, M = 1,
-     K and N off the 8-element grid, rows past the last group, an fp32
-     dout with genuine low bits; their times, bounds and a library grouped
-     matmul's;
+ 14. K5-fwd (grouped_matmul_fwd) and K5-bwd (grouped_matmul_split_dout,
+     grouped_matmul_bwd_dlhs and grouped_matmul_bwd_drhs) against their
+     plain PyTorch versions, in bf16 and fp32: the flagship simulator's
+     shape at B=64 (2816 sorted rows, 8 experts, 2048 x 2048), empty
+     groups, tiles that cross groups, M = 1, K and N off the 8-element grid
+     (K5-bwd's mma.sync route; the others its TMA route), rows past the
+     last group, an fp32 dout with genuine low bits; the split bitwise, two
+     runs bitwise equal, launches per route; times, bounds, the mma.sync
+     route's kernel and library grouped matmuls at the flagship shape;
  15. the flagship's serving slice: DeepEarthModel at
      integrated_config(use_deepseek_fusion=True) (5.04B parameters, bf16,
      24 fusion layers, a 24-layer MLA + MoE simulator, vision (B, 4608,
@@ -67,8 +69,8 @@ Phases, each printing one line:
      V-JEPA2 patches per observation at B=64 (the train plan's batch), the
      bench script's optimizer (bf16 first moment, factored second moment)
      and LossWeights(contrastive=0, moe_aux=0.01), masking on; every step
-     must launch K5-fwd 69, K5-bwd 69 + 69, K3-fwd 2, K3-bwd 2, K2-fwd 2,
-     K2-bwd 2 and nothing else, and reach no plain version; each MoE site's
+     must launch K5-fwd 69, K5-bwd's split 69 and its TMA route 69 + 69,
+     K3-fwd 2, K3-bwd 2, K2-fwd 2, K2-bwd 2 and nothing else, and reach no plain version; each MoE site's
      dispatch mode; 3 steps against the plain path from one start state
      kept on the host, routing pinned as in phase 15; step time, peak
      memory, a per-op profile with K5's share of the step;
@@ -96,6 +98,11 @@ Weights are random, drawn from a seeded generator on the card.
 
 runs only the flagship's train step at 4608 patches per observation and
 prints the largest batch that fits, without the last two lines.
+
+    python3 chip_smoke.py --flagship-train-spread 1 2 3 4 5 6
+
+runs only phase 16's kernel-vs-plain comparison, once per seed, and prints
+each seed's per-step differences, without the last two lines.
 """
 
 from __future__ import annotations
@@ -254,7 +261,8 @@ K5_BWD_MIN_EQUAL = 0.99
 # the flagship's train step: tools/bench_flagship.py's objective (no
 # contrastive term) plus the MoE aux term, at the train plan's batch with
 # 576 patches per observation; launches per step: the simulator's 23 MoE
-# layers through K5 (3 products each, forward and both gradients), the
+# layers through K5 (3 products each, forward and both gradients; the
+# gradients by the TMA route, one split of dout each), the
 # vision encoder's two MLA layers over 576 patches through K3 (its
 # cross-attention, 8 heads of 256, is past K3's 128 and runs the plain
 # path, as in JAX), the Grid4D tables through K2
@@ -262,6 +270,7 @@ FLAGSHIP_TRAIN_WEIGHTS = LossWeights(contrastive=0.0, moe_aux=0.01)
 FLAGSHIP_TRAIN_BATCH = 64
 FLAGSHIP_PER_STEP = {
     "grouped_matmul_fwd": K5_PER_RAGGED_FORWARD,
+    "grouped_matmul_split_dout": K5_PER_RAGGED_FORWARD,
     "grouped_matmul_bwd_dlhs": K5_PER_RAGGED_FORWARD,
     "grouped_matmul_bwd_drhs": K5_PER_RAGGED_FORWARD,
     "vmem_attention_fwd": 2, "vmem_attention_bwd": 2,
@@ -271,9 +280,12 @@ FLAGSHIP_PER_STEP = {
 # per step relative differences of the loss, the aux term and the grad norm
 # read at most 5.71e-4, 1.38e-5 and 7.08e-3 on an H100 (PERF.md), held at
 # about twice that; the parameters as in phase 7, beyond one bf16 ulp of
-# each. A constant lr of 1e-4 instead moves every element by ~lr at once,
-# as the sign of its gradient says, and where that sign is rounding noise
-# the two runs part: 75.5% of one site's tokens routed apart by step 3.
+# each. One tree reads the same bits on every run; the reading moves with
+# the draw, which this phase takes from the generator the phases before it
+# share, and other seeds' draws read more (--flagship-train-spread). A
+# constant lr of 1e-4 instead moves every element by ~lr at once, as the
+# sign of its gradient says, and where that sign is rounding noise the two
+# runs part: 75.5% of one site's tokens routed apart by step 3.
 FLAGSHIP_TRAIN_TOL = {"loss": 1.2e-3, "moe_aux": 3e-5, "grad_norm": 1.5e-2}
 # the batches tried for the train step at 4608 patches, largest first
 CLIP_SEARCH_BATCHES = (64, 48, 32, 24, 16, 12, 8, 4, 2, 1)
@@ -448,6 +460,7 @@ def plain_versions_refused():
                            refuse), \
          mock.patch.object(grouped_matmul, "gmm_plain", refuse), \
          mock.patch.object(grouped_matmul, "gmm_bwd_plain", refuse), \
+         mock.patch.object(grouped_matmul, "split_dout_plain", refuse), \
          mock.patch.object(quant, "int8_bmm_plain", refuse), \
          mock.patch.object(quant, "int4_bmm_plain", refuse):
         yield
@@ -462,7 +475,7 @@ def phase_build() -> None:
           f"{torch.version.cuda} | kernels built in {seconds:.2f} s: {lib.name}")
     log = lib.with_name(lib.name + ".log").read_text()
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("registers", "spill", "wgmma")):
             print(f"    ptxas: {line.strip()}")
 
 
@@ -1774,25 +1787,6 @@ def flagship_group_sizes(gen, n_tokens: int = 64 * FLAGSHIP_TOKENS,
     return torch.bincount(chosen, minlength=e).tolist()
 
 
-def library_gmm(lhs, rhs, sizes):
-    """(name, call) of one PyTorch grouped matmul on the same inputs, a
-    yardstick only: torch._grouped_mm with offsets where this torch has it
-    and takes the inputs, else one torch.mm per group."""
-    offs = torch.cumsum(sizes, dim=0).to(torch.int32)
-    if hasattr(torch, "_grouped_mm"):
-        try:
-            torch._grouped_mm(lhs, rhs, offs=offs)
-            return "torch._grouped_mm", lambda: torch._grouped_mm(
-                lhs, rhs, offs=offs)
-        except (RuntimeError, TypeError, NotImplementedError):
-            pass
-    bounds = [0] + offs.tolist()
-    segments = [(g, bounds[g], bounds[g + 1]) for g in range(len(sizes))
-                if bounds[g + 1] > bounds[g]]
-    return "torch.mm per group", lambda: [
-        torch.mm(lhs[s:e], rhs[g]) for g, s, e in segments]
-
-
 def phase_gmm(gen) -> dict:
     torch.cuda.empty_cache()
     errs, means = {}, {}
@@ -1828,7 +1822,8 @@ def phase_gmm(gen) -> dict:
     # and the bound (the weights of the groups with rows, lhs and the sizes
     # read once, the fp32 output written once)
     lhs, rhs, gs = gmm_case(gen, flagship, 2048, 2048, torch.bfloat16)
-    library_name, library_call = library_gmm(lhs, rhs, gs)
+    library_name, library_call = grouped_mm_call(
+        lhs, rhs, [0] + torch.cumsum(gs, dim=0).tolist(), "rows")
     t = {"ms": cuda_ms(lambda: kernels.grouped_matmul_fwd(lhs, rhs, gs),
                        iters=20, warmup=3),
          "plain_ms": cuda_ms(lambda: grouped_matmul.gmm_plain(lhs, rhs, gs),
@@ -1888,46 +1883,78 @@ def check_gmm_bwd(name, got, ref, dtype) -> tuple:
                                                                 default=1.0)
 
 
-def library_gmm_bwd(lhs, rhs, dout, sizes) -> dict:
-    """{"dlhs": (name, call), "drhs": (name, call)}: one PyTorch grouped
-    matmul per gradient on the same inputs with dout rounded to bf16 (it
-    computes less than K5-bwd), a yardstick only: torch._grouped_mm with
-    offsets where this torch has it and takes the inputs, else one torch.mm
-    per group."""
-    offs = torch.cumsum(sizes, dim=0).to(torch.int32)
-    d16 = dout.to(lhs.dtype)
-    rhs_t = rhs.transpose(1, 2)
-    lhs_t = lhs.t()
-    grouped = {"dlhs": lambda: torch._grouped_mm(d16, rhs_t, offs=offs),
-               "drhs": lambda: torch._grouped_mm(lhs_t, d16, offs=offs)}
-    bounds = [0] + offs.tolist()
-    segments = [(g, bounds[g], bounds[g + 1]) for g in range(len(sizes))
+def grouped_mm_call(a, b, bounds, over):
+    """(name, call) of one PyTorch grouped matmul over the segments
+    ``bounds`` (offsets, 0 first) of a's rows (``over`` "rows": a (M, R) by
+    b (E, R, N), as K5-fwd and dlhs) or of the reduction ("reduction": a
+    (K, M) by b (M, N), as drhs), a yardstick only: torch._grouped_mm where
+    this torch has it and takes the inputs, else one torch.mm per
+    segment."""
+    offs = torch.tensor(bounds[1:], dtype=torch.int32, device=a.device)
+    segments = [(g, bounds[g], bounds[g + 1]) for g in range(len(bounds) - 1)
                 if bounds[g + 1] > bounds[g]]
-    per_group = {
-        "dlhs": lambda: [torch.mm(d16[s:e], rhs_t[g]) for g, s, e in segments],
-        "drhs": lambda: [torch.mm(lhs_t[:, s:e], d16[s:e])
-                         for g, s, e in segments]}
-    out = {}
-    for part in ("dlhs", "drhs"):
-        out[part] = ("torch.mm per group", per_group[part])
-        if hasattr(torch, "_grouped_mm"):
-            try:
-                grouped[part]()
-                out[part] = ("torch._grouped_mm", grouped[part])
-            except (RuntimeError, TypeError, NotImplementedError):
-                pass
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            torch._grouped_mm(a, b, offs=offs)
+            return "torch._grouped_mm", lambda: torch._grouped_mm(
+                a, b, offs=offs)
+        except (RuntimeError, TypeError, NotImplementedError):
+            pass
+    if over == "rows":
+        return "torch.mm per group", lambda: [
+            torch.mm(a[s:e], b[g]) for g, s, e in segments]
+    return "torch.mm per group", lambda: [
+        torch.mm(a[:, s:e], b[s:e]) for g, s, e in segments]
+
+
+def library_gmm_bwd(lhs, rhs, dout, sizes) -> dict:
+    """Two PyTorch yardsticks per gradient on the same inputs, arranged
+    outside any timed region: {"rounded": {part: (name, call)}, "split":
+    {...}}. "rounded" multiplies dout rounded to bf16 (half K5-bwd's work,
+    a coarser result); "split" does K5-bwd's work, hi and lo (dout's split)
+    summed in one product: dlhs as [hi | lo] (M, 2N) by [rhs^T ; rhs^T],
+    drhs as each group's lhs rows taken twice by its hi and lo rows, the
+    offsets doubled."""
+    bounds = [0] + torch.cumsum(sizes, dim=0).tolist()
+    d16 = dout.to(lhs.dtype)
+    hi, lo = grouped_matmul.split_dout_plain(dout)
+    out = {"rounded": {
+        "dlhs": grouped_mm_call(d16, rhs.transpose(1, 2), bounds, "rows"),
+        "drhs": grouped_mm_call(lhs.t(), d16, bounds, "reduction")}}
+    m = lhs.shape[0]
+    rows = torch.cat([torch.arange(s, e, device=lhs.device).repeat(2)
+                      for s, e in zip(bounds, bounds[1:])])
+    parts_rows = torch.cat([torch.cat([torch.arange(s, e), m + torch.arange(
+        s, e)]) for s, e in zip(bounds, bounds[1:])]).to(lhs.device)
+    out["split"] = {
+        "dlhs": grouped_mm_call(torch.cat([hi, lo], dim=1),
+                                torch.cat([rhs, rhs], dim=2).transpose(1, 2),
+                                bounds, "rows"),
+        "drhs": grouped_mm_call(lhs[rows].t(),
+                                torch.cat([hi, lo])[parts_rows],
+                                [2 * b for b in bounds], "reduction")}
     return out
+
+
+def bwd_route(dtype, m, k, n) -> str:
+    """The suffix of the K5-bwd counter these shapes launch."""
+    if kernels.gmm_bwd_tma_route(dtype, m, k, n):
+        return ""
+    return "_mma" if dtype == torch.bfloat16 else "_fp32"
 
 
 def phase_gmm_bwd(gen) -> dict:
     torch.cuda.empty_cache()
-    errs, means, shares = {}, {}, {}
+    errs, means, shares, routes = {}, {}, {}, collections.Counter()
+    route_err, route_launches = collections.Counter(), collections.Counter()
     flagship = flagship_group_sizes(gen)
     cases = {  # name: (group sizes, K, N, M or None for their sum)
         f"flagship 2816 E8 2048x2048 {flagship}": (flagship, 2048, 2048,
                                                    None),
         "empty groups, tiles across groups": ([0, 70, 0, 130, 100, 0], 96,
                                               200, None),
+        "K=136 N=88, groups of 64 and 1 row": ([64, 1, 0, 129, 191], 136, 88,
+                                               None),
         "M=1": ([0, 1, 0, 0], 64, 64, None),
         "K=100 N=130 (2-element loads)": ([100, 57, 100], 100, 130, None),
         "K=33 N=31 (1-element loads)": ([5, 40, 19], 33, 31, None),
@@ -1942,30 +1969,50 @@ def phase_gmm_bwd(gen) -> dict:
             # gradients are
             dout = torch.randn((lhs.shape[0], n), generator=gen,
                                device="cuda")
-            before = dict(kernels.launch_counts)
-            got = (kernels.grouped_matmul_bwd_dlhs(dout, rhs, gs),
-                   kernels.grouped_matmul_bwd_drhs(lhs, dout, gs))
-            launched = {part: kernels.launch_counts[f"grouped_matmul_bwd_{part}"]
-                        - before[f"grouped_matmul_bwd_{part}"]
-                        for part in ("dlhs", "drhs")}
-            if launched != {"dlhs": int(lhs.shape[0] > 0), "drhs": 1}:
-                raise AssertionError(f"K5-bwd {name}: launches {launched}")
-            ref = grouped_matmul.gmm_bwd_plain(lhs, rhs, gs, dout)
+            route = bwd_route(dtype, lhs.shape[0], k, n)
             key = f"{name} {tag}"
+            # as autograd calls it: the TMA route's split made once
+            kernels.reset_launch_counts()
+            got = kernels.grouped_matmul_bwd(lhs, rhs, gs, dout)
+            want = expected_launches(**{
+                "grouped_matmul_split_dout": int(route == ""),
+                f"grouped_matmul_bwd_dlhs{route}": int(lhs.shape[0] > 0),
+                f"grouped_matmul_bwd_drhs{route}": 1})
+            if kernels.launch_counts != want:
+                raise AssertionError(f"K5-bwd {key}: launches "
+                                     f"{kernels.launch_counts} != {want}")
+            routes[route or "_tma"] += 1
+            route_launches.update({k: v for k, v in
+                                   kernels.launch_counts.items() if v})
+            if route == "":
+                parts = kernels.grouped_matmul_split_dout(dout)
+                plain = grouped_matmul.split_dout_plain(dout)
+                if not all(torch.equal(a, b) for a, b in zip(parts, plain)):
+                    raise AssertionError(f"K5-bwd split {key}: not bitwise "
+                                         "equal to split_dout_plain")
+                del parts, plain
+            ref = grouped_matmul.gmm_bwd_plain(lhs, rhs, gs, dout)
             errs[key], means[key], shares[key] = check_gmm_bwd(
                 key, got, ref, dtype)
+            route_err[route] = max(route_err[route], errs[key])
             for g, size in enumerate(sizes):
                 if size == 0 and not bool((got[1][g] == 0).all()):
                     raise AssertionError(f"K5-bwd {key}: empty group {g}'s "
                                          "drhs is not 0")
             if m is not None and not bool((got[0][sum(sizes):] == 0).all()):
                 raise AssertionError(f"K5-bwd {key}: rows past the groups")
-            del lhs, rhs, gs, dout, got, ref
+            again = kernels.grouped_matmul_bwd(lhs, rhs, gs, dout)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K5-bwd {key}: two runs differ")
+            del lhs, rhs, gs, dout, got, ref, again
+    kernels.reset_launch_counts()
 
-    # the flagship shape in bf16: each kernel, its plain half, a library
-    # grouped matmul on bf16-rounded dout, and the bound (each input read
-    # once: dout, the weights of the groups with rows or lhs; each output
-    # written once: dlhs, or every group's drhs)
+    # the flagship shape in bf16: the split, each kernel given the split,
+    # the mma.sync route's kernel (the earlier design), the plain version,
+    # two library yardsticks, and the bound (each input read once: dout or
+    # its parts, the weights of the groups with rows or lhs; each output
+    # written once: the parts, dlhs, or every group's drhs; the tensor
+    # cores' operations twice, hi and lo)
     lhs, rhs, gs = gmm_case(gen, flagship, 2048, 2048, torch.bfloat16)
     dout = torch.randn((lhs.shape[0], 2048), generator=gen, device="cuda")
     # what rounding dout to bf16 before the product would have given
@@ -1975,47 +2022,78 @@ def phase_gmm_bwd(gen) -> dict:
                         for a, b in zip(rounded, ref))
     del ref, rounded
     library = library_gmm_bwd(lhs, rhs, dout, gs)
+    parts = kernels.grouped_matmul_split_dout(dout)
     m, used = lhs.shape[0], sum(1 for x in flagship if x > 0)
     flops = 2 * m * 2048 * 2048
-    parts = {
-        "dlhs": (lambda: kernels.grouped_matmul_bwd_dlhs(dout, rhs, gs),
+    mma = {  # the mma.sync kernels: a yardstick here
+        "dlhs": lambda: kernels.grouped_matmul_bwd_dlhs_mma(dout, rhs, gs),
+        "drhs": lambda: kernels.grouped_matmul_bwd_drhs_mma(lhs, dout, gs)}
+    parts_of = {
+        "dlhs": (lambda: kernels.grouped_matmul_bwd_dlhs_tma(*parts, rhs, gs),
                  lambda: grouped_matmul.gmm_bwd_plain(lhs, rhs, gs, dout,
                                                       need_rhs=False),
                  nbytes(dout, gs) + used * 2048 * 2048 * 2 + m * 2048 * 2),
-        "drhs": (lambda: kernels.grouped_matmul_bwd_drhs(lhs, dout, gs),
+        "drhs": (lambda: kernels.grouped_matmul_bwd_drhs_tma(lhs, *parts, gs),
                  lambda: grouped_matmul.gmm_bwd_plain(lhs, rhs, gs, dout,
                                                       need_lhs=False),
                  nbytes(lhs, dout, gs) + nbytes(rhs)),
     }
     times = {}
-    for part, (kernel, plain, moved) in parts.items():
-        t = {"ms": cuda_ms(kernel, iters=20, warmup=3),
-             "plain_ms": cuda_ms(plain, iters=10, warmup=2),
-             "library": library[part][0],
-             "library_ms": cuda_ms(library[part][1], iters=20, warmup=3)}
-        t.update(bound(moved, flops, torch.bfloat16))
-        t["tflops"] = flops / t["ms"] / 1e9
+    for part, (kernel, plain, moved) in parts_of.items():
+        t = {"ms": cuda_ms(kernel, iters=50, warmup=5),
+             "mma_ms": cuda_ms(mma[part], iters=20, warmup=3),
+             "plain_ms": cuda_ms(plain, iters=10, warmup=2)}
+        t["library"], split_call = library["split"][part]
+        t["library_ms"] = cuda_ms(split_call, iters=20, warmup=3)
+        t["rounded_library"], rounded_call = library["rounded"][part]
+        t["rounded_library_ms"] = cuda_ms(rounded_call, iters=20, warmup=3)
+        t.update(bound(moved, 2 * flops, torch.bfloat16))
+        t["once_bound_ms"] = bound(moved, flops, torch.bfloat16)["bound_ms"]
+        t["tflops"] = 2 * flops / t["ms"] / 1e9
         times[part] = t
-    print("[14 K5-bwd grouped_matmul_bwd_dlhs/drhs] max_abs_err " + ", ".join(
-        f"{k} {v:.3g}" for k, v in errs.items())
-        + f" (tol fp32 {K5_FP32_REL}, bf16 {K4_MAX_REL} of the largest entry)"
-        " | mean error over mean |plain| " + ", ".join(
-            f"{k} {v:.3g}" for k, v in means.items())
-        + f" (tol {K4_MEAN_REL}) | bf16 entries equal to the plain "
-        "version's: " + ", ".join(
-            f"{k} {v:.5f}" for k, v in shares.items() if "bfloat16" in k)
-        + f" (at least {K5_BWD_MIN_EQUAL}; dout rounded to bf16 first would "
-        f"give {rounded_share:.4f} at the flagship shape) | empty groups' "
-        "drhs exactly 0, rows past the groups 0, M=0 launches dlhs nothing "
-        "| ms at the flagship simulator's B=64 shape, bf16 lhs/rhs, fp32 "
-        "dout (device, CUDA events): " + "; ".join(
-            f"{part} kernel {t['ms']:.4f} ({t['tflops']:.1f} TFLOP/s), plain "
-            f"{t['plain_ms']:.4f}, library ({t['library']}, dout in bf16) "
-            f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} "
-            f"({t['bound_by']})" for part, t in times.items())
-        + f" | {card()}")
-    return {part: {"max_abs_err": max(errs.values()), **t}
-            for part, t in times.items()}
+    split_plain = grouped_matmul.split_dout_plain(dout)
+    split = {"ms": graph_ms(lambda: kernels.grouped_matmul_split_dout(dout)),
+             "plain_ms": graph_ms(
+                 lambda: grouped_matmul.split_dout_plain(dout)),
+             "library_ms": None,
+             "max_abs_err": max(max_err(a, b) for a, b in
+                                zip(parts, split_plain)),
+             **bound(nbytes(dout) + nbytes(*parts), 0, torch.bfloat16)}
+    del split_plain
+    total = split["ms"] + times["dlhs"]["ms"] + times["drhs"]["ms"]
+    print("[14 K5-bwd grouped_matmul_split_dout + grouped_matmul_bwd_dlhs/"
+          "drhs] routes per case (TMA = wgmma over TMA tiles, _mma, _fp32): "
+          + ", ".join(f"{k} {v}" for k, v in sorted(routes.items()))
+          + " | max_abs_err " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (tol fp32 {K5_FP32_REL}, bf16 {K4_MAX_REL} of the largest "
+          "entry) | mean error over mean |plain| " + ", ".join(
+              f"{k} {v:.3g}" for k, v in means.items())
+          + f" (tol {K4_MEAN_REL}) | bf16 entries equal to the plain "
+          "version's: " + ", ".join(
+              f"{k} {v:.5f}" for k, v in shares.items() if "bfloat16" in k)
+          + f" (at least {K5_BWD_MIN_EQUAL}; dout rounded to bf16 first would "
+          f"give {rounded_share:.4f} at the flagship shape) | split bitwise "
+          "equal to split_dout_plain, two runs of each case bitwise equal, "
+          "empty groups' drhs exactly 0, rows past the groups 0, M=0 "
+          "launches dlhs nothing | ms at the flagship simulator's B=64 "
+          "shape, bf16 lhs/rhs, fp32 dout (device, CUDA events; the split "
+          f"CUDA-graph replays): split {split['ms']:.4f} (plain "
+          f"{split['plain_ms']:.4f}, bound {split['bound_ms']:.4f} bytes); "
+          + "; ".join(
+              f"{part} kernel {t['ms']:.4f} ({t['tflops']:.1f} TFLOP/s "
+              f"counting hi and lo), mma.sync route's kernel {t['mma_ms']:.4f}"
+              f", plain {t['plain_ms']:.4f}, library ({t['library']}, hi + "
+              f"lo: the same work) {t['library_ms']:.4f}, library "
+              f"({t['rounded_library']}, dout in bf16: half the work) "
+              f"{t['rounded_library_ms']:.4f}, bound {t['bound_ms']:.4f} "
+              f"({t['bound_by']}, operations counted twice; once-counted "
+              f"{t['once_bound_ms']:.4f})" for part, t in times.items())
+          + f"; K5-bwd (split + dlhs + drhs) {total:.4f} | {card()}")
+    del lhs, rhs, gs, dout, parts, library
+    return {"split": split, "launches": dict(route_launches), **{
+        part: {"max_abs_err": route_err[""], "mma_max_abs_err":
+               route_err["_mma"], **t} for part, t in times.items()}}
 
 
 def make_flagship_batch(gen, n, patches=CLIP_PATCHES):
@@ -2343,9 +2421,7 @@ def phase_flagship_train(gen) -> dict:
              for name in names]
     shares = flipped_shares(sites, logs["kernel"], logs["plain"])
     del logs
-    rel = {key: max(abs(a[i] - p[i]) / max(abs(p[i]), 1e-30)
-                    for a, p in zip(runs["kernel"], runs["plain"]))
-           for i, key in enumerate(("loss", "moe_aux", "grad_norm"))}
+    rel = train_rel(runs["kernel"], runs["plain"])
     # Adam moves an element by at most ~lr a step, and a bf16 parameter
     # rounds its update to a neighbour: |kernel - plain| beyond one bf16
     # ulp of the parameter (2^-7 of it), against 3 * sum(lr)
@@ -2373,8 +2449,9 @@ def phase_flagship_train(gen) -> dict:
     step_ms = sum(r[1] for r in breakdown)
     k5 = {part: sum(r[1] for r in breakdown if key in r[0])
           for part, key in (("fwd", "grouped_matmul_bf16_kernel"),
-                            ("dlhs", "gmm_dlhs_bf16_kernel"),
-                            ("drhs", "gmm_drhs_bf16_kernel"))}
+                            ("split", "gmm_split_dout_kernel"),
+                            ("dlhs", "gmm_dlhs_wgmma_kernel"),
+                            ("drhs", "gmm_drhs_wgmma_kernel"))}
     print(f"[16 flagship train step] {sum(p.numel() for p in model.parameters()) / 1e9:.4f}B "
           f"params (bf16), built in {build_s:.1f} s | B={b}, {VISION_PATCHES} "
           f"patches, masking on, {FLAGSHIP_TRAIN_WEIGHTS}, bf16 first moment, "
@@ -2402,8 +2479,10 @@ def phase_flagship_train(gen) -> dict:
           f"eager (CUDA events over 3 steps): {turns(timing)}, "
           f"{b / timing['step_ms'] * 1e3:.1f} obs/s, peak mem "
           f"{timing['peak_gib']:.2f} GiB | profiled step: {step_ms:.2f} ms of "
-          f"kernels; K5-fwd {k5['fwd']:.2f} ms, K5-bwd dlhs {k5['dlhs']:.2f} "
-          f"and drhs {k5['drhs']:.2f} ms, "
+          f"kernels; K5-fwd {k5['fwd']:.2f} ms, K5-bwd split "
+          f"{k5['split']:.2f}, dlhs {k5['dlhs']:.2f} and drhs "
+          f"{k5['drhs']:.2f} ms (K5-bwd "
+          f"{k5['split'] + k5['dlhs'] + k5['drhs']:.2f}), "
           f"{sum(k5.values()) / max(step_ms, 1e-9):.1%} of it | {card()}")
     print_breakdown(16, f"B={b} train step", "step", breakdown, by_op)
     if (any(rel[k] > FLAGSHIP_TRAIN_TOL[k] for k in FLAGSHIP_TRAIN_TOL)
@@ -2418,6 +2497,47 @@ def phase_flagship_train(gen) -> dict:
     del model, trainer, batches
     free_cuda()
     return {"launches": launches}
+
+
+def train_rel(kernel: list, plain: list) -> dict:
+    """The largest per-step relative difference of the loss, the aux term
+    and the grad norm between two runs of (loss, aux, grad norm) steps."""
+    return {key: max(abs(a[i] - p[i]) / max(abs(p[i]), 1e-30)
+                     for a, p in zip(kernel, plain))
+            for i, key in enumerate(("loss", "moe_aux", "grad_norm"))}
+
+
+def flagship_train_spread(seeds) -> None:
+    """Phase 16's kernel-vs-plain comparison once per seed (weights and
+    batches drawn from it): how far its reading moves with the draw."""
+    reads = []
+    for seed in seeds:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        cfg = flagship_train_config()
+        model = DeepEarthModel(cfg, generator=gen, device=gen.device,
+                               native_seq_lens={"vision": VISION_PATCHES,
+                                                "language": 16})
+        trainer = Trainer(model, cfg, FLAGSHIP_TRAIN_WEIGHTS, seed=SEED)
+        start = {k: v.detach().to("cpu", copy=True)
+                 for k, v in model.state_dict().items()}
+        batches = [make_flagship_batch(gen, FLAGSHIP_TRAIN_BATCH,
+                                       VISION_PATCHES)
+                   for _ in range(TRAIN_STEPS)]
+        kernel, log, _, _ = flagship_train_run(trainer, model, start,
+                                               batches)
+        plain, _, _, _ = flagship_train_run(trainer, model, start, batches,
+                                            pinned=log, plain=True)
+        steps = [train_rel([a], [p]) for a, p in zip(kernel, plain)]
+        reads.append(train_rel(kernel, plain))
+        print(f"[flagship train spread] seed {seed}: per step relative "
+              "difference kernel vs plain (loss, moe_aux, grad_norm): "
+              + "; ".join(", ".join(f"{v:.3g}" for v in r.values())
+                          for r in steps) + f" | {card()}")
+        del model, trainer, start, batches
+        free_cuda()
+    print("[flagship train spread] largest over the seeds: " + ", ".join(
+        f"{k} {max(r[k] for r in reads):.3g}" for k in reads[0])
+        + f" (tol {FLAGSHIP_TRAIN_TOL}) | {card()}")
 
 
 def clip_batch_search(gen) -> None:
@@ -2800,6 +2920,10 @@ def main() -> None:
     parser.add_argument("--clip-batch-search", action="store_true",
                         help="only the flagship's train step at 4608 patches"
                              ": the largest batch that fits")
+    parser.add_argument("--flagship-train-spread", type=int, nargs="+",
+                        metavar="SEED",
+                        help="only phase 16's kernel-vs-plain train "
+                             "comparison, once per seed")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -2809,6 +2933,9 @@ def main() -> None:
     phase_build()
     if args.clip_batch_search:
         clip_batch_search(gen)
+        return
+    if args.flagship_train_spread:
+        flagship_train_spread(args.flagship_train_spread)
         return
     k2 = phase_hash(gen)
     k1 = phase_attention(gen)
@@ -2886,15 +3013,22 @@ def main() -> None:
          "launches": flag["launches"]["grouped_matmul_fwd"],
          "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
          "plain_ms": k5["plain_ms"]},
-        {"name": "grouped_matmul_bwd_dlhs", "route": "cuda",
+        {"name": "grouped_matmul_split_dout", "route": "cuda",
          "source": "deepearth_tpu_torch/kernels/csrc/grouped_matmul_bwd.cu",
+         "replaces": "jax/experimental/pallas/ops/tpu/megablox/ops.py:63 "
+                     "(_gmm_bwd's fp32 grad, read by :80 and :90)",
+         "launches": flag_train["launches"]["grouped_matmul_split_dout"],
+         "max_abs_err": k5b["split"]["max_abs_err"],
+         "ms": k5b["split"]["ms"], "plain_ms": k5b["split"]["plain_ms"]},
+        {"name": "grouped_matmul_bwd_dlhs", "route": "cuda",
+         "source": "deepearth_tpu_torch/kernels/csrc/grouped_matmul_bwd_tma.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/megablox/ops.py:63 "
                      "(_gmm_bwd: gmm with transpose_rhs at :80)",
          "launches": flag_train["launches"]["grouped_matmul_bwd_dlhs"],
          "max_abs_err": k5b["dlhs"]["max_abs_err"], "ms": k5b["dlhs"]["ms"],
          "plain_ms": k5b["dlhs"]["plain_ms"]},
         {"name": "grouped_matmul_bwd_drhs", "route": "cuda",
-         "source": "deepearth_tpu_torch/kernels/csrc/grouped_matmul_bwd.cu",
+         "source": "deepearth_tpu_torch/kernels/csrc/grouped_matmul_bwd_tma.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/megablox/ops.py:63 "
                      "(_gmm_bwd: tgmm at :90, megablox/gmm.py:573)",
          "launches": flag_train["launches"]["grouped_matmul_bwd_drhs"],
@@ -2919,13 +3053,29 @@ def main() -> None:
     # simulator's B=64 shape; K6's and K7's at QUANT_LINE_CASE
     for entry, phase in zip(report["kernels"],
                             (k2, k1, k1b, k2b, k3, k3b, k4, k4b, k5,
-                             k5b["dlhs"], k5b["drhs"], k67["int8_bmm"],
+                             k5b["split"], k5b["dlhs"], k5b["drhs"],
+                             k67["int8_bmm"],
                              k67["int4_bmm"])):
         entry.update({key: phase[key] for key in
                       ("bound_ms", "bound_by", "library_ms")})
     for k in report["kernels"]:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
+    # the mma.sync route of K5-bwd takes the bf16 shapes TMA cannot (K or N
+    # off the 8-element grid): no main path reaches it, so its launches are
+    # phase 14's, its times the flagship shape's through its wrapper
+    report["off_main_path"] = [
+        {"name": f"grouped_matmul_bwd_{part}_mma", "route": "cuda",
+         "source": "deepearth_tpu_torch/kernels/csrc/grouped_matmul_bwd.cu",
+         "replaces": entry["replaces"],
+         "launches_in_phase_14": k5b["launches"].get(
+             f"grouped_matmul_bwd_{part}_mma", 0),
+         "max_abs_err": k5b[part]["mma_max_abs_err"],
+         "ms": k5b[part]["mma_ms"],
+         **{key: entry[key] for key in ("plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")}}
+        for part in ("dlhs", "drhs") for entry in report["kernels"]
+        if entry["name"] == f"grouped_matmul_bwd_{part}"]
     print(json.dumps(report))
     print(card())
     print(json.dumps({"ok": True, "device": {

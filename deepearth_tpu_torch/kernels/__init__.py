@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their launch wrappers:
 K1 ``pairwise_attention_fwd`` / ``_bwd``, K2 ``hash_encode_fwd`` / ``_bwd``,
 K3 ``vmem_attention_fwd`` / ``_bwd``, K4 ``flash_attention_fwd`` / ``_bwd``,
-K5 ``grouped_matmul_fwd`` and ``grouped_matmul_bwd_dlhs`` / ``_drhs``, K6
-``int8_bmm`` and K7 ``int4_bmm``.
+K5 ``grouped_matmul_fwd`` and ``grouped_matmul_bwd`` (which launches
+``grouped_matmul_split_dout`` and ``grouped_matmul_bwd_{dlhs,drhs}_tma``, or
+``grouped_matmul_bwd_{dlhs,drhs}_mma``), K6 ``int8_bmm`` and K7
+``int4_bmm``.
 
 The sources in ``csrc/`` have a plain C interface. At first use each ``.cu``
 is compiled with its own ``nvcc``, all at once, and the objects are linked
@@ -42,8 +44,14 @@ launch_counts = {"hash_encode_fwd": 0, "hash_encode_bwd": 0,
                  "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
                  "vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
                  "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-                 "grouped_matmul_fwd": 0, "grouped_matmul_bwd_dlhs": 0,
-                 "grouped_matmul_bwd_drhs": 0, "int8_bmm": 0, "int4_bmm": 0}
+                 "grouped_matmul_fwd": 0, "grouped_matmul_split_dout": 0,
+                 # K5-bwd by route: wgmma over TMA tiles (no suffix),
+                 # mma.sync (bf16 off TMA's grid), CUDA cores (fp32)
+                 "grouped_matmul_bwd_dlhs": 0, "grouped_matmul_bwd_dlhs_mma": 0,
+                 "grouped_matmul_bwd_dlhs_fp32": 0,
+                 "grouped_matmul_bwd_drhs": 0, "grouped_matmul_bwd_drhs_mma": 0,
+                 "grouped_matmul_bwd_drhs_fp32": 0,
+                 "int8_bmm": 0, "int4_bmm": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -65,6 +73,9 @@ _SIGNATURES = {
     "grouped_matmul_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "grouped_matmul_bwd_dlhs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "grouped_matmul_bwd_drhs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "grouped_matmul_split_dout": [_P, _P, _P, _I64, _P],
+    "grouped_matmul_bwd_dlhs_tma": [*[_P] * 5, *[_I] * 4, _P],
+    "grouped_matmul_bwd_drhs_tma": [*[_P] * 5, *[_I] * 4, _P],
     "int8_bmm": [*[_P] * 5, *[_I] * 10, _P],
     "int4_bmm": [*[_P] * 5, *[_I] * 10, _P],
 }
@@ -506,11 +517,115 @@ def grouped_matmul_fwd(lhs: torch.Tensor, rhs: torch.Tensor,
     return out
 
 
-def grouped_matmul_bwd_dlhs(dout: torch.Tensor, rhs: torch.Tensor,
-                            group_sizes: torch.Tensor) -> torch.Tensor:
-    """K5-bwd, the gradient of lhs: dout (M, N) float32, rhs (E, K, N)
-    float32 or bfloat16 and group_sizes (E,) int32, all on one CUDA device.
-    Returns (M, K) in rhs's type (lhs's): row r of group g is
+def gmm_bwd_tma_route(dtype, m: int, k: int, n: int) -> bool:
+    """Whether K5-bwd takes its TMA route (wgmma over TMA-fed tiles) for
+    these shapes: bf16, M >= 1, and K and N positive multiples of 8 (TMA's
+    16-byte row strides). Else bf16 takes the mma.sync route, fp32 the
+    CUDA cores. A function of the shapes alone."""
+    return (dtype == torch.bfloat16 and m >= 1 and k >= 8 and n >= 8
+            and k % 8 == 0 and n % 8 == 0)
+
+
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous at a 16-byte aligned address (TMA's), copied if not."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def grouped_matmul_split_dout(dout: torch.Tensor):
+    """K5-bwd's split of dout (M, N) float32 on a CUDA device into (hi, lo),
+    two (M, N) bfloat16 tensors: hi = bf16(x), lo = bf16(x - hi), each
+    rounded to nearest even; hi + lo keeps x to ~2^-16 of |x|. The TMA
+    route's dlhs and drhs read them. M * N = 0 launches nothing."""
+    name = "grouped_matmul_split_dout"
+    _require(dout.is_cuda, f"{name}: dout must lie on a CUDA device")
+    _require(dout.dtype == torch.float32 and dout.dim() == 2,
+             f"{name}: dout must be (M, N) float32")
+    dout = dout.contiguous()
+    hi, lo = (torch.empty(dout.shape, device=dout.device,
+                          dtype=torch.bfloat16) for _ in range(2))
+    if dout.numel() == 0:
+        return hi, lo
+    rc = library().grouped_matmul_split_dout(
+        dout.data_ptr(), hi.data_ptr(), lo.data_ptr(), dout.numel(),
+        torch.cuda.current_stream(dout.device).cuda_stream)
+    _check(name, rc)
+    return hi, lo
+
+
+def _gmm_parts(name: str, hi: torch.Tensor, lo: torch.Tensor,
+               dtype, k: int):
+    """(hi, lo) for the TMA route, checked: (M, N) bfloat16 each, dout's
+    split, on a shape gmm_bwd_tma_route takes; 16-byte aligned."""
+    _require(hi.dim() == 2 and hi.dtype == lo.dtype == torch.bfloat16
+             and hi.shape == lo.shape,
+             f"{name}: hi and lo must be dout's split, (M, N) bfloat16")
+    _require(gmm_bwd_tma_route(dtype, hi.shape[0], k, hi.shape[1]),
+             f"{name}: the TMA route takes bfloat16 with M >= 1 and K, N "
+             "multiples of 8")
+    return _aligned16(hi), _aligned16(lo)
+
+
+def grouped_matmul_bwd_dlhs_tma(hi: torch.Tensor, lo: torch.Tensor,
+                                rhs: torch.Tensor,
+                                group_sizes: torch.Tensor) -> torch.Tensor:
+    """K5-bwd's gradient of lhs on the TMA route (wgmma over TMA tiles):
+    hi and lo (M, N) bfloat16, :func:`grouped_matmul_split_dout` of dout,
+    rhs (E, K, N) bfloat16 and group_sizes (E,) int32, all on one CUDA
+    device, shapes that :func:`gmm_bwd_tma_route` takes. Returns (M, K)
+    bfloat16: row r of group g is hi[r] . rhs[g]^T + lo[r] . rhs[g]^T,
+    summed in fp32 and rounded once; rows past the sum of the sizes 0.
+    Counted as ``grouped_matmul_bwd_dlhs``."""
+    name = "grouped_matmul_bwd_dlhs"
+    _require(rhs.dim() == 3 and hi.dim() == 2 and rhs.shape[2] == hi.shape[1],
+             f"{name}: hi must be (M, N) and rhs (E, K, N)")
+    _gmm_inputs(name, rhs.dtype, group_sizes, rhs.shape[0], rhs, hi, lo)
+    (m, n), k, n_groups = hi.shape, rhs.shape[1], rhs.shape[0]
+    hi, lo = _gmm_parts(name, hi, lo, rhs.dtype, k)
+    rhs, group_sizes = _aligned16(rhs), group_sizes.contiguous()
+    dlhs = torch.empty((m, k), device=rhs.device, dtype=rhs.dtype)
+    rc = library().grouped_matmul_bwd_dlhs_tma(
+        hi.data_ptr(), lo.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
+        dlhs.data_ptr(), m, k, n, n_groups,
+        torch.cuda.current_stream(rhs.device).cuda_stream)
+    _check(name, rc)
+    return dlhs
+
+
+def grouped_matmul_bwd_drhs_tma(lhs: torch.Tensor, hi: torch.Tensor,
+                                lo: torch.Tensor,
+                                group_sizes: torch.Tensor) -> torch.Tensor:
+    """K5-bwd's gradient of rhs on the TMA route: lhs (M, K) bfloat16, hi
+    and lo as for :func:`grouped_matmul_bwd_dlhs_tma`, group_sizes (E,)
+    int32. Returns (E, K, N) bfloat16: drhs[g] = lhs[rows of g]^T .
+    (hi + lo)[rows of g], summed in fp32 and rounded once; an empty group's
+    exactly 0 (the kernel writes every element). Counted as
+    ``grouped_matmul_bwd_drhs``."""
+    name = "grouped_matmul_bwd_drhs"
+    _require(lhs.dim() == 2 and hi.dim() == 2 and hi.shape[0] == lhs.shape[0]
+             and group_sizes.dim() == 1,
+             f"{name}: lhs must be (M, K), hi (M, N), group_sizes (E,)")
+    _gmm_inputs(name, lhs.dtype, group_sizes, group_sizes.shape[0], lhs, hi,
+                lo)
+    (m, k), n, n_groups = lhs.shape, hi.shape[1], group_sizes.shape[0]
+    hi, lo = _gmm_parts(name, hi, lo, lhs.dtype, k)
+    lhs, group_sizes = _aligned16(lhs), group_sizes.contiguous()
+    drhs = torch.empty((n_groups, k, n), device=lhs.device, dtype=lhs.dtype)
+    rc = library().grouped_matmul_bwd_drhs_tma(
+        lhs.data_ptr(), hi.data_ptr(), lo.data_ptr(), group_sizes.data_ptr(),
+        drhs.data_ptr(), m, k, n, n_groups,
+        torch.cuda.current_stream(lhs.device).cuda_stream)
+    _check(name, rc)
+    return drhs
+
+
+def grouped_matmul_bwd_dlhs_mma(dout: torch.Tensor, rhs: torch.Tensor,
+                                group_sizes: torch.Tensor) -> torch.Tensor:
+    """K5-bwd's gradient of lhs reading fp32 dout itself: dout (M, N)
+    float32, rhs (E, K, N) float32 or bfloat16 and group_sizes (E,) int32,
+    all on one CUDA device, any shapes. bf16 runs the mma.sync kernel
+    (counted ``grouped_matmul_bwd_dlhs_mma``), fp32 the CUDA-core one
+    (``_fp32``). Returns (M, K) in rhs's type (lhs's): row r of group g is
     dout[r] . rhs[g]^T, summed in fp32 with dout kept at fp32 accuracy and
     rounded once; rows past the sum of the sizes 0. M = 0 launches
     nothing."""
@@ -529,18 +644,20 @@ def grouped_matmul_bwd_dlhs(dout: torch.Tensor, rhs: torch.Tensor,
         dout.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
         dlhs.data_ptr(), m, k, n, n_groups, _ATTN_DTYPES[rhs.dtype],
         torch.cuda.current_stream(rhs.device).cuda_stream)
-    _check(name, rc)
+    _check(name + ("_mma" if rhs.dtype == torch.bfloat16 else "_fp32"), rc)
     return dlhs
 
 
-def grouped_matmul_bwd_drhs(lhs: torch.Tensor, dout: torch.Tensor,
-                            group_sizes: torch.Tensor) -> torch.Tensor:
-    """K5-bwd, the gradient of rhs: lhs (M, K) float32 or bfloat16, dout
-    (M, N) float32 and group_sizes (E,) int32, all on one CUDA device.
-    Returns (E, K, N) in lhs's type (rhs's): drhs[g] = lhs[rows of g]^T .
-    dout[rows of g], summed in fp32 with dout kept at fp32 accuracy and
-    rounded once; an empty group's exactly 0 (the kernel writes every
-    element). K = 0 or N = 0 launches nothing."""
+def grouped_matmul_bwd_drhs_mma(lhs: torch.Tensor, dout: torch.Tensor,
+                                group_sizes: torch.Tensor) -> torch.Tensor:
+    """K5-bwd's gradient of rhs reading fp32 dout itself: lhs (M, K)
+    float32 or bfloat16, dout (M, N) float32 and group_sizes (E,) int32,
+    all on one CUDA device, any shapes; counted as
+    :func:`grouped_matmul_bwd_dlhs_mma` is. Returns (E, K, N) in lhs's type
+    (rhs's): drhs[g] = lhs[rows of g]^T . dout[rows of g], summed in fp32
+    with dout kept at fp32 accuracy and rounded once; an empty group's
+    exactly 0 (the kernel writes every element). K = 0 or N = 0 launches
+    nothing."""
     name = "grouped_matmul_bwd_drhs"
     _require(lhs.dim() == 2 and dout.dim() == 2
              and dout.shape[0] == lhs.shape[0] and group_sizes.dim() == 1,
@@ -557,8 +674,41 @@ def grouped_matmul_bwd_drhs(lhs: torch.Tensor, dout: torch.Tensor,
         lhs.data_ptr(), dout.data_ptr(), group_sizes.data_ptr(),
         drhs.data_ptr(), m, k, n, n_groups, _ATTN_DTYPES[lhs.dtype],
         torch.cuda.current_stream(lhs.device).cuda_stream)
-    _check(name, rc)
+    _check(name + ("_mma" if lhs.dtype == torch.bfloat16 else "_fp32"), rc)
     return drhs
+
+
+def grouped_matmul_bwd(lhs: torch.Tensor, rhs: torch.Tensor,
+                       group_sizes: torch.Tensor, dout: torch.Tensor,
+                       need_lhs: bool = True, need_rhs: bool = True):
+    """K5-bwd, megablox's ``_gmm_bwd``: lhs (M, K) and rhs (E, K, N), both
+    float32 or both bfloat16, group_sizes (E,) int32 and dout (M, N)
+    float32, all on one CUDA device. Returns (dlhs, drhs) as
+    ``ops.grouped_matmul.gmm_bwd_plain`` does, each None when not needed.
+    The route is chosen here from the shapes alone
+    (:func:`gmm_bwd_tma_route`): on the TMA route dout is split once
+    (:func:`grouped_matmul_split_dout`) and both gradients read the parts;
+    else each reads dout itself (mma.sync for bf16, CUDA cores for fp32)."""
+    name = "grouped_matmul_bwd"
+    _require(lhs.dim() == 2 and rhs.dim() == 3 and dout.dim() == 2
+             and rhs.shape[1] == lhs.shape[1]
+             and tuple(dout.shape) == (lhs.shape[0], rhs.shape[2]),
+             f"{name}: lhs must be (M, K), rhs (E, K, N), dout (M, N)")
+    _gmm_inputs(name, lhs.dtype if lhs.dtype == rhs.dtype else None,
+                group_sizes, rhs.shape[0], lhs, rhs, dout)
+    (m, k), n = lhs.shape, rhs.shape[2]
+    if not (need_lhs or need_rhs):
+        return None, None
+    if gmm_bwd_tma_route(lhs.dtype, m, k, n):
+        hi, lo = grouped_matmul_split_dout(_gmm_dout(name, dout, m, n))
+        return (grouped_matmul_bwd_dlhs_tma(hi, lo, rhs, group_sizes)
+                if need_lhs else None,
+                grouped_matmul_bwd_drhs_tma(lhs, hi, lo, group_sizes)
+                if need_rhs else None)
+    return (grouped_matmul_bwd_dlhs_mma(dout, rhs, group_sizes)
+            if need_lhs else None,
+            grouped_matmul_bwd_drhs_mma(lhs, dout, group_sizes)
+            if need_rhs else None)
 
 
 QUANT_SMS = 132  # the H100's SMs: the reduction split aims at 4 blocks each

@@ -1,4 +1,7 @@
-// Grouped matmul over expert-sorted rows, backward (K5-bwd).
+// Grouped matmul over expert-sorted rows, backward (K5-bwd): the split of
+// dout into bf16 hi + lo that the TMA route (grouped_matmul_bwd_tma.cu)
+// reads, and the routes for what TMA cannot take: bf16 with K or N off the
+// 8-element grid (mma.sync), and fp32 (CUDA cores).
 //
 // Replaces: the megablox VJP `_gmm_bwd`
 // (jax/experimental/pallas/ops/tpu/megablox/ops.py:63), which makes two
@@ -23,9 +26,9 @@
 // observations (M = 2816, E = 8, K = N = 2048, bf16 lhs/rhs, fp32 dout):
 // each product is 23.6 GFLOP, 0.024 ms at 989 TFLOP/s; dlhs moves 23 MB of
 // dout, 67 MB of rhs and 11.5 MB of dlhs, drhs 11.5 MB of lhs, 23 MB of
-// dout and 67 MB of drhs: ~101.7 MB, 0.030 ms each at 3.35 TB/s. The bytes
-// bound both, barely; the two tensor-core passes per product (below) double
-// the operations, to 0.048 ms.
+// dout and 67 MB of drhs: ~101.7 MB, 0.030 ms each at 3.35 TB/s. Counted
+// once the operations would fall under the bytes; the two tensor-core
+// passes per product (below) double them, and they bound both at 0.048 ms.
 //
 // dout stays fp32 inside the product. The gradients into the gate and up
 // products are genuine fp32 values; megablox multiplies them at fp32, and
@@ -35,7 +38,11 @@
 // against the same bf16 operand) into one fp32 accumulator: x is kept to
 // ~2^-16 of |x|, far under the output's one rounding to bf16.
 //
-// Schedule: no host synchronisation, as in K5-fwd.
+// The split (gmm_split_dout_kernel) writes hi and lo of fp32 dout once, as
+// two bf16 (M, N) tensors, for both gradients of the TMA route: one pass,
+// 4 bytes read and 4 written per element, bound by the bytes.
+//
+// Schedule of the mma.sync route: no host synchronisation, as in K5-fwd.
 //  - dlhs: K5-fwd's schedule (find_tile: row tiles per group, none mixing
 //    two groups, the rows past the last group a zero-filled segment) with
 //    rhs[g] read as (K, N) rows: a 64 x 128 tile of dlhs per block, 4
@@ -52,8 +59,8 @@
 //  - fp32 lhs/rhs (for the tests): CUDA-core tiles of 64 x 64, 256
 //    threads, 4 x 4 outputs each, fmaf in reduction order, exact fp32.
 //
-// Simple first: no wgmma, TMA, or dlhs and drhs fused into one pass yet
-// (PERF.md).
+// The mma.sync route re-splits dout in every tile; the TMA route splits it
+// once (PERF.md).
 
 #include "grouped_matmul.cuh"
 
@@ -110,6 +117,32 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// hi and lo of `count` fp32 values (split2's, in place of dout's);
+// `vec4`: four per thread step, the pointers 16-byte aligned.
+__global__ void gmm_split_dout_kernel(const float* __restrict__ x,
+                                      bf16* __restrict__ hi,
+                                      bf16* __restrict__ lo, int64_t count,
+                                      int vec4) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (vec4) {
+    for (; 4 * i < count; i += stride) {
+      const float4 v = reinterpret_cast<const float4*>(x)[i];
+      uint2 h, l;
+      split2(v.x, v.y, h.x, l.x);
+      split2(v.z, v.w, h.y, l.y);
+      reinterpret_cast<uint2*>(hi)[i] = h;
+      reinterpret_cast<uint2*>(lo)[i] = l;
+    }
+    return;
+  }
+  for (; i < count; i += stride) {
+    const bf16 h = __float2bfloat16_rn(x[i]);
+    hi[i] = h;
+    lo[i] = __float2bfloat16_rn(x[i] - __bfloat162float(h));
+  }
+}
+
 // Four 8 x 8 bf16 matrices, transposed on the way: lanes 8 i .. 8 i + 7
 // give the row addresses of matrix i, register i receives it.
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&a)[4],
@@ -155,7 +188,7 @@ constexpr int kLdDout = kBK + 8;  // fp32: rows 8 banks apart for float2
 constexpr int kLdRhs = kBK + kRowPad;
 
 __global__ void __launch_bounds__(kThreadsMma)
-    gmm_dlhs_bf16_kernel(const float* __restrict__ dout,
+    gmm_dlhs_mma_kernel(const float* __restrict__ dout,
                          const bf16* __restrict__ rhs,
                          const int* __restrict__ group_sizes,
                          bf16* __restrict__ dlhs, int m, int k, int n,
@@ -241,7 +274,7 @@ constexpr int kLdLhs = kRK + kRowPad;
 constexpr int kLdDoutT = kRN + 4;  // fp32: rows 2c, 2c + 1 in distinct banks
 
 __global__ void __launch_bounds__(kThreadsMma)
-    gmm_drhs_bf16_kernel(const bf16* __restrict__ lhs,
+    gmm_drhs_mma_kernel(const bf16* __restrict__ lhs,
                          const float* __restrict__ dout,
                          const int* __restrict__ group_sizes,
                          bf16* __restrict__ drhs, int m, int k, int n,
@@ -449,7 +482,7 @@ extern "C" int grouped_matmul_bwd_dlhs(const void* dout, const void* rhs,
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((m + kBM - 1) / kBM + n_groups, (k + kBN - 1) / kBN);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  gmm_dlhs_bf16_kernel<<<grid, kThreadsMma, 0, s>>>(
+  gmm_dlhs_mma_kernel<<<grid, kThreadsMma, 0, s>>>(
       d, static_cast<const bf16*>(rhs), sizes, static_cast<bf16*>(dlhs), m,
       k, n, n_groups, row_vec<float>(dout, n), row_vec<bf16>(rhs, n));
   return static_cast<int>(cudaGetLastError());
@@ -480,8 +513,30 @@ extern "C" int grouped_matmul_bwd_drhs(const void* lhs, const void* dout,
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kRN - 1) / kRN, (k + kRK - 1) / kRK, n_groups);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  gmm_drhs_bf16_kernel<<<grid, kThreadsMma, 0, s>>>(
+  gmm_drhs_mma_kernel<<<grid, kThreadsMma, 0, s>>>(
       static_cast<const bf16*>(lhs), d, sizes, static_cast<bf16*>(drhs), m,
       k, n, row_vec<bf16>(lhs, k), row_vec<float>(dout, n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dout (count fp32 values) into hi and lo (count bf16 each), all on the
+// device: hi = bf16(x), lo = bf16(x - hi), each rounded to nearest even.
+// Returns a cudaError_t value; 0 on a clean launch.
+extern "C" int grouped_matmul_split_dout(const void* dout, void* hi,
+                                         void* lo, int64_t count,
+                                         void* stream) {
+  if (count < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (count == 0) return 0;
+  const int vec4 = count % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(dout) |
+                    reinterpret_cast<uintptr_t>(hi) |
+                    reinterpret_cast<uintptr_t>(lo)) % 16 == 0;
+  const int64_t items = vec4 ? count / 4 : count;
+  const int threads = 256;
+  const int64_t blocks = (items + threads - 1) / threads;
+  gmm_split_dout_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096),
+                          threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dout), static_cast<bf16*>(hi),
+      static_cast<bf16*>(lo), count, vec4);
   return static_cast<int>(cudaGetLastError());
 }

@@ -100,8 +100,11 @@ class Grid4DEncoder(nn.Module):
         }
         feats = []
         for name in _PERIODS:
-            a = periodic[name]
-            v = torch.stack([torch.sin(a), torch.cos(a)], -1).to(cd)
+            # sin and cos of the fp32 angles in float64, rounded once to
+            # fp32, as ops/rope.py takes them: torch's first fp32 CPU cos
+            # of a process now and then keeps only about half the mantissa
+            a = periodic[name].double()
+            v = torch.stack([torch.sin(a), torch.cos(a)], -1).float().to(cd)
             feats.append(_masked(getattr(self, f"temporal_{name}")(v),
                                  temporal_mask))
         xyz_m = xyzt[:, :3] * cfg.spatial_span_meters

@@ -4,10 +4,16 @@ on the TPU, and of its VJP.
 
 :func:`gmm` is a ``torch.autograd.Function``. For CUDA tensors its forward
 is the hand-written kernel K5-fwd (``kernels/csrc/grouped_matmul.cu``) and
-its backward K5-bwd (``kernels/csrc/grouped_matmul_bwd.cu``: megablox's
-``gmm`` with ``transpose_rhs`` for dlhs and ``tgmm`` for drhs, one launch
-each, only for the inputs that need a gradient); for CPU tensors their plain
-PyTorch versions :func:`gmm_plain` and :func:`gmm_bwd_plain`. The group
+its backward K5-bwd (``kernels.grouped_matmul_bwd``): megablox's ``gmm``
+with ``transpose_rhs`` for dlhs and ``tgmm`` for drhs, one launch each, only
+for the inputs that need a gradient. Where ``kernels.gmm_bwd_tma_route``
+holds (bf16, K and N multiples of 8, as the flagship's 2048 x 2048 experts
+are), fp32 dout is split once into bf16 hi + lo
+(``grouped_matmul_split_dout``) and both gradients read the parts through
+TMA into wgmma (``kernels/csrc/grouped_matmul_bwd_tma.cu``); other shapes
+take ``kernels/csrc/grouped_matmul_bwd.cu``. For CPU tensors the plain
+PyTorch versions :func:`gmm_plain`, :func:`gmm_bwd_plain` and
+:func:`split_dout_plain` run. The group
 sizes stay on the device: the kernels read them themselves, so a MoE layer
 costs no host synchronisation, forward or backward.
 
@@ -81,6 +87,15 @@ def gmm_bwd_plain(lhs: torch.Tensor, rhs: torch.Tensor,
             None if drhs is None else drhs.to(rhs.dtype))
 
 
+def split_dout_plain(dout: torch.Tensor):
+    """Plain PyTorch version of K5-bwd's split: (hi, lo) of fp32 dout, two
+    bfloat16 tensors of its shape, hi = bf16(x) and lo = bf16(x - hi), each
+    rounded to nearest even."""
+    dout = dout.float()
+    hi = dout.to(torch.bfloat16)
+    return hi, (dout - hi.float()).to(torch.bfloat16)
+
+
 class _GroupedMatmul(torch.autograd.Function):
     """K5-fwd and K5-bwd for CUDA tensors, the plain versions for CPU
     tensors."""
@@ -99,11 +114,8 @@ class _GroupedMatmul(torch.autograd.Function):
         if lhs.device.type == "cpu":
             return (*gmm_bwd_plain(lhs, rhs, group_sizes, dout, need_lhs,
                                    need_rhs), None)
-        dlhs = (kernels.grouped_matmul_bwd_dlhs(dout, rhs, group_sizes)
-                if need_lhs else None)
-        drhs = (kernels.grouped_matmul_bwd_drhs(lhs, dout, group_sizes)
-                if need_rhs else None)
-        return dlhs, drhs, None
+        return (*kernels.grouped_matmul_bwd(lhs, rhs, group_sizes, dout,
+                                            need_lhs, need_rhs), None)
 
 
 def gmm(lhs: torch.Tensor, rhs: torch.Tensor,

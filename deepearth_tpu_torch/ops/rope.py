@@ -104,7 +104,14 @@ def rope_cos_sin(seq_len: int, dim: int, theta: float = 10000.0,
         emb = freqs
     else:
         raise ValueError(f"unknown rope layout {layout!r}")
-    return torch.cos(emb) * mscale, torch.sin(emb) * mscale
+    # cos and sin of the fp32 angles taken in float64 and rounded once to
+    # fp32, then scaled in fp32 as JAX scales its fp32 cos and sin. On the
+    # CPU, torch's first cos of a process (MKL's vector math) now and then
+    # keeps only about half the mantissa (~1.5e-4 off at fp32); in float64
+    # such a call still lands within an fp32 ulp.
+    emb = emb.double()
+    return (torch.cos(emb).float() * mscale,
+            torch.sin(emb).float() * mscale)
 
 
 @functools.lru_cache(maxsize=64)

@@ -28,7 +28,8 @@ order of fp32 sums: chip_smoke.check_gmm, 1e-5 of the largest entry in
 fp32, K4's relative limits in bf16. K5-bwd sums in fp32 with dout kept at
 fp32 accuracy and rounds once, as its plain version does:
 chip_smoke.check_gmm_bwd, K5-fwd's limits, and in bf16 at least 99% of the
-entries equal to the plain version's. K6 and K7 multiply bf16-rounded x by
+entries equal to the plain version's; its split of dout into bf16 hi + lo
+is its plain version's bit for bit. K6 and K7 multiply bf16-rounded x by
 weights exact in bf16 and sum in fp32, as their plain versions do, in
 another order: 1e-5 of the largest entry in fp32 outputs, one bf16 ulp of
 it in bf16 outputs (chip_smoke.QUANT_FP32_REL, chip_smoke.bf16_ulp).
@@ -68,8 +69,12 @@ HASH_BWD_TOL = 1e-5
 VMEM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 NO_K3_TO_K5 = {"vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
                "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-               "grouped_matmul_fwd": 0, "grouped_matmul_bwd_dlhs": 0,
-               "grouped_matmul_bwd_drhs": 0, "int8_bmm": 0, "int4_bmm": 0}
+               "grouped_matmul_fwd": 0, "grouped_matmul_split_dout": 0,
+               "grouped_matmul_bwd_dlhs": 0, "grouped_matmul_bwd_dlhs_mma": 0,
+               "grouped_matmul_bwd_dlhs_fp32": 0,
+               "grouped_matmul_bwd_drhs": 0, "grouped_matmul_bwd_drhs_mma": 0,
+               "grouped_matmul_bwd_drhs_fp32": 0, "int8_bmm": 0,
+               "int4_bmm": 0}
 
 
 def _smoke():
@@ -611,8 +616,9 @@ def test_grouped_matmul_refusals_and_card_backward(cuda):
     empty = kernels.grouped_matmul_fwd(lhs[:0], rhs, torch.zeros_like(gs))
     assert empty.shape == (0, 8) and kernels.launch_counts[
         "grouped_matmul_fwd"] == 0
-    # autograd on the card: K5-bwd's two kernels, once each, and only for
-    # the inputs that need a gradient
+    # autograd on the card: K5-bwd's two kernels (the TMA route: K 16, N 8),
+    # once each and only for the inputs that need a gradient, after one
+    # split of dout
     for needs in ((True, True), (True, False), (False, True)):
         leaves = [x.detach().clone().requires_grad_(r)
                   for x, r in zip((lhs, rhs), needs)]
@@ -620,6 +626,7 @@ def test_grouped_matmul_refusals_and_card_backward(cuda):
         with smoke.plain_versions_refused():
             tgmm.gmm(*leaves, gs).sum().backward()
         torch.cuda.synchronize()
+        assert kernels.launch_counts["grouped_matmul_split_dout"] == 1
         assert kernels.launch_counts["grouped_matmul_bwd_dlhs"] == needs[0]
         assert kernels.launch_counts["grouped_matmul_bwd_drhs"] == needs[1]
         ref = tgmm.gmm_bwd_plain(lhs, rhs, gs, torch.ones((8, 8),
@@ -629,12 +636,11 @@ def test_grouped_matmul_refusals_and_card_backward(cuda):
                 smoke.check_gmm_bwd("autograd", (leaf.grad, leaf.grad),
                                     (r, r), torch.bfloat16)
     with pytest.raises(ValueError, match="float32"):
-        kernels.grouped_matmul_bwd_dlhs(torch.ones((8, 8), device=cuda,
-                                                   dtype=torch.bfloat16),
-                                        rhs, gs)
+        kernels.grouped_matmul_bwd(lhs, rhs, gs, torch.ones(
+            (8, 8), device=cuda, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="int32"):
-        kernels.grouped_matmul_bwd_drhs(lhs, torch.ones((8, 8), device=cuda),
-                                        gs.long())
+        kernels.grouped_matmul_bwd(lhs, rhs, gs.long(),
+                                   torch.ones((8, 8), device=cuda))
 
 
 K5_BWD_CASES = {**GMM_CASES, "M=0": ([0, 0, 0], 64, 64, None)}
@@ -644,28 +650,84 @@ K5_BWD_CASES = {**GMM_CASES, "M=0": ([0, 0, 0], 64, 64, None)}
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", list(K5_BWD_CASES))
 def test_grouped_matmul_bwd_matches_plain(cuda, dtype, case):
-    """K5-bwd's dlhs and drhs on an fp32 dout with genuine low bits: an
-    empty group's drhs exactly 0 (from a torch.empty output), dlhs of the
-    rows past the last group 0, M = 0 launches dlhs nothing."""
+    """K5-bwd's dlhs and drhs on an fp32 dout with genuine low bits, by the
+    route the shapes choose (TMA for bf16 with K and N multiples of 8,
+    mma.sync for other bf16, CUDA cores for fp32), each route's counter:
+    an empty group's drhs exactly 0 (from a torch.empty output), dlhs of
+    the rows past the last group 0, M = 0 launches dlhs nothing, two runs
+    bitwise equal."""
     smoke = _smoke()
     sizes, k, n, m = K5_BWD_CASES[case]
     gen = torch.Generator(device="cuda").manual_seed(3)
     lhs, rhs, gs = smoke.gmm_case(gen, sizes, k, n, dtype, m)
     dout = torch.randn((lhs.shape[0], n), generator=gen, device=cuda)
+    route = smoke.bwd_route(dtype, lhs.shape[0], k, n)
     kernels.reset_launch_counts()
-    got = (kernels.grouped_matmul_bwd_dlhs(dout, rhs, gs),
-           kernels.grouped_matmul_bwd_drhs(lhs, dout, gs))
+    got = kernels.grouped_matmul_bwd(lhs, rhs, gs, dout)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["grouped_matmul_bwd_dlhs"] == int(
-        lhs.shape[0] > 0)
-    assert kernels.launch_counts["grouped_matmul_bwd_drhs"] == 1
+    assert kernels.launch_counts == smoke.expected_launches(**{
+        "grouped_matmul_split_dout": int(route == ""),
+        f"grouped_matmul_bwd_dlhs{route}": int(lhs.shape[0] > 0),
+        f"grouped_matmul_bwd_drhs{route}": 1})
     smoke.check_gmm_bwd(case, got, tgmm.gmm_bwd_plain(lhs, rhs, gs, dout),
                         dtype)
+    again = kernels.grouped_matmul_bwd(lhs, rhs, gs, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     for g, size in enumerate(sizes):
         if size == 0:
             assert bool((got[1][g] == 0).all())
     if m is not None:
         assert bool((got[0][sum(sizes):] == 0).all())
+
+
+@pytest.mark.parametrize("shape", [(2816, 2048), (37, 200), (5, 31),
+                                   (1, 3), (64, 130)])
+def test_split_dout_matches_plain_bitwise(cuda, shape):
+    """K5-bwd's split against split_dout_plain, bit for bit (16-byte and
+    element-wise paths), on values with genuine low bits; a strided view
+    is split as its contiguous copy."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dout = torch.randn(shape, generator=gen, device=cuda) * 3.0
+    kernels.reset_launch_counts()
+    for x in (dout, dout.t()):
+        hi, lo = kernels.grouped_matmul_split_dout(x)
+        want = tgmm.split_dout_plain(x)
+        assert hi.is_contiguous() and lo.is_contiguous()
+        assert torch.equal(hi, want[0]) and torch.equal(lo, want[1])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["grouped_matmul_split_dout"] == 2
+    with pytest.raises(ValueError, match="float32"):
+        kernels.grouped_matmul_split_dout(dout.bfloat16())
+
+
+def test_grouped_matmul_bwd_tma_launchers_check_their_inputs(cuda):
+    """The TMA route's launchers read the split they are given and launch
+    nothing else; they refuse parts that are not dout's split in bf16 and
+    shapes off TMA's 8-element grid, which the entry sends to mma.sync."""
+    smoke = _smoke()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lhs, rhs, gs = smoke.gmm_case(gen, [40, 0, 88], 64, 96, torch.bfloat16)
+    dout = torch.randn((128, 96), generator=gen, device=cuda)
+    hi, lo = kernels.grouped_matmul_split_dout(dout)
+    kernels.reset_launch_counts()
+    got = (kernels.grouped_matmul_bwd_dlhs_tma(hi, lo, rhs, gs),
+           kernels.grouped_matmul_bwd_drhs_tma(lhs, hi, lo, gs))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == smoke.expected_launches(
+        grouped_matmul_bwd_dlhs=1, grouped_matmul_bwd_drhs=1)
+    smoke.check_gmm_bwd("parts", got, tgmm.gmm_bwd_plain(lhs, rhs, gs, dout),
+                        torch.bfloat16)
+    with pytest.raises(ValueError, match="split"):
+        kernels.grouped_matmul_bwd_dlhs_tma(hi.float(), lo, rhs, gs)
+    with pytest.raises(ValueError, match="split"):
+        kernels.grouped_matmul_bwd_drhs_tma(lhs, hi, lo[:5], gs)
+    lhs, rhs, gs = smoke.gmm_case(gen, [5, 40, 19], 33, 32, torch.bfloat16)
+    hi, lo = kernels.grouped_matmul_split_dout(
+        torch.randn((64, 32), generator=gen, device=cuda))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kernels.grouped_matmul_bwd_dlhs_tma(hi, lo, rhs, gs)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kernels.grouped_matmul_bwd_drhs_tma(lhs, hi, lo, gs)
 
 
 def test_ragged_moe_layer_launches_k5_three_times(cuda):
@@ -692,8 +754,9 @@ def test_ragged_moe_layer_launches_k5_three_times(cuda):
 
 def test_ragged_moe_layer_backward_launches_k5_bwd(cuda):
     """A bf16 MoE layer forced ragged, trained one backward: K5-fwd 3 times
-    and K5-bwd's dlhs and drhs 3 times each (gate, up, down), no plain
-    version reached; the router gets its aux term's gradient."""
+    and K5-bwd's split, dlhs and drhs 3 times each (gate, up, down; the
+    TMA route), no plain version reached; the router gets its aux term's
+    gradient."""
     smoke = _smoke()
     cfg = MoEConfig(n_routed_experts=8, num_experts_per_tok=2, n_group=2,
                     topk_group=1, moe_intermediate_size=256, hidden_dim=128,
@@ -709,10 +772,10 @@ def test_ragged_moe_layer_backward_launches_k5_bwd(cuda):
     torch.cuda.synchronize()
     assert layer.mode == "ragged"
     assert {k: kernels.launch_counts[k] for k in (
-        "grouped_matmul_fwd", "grouped_matmul_bwd_dlhs",
-        "grouped_matmul_bwd_drhs")} == {"grouped_matmul_fwd": 3,
-                                        "grouped_matmul_bwd_dlhs": 3,
-                                        "grouped_matmul_bwd_drhs": 3}
+        "grouped_matmul_fwd", "grouped_matmul_split_dout",
+        "grouped_matmul_bwd_dlhs", "grouped_matmul_bwd_drhs")} == {
+            "grouped_matmul_fwd": 3, "grouped_matmul_split_dout": 3,
+            "grouped_matmul_bwd_dlhs": 3, "grouped_matmul_bwd_drhs": 3}
     for name, p in layer.named_parameters():
         if name != "e_score_correction_bias":
             assert p.grad is not None and bool(p.grad.isfinite().all()), name

@@ -27,6 +27,7 @@ from deepearth_tpu import configs as jcfg
 from deepearth_tpu.models import deepseek as jds
 from deepearth_tpu.ops import moe as jmoe
 from deepearth_tpu_torch import configs as tcfg
+from deepearth_tpu_torch import kernels
 from deepearth_tpu_torch import load_flax_params
 from deepearth_tpu_torch.convert import _leaves, _torch_name
 from deepearth_tpu_torch.models import deepseek as tds
@@ -168,6 +169,72 @@ def test_gmm_bwd_plain_matches_megablox_vjp(case, dtype):
         close_rel(out.float().numpy(), ref, tol)
     for g in np.flatnonzero(sizes == 0):
         assert bool((drhs[g] == 0).all()) and not ref_drhs[g].any()
+
+
+def bf16_rn(x):
+    """fp32 to bf16 (as fp32 values), rounded to nearest even, by bits."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    b = ((b + 0x7FFF + ((b >> 16) & 1)) >> 16) << 16
+    return b.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-3, 3e4])
+def test_split_dout_plain_is_the_kernels_split(scale):
+    """split_dout_plain gives the split K5-bwd's kernels use (split2):
+    hi = bf16_rn(x), lo = bf16_rn(x - hi), bit for bit, and hi + lo keeps x
+    to 2^-16 of |x|; an x exact in bf16 has lo = 0."""
+    x = features(12, 64, 40, scale=scale)
+    x[0, :8] = bf16_rn(x[0, :8])
+    hi, lo = tgmm.split_dout_plain(t(x))
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert hi.shape == lo.shape == x.shape
+    want_hi = bf16_rn(x)
+    want_lo = bf16_rn(x - want_hi)
+    np.testing.assert_array_equal(hi.float().numpy().view(np.uint32),
+                                  want_hi.view(np.uint32))
+    np.testing.assert_array_equal(lo.float().numpy().view(np.uint32),
+                                  want_lo.view(np.uint32))
+    kept = hi.double() + lo.double()
+    assert bool(((kept - t(x).double()).abs()
+                 <= 2.0 ** -16 * t(x).double().abs()).all())
+    assert bool((lo[0, :8] == 0).all())
+
+
+@pytest.mark.parametrize("case", list(GMM_CASES))
+def test_gmm_bwd_from_split_parts_matches_megablox_vjp(case):
+    """The arithmetic of K5-bwd's TMA route on bf16 lhs/rhs: dout split by
+    split_dout_plain, dlhs = hi . rhs^T + lo . rhs^T and drhs = lhs^T . hi
+    + lhs^T . lo, each product exact in fp32, the fp32 sums rounded once to
+    bf16, against megablox's VJP at the tolerance of
+    test_gmm_bwd_plain_matches_megablox_vjp (one bf16 ulp of each output's
+    largest entry); an empty group's drhs exactly 0."""
+    sizes = np.array(GMM_CASES[case], np.int32)
+    m = int(sizes.sum())
+    lhs, rhs = features(6, m, D), features(7, len(sizes), D, F)
+    dout = features(8, m, F)
+    ref_dlhs, ref_drhs = megablox_vjp(lhs, rhs, sizes, dout, jnp.bfloat16)
+    lhs32, rhs32 = (t(x).to(torch.bfloat16).float() for x in (lhs, rhs))
+    by_part = [tgmm.gmm_bwd_plain(lhs32, rhs32, t(sizes), part.float())
+               for part in tgmm.split_dout_plain(t(dout))]
+    dlhs, drhs = ((a + b).to(torch.bfloat16) for a, b in zip(*by_part))
+    for out, ref in ((dlhs, ref_dlhs), (drhs, ref_drhs)):
+        close_rel(out.float().numpy(), ref, bf16_ulp(ref) / np.abs(ref).max())
+    for g in np.flatnonzero(sizes == 0):
+        assert bool((drhs[g] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,m,k,n,tma", [
+    ("bfloat16", 2816, 2048, 2048, True),  # the flagship's experts
+    ("bfloat16", 1, 8, 8, True),
+    ("bfloat16", 256, 96, 200, True),
+    ("bfloat16", 257, 100, 130, False),  # K off the 8-element grid
+    ("bfloat16", 64, 33, 31, False),
+    ("bfloat16", 0, 64, 64, False),  # no rows to map
+    ("float32", 64, 64, 64, False)])
+def test_gmm_bwd_tma_route_is_a_rule_on_shapes(dtype, m, k, n, tma):
+    """K5-bwd's TMA route: bf16, M >= 1, K and N multiples of 8 (TMA's
+    16-byte row strides); the rule reads nothing but the shapes and type."""
+    assert kernels.gmm_bwd_tma_route(getattr(torch, dtype), m, k, n) is tma
 
 
 def test_gmm_backward_honours_needs_input_grad():
