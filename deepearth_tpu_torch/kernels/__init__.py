@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their launch wrappers:
 K1 ``pairwise_attention_fwd`` / ``_bwd``, K2 ``hash_encode_fwd`` / ``_bwd``,
-K3 ``vmem_attention_fwd`` / ``_bwd``, K4 ``flash_attention_fwd`` / ``_bwd``,
-K5 ``grouped_matmul_fwd`` and ``grouped_matmul_bwd`` (which launches
+K3 ``vmem_attention_fwd`` / ``_bwd``, K4 ``flash_attention_fwd`` / ``_bwd``
+(the backward by one of three routes, :func:`flash_bwd_tma_route`),
+K5 ``grouped_matmul_fwd`` (three routes, :func:`gmm_fwd_tma_route`) and
+``grouped_matmul_bwd`` (which launches
 ``grouped_matmul_split_dout`` and ``grouped_matmul_bwd_{dlhs,drhs}_tma``, or
 ``grouped_matmul_bwd_{dlhs,drhs}_mma``), K6 ``int8_bmm`` and K7
 ``int4_bmm``.
@@ -43,10 +45,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launch_counts = {"hash_encode_fwd": 0, "hash_encode_bwd": 0,
                  "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
                  "vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
+                 # K4-bwd, K5-fwd and K5-bwd by route: wgmma over TMA tiles
+                 # (no suffix), mma.sync (bf16 off TMA's grid), CUDA cores
+                 # (fp32)
                  "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-                 "grouped_matmul_fwd": 0, "grouped_matmul_split_dout": 0,
-                 # K5-bwd by route: wgmma over TMA tiles (no suffix),
-                 # mma.sync (bf16 off TMA's grid), CUDA cores (fp32)
+                 "flash_attention_bwd_mma": 0, "flash_attention_bwd_fp32": 0,
+                 "grouped_matmul_fwd": 0, "grouped_matmul_fwd_mma": 0,
+                 "grouped_matmul_fwd_fp32": 0, "grouped_matmul_split_dout": 0,
                  "grouped_matmul_bwd_dlhs": 0, "grouped_matmul_bwd_dlhs_mma": 0,
                  "grouped_matmul_bwd_dlhs_fp32": 0,
                  "grouped_matmul_bwd_drhs": 0, "grouped_matmul_bwd_drhs_mma": 0,
@@ -70,7 +75,10 @@ _SIGNATURES = {
                             _P],
     "flash_attention_bwd": [*[_P] * 11, *[_I] * 6, *[_I64] * 9, _F, _I, _I,
                             _P],
+    "flash_attention_bwd_tma": [*[_P] * 11, *[_I] * 6, *[_I64] * 9, _F, _I,
+                                _P],
     "grouped_matmul_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "grouped_matmul_fwd_tma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "grouped_matmul_bwd_dlhs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "grouped_matmul_bwd_drhs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "grouped_matmul_split_dout": [_P, _P, _P, _I64, _P],
@@ -435,15 +443,35 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, lse: torch.Tensor,
-                        dout: torch.Tensor, scale: float,
-                        key_mask: Optional[torch.Tensor] = None,
-                        causal: bool = False):
-    """K4 backward: the forward's inputs, its out and lse, and dout
-    (B, H, Nq, Dv) in q's dtype. Returns (dq, dk, dv), contiguous, in q's
-    dtype. One launch of the dq kernel and one of the dk/dv kernel, counted
-    as one."""
+def _tma_strides(x: torch.Tensor):
+    """x's element strides along B, H and N, each of a dim of extent 1 given
+    as 8 (its coordinate is always 0, so any TMA-valid stride reads it)."""
+    return [s if n > 1 else 8 for s, n in zip(x.stride()[:3], x.shape[:3])]
+
+
+def flash_bwd_tma_route(dtype, d_qk: int, d_v: int, strides) -> bool:
+    """Whether K4-bwd takes its TMA route (wgmma over TMA-fed tiles):
+    bf16, head dims Dqk and Dv multiples of 8 up to 128, and ``strides``
+    (the element strides of q, k and v along B, H and N, as
+    :func:`_tma_strides` gives them) positive multiples of 8, TMA's 16-byte
+    strides. Else bf16 takes the mma.sync route, fp32 the CUDA cores. A
+    function of the shapes and strides alone."""
+    return (dtype == torch.bfloat16
+            and all(8 <= d <= ATTN_MAX_DIM and d % 8 == 0
+                    for d in (d_qk, d_v))
+            and all(s > 0 and s % 8 == 0 for s in strides))
+
+
+def _aligned16_view(x: torch.Tensor) -> torch.Tensor:
+    """x itself where it starts on a 16-byte boundary (TMA's), else a
+    contiguous copy, which does."""
+    return x if x.data_ptr() % 16 == 0 else x.contiguous().clone()
+
+
+def _flash_bwd_inputs(q, k, v, out, lse, dout, key_mask):
+    """Checks of K4-bwd's inputs; returns the shapes, q, k, v's strides, the
+    key mask, contiguous out, lse and dout, and the outputs (dq, dk, dv and
+    the scratch delta), allocated."""
     (b, h, nq, nk, dqk, dv), strides, key_mask = _bhnd_inputs(
         "flash attention", q, k, v, key_mask)
     out = _like_output("flash_attention_bwd: out", out, q, (b, h, nq, dv),
@@ -455,14 +483,76 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     grads = [torch.empty(shape, device=q.device, dtype=q.dtype) for shape in
              ((b, h, nq, dqk), (b, h, nk, dqk), (b, h, nk, dv))]
     delta = torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
+    return ((b, h, nq, nk, dqk, dv), strides, key_mask, out, lse, dout,
+            grads, delta)
+
+
+def flash_attention_bwd_tma(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor,
+                            scale: float,
+                            key_mask: Optional[torch.Tensor] = None,
+                            causal: bool = False):
+    """K4-bwd's TMA route (wgmma over TMA tiles,
+    ``csrc/flash_attention_bwd_tma.cu``), as :func:`flash_attention_bwd`,
+    on the shapes and strides :func:`flash_bwd_tma_route` takes; counted as
+    ``flash_attention_bwd``."""
+    name = "flash_attention_bwd"
+    shapes, _, key_mask, out, lse, dout, grads, delta = _flash_bwd_inputs(
+        q, k, v, out, lse, dout, key_mask)
+    strides = [s for x in (q, k, v) for s in _tma_strides(x)]
+    _require(flash_bwd_tma_route(q.dtype, shapes[4], shapes[5], strides),
+             f"{name}: the TMA route takes bfloat16 with head dims and "
+             "strides multiples of 8")
+    q, k, v, out, dout = (_aligned16_view(x) for x in (q, k, v, out, dout))
+    rc = library().flash_attention_bwd_tma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        *(g.data_ptr() for g in grads), delta.data_ptr(), *shapes,
+        *(s for x in (q, k, v) for s in _tma_strides(x)), float(scale),
+        int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+    _check(name, rc)
+    return tuple(grads)
+
+
+def flash_attention_bwd_mma(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor,
+                            scale: float,
+                            key_mask: Optional[torch.Tensor] = None,
+                            causal: bool = False):
+    """K4-bwd's kernels of ``csrc/attention_bwd.cuh``, as
+    :func:`flash_attention_bwd`, on any shapes: mma.sync for bf16 (counted
+    ``flash_attention_bwd_mma``), the CUDA cores for fp32 (``_fp32``)."""
+    shapes, strides, key_mask, out, lse, dout, grads, delta = (
+        _flash_bwd_inputs(q, k, v, out, lse, dout, key_mask))
     rc = library().flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        *(g.data_ptr() for g in grads), delta.data_ptr(), b, h, nq, nk, dqk,
-        dv, *strides, float(scale), int(causal), _ATTN_DTYPES[q.dtype],
+        *(g.data_ptr() for g in grads), delta.data_ptr(), *shapes, *strides,
+        float(scale), int(causal), _ATTN_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
-    _check("flash_attention_bwd", rc)
+    _check("flash_attention_bwd"
+           + ("_mma" if q.dtype == torch.bfloat16 else "_fp32"), rc)
     return tuple(grads)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, scale: float,
+                        key_mask: Optional[torch.Tensor] = None,
+                        causal: bool = False):
+    """K4 backward: the forward's inputs, its out and lse, and dout
+    (B, H, Nq, Dv) in q's dtype. Returns (dq, dk, dv), contiguous, in q's
+    dtype. One launch of the dq kernel and one of the dk/dv kernel, counted
+    as one, by the route :func:`flash_bwd_tma_route` picks from the shapes
+    and strides: :func:`flash_attention_bwd_tma` (``flash_attention_bwd``)
+    or :func:`flash_attention_bwd_mma` (``_mma``, ``_fp32``)."""
+    route = (flash_attention_bwd_tma if q.dim() == 4 and flash_bwd_tma_route(
+        q.dtype, q.shape[-1], v.shape[-1],
+        [s for x in (q, k, v) for s in _tma_strides(x)])
+        else flash_attention_bwd_mma)
+    return route(q, k, v, out, lse, dout, scale, key_mask, causal)
 
 
 GMM_MAX_GROUPS = 1024
@@ -491,30 +581,80 @@ def _gmm_dout(name: str, dout: torch.Tensor, m: int, n: int) -> torch.Tensor:
     return dout.contiguous()
 
 
-def grouped_matmul_fwd(lhs: torch.Tensor, rhs: torch.Tensor,
-                       group_sizes: torch.Tensor) -> torch.Tensor:
-    """K5 forward: lhs (M, K) and rhs (E, K, N), both float32 or both
-    bfloat16, and group_sizes (E,) int32, all on one CUDA device; rows
-    [offset_g, offset_g + size_g) of lhs go through rhs[g]. Returns (M, N)
-    float32, rows past the sum of the sizes 0. The sizes stay on the device:
-    the kernel reads them itself. M = 0 launches nothing."""
-    name = "grouped_matmul_fwd"
+def gmm_fwd_tma_route(dtype, m: int, k: int, n: int) -> bool:
+    """Whether K5-fwd takes its TMA route (wgmma over TMA-fed tiles): the
+    shapes :func:`gmm_bwd_tma_route` takes (bf16, M >= 1, K and N positive
+    multiples of 8). Else bf16 takes the mma.sync route, fp32 the CUDA
+    cores. A function of the shapes alone."""
+    return gmm_bwd_tma_route(dtype, m, k, n)
+
+
+def _gmm_fwd_inputs(name, lhs, rhs, group_sizes):
+    """Checks of K5-fwd's inputs; returns (M, K, N, E) and the output,
+    allocated."""
     _require(lhs.dim() == 2 and rhs.dim() == 3 and rhs.shape[1] == lhs.shape[1],
              f"{name}: lhs must be (M, K) and rhs (E, K, N)")
     _gmm_inputs(name, lhs.dtype if lhs.dtype == rhs.dtype else None,
                 group_sizes, rhs.shape[0], lhs, rhs)
     (m, k), n, n_groups = lhs.shape, rhs.shape[2], rhs.shape[0]
     out = torch.empty((m, n), device=lhs.device, dtype=torch.float32)
-    if m == 0 or n == 0:
-        return out
-    lhs, rhs, group_sizes = (lhs.contiguous(), rhs.contiguous(),
-                             group_sizes.contiguous())
-    rc = library().grouped_matmul_fwd(
-        lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
-        out.data_ptr(), m, k, n, n_groups, _ATTN_DTYPES[lhs.dtype],
+    return (m, k, n, n_groups), out
+
+
+def grouped_matmul_fwd_tma(lhs: torch.Tensor, rhs: torch.Tensor,
+                           group_sizes: torch.Tensor) -> torch.Tensor:
+    """K5-fwd's TMA route (wgmma over TMA tiles,
+    ``csrc/grouped_matmul_tma.cu``), as :func:`grouped_matmul_fwd`, on the
+    shapes :func:`gmm_fwd_tma_route` takes; counted as
+    ``grouped_matmul_fwd``."""
+    name = "grouped_matmul_fwd"
+    (m, k, n, n_groups), out = _gmm_fwd_inputs(name, lhs, rhs, group_sizes)
+    _require(gmm_fwd_tma_route(lhs.dtype, m, k, n),
+             f"{name}: the TMA route takes bfloat16 with M >= 1 and K, N "
+             "multiples of 8")
+    lhs, rhs = _aligned16(lhs), _aligned16(rhs)
+    rc = library().grouped_matmul_fwd_tma(
+        lhs.data_ptr(), rhs.data_ptr(), group_sizes.contiguous().data_ptr(),
+        out.data_ptr(), m, k, n, n_groups,
         torch.cuda.current_stream(lhs.device).cuda_stream)
     _check(name, rc)
     return out
+
+
+def grouped_matmul_fwd_mma(lhs: torch.Tensor, rhs: torch.Tensor,
+                           group_sizes: torch.Tensor) -> torch.Tensor:
+    """K5-fwd's kernels of ``csrc/grouped_matmul.cu``, as
+    :func:`grouped_matmul_fwd`, on any shapes: mma.sync for bf16 (counted
+    ``grouped_matmul_fwd_mma``), the CUDA cores for fp32 (``_fp32``). M = 0
+    launches nothing."""
+    name = "grouped_matmul_fwd"
+    (m, k, n, n_groups), out = _gmm_fwd_inputs(name, lhs, rhs, group_sizes)
+    if m == 0 or n == 0:
+        return out
+    lhs, rhs = lhs.contiguous(), rhs.contiguous()
+    rc = library().grouped_matmul_fwd(
+        lhs.data_ptr(), rhs.data_ptr(), group_sizes.contiguous().data_ptr(),
+        out.data_ptr(), m, k, n, n_groups, _ATTN_DTYPES[lhs.dtype],
+        torch.cuda.current_stream(lhs.device).cuda_stream)
+    _check(name + ("_mma" if lhs.dtype == torch.bfloat16 else "_fp32"), rc)
+    return out
+
+
+def grouped_matmul_fwd(lhs: torch.Tensor, rhs: torch.Tensor,
+                       group_sizes: torch.Tensor) -> torch.Tensor:
+    """K5 forward: lhs (M, K) and rhs (E, K, N), both float32 or both
+    bfloat16, and group_sizes (E,) int32, all on one CUDA device; rows
+    [offset_g, offset_g + size_g) of lhs go through rhs[g]. Returns (M, N)
+    float32, rows past the sum of the sizes 0. The sizes stay on the device:
+    the kernel reads them itself. M = 0 launches nothing. The route is
+    chosen from the shapes alone (:func:`gmm_fwd_tma_route`):
+    :func:`grouped_matmul_fwd_tma` (counted ``grouped_matmul_fwd``) or
+    :func:`grouped_matmul_fwd_mma` (``_mma``, ``_fp32``)."""
+    if (lhs.dim() == 2 and rhs.dim() == 3 and rhs.shape[1] == lhs.shape[1]
+            and lhs.dtype == rhs.dtype
+            and gmm_fwd_tma_route(lhs.dtype, *lhs.shape, rhs.shape[2])):
+        return grouped_matmul_fwd_tma(lhs, rhs, group_sizes)
+    return grouped_matmul_fwd_mma(lhs, rhs, group_sizes)
 
 
 def gmm_bwd_tma_route(dtype, m: int, k: int, n: int) -> bool:

@@ -1,0 +1,638 @@
+// Long-sequence attention backward (K4-bwd), the TMA route: wgmma over
+// TMA-fed, 128-byte-swizzled tiles, for bf16 with head dims that are
+// multiples of 8 (at most 128) and q, k, v strides along B, H and N that
+// are multiples of 8 elements (TMA's 16-byte strides). Other bf16 shapes
+// take the mma.sync kernels of attention_bwd.cuh, fp32 its CUDA-core ones;
+// kernels.flash_bwd_tma_route chooses from the shapes and strides alone.
+//
+// Replaces: the library flash backward that deepearth_tpu/models/deepseek.py
+// `MLAttention` reaches (:267) at N >= flash_min_seq
+// (jax/experimental/pallas/ops/tpu/flash_attention.py
+// `_flash_attention_bwd_dkv`, pallas_call :1121, and
+// `_flash_attention_bwd_dq`, pallas_call :1456).
+//
+// Computes what attention_bwd.cuh computes without kStats: with lse from
+// the forward (+inf for an all-masked row, so p = 0 there) and
+// delta = rowsum(out o dout),
+//   p = exp(s - lse), s = q.k * scale, 0 where the key mask or `causal`
+//   hides the key; dv = bf16(p)^T . dout; ds = p (dout.v^T - delta) scale;
+//   dq = bf16(ds) . k; dk = bf16(ds)^T . q;
+// fp32 sums, each output rounded once to bf16.
+//
+// Bound on the H100: at the vision MLA over a V-JEPA2 clip (B = 64, 8
+// heads, 4608 x 4608, Dqk 48, Dv 32) the five products are 4.5 TFLOP,
+// 4.57 ms at 989 TFLOP/s; the 1.09e10 (query, key) pairs also need one
+// exp each per pass (~2.9 ms a pass at 16 per SM and clock). Design:
+//  - the library's split, two kernels on one stream, each sum inside one
+//    block (no atomics: the same bits every run). The dq kernel (a block
+//    per (b, h, 64 queries)) writes dq and delta; the dk/dv kernel (a
+//    block per (b, h, 64 keys)) reads delta and writes dk and dv. Each
+//    recomputes s and dout.v^T: seven products, two exp passes;
+//  - a block is one consumer warpgroup and one producer warp. The producer
+//    loads the block's own rows once (q and dout, or k and v) and streams
+//    the other side in tiles of 64 rows through a ring of 4 stages by TMA
+//    (mbarriers full / empty), with each streamed row's floats (lse and
+//    delta, fetched a tile ahead, or the key's visibility) written by its
+//    lanes beside the tile. Two blocks share an SM where the heads are at
+//    most 64 wide, so that one block's products run on the tensor cores
+//    while the other computes p and ds; wider heads take one block an SM,
+//    whose warpgroup may hold up to 255 registers a thread (two warpgroups
+//    a block are held to 168, and spill dk and dv at 128-wide heads);
+//  - the two products over the head dim (s and dout.v^T: 64 x 64 each)
+//    read both operands from shared memory, K-major. Their
+//    accumulators become p and ds in registers, rounded to bf16 in the
+//    fragment layout of wgmma's register A operand, and feed the products
+//    over the streamed rows (dv, dk, or dq) with the streamed tile as an
+//    MN-major B operand, taken by wgmma's transpose bit;
+//  - head dims live in 64-wide swizzled panels: a head dim of 48 or 32
+//    loads as one panel whose columns past it TMA fills with zeros. The
+//    products over the head dim issue only its k16 steps (3 for 48, 2 for
+//    32). The products whose N is the head dim (dq, dk, dv) run at N = 48
+//    and 32 for the multimodal MLA's 48 / 32 (the B operand's MN-major
+//    panel read in part) and at the panel's width (64 or 128) elsewhere,
+//    the padded columns dropped at the store;
+//  - strided views (the MLA's v) are read in place: the tensor maps take
+//    the strides, their dims ordered by stride;
+//  - keys past Nk or masked get p = 0 (the dq kernel's bias, the dk/dv
+//    kernel's per-row flag); queries past Nq get lse = +inf, so p = 0;
+//    causal blocks skip the tiles that no row of theirs sees.
+
+#include "attention_common.cuh"
+#include "hopper_gemm.cuh"
+
+namespace {
+
+using namespace hopper;
+
+constexpr int kOwn = 64;      // a block's own rows
+constexpr int kStream = 64;   // rows of a streamed tile
+constexpr int kConsumers = 128, kThreads = kConsumers + 32;
+constexpr int kPanel = 64 * kTileRowBytes;  // 64 rows of one 64-wide panel
+constexpr int kStages = 4;
+
+// Shared memory of both kernels for head dims padded to DP (q, k) and DVP
+// (v, dout), each 64 or 128: a stage holds the streamed tile's panels (the
+// q or k panels first, then the dout or v panels) and 2 x 64 floats; the
+// resident tile after the stages holds the block's own 64 rows the same
+// way. Two blocks share an SM where both panels are 64 wide (their
+// accumulators fit 168 registers a thread); wider heads take one block an
+// SM and up to 255 registers (dk and dv at 128 wide are 128 of them).
+template <int DP, int DVP>
+struct Layout {
+  static constexpr int kFirst = DP / 64, kSecond = DVP / 64;  // panels
+  static constexpr int kFloats = (kFirst + kSecond) * kPanel;
+  static constexpr int kStageBytes = kFloats + 1024;
+  static constexpr int kResident = (kFirst + kSecond) * kPanel;
+  static constexpr int kSmem =
+      ring_smem_bytes(kStages, kStageBytes, kResident);
+  static constexpr int kMinBlocks = DP + DVP <= 128 ? 2 : 1;
+};
+
+// Where a tensor's (n, h, b) axes sit in its tensor map (dims 1..3, ordered
+// by stride).
+struct MapOrder {
+  int n, h, b;
+};
+
+struct TmaArgs {
+  MapOrder q_order, k_order, v_order, do_order;
+  const float* lse;       // (B, H, Nq), the forward's
+  float* delta;           // (B, H, Nq): the dq kernel writes it
+  const uint8_t* key_mask;  // (B, Nk) or null
+  const bf16* out;        // (B, H, Nq, Dv), contiguous
+  const bf16* dout;       // (B, H, Nq, Dv), contiguous
+  bf16* dq;               // (B, H, Nq, Dqk), contiguous
+  bf16* dk;               // (B, H, Nk, Dqk)
+  bf16* dv;               // (B, H, Nk, Dv)
+  int n_heads, nq, nk, d_qk, d_v;
+  float scale;
+  int causal;
+};
+
+// 64 rows from `row` of head (b, h) of a (B, H, N, D) tensor, columns
+// [64 p, 64 p + 64) of its head dim, into one panel.
+__device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
+                                          MapOrder o, uint64_t* bar, int p,
+                                          int row, int h, int b) {
+  int c[4];
+  c[0] = 64 * p;
+  c[o.n] = row;
+  c[o.h] = h;
+  c[o.b] = b;
+  tma_load_4d(dst, map, bar, c[0], c[1], c[2], c[3]);
+}
+
+// The block's own 128 rows from `row0` of each of two tensors into the
+// resident tile, completing on `bar` (one thread).
+template <int DP, int DVP>
+__device__ void load_resident(uint8_t* res, uint64_t* bar,
+                              const CUtensorMap* first, MapOrder fo,
+                              const CUtensorMap* second, MapOrder so,
+                              int row0, int h, int b) {
+  using L = Layout<DP, DVP>;
+  mbar_expect_tx(bar, L::kResident);
+  for (int p = 0; p < L::kFirst; ++p)
+    load_rows(res + p * kPanel, first, fo, bar, p, row0, h, b);
+  for (int p = 0; p < L::kSecond; ++p)
+    load_rows(res + (L::kFirst + p) * kPanel, second, so, bar, p, row0, h,
+              b);
+}
+
+// One streamed tile of 64 rows from `row0` of two tensors into a stage
+// (one thread; the stage's full barrier also waits for the other lanes).
+template <int DP, int DVP>
+__device__ void load_stream(uint8_t* st, uint64_t* full,
+                            const CUtensorMap* first, MapOrder fo,
+                            const CUtensorMap* second, MapOrder so,
+                            int row0, int h, int b) {
+  using L = Layout<DP, DVP>;
+  mbar_expect_tx(full, L::kFloats);
+  for (int p = 0; p < L::kFirst; ++p)
+    load_rows(st + p * kPanel, first, fo, full, p, row0, h, b);
+  for (int p = 0; p < L::kSecond; ++p)
+    load_rows(st + (L::kFirst + p) * kPanel, second, so, full, p, row0, h,
+              b);
+}
+
+// The two products over the head dim: acc1 = (the block's 64 resident rows
+// of the first tensor) . (the stage's first tensor)^T
+// over `ks1` k16 steps, acc2 the same for the second tensors over `ks2`;
+// both 64 x 64, both operands K-major. Waits for them.
+template <int DP, int DVP>
+__device__ __forceinline__ void head_products(float (&acc1)[32],
+                                              float (&acc2)[32],
+                                              const uint8_t* res,
+                                              const uint8_t* st,
+                                              int ks1, int ks2) {
+  using L = Layout<DP, DVP>;
+  zero_acc(acc1);
+  zero_acc(acc2);
+  fence_operands(acc1);
+  fence_operands(acc2);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < DP / 16; ++j) {
+    if (j >= ks1) break;
+    wgmma_m64n64k16<0, 0>(
+        acc1,
+        sw128_desc(res + (j / 4) * kPanel + 32 * (j % 4), 16,
+                   1024),
+        sw128_desc(st + (j / 4) * kPanel + 32 * (j % 4), 16, 1024));
+  }
+  const uint8_t* res2 = res + L::kFirst * kPanel;
+  const uint8_t* st2 = st + L::kFirst * kPanel;
+#pragma unroll
+  for (int j = 0; j < DVP / 16; ++j) {
+    if (j >= ks2) break;
+    wgmma_m64n64k16<0, 0>(
+        acc2,
+        sw128_desc(res2 + (j / 4) * kPanel + 32 * (j % 4), 16,
+                   1024),
+        sw128_desc(st2 + (j / 4) * kPanel + 32 * (j % 4), 16, 1024));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(acc1);
+  fence_operands(acc2);
+}
+
+// Stores a warpgroup's 64 x (N) accumulator, rounded to bf16, as rows
+// [row0, row0 + 64) of a contiguous (n_rows, width) matrix; rows past
+// n_rows and columns past width (even) are dropped.
+template <int N>
+__device__ __forceinline__ void store_rows_bf16(bf16* dst,
+                                                const float (&acc)[N / 2],
+                                                int row0, int n_rows,
+                                                int width) {
+  const int t = threadIdx.x % 128;
+  const int r = 16 * (t / 32) + (t % 32) / 4, col0 = 2 * (t % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + r + 8 * h;
+    if (row >= n_rows) continue;
+    bf16* to = dst + static_cast<int64_t>(row) * width;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int col = 8 * j + col0;
+      if (col < width)
+        *reinterpret_cast<uint32_t*>(to + col) =
+            pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- dk/dv ----
+
+// Both kernels: DP, DVP the panel widths of q / k and v / dout; NQ, NV the
+// widths of the products whose N is Dqk or Dv (at most DP, DVP); kMasked:
+// p is masked per key (a key mask, causal, or Nk not a multiple of 64).
+template <int DP, int DVP, int NQ, int NV, bool kMasked>
+__global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                                const __grid_constant__ CUtensorMap map_k,
+                                const __grid_constant__ CUtensorMap map_v,
+                                const __grid_constant__ CUtensorMap map_do,
+                                const TmaArgs a) {
+  using L = Layout<DP, DVP>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t res_bar;
+  if (threadIdx.x == 0) mbar_init(&res_bar, 1);
+  auto ring = make_ring<kStages>(smem_raw, L::kStageBytes, L::kResident,
+                                 32, kConsumers / 32);
+  __syncthreads();
+  uint8_t* res = ring.tiles + kStages * L::kStageBytes;
+  const int b = blockIdx.z, h = blockIdx.y, key0 = blockIdx.x * kOwn;
+  const int64_t bh = static_cast<int64_t>(b) * a.n_heads + h;
+  const int n_tiles = (a.nq + kStream - 1) / kStream;
+  // causal: the queries before this block's first key see none of its keys
+  const int first = a.causal ? key0 / kStream : 0;
+
+  if (threadIdx.x >= kConsumers) {  // producer warp
+    const int lane = threadIdx.x - kConsumers;
+    if (lane == 0)
+      load_resident<DP, DVP>(res, &res_bar, &map_k, a.k_order, &map_v,
+                             a.v_order, key0, h, b);
+    // each lane's two rows of a tile's stats, fetched a tile ahead so that
+    // their latency passes while the ring is full
+    float lse2[2], dscale[2];
+    auto fetch = [&](int i) {
+      for (int x = 0; x < 2; ++x) {
+        const int qi = i * kStream + lane + 32 * x;
+        lse2[x] = qi < a.nq ? a.lse[bh * a.nq + qi] * kLog2e : INFINITY;
+        // delta * scale: ds = p (dp scale - delta scale)
+        dscale[x] = qi < a.nq ? a.delta[bh * a.nq + qi] * a.scale : 0.0f;
+      }
+    };
+    if (first < n_tiles) fetch(first);
+    Cursor<kStages> at;
+    for (int i = first; i < n_tiles; ++i, at.next()) {
+      mbar_wait(&ring.empty[at.stage], at.phase ^ 1);
+      uint8_t* st = ring.tiles + at.stage * L::kStageBytes;
+      float* stats = reinterpret_cast<float*>(st + L::kFloats);
+      for (int x = 0; x < 2; ++x) {
+        stats[2 * (lane + 32 * x)] = lse2[x];
+        stats[2 * (lane + 32 * x) + 1] = dscale[x];
+      }
+      if (i + 1 < n_tiles) fetch(i + 1);
+      if (lane == 0)
+        load_stream<DP, DVP>(st, &ring.full[at.stage], &map_q, a.q_order,
+                             &map_do, a.do_order, i * kStream, h, b);
+      else
+        mbar_arrive(&ring.full[at.stage]);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: s^T and dp^T have the block's keys as rows, the
+  // tile's queries as columns
+  const int t = threadIdx.x;
+  const int r = 16 * (t / 32) + (t % 32) / 4, col0 = 2 * (t % 4);
+  int key[2];
+  bool visible[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    key[hh] = key0 + r + 8 * hh;
+    visible[hh] = key[hh] < a.nk &&
+                  (a.key_mask == nullptr ||
+                   a.key_mask[static_cast<int64_t>(b) * a.nk + key[hh]] != 0);
+  }
+  const int ks1 = (a.d_qk + 15) / 16, ks2 = (a.d_v + 15) / 16;
+  const float scale_log2 = a.scale * kLog2e;
+  float dk[NQ / 2], dv[NV / 2];
+  zero_acc(dk);
+  zero_acc(dv);
+  mbar_wait(&res_bar, 0);
+  Cursor<kStages> at;
+  for (int i = first; i < n_tiles; ++i, at.next()) {
+    mbar_wait(&ring.full[at.stage], at.phase);
+    const uint8_t* st = ring.tiles + at.stage * L::kStageBytes;
+    const float* stats = reinterpret_cast<const float*>(st + L::kFloats);
+    float s[32], dp[32];
+    head_products<DP, DVP>(s, dp, res, st, ks1, ks2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + col0 + e;
+        const int query = i * kStream + col;
+        const float2 st2 = reinterpret_cast<const float2*>(stats)[col];
+        const float lse2 = st2.x, dscale = st2.y;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int x = 4 * j + 2 * hh + e;
+          const float e = exp2_approx(fmaf(s[x], scale_log2, -lse2));
+          const float p =
+              !kMasked || (visible[hh] && (!a.causal || key[hh] <= query))
+                  ? e
+                  : 0.0f;
+          dp[x] = p * fmaf(dp[x], a.scale, -dscale);  // ds
+          s[x] = p;
+        }
+      }
+    }
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int k16 = 0; k16 < 4; ++k16) {
+      wgmma_a_frag(pa[k16], s, k16);
+      wgmma_a_frag(da[k16], dp, k16);
+    }
+    // dv += p^T . dout, dk += ds^T . q: the tile's rows are the reduction,
+    // its panels MN-major B operands
+    fence_operands(dv);
+    fence_operands(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int k16 = 0; k16 < 4; ++k16) {
+      wgmma_rs<NV, 1>(
+          dv, pa[k16],
+          sw128_desc(st + L::kFirst * kPanel + 2048 * k16, kPanel, 1024));
+      wgmma_rs<NQ, 1>(dk, da[k16],
+                      sw128_desc(st + 2048 * k16, kPanel, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dv);
+    fence_operands(dk);
+#pragma unroll
+    for (int k16 = 0; k16 < 4; ++k16) {
+      fence_operands(pa[k16]);
+      fence_operands(da[k16]);
+    }
+    release(ring, at.stage);
+  }
+  store_rows_bf16<NQ>(a.dk + bh * a.nk * a.d_qk, dk, key0, a.nk,
+                      a.d_qk);
+  store_rows_bf16<NV>(a.dv + bh * a.nk * a.d_v, dv, key0, a.nk,
+                       a.d_v);
+}
+
+// -------------------------------------------------------------------- dq ----
+
+template <int DP, int DVP, int NQ, int NV, bool kMasked>
+__global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const __grid_constant__ CUtensorMap map_do,
+                              const TmaArgs a) {
+  using L = Layout<DP, DVP>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t res_bar;
+  if (threadIdx.x == 0) mbar_init(&res_bar, 1);
+  auto ring = make_ring<kStages>(smem_raw, L::kStageBytes, L::kResident,
+                                 32, kConsumers / 32);
+  __syncthreads();
+  uint8_t* res = ring.tiles + kStages * L::kStageBytes;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kOwn;
+  const int64_t bh = static_cast<int64_t>(b) * a.n_heads + h;
+  // causal: no row of this block sees a key after its last row
+  const int n_keys = a.causal ? min(a.nk, q0 + kOwn) : a.nk;
+  const int n_tiles = (n_keys + kStream - 1) / kStream;
+
+  if (threadIdx.x >= kConsumers) {  // producer warp
+    const int lane = threadIdx.x - kConsumers;
+    if (lane == 0)
+      load_resident<DP, DVP>(res, &res_bar, &map_q, a.q_order, &map_do,
+                             a.do_order, q0, h, b);
+    const uint8_t* mask_row =
+        a.key_mask ? a.key_mask + static_cast<int64_t>(b) * a.nk : nullptr;
+    Cursor<kStages> at;
+    for (int i = 0; i < n_tiles; ++i, at.next()) {
+      mbar_wait(&ring.empty[at.stage], at.phase ^ 1);
+      uint8_t* st = ring.tiles + at.stage * L::kStageBytes;
+      float* seen_key = reinterpret_cast<float*>(st + L::kFloats);
+      for (int r = lane; r < kStream; r += 32) {
+        const int kj = i * kStream + r;
+        const bool seen =
+            kj < a.nk && (mask_row == nullptr || mask_row[kj] != 0);
+        seen_key[r] = seen ? 1.0f : 0.0f;
+      }
+      if (lane == 0)
+        load_stream<DP, DVP>(st, &ring.full[at.stage], &map_k, a.k_order,
+                             &map_v, a.v_order, i * kStream, h, b);
+      else
+        mbar_arrive(&ring.full[at.stage]);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: its rows are the block's queries
+  const int t = threadIdx.x;
+  const int r = 16 * (t / 32) + (t % 32) / 4, col0 = 2 * (t % 4);
+  const int quad = t % 4;
+  const float scale_log2 = a.scale * kLog2e;
+  float lse2[2], dscale[2];
+  int query[2];
+  // the forward's lse, and delta = rowsum(out o dout) in fp32: the four
+  // lanes of a row each sum a quarter of its columns
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    query[hh] = q0 + r + 8 * hh;
+    float di = 0.0f;
+    lse2[hh] = INFINITY;
+    if (query[hh] < a.nq) {
+      lse2[hh] = a.lse[bh * a.nq + query[hh]] * kLog2e;
+      const int64_t row = (bh * a.nq + query[hh]) * a.d_v;
+      for (int d = 2 * quad; d < a.d_v; d += 8) {
+        const float2 o = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(a.out + row + d));
+        const float2 g = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(a.dout + row + d));
+        di = fmaf(o.x, g.x, di);
+        di = fmaf(o.y, g.y, di);
+      }
+    }
+    const float delta = quad_sum(di);
+    dscale[hh] = delta * a.scale;  // ds = p (dp scale - delta scale)
+    if (quad == 0 && query[hh] < a.nq)
+      a.delta[bh * a.nq + query[hh]] = delta;
+  }
+  const int ks1 = (a.d_qk + 15) / 16, ks2 = (a.d_v + 15) / 16;
+  float dq[NQ / 2];
+  zero_acc(dq);
+  mbar_wait(&res_bar, 0);
+  Cursor<kStages> at;
+  for (int i = 0; i < n_tiles; ++i, at.next()) {
+    mbar_wait(&ring.full[at.stage], at.phase);
+    const uint8_t* st = ring.tiles + at.stage * L::kStageBytes;
+    const float* seen_key = reinterpret_cast<const float*>(st + L::kFloats);
+    float s[32], dp[32];
+    head_products<DP, DVP>(s, dp, res, st, ks1, ks2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + col0 + e;
+        const int kj = i * kStream + col;
+        // else masked or past Nk
+        const bool seen = !kMasked || seen_key[col] != 0.0f;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int x = 4 * j + 2 * hh + e;
+          const float ex = exp2_approx(fmaf(s[x], scale_log2, -lse2[hh]));
+          const float p =
+              !kMasked || (seen && (!a.causal || kj <= query[hh])) ? ex
+                                                                   : 0.0f;
+          dp[x] = p * fmaf(dp[x], a.scale, -dscale[hh]);  // ds
+        }
+      }
+    }
+    uint32_t da[4][4];
+#pragma unroll
+    for (int k16 = 0; k16 < 4; ++k16) wgmma_a_frag(da[k16], dp, k16);
+    // dq += ds . k: the tile's keys are the reduction, its k panels an
+    // MN-major B operand
+    fence_operands(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int k16 = 0; k16 < 4; ++k16)
+      wgmma_rs<NQ, 1>(dq, da[k16],
+                      sw128_desc(st + 2048 * k16, kPanel, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dq);
+#pragma unroll
+    for (int k16 = 0; k16 < 4; ++k16) fence_operands(da[k16]);
+    release(ring, at.stage);
+  }
+  store_rows_bf16<NQ>(a.dq + bh * a.nq * a.d_qk, dq, q0, a.nq,
+                      a.d_qk);
+}
+
+// ------------------------------------------------------------------ host ----
+
+// A tensor map over (B, H, N, D) bf16 with unit stride along D and the
+// given element strides along B, H, N (multiples of 8), boxes of 64 rows
+// by 64 columns; dims 1..3 ordered by stride, their places in `order`.
+bool bhnd_map(CUtensorMap* map, MapOrder* order, const void* base, int b,
+              int h, int n, int d, int64_t sb, int64_t sh, int64_t sn) {
+  struct Axis {
+    int64_t stride;
+    int extent, which;  // which: 0 = n, 1 = h, 2 = b
+  } axes[3] = {{sn, n, 0}, {sh, h, 1}, {sb, b, 2}};
+  for (int i = 1; i < 3; ++i)  // insertion sort, stable
+    for (int j = i; j > 0 && axes[j].stride < axes[j - 1].stride; --j) {
+      const Axis tmp = axes[j];
+      axes[j] = axes[j - 1];
+      axes[j - 1] = tmp;
+    }
+  uint64_t dims[4] = {static_cast<uint64_t>(d), 0, 0, 0};
+  uint64_t strides[3];
+  uint32_t box[4] = {64, 1, 1, 1};
+  int slot[3];
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = static_cast<uint64_t>(axes[i].extent);
+    strides[i] = static_cast<uint64_t>(axes[i].stride) * 2;
+    if (axes[i].which == 0) box[i + 1] = kStream;
+    slot[axes[i].which] = i + 1;
+  }
+  *order = MapOrder{slot[0], slot[1], slot[2]};
+  return hopper_host::bf16_map(map, base, 4, dims, strides, box);
+}
+
+// The kernels for these head dims, each without the masking of p where
+// nothing is masked: no key mask, not causal, and for the dq kernel's key
+// tiles Nk a multiple of 64 (the dk/dv kernel's rows past Nk are never
+// stored, and its queries past Nq have lse = +inf, so p = 0 there).
+template <int DP, int DVP, int NQ, int NV, bool kMaskDq, bool kMaskDkdv>
+int launch_tma(const CUtensorMap (&maps)[4], const TmaArgs& a, int batch,
+               cudaStream_t stream) {
+  using L = Layout<DP, DVP>;
+  const auto dq_kernel = flash_bwd_dq_wgmma_kernel<DP, DVP, NQ, NV, kMaskDq>;
+  const auto dkdv_kernel =
+      flash_bwd_dkdv_wgmma_kernel<DP, DVP, NQ, NV, kMaskDkdv>;
+  static const cudaError_t attr = [&] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+    return e != cudaSuccess
+               ? e
+               : cudaFuncSetAttribute(
+                     dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                     L::kSmem);
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((a.nq + kOwn - 1) / kOwn, a.n_heads, batch);
+  dq_kernel<<<grid, kThreads, L::kSmem, stream>>>(maps[0], maps[1], maps[2],
+                                                  maps[3], a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  grid.x = (a.nk + kOwn - 1) / kOwn;
+  dkdv_kernel<<<grid, kThreads, L::kSmem, stream>>>(maps[0], maps[1],
+                                                    maps[2], maps[3], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP, int DVP, int NQ = DP, int NV = DVP>
+int launch_tma(const CUtensorMap (&maps)[4], const TmaArgs& a, int batch,
+               cudaStream_t stream) {
+  if (a.key_mask != nullptr || a.causal)
+    return launch_tma<DP, DVP, NQ, NV, true, true>(maps, a, batch, stream);
+  return a.nk % kStream
+             ? launch_tma<DP, DVP, NQ, NV, true, false>(maps, a, batch, stream)
+             : launch_tma<DP, DVP, NQ, NV, false, false>(maps, a, batch,
+                                                         stream);
+}
+
+}  // namespace
+
+// As flash_attention_bwd (flash_attention.cu) for bf16 only: q, k, v
+// 16-byte aligned with element strides along batch, head and sequence that
+// are multiples of 8, head dims multiples of 8 up to 128; key_mask (batch,
+// nk) bytes or null; out, dout (batch, n_heads, nq, d_v) and lse
+// (batch, n_heads, nq) fp32 contiguous; writes dq, dk, dv (contiguous,
+// bf16) and delta (batch, n_heads, nq) fp32. Returns a cudaError_t value;
+// 0 on a clean launch.
+extern "C" int flash_attention_bwd_tma(
+    const void* q, const void* k, const void* v, const void* key_mask,
+    const void* out, const void* dout, const void* lse, void* dq, void* dk,
+    void* dv, void* delta, int batch, int n_heads, int nq, int nk, int d_qk,
+    int d_v, int64_t q_b, int64_t q_h, int64_t q_n, int64_t k_b, int64_t k_h,
+    int64_t k_n, int64_t v_b, int64_t v_h, int64_t v_n, float scale,
+    int causal, void* stream) {
+  const int64_t strides[9] = {q_b, q_h, q_n, k_b, k_h, k_n, v_b, v_h, v_n};
+  bool bad = nq < 0 || nk < 1 || d_qk < 8 || d_qk > 128 || d_qk % 8 ||
+             d_v < 8 || d_v > 128 || d_v % 8 || batch > 65535 ||
+             n_heads > 65535;
+  for (const int64_t s : strides) bad = bad || s < 1 || s % 8;
+  const void* bases[5] = {q, k, v, out, dout};
+  for (const void* p : bases)
+    bad = bad || reinterpret_cast<uintptr_t>(p) % 16;
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  if (nq == 0 || batch == 0 || n_heads == 0) return 0;
+  TmaArgs a;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<float*>(delta);
+  a.key_mask = static_cast<const uint8_t*>(key_mask);
+  a.out = static_cast<const bf16*>(out);
+  a.dout = static_cast<const bf16*>(dout);
+  a.dq = static_cast<bf16*>(dq);
+  a.dk = static_cast<bf16*>(dk);
+  a.dv = static_cast<bf16*>(dv);
+  a.n_heads = n_heads;
+  a.nq = nq;
+  a.nk = nk;
+  a.d_qk = d_qk;
+  a.d_v = d_v;
+  a.scale = scale;
+  a.causal = causal;
+  CUtensorMap maps[4];
+  const int64_t do_n = d_v, do_h = static_cast<int64_t>(nq) * d_v,
+                do_b = do_h * n_heads;
+  if (!bhnd_map(&maps[0], &a.q_order, q, batch, n_heads, nq, d_qk, q_b, q_h,
+                q_n) ||
+      !bhnd_map(&maps[1], &a.k_order, k, batch, n_heads, nk, d_qk, k_b, k_h,
+                k_n) ||
+      !bhnd_map(&maps[2], &a.v_order, v, batch, n_heads, nk, d_v, v_b, v_h,
+                v_n) ||
+      !bhnd_map(&maps[3], &a.do_order, dout, batch, n_heads, nq, d_v, do_b,
+                do_h, do_n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (d_qk == 48 && d_v == 32)  // the multimodal MLA: exact widths
+    return launch_tma<64, 64, 48, 32>(maps, a, batch, s);
+  if (d_qk <= 64)
+    return d_v <= 64 ? launch_tma<64, 64>(maps, a, batch, s)
+                     : launch_tma<64, 128>(maps, a, batch, s);
+  return d_v <= 64 ? launch_tma<128, 64>(maps, a, batch, s)
+                   : launch_tma<128, 128>(maps, a, batch, s);
+}

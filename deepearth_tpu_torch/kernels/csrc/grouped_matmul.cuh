@@ -1,6 +1,7 @@
-// What the grouped matmul's kernels share (K5-fwd in grouped_matmul.cu,
-// K5-bwd in grouped_matmul_bwd.cu): the on-device walk from a block to its
-// rows of expert-sorted lhs, and the staging width of a row.
+// What the grouped matmul's kernels share (K5-fwd in grouped_matmul.cu and
+// grouped_matmul_tma.cu, K5-bwd in grouped_matmul_bwd.cu and
+// grouped_matmul_bwd_tma.cu): the on-device walk from a block to its rows
+// of expert-sorted lhs, and the staging width of a row.
 //
 // Group g holds rows [offset_g, offset_g + size_g), offset_g the sum of the
 // sizes before g, every bound cut at M; a negative size counts as 0. The
@@ -59,6 +60,48 @@ __device__ TileRows find_tile(const int* group_sizes, int n_groups, int m) {
   }
   __syncthreads();
   return found;
+}
+
+// find_tile's walk as tables, for a persistent block that walks many row
+// tiles of BM rows: tile_start[e] the first row tile of group e (e =
+// n_groups: the rows past the last group), row_start[e] its first row;
+// tile_start[n_groups + 1] the number of row tiles, row_start[n_groups + 1]
+// = m. `sizes` are the group sizes, already clamped at 0. One thread fills
+// them.
+template <int BM>
+__device__ void row_tile_tables(const int* sizes, int n_groups, int m,
+                                int* tile_start, int* row_start) {
+  int start = 0, tiles = 0;
+  for (int e = 0; e <= n_groups; ++e) {
+    tile_start[e] = tiles;
+    row_start[e] = start;
+    const int64_t stop =
+        static_cast<int64_t>(start) + (e < n_groups ? sizes[e] : m - start);
+    const int end = stop < m ? static_cast<int>(stop) : m;
+    tiles += (end - start + BM - 1) / BM;
+    start = end;
+  }
+  tile_start[n_groups + 1] = tiles;
+  row_start[n_groups + 1] = m;
+}
+
+// Row tile `rt` of those tables: rows [lo, hi) of group g, g = -1 for the
+// rows past the last group.
+template <int BM>
+__device__ __forceinline__ TileRows row_tile(int rt, const int* tile_start,
+                                             const int* row_start,
+                                             int n_groups) {
+  int lo = 0, hi = n_groups;  // the last e with tile_start[e] <= rt
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (tile_start[mid] <= rt)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  const int first = row_start[lo] + (rt - tile_start[lo]) * BM;
+  return TileRows{lo < n_groups ? lo : -1, first,
+                  min(first + BM, row_start[lo + 1])};
 }
 
 // The widest staging load for rows `ld` elements apart from a base pointer,

@@ -59,6 +59,8 @@
 namespace {
 
 using namespace hopper;
+using hopper_host::launch_persistent;
+using hopper_host::matrix_map;
 
 constexpr int kTM = 128, kTN = 128;  // output tile
 constexpr int kTK = 64;              // reduction per stage (one swizzled row)
@@ -71,57 +73,6 @@ constexpr int kConsumerWarps = 8;
 // TMA store. With the tables in static shared memory both fit in 227 KB.
 constexpr int kDlhsStages = 4, kDrhsStages = 3;
 constexpr int kDrhsOut = 2 * kPart;
-
-// Dynamic shared memory for `Stages` stages and `extra` bytes after them.
-constexpr int smem_bytes(int stages, int extra) {
-  return stages * kStageBytes + extra + 1024 + 2 * stages * 8;
-}
-
-template <int Stages>
-struct Ring {
-  uint8_t* tiles;  // the stages, then `extra` bytes, 1024-byte aligned
-  uint64_t* full;
-  uint64_t* empty;
-};
-
-// The stage ring in dynamic shared memory, 1024-byte aligned for the
-// swizzle, its barriers after the stages and `extra` bytes; thread 0
-// initialises the barriers (made visible by the caller's __syncthreads).
-template <int Stages>
-__device__ Ring<Stages> make_ring(uint8_t* raw, int extra) {
-  const uint32_t base = smem_u32(raw);
-  uint8_t* tiles = raw + ((1024 - (base & 1023)) & 1023);
-  Ring<Stages> ring{tiles, reinterpret_cast<uint64_t*>(
-                               tiles + Stages * kStageBytes + extra),
-                    nullptr};
-  ring.empty = ring.full + Stages;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < Stages; ++s) {
-      mbar_init(&ring.full[s], 1);
-      mbar_init(&ring.empty[s], kConsumerWarps);
-    }
-    fence_barrier_init();
-  }
-  return ring;
-}
-
-// A position in the ring: stage and the parity of its current round.
-template <int Stages>
-struct Cursor {
-  int stage = 0;
-  uint32_t phase = 0;
-  __device__ void next() {
-    if (++stage == Stages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-__device__ __forceinline__ void zero_acc(float (&acc)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-}
 
 // Stores a consumer warpgroup's 64 x 128 accumulator, rounded to bf16,
 // into rows [0, rows) and columns [0, cols) of a row-major matrix `ld`
@@ -166,33 +117,7 @@ __device__ __forceinline__ void stage_out(uint8_t* out,
   }
 }
 
-// After a wgmma group has read its stage: releases the stage (lane 0 of
-// each consumer warp arrives).
-template <int Stages>
-__device__ __forceinline__ void release(Ring<Stages>& ring, int stage) {
-  if (threadIdx.x % 32 == 0) mbar_arrive(&ring.empty[stage]);
-}
-
 // ------------------------------------------------------------------ dlhs ----
-
-// Row tile `rt` (kTM rows) of find_tile's walk, from the block's tables:
-// tile_start[e] the first row tile of group e (e = n_groups: the rows past
-// the last group), row_start[e] its first row, row_start[n_groups + 1] = m.
-__device__ __forceinline__ TileRows row_tile(int rt, const int* tile_start,
-                                             const int* row_start,
-                                             int n_groups) {
-  int lo = 0, hi = n_groups;  // the last e with tile_start[e] <= rt
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) / 2;
-    if (tile_start[mid] <= rt)
-      lo = mid;
-    else
-      hi = mid - 1;
-  }
-  const int first = row_start[lo] + (rt - tile_start[lo]) * kTM;
-  return TileRows{lo < n_groups ? lo : -1, first,
-                  min(first + kTM, row_start[lo + 1])};
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
     gmm_dlhs_wgmma_kernel(const __grid_constant__ CUtensorMap map_hi,
@@ -207,21 +132,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int e = threadIdx.x; e < n_groups; e += blockDim.x)
     sizes[e] = max(group_sizes[e], 0);
   __syncthreads();
-  auto ring = make_ring<kDlhsStages>(smem_raw, 0);
-  if (threadIdx.x == 0) {
-    int start = 0, tiles = 0;
-    for (int e = 0; e <= n_groups; ++e) {
-      tile_start[e] = tiles;
-      row_start[e] = start;
-      const int64_t stop =
-          static_cast<int64_t>(start) + (e < n_groups ? sizes[e] : m - start);
-      const int end = stop < m ? static_cast<int>(stop) : m;
-      tiles += (end - start + kTM - 1) / kTM;
-      start = end;
-    }
-    tile_start[n_groups + 1] = tiles;
-    row_start[n_groups + 1] = m;
-  }
+  auto ring =
+      make_ring<kDlhsStages>(smem_raw, kStageBytes, 0, 1, kConsumerWarps);
+  if (threadIdx.x == 0)
+    row_tile_tables<kTM>(sizes, n_groups, m, tile_start, row_start);
   __syncthreads();
   const int col_tiles = (k + kTN - 1) / kTN;
   const int n_tiles = tile_start[n_groups + 1] * col_tiles;
@@ -232,7 +146,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       Cursor<kDlhsStages> at;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         const TileRows tr =
-            row_tile(t / col_tiles, tile_start, row_start, n_groups);
+            row_tile<kTM>(t / col_tiles, tile_start, row_start, n_groups);
         if (tr.g < 0) continue;
         const int k0 = (t % col_tiles) * kTN;
         for (int s = 0; s < steps; ++s, at.next()) {
@@ -255,7 +169,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float acc[64];
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const TileRows tr =
-        row_tile(t / col_tiles, tile_start, row_start, n_groups);
+        row_tile<kTM>(t / col_tiles, tile_start, row_start, n_groups);
     const int k0 = (t % col_tiles) * kTN;
     zero_acc(acc);
     if (tr.g >= 0 && steps > 0) {
@@ -306,7 +220,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int e = threadIdx.x; e < n_groups; e += blockDim.x)
     sizes[e] = max(group_sizes[e], 0);
   __syncthreads();
-  auto ring = make_ring<kDrhsStages>(smem_raw, kDrhsOut);
+  auto ring = make_ring<kDrhsStages>(smem_raw, kStageBytes, kDrhsOut, 1,
+                                     kConsumerWarps);
   for (int e = threadIdx.x; e < n_groups; e += blockDim.x) {
     int rank = 0;
     for (int f = 0; f < n_groups; ++f)
@@ -418,39 +333,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (issuer) bulk_wait<0>();
 }
 
-int sm_count() {
-  int device = 0, sms = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess)
-    return 0;
-  return sms;
-}
-
-// 2-D map over a row-major (rows, cols) bf16 matrix, boxes of 64 columns
-// by `box_rows` rows.
-bool matrix_map(CUtensorMap* map, const void* base, int rows, int cols,
-                int box_rows) {
-  const uint64_t dims[2] = {static_cast<uint64_t>(cols),
-                            static_cast<uint64_t>(rows)};
-  const uint64_t strides[1] = {static_cast<uint64_t>(cols) * 2};
-  const uint32_t box[2] = {64, static_cast<uint32_t>(box_rows)};
-  return hopper_host::bf16_map(map, base, 2, dims, strides, box);
-}
-
-// One persistent block per SM, or per tile where there are fewer tiles.
-template <typename... Params, typename... Args>
-int launch_persistent(void (*kernel)(Params...), int tiles, int smem,
-                      cudaStream_t stream, Args... args) {
-  const int sms = sm_count();
-  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-  cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  kernel<<<tiles < sms ? tiles : sms, kThreads, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // hi, lo (m, n) bf16 (dout's split), rhs (n_groups, k, n) bf16 and dlhs
@@ -481,7 +363,8 @@ extern "C" int grouped_matmul_bwd_dlhs_tma(const void* hi, const void* lo,
                         ((k + kTN - 1) / kTN);
   if (tiles > (1 << 30)) return static_cast<int>(cudaErrorInvalidValue);
   return launch_persistent(gmm_dlhs_wgmma_kernel, static_cast<int>(tiles),
-                           smem_bytes(kDlhsStages, 0),
+                           kThreads,
+                           ring_smem_bytes(kDlhsStages, kStageBytes, 0),
                            static_cast<cudaStream_t>(stream), map_hi, map_lo,
                            map_rhs, static_cast<const int*>(group_sizes),
                            static_cast<bf16*>(dlhs), m, k, n, n_groups);
@@ -516,7 +399,9 @@ extern "C" int grouped_matmul_bwd_drhs_tma(const void* lhs, const void* hi,
                         ((k + kTM - 1) / kTM) * ((n + kTN - 1) / kTN);
   if (tiles > (1 << 30)) return static_cast<int>(cudaErrorInvalidValue);
   return launch_persistent(gmm_drhs_wgmma_kernel, static_cast<int>(tiles),
-                           smem_bytes(kDrhsStages, kDrhsOut),
+                           kThreads,
+                           ring_smem_bytes(kDrhsStages, kStageBytes,
+                                           kDrhsOut),
                            static_cast<cudaStream_t>(stream), map_lhs, map_hi,
                            map_lo, map_drhs,
                            static_cast<const int*>(group_sizes), m, k, n,

@@ -14,7 +14,12 @@
 //    the M (or N) index. The k16 slice j starts 16 j rows (2048 j bytes)
 //    in; 8-row groups 1024 bytes apart (SBO); further 64-wide M/N chunks
 //    are further tiles, LBO bytes apart.
-// Used by K5-bwd's TMA route (grouped_matmul_bwd_tma.cu).
+// The register-A form (wgmma_*_rs) takes A from registers in the fragment
+// layout of mma.sync m16n8k16 (warp w of the warpgroup holding rows
+// 16 w .. 16 w + 15): an fp32 accumulator of one product, rounded to bf16
+// by wgmma_a_frag, is the A operand of the next.
+// Used by K5-bwd's TMA route (grouped_matmul_bwd_tma.cu), K5-fwd's
+// (grouped_matmul_tma.cu) and K4-bwd's (flash_attention_bwd_tma.cu).
 
 #pragma once
 
@@ -108,6 +113,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // A box of shared memory to the tensor map at (c0 innermost, c1, c2);
 // out-of-bounds elements are not written. Completes as a bulk group of the
 // issuing thread: bulk_commit(), then bulk_wait_read() before the shared
@@ -173,9 +189,17 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 // Keeps the compiler from moving the accumulator's registers across an
 // asynchronous wgmma.
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for register A operands: the compiler must not reuse their
+// registers before the wgmma that reads them has completed.
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // d (64 x 128 fp32, the wgmma accumulator layout) += A (64 x 16) . B
@@ -214,7 +238,249 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
 
 // The accumulator of wgmma_m64n128k16 for thread t of the warpgroup:
 // d[4 j + 2 h + e] is row 16 (t / 32) + (t % 32) / 4 + 8 h, column
-// 8 j + 2 (t % 4) + e of the 64 x 128 tile.
+// 8 j + 2 (t % 4) + e of the 64 x 128 tile (of any m64nN, N = 8 j_max).
+
+// d (64 x 64 fp32) += A (64 x 16) . B (16 x 64), both from shared memory
+// through descriptors, as wgmma_m64n128k16.
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1), "n"(TransA), "n"(TransB));
+}
+
+// d (64 x 64 fp32) += A (64 x 16, bf16 in registers: the fragment of
+// wgmma_a_frag) . B (16 x 64, shared memory through its descriptor).
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TransB));
+}
+
+// d (64 x 128 fp32) += A (64 x 16, bf16 in registers: the fragment of
+// wgmma_a_frag) . B (16 x 128, shared memory through its descriptor).
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TransB));
+}
+
+
+// d (64 x 32 fp32) += A (64 x 16, bf16 in registers: the fragment of
+// wgmma_a_frag) . B (16 x 32, shared memory through its descriptor).
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TransB));
+}
+
+// d (64 x 48 fp32) += A (64 x 16, bf16 in registers: the fragment of
+// wgmma_a_frag) . B (16 x 48, shared memory through its descriptor).
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n48k16_rs(float (&d)[24],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, %30;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TransB));
+}
+
+// d (64 x N fp32) += A (registers) . B, N = 32, 48, 64 or 128.
+template <int N, int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 32 || N == 48 || N == 64 || N == 128,
+                "wgmma_rs: N is 32, 48, 64 or 128");
+  if constexpr (N == 32)
+    wgmma_m64n32k16_rs<TransB>(d, a, b);
+  else if constexpr (N == 48)
+    wgmma_m64n48k16_rs<TransB>(d, a, b);
+  else if constexpr (N == 64)
+    wgmma_m64n64k16_rs<TransB>(d, a, b);
+  else
+    wgmma_m64n128k16_rs<TransB>(d, a, b);
+}
+
+// The register A operand of columns 16 t .. 16 t + 15 of an accumulator
+// (its 8-column groups 2 t and 2 t + 1), rounded to bf16.
+template <int N>
+__device__ __forceinline__ void wgmma_a_frag(uint32_t (&a)[4],
+                                             const float (&d)[N], int t) {
+  const float* lo = d + 8 * t;  // group 2 t: d[8 t .. 8 t + 3]
+  const __nv_bfloat162 v0 = __floats2bfloat162_rn(lo[0], lo[1]);
+  const __nv_bfloat162 v1 = __floats2bfloat162_rn(lo[2], lo[3]);
+  const __nv_bfloat162 v2 = __floats2bfloat162_rn(lo[4], lo[5]);
+  const __nv_bfloat162 v3 = __floats2bfloat162_rn(lo[6], lo[7]);
+  a[0] = *reinterpret_cast<const uint32_t*>(&v0);
+  a[1] = *reinterpret_cast<const uint32_t*>(&v1);
+  a[2] = *reinterpret_cast<const uint32_t*>(&v2);
+  a[3] = *reinterpret_cast<const uint32_t*>(&v3);
+}
+
+// `bytes` (a multiple of 16) of shared memory at `src` to global memory at
+// `dst` (both 16-byte aligned), without a tensor map; completes as a bulk
+// group of the issuing thread, as tma_store_3d.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+// -------------------------------------------------------------- the ring ----
+
+// A ring of `Stages` stages in dynamic shared memory, fed by TMA: full[s]
+// completes when stage s has landed, empty[s] when its consumers have
+// released it.
+template <int Stages>
+struct Ring {
+  uint8_t* tiles;  // the stages, then `extra` bytes, 1024-byte aligned
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+// Dynamic shared memory for `stages` stages of `stage_bytes` and `extra`
+// bytes after them, with room to align and the barriers.
+constexpr int ring_smem_bytes(int stages, int stage_bytes, int extra) {
+  return stages * stage_bytes + extra + 1024 + 2 * stages * 8;
+}
+
+// The ring at `raw`, 1024-byte aligned for the swizzle, its barriers after
+// the stages and `extra` bytes; thread 0 initialises them (full: `full_count`
+// arrivals a round, empty: `empty_count`), made visible by the caller's
+// __syncthreads.
+template <int Stages>
+__device__ Ring<Stages> make_ring(uint8_t* raw, int stage_bytes, int extra,
+                                  int full_count, int empty_count) {
+  const uint32_t base = smem_u32(raw);
+  uint8_t* tiles = raw + ((1024 - (base & 1023)) & 1023);
+  Ring<Stages> ring{tiles, reinterpret_cast<uint64_t*>(
+                               tiles + Stages * stage_bytes + extra),
+                    nullptr};
+  ring.empty = ring.full + Stages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Stages; ++s) {
+      mbar_init(&ring.full[s], full_count);
+      mbar_init(&ring.empty[s], empty_count);
+    }
+    fence_barrier_init();
+  }
+  return ring;
+}
+
+// A position in the ring: stage and the parity of its current round.
+template <int Stages>
+struct Cursor {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ void next() {
+    if (++stage == Stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// After a wgmma group has read its stage: releases the stage (lane 0 of
+// each consumer warp arrives).
+template <int Stages>
+__device__ __forceinline__ void release(Ring<Stages>& ring, int stage) {
+  if (threadIdx.x % 32 == 0) mbar_arrive(&ring.empty[stage]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.0f;
+}
 
 }  // namespace hopper
 
@@ -249,7 +515,7 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over a row-major bf16 tensor of `rank` (2 or 3) dims, given
+// A tensor map over a row-major bf16 tensor of `rank` (2 to 5) dims, given
 // innermost first with their row strides in bytes (rank - 1 of them,
 // multiples of 16), read in boxes of `box` elements (box[0] = 64, one
 // swizzled row), 128-byte swizzled, zeros out of bounds. Encoded on the
@@ -259,8 +525,8 @@ inline bool bf16_map(CUtensorMap* map, const void* base, int rank,
                      const uint32_t* box) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  cuuint64_t d[3], s[2];
-  cuuint32_t b[3], e[3] = {1, 1, 1};
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], e[5] = {1, 1, 1, 1, 1};
   for (int i = 0; i < rank; ++i) {
     d[i] = dims[i];
     b[i] = box[i];
@@ -271,6 +537,40 @@ inline bool bf16_map(CUtensorMap* map, const void* base, int rank,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline int sm_count() {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess)
+    return 0;
+  return sms;
+}
+
+// 2-D map over a row-major (rows, cols) bf16 matrix, boxes of 64 columns
+// by `box_rows` rows.
+inline bool matrix_map(CUtensorMap* map, const void* base, int rows,
+                       int cols, int box_rows) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(cols),
+                            static_cast<uint64_t>(rows)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(cols) * 2};
+  const uint32_t box[2] = {64, static_cast<uint32_t>(box_rows)};
+  return bf16_map(map, base, 2, dims, strides, box);
+}
+
+// One persistent block of `threads` per SM, or per tile where there are
+// fewer tiles.
+template <typename... Params, typename... Args>
+int launch_persistent(void (*kernel)(Params...), int tiles, int threads,
+                      int smem, cudaStream_t stream, Args... args) {
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  kernel<<<tiles < sms ? tiles : sms, threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace hopper_host

@@ -3,8 +3,10 @@
 on the TPU, and of its VJP.
 
 :func:`gmm` is a ``torch.autograd.Function``. For CUDA tensors its forward
-is the hand-written kernel K5-fwd (``kernels/csrc/grouped_matmul.cu``) and
-its backward K5-bwd (``kernels.grouped_matmul_bwd``): megablox's ``gmm``
+is the hand-written kernel K5-fwd (``kernels.grouped_matmul_fwd``: wgmma
+over TMA tiles, ``kernels/csrc/grouped_matmul_tma.cu``, where
+``kernels.gmm_fwd_tma_route`` holds; else ``kernels/csrc/grouped_matmul.cu``)
+and its backward K5-bwd (``kernels.grouped_matmul_bwd``): megablox's ``gmm``
 with ``transpose_rhs`` for dlhs and ``tgmm`` for drhs, one launch each, only
 for the inputs that need a gradient. Where ``kernels.gmm_bwd_tma_route``
 holds (bf16, K and N multiples of 8, as the flagship's 2048 x 2048 experts

@@ -69,7 +69,9 @@ HASH_BWD_TOL = 1e-5
 VMEM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 NO_K3_TO_K5 = {"vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
                "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-               "grouped_matmul_fwd": 0, "grouped_matmul_split_dout": 0,
+               "flash_attention_bwd_mma": 0, "flash_attention_bwd_fp32": 0,
+               "grouped_matmul_fwd": 0, "grouped_matmul_fwd_mma": 0,
+               "grouped_matmul_fwd_fp32": 0, "grouped_matmul_split_dout": 0,
                "grouped_matmul_bwd_dlhs": 0, "grouped_matmul_bwd_dlhs_mma": 0,
                "grouped_matmul_bwd_dlhs_fp32": 0,
                "grouped_matmul_bwd_drhs": 0, "grouped_matmul_bwd_drhs_mma": 0,
@@ -412,9 +414,15 @@ def test_vmem_attention_autograd_runs_k3_bwd(cuda):
     (2, 2, 1500, 128, 128, True, True, False),  # widest heads, both masks
     (2, 2, 1, 8, 8, False, True, False),  # one token
     (1, 8, 4608, 128, 128, False, False, True),  # the flagship's clip MLA
+    (2, 2, 700, 40, 36, False, False, False),  # off TMA's grid: mma.sync
+    (2, 2, 700, 128, 64, True, False, False),  # Dqk != Dv, both panels
 ])
 def test_flash_attention_matches_plain(cuda, dtype, b, h, n, dqk, dv, mask,
                                        causal, strided):
+    """K4-fwd and K4-bwd against their plain versions; K4-bwd by the route
+    the shapes and strides choose (TMA for bf16 on the 8-element grid,
+    mma.sync for other bf16, CUDA cores for fp32), once on that route's
+    counter, two runs bitwise equal."""
     smoke = _smoke()
     g = torch.Generator(device=cuda).manual_seed(n + dqk)
     q, k, v, dout, key_mask = smoke.attention_case(g, b, h, n, n, dqk, dv,
@@ -430,8 +438,15 @@ def test_flash_attention_matches_plain(cuda, dtype, b, h, n, dqk, dv, mask,
     ref_grads = tflash.flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                                  **kw)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["flash_attention_fwd"] == 1
-    assert kernels.launch_counts["flash_attention_bwd"] == 1
+    route = smoke.flash_bwd_route(q, k, v)
+    assert route == ("" if dtype == torch.bfloat16 and dqk % 8 == 0
+                     and dv % 8 == 0 else
+                     "_mma" if dtype == torch.bfloat16 else "_fp32")
+    assert kernels.launch_counts == smoke.expected_launches(**{
+        "flash_attention_fwd": 1, f"flash_attention_bwd{route}": 1})
+    again = kernels.flash_attention_bwd(q, k, v, out, lse, dout, kw["scale"],
+                                        key_mask, causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
     assert out.dtype == dtype and out.shape == (b, h, n, dv)
     smoke.check_flash_out("K4-fwd", out, ref, dtype)
     assert torch.equal(lse.isinf(), ref_lse.isinf())
@@ -503,6 +518,59 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
                       torch.bfloat16)
     with torch.no_grad(), pytest.raises(ValueError, match="item 13"):
         mla(torch.randn((1, 32, 64), device=cuda))
+
+
+def test_flash_bwd_tma_route_rejects_what_it_does_not_take(cuda):
+    """The TMA route's wrapper refuses head dims and strides off the
+    8-element grid and fp32, which the entry sends elsewhere; a strided v
+    whose start is off a 16-byte boundary is copied and stays on the
+    route."""
+    smoke = _smoke()
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for dqk, dv, dtype in ((40, 36, torch.bfloat16), (48, 32, torch.float32)):
+        q, k, v, do, _ = smoke.attention_case(g, 1, 2, 100, 100, dqk, dv,
+                                              dtype)
+        out, lse = kernels.flash_attention_fwd(q, k, v, 0.1)
+        with pytest.raises(ValueError, match="TMA route"):
+            kernels.flash_attention_bwd_tma(q, k, v, out, lse, do, 0.1)
+    q, k, v, do, _ = smoke.attention_case(g, 2, 2, 300, 300, 48, 32,
+                                          torch.bfloat16)
+    wide = torch.randn((2, 300, 2, 36), generator=g, device=cuda).to(
+        torch.bfloat16)
+    odd = wide[..., 4:].transpose(1, 2)  # strides off the grid
+    out, lse = kernels.flash_attention_fwd(q, k, odd, 0.1)
+    with pytest.raises(ValueError, match="TMA route"):
+        kernels.flash_attention_bwd_tma(q, k, odd, out, lse, do, 0.1)
+    base = torch.randn((2 * 2 * 300 * 32 + 1,), generator=g,
+                       device=cuda).to(torch.bfloat16)
+    shifted = base[1:].view(2, 2, 300, 32)  # 2 bytes past a boundary
+    out, lse = kernels.flash_attention_fwd(q, k, shifted, 0.1)
+    kernels.reset_launch_counts()
+    got = kernels.flash_attention_bwd(q, k, shifted, out, lse, do, 0.1)
+    assert kernels.launch_counts["flash_attention_bwd"] == 1
+    smoke.check_grads("shifted v", got, tflash.flash_attention_bwd_plain(
+        q, k, shifted, out, lse, do, scale=0.1), torch.bfloat16)
+
+
+def test_mla_backward_at_4608_takes_the_tma_route(cuda):
+    """The multimodal model's vision MLA (Dqk 48, Dv 32, v a view of the kv
+    projection) over a clip's 4608 patches: under autograd K4-bwd runs once
+    on its TMA route, never on mma.sync, no plain version reached."""
+    smoke = _smoke()
+    cfg = smoke.multimodal_config()
+    from deepearth_tpu_torch.models.encoders import (
+        encoder_transformer_config)
+    mla_cfg = encoder_transformer_config(cfg.modalities["vision"],
+                                         cfg.hidden_dim).mla
+    mla = MLAttention(mla_cfg, Init(torch.Generator(device=cuda).manual_seed(
+        5), cuda), torch.bfloat16)
+    x = torch.randn((2, 4608, cfg.hidden_dim), device=cuda)
+    kernels.reset_launch_counts()
+    with smoke.plain_versions_refused():
+        mla(x).float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == smoke.expected_launches(
+        flash_attention_fwd=1, flash_attention_bwd=1)
 
 
 def test_multimodal_train_steps_launch_k3_and_k4(cuda):
@@ -577,6 +645,9 @@ def test_vmem_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 GMM_CASES = {  # group sizes, K, N, M (None: the sum of the sizes)
     "empty groups, tiles across groups": ([0, 70, 0, 130, 100, 0], 96, 200,
                                           None),
+    "groups of 1-3 rows, a tile ending mid-group": ([1, 2, 3, 1, 130, 2, 0,
+                                                     3], 64, 136, None),
+    "K=8 N=8": ([5, 9, 3], 8, 8, None),
     "M=1": ([0, 1, 0], 64, 64, None),
     "K and N off the 8-element grid": ([100, 57, 100], 100, 130, None),
     "odd K and N": ([5, 40, 19], 33, 31, None),
@@ -590,13 +661,19 @@ GMM_CASES = {  # group sizes, K, N, M (None: the sum of the sizes)
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", list(GMM_CASES))
 def test_grouped_matmul_matches_plain(cuda, dtype, case):
+    """K5-fwd by the route the shapes choose (TMA for bf16 with K and N
+    multiples of 8, mma.sync for other bf16, CUDA cores for fp32), once on
+    that route's counter, two runs bitwise equal."""
     smoke = _smoke()
     sizes, k, n, m = GMM_CASES[case]
     gen = torch.Generator(device="cuda").manual_seed(0)
     lhs, rhs, gs = smoke.gmm_case(gen, sizes, k, n, dtype, m)
+    route = smoke.fwd_route(dtype, lhs.shape[0], k, n)
     kernels.reset_launch_counts()
     out = tgmm.gmm(lhs, rhs, gs)
-    assert kernels.launch_counts["grouped_matmul_fwd"] == 1
+    assert kernels.launch_counts == smoke.expected_launches(
+        **{f"grouped_matmul_fwd{route}": 1})
+    assert torch.equal(out, kernels.grouped_matmul_fwd(lhs, rhs, gs))
     smoke.check_gmm(case, out, tgmm.gmm_plain(lhs, rhs, gs), dtype)
     if m is not None:
         assert bool((out[sum(sizes):] == 0).all())
@@ -614,8 +691,15 @@ def test_grouped_matmul_refusals_and_card_backward(cuda):
         kernels.grouped_matmul_fwd(lhs, rhs, gs.cpu())
     kernels.reset_launch_counts()
     empty = kernels.grouped_matmul_fwd(lhs[:0], rhs, torch.zeros_like(gs))
-    assert empty.shape == (0, 8) and kernels.launch_counts[
-        "grouped_matmul_fwd"] == 0
+    assert empty.shape == (0, 8) and not any(kernels.launch_counts.values())
+    # the TMA route's wrapper refuses what its route does not take
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kernels.grouped_matmul_fwd_tma(*smoke.gmm_case(gen, [5, 40, 19], 33,
+                                                       31, torch.bfloat16))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kernels.grouped_matmul_fwd_tma(lhs.float(), rhs.float(), gs)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kernels.grouped_matmul_fwd_tma(lhs[:0], rhs, torch.zeros_like(gs))
     # autograd on the card: K5-bwd's two kernels (the TMA route: K 16, N 8),
     # once each and only for the inputs that need a gradient, after one
     # split of dout
@@ -744,7 +828,8 @@ def test_ragged_moe_layer_launches_k5_three_times(cuda):
     kernels.reset_launch_counts()
     with torch.inference_mode(), smoke.plain_versions_refused():
         out = layer(x)
-    assert kernels.launch_counts["grouped_matmul_fwd"] == 3
+    assert kernels.launch_counts == smoke.expected_launches(
+        grouped_matmul_fwd=3)  # the TMA route: K 128 and 256, N 256 and 128
     assert layer.mode == "ragged" and out.shape == x.shape
     with torch.inference_mode(), smoke.plain_versions():
         ref = layer(x)
