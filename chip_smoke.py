@@ -22,7 +22,9 @@ Phases, each printing one line:
      same state; the loss must fall over 30 steps on one repeated batch;
   8. K3-fwd (vmem_attention_fwd) against its plain PyTorch version, in bf16
      and fp32, at the multimodal slice's two sites (B=512), a ragged masked
-     case with an all-masked row (exactly 0) and Nk = 1024;
+     case with an all-masked row (exactly 0) and Nk = 1024; times, the
+     library and the bound at the two sites and at the flagship's MLA site
+     (B=64, 576 x 576, 128 / 128);
   9. the multimodal serving slice: DeepEarthModel at the configuration of
      tools/bench_multimodal.py (universal dim 512, 8 heads, 4 fusion layers,
      species + vision (576 V-JEPA2 patches of 1408) + language (7168), bf16)
@@ -31,24 +33,31 @@ Phases, each printing one line:
      version, and its outputs must agree with the plain path's;
  10. K3-bwd (vmem_attention_bwd) against its plain PyTorch version, in bf16
      and fp32, at the same cases as phase 8 (v a strided view at the MLA
-     site); all-masked rows get no gradient;
+     sites) and head dims off the 8-element grid (the mma.sync route; the
+     other bf16 cases its TMA route); all-masked rows get no gradient; the
+     route and launches per case, two runs bitwise equal; times of the TMA
+     and mma.sync routes, the library and the bound at the two B=512 sites
+     and the flagship's MLA site;
  11. K4-fwd and K4-bwd (flash_attention_fwd/bwd) against their plain
      versions, in bf16 and fp32: the vision MLA over a V-JEPA2 clip (8
      heads, 4608 patches, Dqk 48, Dv 32, v strided), causal, key-masked
      with an all-masked row (output exactly 0), 128-wide heads, head dims
-     off the 8-element grid (K4-bwd's mma.sync route; the others its TMA
-     route); the route and launches per case, two runs bitwise equal;
-     times of K4-fwd, K4-bwd's TMA and mma.sync kernels, the library and
-     the bound at Dqk 48 / Dv 32 (B=8, 64) and 128 / 128 (B=8, 32);
+     off the 8-element grid (the mma.sync routes; the others the TMA
+     routes); the routes and launches per case, two runs of each kernel
+     bitwise equal; times of both kernels' TMA and mma.sync routes, the
+     library and the bound (the forward's beside its exp units' floor) at
+     Dqk 48 / Dv 32 (B=8, 64) and 128 / 128 (B=8, 32; the forward also at
+     B=64);
  12. the multimodal train slice at 576 patches: Trainer.fit at B=512 with
      masking and the bench script's contrastive weight; every step must
-     launch K3-fwd 2, K3-bwd 2, K2-fwd 2, K2-bwd 2 and nothing else, and
-     reach no plain version; 3 steps against the plain path, the loss must
+     launch K3-fwd 2, K3-bwd 2 (on its TMA route), K2-fwd 2, K2-bwd 2 and
+     nothing else, and reach no plain version; 3 steps against the plain
+     path, the loss must
      fall on one repeated batch; step time, peak memory, per-op profile;
  13. the multimodal model at 4608 patches per observation: requests of 1
-     and 16 (K4-fwd 1, K2-fwd 2 per forward) and Trainer.fit at B=64 (K4-fwd
-     1, K4-bwd 1 on its TMA route, K2-fwd 2, K2-bwd 2 per step), no plain
-     version reached;
+     and 16 (K4-fwd 1 on its TMA route, K2-fwd 2 per forward) and
+     Trainer.fit at B=64 (K4-fwd 1 and K4-bwd 1 on their TMA routes, K2-fwd
+     2, K2-bwd 2 per step), no plain version reached;
      forward and 3 train steps against the plain path at B=4; times;
  14. K5-fwd (grouped_matmul_fwd) and K5-bwd (grouped_matmul_split_dout,
      grouped_matmul_bwd_dlhs and grouped_matmul_bwd_drhs) against their
@@ -64,8 +73,9 @@ Phases, each printing one line:
      integrated_config(use_deepseek_fusion=True) (5.04B parameters, bf16,
      24 fusion layers, a 24-layer MLA + MoE simulator, vision (B, 4608,
      1408) and language (B, 16, 7168) through MoE-projected encoders)
-     answers requests of 1, 16 and 64 observations; per forward K4-fwd 2,
-     K2-fwd 2 and, at B=64 where the simulator takes the ragged path, K5
+     answers requests of 1, 16 and 64 observations; per forward K4-fwd 2
+     (on its TMA route), K2-fwd 2 and, at B=64 where the simulator takes
+     the ragged path, K5
      69 on its TMA route (none at B <= 16), no plain version reached; its
      draw from a generator of its own seeded from SEED; each MoE site's
      dispatch mode, times, peak memory, a per-op profile at B=64; the
@@ -77,8 +87,8 @@ Phases, each printing one line:
      bench script's optimizer (bf16 first moment, factored second moment)
      and LossWeights(contrastive=0, moe_aux=0.01), masking on; every step
      must launch K5-fwd 69 and K5-bwd's split 69 and dlhs + drhs 69 + 69,
-     all on their TMA routes, K3-fwd 2, K3-bwd 2, K2-fwd 2, K2-bwd 2 and
-     nothing else, and reach no plain version; its draw from a generator
+     all on their TMA routes, K3-fwd 2, K3-bwd 2 (on its TMA route),
+     K2-fwd 2, K2-bwd 2 and nothing else, and reach no plain version; its draw from a generator
      of its own seeded from SEED; each MoE site's
      dispatch mode; 3 steps against the plain path from one start state
      kept on the host, routing pinned as in phase 15; step time, peak
@@ -1051,6 +1061,14 @@ def attention_case(gen, b, h, nq, nk, dqk, dv, dtype, mask=False,
     return q, k, v, dout, key_mask
 
 
+# K3's timed sites: (B, Nq, Dqk, Dv) over 8 heads x VISION_PATCHES keys, v
+# strided as the MLA leaves it (not at the cross-attention): the multimodal
+# train step's MLA and cross sites at B=512 (the JSON line's numbers, per
+# step) and the flagship train step's MLA site
+K3_SITES = {"mla": (MM_BATCH, 576, 48, 32), "cross": (MM_BATCH, 16, 64, 64),
+            "flagship": (FLAGSHIP_TRAIN_BATCH, 576, 128, 128)}
+
+
 def phase_vmem(gen) -> dict:
     errs = {}
     cases = {  # name: (B, H, Nq, Nk, Dqk, Dv, key mask)
@@ -1082,24 +1100,24 @@ def phase_vmem(gen) -> dict:
                                      f"{VMEM_TOL[dtype]}")
             del q, k, v, out, ref
 
-    # the slice's two sites at B=512 in bf16: kernel, plain, the library's
-    # fused attention on the same tensors (a yardstick only), and the bound
+    # the slice's two sites at B=512 in bf16 and the flagship's MLA site
+    # (its train step's): kernel, plain, the library's fused attention on
+    # the same tensors (a yardstick only), and the bound
     sites = {}
-    for name, (nq, dqk, dv) in {"mla": (576, 48, 32),
-                                "cross": (16, 64, 64)}.items():
-        q, k, v, _, _ = attention_case(gen, MM_BATCH, 8, nq, VISION_PATCHES,
-                                       dqk, dv, torch.bfloat16)
+    for name, (b, nq, dqk, dv) in K3_SITES.items():
+        q, k, v, _, _ = attention_case(gen, b, 8, nq, VISION_PATCHES, dqk,
+                                       dv, torch.bfloat16,
+                                       strided=name != "cross")
         sc = dqk ** -0.5
         t = {
             "ms": cuda_ms(lambda: kernels.vmem_attention_fwd(q, k, v, sc),
                           iters=10, warmup=2),
             "plain_ms": cuda_ms(lambda: attention_vmem.vmem_attention_plain(
                 q, k, v, scale=sc), iters=5, warmup=1),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, scale=sc), iters=10, warmup=2),
+            "library_ms": library_fwd_ms(q, k, v, sc, iters=10),
         }
-        flops = 2 * MM_BATCH * 8 * nq * VISION_PATCHES * (dqk + dv)
-        t.update(bound(nbytes(q, k, v) + MM_BATCH * 8 * nq * dv * 2, flops,
+        flops = 2 * b * 8 * nq * VISION_PATCHES * (dqk + dv)
+        t.update(bound(nbytes(q, k, v) + b * 8 * nq * dv * 2, flops,
                        torch.bfloat16))
         t["tflops"] = flops / t["ms"] / 1e9
         sites[name] = t
@@ -1107,13 +1125,15 @@ def phase_vmem(gen) -> dict:
     print("[8 K3 vmem_attention_fwd] max_abs_err " + ", ".join(
         f"{k} {v:.3g}" for k, v in errs.items())
         + f" (tol {tags(VMEM_TOL)})"
-        + " | ms at B=512 bf16 (device, CUDA events; library = "
+        + " | ms bf16, the sites at B=512 and the flagship's MLA site at "
+        f"B={FLAGSHIP_TRAIN_BATCH} (device, CUDA events; library = "
         "scaled_dot_product_attention): " + ", ".join(
             f"{n} kernel {t['ms']:.4f} ({t['tflops']:.2f} TFLOP/s), plain "
-            f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
+            f"{t['plain_ms']:.4f}, library {fmt(t['library_ms'])}, bound "
             f"{t['bound_ms']:.4f} ({t['bound_by']})" for n, t in sites.items())
         + f" | {card()}")
-    return per_step(errs, sites)
+    flagship = sites.pop("flagship")
+    return {**per_step(errs, sites), "flagship": flagship}
 
 
 def multimodal_config(hidden_dim: int = 512) -> DeepEarthConfig:
@@ -1327,13 +1347,13 @@ def fused_sdpa():
                         SDPBackend.CUDNN_ATTENTION])
 
 
-def library_fwd_ms(q, k, v, scale) -> Optional[float]:
+def library_fwd_ms(q, k, v, scale, iters=5) -> Optional[float]:
     """scaled_dot_product_attention on the same tensors, a yardstick only;
     None where no fused backend takes them."""
     try:
         with fused_sdpa():
             return cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, scale=scale), iters=5, warmup=1)
+                q, k, v, scale=scale), iters=iters, warmup=1)
     except RuntimeError:
         return None
 
@@ -1357,7 +1377,8 @@ def fmt(ms: Optional[float]) -> str:
 
 
 def phase_vmem_bwd(gen) -> dict:
-    errs = {}
+    errs, routes, route_err = {}, {}, collections.Counter()
+    route_launches = collections.Counter()
     cases = {  # name: (B, H, Nq, Nk, Dqk, Dv, key mask, v strided)
         "MLA site B=512 576x576 Dqk48 Dv32": (MM_BATCH, 8, 576, 576, 48, 32,
                                                False, True),
@@ -1369,52 +1390,81 @@ def phase_vmem_bwd(gen) -> dict:
         "flagship MLA site B=64 576x576 Dh128": (FLAGSHIP_TRAIN_BATCH, 8,
                                                  576, 576, 128, 128, False,
                                                  True),
+        # off TMA's grid: the mma.sync route
+        "Dqk40 Dv36 100x300 masked": (2, 2, 100, 300, 40, 36, True, False),
     }
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).split(".")[-1]
         for name, (b, h, nq, nk, dqk, dv, mask, strided) in cases.items():
             q, k, v, do, key_mask = attention_case(
                 gen, b, h, nq, nk, dqk, dv, dtype, mask, strided)
+            route = attention_route(q, k, v)
+            kernels.reset_launch_counts()
             got = kernels.vmem_attention_bwd(q, k, v, do, dqk ** -0.5,
                                              key_mask)
+            want = expected_launches(**{f"vmem_attention_bwd{route}": 1})
+            if kernels.launch_counts != want:
+                raise AssertionError(f"K3-bwd {name} {tag}: launches "
+                                     f"{kernels.launch_counts} != {want}")
+            route_launches.update({k: v for k, v in
+                                   kernels.launch_counts.items() if v})
+            key = f"{name} {tag}"
+            routes[key] = route or "TMA"
             ref = attention_vmem.vmem_attention_bwd_plain(
                 q, k, v, do, scale=dqk ** -0.5, key_mask=key_mask)
-            errs[f"{name} {tag}"] = check_grads(f"K3-bwd {name} {tag}", got,
-                                                ref, dtype, key_mask)
-            del q, k, v, do, got, ref
+            errs[key] = check_grads(f"K3-bwd {key}", got, ref, dtype,
+                                    key_mask)
+            route_err[route] = max(route_err[route], errs[key])
+            again = kernels.vmem_attention_bwd(q, k, v, do, dqk ** -0.5,
+                                               key_mask)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"K3-bwd {key}: two runs differ")
+            del q, k, v, do, got, ref, again
 
-    # the slice's two sites at B=512 in bf16: kernel, plain, the library's
-    # attention backward (a yardstick only), and the bound
+    # the slice's two sites at B=512 in bf16 and the flagship's MLA site:
+    # the TMA route's kernels, the mma.sync route's on the same tensors,
+    # plain, the library's attention backward (a yardstick only), the bound
     sites = {}
-    for name, (nq, dqk, dv, strided) in {"mla": (576, 48, 32, True),
-                                         "cross": (16, 64, 64, False)}.items():
-        q, k, v, do, _ = attention_case(gen, MM_BATCH, 8, nq, VISION_PATCHES,
-                                        dqk, dv, torch.bfloat16,
-                                        strided=strided)
+    for name, (b, nq, dqk, dv) in K3_SITES.items():
+        q, k, v, do, _ = attention_case(gen, b, 8, nq, VISION_PATCHES, dqk,
+                                        dv, torch.bfloat16,
+                                        strided=name != "cross")
         sc = dqk ** -0.5
         t = {
-            "ms": cuda_ms(lambda: kernels.vmem_attention_bwd(q, k, v, do, sc),
-                          iters=10, warmup=2),
+            "ms": cuda_ms(lambda: kernels.vmem_attention_bwd_tma(
+                q, k, v, do, sc), iters=10, warmup=2),
+            "mma_ms": cuda_ms(lambda: kernels.vmem_attention_bwd_mma(
+                q, k, v, do, sc), iters=10, warmup=2),
             "plain_ms": cuda_ms(
                 lambda: attention_vmem.vmem_attention_bwd_plain(
                     q, k, v, do, scale=sc), iters=3, warmup=1),
             "library_ms": library_bwd_ms(q, k, v, do, sc),
         }
-        flops = attn_bwd_flops(MM_BATCH, 8, nq * VISION_PATCHES, dqk, dv)
+        flops = attn_bwd_flops(b, 8, nq * VISION_PATCHES, dqk, dv)
         t.update(bound(nbytes(q, k, v, do, q, k, v), flops, torch.bfloat16))
         t["tflops"] = flops / t["ms"] / 1e9
         sites[name] = t
         del q, k, v, do
-    print("[10 K3-bwd vmem_attention_bwd] max_abs_err " + ", ".join(
-        f"{k} {v:.3g}" for k, v in errs.items())
-        + f" (tol {tags(BWD_TOL)} of each gradient's largest entry)"
-        + " | ms at B=512 bf16 (device, CUDA events; library = backward of "
-        "scaled_dot_product_attention): " + ", ".join(
-            f"{n} kernel {t['ms']:.4f} ({t['tflops']:.2f} TFLOP/s), plain "
-            f"{t['plain_ms']:.4f}, library {fmt(t['library_ms'])}, bound "
-            f"{t['bound_ms']:.4f} ({t['bound_by']})" for n, t in sites.items())
-        + f" | {card()}")
-    return per_step(errs, sites)
+    print("[10 K3-bwd vmem_attention_bwd] routes per case (TMA = wgmma over "
+          "TMA tiles, _mma, _fp32): " + ", ".join(
+              f"{k} {v}" for k, v in routes.items())
+          + "; two runs of each case bitwise equal | max_abs_err " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (tol {tags(BWD_TOL)} of each gradient's largest entry)"
+          + " | ms bf16, the sites at B=512 and the flagship's MLA site at "
+          f"B={FLAGSHIP_TRAIN_BATCH} (device, CUDA events; library = "
+          "backward of scaled_dot_product_attention): " + ", ".join(
+              f"{n} TMA route {t['ms']:.4f} ({t['tflops']:.2f} TFLOP/s), "
+              f"mma.sync route {t['mma_ms']:.4f}, plain "
+              f"{t['plain_ms']:.4f}, library {fmt(t['library_ms'])}, bound "
+              f"{t['bound_ms']:.4f} ({t['bound_by']})"
+              for n, t in sites.items())
+          + f" | {card()}")
+    flagship = sites.pop("flagship")
+    return {**per_step(errs, sites), "max_abs_err": route_err[""],
+            "mma_max_abs_err": route_err["_mma"],
+            "mma_ms": sum(t["mma_ms"] for t in sites.values()),
+            "launches": dict(route_launches), "flagship": flagship}
 
 
 def per_step(errs, sites) -> dict:
@@ -1481,8 +1531,24 @@ def check_flash(name, q, k, v, do, out, lse, grads, key_mask=None,
                         key_mask))
 
 
-def flash_bwd_route(q, k, v) -> str:
-    """The suffix of the K4-bwd counter these tensors launch."""
+def check_flash_rows(name, q, k, v, out, lse) -> tuple:
+    """K4-fwd's (out, lse) alone (no mask, not causal) against its plain
+    version, CLIP_PLAIN_BATCH batch rows at a time. Returns
+    check_flash_out's numbers."""
+    parts = [flash_attention.flash_attention_plain(
+        q[i:i + CLIP_PLAIN_BATCH], k[i:i + CLIP_PLAIN_BATCH],
+        v[i:i + CLIP_PLAIN_BATCH], scale=q.shape[-1] ** -0.5,
+        return_lse=True) for i in range(0, q.shape[0], CLIP_PLAIN_BATCH)]
+    ref, ref_lse = (torch.cat(x) for x in zip(*parts))
+    del parts
+    if not max_err(lse, ref_lse) <= K4_LSE_TOL:
+        raise AssertionError(f"K4 {name}: log-sum-exp differs")
+    return check_flash_out(name, out, ref, q.dtype)
+
+
+def attention_route(q, k, v) -> str:
+    """The suffix of the K3-bwd, K4-fwd and K4-bwd counters these tensors
+    launch (the three TMA routes take the same shapes and strides)."""
     if kernels.flash_bwd_tma_route(
             q.dtype, q.shape[-1], v.shape[-1],
             [s for x in (q, k, v) for s in kernels._tma_strides(x)]):
@@ -1492,16 +1558,32 @@ def flash_bwd_route(q, k, v) -> str:
 
 # K4's timed shapes: (B, Dqk, Dv) over 8 heads x CLIP_PATCHES, v strided as
 # the MLA leaves it: the multimodal model's vision MLA at CLIP_PLAIN_BATCH
-# and at its train step's batch, the flagship's at CLIP_PLAIN_BATCH and at
-# the 4608-patch flagship step's largest batch (PERF.md section 4)
+# and at its train step's batch, the flagship's at CLIP_PLAIN_BATCH, at the
+# 4608-patch flagship step's largest batch (PERF.md section 4) and at its
+# forward's B=64 (the forward only: no train step runs it)
 FLASH_TIMED = ((CLIP_PLAIN_BATCH, 48, 32), (CLIP_BATCH, 48, 32),
-               (CLIP_PLAIN_BATCH, 128, 128), (32, 128, 128))
+               (CLIP_PLAIN_BATCH, 128, 128), (32, 128, 128),
+               (FLAGSHIP_REQUEST_SIZES[-1], 128, 128))
+# exps per SM and clock (MUFU.EX2, 16 a clock on each Hopper SM)
+EXPS_PER_SM_CLOCK = 16
+
+
+def exp_floor_ms(n_exps: float) -> float:
+    """The least time the card's exp units need for ``n_exps`` exps at its
+    largest SM clock (nvidia-smi's clocks.max.sm)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_exps / (EXPS_PER_SM_CLOCK * sms * mhz * 1e6) * 1e3
 
 
 def phase_flash(gen) -> tuple:
     torch.cuda.empty_cache()
     errs = {"fwd": {}, "mean": {}, "bwd": {}}
-    routes, route_err = {}, collections.Counter()
+    routes = {}
+    route_err = {"fwd": collections.Counter(), "bwd": collections.Counter()}
     route_launches = collections.Counter()
     cases = {  # name: (B, H, N, Dqk, Dv, key mask, causal, v strided)
         "MLA clip B=1 4608 Dqk48 Dv32": (1, 8, CLIP_PATCHES, 48, 32, False,
@@ -1523,15 +1605,16 @@ def phase_flash(gen) -> tuple:
                 gen, b, h, n, n, dqk, dv, dtype, mask, strided)
             sc = dqk ** -0.5
             key = f"{name} {tag}"
-            route = flash_bwd_route(q, k, v)
+            route = attention_route(q, k, v)
+            kernels.reset_launch_counts()
             out, lse = kernels.flash_attention_fwd(q, k, v, sc, key_mask,
                                                    causal)
-            kernels.reset_launch_counts()
             got = kernels.flash_attention_bwd(q, k, v, out, lse, do, sc,
                                               key_mask, causal)
-            want = expected_launches(**{f"flash_attention_bwd{route}": 1})
+            want = expected_launches(**{f"flash_attention_fwd{route}": 1,
+                                        f"flash_attention_bwd{route}": 1})
             if kernels.launch_counts != want:
-                raise AssertionError(f"K4-bwd {key}: launches "
+                raise AssertionError(f"K4 {key}: launches "
                                      f"{kernels.launch_counts} != {want}")
             route_launches.update({k: v for k, v in
                                    kernels.launch_counts.items() if v})
@@ -1539,54 +1622,72 @@ def phase_flash(gen) -> tuple:
             (errs["fwd"][key], errs["mean"][key],
              errs["bwd"][key]) = check_flash(
                 key, q, k, v, do, out, lse, got, key_mask, causal)
-            route_err[route] = max(route_err[route], errs["bwd"][key])
+            for d in ("fwd", "bwd"):
+                route_err[d][route] = max(route_err[d][route], errs[d][key])
             again = kernels.flash_attention_bwd(q, k, v, out, lse, do, sc,
                                                 key_mask, causal)
-            if not all(torch.equal(x, y) for x, y in zip(got, again)):
-                raise AssertionError(f"K4-bwd {key}: two runs differ")
-            del q, k, v, do, out, lse, got, again
+            out2, lse2 = kernels.flash_attention_fwd(q, k, v, sc, key_mask,
+                                                     causal)
+            if not (all(torch.equal(x, y) for x, y in zip(got, again))
+                    and torch.equal(out, out2) and torch.equal(lse, lse2)):
+                raise AssertionError(f"K4 {key}: two runs differ")
+            del q, k, v, do, out, lse, got, again, out2, lse2
 
     # the timed shapes in bf16: both kernels held against the plain
-    # versions (CLIP_PLAIN_BATCH rows at a time), then K4-fwd, K4-bwd on
-    # the TMA route and on the mma.sync route, the library and the bound,
-    # and the plain versions' time at CLIP_PLAIN_BATCH
+    # versions (CLIP_PLAIN_BATCH rows at a time), then K4-fwd and K4-bwd on
+    # the TMA route and on the mma.sync route, the library and the bound
+    # (the forward's beside the exp units' floor), and the plain versions'
+    # time at CLIP_PLAIN_BATCH; at B=64 and 128-wide heads the forward only
     timing = {}
     for b, dqk, dv in FLASH_TIMED:
         torch.cuda.empty_cache()
+        with_bwd = b <= CLIP_BATCH and (dqk, b) != (128, CLIP_BATCH)
         q, k, v, do, _ = attention_case(gen, b, 8, CLIP_PATCHES,
                                         CLIP_PATCHES, dqk, dv, torch.bfloat16,
                                         strided=True)
         sc = dqk ** -0.5
-        out, lse = kernels.flash_attention_fwd(q, k, v, sc)
         kernels.reset_launch_counts()
-        got = kernels.flash_attention_bwd(q, k, v, out, lse, do, sc)
+        out, lse = kernels.flash_attention_fwd(q, k, v, sc)
+        got = (kernels.flash_attention_bwd(q, k, v, out, lse, do, sc)
+               if with_bwd else None)
         route_launches.update({k: v for k, v in kernels.launch_counts.items()
                                if v})
-        if kernels.launch_counts["flash_attention_bwd"] != 1:
-            raise AssertionError(f"K4-bwd B={b} {dqk}/{dv}: not the TMA "
-                                 "route")
+        if kernels.launch_counts != expected_launches(
+                flash_attention_fwd=1, flash_attention_bwd=int(with_bwd)):
+            raise AssertionError(f"K4 B={b} {dqk}/{dv}: not the TMA routes")
         name = f"MLA clip B={b} 4608 Dqk{dqk} Dv{dv} bfloat16"
-        errs["fwd"][name], errs["mean"][name], errs["bwd"][name] = (
-            check_flash(name, q, k, v, do, out, lse, got,
-                        chunk=CLIP_PLAIN_BATCH))
-        route_err[""] = max(route_err[""], errs["bwd"][name])
+        if with_bwd:
+            errs["fwd"][name], errs["mean"][name], errs["bwd"][name] = (
+                check_flash(name, q, k, v, do, out, lse, got,
+                            chunk=CLIP_PLAIN_BATCH))
+            route_err["bwd"][""] = max(route_err["bwd"][""],
+                                       errs["bwd"][name])
+        else:
+            errs["fwd"][name], errs["mean"][name] = check_flash_rows(
+                name, q, k, v, out, lse)
+        route_err["fwd"][""] = max(route_err["fwd"][""], errs["fwd"][name])
         del got
         torch.cuda.empty_cache()
         pairs = CLIP_PATCHES ** 2
         fwd_flops = 2 * b * 8 * pairs * (dqk + dv)
         bwd_flops = attn_bwd_flops(b, 8, pairs, dqk, dv)
-        fwd = {"ms": cuda_ms(lambda: kernels.flash_attention_fwd(q, k, v, sc),
-                             iters=5, warmup=1),
-               "library_ms": library_fwd_ms(q, k, v, sc)}
+        fwd = {"ms": cuda_ms(lambda: kernels.flash_attention_fwd_tma(
+                   q, k, v, sc), iters=5, warmup=1),
+               "mma_ms": cuda_ms(lambda: kernels.flash_attention_fwd_mma(
+                   q, k, v, sc), iters=3, warmup=1),
+               "library_ms": library_fwd_ms(q, k, v, sc),
+               "exp_floor_ms": exp_floor_ms(b * 8 * pairs)}
         fwd.update(bound(nbytes(q, k, v, out, lse), fwd_flops,
                          torch.bfloat16))
-        bwd = {"ms": cuda_ms(lambda: kernels.flash_attention_bwd(
-                   q, k, v, out, lse, do, sc), iters=5, warmup=1),
-               "mma_ms": cuda_ms(lambda: kernels.flash_attention_bwd_mma(
-                   q, k, v, out, lse, do, sc), iters=3, warmup=1),
-               "library_ms": library_bwd_ms(q, k, v, do, sc)}
-        bwd.update(bound(nbytes(q, k, v, out, lse, do, q, k, v), bwd_flops,
-                         torch.bfloat16))
+        bwd = None
+        if with_bwd:
+            bwd = {"ms": cuda_ms(lambda: kernels.flash_attention_bwd(
+                       q, k, v, out, lse, do, sc), iters=5, warmup=1),
+                   "mma_ms": cuda_ms(lambda: kernels.flash_attention_bwd_mma(
+                       q, k, v, out, lse, do, sc), iters=3, warmup=1),
+                   "library_ms": library_bwd_ms(q, k, v, do, sc)}
+            bwd.update(bound(nbytes(q, k, v, out, lse, do, q, k, v),
+                             bwd_flops, torch.bfloat16))
         if b == CLIP_PLAIN_BATCH:
             fwd["plain_ms"] = cuda_ms(
                 lambda: flash_attention.flash_attention_plain(q, k, v,
@@ -1596,18 +1697,20 @@ def phase_flash(gen) -> tuple:
                 lambda: flash_attention.flash_attention_bwd_plain(
                     q, k, v, out, lse, do, scale=sc), iters=2, warmup=1)
         fwd["tflops"] = fwd_flops / fwd["ms"] / 1e9
-        bwd["tflops"] = bwd_flops / bwd["ms"] / 1e9
+        if bwd:
+            bwd["tflops"] = bwd_flops / bwd["ms"] / 1e9
         timing[(b, dqk, dv)] = {"fwd": fwd, "bwd": bwd}
         del q, k, v, do, out, lse
     torch.cuda.empty_cache()
 
     def row(t):
-        return (f"kernel {t['ms']:.3f} ({t['tflops']:.1f} TFLOP/s), "
-                + (f"mma.sync route's kernel {t['mma_ms']:.3f}, "
-                   if "mma_ms" in t else "")
+        return (f"TMA route {t['ms']:.3f} ({t['tflops']:.1f} TFLOP/s), "
+                + f"mma.sync route {t['mma_ms']:.3f}, "
                 + (f"plain {t['plain_ms']:.3f}, " if "plain_ms" in t else "")
                 + f"library {fmt(t['library_ms'])}, bound "
-                f"{t['bound_ms']:.3f} ({t['bound_by']})")
+                f"{t['bound_ms']:.3f} ({t['bound_by']})"
+                + (f", exp floor {t['exp_floor_ms']:.3f}"
+                   if "exp_floor_ms" in t else ""))
     for d in ("fwd", "bwd"):
         print(f"[11 K4-{d} flash_attention_{d}] "
               + ("routes per case (TMA = wgmma over TMA tiles, _mma, "
@@ -1626,17 +1729,14 @@ def phase_flash(gen) -> tuple:
               "(device, CUDA events; library = scaled_dot_product_attention"
               + (")" if d == "fwd" else " backward)") + ": " + "; ".join(
                   f"B={b} Dqk {dqk} Dv {dv} {row(t[d])}"
-                  for (b, dqk, dv), t in timing.items())
+                  for (b, dqk, dv), t in timing.items() if t[d])
               + f" | {card()}")
     base = timing[(CLIP_PLAIN_BATCH, 48, 32)]
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    return ({"max_abs_err": max(errs["fwd"].values()),
-             **{k: base["fwd"][k] for k in keys}},
-            {"max_abs_err": route_err[""],
-             "mma_max_abs_err": route_err["_mma"],
-             "mma_ms": base["bwd"]["mma_ms"],
-             "launches": dict(route_launches),
-             **{k: base["bwd"][k] for k in keys}})
+    keys = ("ms", "mma_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    return tuple({"max_abs_err": route_err[d][""],
+                  "mma_max_abs_err": route_err[d]["_mma"],
+                  "launches": dict(route_launches),
+                  **{k: base[d][k] for k in keys}} for d in ("fwd", "bwd"))
 
 
 def train_timing(trainer, batch, iters=5, plain=True) -> dict:
@@ -3166,13 +3266,15 @@ def main() -> None:
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"]},
         {"name": "vmem_attention_bwd", "route": "cuda",
-         "source": "deepearth_tpu_torch/kernels/csrc/attention_vmem_bwd.cu",
+         "source":
+             "deepearth_tpu_torch/kernels/csrc/flash_attention_bwd_tma.cu",
          "replaces": "deepearth_tpu/ops/attention_vmem.py:72",
          "launches": mmt["launches"]["vmem_attention_bwd"],
          "max_abs_err": k3b["max_abs_err"], "ms": k3b["ms"],
          "plain_ms": k3b["plain_ms"]},
         {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "deepearth_tpu_torch/kernels/csrc/flash_attention.cu",
+         "source":
+             "deepearth_tpu_torch/kernels/csrc/flash_attention_fwd_tma.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:331"
                      " (called at deepearth_tpu/models/deepseek.py:267)",
          "launches": clip["launches"]["flash_attention_fwd"],
@@ -3241,11 +3343,17 @@ def main() -> None:
     for k in report["kernels"]:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
-    # the mma.sync routes of K4-bwd, K5-fwd and K5-bwd take the bf16 shapes
-    # TMA cannot (head dims, K or N off the 8-element grid): no main path
-    # reaches them, so their launches are phase 11's and 14's, their times
-    # the timed shapes' through their wrappers
-    mma_of = {"flash_attention_bwd": (
+    # the mma.sync routes of K3-bwd, K4, K5-fwd and K5-bwd take the bf16
+    # shapes TMA cannot (head dims, strides, K or N off the 8-element grid):
+    # no main path reaches them, so their launches are phases 10's, 11's
+    # and 14's, their times the timed shapes' through their wrappers
+    mma_of = {"vmem_attention_bwd": (
+                  "deepearth_tpu_torch/kernels/csrc/attention_vmem_bwd.cu",
+                  "launches_in_phase_10", k3b),
+              "flash_attention_fwd": (
+                  "deepearth_tpu_torch/kernels/csrc/flash_attention.cu",
+                  "launches_in_phase_11", k4),
+              "flash_attention_bwd": (
                   "deepearth_tpu_torch/kernels/csrc/flash_attention.cu",
                   "launches_in_phase_11", k4b),
               "grouped_matmul_fwd": (
@@ -3257,7 +3365,9 @@ def main() -> None:
               "grouped_matmul_bwd_drhs": (
                   "deepearth_tpu_torch/kernels/csrc/grouped_matmul_bwd.cu",
                   "launches_in_phase_14", k5b["drhs"])}
-    phase_launches = {"flash_attention_bwd": k4b["launches"],
+    phase_launches = {"vmem_attention_bwd": k3b["launches"],
+                      "flash_attention_fwd": k4["launches"],
+                      "flash_attention_bwd": k4b["launches"],
                       "grouped_matmul_fwd": k5["launches"],
                       "grouped_matmul_bwd_dlhs": k5b["launches"],
                       "grouped_matmul_bwd_drhs": k5b["launches"]}

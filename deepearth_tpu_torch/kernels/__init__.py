@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their launch wrappers:
 K1 ``pairwise_attention_fwd`` / ``_bwd``, K2 ``hash_encode_fwd`` / ``_bwd``,
-K3 ``vmem_attention_fwd`` / ``_bwd``, K4 ``flash_attention_fwd`` / ``_bwd``
-(the backward by one of three routes, :func:`flash_bwd_tma_route`),
+K3 ``vmem_attention_fwd`` / ``_bwd`` (the backward by one of three routes,
+:func:`vmem_bwd_tma_route`), K4 ``flash_attention_fwd`` / ``_bwd`` (each by
+one of three routes, :func:`flash_fwd_tma_route`, :func:`flash_bwd_tma_route`),
 K5 ``grouped_matmul_fwd`` (three routes, :func:`gmm_fwd_tma_route`) and
 ``grouped_matmul_bwd`` (which launches
 ``grouped_matmul_split_dout`` and ``grouped_matmul_bwd_{dlhs,drhs}_tma``, or
@@ -44,11 +45,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launches per kernel since the last reset_launch_counts().
 launch_counts = {"hash_encode_fwd": 0, "hash_encode_bwd": 0,
                  "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
+                 # K3-bwd, K4-fwd, K4-bwd, K5-fwd and K5-bwd by route: wgmma
+                 # over TMA tiles (no suffix), mma.sync (bf16 off TMA's
+                 # grid), CUDA cores (fp32)
                  "vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
-                 # K4-bwd, K5-fwd and K5-bwd by route: wgmma over TMA tiles
-                 # (no suffix), mma.sync (bf16 off TMA's grid), CUDA cores
-                 # (fp32)
-                 "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                 "vmem_attention_bwd_mma": 0, "vmem_attention_bwd_fp32": 0,
+                 "flash_attention_fwd": 0, "flash_attention_fwd_mma": 0,
+                 "flash_attention_fwd_fp32": 0, "flash_attention_bwd": 0,
                  "flash_attention_bwd_mma": 0, "flash_attention_bwd_fp32": 0,
                  "grouped_matmul_fwd": 0, "grouped_matmul_fwd_mma": 0,
                  "grouped_matmul_fwd_fp32": 0, "grouped_matmul_split_dout": 0,
@@ -71,8 +74,11 @@ _SIGNATURES = {
     "attention_vmem_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            *[_I64] * 9, _F, _I, _P],
     "attention_vmem_bwd": [*[_P] * 10, *[_I] * 6, *[_I64] * 9, _F, _I, _P],
+    "attention_vmem_bwd_tma": [*[_P] * 10, *[_I] * 6, *[_I64] * 9, _F, _P],
     "flash_attention_fwd": [*[_P] * 6, *[_I] * 6, *[_I64] * 9, _F, _I, _I,
                             _P],
+    "flash_attention_fwd_tma": [*[_P] * 6, *[_I] * 6, *[_I64] * 9, _F, _I,
+                                _P],
     "flash_attention_bwd": [*[_P] * 11, *[_I] * 6, *[_I64] * 9, _F, _I, _I,
                             _P],
     "flash_attention_bwd_tma": [*[_P] * 11, *[_I] * 6, *[_I64] * 9, _F, _I,
@@ -393,32 +399,160 @@ def vmem_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def vmem_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       dout: torch.Tensor, scale: float,
-                       key_mask: Optional[torch.Tensor] = None):
-    """K3 backward: the forward's inputs plus dout (B, H, Nq, Dv), the
-    gradient of its output, in q's dtype. Returns (dq, dk, dv), contiguous,
-    in q's dtype."""
+def _vmem_bwd_inputs(name, q, k, v, dout, key_mask):
+    """Checks of K3-bwd's inputs; returns the shapes, q, k, v's strides, the
+    key mask, contiguous dout, the outputs (dq, dk, dv) and the scratch lse
+    and delta (per query row, written by the dq kernel for the dk/dv
+    kernel), allocated."""
     (b, h, nq, nk, dqk, dv), strides, key_mask = _bhnd_inputs(
         "vmem attention", q, k, v, key_mask)
     _require(nk <= VMEM_MAX_SEQ and nq <= VMEM_MAX_SEQ,
              f"vmem attention: Nq {nq} and Nk {nk} must be at most "
              f"{VMEM_MAX_SEQ}")
-    dout = _like_output("vmem_attention_bwd: dout", dout, q, (b, h, nq, dv),
-                        q.dtype)
+    dout = _like_output(f"{name}: dout", dout, q, (b, h, nq, dv), q.dtype)
     grads = [torch.empty(shape, device=q.device, dtype=q.dtype) for shape in
              ((b, h, nq, dqk), (b, h, nk, dqk), (b, h, nk, dv))]
-    # per query row: the log-sum-exp and delta, written by the dq kernel for
-    # the dk/dv kernel
     lse, delta = (torch.empty((b, h, nq), device=q.device,
                               dtype=torch.float32) for _ in range(2))
+    return ((b, h, nq, nk, dqk, dv), strides, key_mask, dout, grads, lse,
+            delta)
+
+
+def vmem_bwd_tma_route(dtype, d_qk: int, d_v: int, strides) -> bool:
+    """Whether K3-bwd takes its TMA route (wgmma over TMA-fed tiles,
+    ``csrc/flash_attention_bwd_tma.cu`` with the dq kernel's stats sweep):
+    the shapes and strides :func:`flash_bwd_tma_route` takes. Else bf16
+    takes the mma.sync route, fp32 the CUDA cores. A function of the shapes
+    and strides alone."""
+    return flash_bwd_tma_route(dtype, d_qk, d_v, strides)
+
+
+def vmem_attention_bwd_tma(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, dout: torch.Tensor, scale: float,
+                           key_mask: Optional[torch.Tensor] = None):
+    """K3-bwd's TMA route (wgmma over TMA tiles,
+    ``csrc/flash_attention_bwd_tma.cu``), as :func:`vmem_attention_bwd`, on
+    the shapes and strides :func:`vmem_bwd_tma_route` takes; counted as
+    ``vmem_attention_bwd``."""
+    name = "vmem_attention_bwd"
+    shapes, _, key_mask, dout, grads, lse, delta = _vmem_bwd_inputs(
+        name, q, k, v, dout, key_mask)
+    strides = [s for x in (q, k, v) for s in _tma_strides(x)]
+    _require(vmem_bwd_tma_route(q.dtype, shapes[4], shapes[5], strides),
+             f"{name}: the TMA route takes bfloat16 with head dims and "
+             "strides multiples of 8")
+    q, k, v, dout = (_aligned16_view(x) for x in (q, k, v, dout))
+    rc = library().attention_vmem_bwd_tma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+        dout.data_ptr(), *(g.data_ptr() for g in grads), lse.data_ptr(),
+        delta.data_ptr(), *shapes,
+        *(s for x in (q, k, v) for s in _tma_strides(x)), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check(name, rc)
+    return tuple(grads)
+
+
+def vmem_attention_bwd_mma(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, dout: torch.Tensor, scale: float,
+                           key_mask: Optional[torch.Tensor] = None):
+    """K3-bwd's kernels of ``csrc/attention_bwd.cuh``
+    (``csrc/attention_vmem_bwd.cu``), as :func:`vmem_attention_bwd`, on any
+    shapes: mma.sync for bf16 (counted ``vmem_attention_bwd_mma``), the
+    CUDA cores for fp32 (``_fp32``)."""
+    shapes, strides, key_mask, dout, grads, lse, delta = _vmem_bwd_inputs(
+        "vmem_attention_bwd", q, k, v, dout, key_mask)
     rc = library().attention_vmem_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
         dout.data_ptr(), *(g.data_ptr() for g in grads), lse.data_ptr(),
-        delta.data_ptr(), b, h, nq, nk, dqk, dv, *strides, float(scale),
+        delta.data_ptr(), *shapes, *strides, float(scale),
         _ATTN_DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _check("vmem_attention_bwd", rc)
+    _check("vmem_attention_bwd"
+           + ("_mma" if q.dtype == torch.bfloat16 else "_fp32"), rc)
     return tuple(grads)
+
+
+def vmem_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor, scale: float,
+                       key_mask: Optional[torch.Tensor] = None):
+    """K3 backward: the forward's inputs plus dout (B, H, Nq, Dv), the
+    gradient of its output, in q's dtype. Returns (dq, dk, dv), contiguous,
+    in q's dtype. One launch of the dq kernel and one of the dk/dv kernel,
+    counted as one, by the route :func:`vmem_bwd_tma_route` picks from the
+    shapes and strides: :func:`vmem_attention_bwd_tma`
+    (``vmem_attention_bwd``) or :func:`vmem_attention_bwd_mma` (``_mma``,
+    ``_fp32``)."""
+    route = (vmem_attention_bwd_tma if _on_tma_grid(vmem_bwd_tma_route, q, k,
+                                                    v)
+             else vmem_attention_bwd_mma)
+    return route(q, k, v, dout, scale, key_mask)
+
+
+def _on_tma_grid(route, q, k, v) -> bool:
+    """Whether ``route`` (a ``*_tma_route`` rule) takes these q, k, v."""
+    return q.dim() == 4 and v.dim() == 4 and route(
+        q.dtype, q.shape[-1], v.shape[-1],
+        [s for x in (q, k, v) for s in _tma_strides(x)])
+
+
+def _flash_fwd_inputs(q, k, v, key_mask):
+    """Checks of K4-fwd's inputs; returns the shapes, q, k, v's strides, the
+    key mask, and the outputs (out, lse), allocated."""
+    (b, h, nq, nk, dqk, dv), strides, key_mask = _bhnd_inputs(
+        "flash attention", q, k, v, key_mask)
+    out = torch.empty((b, h, nq, dv), device=q.device, dtype=q.dtype)
+    lse = torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
+    return (b, h, nq, nk, dqk, dv), strides, key_mask, out, lse
+
+
+def flash_fwd_tma_route(dtype, d_qk: int, d_v: int, strides) -> bool:
+    """Whether K4-fwd takes its TMA route (wgmma over TMA-fed tiles,
+    ``csrc/flash_attention_fwd_tma.cu``): the shapes and strides
+    :func:`flash_bwd_tma_route` takes. Else bf16 takes the mma.sync route,
+    fp32 the CUDA cores. A function of the shapes and strides alone."""
+    return flash_bwd_tma_route(dtype, d_qk, d_v, strides)
+
+
+def flash_attention_fwd_tma(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: float,
+                            key_mask: Optional[torch.Tensor] = None,
+                            causal: bool = False):
+    """K4-fwd's TMA route (wgmma over TMA tiles,
+    ``csrc/flash_attention_fwd_tma.cu``), as :func:`flash_attention_fwd`, on
+    the shapes and strides :func:`flash_fwd_tma_route` takes; counted as
+    ``flash_attention_fwd``."""
+    name = "flash_attention_fwd"
+    shapes, _, key_mask, out, lse = _flash_fwd_inputs(q, k, v, key_mask)
+    strides = [s for x in (q, k, v) for s in _tma_strides(x)]
+    _require(flash_fwd_tma_route(q.dtype, shapes[4], shapes[5], strides),
+             f"{name}: the TMA route takes bfloat16 with head dims and "
+             "strides multiples of 8")
+    q, k, v = (_aligned16_view(x) for x in (q, k, v))
+    rc = library().flash_attention_fwd_tma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+        out.data_ptr(), lse.data_ptr(), *shapes,
+        *(s for x in (q, k, v) for s in _tma_strides(x)), float(scale),
+        int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+    _check(name, rc)
+    return out, lse
+
+
+def flash_attention_fwd_mma(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: float,
+                            key_mask: Optional[torch.Tensor] = None,
+                            causal: bool = False):
+    """K4-fwd's kernels of ``csrc/flash_attention.cu``, as
+    :func:`flash_attention_fwd`, on any shapes: mma.sync for bf16 (counted
+    ``flash_attention_fwd_mma``), the CUDA cores for fp32 (``_fp32``)."""
+    shapes, strides, key_mask, out, lse = _flash_fwd_inputs(q, k, v,
+                                                            key_mask)
+    rc = library().flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+        out.data_ptr(), lse.data_ptr(), *shapes, *strides, float(scale),
+        int(causal), _ATTN_DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check("flash_attention_fwd"
+           + ("_mma" if q.dtype == torch.bfloat16 else "_fp32"), rc)
+    return out, lse
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -429,18 +563,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     any N >= 1, Dqk and Dv <= 128; key_mask optional (B, Nk) bool; causal:
     key j visible to query i iff j <= i. Returns (out (B, H, Nq, Dv) in q's
     dtype, lse (B, H, Nq) float32), both contiguous; a row whose keys are
-    all masked gives out 0 and lse +inf."""
-    (b, h, nq, nk, dqk, dv), strides, key_mask = _bhnd_inputs(
-        "flash attention", q, k, v, key_mask)
-    out = torch.empty((b, h, nq, dv), device=q.device, dtype=q.dtype)
-    lse = torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
-    rc = library().flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
-        out.data_ptr(), lse.data_ptr(), b, h, nq, nk, dqk, dv, *strides,
-        float(scale), int(causal), _ATTN_DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _check("flash_attention_fwd", rc)
-    return out, lse
+    all masked gives out 0 and lse +inf. One launch, by the route
+    :func:`flash_fwd_tma_route` picks from the shapes and strides:
+    :func:`flash_attention_fwd_tma` (``flash_attention_fwd``) or
+    :func:`flash_attention_fwd_mma` (``_mma``, ``_fp32``)."""
+    route = (flash_attention_fwd_tma if _on_tma_grid(flash_fwd_tma_route, q,
+                                                     k, v)
+             else flash_attention_fwd_mma)
+    return route(q, k, v, scale, key_mask, causal)
 
 
 def _tma_strides(x: torch.Tensor):
@@ -548,10 +678,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     as one, by the route :func:`flash_bwd_tma_route` picks from the shapes
     and strides: :func:`flash_attention_bwd_tma` (``flash_attention_bwd``)
     or :func:`flash_attention_bwd_mma` (``_mma``, ``_fp32``)."""
-    route = (flash_attention_bwd_tma if q.dim() == 4 and flash_bwd_tma_route(
-        q.dtype, q.shape[-1], v.shape[-1],
-        [s for x in (q, k, v) for s in _tma_strides(x)])
-        else flash_attention_bwd_mma)
+    route = (flash_attention_bwd_tma if _on_tma_grid(flash_bwd_tma_route, q,
+                                                     k, v)
+             else flash_attention_bwd_mma)
     return route(q, k, v, out, lse, dout, scale, key_mask, causal)
 
 

@@ -1,4 +1,7 @@
-// Mid-length multi-head attention, backward (K3-bwd).
+// Mid-length multi-head attention, backward (K3-bwd): the mma.sync route
+// (bf16 shapes off TMA's 8-element grid) and the CUDA-core one (fp32). bf16
+// on the grid takes the TMA route, attention_vmem_bwd_tma in
+// flash_attention_bwd_tma.cu; kernels.vmem_bwd_tma_route chooses.
 //
 // Replaces: deepearth_tpu/ops/attention_vmem.py `_bwd_kernel` (Pallas,
 // launched by `_run_bwd` through the custom VJP of `vmem_attention`).

@@ -1,4 +1,8 @@
-// Long-sequence multi-head attention, forward and backward (K4-fwd, K4-bwd).
+// Long-sequence multi-head attention, forward and backward (K4-fwd, K4-bwd):
+// the mma.sync routes (bf16 shapes off TMA's 8-element grid) and the
+// CUDA-core ones (fp32). bf16 on the grid takes the TMA routes,
+// flash_attention_fwd_tma.cu and flash_attention_bwd_tma.cu;
+// kernels.flash_fwd_tma_route and kernels.flash_bwd_tma_route choose.
 //
 // Replaces: the library flash attention that deepearth_tpu/models/deepseek.py
 // `MLAttention` calls at N >= flash_min_seq (jax.experimental.pallas.ops.tpu

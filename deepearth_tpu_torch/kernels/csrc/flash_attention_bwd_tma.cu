@@ -1,19 +1,23 @@
-// Long-sequence attention backward (K4-bwd), the TMA route: wgmma over
-// TMA-fed, 128-byte-swizzled tiles, for bf16 with head dims that are
-// multiples of 8 (at most 128) and q, k, v strides along B, H and N that
-// are multiples of 8 elements (TMA's 16-byte strides). Other bf16 shapes
-// take the mma.sync kernels of attention_bwd.cuh, fp32 its CUDA-core ones;
-// kernels.flash_bwd_tma_route chooses from the shapes and strides alone.
+// Attention backward on the TMA route, long-sequence (K4-bwd) and
+// mid-length (K3-bwd): wgmma over TMA-fed, 128-byte-swizzled tiles, for
+// bf16 with head dims that are multiples of 8 (at most 128) and q, k, v
+// strides along B, H and N that are multiples of 8 elements (TMA's 16-byte
+// strides). Other bf16 shapes take the mma.sync kernels of
+// attention_bwd.cuh, fp32 its CUDA-core ones; kernels.flash_bwd_tma_route
+// and kernels.vmem_bwd_tma_route choose from the shapes and strides alone.
 //
 // Replaces: the library flash backward that deepearth_tpu/models/deepseek.py
 // `MLAttention` reaches (:267) at N >= flash_min_seq
 // (jax/experimental/pallas/ops/tpu/flash_attention.py
 // `_flash_attention_bwd_dkv`, pallas_call :1121, and
-// `_flash_attention_bwd_dq`, pallas_call :1456).
+// `_flash_attention_bwd_dq`, pallas_call :1456), and
+// deepearth_tpu/ops/attention_vmem.py `_bwd_kernel` (:72, pallas_call :127).
 //
-// Computes what attention_bwd.cuh computes without kStats: with lse from
-// the forward (+inf for an all-masked row, so p = 0 there) and
-// delta = rowsum(out o dout),
+// Computes what attention_bwd.cuh computes. K4 (flash_attention_bwd_tma):
+// lse from the forward (+inf for an all-masked row, so p = 0 there) and
+// delta = rowsum(out o dout). K3 (attention_vmem_bwd_tma): no forward
+// output; the dq kernel's kStats sweep takes each row's lse and
+// delta = rowsum(dp o p) from the fp32 p over the keys first. Then
 //   p = exp(s - lse), s = q.k * scale, 0 where the key mask or `causal`
 //   hides the key; dv = bf16(p)^T . dout; ds = p (dout.v^T - delta) scale;
 //   dq = bf16(ds) . k; dk = bf16(ds)^T . q;
@@ -22,12 +26,17 @@
 // Bound on the H100: at the vision MLA over a V-JEPA2 clip (B = 64, 8
 // heads, 4608 x 4608, Dqk 48, Dv 32) the five products are 4.5 TFLOP,
 // 4.57 ms at 989 TFLOP/s; the 1.09e10 (query, key) pairs also need one
-// exp each per pass (~2.9 ms a pass at 16 per SM and clock). Design:
+// exp each per pass (~2.9 ms a pass at 16 per SM and clock). At K3's
+// multimodal MLA site (B = 512, 8 heads, 576 x 576, 48 / 32) 0.68 TFLOP,
+// 0.69 ms. Design:
 //  - the library's split, two kernels on one stream, each sum inside one
 //    block (no atomics: the same bits every run). The dq kernel (a block
-//    per (b, h, 64 queries)) writes dq and delta; the dk/dv kernel (a
-//    block per (b, h, 64 keys)) reads delta and writes dk and dv. Each
-//    recomputes s and dout.v^T: seven products, two exp passes;
+//    per (b, h, 64 queries)) writes dq and delta (K3 also lse); the dk/dv
+//    kernel (a block per (b, h, 64 keys)) reads them and writes dk and dv.
+//    Each recomputes s and dout.v^T: seven products, two exp passes (K3's
+//    stats sweep adds two products and an exp pass: the producer streams
+//    the key tiles twice, so q and dout are read once, and no kernel is
+//    launched for the stats);
 //  - a block is one consumer warpgroup and one producer warp. The producer
 //    loads the block's own rows once (q and dout, or k and v) and streams
 //    the other side in tiles of 64 rows through a ring of 4 stages by TMA
@@ -57,8 +66,7 @@
 //    kernel's per-row flag); queries past Nq get lse = +inf, so p = 0;
 //    causal blocks skip the tiles that no row of theirs sees.
 
-#include "attention_common.cuh"
-#include "hopper_gemm.cuh"
+#include "attention_tma.cuh"
 
 namespace {
 
@@ -88,18 +96,12 @@ struct Layout {
   static constexpr int kMinBlocks = DP + DVP <= 128 ? 2 : 1;
 };
 
-// Where a tensor's (n, h, b) axes sit in its tensor map (dims 1..3, ordered
-// by stride).
-struct MapOrder {
-  int n, h, b;
-};
-
 struct TmaArgs {
   MapOrder q_order, k_order, v_order, do_order;
-  const float* lse;       // (B, H, Nq), the forward's
-  float* delta;           // (B, H, Nq): the dq kernel writes it
+  float* lse;    // (B, H, Nq): K4's from the forward; K3's dq kernel writes
+  float* delta;  // (B, H, Nq): the dq kernel writes it
   const uint8_t* key_mask;  // (B, Nk) or null
-  const bf16* out;        // (B, H, Nq, Dv), contiguous
+  const bf16* out;        // (B, H, Nq, Dv), contiguous; K3: null
   const bf16* dout;       // (B, H, Nq, Dv), contiguous
   bf16* dq;               // (B, H, Nq, Dqk), contiguous
   bf16* dk;               // (B, H, Nk, Dqk)
@@ -108,19 +110,6 @@ struct TmaArgs {
   float scale;
   int causal;
 };
-
-// 64 rows from `row` of head (b, h) of a (B, H, N, D) tensor, columns
-// [64 p, 64 p + 64) of its head dim, into one panel.
-__device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
-                                          MapOrder o, uint64_t* bar, int p,
-                                          int row, int h, int b) {
-  int c[4];
-  c[0] = 64 * p;
-  c[o.n] = row;
-  c[o.h] = h;
-  c[o.b] = b;
-  tma_load_4d(dst, map, bar, c[0], c[1], c[2], c[3]);
-}
 
 // The block's own 128 rows from `row0` of each of two tensors into the
 // resident tile, completing on `bar` (one thread).
@@ -194,31 +183,6 @@ __device__ __forceinline__ void head_products(float (&acc1)[32],
   wgmma_wait<0>();
   fence_operands(acc1);
   fence_operands(acc2);
-}
-
-// Stores a warpgroup's 64 x (N) accumulator, rounded to bf16, as rows
-// [row0, row0 + 64) of a contiguous (n_rows, width) matrix; rows past
-// n_rows and columns past width (even) are dropped.
-template <int N>
-__device__ __forceinline__ void store_rows_bf16(bf16* dst,
-                                                const float (&acc)[N / 2],
-                                                int row0, int n_rows,
-                                                int width) {
-  const int t = threadIdx.x % 128;
-  const int r = 16 * (t / 32) + (t % 32) / 4, col0 = 2 * (t % 4);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + r + 8 * h;
-    if (row >= n_rows) continue;
-    bf16* to = dst + static_cast<int64_t>(row) * width;
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const int col = 8 * j + col0;
-      if (col < width)
-        *reinterpret_cast<uint32_t*>(to + col) =
-            pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-  }
 }
 
 // ----------------------------------------------------------------- dk/dv ----
@@ -368,7 +332,13 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
 
 // -------------------------------------------------------------------- dq ----
 
-template <int DP, int DVP, int NQ, int NV, bool kMasked>
+// kStats (K3): no forward saved lse, so the producer streams the key tiles
+// twice; the first sweep keeps per row the running max m, l = sum exp(s - m)
+// and t = sum exp(s - m) dp (attention_bwd.cuh's recurrence), and ends with
+// lse = m + log l and delta = t / l (+inf and 0 where l = 0), written for
+// the dk/dv kernel; the second sweep is the dq sweep. Without it (K4) lse
+// is the forward's and delta = rowsum(out o dout).
+template <int DP, int DVP, int NQ, int NV, bool kMasked, bool kStats>
 __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_k,
@@ -397,7 +367,8 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
     const uint8_t* mask_row =
         a.key_mask ? a.key_mask + static_cast<int64_t>(b) * a.nk : nullptr;
     Cursor<kStages> at;
-    for (int i = 0; i < n_tiles; ++i, at.next()) {
+    for (int n = 0; n < (kStats ? 2 : 1) * n_tiles; ++n, at.next()) {
+      const int i = n < n_tiles ? n : n - n_tiles;  // the sweep's tile
       mbar_wait(&ring.empty[at.stage], at.phase ^ 1);
       uint8_t* st = ring.tiles + at.stage * L::kStageBytes;
       float* seen_key = reinterpret_cast<float*>(st + L::kFloats);
@@ -421,13 +392,84 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
   const int r = 16 * (t / 32) + (t % 32) / 4, col0 = 2 * (t % 4);
   const int quad = t % 4;
   const float scale_log2 = a.scale * kLog2e;
+  const int ks1 = (a.d_qk + 15) / 16, ks2 = (a.d_v + 15) / 16;
   float lse2[2], dscale[2];
   int query[2];
+  query[0] = q0 + r;
+  query[1] = q0 + r + 8;
+  Cursor<kStages> at;
+  if constexpr (kStats) {
+    mbar_wait(&res_bar, 0);
+    // the stats sweep, in log2 units: m2 = max s scale log2 e over the
+    // visible keys (-inf while none), l and t rescaled as m2 grows
+    float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f},
+          tsum[2] = {0.0f, 0.0f};
+    for (int i = 0; i < n_tiles; ++i, at.next()) {
+      mbar_wait(&ring.full[at.stage], at.phase);
+      const uint8_t* st = ring.tiles + at.stage * L::kStageBytes;
+      const float* seen_key =
+          reinterpret_cast<const float*>(st + L::kFloats);
+      float s[32], dp[32];
+      head_products<DP, DVP>(s, dp, res, st, ks1, ks2);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + col0 + e;
+          const int kj = i * kStream + col;
+          const bool seen = !kMasked || seen_key[col] != 0.0f;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int x = 4 * j + 2 * hh + e;
+            if (kMasked && !(seen && (!a.causal || kj <= query[hh])))
+              s[x] = -INFINITY;
+            mx[hh] = fmaxf(mx[hh], s[x]);
+          }
+        }
+      }
+      release(ring, at.stage);  // its products and key flags are read
+      float ms[2], le[2] = {0.0f, 0.0f}, te[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float m_new = fmaxf(m2[hh], quad_max(mx[hh]) * scale_log2);
+        // a row with no visible key so far keeps m2 = -inf and l = t = 0
+        ms[hh] = m_new == -INFINITY ? 0.0f : m_new;
+        const float alpha = exp2_approx(m2[hh] - ms[hh]);
+        l[hh] *= alpha;
+        tsum[hh] *= alpha;
+        m2[hh] = m_new;
+      }
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int hh = (x / 2) % 2;
+        const float p = exp2_approx(fmaf(s[x], scale_log2, -ms[hh]));
+        le[hh] += p;
+        te[hh] = fmaf(p, dp[x], te[hh]);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        l[hh] += le[hh];
+        tsum[hh] += te[hh];
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float lt = quad_sum(l[hh]), tt = quad_sum(tsum[hh]);
+      const float lse = lt > 0.0f ? m2[hh] * kLn2 + logf(lt) : INFINITY;
+      const float delta = lt > 0.0f ? tt / lt : 0.0f;
+      lse2[hh] = lse * kLog2e;  // as the dk/dv kernel reads it
+      dscale[hh] = delta * a.scale;
+      if (quad == 0 && query[hh] < a.nq) {
+        a.lse[bh * a.nq + query[hh]] = lse;
+        a.delta[bh * a.nq + query[hh]] = delta;
+      }
+    }
+  }
   // the forward's lse, and delta = rowsum(out o dout) in fp32: the four
   // lanes of a row each sum a quarter of its columns
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    query[hh] = q0 + r + 8 * hh;
+  for (int hh = 0; !kStats && hh < 2; ++hh) {
     float di = 0.0f;
     lse2[hh] = INFINITY;
     if (query[hh] < a.nq) {
@@ -447,11 +489,9 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
     if (quad == 0 && query[hh] < a.nq)
       a.delta[bh * a.nq + query[hh]] = delta;
   }
-  const int ks1 = (a.d_qk + 15) / 16, ks2 = (a.d_v + 15) / 16;
   float dq[NQ / 2];
   zero_acc(dq);
   mbar_wait(&res_bar, 0);
-  Cursor<kStages> at;
   for (int i = 0; i < n_tiles; ++i, at.next()) {
     mbar_wait(&ring.full[at.stage], at.phase);
     const uint8_t* st = ring.tiles + at.stage * L::kStageBytes;
@@ -501,44 +541,17 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
 
 // ------------------------------------------------------------------ host ----
 
-// A tensor map over (B, H, N, D) bf16 with unit stride along D and the
-// given element strides along B, H, N (multiples of 8), boxes of 64 rows
-// by 64 columns; dims 1..3 ordered by stride, their places in `order`.
-bool bhnd_map(CUtensorMap* map, MapOrder* order, const void* base, int b,
-              int h, int n, int d, int64_t sb, int64_t sh, int64_t sn) {
-  struct Axis {
-    int64_t stride;
-    int extent, which;  // which: 0 = n, 1 = h, 2 = b
-  } axes[3] = {{sn, n, 0}, {sh, h, 1}, {sb, b, 2}};
-  for (int i = 1; i < 3; ++i)  // insertion sort, stable
-    for (int j = i; j > 0 && axes[j].stride < axes[j - 1].stride; --j) {
-      const Axis tmp = axes[j];
-      axes[j] = axes[j - 1];
-      axes[j - 1] = tmp;
-    }
-  uint64_t dims[4] = {static_cast<uint64_t>(d), 0, 0, 0};
-  uint64_t strides[3];
-  uint32_t box[4] = {64, 1, 1, 1};
-  int slot[3];
-  for (int i = 0; i < 3; ++i) {
-    dims[i + 1] = static_cast<uint64_t>(axes[i].extent);
-    strides[i] = static_cast<uint64_t>(axes[i].stride) * 2;
-    if (axes[i].which == 0) box[i + 1] = kStream;
-    slot[axes[i].which] = i + 1;
-  }
-  *order = MapOrder{slot[0], slot[1], slot[2]};
-  return hopper_host::bf16_map(map, base, 4, dims, strides, box);
-}
-
 // The kernels for these head dims, each without the masking of p where
 // nothing is masked: no key mask, not causal, and for the dq kernel's key
 // tiles Nk a multiple of 64 (the dk/dv kernel's rows past Nk are never
 // stored, and its queries past Nq have lse = +inf, so p = 0 there).
-template <int DP, int DVP, int NQ, int NV, bool kMaskDq, bool kMaskDkdv>
+template <int DP, int DVP, int NQ, int NV, bool kStats, bool kMaskDq,
+          bool kMaskDkdv>
 int launch_tma(const CUtensorMap (&maps)[4], const TmaArgs& a, int batch,
                cudaStream_t stream) {
   using L = Layout<DP, DVP>;
-  const auto dq_kernel = flash_bwd_dq_wgmma_kernel<DP, DVP, NQ, NV, kMaskDq>;
+  const auto dq_kernel =
+      flash_bwd_dq_wgmma_kernel<DP, DVP, NQ, NV, kMaskDq, kStats>;
   const auto dkdv_kernel =
       flash_bwd_dkdv_wgmma_kernel<DP, DVP, NQ, NV, kMaskDkdv>;
   static const cudaError_t attr = [&] {
@@ -562,15 +575,67 @@ int launch_tma(const CUtensorMap (&maps)[4], const TmaArgs& a, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP, int DVP, int NQ = DP, int NV = DVP>
+template <bool kStats, int DP, int DVP, int NQ = DP, int NV = DVP>
 int launch_tma(const CUtensorMap (&maps)[4], const TmaArgs& a, int batch,
                cudaStream_t stream) {
   if (a.key_mask != nullptr || a.causal)
-    return launch_tma<DP, DVP, NQ, NV, true, true>(maps, a, batch, stream);
+    return launch_tma<DP, DVP, NQ, NV, kStats, true, true>(maps, a, batch,
+                                                           stream);
   return a.nk % kStream
-             ? launch_tma<DP, DVP, NQ, NV, true, false>(maps, a, batch, stream)
-             : launch_tma<DP, DVP, NQ, NV, false, false>(maps, a, batch,
-                                                         stream);
+             ? launch_tma<DP, DVP, NQ, NV, kStats, true, false>(maps, a, batch,
+                                                                stream)
+             : launch_tma<DP, DVP, NQ, NV, kStats, false, false>(maps, a,
+                                                                 batch, stream);
+}
+
+// Both entries after their checks: the tensor maps of q, k, v and dout,
+// then the kernels for the head dims.
+template <bool kStats>
+int launch_for_dims(TmaArgs& a, const void* q, const void* k, const void* v,
+                    int batch, const int64_t (&st)[9], cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const int n_heads = a.n_heads, nq = a.nq, nk = a.nk, d_qk = a.d_qk,
+            d_v = a.d_v;
+  const int64_t do_n = d_v, do_h = static_cast<int64_t>(nq) * d_v,
+                do_b = do_h * n_heads;
+  if (!bhnd_map(&maps[0], &a.q_order, q, batch, n_heads, nq, d_qk, st[0],
+                st[1], st[2], kStream) ||
+      !bhnd_map(&maps[1], &a.k_order, k, batch, n_heads, nk, d_qk, st[3],
+                st[4], st[5], kStream) ||
+      !bhnd_map(&maps[2], &a.v_order, v, batch, n_heads, nk, d_v, st[6],
+                st[7], st[8], kStream) ||
+      !bhnd_map(&maps[3], &a.do_order, a.dout, batch, n_heads, nq, d_v, do_b,
+                do_h, do_n, kStream))
+    return static_cast<int>(cudaErrorInvalidPitchValue);  // map refused
+  if (d_qk == 48 && d_v == 32)  // the multimodal MLA: exact widths
+    return launch_tma<kStats, 64, 64, 48, 32>(maps, a, batch, stream);
+  if (d_qk <= 64)
+    return d_v <= 64 ? launch_tma<kStats, 64, 64>(maps, a, batch, stream)
+                     : launch_tma<kStats, 64, 128>(maps, a, batch, stream);
+  return d_v <= 64 ? launch_tma<kStats, 128, 64>(maps, a, batch, stream)
+                   : launch_tma<kStats, 128, 128>(maps, a, batch, stream);
+}
+
+TmaArgs make_args(const void* key_mask, const void* dout, void* lse,
+                  void* dq, void* dk, void* dv, void* delta, int n_heads,
+                  int nq, int nk, int d_qk, int d_v, float scale) {
+  TmaArgs a;
+  a.lse = static_cast<float*>(lse);
+  a.delta = static_cast<float*>(delta);
+  a.key_mask = static_cast<const uint8_t*>(key_mask);
+  a.out = nullptr;
+  a.dout = static_cast<const bf16*>(dout);
+  a.dq = static_cast<bf16*>(dq);
+  a.dk = static_cast<bf16*>(dk);
+  a.dv = static_cast<bf16*>(dv);
+  a.n_heads = n_heads;
+  a.nq = nq;
+  a.nk = nk;
+  a.d_qk = d_qk;
+  a.d_v = d_v;
+  a.scale = scale;
+  a.causal = 0;
+  return a;
 }
 
 }  // namespace
@@ -590,49 +655,37 @@ extern "C" int flash_attention_bwd_tma(
     int64_t k_n, int64_t v_b, int64_t v_h, int64_t v_n, float scale,
     int causal, void* stream) {
   const int64_t strides[9] = {q_b, q_h, q_n, k_b, k_h, k_n, v_b, v_h, v_n};
-  bool bad = nq < 0 || nk < 1 || d_qk < 8 || d_qk > 128 || d_qk % 8 ||
-             d_v < 8 || d_v > 128 || d_v % 8 || batch > 65535 ||
-             n_heads > 65535;
-  for (const int64_t s : strides) bad = bad || s < 1 || s % 8;
-  const void* bases[5] = {q, k, v, out, dout};
-  for (const void* p : bases)
-    bad = bad || reinterpret_cast<uintptr_t>(p) % 16;
-  if (bad) return static_cast<int>(cudaErrorInvalidValue);
-  if (nq == 0 || batch == 0 || n_heads == 0) return 0;
-  TmaArgs a;
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<float*>(delta);
-  a.key_mask = static_cast<const uint8_t*>(key_mask);
-  a.out = static_cast<const bf16*>(out);
-  a.dout = static_cast<const bf16*>(dout);
-  a.dq = static_cast<bf16*>(dq);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
-  a.n_heads = n_heads;
-  a.nq = nq;
-  a.nk = nk;
-  a.d_qk = d_qk;
-  a.d_v = d_v;
-  a.scale = scale;
-  a.causal = causal;
-  CUtensorMap maps[4];
-  const int64_t do_n = d_v, do_h = static_cast<int64_t>(nq) * d_v,
-                do_b = do_h * n_heads;
-  if (!bhnd_map(&maps[0], &a.q_order, q, batch, n_heads, nq, d_qk, q_b, q_h,
-                q_n) ||
-      !bhnd_map(&maps[1], &a.k_order, k, batch, n_heads, nk, d_qk, k_b, k_h,
-                k_n) ||
-      !bhnd_map(&maps[2], &a.v_order, v, batch, n_heads, nk, d_v, v_b, v_h,
-                v_n) ||
-      !bhnd_map(&maps[3], &a.do_order, dout, batch, n_heads, nq, d_v, do_b,
-                do_h, do_n))
+  if (bad_tma_inputs(batch, n_heads, nq, nk, d_qk, d_v, strides,
+                     {q, k, v, out, dout}))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (d_qk == 48 && d_v == 32)  // the multimodal MLA: exact widths
-    return launch_tma<64, 64, 48, 32>(maps, a, batch, s);
-  if (d_qk <= 64)
-    return d_v <= 64 ? launch_tma<64, 64>(maps, a, batch, s)
-                     : launch_tma<64, 128>(maps, a, batch, s);
-  return d_v <= 64 ? launch_tma<128, 64>(maps, a, batch, s)
-                   : launch_tma<128, 128>(maps, a, batch, s);
+  if (nq == 0 || batch == 0 || n_heads == 0) return 0;
+  TmaArgs a = make_args(key_mask, dout, const_cast<void*>(lse), dq, dk, dv,
+                        delta, n_heads, nq, nk, d_qk, d_v, scale);
+  a.out = static_cast<const bf16*>(out);
+  a.causal = causal;
+  return launch_for_dims<false>(a, q, k, v, batch, strides,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// K3-bwd's TMA route: as attention_vmem_bwd (attention_vmem_bwd.cu) for
+// bf16 only, on q, k, v as flash_attention_bwd_tma takes them; no forward
+// output (the dq kernel's kStats sweep takes each row's lse and delta);
+// dout (batch, n_heads, nq, d_v) contiguous and 16-byte aligned; writes dq,
+// dk, dv (contiguous, bf16) and lse, delta (batch, n_heads, nq) fp32.
+// Returns a cudaError_t value; 0 on a clean launch.
+extern "C" int attention_vmem_bwd_tma(
+    const void* q, const void* k, const void* v, const void* key_mask,
+    const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
+    int batch, int n_heads, int nq, int nk, int d_qk, int d_v, int64_t q_b,
+    int64_t q_h, int64_t q_n, int64_t k_b, int64_t k_h, int64_t k_n,
+    int64_t v_b, int64_t v_h, int64_t v_n, float scale, void* stream) {
+  const int64_t strides[9] = {q_b, q_h, q_n, k_b, k_h, k_n, v_b, v_h, v_n};
+  if (bad_tma_inputs(batch, n_heads, nq, nk, d_qk, d_v, strides,
+                     {q, k, v, dout}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nq == 0 || batch == 0 || n_heads == 0) return 0;
+  TmaArgs a = make_args(key_mask, dout, lse, dq, dk, dv, delta, n_heads, nq,
+                        nk, d_qk, d_v, scale);
+  return launch_for_dims<true>(a, q, k, v, batch, strides,
+                               static_cast<cudaStream_t>(stream));
 }

@@ -19,7 +19,8 @@
 // 16 w .. 16 w + 15): an fp32 accumulator of one product, rounded to bf16
 // by wgmma_a_frag, is the A operand of the next.
 // Used by K5-bwd's TMA route (grouped_matmul_bwd_tma.cu), K5-fwd's
-// (grouped_matmul_tma.cu) and K4-bwd's (flash_attention_bwd_tma.cu).
+// (grouped_matmul_tma.cu), K4-fwd's (flash_attention_fwd_tma.cu) and
+// K3-bwd's and K4-bwd's (flash_attention_bwd_tma.cu).
 
 #pragma once
 
@@ -165,7 +166,9 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // ---------------------------------------------------------------- wgmma ----
 
 // Descriptor of a 128-byte-swizzled bf16 operand at `tile` (see the head
-// of this file for LBO and SBO); layout type 1 = SWIZZLE_128B.
+// of this file for LBO and SBO); layout type 1 = SWIZZLE_128B. The operand
+// `bytes` further on (16-byte multiples) is desc + (bytes >> 4): shared
+// addresses stay below 2^18, so the start-address field does not carry.
 __device__ __forceinline__ uint64_t sw128_desc(const void* tile,
                                                uint32_t lbo_bytes,
                                                uint32_t sbo_bytes) {
@@ -205,10 +208,12 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[N]) {
 // d (64 x 128 fp32, the wgmma accumulator layout) += A (64 x 16) . B
 // (16 x 128), bf16 operands read from shared memory through the
 // descriptors; TransA / TransB 0 for a K-major operand, 1 for an MN-major
-// one. Asynchronous: complete after wgmma_commit() and wgmma_wait().
+// one; scale_d 0: d = A . B, d's old values ignored. Asynchronous: complete
+// after wgmma_commit() and wgmma_wait().
 template <int TransA, int TransB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
-                                                 uint64_t b) {
+                                                 uint64_t b,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -233,7 +238,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1), "n"(TransA), "n"(TransB));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransA), "n"(TransB));
 }
 
 // The accumulator of wgmma_m64n128k16 for thread t of the warpgroup:
@@ -244,7 +249,8 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
 // through descriptors, as wgmma_m64n128k16.
 template <int TransA, int TransB>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
-                                                uint64_t b) {
+                                                uint64_t b,
+                                                int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -261,7 +267,18 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1), "n"(TransA), "n"(TransB));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
+// d (64 x N fp32) += A . B, both from shared memory, N = 64 or 128.
+template <int N, int TransA, int TransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d = 1) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 64)
+    wgmma_m64n64k16<TransA, TransB>(d, a, b, scale_d);
+  else
+    wgmma_m64n128k16<TransA, TransB>(d, a, b, scale_d);
 }
 
 // d (64 x 64 fp32) += A (64 x 16, bf16 in registers: the fragment of
@@ -415,6 +432,22 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src,
       : "memory");
 }
 
+// The registers a thread of this warpgroup may hold, raised or lowered to N
+// (a multiple of 8, 24..256); every warp of the warpgroup executes the
+// same one. A block launched with R registers a thread can raise some
+// warpgroups above R by what others give up: a producer warpgroup that
+// drops to 40 lets two consumer warpgroups rise from 168 to 232. The
+// branch to each role must be warp-uniform as the compiler sees it (a
+// role taken through __shfl_sync) for ptxas to allocate it apart.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // -------------------------------------------------------------- the ring ----
 
 // A ring of `Stages` stages in dynamic shared memory, fed by TMA: full[s]
@@ -524,7 +557,13 @@ inline bool bf16_map(CUtensorMap* map, const void* base, int rank,
                      const uint64_t* dims, const uint64_t* strides,
                      const uint32_t* box) {
   const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
+  // the encoder (a driver-API call) needs a current context; a thread
+  // whose first CUDA call this is (autograd's backward thread, at its first
+  // node) has none until the runtime binds its device's primary context
+  int device = 0;
+  if (encode == nullptr || cudaGetDevice(&device) != cudaSuccess ||
+      cudaSetDevice(device) != cudaSuccess)
+    return false;
   cuuint64_t d[5], s[4];
   cuuint32_t b[5], e[5] = {1, 1, 1, 1, 1};
   for (int i = 0; i < rank; ++i) {

@@ -9,7 +9,10 @@ its Pallas kernel on the TPU.
 :func:`vmem_attention` is a ``torch.autograd.Function``: for a CUDA tensor
 the forward is the hand-written kernel K3-fwd
 (``kernels/csrc/attention_vmem.cu``) and the backward K3-bwd
-(``kernels/csrc/attention_vmem_bwd.cu``); for a CPU tensor their plain
+(``kernels.vmem_attention_bwd``: wgmma over TMA tiles,
+``kernels/csrc/flash_attention_bwd_tma.cu``, where
+``kernels.vmem_bwd_tma_route`` holds, as at the model's bf16 sites; else
+``kernels/csrc/attention_vmem_bwd.cu``); for a CPU tensor their plain
 PyTorch versions :func:`vmem_attention_plain` and
 :func:`vmem_attention_bwd_plain`.
 """

@@ -5,10 +5,12 @@ for sequences of at least ``flash_min_seq`` tokens: the vision encoder over
 the 4608 patches of a V-JEPA2 clip.
 
 :func:`flash_attention` is a ``torch.autograd.Function``: for CUDA tensors
-the hand-written kernels K4-fwd (``kernels/csrc/flash_attention.cu``) and
-K4-bwd (``kernels.flash_attention_bwd``: wgmma over TMA tiles,
-``kernels/csrc/flash_attention_bwd_tma.cu``, where
-``kernels.flash_bwd_tma_route`` holds, as at the MLA's bf16 shapes; else
+the hand-written kernels K4-fwd (``kernels.flash_attention_fwd``: wgmma
+over TMA tiles, ``kernels/csrc/flash_attention_fwd_tma.cu``, where
+``kernels.flash_fwd_tma_route`` holds, as at the MLA's bf16 shapes; else
+``kernels/csrc/flash_attention.cu``) and K4-bwd
+(``kernels.flash_attention_bwd``: ``kernels/csrc/flash_attention_bwd_tma.cu``
+where ``kernels.flash_bwd_tma_route`` holds; else
 ``kernels/csrc/attention_bwd.cuh``), for CPU tensors their plain PyTorch
 versions :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`.
 The forward saves each row's log-sum-exp; the backward recomputes the

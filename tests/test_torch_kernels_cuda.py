@@ -68,7 +68,9 @@ ATTN_BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -7, 1e-4)}
 HASH_BWD_TOL = 1e-5
 VMEM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 NO_K3_TO_K5 = {"vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
-               "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+               "vmem_attention_bwd_mma": 0, "vmem_attention_bwd_fp32": 0,
+               "flash_attention_fwd": 0, "flash_attention_fwd_mma": 0,
+               "flash_attention_fwd_fp32": 0, "flash_attention_bwd": 0,
                "flash_attention_bwd_mma": 0, "flash_attention_bwd_fp32": 0,
                "grouped_matmul_fwd": 0, "grouped_matmul_fwd_mma": 0,
                "grouped_matmul_fwd_fp32": 0, "grouped_matmul_split_dout": 0,
@@ -369,9 +371,14 @@ def test_dot_product_attention_routes_k3_shapes_to_the_kernel(cuda):
     (2, 2, 33, 1024, 128, 128, True, False),  # the longest row, widest head
     (1, 1, 1, 1, 8, 8, False, False),  # one key
     (8, 8, 576, 576, 128, 128, False, True),  # the flagship's vision MLA
+    (2, 2, 100, 300, 40, 36, True, False),  # off TMA's grid: mma.sync
 ])
 def test_vmem_attention_bwd_matches_plain(cuda, dtype, b, h, nq, nk, dqk, dv,
                                           mask, strided):
+    """K3-bwd against its plain version by the route the shapes and
+    strides choose (TMA for bf16 on the 8-element grid, mma.sync for other
+    bf16, CUDA cores for fp32), once on that route's counter, two runs
+    bitwise equal."""
     smoke = _smoke()
     g = torch.Generator(device=cuda).manual_seed(nq + nk + 1)
     q, k, v, dout, key_mask = smoke.attention_case(g, b, h, nq, nk, dqk, dv,
@@ -381,8 +388,15 @@ def test_vmem_attention_bwd_matches_plain(cuda, dtype, b, h, nq, nk, dqk, dv,
     ref = tvmem.vmem_attention_bwd_plain(q, k, v, dout, scale=dqk ** -0.5,
                                          key_mask=key_mask)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["vmem_attention_bwd"] == 1
+    route = smoke.attention_route(q, k, v)
+    assert route == ("" if dtype == torch.bfloat16 and dqk % 8 == 0
+                     and dv % 8 == 0 else
+                     "_mma" if dtype == torch.bfloat16 else "_fp32")
+    assert kernels.launch_counts == smoke.expected_launches(
+        **{f"vmem_attention_bwd{route}": 1})
     smoke.check_grads("K3-bwd", got, ref, dtype, key_mask)
+    again = kernels.vmem_attention_bwd(q, k, v, dout, dqk ** -0.5, key_mask)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 def test_vmem_attention_autograd_runs_k3_bwd(cuda):
@@ -397,8 +411,8 @@ def test_vmem_attention_autograd_runs_k3_bwd(cuda):
     out = tvmem.vmem_attention(*leaves, scale=48 ** -0.5)
     out.backward(dout)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["vmem_attention_fwd"] == 1
-    assert kernels.launch_counts["vmem_attention_bwd"] == 1
+    assert kernels.launch_counts == smoke.expected_launches(
+        vmem_attention_fwd=1, vmem_attention_bwd=1)
     ref = tvmem.vmem_attention_bwd_plain(q, k, v, dout, scale=48 ** -0.5)
     # .grad keeps each leaf's strides (v is a strided view)
     smoke.check_grads("K3 autograd", [x.grad.contiguous() for x in leaves],
@@ -419,10 +433,10 @@ def test_vmem_attention_autograd_runs_k3_bwd(cuda):
 ])
 def test_flash_attention_matches_plain(cuda, dtype, b, h, n, dqk, dv, mask,
                                        causal, strided):
-    """K4-fwd and K4-bwd against their plain versions; K4-bwd by the route
+    """K4-fwd and K4-bwd against their plain versions, each by the route
     the shapes and strides choose (TMA for bf16 on the 8-element grid,
     mma.sync for other bf16, CUDA cores for fp32), once on that route's
-    counter, two runs bitwise equal."""
+    counter, two runs of each bitwise equal."""
     smoke = _smoke()
     g = torch.Generator(device=cuda).manual_seed(n + dqk)
     q, k, v, dout, key_mask = smoke.attention_case(g, b, h, n, n, dqk, dv,
@@ -438,15 +452,18 @@ def test_flash_attention_matches_plain(cuda, dtype, b, h, n, dqk, dv, mask,
     ref_grads = tflash.flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                                  **kw)
     torch.cuda.synchronize()
-    route = smoke.flash_bwd_route(q, k, v)
+    route = smoke.attention_route(q, k, v)
     assert route == ("" if dtype == torch.bfloat16 and dqk % 8 == 0
                      and dv % 8 == 0 else
                      "_mma" if dtype == torch.bfloat16 else "_fp32")
     assert kernels.launch_counts == smoke.expected_launches(**{
-        "flash_attention_fwd": 1, f"flash_attention_bwd{route}": 1})
+        f"flash_attention_fwd{route}": 1, f"flash_attention_bwd{route}": 1})
     again = kernels.flash_attention_bwd(q, k, v, out, lse, dout, kw["scale"],
                                         key_mask, causal)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+    out2, lse2 = kernels.flash_attention_fwd(q, k, v, kw["scale"], key_mask,
+                                             causal)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     assert out.dtype == dtype and out.shape == (b, h, n, dv)
     smoke.check_flash_out("K4-fwd", out, ref, dtype)
     assert torch.equal(lse.isinf(), ref_lse.isinf())
@@ -521,10 +538,10 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 def test_flash_bwd_tma_route_rejects_what_it_does_not_take(cuda):
-    """The TMA route's wrapper refuses head dims and strides off the
-    8-element grid and fp32, which the entry sends elsewhere; a strided v
-    whose start is off a 16-byte boundary is copied and stays on the
-    route."""
+    """The TMA routes' wrappers (K4-fwd, K4-bwd, K3-bwd) refuse head dims
+    and strides off the 8-element grid and fp32, which the entries send
+    elsewhere; a strided v whose start is off a 16-byte boundary is copied
+    and stays on the route."""
     smoke = _smoke()
     g = torch.Generator(device=cuda).manual_seed(9)
     for dqk, dv, dtype in ((40, 36, torch.bfloat16), (48, 32, torch.float32)):
@@ -533,6 +550,10 @@ def test_flash_bwd_tma_route_rejects_what_it_does_not_take(cuda):
         out, lse = kernels.flash_attention_fwd(q, k, v, 0.1)
         with pytest.raises(ValueError, match="TMA route"):
             kernels.flash_attention_bwd_tma(q, k, v, out, lse, do, 0.1)
+        with pytest.raises(ValueError, match="TMA route"):
+            kernels.flash_attention_fwd_tma(q, k, v, 0.1)
+        with pytest.raises(ValueError, match="TMA route"):
+            kernels.vmem_attention_bwd_tma(q, k, v, do, 0.1)
     q, k, v, do, _ = smoke.attention_case(g, 2, 2, 300, 300, 48, 32,
                                           torch.bfloat16)
     wide = torch.randn((2, 300, 2, 36), generator=g, device=cuda).to(
@@ -544,12 +565,18 @@ def test_flash_bwd_tma_route_rejects_what_it_does_not_take(cuda):
     base = torch.randn((2 * 2 * 300 * 32 + 1,), generator=g,
                        device=cuda).to(torch.bfloat16)
     shifted = base[1:].view(2, 2, 300, 32)  # 2 bytes past a boundary
-    out, lse = kernels.flash_attention_fwd(q, k, shifted, 0.1)
     kernels.reset_launch_counts()
+    out, lse = kernels.flash_attention_fwd(q, k, shifted, 0.1)
     got = kernels.flash_attention_bwd(q, k, shifted, out, lse, do, 0.1)
-    assert kernels.launch_counts["flash_attention_bwd"] == 1
+    got3 = kernels.vmem_attention_bwd(q, k, shifted, do, 0.1)
+    assert kernels.launch_counts == smoke.expected_launches(
+        flash_attention_fwd=1, flash_attention_bwd=1, vmem_attention_bwd=1)
+    smoke.check_flash_out("shifted v", out, tflash.flash_attention_plain(
+        q, k, shifted, scale=0.1), torch.bfloat16)
     smoke.check_grads("shifted v", got, tflash.flash_attention_bwd_plain(
         q, k, shifted, out, lse, do, scale=0.1), torch.bfloat16)
+    smoke.check_grads("shifted v K3", got3, tvmem.vmem_attention_bwd_plain(
+        q, k, shifted, do, scale=0.1), torch.bfloat16)
 
 
 def test_mla_backward_at_4608_takes_the_tma_route(cuda):
