@@ -26,6 +26,7 @@ from .configs import (
     MaskingConfig,
     MoEConfig,
     OptimizerConfig,
+    PRESET_MODALITIES,
     RopeScalingConfig,
     TransformerConfig,
     config_from_json,
@@ -43,7 +44,8 @@ from .models import DeepEarthModel
 __all__ = [
     "DeepEarthConfig", "DeepSeekBlockConfig", "FusionConfig", "Grid4DConfig",
     "HashEncodingConfig", "MLAConfig", "MaskingConfig", "ModalityConfig",
-    "MoEConfig", "OptimizerConfig", "RopeScalingConfig", "TransformerConfig",
+    "MoEConfig", "OptimizerConfig", "PRESET_MODALITIES", "RopeScalingConfig",
+    "TransformerConfig",
     "config_from_json", "config_to_json", "integrated_config",
     "simulator_config", "flax_params_from_model",
     "load_flax_opt_state", "load_flax_params", "DeepEarthModel",

@@ -1,13 +1,14 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their launch wrappers:
 K1 ``pairwise_attention_fwd`` / ``_bwd``, K2 ``hash_encode_fwd`` / ``_bwd``,
-K3 ``vmem_attention_fwd`` / ``_bwd`` (the backward by one of three routes,
-:func:`vmem_bwd_tma_route`), K4 ``flash_attention_fwd`` / ``_bwd`` (each by
-one of three routes, :func:`flash_fwd_tma_route`, :func:`flash_bwd_tma_route`),
+K3 ``vmem_attention_fwd`` / ``_bwd`` (each by one of three routes,
+:func:`vmem_fwd_tma_route`, :func:`vmem_bwd_tma_route`), K4
+``flash_attention_fwd`` / ``_bwd`` (each by one of three routes,
+:func:`flash_fwd_tma_route`, :func:`flash_bwd_tma_route`),
 K5 ``grouped_matmul_fwd`` (three routes, :func:`gmm_fwd_tma_route`) and
 ``grouped_matmul_bwd`` (which launches
 ``grouped_matmul_split_dout`` and ``grouped_matmul_bwd_{dlhs,drhs}_tma``, or
 ``grouped_matmul_bwd_{dlhs,drhs}_mma``), K6 ``int8_bmm`` and K7
-``int4_bmm``.
+``int4_bmm`` (by one of two routes, :func:`int4_bmm_tc_route`).
 
 The sources in ``csrc/`` have a plain C interface. At first use each ``.cu``
 is compiled with its own ``nvcc``, all at once, and the objects are linked
@@ -45,10 +46,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launches per kernel since the last reset_launch_counts().
 launch_counts = {"hash_encode_fwd": 0, "hash_encode_bwd": 0,
                  "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
-                 # K3-bwd, K4-fwd, K4-bwd, K5-fwd and K5-bwd by route: wgmma
-                 # over TMA tiles (no suffix), mma.sync (bf16 off TMA's
-                 # grid), CUDA cores (fp32)
-                 "vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
+                 # K3, K4, K5-fwd and K5-bwd by route: wgmma over TMA tiles
+                 # (no suffix), mma.sync (bf16 off TMA's grid), CUDA cores
+                 # (fp32)
+                 "vmem_attention_fwd": 0, "vmem_attention_fwd_mma": 0,
+                 "vmem_attention_fwd_fp32": 0, "vmem_attention_bwd": 0,
                  "vmem_attention_bwd_mma": 0, "vmem_attention_bwd_fp32": 0,
                  "flash_attention_fwd": 0, "flash_attention_fwd_mma": 0,
                  "flash_attention_fwd_fp32": 0, "flash_attention_bwd": 0,
@@ -59,7 +61,9 @@ launch_counts = {"hash_encode_fwd": 0, "hash_encode_bwd": 0,
                  "grouped_matmul_bwd_dlhs_fp32": 0,
                  "grouped_matmul_bwd_drhs": 0, "grouped_matmul_bwd_drhs_mma": 0,
                  "grouped_matmul_bwd_drhs_fp32": 0,
-                 "int8_bmm": 0, "int4_bmm": 0}
+                 # K7 by route: tensor cores in one cluster launch (no
+                 # suffix), CUDA-core FMAs (shapes off its grid)
+                 "int8_bmm": 0, "int4_bmm": 0, "int4_bmm_fma": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -73,6 +77,7 @@ _SIGNATURES = {
                                _P],
     "attention_vmem_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            *[_I64] * 9, _F, _I, _P],
+    "attention_vmem_fwd_tma": [*[_P] * 5, *[_I] * 6, *[_I64] * 9, _F, _P],
     "attention_vmem_bwd": [*[_P] * 10, *[_I] * 6, *[_I64] * 9, _F, _I, _P],
     "attention_vmem_bwd_tma": [*[_P] * 10, *[_I] * 6, *[_I64] * 9, _F, _P],
     "flash_attention_fwd": [*[_P] * 6, *[_I] * 6, *[_I64] * 9, _F, _I, _I,
@@ -92,6 +97,7 @@ _SIGNATURES = {
     "grouped_matmul_bwd_drhs_tma": [*[_P] * 5, *[_I] * 4, _P],
     "int8_bmm": [*[_P] * 5, *[_I] * 10, _P],
     "int4_bmm": [*[_P] * 5, *[_I] * 10, _P],
+    "int4_bmm_tc": [*[_P] * 4, *[_I] * 9, _P],
 }
 
 
@@ -377,6 +383,67 @@ def _like_output(name: str, x: torch.Tensor, q: torch.Tensor, shape,
     return x.contiguous()
 
 
+def _vmem_fwd_inputs(q, k, v, key_mask):
+    """Checks of K3-fwd's inputs; returns the shapes, q, k, v's strides, the
+    key mask, and the output, allocated."""
+    (b, h, nq, nk, dqk, dv), strides, key_mask = _bhnd_inputs(
+        "vmem attention", q, k, v, key_mask)
+    _require(nk <= VMEM_MAX_SEQ and nq <= VMEM_MAX_SEQ,
+             f"vmem attention: Nq {nq} and Nk {nk} must be at most "
+             f"{VMEM_MAX_SEQ}")
+    out = torch.empty((b, h, nq, dv), device=q.device, dtype=q.dtype)
+    return (b, h, nq, nk, dqk, dv), strides, key_mask, out
+
+
+def vmem_fwd_tma_route(dtype, d_qk: int, d_v: int, strides) -> bool:
+    """Whether K3-fwd takes its TMA route (wgmma over TMA-fed tiles with a
+    stats sweep, ``csrc/attention_vmem_fwd_tma.cu``): the shapes and strides
+    :func:`vmem_bwd_tma_route` takes. Else bf16 takes the mma.sync route,
+    fp32 the CUDA cores. A function of the shapes and strides alone."""
+    return vmem_bwd_tma_route(dtype, d_qk, d_v, strides)
+
+
+def vmem_attention_fwd_tma(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, scale: float,
+                           key_mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """K3-fwd's TMA route (wgmma over TMA tiles,
+    ``csrc/attention_vmem_fwd_tma.cu``), as :func:`vmem_attention_fwd`, on
+    the shapes and strides :func:`vmem_fwd_tma_route` takes; counted as
+    ``vmem_attention_fwd``."""
+    name = "vmem_attention_fwd"
+    shapes, _, key_mask, out = _vmem_fwd_inputs(q, k, v, key_mask)
+    strides = [s for x in (q, k, v) for s in _tma_strides(x)]
+    _require(vmem_fwd_tma_route(q.dtype, shapes[4], shapes[5], strides),
+             f"{name}: the TMA route takes bfloat16 with head dims and "
+             "strides multiples of 8")
+    q, k, v = (_aligned16_view(x) for x in (q, k, v))
+    rc = library().attention_vmem_fwd_tma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+        out.data_ptr(), *shapes,
+        *(s for x in (q, k, v) for s in _tma_strides(x)), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check(name, rc)
+    return out
+
+
+def vmem_attention_fwd_mma(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, scale: float,
+                           key_mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """K3-fwd's kernels of ``csrc/attention_vmem.cu``, as
+    :func:`vmem_attention_fwd`, on any shapes: mma.sync for bf16 (counted
+    ``vmem_attention_fwd_mma``), the CUDA cores for fp32 (``_fp32``)."""
+    shapes, strides, key_mask, out = _vmem_fwd_inputs(q, k, v, key_mask)
+    rc = library().attention_vmem_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+        out.data_ptr(), *shapes, *strides, float(scale),
+        _ATTN_DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _check("vmem_attention_fwd"
+           + ("_mma" if q.dtype == torch.bfloat16 else "_fp32"), rc)
+    return out
+
+
 def vmem_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: float, key_mask: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
@@ -384,19 +451,14 @@ def vmem_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     one CUDA device, float32 or bfloat16, unit stride along the head dim
     (any strides along B, H, N); 1 <= Nk <= 1024, Nq <= 1024, Dqk and Dv <=
     128; key_mask optional (B, Nk) bool, True = visible. Returns
-    (B, H, Nq, Dv), contiguous, in q's dtype."""
-    (b, h, nq, nk, dqk, dv), strides, key_mask = _bhnd_inputs(
-        "vmem attention", q, k, v, key_mask)
-    _require(nk <= VMEM_MAX_SEQ and nq <= VMEM_MAX_SEQ,
-             f"vmem attention: Nq {nq} and Nk {nk} must be at most "
-             f"{VMEM_MAX_SEQ}")
-    out = torch.empty((b, h, nq, dv), device=q.device, dtype=q.dtype)
-    rc = library().attention_vmem_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
-        out.data_ptr(), b, h, nq, nk, dqk, dv, *strides, float(scale),
-        _ATTN_DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _check("vmem_attention_fwd", rc)
-    return out
+    (B, H, Nq, Dv), contiguous, in q's dtype. One launch, by the route
+    :func:`vmem_fwd_tma_route` picks from the shapes and strides:
+    :func:`vmem_attention_fwd_tma` (``vmem_attention_fwd``) or
+    :func:`vmem_attention_fwd_mma` (``_mma``, ``_fp32``)."""
+    route = (vmem_attention_fwd_tma if _on_tma_grid(vmem_fwd_tma_route, q, k,
+                                                    v)
+             else vmem_attention_fwd_mma)
+    return route(q, k, v, scale, key_mask)
 
 
 def _vmem_bwd_inputs(name, q, k, v, dout, key_mask):
@@ -1005,8 +1067,10 @@ def quant_splits(e: int, c: int, rows: int, fp: int):
     return _ceil_div(rows, chunk), chunk
 
 
-def _quant_bmm(name: str, x: torch.Tensor, w: torch.Tensor,
-               scale: torch.Tensor, out_dtype, int4: bool) -> torch.Tensor:
+def _quant_inputs(name: str, x: torch.Tensor, w: torch.Tensor,
+                  scale: torch.Tensor, out_dtype, int4: bool):
+    """Checks shared by K6's and K7's routes; returns (E, C, D, Fp, F) and
+    the output, allocated."""
     _require(x.is_cuda and w.device == x.device and scale.device == x.device,
              f"{name}: inputs must lie on one CUDA device")
     _require(x.dim() == 3 and x.dtype in _ATTN_DTYPES,
@@ -1024,11 +1088,20 @@ def _quant_bmm(name: str, x: torch.Tensor, w: torch.Tensor,
     _require(fp % 4 == 0, f"{name}: Fp must be a multiple of 4")
     _require(out_dtype in _ATTN_DTYPES,
              f"{name}: out_dtype must be float32 or bfloat16")
+    f = scale.shape[2]
+    out = torch.empty((e, c, f), device=x.device, dtype=out_dtype)
+    return (e, c, d, fp, f), out
+
+
+def _quant_bmm(name: str, x: torch.Tensor, w: torch.Tensor,
+               scale: torch.Tensor, out_dtype, int4: bool,
+               counter: str) -> torch.Tensor:
+    """K6, or K7's CUDA-core route, of ``csrc/quant_matmul.cu``."""
+    (e, c, d, fp, f), out = _quant_inputs(name, x, w, scale, out_dtype, int4)
+    rows = d // 2 if int4 else d
     ct = quant_rows(c)
     _require(e * _ceil_div(c, ct) <= 65535,
              f"{name}: E * ceil(C / {ct}) must be at most 65535")
-    f = scale.shape[2]
-    out = torch.empty((e, c, f), device=x.device, dtype=out_dtype)
     if out.numel() == 0:
         return out
     if rows == 0:
@@ -1043,7 +1116,7 @@ def _quant_bmm(name: str, x: torch.Tensor, w: torch.Tensor,
         _ptr(partial), e, c, d, fp, f, ct, splits, chunk,
         _ATTN_DTYPES[x.dtype], _ATTN_DTYPES[out_dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
-    _check(name, rc)
+    _check(counter, rc)
     return out
 
 
@@ -1055,11 +1128,92 @@ def int8_bmm(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     scale times the fp32 sum of bf16(x) times w_q, the chunks of a split
     reduction added in order (no atomics). One launch counted (two kernels
     when the reduction is split)."""
-    return _quant_bmm("int8_bmm", x, w_q, scale, out_dtype, int4=False)
+    return _quant_bmm("int8_bmm", x, w_q, scale, out_dtype, int4=False,
+                      counter="int8_bmm")
+
+
+# quant_matmul_tc.cu's grid: 128 features a block tile, stages of 64 packed
+# rows, clusters of up to 16 blocks, at most 1024 packed rows a block, x in
+# tiles of up to 32 rows and at most 128 rows in all
+QUANT_TC_COLS, QUANT_TC_ROWS = 128, 64
+QUANT_TC_MAX_CLUSTER, QUANT_TC_MAX_CHUNK, QUANT_TC_MAX_C = 16, 1024, 128
+
+
+def int4_tc_plan(e: int, c: int, rows: int, fp: int):
+    """(nt, c_tiles, cluster, chunk) of K7's tensor-core route: x in
+    ``c_tiles`` tiles of 8 nt rows (nt 1, 2 or 4: C <= 8, <= 16, else tiles
+    of 32), and the ``rows`` packed rows of each 128-feature tile split over
+    a cluster of ``cluster`` blocks of ``chunk`` rows each: the fewest (a
+    power of two up to 16, each chunk whole 64-row stages) that give the
+    card's 132 SMs a block each. A pure function of the shapes."""
+    nt = 1 if c <= 8 else 2 if c <= 16 else 4
+    c_tiles = _ceil_div(c, 8 * nt)
+    tiles = e * (fp // QUANT_TC_COLS) * c_tiles
+    cluster = 1
+    while (cluster < QUANT_TC_MAX_CLUSTER and cluster * tiles < QUANT_SMS
+           and rows % (2 * cluster * QUANT_TC_ROWS) == 0):
+        cluster *= 2
+    return nt, c_tiles, cluster, rows // cluster
+
+
+def int4_bmm_tc_route(e: int, c: int, d: int, fp: int) -> bool:
+    """Whether K7 takes its tensor-core route (``csrc/quant_matmul_tc.cu``,
+    one cluster launch) for x (E, C, D) and weights (E, D/2, Fp): D even,
+    the D/2 packed rows a positive multiple of 64 that int4_tc_plan splits
+    into chunks of at most 1024, Fp a positive multiple of 128, and
+    1 <= C <= 128. Else the CUDA-core route (``int4_bmm_fma``). A function
+    of the shapes alone."""
+    rows = d // 2
+    if (d % 2 or e < 1 or not 1 <= c <= QUANT_TC_MAX_C or rows < QUANT_TC_ROWS
+            or rows % QUANT_TC_ROWS or fp < QUANT_TC_COLS
+            or fp % QUANT_TC_COLS):
+        return False
+    _, c_tiles, _, chunk = int4_tc_plan(e, c, rows, fp)
+    return chunk <= QUANT_TC_MAX_CHUNK and e * c_tiles <= 65535
+
+
+def int4_bmm_tc(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K7's tensor-core route, as :func:`int4_bmm`, on the shapes
+    :func:`int4_bmm_tc_route` takes: one launch of a thread block cluster,
+    no partial tensor; counted as ``int4_bmm``."""
+    name = "int4_bmm"
+    (e, c, d, fp, f), out = _quant_inputs(name, x, w_p, scale, out_dtype,
+                                          int4=True)
+    _require(int4_bmm_tc_route(e, c, d, fp),
+             f"{name}: the tensor-core route takes D/2 a multiple of 64, Fp "
+             "of 128 and 1 <= C <= 128")
+    if f == 0:
+        return out
+    nt, _, cluster, _ = int4_tc_plan(e, c, d // 2, fp)
+    x, w_p = _aligned16(x), _aligned16(w_p)
+    scale = scale.contiguous()
+    rc = library().int4_bmm_tc(
+        x.data_ptr(), w_p.data_ptr(), scale.data_ptr(), out.data_ptr(), e, c,
+        d, fp, f, nt, cluster, _ATTN_DTYPES[x.dtype], _ATTN_DTYPES[out_dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check(name, rc)
+    return out
+
+
+def int4_bmm_fma(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
+                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K7's CUDA-core route (``csrc/quant_matmul.cu``, a split reduction
+    added by a second kernel), as :func:`int4_bmm`, on any shapes; counted
+    as ``int4_bmm_fma``."""
+    return _quant_bmm("int4_bmm", x, w_p, scale, out_dtype, int4=True,
+                      counter="int4_bmm_fma")
 
 
 def int4_bmm(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
              out_dtype=torch.bfloat16) -> torch.Tensor:
     """K7: as :func:`int8_bmm` over w_p (E, D/2, Fp) split-half int4 bytes
-    (row i in the low nibble, row i + D/2 in the high nibble); D even."""
-    return _quant_bmm("int4_bmm", x, w_p, scale, out_dtype, int4=True)
+    (row i in the low nibble, row i + D/2 in the high nibble); D even. The
+    route is chosen from the shapes alone (:func:`int4_bmm_tc_route`):
+    :func:`int4_bmm_tc` (counted ``int4_bmm``) or :func:`int4_bmm_fma`
+    (``int4_bmm_fma``)."""
+    if (x.dim() == 3 and w_p.dim() == 3
+            and int4_bmm_tc_route(*x.shape, w_p.shape[2])
+            and tuple(w_p.shape[:2]) == (x.shape[0], x.shape[2] // 2)):
+        return int4_bmm_tc(x, w_p, scale, out_dtype)
+    return int4_bmm_fma(x, w_p, scale, out_dtype)

@@ -19,8 +19,10 @@
 // 16 w .. 16 w + 15): an fp32 accumulator of one product, rounded to bf16
 // by wgmma_a_frag, is the A operand of the next.
 // Used by K5-bwd's TMA route (grouped_matmul_bwd_tma.cu), K5-fwd's
-// (grouped_matmul_tma.cu), K4-fwd's (flash_attention_fwd_tma.cu) and
-// K3-bwd's and K4-bwd's (flash_attention_bwd_tma.cu).
+// (grouped_matmul_tma.cu), K4-fwd's (flash_attention_fwd_tma.cu), K3-fwd's
+// (attention_vmem_fwd_tma.cu), K3-bwd's and K4-bwd's
+// (flash_attention_bwd_tma.cu), and K7's tensor-core route
+// (quant_matmul_tc.cu: its ring and its uint8 tensor map).
 
 #pragma once
 
@@ -548,14 +550,14 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over a row-major bf16 tensor of `rank` (2 to 5) dims, given
-// innermost first with their row strides in bytes (rank - 1 of them,
-// multiples of 16), read in boxes of `box` elements (box[0] = 64, one
-// swizzled row), 128-byte swizzled, zeros out of bounds. Encoded on the
+// A tensor map over a row-major tensor of `rank` (2 to 5) dims of `type`,
+// given innermost first with their row strides in bytes (rank - 1 of them,
+// multiples of 16), read in boxes of `box` elements (box[0] one swizzled
+// row: 128 bytes), 128-byte swizzled, zeros out of bounds. Encoded on the
 // host per call: no device work, no synchronisation.
-inline bool bf16_map(CUtensorMap* map, const void* base, int rank,
-                     const uint64_t* dims, const uint64_t* strides,
-                     const uint32_t* box) {
+inline bool tiled_map(CUtensorMap* map, CUtensorMapDataType type,
+                      const void* base, int rank, const uint64_t* dims,
+                      const uint64_t* strides, const uint32_t* box) {
   const EncodeTiled encode = encode_tiled();
   // the encoder (a driver-API call) needs a current context; a thread
   // whose first CUDA call this is (autograd's backward thread, at its first
@@ -571,11 +573,18 @@ inline bool bf16_map(CUtensorMap* map, const void* base, int rank,
     b[i] = box[i];
     if (i + 1 < rank) s[i] = strides[i];
   }
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                const_cast<void*>(base), d, s, b, e,
+  return encode(map, type, rank, const_cast<void*>(base), d, s, b, e,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// tiled_map over bf16 (box[0] = 64 elements).
+inline bool bf16_map(CUtensorMap* map, const void* base, int rank,
+                     const uint64_t* dims, const uint64_t* strides,
+                     const uint32_t* box) {
+  return tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                   strides, box);
 }
 
 inline int sm_count() {

@@ -19,6 +19,11 @@ from .fusion import (
 )
 from .generation import causal_lm_decode_step, generate
 from .grid4d import Grid4DEncoder
+from .hf_convert import (
+    config_from_hf,
+    convert_hf_state_dict,
+    load_hf_checkpoint,
+)
 from .mla_decode import (
     MLACache,
     cache_bytes_per_token,
@@ -35,7 +40,9 @@ __all__ = [
     "MLAttention", "MoELayer",
     "SwiGLUMLP", "collect_moe_aux_losses", "select_dispatch_mode",
     "UniversalTokenEncoder", "CrossModalFusion", "FusionAttention",
-    "FusionLayer", "SpatialTemporalEmbedding", "Grid4DEncoder", "GatedMLP",
+    "FusionLayer", "SpatialTemporalEmbedding", "Grid4DEncoder",
+    "config_from_hf", "convert_hf_state_dict", "load_hf_checkpoint",
+    "GatedMLP",
     "KernelParam", "MLP", "causal_lm_decode_step", "generate", "MLACache",
     "cache_bytes_per_token", "decode_sequence", "decode_step",
     "full_cache_bytes_per_token", "init_cache",

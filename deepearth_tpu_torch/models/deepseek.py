@@ -9,9 +9,11 @@ as the JAX package runs its library flash kernel on the TPU; on the CPU it
 stays on ``dot_product_attention``, as the JAX package does there. An MoE
 layer's ``auto`` dispatch takes the ragged path (the grouped matmul K5) on
 the card where the JAX package takes it on the TPU, and ``scatter`` on the
-CPU, as the JAX package does there. Not ported yet, and refused where a
-config asks for them: ring attention over a mesh and pipelined stages
-(ROADMAP.md Queue 1, item 15).
+CPU, as the JAX package does there. Ring attention needs a device mesh,
+which the port has none of: a config's ``sequence_axis`` and
+``ring_min_seq`` are read and ignored, as the JAX package ignores them where
+no mesh is set. Pipelined stages (``pipeline_stages > 1``) are not ported
+and raise (ROADMAP.md Queue 1, item 15).
 """
 
 from __future__ import annotations

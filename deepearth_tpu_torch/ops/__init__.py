@@ -16,6 +16,7 @@ from .attention_vmem import (
 from .flash_attention import flash_attention_bwd_plain, flash_attention_plain
 from .grouped_matmul import gmm, gmm_bwd_plain, gmm_plain
 from .hash_encoding import (
+    HASH_PRIMES,
     HashEncoding,
     hash_encode,
     hash_encode_bwd_plain,
@@ -58,6 +59,7 @@ from .rope import (
     rope_cos_sin,
     rope_inv_freq,
     rotate_half,
+    yarn_get_mscale,
 )
 
 __all__ = [
@@ -66,7 +68,7 @@ __all__ = [
     "rope_token_major", "supported", "vmem_attention",
     "vmem_attention_bwd_plain", "vmem_attention_plain", "flash_attention",
     "flash_attention_bwd_plain", "flash_attention_plain", "gmm",
-    "gmm_bwd_plain", "gmm_plain", "HashEncoding", "hash_encode",
+    "gmm_bwd_plain", "gmm_plain", "HASH_PRIMES", "HashEncoding", "hash_encode",
     "hash_encode_bwd_plain", "hash_encode_plain", "hash_grid_indices",
     "init_hash_tables", "GateResult", "dense_all_expert_ffn", "expert_ffn",
     "load_balance_aux_loss", "make_dispatch_combine", "moe_gate",
@@ -76,4 +78,5 @@ __all__ = [
     "int8_matmul", "linear_p", "quantize_decoder_params", "quantize_int4",
     "quantize_int8", "quantized_bytes", "apply_rope_deepseek", "apply_rope_half",
     "apply_rope_interleaved", "rope_cos_sin", "rope_inv_freq", "rotate_half",
+    "yarn_get_mscale",
 ]

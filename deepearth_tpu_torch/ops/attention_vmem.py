@@ -7,8 +7,11 @@ routes such shapes here for CUDA tensors, as the JAX package routes them to
 its Pallas kernel on the TPU.
 
 :func:`vmem_attention` is a ``torch.autograd.Function``: for a CUDA tensor
-the forward is the hand-written kernel K3-fwd
-(``kernels/csrc/attention_vmem.cu``) and the backward K3-bwd
+the forward is the hand-written kernel K3-fwd (``kernels.vmem_attention_fwd``:
+wgmma over TMA tiles with a stats sweep,
+``kernels/csrc/attention_vmem_fwd_tma.cu``, where
+``kernels.vmem_fwd_tma_route`` holds, as at the model's bf16 sites; else
+``kernels/csrc/attention_vmem.cu``) and the backward K3-bwd
 (``kernels.vmem_attention_bwd``: wgmma over TMA tiles,
 ``kernels/csrc/flash_attention_bwd_tma.cu``, where
 ``kernels.vmem_bwd_tma_route`` holds, as at the model's bf16 sites; else

@@ -15,8 +15,11 @@ and computes the same:
   low nibble and row i + D/2 in its high nibble, both signed;
 * scale float32 (..., 1, F), unpadded, absmax / 127 (int8) or / 7 (int4).
 
-:func:`int8_bmm` and :func:`int4_bmm` run the hand-written kernels K6 and
-K7 (``kernels/csrc/quant_matmul.cu``) on a CUDA tensor and their plain
+:func:`int8_bmm` and :func:`int4_bmm` run the hand-written kernels K6
+(``kernels/csrc/quant_matmul.cu``) and K7 (tensor cores in one cluster
+launch, ``kernels/csrc/quant_matmul_tc.cu``, where
+``kernels.int4_bmm_tc_route`` holds, as at every decode shape; else
+``quant_matmul.cu``) on a CUDA tensor and their plain
 PyTorch versions on a CPU tensor. Where the JAX package leaves its Pallas
 kernel for an einsum over the dequantized weights (shapes its tiles do not
 fit), both devices take that einsum too, so the two packages round alike.

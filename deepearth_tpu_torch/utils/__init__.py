@@ -1,2 +1,6 @@
 """Utilities of the PyTorch port (own copies of the JAX package's numpy-only
 helpers)."""
+
+from .logging import get_logger
+
+__all__ = ["get_logger"]

@@ -22,6 +22,17 @@ kernels (interpret mode, as ``tests/test_torch_flash_attention.py`` and
   within 1e-6 of the sum of its terms' magnitudes; the gradients they give
   within 2e-5 of JAX's ``_bwd_kernel``'s largest entry, as the plain
   backward is held.
+- K3-fwd (``kernels/csrc/attention_vmem_fwd_tma.cu``): a stats sweep per
+  key tile of 64 (the running max m2 of s scale log2 e over the visible
+  keys and l = sum exp2(s scale log2 e - m2), rescaled as m2 grows), then an
+  output sweep whose p = exp2(s scale log2 e - m2) (1 / l) is rounded to v's
+  type before each tile's P.V. Held against JAX's ``_fwd_kernel`` in
+  interpret mode and ``vmem_attention_plain``: fp32 within 1e-5 of the
+  largest entry, bf16 within ``VMEM_TOL`` (2e-2); a row whose keys are all
+  masked exactly 0; a masked key's bias NEG_BIG or -inf giving the same p
+  under the guarded softmax (m >= -1e30, l >= 1e-30), and the kernel's own
+  guards (-inf biases, m2 = -inf read as 0, 1 / l = 0 where l = 0) the same
+  output bit for bit.
 """
 
 import math
@@ -47,8 +58,11 @@ torch.set_num_threads(2)
 # chip_smoke.py's limits for K4-fwd (the card's kernel against its plain
 # version); not imported, since chip_smoke needs a card to run
 K4_MAX_REL, K4_MEAN_REL, K4_LSE_TOL = 2 ** -6, 2 ** -8, 1e-4
+# chip_smoke.py's limit for K3-fwd in bf16 (one ulp at |x| < 4)
+VMEM_TOL_BF16 = 2e-2
 LOG2E, LN2 = 1.0 / math.log(2.0), math.log(2.0)
 FWD_KEYS, BWD_KEYS = 128, 64  # the kernels' key tiles
+VMEM_FWD_KEYS = 64  # K3-fwd's key tile
 
 
 def numpy_inputs(seed, b, h, nq, nk, dqk, dv, mask=False):
@@ -315,3 +329,104 @@ def test_stats_sweep_gradients_match_jax_kernel(dtype, mask):
         assert not got[0][0].any()
         hidden = ~tm[:, None, :, None]
         assert not any(g.masked_select(hidden).any() for g in got[1:])
+
+
+def vmem_fwd_tiles(q, k, v, scale, key_mask=None, masked_bias=-math.inf,
+                   guarded=False, tile=VMEM_FWD_KEYS):
+    """K3-fwd's two sweeps on the TMA route, tile by tile: a masked key's
+    score plus ``masked_bias``; ``guarded``: the JAX kernel's guards (m2 at
+    least -1e30 scale log2 e, 1 / max(l, 1e-30)), else the kernel's own
+    (m2 = -inf read as 0, 1 / l = 0 where l = 0). Returns q's dtype."""
+    b, h, nq, _ = q.shape
+    nk, dv = k.shape[2], v.shape[3]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    bias = torch.zeros((b, nk))
+    if key_mask is not None:
+        bias = torch.where(key_mask, 0.0, masked_bias).float()
+
+    def scores(j0, j1):
+        return (qf @ kf[:, :, j0:j1].transpose(-1, -2)
+                + bias[:, None, None, j0:j1])
+
+    m2 = torch.full((b, h, nq, 1), -math.inf)
+    l = torch.zeros((b, h, nq, 1))
+    for j0 in range(0, nk, tile):  # the stats sweep
+        s = scores(j0, min(nk, j0 + tile))
+        m_new = torch.maximum(m2, s.amax(-1, keepdim=True) * c)
+        if guarded:
+            m_new = torch.clamp_min(m_new, -1e30 * c)
+        ms = torch.where(m_new == -math.inf, 0.0, m_new)
+        l = l * torch.exp2(m2 - ms) + torch.exp2(s * c - ms).sum(
+            -1, keepdim=True)
+        m2 = m_new
+    ms = torch.where(m2 == -math.inf, 0.0, m2)
+    inv_l = (1.0 / l.clamp_min(1e-30) if guarded
+             else torch.where(l > 0, 1.0 / l, 0.0))
+    o = torch.zeros((b, h, nq, dv))
+    for j0 in range(0, nk, tile):  # the output sweep
+        j1 = min(nk, j0 + tile)
+        p = (torch.exp2(scores(j0, j1) * c - ms) * inv_l).to(v.dtype)
+        o = o + p.float() @ vf[:, :, j0:j1]
+    return o.to(q.dtype)
+
+
+def _jax_vmem_fwd(q, k, v, key_mask, scale, jdt):
+    return np.asarray(jvmem.vmem_attention(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v)), scale=scale,
+        key_mask=None if key_mask is None else jnp.asarray(key_mask),
+        interpret=True).astype(jnp.float32))
+
+
+VMEM_FWD_CASES = {  # name: (B, H, Nq, Nk, Dqk, Dv), key mask
+    "mla": ((2, 2, 300, 300, 48, 32), False),  # the MLA site's widths
+    "cross": ((2, 2, 16, 276, 64, 64), False),  # the cross site's
+    "ragged_masked": ((3, 2, 100, 260, 48, 80), True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name", list(VMEM_FWD_CASES))
+def test_vmem_fwd_tiles_match_plain_and_jax_kernel(name, dtype):
+    """K3-fwd's two sweeps against vmem_attention_plain and JAX's
+    _fwd_kernel in interpret mode on the same inputs: fp32 within 1e-5 of
+    the largest entry, bf16 within VMEM_TOL; the all-masked batch row
+    exactly 0."""
+    (b, h, nq, nk, dqk, dv), mask = VMEM_FWD_CASES[name]
+    q, k, v, _, key_mask = numpy_inputs(nq + 3 * nk, b, h, nq, nk, dqk, dv,
+                                        mask)
+    scale = dqk ** -0.5
+    tq, tk, tv = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    tm = None if key_mask is None else torch.from_numpy(key_mask)
+    out = vmem_fwd_tiles(tq, tk, tv, scale, tm)
+    assert out.dtype == dtype and out.shape == (b, h, nq, dv)
+    plain = tvmem.vmem_attention_plain(tq, tk, tv, scale=scale, key_mask=tm)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ref = _jax_vmem_fwd(q, k, v, key_mask, scale, jdt)
+    for r in (plain.float().numpy(), ref):
+        tol = (1e-5 * np.abs(r).max() if dtype == torch.float32
+               else VMEM_TOL_BF16)
+        np.testing.assert_allclose(out.float().numpy(), r, rtol=0, atol=tol)
+    if mask:
+        assert not out[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_vmem_fwd_masked_bias_neg_big_or_inf(dtype):
+    """Under the guarded softmax a masked key's bias NEG_BIG (the JAX
+    kernel's) and -inf (the card's) give the same output bit for bit, an
+    all-masked row exactly 0 with either; the kernel's own guards over -inf
+    biases give that same output."""
+    b, h, nq, nk, dqk, dv = 3, 2, 70, 200, 48, 32
+    q, k, v, _, key_mask = numpy_inputs(11, b, h, nq, nk, dqk, dv, mask=True)
+    tq, tk, tv = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    tm = torch.from_numpy(key_mask)
+    scale = dqk ** -0.5
+    neg_big = vmem_fwd_tiles(tq, tk, tv, scale, tm, tvmem.NEG_BIG,
+                             guarded=True)
+    inf = vmem_fwd_tiles(tq, tk, tv, scale, tm, -math.inf, guarded=True)
+    card = vmem_fwd_tiles(tq, tk, tv, scale, tm)
+    assert torch.equal(neg_big, inf) and torch.equal(inf, card)
+    assert not card[0].any() and bool(card[1:].abs().amax() > 0)

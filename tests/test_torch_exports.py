@@ -1,0 +1,41 @@
+"""The port's package exports at the paths the JAX package uses.
+
+Each name below is exported by the JAX package at ``deepearth_tpu.<path>``;
+the port exports its counterpart at ``deepearth_tpu_torch.<path>``, and the
+exported object is the one its defining submodule holds (a re-export, not a
+copy). Where the port's class has another name than JAX's (its DeepSeek
+embedder loads torch weights, not flax ones), the port's name is checked.
+"""
+
+import importlib
+
+import pytest
+
+EXPORTS = [  # (package path, name, the port's defining submodule)
+    ("", "PRESET_MODALITIES", "configs"),
+    ("models", "config_from_hf", "models.hf_convert"),
+    ("models", "convert_hf_state_dict", "models.hf_convert"),
+    ("models", "load_hf_checkpoint", "models.hf_convert"),
+    ("ops", "HASH_PRIMES", "ops.hash_encoding"),
+    ("ops", "yarn_get_mscale", "ops.rope"),
+    ("serving", "HashEmbedder", "serving.language_server"),
+    ("serving", "HFEmbedder", "serving.language_server"),
+    ("serving", "LanguageClient", "serving.language_server"),
+    ("serving", "LanguageEmbeddingService", "serving.language_server"),
+    ("serving", "LanguageServer", "serving.language_server"),
+    ("serving", "DeepSeekEmbedder", "serving.language_server"),
+    ("utils", "get_logger", "utils.logging"),
+]
+
+
+def _module(path: str):
+    return importlib.import_module(
+        "deepearth_tpu_torch" + (f".{path}" if path else ""))
+
+
+@pytest.mark.parametrize("path,name,source", EXPORTS,
+                         ids=[f"{p or 'top'}.{n}" for p, n, _ in EXPORTS])
+def test_port_exports_the_jax_package_names(path, name, source):
+    package = _module(path)
+    assert name in package.__all__
+    assert getattr(package, name) is getattr(_module(source), name)

@@ -13,8 +13,9 @@ fp32; in bf16 one ulp at |x| < 4 (2^-6), since an fp32 value near a
 rounding boundary may round either way. K1-bwd: the same reasons,
 elementwise (ATTN_BWD_TOL). K2-bwd adds with atomics in an order that
 changes from run to run: 1e-5 of the sum of |terms| of each row. K3-fwd
-sums in another order than its plain version: 1e-5 in fp32, one bf16 ulp at
-|x| < 4 in bf16 (VMEM_TOL); a row whose keys are all masked is exactly 0.
+sums in another order than its plain version, on each route: 1e-5 in fp32,
+one bf16 ulp at |x| < 4 in bf16 (VMEM_TOL); a row whose keys are all masked
+is exactly 0; two runs are bitwise equal.
 K4-fwd rounds the unnormalised p of each key tile (the library's online
 softmax) where its plain version rounds the normalised p of the full row;
 it is held by chip_smoke.check_flash_out: 1e-5 in fp32, two bf16 ulps of
@@ -32,7 +33,8 @@ entries equal to the plain version's; its split of dout into bf16 hi + lo
 is its plain version's bit for bit. K6 and K7 multiply bf16-rounded x by
 weights exact in bf16 and sum in fp32, as their plain versions do, in
 another order: 1e-5 of the largest entry in fp32 outputs, one bf16 ulp of
-it in bf16 outputs (chip_smoke.QUANT_FP32_REL, chip_smoke.bf16_ulp).
+it in bf16 outputs (chip_smoke.QUANT_FP32_REL, chip_smoke.bf16_ulp); K7 on
+both its routes (tensor cores, CUDA cores), two runs bitwise equal.
 """
 
 import contextlib
@@ -67,7 +69,8 @@ ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 ATTN_BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -7, 1e-4)}
 HASH_BWD_TOL = 1e-5
 VMEM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-NO_K3_TO_K5 = {"vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
+NO_K3_TO_K5 = {"vmem_attention_fwd": 0, "vmem_attention_fwd_mma": 0,
+               "vmem_attention_fwd_fp32": 0, "vmem_attention_bwd": 0,
                "vmem_attention_bwd_mma": 0, "vmem_attention_bwd_fp32": 0,
                "flash_attention_fwd": 0, "flash_attention_fwd_mma": 0,
                "flash_attention_fwd_fp32": 0, "flash_attention_bwd": 0,
@@ -78,7 +81,7 @@ NO_K3_TO_K5 = {"vmem_attention_fwd": 0, "vmem_attention_bwd": 0,
                "grouped_matmul_bwd_dlhs_fp32": 0,
                "grouped_matmul_bwd_drhs": 0, "grouped_matmul_bwd_drhs_mma": 0,
                "grouped_matmul_bwd_drhs_fp32": 0, "int8_bmm": 0,
-               "int4_bmm": 0}
+               "int4_bmm": 0, "int4_bmm_fma": 0}
 
 
 def _smoke():
@@ -320,9 +323,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     (2, 2, 33, 1024, 128, 128, True, False),  # the longest row, widest head
     (1, 1, 1, 1, 8, 8, False, False),  # one key
     (8, 8, 576, 576, 128, 128, False, True),  # the flagship's vision MLA
+    (2, 2, 100, 300, 40, 36, True, False),  # off TMA's grid: mma.sync
+    (4, 2, 200, 500, 64, 64, True, False),  # 128-row blocks, ragged keys
 ])
 def test_vmem_attention_matches_plain(cuda, dtype, b, h, nq, nk, dqk, dv,
                                       mask, strided):
+    """K3-fwd against its plain version by the route the shapes and strides
+    choose (TMA for bf16 on the 8-element grid, mma.sync for other bf16,
+    CUDA cores for fp32), once on that route's counter, two runs bitwise
+    equal."""
+    smoke = _smoke()
     g = torch.Generator(device=cuda).manual_seed(nq + nk)
     q = torch.randn((b, h, nq, dqk), generator=g, device=cuda).to(dtype)
     k = torch.randn((b, h, nk, dqk), generator=g, device=cuda).to(dtype)
@@ -340,12 +350,47 @@ def test_vmem_attention_matches_plain(cuda, dtype, b, h, nq, nk, dqk, dv,
     out = tvmem.vmem_attention(q, k, v, **kw)
     ref = tvmem.vmem_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["vmem_attention_fwd"] == 1
+    route = smoke.attention_route(q, k, v)
+    assert route == ("" if dtype == torch.bfloat16 and dqk % 8 == 0
+                     and dv % 8 == 0 else
+                     "_mma" if dtype == torch.bfloat16 else "_fp32")
+    assert kernels.launch_counts == smoke.expected_launches(
+        **{f"vmem_attention_fwd{route}": 1})
     assert out.dtype == dtype and out.shape == (b, h, nq, dv)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                atol=VMEM_TOL[dtype])
     if mask:
         assert bool((out[0] == 0).all())
+    assert torch.equal(kernels.vmem_attention_fwd(q, k, v, kw["scale"],
+                                                  key_mask), out)
+
+
+@pytest.mark.parametrize("b,h,nq,nk,dqk,dv,strided", [
+    (16, 8, 576, 576, 48, 32, True),  # the MLA site
+    (16, 8, 16, 576, 64, 64, False),  # the cross site
+    (8, 8, 576, 576, 128, 128, True),  # the flagship's vision MLA
+])
+def test_vmem_attention_fwd_mma_route_on_the_tma_grid(cuda, b, h, nq, nk,
+                                                      dqk, dv, strided):
+    """K3-fwd's mma.sync route (``attention_vmem.cu``), which the model's
+    sites no longer take, called on them: within VMEM_TOL of the plain
+    version and of the TMA route, counted as vmem_attention_fwd_mma."""
+    smoke = _smoke()
+    g = torch.Generator(device=cuda).manual_seed(nq + 5)
+    q, k, v, _, _ = smoke.attention_case(g, b, h, nq, nk, dqk, dv,
+                                         torch.bfloat16, strided=strided)
+    kernels.reset_launch_counts()
+    mma = kernels.vmem_attention_fwd_mma(q, k, v, dqk ** -0.5)
+    tma = kernels.vmem_attention_fwd_tma(q, k, v, dqk ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == smoke.expected_launches(
+        vmem_attention_fwd=1, vmem_attention_fwd_mma=1)
+    ref = tvmem.vmem_attention_plain(q, k, v, scale=dqk ** -0.5)
+    for out in (mma, tma):
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=VMEM_TOL[torch.bfloat16])
+    with pytest.raises(ValueError, match="TMA route"):
+        kernels.vmem_attention_fwd_tma(q.float(), k.float(), v.float(), 0.1)
 
 
 def test_dot_product_attention_routes_k3_shapes_to_the_kernel(cuda):
@@ -355,11 +400,12 @@ def test_dot_product_attention_routes_k3_shapes_to_the_kernel(cuda):
     out = tdpa.dot_product_attention(q, k, k, scale=0.2)
     ref = tvmem.vmem_attention_plain(q, k, k, scale=0.2)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["vmem_attention_fwd"] == 1
+    # fp32: K3-fwd's CUDA-core route
+    assert kernels.launch_counts["vmem_attention_fwd_fp32"] == 1
     torch.testing.assert_close(out, ref, rtol=0, atol=VMEM_TOL[torch.float32])
     short = torch.randn((2, 2, 23, 32), device=cuda)
     tdpa.dot_product_attention(short, short, short, scale=0.2)
-    assert kernels.launch_counts["vmem_attention_fwd"] == 1  # plain at 23
+    assert kernels.launch_counts["vmem_attention_fwd_fp32"] == 1  # plain at 23
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -924,7 +970,9 @@ def test_quant_bmm_matches_plain(cuda, dtype, bits, case):
     with smoke.plain_versions_refused():
         out = dispatch(x, q, s, out_dtype=dtype)
     torch.cuda.synchronize()
-    assert kernels.launch_counts[name] == 1
+    # every case here is on K7's tensor-core route (int4_bmm), none on its
+    # CUDA-core one (int4_bmm_fma)
+    assert kernels.launch_counts == smoke.expected_launches(**{name: 1})
     ref = plain(x, q, s, dtype)
     assert out.shape == (e, c, f) and out.dtype == dtype
     tol = (smoke.QUANT_FP32_REL * ref.abs().max().item()
@@ -935,6 +983,51 @@ def test_quant_bmm_matches_plain(cuda, dtype, bits, case):
     mixed = getattr(kernels, name)(x.float(), q, s, torch.bfloat16)
     ref = plain(x.float(), q, s, torch.bfloat16)
     assert smoke.max_err(mixed, ref) <= smoke.bf16_ulp(ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", ["q_proj C5", "experts up C128",
+                                  "E3 C17 D512 F136 (ragged tiles)"])
+def test_int4_bmm_fma_route_matches_plain(cuda, dtype, case):
+    """K7's CUDA-core route (``quant_matmul.cu`` and its split reduction),
+    which the decode path no longer takes, on the decode shapes: within the
+    same limits as the tensor-core route, counted as int4_bmm_fma, two runs
+    bitwise equal."""
+    smoke = _smoke()
+    e, c, d, f = QUANT_TEST_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x, q, s = smoke.quant_case(gen, e, c, d, f, 4, dtype)
+    kernels.reset_launch_counts()
+    out = kernels.int4_bmm_fma(x, q, s, dtype)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == smoke.expected_launches(int4_bmm_fma=1)
+    ref = tquant.int4_bmm_plain(x, q, s, dtype)
+    tol = (smoke.QUANT_FP32_REL * ref.abs().max().item()
+           if dtype == torch.float32 else smoke.bf16_ulp(ref))
+    assert smoke.max_err(out, ref) <= tol
+    assert torch.equal(kernels.int4_bmm_fma(x, q, s, dtype), out)
+
+
+def test_int4_bmm_routes_by_shape(cuda):
+    """kernels.int4_bmm takes the CUDA-core route off the tensor-core grid
+    (48 packed rows: less than one 64-row stage; C = 129) and the
+    tensor-core route on it; int4_bmm_tc refuses what it does not take."""
+    smoke = _smoke()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for (e, c, d, f), name in (((1, 3, 96, 200), "int4_bmm_fma"),
+                               ((1, 129, 256, 128), "int4_bmm_fma"),
+                               ((1, 3, 256, 200), "int4_bmm")):
+        x, q, s = smoke.quant_case(gen, e, c, d, f, 4, torch.bfloat16)
+        kernels.reset_launch_counts()
+        out = kernels.int4_bmm(x, q, s)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts == smoke.expected_launches(**{name: 1})
+        ref = tquant.int4_bmm_plain(x, q, s)
+        assert smoke.max_err(out, ref) <= smoke.bf16_ulp(ref)
+    x, q, s = smoke.quant_case(gen, 1, 3, 96, 200, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match="tensor-core route"):
+        kernels.int4_bmm_tc(x, q, s)
 
 
 def test_quant_wrappers_reject_what_the_kernels_do_not_take(cuda):

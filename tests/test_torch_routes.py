@@ -1,11 +1,15 @@
-"""The routes that K3-bwd, K4 and K5-fwd take on the card, decided on the
+"""The routes that K3, K4, K5-fwd and K7 take on the card, decided on the
 CPU.
 
 ``kernels.gmm_fwd_tma_route``, ``kernels.flash_fwd_tma_route``,
-``kernels.flash_bwd_tma_route`` and ``kernels.vmem_bwd_tma_route`` choose
-between the wgmma kernels over TMA tiles, the mma.sync kernels and the
-CUDA-core kernels from the shapes (and for the attention kernels the
-strides) alone, so they are plain functions that run here. The MLA hands
+``kernels.flash_bwd_tma_route``, ``kernels.vmem_fwd_tma_route`` and
+``kernels.vmem_bwd_tma_route`` choose between the wgmma kernels over TMA
+tiles, the mma.sync kernels and the CUDA-core kernels from the shapes (and
+for the attention kernels the strides) alone, and
+``kernels.int4_bmm_tc_route`` between K7's tensor-core kernel and its
+CUDA-core one from the shapes alone, so they are plain functions that run
+here. Every int4 product of ``chip_smoke``'s decode model (phase 18) at
+B=1, 8 and 32 is held to K7's tensor-core route. The MLA hands
 K4 (at 4608 patches, its flash gate) or K3 (at 576, through
 ``dot_product_attention``) views of its projections: these tests build the
 port's ``MLAttention`` on the CPU at the multimodal model's vision config
@@ -15,6 +19,8 @@ dims and strides to the TMA routes, so that the main path cannot slip onto
 mma.sync unseen.
 """
 
+import os
+import sys
 from unittest import mock
 
 import pytest
@@ -87,9 +93,9 @@ def test_flash_fwd_tma_route(dtype, d_qk, d_v, strides, want):
 
 
 MLA_576 = [8 * 576 * 48, 576 * 48, 48]
-
-
-@pytest.mark.parametrize("dtype,d_qk,d_v,strides,want", [
+# (dtype, Dqk, Dv, the strides of q, k, v along B, H, N, whether the TMA
+# routes take them); K3-fwd and K3-bwd share the rule
+VMEM_ROUTE_CASES = [
     (torch.bfloat16, 48, 32, MLA_576 * 2 + [576 * 8 * 64, 64, 8 * 64],
      True),  # the multimodal MLA site, v a view of the kv projection
     (torch.bfloat16, 64, 64, [8 * 16 * 64, 64, 512, 8 * 576 * 64, 64, 512,
@@ -103,9 +109,67 @@ MLA_576 = [8 * 576 * 48, 576 * 48, 48]
     (torch.bfloat16, 136, 64, [8 * 136] * 9, False),  # past 128
     (torch.float32, 48, 32, MLA_576 * 3, False),  # fp32: the CUDA cores
     (torch.float16, 48, 32, MLA_576 * 3, False),
-])
+]
+
+
+@pytest.mark.parametrize("dtype,d_qk,d_v,strides,want", VMEM_ROUTE_CASES)
 def test_vmem_bwd_tma_route(dtype, d_qk, d_v, strides, want):
     assert kernels.vmem_bwd_tma_route(dtype, d_qk, d_v, strides) is want
+
+
+@pytest.mark.parametrize("dtype,d_qk,d_v,strides,want", VMEM_ROUTE_CASES)
+def test_vmem_fwd_tma_route(dtype, d_qk, d_v, strides, want):
+    assert kernels.vmem_fwd_tma_route(dtype, d_qk, d_v, strides) is want
+
+
+@pytest.mark.parametrize("e,c,d,fp,want", [
+    (1, 8, 2048, 3072, True),  # q_proj at B=8
+    (1, 1, 2048, 640, True),  # kv_a_proj_with_mqa (F 576) at B=1
+    (16, 16, 2048, 1024, True),  # the experts' w_gate at B=32
+    (16, 128, 1024, 2048, True),  # the drop-free slots of B=32
+    (1, 8, 8192, 2048, True),  # layer 0's w_down: cluster 16, chunk 256
+    (1, 1, 128, 128, True),  # the smallest: one stage, one tile
+    (1, 129, 2048, 3072, False),  # C past 128
+    (1, 8, 2048, 3000, False),  # Fp off the 128 grid
+    (1, 8, 96, 128, False),  # 48 packed rows: less than one stage
+    (1, 8, 2 * 2112, 128, False),  # 2112 rows: one chunk past 1024
+    (1, 8, 2049, 3072, False),  # D odd
+    (1, 0, 2048, 3072, False),  # C = 0 launches nothing
+])
+def test_int4_bmm_tc_route(e, c, d, fp, want):
+    assert kernels.int4_bmm_tc_route(e, c, d, fp) is want
+
+
+@pytest.mark.parametrize("e,c,rows,fp,plan", [
+    (1, 8, 1024, 3072, (1, 1, 8, 128)),  # q_proj: 24 tiles x 8 = 192
+    (1, 8, 1024, 640, (1, 1, 16, 64)),  # kv_a: 5 tiles, the most ranks
+    (16, 4, 1024, 1024, (1, 1, 2, 512)),  # 128 tiles x 2
+    (16, 32, 512, 2048, (4, 1, 1, 512)),  # 256 tiles: no split
+    (16, 128, 1024, 1024, (4, 4, 1, 1024)),  # four column tiles of 32
+    (1, 16, 4096, 2048, (2, 1, 16, 256)),
+    (1, 1, 64 * 33, 128, (1, 1, 1, 64 * 33)),  # 33 stages: no split fits
+])
+def test_int4_tc_plan(e, c, rows, fp, plan):
+    assert kernels.int4_tc_plan(e, c, rows, fp) == plan
+
+
+@pytest.mark.parametrize("batch", [1, 8, 32])
+def test_every_int4_decode_product_takes_the_tensor_core_route(batch):
+    """Each K7 product of one decode step of chip_smoke's decode model
+    (tools/bench_decode.py's config, its int4 tree built on the meta
+    device) takes K7's tensor-core route: the dense projections at E=1,
+    C=batch, the experts at E=16, C=capacity(batch)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    import chip_smoke
+
+    products = chip_smoke.decode_products(
+        chip_smoke.decode_trees_on_meta()[4], batch)
+    assert sum(products.values()) == chip_smoke.QUANT_PER_STEP
+    for bits, e, c, d, f in products:
+        assert bits == 4
+        assert kernels.int4_bmm_tc_route(e, c, d, -(-f // 128) * 128), (
+            e, c, d, f)
 
 
 def test_tma_strides_ignore_dims_of_extent_one():
@@ -179,12 +243,14 @@ def _capture(module, site, x, *args):
 
 
 def _assert_k3_tma(q, k, v, d_qk, d_v):
-    """K3 takes these views (its router's shape gate) and K3-bwd's TMA
-    route takes them in place (16-byte starts: no copy on the card)."""
+    """K3 takes these views (its router's shape gate) and the TMA routes of
+    K3-fwd and K3-bwd take them in place (16-byte starts: no copy on the
+    card)."""
     assert q.shape[-1] == k.shape[-1] == d_qk and v.shape[-1] == d_v
     assert attention_vmem.supported(q.shape[2], k.shape[2], d_qk, d_v,
                                     False, False)
     strides = [s for t in (q, k, v) for s in kernels._tma_strides(t)]
+    assert kernels.vmem_fwd_tma_route(torch.bfloat16, d_qk, d_v, strides)
     assert kernels.vmem_bwd_tma_route(torch.bfloat16, d_qk, d_v, strides)
     for t in (q, k, v):
         assert t.stride(-1) == 1 and (2 * t.storage_offset()) % 16 == 0
@@ -197,7 +263,8 @@ def _assert_k3_tma(q, k, v, d_qk, d_v):
 def test_mla_views_at_576_take_the_k3_tma_route(make_cfg, d_qk, d_v):
     """At 576 patches (the multimodal train step's and the flagship's) the
     MLA stays below the flash gate and runs K3 on the card; its q, k and v
-    (v a strided view of the kv projection) take K3-bwd's TMA route."""
+    (v a strided view of the kv projection) take the TMA routes of K3-fwd
+    and K3-bwd."""
     cfg = make_cfg()
     assert IMAGE_PATCHES < cfg.flash_min_seq
     mla = deepseek.MLAttention(cfg, Init(torch.Generator().manual_seed(0),
@@ -210,8 +277,8 @@ def test_mla_views_at_576_take_the_k3_tma_route(make_cfg, d_qk, d_v):
 
 def test_cross_attention_views_take_the_k3_tma_route():
     """The multimodal model's query-token cross-attention (16 tokens of 512
-    into 576 patches, 8 heads of 64) runs K3, and its views take K3-bwd's
-    TMA route."""
+    into 576 patches, 8 heads of 64) runs K3, and its views take the TMA
+    routes of K3-fwd and K3-bwd."""
     m = ModalityConfig(name="vision", input_dim=1408, n_tokens=16,
                        encoder_layers=1, encoder_heads=8)
     cross = encoders._CrossAttention(512, m.encoder_heads, Init(
