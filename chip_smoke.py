@@ -13,11 +13,21 @@ Phases, each printing one line:
      4096 observations; every forward must launch K2-fwd twice and K1-fwd 16
      times, and its outputs must agree with the same model run through the
      plain versions;
-  5. K1-bwd (pairwise_attention_bwd) against its plain PyTorch version;
+  5. K1-bwd (pairwise_attention_bwd) against its plain PyTorch version, by
+     both its routes (bf16 on its grid, at most 3 tokens a side: 8 lanes a
+     (row, head) on 16-byte register loads; fp32, a head dim off the
+     8-element grid or more tokens: a warp a (row, head)), at the A-stack
+     shape, the fused qkv views, a key mask with all-masked rows (exactly
+     0), B=1000, Nq 2 / Nk 5, Dh 160 and, in bf16, Dh 36 and Nq 2 / Nk 3
+     with a key mask; the route and launches per case, two runs bitwise
+     equal; times of both
+     routes, the plain version, the library and the bound at the A-stack
+     shape;
   6. K2-bwd (hash_encode_bwd) against its plain PyTorch version;
   7. the training slice: the same model trained at B=4096 with masking
      through Trainer.fit and Trainer.evaluate; every train step must launch
-     K2-fwd 2, K2-bwd 2, K1-fwd 16 and K1-bwd 16 times; 3 steps with the
+     K2-fwd 2, K2-bwd 2, K1-fwd 16 and K1-bwd 16 times (all on its
+     streaming route, none on its warp route); 3 steps with the
      kernels must agree with 3 steps through the plain versions from the
      same state; the loss must fall over 30 steps on one repeated batch;
   8. K3-fwd (vmem_attention_fwd) against its plain PyTorch version, in bf16
@@ -99,13 +109,14 @@ Phases, each printing one line:
      dispatch mode; 3 steps against the plain path from one start state
      kept on the host, routing pinned as in phase 15; step time, peak
      memory, a per-op profile with K5's share of the step;
- 17. K6 (int8_bmm) and K7 (int4_bmm, by both its routes: tensor cores in
-     one cluster launch, CUDA cores) against their plain PyTorch versions,
+ 17. K6 (int8_bmm) and K7 (int4_bmm), each by both its routes (tensor
+     cores in one cluster launch, CUDA cores), against their plain versions,
      x in bf16 and fp32, at the decode path's shapes (dense E=1 at C 1, 5,
      8, 32 for q_proj 2048 -> 3072 and kv_a_proj_with_mqa 2048 -> 576;
      experts E=16 at C 4, 16, 32, 128 for 2048 -> 1024 and 1024 -> 2048);
-     the decode shapes on K7's tensor-core route; two runs of each route
-     bitwise equal; times with the weights out of L2, bounds,
+     the decode shapes on the tensor-core routes; two runs of each route
+     bitwise equal; times of both routes with the weights out of L2,
+     bounds,
      torch._weight_int8pack_mm (K6) and torch._weight_int4pack_mm (K7, on
      a one-time uint4 repack) where this torch has them on the card; one B=8
      decode step's 177 products timed;
@@ -114,9 +125,9 @@ Phases, each printing one line:
      quantize_decoder_params, their bytes BENCH_DECODE.json's), greedy
      generate of 256 tokens after a 64-token prompt at B=1, 8, 32 over a
      bf16 cache; per call K6 319 x 177 = 56,463 times (int8), K7 as many
-     (int4, all on its tensor-core route), neither at bf16, no plain version
-     reached; wall time, tokens/s,
-     ms per step, peak memory, a per-op profile of one int8 step at B=8;
+     (int4), each all on its tensor-core route, neither at bf16, no plain
+     version reached; wall time, tokens/s, ms per step, peak memory, a
+     per-op profile of one int8 step at B=8 with K6's device time in it;
      kernel vs plain at B=8: the prompt's logits teacher-forced with
      routing pinned, flips counted, and the greedy tokens' agreement;
 then a JSON line of the kernels, the card's name and power limit, and
@@ -794,8 +805,19 @@ def phase_slice(gen) -> dict:
     return {"launches": launches, **timing}
 
 
+def k1_bwd_route(q, k, v, n_heads) -> str:
+    """The counter of the K1-bwd route the dispatch takes for q, k, v."""
+    strides = [s for x in (q, k, v) for s in kernels._pairwise_strides(x)]
+    return ("pairwise_attention_bwd" if kernels.pairwise_bwd_tma_route(
+        q.dtype, q.shape[0], k.shape[0], q.shape[2] // n_heads, strides)
+        else "pairwise_attention_bwd_warp")
+
+
 def phase_attention_bwd(gen) -> dict:
-    errs = {}
+    """K1-bwd by both routes: the dispatch (the streaming route on its
+    grid) and the warp route's own wrapper, at every case."""
+    errs, routes = {}, {}
+    launches = collections.Counter()
 
     def case(name, nq, nk, b, d, h, dtype, mask=None, fused_qkv=False):
         if fused_qkv:  # strided views of one projection, as the model has
@@ -807,28 +829,46 @@ def phase_attention_bwd(gen) -> dict:
             v = torch.randn((nk, b, d), generator=gen, device="cuda").to(dtype)
         do = torch.randn((nq, b, d), generator=gen, device="cuda").to(dtype)
         scale = (d // h) ** -0.5
-        got = kernels.pairwise_attention_bwd(q, k, v, do, h, scale, mask)
         ref = attention_smallseq.pairwise_token_attention_bwd_plain(
             q, k, v, do, n_heads=h, scale=scale, key_mask=mask)
+        route = k1_bwd_route(q, k, v, h)
+        routes[name] = route
+        calls = {route: kernels.pairwise_attention_bwd}
+        calls.setdefault("pairwise_attention_bwd_warp",
+                         kernels.pairwise_attention_bwd_warp)
         rtol, atol = ATTN_BWD_TOL[dtype]
-        for label, a, r in zip(("dq", "dk", "dv"), got, ref):
-            if a.shape != r.shape or a.dtype != dtype:
-                raise AssertionError(f"K1-bwd {name} {label}: {a.shape} "
-                                     f"{a.dtype}")
-            diff = (a.float() - r.float()).abs()
-            if not bool((diff <= rtol * r.float().abs() + atol).all()):
-                raise AssertionError(f"K1-bwd {name} {label}: max_abs_err "
-                                     f"{diff.max().item()} beyond {rtol}|x| "
-                                     f"+ {atol}")
-            if mask is not None and not bool(
-                    (a[:, ~mask.any(dim=1)] == 0).all()):
-                raise AssertionError(f"K1-bwd {name} {label}: rows with no "
-                                     "visible key have gradients")
-            errs[f"{name} {label}"] = diff.max().item()
+        for counter, call in calls.items():
+            tag = name + ("" if counter == "pairwise_attention_bwd"
+                          else " warp")
+            kernels.reset_launch_counts()
+            got = call(q, k, v, do, h, scale, mask)
+            torch.cuda.synchronize()
+            if kernels.launch_counts != expected_launches(**{counter: 1}):
+                raise AssertionError(f"K1-bwd {tag}: launches "
+                                     f"{kernels.launch_counts}")
+            launches[counter] += 1
+            for label, a, r in zip(("dq", "dk", "dv"), got, ref):
+                if a.shape != r.shape or a.dtype != dtype:
+                    raise AssertionError(f"K1-bwd {tag} {label}: {a.shape} "
+                                         f"{a.dtype}")
+                diff = (a.float() - r.float()).abs()
+                if not bool((diff <= rtol * r.float().abs() + atol).all()):
+                    raise AssertionError(
+                        f"K1-bwd {tag} {label}: max_abs_err "
+                        f"{diff.max().item()} beyond {rtol}|x| + {atol}")
+                if mask is not None and not bool(
+                        (a[:, ~mask.any(dim=1)] == 0).all()):
+                    raise AssertionError(f"K1-bwd {tag} {label}: rows with "
+                                         "no visible key have gradients")
+                errs[f"{tag} {label}"] = diff.max().item()
+            again = call(q, k, v, do, h, scale, mask)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"K1-bwd {tag}: two runs differ")
 
     b = 4096
     mask = torch.rand((b, 3), generator=gen, device="cuda") > 0.4
     mask[:64] = False  # some rows see no key at all
+    mask3 = mask[:1000]
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).split(".")[-1]
         case(f"A-stack {tag}", 3, 3, b, 768, 12, dtype)
@@ -838,6 +878,12 @@ def phase_attention_bwd(gen) -> dict:
         case(f"B=1000 {tag}", 3, 3, 1000, 768, 12, dtype)
         case(f"Nq2 Nk5 {tag}", 2, 5, 1000, 768, 12, dtype)
         case(f"Dh=160 {tag}", 3, 3, 1000, 640, 4, dtype)
+    # a head dim off the 8-element grid: the warp route in bf16; Nq != Nk
+    # within the streaming route's 3 tokens a side
+    case("Dh=36 bfloat16", 3, 3, 1000, 432, 12, torch.bfloat16)
+    case("Nq2 Nk3 bfloat16", 2, 3, 1000, 768, 12, torch.bfloat16, mask=mask3)
+    if routes["A-stack fused qkv bfloat16"] != "pairwise_attention_bwd":
+        raise AssertionError(f"K1-bwd routes {routes}")
 
     q, k, v, do = (torch.randn((3, b, 768), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
@@ -845,34 +891,53 @@ def phase_attention_bwd(gen) -> dict:
     calls = {
         "kernel": lambda: kernels.pairwise_attention_bwd(q, k, v, do, 12,
                                                          0.125),
+        "warp": lambda: kernels.pairwise_attention_bwd_warp(q, k, v, do, 12,
+                                                            0.125),
         "plain": lambda: plain(q, k, v, do, n_heads=12, scale=0.125)}
     times = {}
+    for label in ("kernel", "warp", "plain", "warp", "kernel"):
+        times.setdefault(label, []).append(graph_ms(calls[label]))
     for label, call in calls.items():
-        times[label] = graph_ms(call)
-        times[f"{label}_eager"] = cuda_ms(call)
+        times[f"{label}_eager"] = [cuda_ms(call)]
     # the library's attention backward on the same values, (B, H, N, Dh),
     # eager: its graph is the autograd graph of one forward call
     qh, kh, vh = (bhnd(x, 12).requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qh, kh, vh, scale=0.125)
     doh = bhnd(do, 12)
-    times["library_eager"] = cuda_ms(lambda: torch.autograd.grad(
-        out, (qh, kh, vh), doh, retain_graph=True))
+    times["library_eager"] = [cuda_ms(lambda: torch.autograd.grad(
+        out, (qh, kh, vh), doh, retain_graph=True))]
     k1b_bound = bound(nbytes(q, k, v, do, q, k, v), 10 * 3 * 3 * b * 768,
                       torch.bfloat16)
-    worst = {k: max(v for n, v in errs.items() if n.endswith(k))
-             for k in ("dq", "dk", "dv")}
-    print("[5 K1-bwd pairwise_attention_bwd] max_abs_err over "
-          f"{len(errs) // 3} cases: " + ", ".join(
-              f"{k} {v:.3g}" for k, v in worst.items())
+    worst = {r: {k: max([v for n, v in errs.items() if n.endswith(k)
+                         and (n.endswith(f"warp {k}") == (r == "warp"))],
+                        default=0.0)
+                 for k in ("dq", "dk", "dv")}
+             for r in ("streaming", "warp")}
+    print("[5 K1-bwd pairwise_attention_bwd] routes: bf16 on its grid (at "
+          "most 3 tokens a side) 8 lanes a (row, head) on 16-byte register "
+          "loads (counted "
+          "pairwise_attention_bwd), else a warp a (row, head) (_warp); every "
+          "case through the dispatch and the warp route | route per case: "
+          + ", ".join(f"{n} {r}" for n, r in routes.items())
+          + f" | launches {dict(launches)} | max_abs_err over "
+          f"{len(routes)} cases: " + "; ".join(
+              f"{r} " + ", ".join(f"{k} {v:.3g}" for k, v in w.items())
+              for r, w in worst.items())
           + " (per case: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-          + ") | ms at (3, 4096, 768) bf16 (device; eager with host launch "
-          "cost; library = backward of scaled_dot_product_attention): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + ") | two runs of each route bitwise equal | ms at (3, 4096, 768) "
+          "bf16 (CUDA-graph replays in turns kernel, warp, plain, warp, "
+          "kernel; eager with host launch cost; library = backward of "
+          "scaled_dot_product_attention): " + ", ".join(
+              f"{k} {' '.join(f'{t:.4f}' for t in v)}"
+              for k, v in times.items())
           + f" | bound {k1b_bound['bound_ms']:.4f} ms "
           f"({k1b_bound['bound_by']}) | {card()}")
-    return {"max_abs_err": max(errs.values()), "ms": times["kernel"],
-            "plain_ms": times["plain"], "library_ms": times["library_eager"],
-            **k1b_bound}
+    return {"max_abs_err": max(worst["streaming"].values()),
+            "warp_max_abs_err": max(worst["warp"].values()),
+            "ms": min(times["kernel"]), "warp_ms": min(times["warp"]),
+            "plain_ms": times["plain"][0],
+            "library_ms": times["library_eager"][0],
+            "launches": dict(launches), **k1b_bound}
 
 
 def _hash_bwd_case(gen, n, levels, table, d, f=2, interpolation="linear",
@@ -3117,17 +3182,16 @@ def library_int4(x, qs, s, ref):
 
 
 def phase_quant(gen) -> dict:
-    """K6 (int8_bmm) and K7 (int4_bmm, both its routes) against their plain
-    versions."""
+    """K6 (int8_bmm) and K7 (int4_bmm), each by both its routes, against
+    their plain versions."""
     gc.collect()
     torch.cuda.empty_cache()
     out, trees = {}, decode_trees_on_meta()
     for bits, name in ((8, "int8_bmm"), (4, "int4_bmm")):
         # the route the decode path takes (through the dispatching wrapper,
-        # counted under the kernel's name) and K7's CUDA-core route
-        routes = {"": getattr(kernels, name)}
-        if bits == 4:
-            routes["_fma"] = kernels.int4_bmm_fma
+        # counted under the kernel's name) and the CUDA-core route
+        routes = {"": getattr(kernels, name),
+                  "_fma": getattr(kernels, name + "_fma")}
         plain = quant.int8_bmm_plain if bits == 8 else quant.int4_bmm_plain
         errs, times, route_err = {}, {}, collections.Counter()
         launches = collections.Counter()
@@ -3179,8 +3243,7 @@ def phase_quant(gen) -> dict:
             times[case] = t
             del qs
         # one decode step's products at B=8, each timed cold
-        step = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0,
-                **({"fma_ms": 0.0} if bits == 4 else {})}
+        step = {"ms": 0.0, "fma_ms": 0.0, "plain_ms": 0.0, "bytes": 0}
         products = decode_products(trees[bits], 8)
         if set(k[0] for k in products) != {bits} \
                 or sum(products.values()) != QUANT_PER_STEP:
@@ -3201,33 +3264,28 @@ def phase_quant(gen) -> dict:
         line = times[QUANT_LINE_CASE]
         out[name] = {"max_abs_err": route_err[""], "times": times,
                      "step": step, "launches": dict(launches),
+                     "fma_max_abs_err": route_err["_fma"],
                      **{k: line[k] for k in (
-                         "ms", "plain_ms", "bound_ms", "bound_by",
+                         "ms", "fma_ms", "plain_ms", "bound_ms", "bound_by",
                          "library_ms")}}
-        if bits == 4:
-            out[name].update(fma_max_abs_err=route_err["_fma"],
-                             fma_ms=line["fma_ms"])
-        print(f"[17 K{6 if bits == 8 else 7} {name}] "
-              + ("routes: tensor cores in one cluster launch (counted "
-                 "int4_bmm; the decode path's) and CUDA cores (_fma) | "
-                 if bits == 4 else "")
+        print(f"[17 K{6 if bits == 8 else 7} {name}] routes: tensor cores in "
+              f"one cluster launch (counted {name}; the decode path's) and "
+              f"CUDA cores (_fma) | launches {dict(launches)} | "
               + "max_abs_err " + ", ".join(
                   f"{k} {v:.3g}" for k, v in errs.items())
               + f" (tol fp32 {QUANT_FP32_REL} of the largest entry, bf16 one"
               " ulp of it) | two runs of each route bitwise equal | ms, bf16 "
               "x, weights out of L2 (CUDA-graph replays): " + ", ".join(
-                  f"{k} kernel {t['ms']:.4f}"
-                  + (f" fma route {t['fma_ms']:.4f}" if bits == 4 else "")
-                  + f" plain {t['plain_ms']:.4f} bound {t['bound_ms']:.4f} "
+                  f"{k} kernel {t['ms']:.4f} fma route {t['fma_ms']:.4f}"
+                  f" plain {t['plain_ms']:.4f} bound {t['bound_ms']:.4f} "
                   f"({t['bound_by']}) library {fmt(t['library_ms'])}"
                   + (f" (max_abs_err vs plain {t['library_err']:.3g})"
                      if t["library_err"] is not None else "")
                   for k, t in times.items())
               + f" | library: {line['library'] or 'none'} | one decode "
               f"step's {QUANT_PER_STEP} products at B=8: kernel "
-              f"{step['ms']:.3f} ms"
-              + (f", fma route {step['fma_ms']:.3f}" if bits == 4 else "")
-              + f", plain {step['plain_ms']:.3f}, bound "
+              f"{step['ms']:.3f} ms, fma route {step['fma_ms']:.3f}"
+              f", plain {step['plain_ms']:.3f}, bound "
               f"{step['bound_ms']:.3f} ({step['bytes'] / 1e9:.3f} GB) | "
               f"{card()}")
     return out
@@ -3376,6 +3434,12 @@ def phase_decode(gen) -> dict:
         breakdown, by_op = kernel_breakdown(lambda: causal_lm_decode_step(
             trees["int8"], caches, tok, DECODE_PROMPT + 8), n_calls=3)
     busy = sum(r[1] for r in breakdown)
+    # K6's share of the step: its tensor-core kernel's rows (the profiler
+    # may drop an event now and then; the launch counters above hold the
+    # count)
+    k6_rows = [r for r in breakdown if "int8_bmm_tc_kernel" in r[0]]
+    k6_ms, k6_calls = (sum(r[1] for r in k6_rows),
+                       sum(r[2] for r in k6_rows))
 
     # kernel vs plain at B=8: the prompt teacher-forced, the plain run
     # routed as the kernel run was; then greedy tokens without pinning
@@ -3421,13 +3485,15 @@ def phase_decode(gen) -> dict:
               f"{r['ms_per_step']:.3f}, {r['peak_gib']:.2f}"
               for (tag, b), r in runs.items())
           + f" | launches per call: K6 {launches[('int8', 8)]['int8_bmm']} "
-          f"(int8), K7 {launches[('int4', 8)]['int4_bmm']} on its "
-          "tensor-core route and "
-          f"{launches[('int4', 8)]['int4_bmm_fma']} on its CUDA-core one "
-          "(int4), none at "
+          "on its tensor-core route and "
+          f"{launches[('int8', 8)]['int8_bmm_fma']} on its CUDA-core one "
+          f"(int8), K7 {launches[('int4', 8)]['int4_bmm']} and "
+          f"{launches[('int4', 8)]['int4_bmm_fma']} (int4), none at "
           f"bf16 = {DECODE_STEPS} x {QUANT_PER_STEP}; no plain version "
           f"reached | one int8 step at B=8: host {min(step_ms):.2f}-"
-          f"{max(step_ms):.2f} ms, kernels busy {busy:.3f} ms | kernel vs "
+          f"{max(step_ms):.2f} ms, kernels busy {busy:.3f} ms in "
+          f"{sum(r[2] for r in breakdown):.0f} launches, K6 {k6_ms:.3f} ms "
+          f"of it in {k6_calls:.0f} | kernel vs "
           "plain at B=8, the prompt teacher-forced with routing pinned: "
           + ", ".join(
               f"{k} logits max {v['max_abs']:.4g} ({v['max_over_ulp']:.2f} "
@@ -3513,7 +3579,8 @@ def main() -> None:
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"]},
         {"name": "pairwise_attention_bwd", "route": "cuda",
-         "source": "deepearth_tpu_torch/kernels/csrc/pairwise_attention_bwd.cu",
+         "source":
+             "deepearth_tpu_torch/kernels/csrc/pairwise_attention_bwd_tma.cu",
          "replaces": "deepearth_tpu/ops/attention_smallseq.py:172",
          "launches": tr["launches"]["pairwise_attention_bwd"],
          "max_abs_err": k1b["max_abs_err"], "ms": k1b["ms"],
@@ -3583,7 +3650,7 @@ def main() -> None:
          "max_abs_err": k5b["drhs"]["max_abs_err"], "ms": k5b["drhs"]["ms"],
          "plain_ms": k5b["drhs"]["plain_ms"]},
         {"name": "int8_bmm", "route": "cuda",
-         "source": "deepearth_tpu_torch/kernels/csrc/quant_matmul.cu",
+         "source": "deepearth_tpu_torch/kernels/csrc/quant_matmul_tc.cu",
          "replaces": "deepearth_tpu/ops/quant.py:159",
          "launches": dec["launches"]["int8_bmm"],
          "max_abs_err": k67["int8_bmm"]["max_abs_err"],
@@ -3610,11 +3677,16 @@ def main() -> None:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
     # the mma.sync routes of K3, K4, K5-fwd and K5-bwd take the bf16 shapes
-    # TMA cannot (head dims, strides, K or N off the 8-element grid), K7's
-    # CUDA-core route the shapes off its tensor-core grid: no main path
-    # reaches them, so their launches are phases 8's, 10's, 11's, 14's and
-    # 17's, their times the timed shapes' through their wrappers
-    mma_of = {"vmem_attention_fwd": (
+    # TMA cannot (head dims, strides, K or N off the 8-element grid), K6's
+    # and K7's CUDA-core routes the shapes off their tensor-core grid,
+    # K1-bwd's warp route fp32 and the shapes off its streaming grid: no
+    # main path reaches them, so their launches are phases 5's, 8's, 10's,
+    # 11's, 14's and 17's, their times the timed shapes' through their
+    # wrappers
+    mma_of = {"pairwise_attention_bwd": (
+                  "deepearth_tpu_torch/kernels/csrc/pairwise_attention_bwd.cu",
+                  "launches_in_phase_5", k1b),
+              "vmem_attention_fwd": (
                   "deepearth_tpu_torch/kernels/csrc/attention_vmem.cu",
                   "launches_in_phase_8", k3),
               "vmem_attention_bwd": (
@@ -3635,17 +3707,24 @@ def main() -> None:
               "grouped_matmul_bwd_drhs": (
                   "deepearth_tpu_torch/kernels/csrc/grouped_matmul_bwd.cu",
                   "launches_in_phase_14", k5b["drhs"]),
+              "int8_bmm": (
+                  "deepearth_tpu_torch/kernels/csrc/quant_matmul.cu",
+                  "launches_in_phase_17", k67["int8_bmm"]),
               "int4_bmm": (
                   "deepearth_tpu_torch/kernels/csrc/quant_matmul.cu",
                   "launches_in_phase_17", k67["int4_bmm"])}
-    suffix_of = {"int4_bmm": "_fma"}  # the others' old routes: _mma
-    phase_launches = {"vmem_attention_fwd": k3["launches"],
+    # the others' old routes: _mma
+    suffix_of = {"pairwise_attention_bwd": "_warp", "int8_bmm": "_fma",
+                 "int4_bmm": "_fma"}
+    phase_launches = {"pairwise_attention_bwd": k1b["launches"],
+                      "vmem_attention_fwd": k3["launches"],
                       "vmem_attention_bwd": k3b["launches"],
                       "flash_attention_fwd": k4["launches"],
                       "flash_attention_bwd": k4b["launches"],
                       "grouped_matmul_fwd": k5["launches"],
                       "grouped_matmul_bwd_dlhs": k5b["launches"],
                       "grouped_matmul_bwd_drhs": k5b["launches"],
+                      "int8_bmm": k67["int8_bmm"]["launches"],
                       "int4_bmm": k67["int4_bmm"]["launches"]}
 
     def off_main(entry):

@@ -8,7 +8,9 @@ K5 ``grouped_matmul_fwd`` (three routes, :func:`gmm_fwd_tma_route`) and
 ``grouped_matmul_bwd`` (which launches
 ``grouped_matmul_split_dout`` and ``grouped_matmul_bwd_{dlhs,drhs}_tma``, or
 ``grouped_matmul_bwd_{dlhs,drhs}_mma``), K6 ``int8_bmm`` and K7
-``int4_bmm`` (by one of two routes, :func:`int4_bmm_tc_route`).
+``int4_bmm`` (each by one of two routes, :func:`int8_bmm_tc_route`,
+:func:`int4_bmm_tc_route`); K1-bwd by one of two
+(:func:`pairwise_bwd_tma_route`).
 
 The sources in ``csrc/`` have a plain C interface. At first use each ``.cu``
 is compiled with its own ``nvcc``, all at once, and the objects are linked
@@ -45,7 +47,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Launches per kernel since the last reset_launch_counts().
 launch_counts = {"hash_encode_fwd": 0, "hash_encode_bwd": 0,
+                 # K1-bwd by route: 8 lanes a (row, head) on 16-byte
+                 # register loads (no suffix), a warp a (row, head) (_warp)
                  "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
+                 "pairwise_attention_bwd_warp": 0,
                  # K3, K4, K5-fwd and K5-bwd by route: wgmma over TMA tiles
                  # (no suffix), mma.sync (bf16 off TMA's grid), CUDA cores
                  # (fp32)
@@ -61,9 +66,10 @@ launch_counts = {"hash_encode_fwd": 0, "hash_encode_bwd": 0,
                  "grouped_matmul_bwd_dlhs_fp32": 0,
                  "grouped_matmul_bwd_drhs": 0, "grouped_matmul_bwd_drhs_mma": 0,
                  "grouped_matmul_bwd_drhs_fp32": 0,
-                 # K7 by route: tensor cores in one cluster launch (no
-                 # suffix), CUDA-core FMAs (shapes off its grid)
-                 "int8_bmm": 0, "int4_bmm": 0, "int4_bmm_fma": 0}
+                 # K6 and K7 by route: tensor cores in one cluster launch
+                 # (no suffix), CUDA-core FMAs (shapes off its grid)
+                 "int8_bmm": 0, "int8_bmm_fma": 0, "int4_bmm": 0,
+                 "int4_bmm_fma": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -98,6 +104,9 @@ _SIGNATURES = {
     "int8_bmm": [*[_P] * 5, *[_I] * 10, _P],
     "int4_bmm": [*[_P] * 5, *[_I] * 10, _P],
     "int4_bmm_tc": [*[_P] * 4, *[_I] * 9, _P],
+    "int8_bmm_tc": [*[_P] * 4, *[_I] * 9, _P],
+    "pairwise_attention_bwd_tma": [*[_P] * 8, *[_I] * 5, *[_I64] * 6, _F,
+                                   _P],
 }
 
 
@@ -308,31 +317,119 @@ def pairwise_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def pairwise_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           dout: torch.Tensor, n_heads: int, scale: float,
-                           key_mask: Optional[torch.Tensor] = None):
-    """K1 backward: the forward's inputs plus dout (Nq, B, D), the gradient
-    of its output, in q's dtype. Returns (dq, dk, dv), contiguous, in q's
-    dtype."""
-    if key_mask is not None:
-        key_mask = key_mask.contiguous()
+def _pairwise_bwd_inputs(q, k, v, dout, n_heads, key_mask):
+    """Checks of K1-bwd's inputs (both routes); returns q, k, v's strides,
+    the key mask's pointer (or None), contiguous dout and the outputs (dq,
+    dk, dv), allocated."""
     strides, mask_ptr = _attention_inputs(q, k, v, n_heads, key_mask)
     nq, b, d = q.shape
     nk = k.shape[0]
     _require(dout.shape == q.shape and dout.dtype == q.dtype
              and dout.device == q.device,
              "pairwise_attention_bwd: dout must be (Nq, B, D) like q")
-    dout = dout.contiguous()
-    dq = torch.empty((nq, b, d), device=q.device, dtype=q.dtype)
-    dk = torch.empty((nk, b, d), device=q.device, dtype=q.dtype)
-    dv = torch.empty((nk, b, d), device=q.device, dtype=q.dtype)
+    grads = [torch.empty((n, b, d), device=q.device, dtype=q.dtype)
+             for n in (nq, nk, nk)]
+    return strides, mask_ptr, dout.contiguous(), grads
+
+
+PAIRWISE_TMA_MAX_TOKENS, PAIRWISE_TMA_MAX_HEAD_DIM = 3, 256
+
+
+def _pairwise_strides(x: torch.Tensor):
+    """x's element strides along tokens and rows, each of a dim of extent 1
+    given as 8 (its index is always 0, so any aligned stride reads it)."""
+    return [s if n > 1 else 8 for s, n in zip(x.stride()[:2], x.shape[:2])]
+
+
+def pairwise_bwd_tma_route(dtype, nq: int, nk: int, head_dim: int,
+                           strides) -> bool:
+    """Whether K1-bwd takes its streaming route (8 lanes a (row, head),
+    16-byte vectors loaded into registers,
+    ``csrc/pairwise_attention_bwd_tma.cu``): bf16, 1 <= Nq, Nk <= 3, the
+    head dim a multiple of 8 up to 256, and ``strides`` (the token and row
+    strides of q, k and v, as :func:`_pairwise_strides` gives them)
+    positive multiples of 8 elements, so that every vector is 16-byte
+    aligned. A base off a 16-byte boundary is copied by the wrapper. Else
+    the kernel of one warp per (row, head)
+    (``pairwise_attention_bwd_warp``). A function of the shapes and strides
+    alone."""
+    return (dtype == torch.bfloat16
+            and 1 <= nq <= PAIRWISE_TMA_MAX_TOKENS
+            and 1 <= nk <= PAIRWISE_TMA_MAX_TOKENS
+            and 8 <= head_dim <= PAIRWISE_TMA_MAX_HEAD_DIM
+            and head_dim % 8 == 0
+            and all(s > 0 and s % 8 == 0 for s in strides))
+
+
+def pairwise_attention_bwd_tma(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, dout: torch.Tensor,
+                               n_heads: int, scale: float,
+                               key_mask: Optional[torch.Tensor] = None):
+    """K1-bwd's streaming route (``csrc/pairwise_attention_bwd_tma.cu``), as
+    :func:`pairwise_attention_bwd`, on the shapes and strides
+    :func:`pairwise_bwd_tma_route` takes; counted as
+    ``pairwise_attention_bwd``."""
+    name = "pairwise_attention_bwd"
+    if key_mask is not None:
+        key_mask = key_mask.contiguous()
+    _, mask_ptr, dout, grads = _pairwise_bwd_inputs(q, k, v, dout, n_heads,
+                                                    key_mask)
+    nq, b, d = q.shape
+    nk, head_dim = k.shape[0], d // n_heads
+    _require(pairwise_bwd_tma_route(
+        q.dtype, nq, nk, head_dim,
+        [s for x in (q, k, v) for s in _pairwise_strides(x)]),
+        f"{name}: the streaming route takes bfloat16 with Nq, Nk <= "
+        f"{PAIRWISE_TMA_MAX_TOKENS}, head dims multiples of 8 up to "
+        f"{PAIRWISE_TMA_MAX_HEAD_DIM} and strides multiples of 8")
+    q, k, v, dout = (_aligned16_view(x) for x in (q, k, v, dout))
+    rc = library().pairwise_attention_bwd_tma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mask_ptr,
+        *(g.data_ptr() for g in grads), nq, nk, b, n_heads, head_dim,
+        *(s for x in (q, k, v) for s in _pairwise_strides(x)), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check(name, rc)
+    return tuple(grads)
+
+
+def pairwise_attention_bwd_warp(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, dout: torch.Tensor,
+                                n_heads: int, scale: float,
+                                key_mask: Optional[torch.Tensor] = None):
+    """K1-bwd's kernel of ``csrc/pairwise_attention_bwd.cu`` (one warp per
+    (row, head)), as :func:`pairwise_attention_bwd`, on any shapes; counted
+    as ``pairwise_attention_bwd_warp``."""
+    if key_mask is not None:
+        key_mask = key_mask.contiguous()
+    strides, mask_ptr, dout, grads = _pairwise_bwd_inputs(q, k, v, dout,
+                                                          n_heads, key_mask)
+    nq, b, d = q.shape
     rc = library().pairwise_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mask_ptr,
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), nq, nk, b, n_heads,
+        *(g.data_ptr() for g in grads), nq, k.shape[0], b, n_heads,
         d // n_heads, *strides, float(scale), _ATTN_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
-    _check("pairwise_attention_bwd", rc)
-    return dq, dk, dv
+    _check("pairwise_attention_bwd_warp", rc)
+    return tuple(grads)
+
+
+def pairwise_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           dout: torch.Tensor, n_heads: int, scale: float,
+                           key_mask: Optional[torch.Tensor] = None):
+    """K1 backward: the forward's inputs plus dout (Nq, B, D), the gradient
+    of its output, in q's dtype. Returns (dq, dk, dv), contiguous, in q's
+    dtype. One launch, by the route :func:`pairwise_bwd_tma_route` picks
+    from the shapes and strides: :func:`pairwise_attention_bwd_tma`
+    (``pairwise_attention_bwd``) or :func:`pairwise_attention_bwd_warp`
+    (``pairwise_attention_bwd_warp``)."""
+    on_grid = (q.dim() == 3 and k.dim() == 3 and v.dim() == 3
+               and n_heads > 0 and q.shape[2] % n_heads == 0
+               and pairwise_bwd_tma_route(
+                   q.dtype, q.shape[0], k.shape[0], q.shape[2] // n_heads,
+                   [s for x in (q, k, v) for s in _pairwise_strides(x)]))
+    route = pairwise_attention_bwd_tma if on_grid else \
+        pairwise_attention_bwd_warp
+    return route(q, k, v, dout, n_heads, scale, key_mask)
 
 
 VMEM_MAX_SEQ, ATTN_MAX_DIM = 1024, 128
@@ -1096,7 +1193,7 @@ def _quant_inputs(name: str, x: torch.Tensor, w: torch.Tensor,
 def _quant_bmm(name: str, x: torch.Tensor, w: torch.Tensor,
                scale: torch.Tensor, out_dtype, int4: bool,
                counter: str) -> torch.Tensor:
-    """K6, or K7's CUDA-core route, of ``csrc/quant_matmul.cu``."""
+    """K6's or K7's CUDA-core route, ``csrc/quant_matmul.cu``."""
     (e, c, d, fp, f), out = _quant_inputs(name, x, w, scale, out_dtype, int4)
     rows = d // 2 if int4 else d
     ct = quant_rows(c)
@@ -1120,20 +1217,8 @@ def _quant_bmm(name: str, x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def int8_bmm(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
-             out_dtype=torch.bfloat16) -> torch.Tensor:
-    """K6: x (E, C, D) float32 or bfloat16, w_q (E, D, Fp) int8 (Fp a
-    multiple of 4), scale (E, 1, F) float32 with F <= Fp, on one CUDA
-    device. Returns (E, C, F) in ``out_dtype`` (float32 or bfloat16):
-    scale times the fp32 sum of bf16(x) times w_q, the chunks of a split
-    reduction added in order (no atomics). One launch counted (two kernels
-    when the reduction is split)."""
-    return _quant_bmm("int8_bmm", x, w_q, scale, out_dtype, int4=False,
-                      counter="int8_bmm")
-
-
-# quant_matmul_tc.cu's grid: 128 features a block tile, stages of 64 packed
-# rows, clusters of up to 16 blocks, at most 1024 packed rows a block, x in
+# quant_matmul_tc.cu's grid: 128 features a block tile, stages of 64 (K7:
+# packed) rows, clusters of up to 16 blocks, at most 1024 rows a block, x in
 # tiles of up to 32 rows and at most 128 rows in all
 QUANT_TC_COLS, QUANT_TC_ROWS = 128, 64
 QUANT_TC_MAX_CLUSTER, QUANT_TC_MAX_CHUNK, QUANT_TC_MAX_C = 16, 1024, 128
@@ -1145,7 +1230,8 @@ def int4_tc_plan(e: int, c: int, rows: int, fp: int):
     of 32), and the ``rows`` packed rows of each 128-feature tile split over
     a cluster of ``cluster`` blocks of ``chunk`` rows each: the fewest (a
     power of two up to 16, each chunk whole 64-row stages) that give the
-    card's 132 SMs a block each. A pure function of the shapes."""
+    card's 132 SMs a block each. A pure function of the shapes; K6's
+    tensor-core route plans the same way (:func:`int8_tc_plan`)."""
     nt = 1 if c <= 8 else 2 if c <= 16 else 4
     c_tiles = _ceil_div(c, 8 * nt)
     tiles = e * (fp // QUANT_TC_COLS) * c_tiles
@@ -1156,6 +1242,32 @@ def int4_tc_plan(e: int, c: int, rows: int, fp: int):
     return nt, c_tiles, cluster, rows // cluster
 
 
+def int8_tc_plan(e: int, c: int, rows: int, fp: int):
+    """(nt, c_tiles, cluster, chunk) of K6's tensor-core route over the
+    ``rows`` = D rows of its int8 weights: :func:`int4_tc_plan`'s rule,
+    then the cluster doubled while a chunk is past 1024 rows (as many as
+    x's rows in shared memory take: the experts' 2048 rows at 128 slots).
+    A pure function of the shapes."""
+    nt, c_tiles, cluster, chunk = int4_tc_plan(e, c, rows, fp)
+    while (chunk > QUANT_TC_MAX_CHUNK and cluster < QUANT_TC_MAX_CLUSTER
+           and rows % (2 * cluster * QUANT_TC_ROWS) == 0):
+        cluster *= 2
+        chunk = rows // cluster
+    return nt, c_tiles, cluster, chunk
+
+
+def _quant_tc_route(e: int, c: int, rows: int, fp: int, plan) -> bool:
+    """Whether quant_matmul_tc.cu takes ``rows`` weight rows (packed rows
+    for K7): a positive multiple of 64 that ``plan`` splits into chunks of
+    at most 1024, Fp a positive multiple of 128, and 1 <= C <= 128."""
+    if (e < 1 or not 1 <= c <= QUANT_TC_MAX_C or rows < QUANT_TC_ROWS
+            or rows % QUANT_TC_ROWS or fp < QUANT_TC_COLS
+            or fp % QUANT_TC_COLS):
+        return False
+    _, c_tiles, _, chunk = plan(e, c, rows, fp)
+    return chunk <= QUANT_TC_MAX_CHUNK and e * c_tiles <= 65535
+
+
 def int4_bmm_tc_route(e: int, c: int, d: int, fp: int) -> bool:
     """Whether K7 takes its tensor-core route (``csrc/quant_matmul_tc.cu``,
     one cluster launch) for x (E, C, D) and weights (E, D/2, Fp): D even,
@@ -1163,13 +1275,73 @@ def int4_bmm_tc_route(e: int, c: int, d: int, fp: int) -> bool:
     into chunks of at most 1024, Fp a positive multiple of 128, and
     1 <= C <= 128. Else the CUDA-core route (``int4_bmm_fma``). A function
     of the shapes alone."""
-    rows = d // 2
-    if (d % 2 or e < 1 or not 1 <= c <= QUANT_TC_MAX_C or rows < QUANT_TC_ROWS
-            or rows % QUANT_TC_ROWS or fp < QUANT_TC_COLS
-            or fp % QUANT_TC_COLS):
-        return False
-    _, c_tiles, _, chunk = int4_tc_plan(e, c, rows, fp)
-    return chunk <= QUANT_TC_MAX_CHUNK and e * c_tiles <= 65535
+    return d % 2 == 0 and _quant_tc_route(e, c, d // 2, fp, int4_tc_plan)
+
+
+def int8_bmm_tc_route(e: int, c: int, d: int, fp: int) -> bool:
+    """Whether K6 takes its tensor-core route (``csrc/quant_matmul_tc.cu``,
+    one cluster launch) for x (E, C, D) and weights (E, D, Fp) int8: D a
+    positive multiple of 64 that :func:`int8_tc_plan` splits into chunks of
+    at most 1024, Fp a positive multiple of 128, and 1 <= C <= 128. Else the
+    CUDA-core route (``int8_bmm_fma``). A function of the shapes alone."""
+    return _quant_tc_route(e, c, d, fp, int8_tc_plan)
+
+
+def _quant_bmm_tc(name: str, x: torch.Tensor, w: torch.Tensor,
+                  scale: torch.Tensor, out_dtype, int4: bool) -> torch.Tensor:
+    """K6's or K7's tensor-core route (``csrc/quant_matmul_tc.cu``), counted
+    as ``name``."""
+    (e, c, d, fp, f), out = _quant_inputs(name, x, w, scale, out_dtype, int4)
+    route, plan = ((int4_bmm_tc_route, int4_tc_plan) if int4
+                   else (int8_bmm_tc_route, int8_tc_plan))
+    _require(route(e, c, d, fp),
+             f"{name}: the tensor-core route takes "
+             f"{'D/2' if int4 else 'D'} a multiple of 64, Fp of 128 and "
+             "1 <= C <= 128")
+    if f == 0:
+        return out
+    nt, _, cluster, _ = plan(e, c, d // 2 if int4 else d, fp)
+    x, w = _aligned16(x), _aligned16(w)
+    scale = scale.contiguous()
+    rc = getattr(library(), name + "_tc")(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), e, c,
+        d, fp, f, nt, cluster, _ATTN_DTYPES[x.dtype], _ATTN_DTYPES[out_dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check(name, rc)
+    return out
+
+
+def int8_bmm_tc(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K6's tensor-core route, as :func:`int8_bmm`, on the shapes
+    :func:`int8_bmm_tc_route` takes: one launch of a thread block cluster,
+    no partial tensor; counted as ``int8_bmm``."""
+    return _quant_bmm_tc("int8_bmm", x, w_q, scale, out_dtype, int4=False)
+
+
+def int8_bmm_fma(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K6's CUDA-core route (``csrc/quant_matmul.cu``, a split reduction
+    added by a second kernel), as :func:`int8_bmm`, on any shapes; counted
+    as ``int8_bmm_fma``."""
+    return _quant_bmm("int8_bmm", x, w_q, scale, out_dtype, int4=False,
+                      counter="int8_bmm_fma")
+
+
+def int8_bmm(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K6: x (E, C, D) float32 or bfloat16, w_q (E, D, Fp) int8 (Fp a
+    multiple of 4), scale (E, 1, F) float32 with F <= Fp, on one CUDA
+    device. Returns (E, C, F) in ``out_dtype`` (float32 or bfloat16):
+    scale times the fp32 sum of bf16(x) times w_q, no atomics. The route is
+    chosen from the shapes alone (:func:`int8_bmm_tc_route`):
+    :func:`int8_bmm_tc` (counted ``int8_bmm``) or :func:`int8_bmm_fma`
+    (``int8_bmm_fma``)."""
+    if (x.dim() == 3 and w_q.dim() == 3
+            and int8_bmm_tc_route(*x.shape, w_q.shape[2])
+            and tuple(w_q.shape[:2]) == (x.shape[0], x.shape[2])):
+        return int8_bmm_tc(x, w_q, scale, out_dtype)
+    return int8_bmm_fma(x, w_q, scale, out_dtype)
 
 
 def int4_bmm_tc(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
@@ -1177,23 +1349,7 @@ def int4_bmm_tc(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
     """K7's tensor-core route, as :func:`int4_bmm`, on the shapes
     :func:`int4_bmm_tc_route` takes: one launch of a thread block cluster,
     no partial tensor; counted as ``int4_bmm``."""
-    name = "int4_bmm"
-    (e, c, d, fp, f), out = _quant_inputs(name, x, w_p, scale, out_dtype,
-                                          int4=True)
-    _require(int4_bmm_tc_route(e, c, d, fp),
-             f"{name}: the tensor-core route takes D/2 a multiple of 64, Fp "
-             "of 128 and 1 <= C <= 128")
-    if f == 0:
-        return out
-    nt, _, cluster, _ = int4_tc_plan(e, c, d // 2, fp)
-    x, w_p = _aligned16(x), _aligned16(w_p)
-    scale = scale.contiguous()
-    rc = library().int4_bmm_tc(
-        x.data_ptr(), w_p.data_ptr(), scale.data_ptr(), out.data_ptr(), e, c,
-        d, fp, f, nt, cluster, _ATTN_DTYPES[x.dtype], _ATTN_DTYPES[out_dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _check(name, rc)
-    return out
+    return _quant_bmm_tc("int4_bmm", x, w_p, scale, out_dtype, int4=True)
 
 
 def int4_bmm_fma(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,

@@ -1,4 +1,7 @@
-// Token-major small-sequence multi-head attention, backward (K1-bwd).
+// Token-major small-sequence multi-head attention, backward (K1-bwd), one
+// warp per (batch row, head): the route of fp32 and the shapes off
+// pairwise_attention_bwd_tma.cu's grid (kernels.pairwise_bwd_tma_route),
+// counted pairwise_attention_bwd_warp.
 //
 // Replaces: deepearth_tpu/ops/attention_smallseq.py `_pw_bwd_kernel`
 // (Pallas, launched by `_pw_run_bwd` from the custom VJP of `_pw_attend`).

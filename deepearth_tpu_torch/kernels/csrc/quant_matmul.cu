@@ -1,5 +1,7 @@
 // Fused-dequant batched matmul over weight-only int8 (K6) and split-half
-// int4 (K7) weights.
+// int4 (K7) weights, on CUDA cores: the route of the shapes off
+// quant_matmul_tc.cu's tensor-core grid (kernels.int8_bmm_tc_route,
+// kernels.int4_bmm_tc_route), counted int8_bmm_fma and int4_bmm_fma.
 //
 // Replaces: deepearth_tpu/ops/quant.py `_bmm_kernel` (:159; pallas_call
 // :221, reached through `int8_bmm`) and `_bmm4_kernel` (:240; pallas_call

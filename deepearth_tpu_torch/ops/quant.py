@@ -16,10 +16,10 @@ and computes the same:
 * scale float32 (..., 1, F), unpadded, absmax / 127 (int8) or / 7 (int4).
 
 :func:`int8_bmm` and :func:`int4_bmm` run the hand-written kernels K6
-(``kernels/csrc/quant_matmul.cu``) and K7 (tensor cores in one cluster
-launch, ``kernels/csrc/quant_matmul_tc.cu``, where
+and K7 (tensor cores in one cluster launch,
+``kernels/csrc/quant_matmul_tc.cu``, where ``kernels.int8_bmm_tc_route`` /
 ``kernels.int4_bmm_tc_route`` holds, as at every decode shape; else
-``quant_matmul.cu``) on a CUDA tensor and their plain
+``quant_matmul.cu``'s CUDA cores) on a CUDA tensor and their plain
 PyTorch versions on a CPU tensor. Where the JAX package leaves its Pallas
 kernel for an einsum over the dequantized weights (shapes its tiles do not
 fit), both devices take that einsum too, so the two packages round alike.

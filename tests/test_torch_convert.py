@@ -246,7 +246,8 @@ def test_launch_counters_stay_zero_on_cpu(small):
     assert set(kernels.launch_counts.values()) == {0}
     assert set(kernels.launch_counts) == {
         "hash_encode_fwd", "hash_encode_bwd", "pairwise_attention_fwd",
-        "pairwise_attention_bwd", "vmem_attention_fwd",
+        "pairwise_attention_bwd", "pairwise_attention_bwd_warp",
+        "vmem_attention_fwd",
         "vmem_attention_fwd_mma", "vmem_attention_fwd_fp32",
         "vmem_attention_bwd", "vmem_attention_bwd_mma",
         "vmem_attention_bwd_fp32",
@@ -257,5 +258,5 @@ def test_launch_counters_stay_zero_on_cpu(small):
         "grouped_matmul_fwd_fp32", "grouped_matmul_split_dout", "grouped_matmul_bwd_dlhs",
         "grouped_matmul_bwd_dlhs_mma", "grouped_matmul_bwd_dlhs_fp32",
         "grouped_matmul_bwd_drhs", "grouped_matmul_bwd_drhs_mma",
-        "grouped_matmul_bwd_drhs_fp32", "int8_bmm", "int4_bmm",
-        "int4_bmm_fma"}
+        "grouped_matmul_bwd_drhs_fp32", "int8_bmm", "int8_bmm_fma",
+        "int4_bmm", "int4_bmm_fma"}

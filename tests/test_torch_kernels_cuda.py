@@ -11,7 +11,8 @@ Tolerances: K2-fwd does the plain version's fp32 operations in the same
 order, so it must be bit-identical. K1-fwd sums in another order: 1e-5 in
 fp32; in bf16 one ulp at |x| < 4 (2^-6), since an fp32 value near a
 rounding boundary may round either way. K1-bwd: the same reasons,
-elementwise (ATTN_BWD_TOL). K2-bwd adds with atomics in an order that
+elementwise (ATTN_BWD_TOL), on both its routes (the streaming kernel, the
+one-warp-per-(row, head) kernel), two runs bitwise equal. K2-bwd adds with atomics in an order that
 changes from run to run: 1e-5 of the sum of |terms| of each row. K3-fwd
 sums in another order than its plain version, on each route: 1e-5 in fp32,
 one bf16 ulp at |x| < 4 in bf16 (VMEM_TOL); a row whose keys are all masked
@@ -33,8 +34,8 @@ entries equal to the plain version's; its split of dout into bf16 hi + lo
 is its plain version's bit for bit. K6 and K7 multiply bf16-rounded x by
 weights exact in bf16 and sum in fp32, as their plain versions do, in
 another order: 1e-5 of the largest entry in fp32 outputs, one bf16 ulp of
-it in bf16 outputs (chip_smoke.QUANT_FP32_REL, chip_smoke.bf16_ulp); K7 on
-both its routes (tensor cores, CUDA cores), two runs bitwise equal.
+it in bf16 outputs (chip_smoke.QUANT_FP32_REL, chip_smoke.bf16_ulp); K6 and
+K7 on both their routes (tensor cores, CUDA cores), two runs bitwise equal.
 """
 
 import contextlib
@@ -81,7 +82,7 @@ NO_K3_TO_K5 = {"vmem_attention_fwd": 0, "vmem_attention_fwd_mma": 0,
                "grouped_matmul_bwd_dlhs_fp32": 0,
                "grouped_matmul_bwd_drhs": 0, "grouped_matmul_bwd_drhs_mma": 0,
                "grouped_matmul_bwd_drhs_fp32": 0, "int8_bmm": 0,
-               "int4_bmm": 0, "int4_bmm_fma": 0}
+               "int8_bmm_fma": 0, "int4_bmm": 0, "int4_bmm_fma": 0}
 
 
 def _smoke():
@@ -181,10 +182,19 @@ def test_pairwise_attention_takes_strided_views(cuda):
     (3, 3, 4096, 768, 12, True, False),
     (3, 3, 1000, 768, 12, False, False),  # odd B
     (2, 5, 999, 768, 12, True, False),  # Nq != Nk
+    (2, 3, 777, 768, 12, True, False),  # Nq != Nk on the stream
     (3, 3, 100, 640, 4, False, False),  # Dh = 160
+    (8, 8, 300, 256, 4, True, False),  # past the stream's 3 tokens a side
+    (3, 3, 500, 768, 12, True, True),  # qkv views with a key mask
+    (3, 3, 1000, 432, 12, True, False),  # Dh = 36: off the 8-element grid
 ])
 def test_pairwise_attention_bwd_matches_plain(cuda, dtype, nq, nk, b, d,
                                               heads, mask, fused):
+    """Both of K1-bwd's routes against the plain version: the dispatch
+    (the streaming kernel in bf16 on its grid, else the warp kernel) and
+    the warp kernel by its own wrapper; launches by route, two runs bitwise
+    equal."""
+    smoke = _smoke()
     g = torch.Generator(device=cuda).manual_seed(b + nk)
     if fused:
         q, k, v = torch.randn((nq, b, 3 * d), generator=g, device=cuda).to(
@@ -199,20 +209,30 @@ def test_pairwise_attention_bwd_matches_plain(cuda, dtype, nq, nk, b, d,
         key_mask = torch.rand((b, nk), generator=g, device=cuda) > 0.4
         key_mask[:17] = False
     scale = (d // heads) ** -0.5
-    kernels.reset_launch_counts()
-    got = kernels.pairwise_attention_bwd(q, k, v, do, heads, scale, key_mask)
+    streams = (dtype == torch.bfloat16 and (d // heads) % 8 == 0
+               and nq <= 3 and nk <= 3)
     ref = tattn.pairwise_token_attention_bwd_plain(
         q, k, v, do, n_heads=heads, scale=scale, key_mask=key_mask)
-    torch.cuda.synchronize()
-    assert kernels.launch_counts["pairwise_attention_bwd"] == 1
-    rtol, atol = ATTN_BWD_TOL[dtype]
-    for a, r in zip(got, ref):
-        assert a.dtype == dtype and a.shape == r.shape and a.is_contiguous()
-        diff = (a.float() - r.float()).abs()
-        assert bool((diff <= rtol * r.float().abs() + atol).all()), \
-            diff.max().item()
-        if mask:
-            assert bool((a[:, :17] == 0).all())
+    for route, name in ((kernels.pairwise_attention_bwd,
+                         "pairwise_attention_bwd" if streams
+                         else "pairwise_attention_bwd_warp"),
+                        (kernels.pairwise_attention_bwd_warp,
+                         "pairwise_attention_bwd_warp")):
+        kernels.reset_launch_counts()
+        got = route(q, k, v, do, heads, scale, key_mask)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts == smoke.expected_launches(**{name: 1})
+        rtol, atol = ATTN_BWD_TOL[dtype]
+        for a, r in zip(got, ref):
+            assert a.dtype == dtype and a.shape == r.shape
+            assert a.is_contiguous()
+            diff = (a.float() - r.float()).abs()
+            assert bool((diff <= rtol * r.float().abs() + atol).all()), \
+                (name, diff.max().item())
+            if mask:
+                assert bool((a[:, :17] == 0).all())
+        again = route(q, k, v, do, heads, scale, key_mask)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_autograd_goes_through_both_kernels(cuda):
@@ -235,10 +255,12 @@ def test_autograd_goes_through_both_kernels(cuda):
         for x in (*leaves, tables):
             x.grad = None
         torch.cuda.synchronize()
+        # fp32: K1-bwd by its warp route
         assert {kernels.launch_counts[k] for k in (
-            "pairwise_attention_fwd", "pairwise_attention_bwd",
+            "pairwise_attention_fwd", "pairwise_attention_bwd_warp",
             "hash_encode_fwd", "hash_encode_bwd")} == (
             {1} if name == "kernel" else {0})
+        assert kernels.launch_counts["pairwise_attention_bwd"] == 0
     for a, b in zip(grads["kernel"], grads["plain"]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
@@ -295,7 +317,7 @@ def test_astack_train_step_launches_every_kernel(cuda):
     assert kernels.launch_counts == {
         "hash_encode_fwd": 2, "hash_encode_bwd": 2,
         "pairwise_attention_fwd": 16, "pairwise_attention_bwd": 16,
-        **NO_K3_TO_K5}
+        "pairwise_attention_bwd_warp": 0, **NO_K3_TO_K5}
     assert np.isfinite(metrics["loss/total"].item())
     assert np.isfinite(metrics["grad_norm"].item())
 
@@ -308,6 +330,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="Nq\\*Nk"):
         big = torch.randn((9, 4, 64), device=cuda)
         tattn.pairwise_token_attention(big, big, big, n_heads=2, scale=0.125)
+    with pytest.raises(ValueError, match="streaming route"):
+        kernels.pairwise_attention_bwd_tma(q, q, q, q, 2, 0.125)  # fp32
+    with pytest.raises(ValueError, match="streaming route"):
+        kernels.pairwise_attention_bwd_tma(
+            *(torch.randn((3, 4, 72), device=cuda, dtype=torch.bfloat16)
+              for _ in range(4)), 2, 0.125)  # Dh = 36
     with pytest.raises(ValueError, match="coords_dim"):
         the.hash_encode(torch.rand((4, 5), device=cuda),
                         torch.zeros((2, 256, 2), device=cuda),
@@ -668,7 +696,7 @@ def test_multimodal_train_steps_launch_k3_and_k4(cuda):
         assert kernels.launch_counts == {
             "hash_encode_fwd": 2, "hash_encode_bwd": 2,
             "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
-            **NO_K3_TO_K5, **want}
+            "pairwise_attention_bwd_warp": 0, **NO_K3_TO_K5, **want}
         assert np.isfinite(metrics["loss/total"].item())
         assert np.isfinite(metrics["grad_norm"].item())
 
@@ -689,7 +717,8 @@ def test_multimodal_forward_launches_k3_twice(cuda):
     assert kernels.launch_counts == {
         "hash_encode_fwd": 2, "hash_encode_bwd": 0,
         "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
-        **NO_K3_TO_K5, "vmem_attention_fwd": 2}
+        "pairwise_attention_bwd_warp": 0, **NO_K3_TO_K5,
+        "vmem_attention_fwd": 2}
     assert feats.shape == (3, 512) and bool(feats.isfinite().all())
 
 
@@ -970,8 +999,8 @@ def test_quant_bmm_matches_plain(cuda, dtype, bits, case):
     with smoke.plain_versions_refused():
         out = dispatch(x, q, s, out_dtype=dtype)
     torch.cuda.synchronize()
-    # every case here is on K7's tensor-core route (int4_bmm), none on its
-    # CUDA-core one (int4_bmm_fma)
+    # every case here is on the tensor-core routes (int8_bmm, int4_bmm),
+    # none on the CUDA-core ones (int8_bmm_fma, int4_bmm_fma)
     assert kernels.launch_counts == smoke.expected_launches(**{name: 1})
     ref = plain(x, q, s, dtype)
     assert out.shape == (e, c, f) and out.dtype == dtype
@@ -1007,6 +1036,51 @@ def test_int4_bmm_fma_route_matches_plain(cuda, dtype, case):
            if dtype == torch.float32 else smoke.bf16_ulp(ref))
     assert smoke.max_err(out, ref) <= tol
     assert torch.equal(kernels.int4_bmm_fma(x, q, s, dtype), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", ["q_proj C5", "experts up C4",
+                                  "experts down C32", "dense down C8"])
+def test_int8_bmm_fma_route_matches_plain(cuda, dtype, case):
+    """K6's CUDA-core route (``quant_matmul.cu`` and its split reduction),
+    which the decode path no longer takes, on the decode shapes: within the
+    same limits as the tensor-core route, counted as int8_bmm_fma, two runs
+    bitwise equal."""
+    smoke = _smoke()
+    e, c, d, f = QUANT_TEST_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x, q, s = smoke.quant_case(gen, e, c, d, f, 8, dtype)
+    kernels.reset_launch_counts()
+    out = kernels.int8_bmm_fma(x, q, s, dtype)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == smoke.expected_launches(int8_bmm_fma=1)
+    ref = tquant.int8_bmm_plain(x, q, s, dtype)
+    tol = (smoke.QUANT_FP32_REL * ref.abs().max().item()
+           if dtype == torch.float32 else smoke.bf16_ulp(ref))
+    assert smoke.max_err(out, ref) <= tol
+    assert torch.equal(kernels.int8_bmm_fma(x, q, s, dtype), out)
+
+
+def test_int8_bmm_routes_by_shape(cuda):
+    """kernels.int8_bmm takes the CUDA-core route off the tensor-core grid
+    (D 96: off the 64-row stages; C = 129) and the tensor-core route on it;
+    int8_bmm_tc refuses what it does not take."""
+    smoke = _smoke()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for (e, c, d, f), name in (((1, 3, 96, 200), "int8_bmm_fma"),
+                               ((1, 129, 256, 128), "int8_bmm_fma"),
+                               ((1, 3, 256, 200), "int8_bmm")):
+        x, q, s = smoke.quant_case(gen, e, c, d, f, 8, torch.bfloat16)
+        kernels.reset_launch_counts()
+        out = kernels.int8_bmm(x, q, s)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts == smoke.expected_launches(**{name: 1})
+        ref = tquant.int8_bmm_plain(x, q, s)
+        assert smoke.max_err(out, ref) <= smoke.bf16_ulp(ref)
+    x, q, s = smoke.quant_case(gen, 1, 3, 96, 200, 8, torch.bfloat16)
+    with pytest.raises(ValueError, match="tensor-core route"):
+        kernels.int8_bmm_tc(x, q, s)
 
 
 def test_int4_bmm_routes_by_shape(cuda):

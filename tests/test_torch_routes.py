@@ -1,15 +1,20 @@
-"""The routes that K3, K4, K5-fwd and K7 take on the card, decided on the
-CPU.
+"""The routes that K1-bwd, K3, K4, K5-fwd, K6 and K7 take on the card,
+decided on the CPU.
 
 ``kernels.gmm_fwd_tma_route``, ``kernels.flash_fwd_tma_route``,
 ``kernels.flash_bwd_tma_route``, ``kernels.vmem_fwd_tma_route`` and
 ``kernels.vmem_bwd_tma_route`` choose between the wgmma kernels over TMA
 tiles, the mma.sync kernels and the CUDA-core kernels from the shapes (and
-for the attention kernels the strides) alone, and
-``kernels.int4_bmm_tc_route`` between K7's tensor-core kernel and its
-CUDA-core one from the shapes alone, so they are plain functions that run
-here. Every int4 product of ``chip_smoke``'s decode model (phase 18) at
-B=1, 8 and 32 is held to K7's tensor-core route. The MLA hands
+for the attention kernels the strides) alone,
+``kernels.int8_bmm_tc_route`` and ``kernels.int4_bmm_tc_route`` between
+K6's and K7's tensor-core kernels and their CUDA-core ones from the shapes
+alone, and ``kernels.pairwise_bwd_tma_route`` between K1-bwd's streaming
+kernel and its one-warp-per-(row, head) kernel from the shapes and strides,
+so they are plain functions that run here. Every int8 and int4 product of
+``chip_smoke``'s decode model (phase 18) at B=1, 8 and 32 is held to the
+tensor-core routes, and the q, k and v that the A-stack's fusion attention
+hands K1 (the fused projection's views) to K1-bwd's streaming route. The
+MLA hands
 K4 (at 4608 patches, its flash gate) or K3 (at 576, through
 ``dot_product_attention``) views of its projections: these tests build the
 port's ``MLAttention`` on the CPU at the multimodal model's vision config
@@ -19,6 +24,7 @@ dims and strides to the TMA routes, so that the main path cannot slip onto
 mma.sync unseen.
 """
 
+import itertools
 import os
 import sys
 from unittest import mock
@@ -28,7 +34,7 @@ import torch
 
 from deepearth_tpu_torch import kernels
 from deepearth_tpu_torch.configs import ModalityConfig, integrated_config
-from deepearth_tpu_torch.models import deepseek, encoders
+from deepearth_tpu_torch.models import deepseek, encoders, fusion
 from deepearth_tpu_torch.models.encoders import encoder_transformer_config
 from deepearth_tpu_torch.models.layers import Init
 from deepearth_tpu_torch.ops import attention_vmem
@@ -170,6 +176,146 @@ def test_every_int4_decode_product_takes_the_tensor_core_route(batch):
         assert bits == 4
         assert kernels.int4_bmm_tc_route(e, c, d, -(-f // 128) * 128), (
             e, c, d, f)
+
+
+@pytest.mark.parametrize("e,c,d,fp,want", [
+    (1, 8, 2048, 3072, True),  # q_proj at B=8
+    (1, 1, 2048, 640, True),  # kv_a_proj_with_mqa (F 576) at B=1
+    (16, 4, 2048, 1024, True),  # the experts' w_gate at B <= 8
+    (16, 16, 1024, 2048, True),  # the experts' w_down at B=32
+    (16, 128, 2048, 1024, True),  # 128 slots: chunks of 1024 over 2 ranks
+    (1, 8, 8192, 2048, True),  # layer 0's w_down: cluster 16, chunk 512
+    (1, 1, 64, 128, True),  # the smallest: one stage, one tile
+    (1, 129, 2048, 3072, False),  # C past 128
+    (1, 8, 2048, 3000, False),  # Fp off the 128 grid
+    (1, 8, 96, 128, False),  # D off the 64-row stages
+    (1, 8, 48, 128, False),  # less than one stage
+    (1, 8, 64 * 33, 128 * 132, False),  # 33 stages a chunk: no split fits
+    (1, 0, 2048, 3072, False),  # C = 0 launches nothing
+])
+def test_int8_bmm_tc_route(e, c, d, fp, want):
+    assert kernels.int8_bmm_tc_route(e, c, d, fp) is want
+
+
+@pytest.mark.parametrize("e,c,rows,fp,plan", [
+    (1, 8, 2048, 3072, (1, 1, 8, 256)),  # q_proj: 24 tiles x 8 = 192
+    (16, 4, 2048, 1024, (1, 1, 2, 1024)),  # the experts: 128 tiles x 2
+    (1, 8, 8192, 2048, (1, 1, 16, 512)),  # layer 0's 8192 -> 2048: 16 tiles
+    (1, 8, 2048, 640, (1, 1, 16, 128)),  # kv_a: 5 tiles, the most ranks
+    (16, 16, 1024, 2048, (2, 1, 1, 1024)),  # 256 tiles: no split
+    (16, 128, 2048, 1024, (4, 4, 2, 1024)),  # 512 tiles, but 2048 rows
+    (1, 1, 64 * 33, 128 * 132, (1, 1, 1, 64 * 33)),  # no power of two fits
+])
+def test_int8_tc_plan(e, c, rows, fp, plan):
+    assert kernels.int8_tc_plan(e, c, rows, fp) == plan
+
+
+def test_int8_tc_plan_is_int4s_where_int4s_fits():
+    """K6's plan departs from K7's rule only where K7's chunk would pass
+    1024 rows."""
+    for e, c, rows, fp in itertools.product((1, 4, 16), (1, 8, 32, 128),
+                                            (64, 512, 1024, 2048, 8192),
+                                            (128, 640, 1024, 3072)):
+        plan = kernels.int4_tc_plan(e, c, rows, fp)
+        if plan[3] <= kernels.QUANT_TC_MAX_CHUNK:
+            assert kernels.int8_tc_plan(e, c, rows, fp) == plan
+
+
+@pytest.mark.parametrize("batch", [1, 8, 32])
+def test_every_int8_decode_product_takes_the_tensor_core_route(batch):
+    """Each K6 product of one decode step of chip_smoke's decode model
+    (tools/bench_decode.py's config, its int8 tree built on the meta
+    device) takes K6's tensor-core route: the dense projections at E=1,
+    C=batch, the experts at E=16, C=capacity(batch)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    import chip_smoke
+
+    products = chip_smoke.decode_products(
+        chip_smoke.decode_trees_on_meta()[8], batch)
+    assert sum(products.values()) == chip_smoke.QUANT_PER_STEP
+    for bits, e, c, d, f in products:
+        assert bits == 8
+        assert kernels.int8_bmm_tc_route(e, c, d, -(-f // 128) * 128), (
+            e, c, d, f)
+
+
+A_STACK = [4096 * 2304, 2304]  # the fused qkv projection's (token, row)
+# strides at B=4096, D=768
+# (dtype, Nq, Nk, head dim, the token and row strides of q, k and v as
+# kernels._pairwise_strides gives them, whether K1-bwd's streaming route
+# takes them)
+PAIRWISE_ROUTE_CASES = [
+    (torch.bfloat16, 3, 3, 64, A_STACK * 3, True),  # the A-stack site
+    (torch.bfloat16, 3, 3, 64, [4096 * 768, 768] * 3, True),  # contiguous
+    (torch.bfloat16, 3, 3, 64, [4096 * 768, 768] + [4096 * 1536, 1536] * 2,
+     True),  # cross-attention: k, v views of the fused kv projection
+    (torch.bfloat16, 1, 3, 8, [8, 96] * 3, True),  # one query
+    (torch.bfloat16, 2, 3, 256, [4096 * 512, 512] * 3, True),
+    (torch.bfloat16, 3, 3, 160, [1000 * 640, 640] * 3, True),
+    (torch.bfloat16, 3, 3, 36, [1000 * 432, 432] * 3,
+     False),  # a head dim off the 8-element grid
+    (torch.bfloat16, 3, 3, 264, [1000 * 1056, 1056] * 3, False),  # past 256
+    (torch.bfloat16, 2, 4, 64, [1000 * 768, 768] * 3, False),  # Nk past 3
+    (torch.bfloat16, 4, 2, 64, [1000 * 768, 768] * 3, False),  # Nq past 3
+    (torch.bfloat16, 8, 8, 64, [1000 * 768, 768] * 3, False),
+    (torch.bfloat16, 0, 3, 64, [8, 768] * 3, False),  # no query
+    (torch.bfloat16, 3, 3, 64, A_STACK * 2 + [4096 * 2304, 2300],
+     False),  # a row stride of v off the grid
+    (torch.bfloat16, 3, 3, 64, [0, 768] + [4096 * 768, 768] * 2,
+     False),  # a broadcast token dim
+    (torch.float32, 3, 3, 64, A_STACK * 3, False),  # fp32: the warp kernel
+    (torch.float16, 3, 3, 64, A_STACK * 3, False),
+]
+
+
+@pytest.mark.parametrize("dtype,nq,nk,head_dim,strides,want",
+                         PAIRWISE_ROUTE_CASES)
+def test_pairwise_bwd_tma_route(dtype, nq, nk, head_dim, strides, want):
+    assert kernels.pairwise_bwd_tma_route(dtype, nq, nk, head_dim,
+                                          strides) is want
+
+
+def test_pairwise_strides_ignore_dims_of_extent_one():
+    x = torch.empty((1, 1, 64)).as_strided((1, 1, 64), (3, 5, 1))
+    assert kernels._pairwise_strides(x) == [8, 8]
+    y = torch.empty((3, 4, 3 * 64))[..., :64]
+    assert kernels._pairwise_strides(y) == [4 * 192, 192]
+
+
+@pytest.mark.parametrize("cross", [False, True], ids=["self", "cross"])
+def test_astack_fusion_views_take_the_k1_bwd_streaming_route(cross):
+    """The A-stack's fusion attention (768 wide, 12 heads, 3 tokens) hands
+    K1 q, k and v whose shapes and strides K1-bwd's streaming route takes,
+    with 16-byte starts (no copy on the card): at a self-attention site the
+    fused qkv projection's views, at a cross-attention site q and the kv
+    projection's views."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    import chip_smoke
+
+    cfg = chip_smoke.astack_config()
+    attn = fusion.FusionAttention(cfg.fusion, Init(
+        torch.Generator().manual_seed(0), "cpu"), torch.bfloat16)
+    seen = {}
+
+    def capture(q, k, v, **kwargs):
+        seen.update(q=q, k=k, v=v, n_heads=kwargs["n_heads"])
+        return torch.zeros_like(q)
+
+    x = torch.zeros((3, 4, cfg.fusion.universal_dim))
+    with mock.patch.object(fusion, "pairwise_token_attention", capture), \
+            torch.no_grad():
+        attn(x, x if cross else None)
+    q, k, v = seen["q"], seen["k"], seen["v"]
+    assert q.dtype == torch.bfloat16 and not v.is_contiguous()
+    head_dim = q.shape[-1] // seen["n_heads"]
+    assert head_dim == 64
+    strides = [s for t in (q, k, v) for s in kernels._pairwise_strides(t)]
+    assert kernels.pairwise_bwd_tma_route(q.dtype, q.shape[0], k.shape[0],
+                                          head_dim, strides)
+    for t in (q, k, v):
+        assert t.stride(-1) == 1 and (2 * t.storage_offset()) % 16 == 0
 
 
 def test_tma_strides_ignore_dims_of_extent_one():
