@@ -6,13 +6,18 @@
 Phases, each printing one line:
   1. device and build: requires CUDA, prints the card, builds the kernels;
   2. K2-fwd (hash_encode_fwd) against its plain PyTorch version on the card;
-  3. K1-fwd (pairwise_attention_fwd) against its plain PyTorch version;
+  3. K1-fwd (pairwise_attention_fwd) against its plain PyTorch version, by
+     both its routes (as K1-bwd's in phase 5: 8 lanes a (row, head) on
+     16-byte register loads, or a warp a (row, head)), at phase 5's cases;
+     the route and launches per case, all-masked rows exactly 0, two runs
+     bitwise equal; times of both routes, the plain version, the library
+     and the bound at the A-stack shape;
   4. the serving slice: DeepEarthModel at the A-stack configuration (hidden
      768, 12 heads, 12 fusion layers, Grid4D 16 levels on 2^19 tables + 8 on
      2^17, species vocab 232, bf16 compute) answers requests of 1, 37 and
      4096 observations; every forward must launch K2-fwd twice and K1-fwd 16
-     times, and its outputs must agree with the same model run through the
-     plain versions;
+     times (all on its streaming route), and its outputs must agree with the
+     same model run through the plain versions;
   5. K1-bwd (pairwise_attention_bwd) against its plain PyTorch version, by
      both its routes (bf16 on its grid, at most 3 tokens a side: 8 lanes a
      (row, head) on 16-byte register loads; fp32, a head dim off the
@@ -23,13 +28,19 @@ Phases, each printing one line:
      equal; times of both
      routes, the plain version, the library and the bound at the A-stack
      shape;
-  6. K2-bwd (hash_encode_bwd) against its plain PyTorch version;
+  6. K2-bwd (hash_encode_bwd) against its plain PyTorch version, by both
+     its routes (F = 2: the dense gradient written whole, zeroing then a
+     float2 scatter; else scalar atomics into torch.zeros), a case whose
+     output memory holds NaN before the call; the route and launches per
+     case, the run-to-run difference; times of both routes, the plain
+     version and the bound at the A-stack's tables;
   7. the training slice: the same model trained at B=4096 with masking
      through Trainer.fit and Trainer.evaluate; every train step must launch
-     K2-fwd 2, K2-bwd 2, K1-fwd 16 and K1-bwd 16 times (all on its
-     streaming route, none on its warp route); 3 steps with the
-     kernels must agree with 3 steps through the plain versions from the
-     same state; the loss must fall over 30 steps on one repeated batch;
+     K2-fwd 2, K2-bwd 2 (dense), K1-fwd 16 and K1-bwd 16 times (both on
+     their streaming routes, none on the warp or scalar routes); 3 steps
+     with the kernels must agree with 3 steps through the plain versions
+     from the same state; the loss must fall over 30 steps on one repeated
+     batch;
   8. K3-fwd (vmem_attention_fwd) against its plain PyTorch version, in bf16
      and fp32, at the multimodal slice's two sites (B=512), ragged masked
      cases with an all-masked row (exactly 0), Nk = 1024, and head dims off
@@ -641,28 +652,66 @@ def hash_fwd_bytes(pool, tables, res, hcfg) -> float:
     return total / len(pool)
 
 
-def phase_attention(gen) -> dict:
-    errs = {}
+def k1_route(q, k, v, n_heads, direction: str) -> str:
+    """The counter of the K1 route (``direction`` "fwd" or "bwd") that the
+    dispatch takes for q, k, v."""
+    rule = getattr(kernels, f"pairwise_{direction}_tma_route")
+    name = f"pairwise_attention_{direction}"
+    return name if kernels._pairwise_on_grid(rule, q, k, v, n_heads) \
+        else name + "_warp"
 
-    def case(name, nq, nk, b, d, h, dtype, mask=None, fused_qkv=False):
-        if fused_qkv:  # strided views of one projection, as the model has
-            qkv = torch.randn((nq, b, 3 * d), generator=gen, device="cuda")
-            q, k, v = qkv.to(dtype).chunk(3, dim=-1)
-        else:
-            q = torch.randn((nq, b, d), generator=gen, device="cuda").to(dtype)
-            k = torch.randn((nk, b, d), generator=gen, device="cuda").to(dtype)
-            v = torch.randn((nk, b, d), generator=gen, device="cuda").to(dtype)
+
+def k1_inputs(gen, nq, nk, b, d, dtype, fused_qkv=False):
+    """q, k, v for a K1 case: strided views of one projection with
+    ``fused_qkv``, as the model has."""
+    if fused_qkv:
+        qkv = torch.randn((nq, b, 3 * d), generator=gen, device="cuda")
+        return qkv.to(dtype).chunk(3, dim=-1)
+    return (torch.randn((n, b, d), generator=gen, device="cuda").to(dtype)
+            for n in (nq, nk, nk))
+
+
+def phase_attention(gen) -> dict:
+    """K1-fwd by both routes: the dispatch (the streaming route on its
+    grid) and the warp route's own wrapper, at every case."""
+    errs, routes = {}, {}
+    launches = collections.Counter()
+
+    def case(name, nq, nk, b, d, h, dtype, mask=None, fused_qkv=False,
+             g=gen):
+        q, k, v = k1_inputs(g, nq, nk, b, d, dtype, fused_qkv)
         kw = dict(n_heads=h, scale=(d // h) ** -0.5, key_mask=mask)
-        out = attention_smallseq.pairwise_token_attention(q, k, v, **kw)
         ref = attention_smallseq.pairwise_token_attention_plain(q, k, v, **kw)
-        if out.shape != ref.shape or out.dtype != dtype:
-            raise AssertionError(f"K1 {name}: {out.shape} {out.dtype}")
-        if mask is not None and not bool((out[:, ~mask.any(dim=1)] == 0).all()):
-            raise AssertionError(f"K1 {name}: all-masked rows are not zero")
-        errs[name] = max_err(out, ref)
-        if errs[name] > ATTN_TOL[dtype]:
-            raise AssertionError(f"K1 {name}: max_abs_err {errs[name]} > "
-                                 f"{ATTN_TOL[dtype]}")
+        route = k1_route(q, k, v, h, "fwd")
+        routes[name] = route
+        calls = {route: attention_smallseq.pairwise_token_attention}
+        calls.setdefault(
+            "pairwise_attention_fwd_warp",
+            lambda q, k, v, n_heads, scale, key_mask:
+                kernels.pairwise_attention_fwd_warp(q, k, v, n_heads, scale,
+                                                    key_mask))
+        for counter, call in calls.items():
+            tag = name + ("" if counter == "pairwise_attention_fwd"
+                          else " warp")
+            kernels.reset_launch_counts()
+            out = call(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if kernels.launch_counts != expected_launches(**{counter: 1}):
+                raise AssertionError(f"K1 {tag}: launches "
+                                     f"{kernels.launch_counts}")
+            launches[counter] += 1
+            if out.shape != ref.shape or out.dtype != dtype:
+                raise AssertionError(f"K1 {tag}: {out.shape} {out.dtype}")
+            if mask is not None and not bool(
+                    (out[:, ~mask.any(dim=1)] == 0).all()):
+                raise AssertionError(f"K1 {tag}: all-masked rows are not "
+                                     "zero")
+            errs[tag] = max_err(out, ref)
+            if errs[tag] > ATTN_TOL[dtype]:
+                raise AssertionError(f"K1 {tag}: max_abs_err {errs[tag]} > "
+                                     f"{ATTN_TOL[dtype]}")
+            if not torch.equal(out, call(q, k, v, **kw)):
+                raise AssertionError(f"K1 {tag}: two runs differ")
 
     b = 4096
     mask = torch.rand((b, 3), generator=gen, device="cuda") > 0.4
@@ -676,32 +725,62 @@ def phase_attention(gen) -> dict:
         case(f"B=1000 {tag}", 3, 3, 1000, 768, 12, dtype)
         case(f"Nq2 Nk5 {tag}", 2, 5, 1000, 768, 12, dtype)
         case(f"Dh=160 {tag}", 3, 3, 1000, 640, 4, dtype)
+    # a head dim off the 8-element grid: the warp route in bf16; Nq != Nk
+    # within the streaming route's 3 tokens a side, with a key mask. Drawn
+    # from a generator of their own, so that the later phases' draws stay
+    # as they were before these cases came
+    extra = torch.Generator(device="cuda").manual_seed(SEED)
+    case("Dh=36 bfloat16", 3, 3, 1000, 432, 12, torch.bfloat16, g=extra)
+    case("Nq2 Nk3 bfloat16", 2, 3, 1000, 768, 12, torch.bfloat16,
+         mask=mask[:1000], g=extra)
+    if (routes["A-stack fused qkv bfloat16"] != "pairwise_attention_fwd"
+            or routes["Dh=36 bfloat16"] != "pairwise_attention_fwd_warp"):
+        raise AssertionError(f"K1 routes {routes}")
 
     q, k, v = (torch.randn((3, b, 768), generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
+    calls = {
+        "kernel": lambda: kernels.pairwise_attention_fwd(q, k, v, 12,
+                                                         0.125),
+        "warp": lambda: kernels.pairwise_attention_fwd_warp(q, k, v, 12,
+                                                            0.125),
+        "plain": lambda: attention_smallseq.pairwise_token_attention_plain(
+            q, k, v, n_heads=12, scale=0.125)}
     times = {}
-    for label, fn in (("kernel", attention_smallseq.pairwise_token_attention),
-                      ("plain",
-                       attention_smallseq.pairwise_token_attention_plain)):
-        call = lambda: fn(q, k, v, n_heads=12, scale=64 ** -0.5)  # noqa: E731
-        times[label] = graph_ms(call)
-        times[f"{label}_eager"] = cuda_ms(call)
+    for label in ("kernel", "warp", "plain", "warp", "kernel"):
+        times.setdefault(label, []).append(graph_ms(calls[label]))
+    for label, call in calls.items():
+        times[f"{label}_eager"] = [cuda_ms(call)]
     # the library's fused attention on the same values in its own
     # (B, H, N, Dh) layout, timed as a yardstick only
     qh, kh, vh = (bhnd(x, 12) for x in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qh, kh, vh, scale=64 ** -0.5)
-    times["library"] = graph_ms(sdpa)
+    times["library"] = [graph_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, scale=0.125))]
     k1_bound = bound(nbytes(q, k, v, q), 4 * 3 * 3 * b * 768, torch.bfloat16)
-    print("[3 K1 pairwise_attention_fwd] max_abs_err " + ", ".join(
-        f"{k} {v:.3g}" for k, v in errs.items())
-        + " | ms at (3, 4096, 768) bf16 (device; eager with host launch "
-        "cost; library = scaled_dot_product_attention): " + ", ".join(
-            f"{k} {v:.4f}" for k, v in times.items())
-        + f" | bound {k1_bound['bound_ms']:.4f} ms ({k1_bound['bound_by']})"
-        f" | {card()}")
-    return {"max_abs_err": max(errs.values()), "ms": times["kernel"],
-            "plain_ms": times["plain"], "library_ms": times["library"],
+    worst = {r: max([e for n, e in errs.items()
+                     if n.endswith(" warp") == (r == "warp")], default=0.0)
+             for r in ("streaming", "warp")}
+    print("[3 K1 pairwise_attention_fwd] routes: bf16 on its grid (at most 3 "
+          "tokens a side) 8 lanes a (row, head) on 16-byte register loads "
+          "(counted pairwise_attention_fwd), else a warp a (row, head) "
+          "(_warp); every case through the dispatch and the warp route | "
+          "route per case: " + ", ".join(f"{n} {r}" for n, r in routes.items())
+          + f" | launches {dict(launches)} | max_abs_err over {len(routes)} "
+          "cases: " + ", ".join(f"{r} {e:.3g}" for r, e in worst.items())
+          + " (per case: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; tol {tags(ATTN_TOL)}; all-masked rows exactly 0) | two runs "
+          "of each route bitwise equal | ms at (3, 4096, 768) bf16 "
+          "(CUDA-graph replays in turns kernel, warp, plain, warp, kernel; "
+          "eager with host launch cost; library = "
+          "scaled_dot_product_attention): " + ", ".join(
+              f"{k} {' '.join(f'{t:.4f}' for t in v)}"
+              for k, v in times.items())
+          + f" | bound {k1_bound['bound_ms']:.4f} ms ({k1_bound['bound_by']})"
+          f" | {card()}")
+    return {"max_abs_err": worst["streaming"],
+            "warp_max_abs_err": worst["warp"], "ms": min(times["kernel"]),
+            "warp_ms": min(times["warp"]), "plain_ms": times["plain"][0],
+            "library_ms": times["library"][0], "launches": dict(launches),
             **k1_bound}
 
 
@@ -805,14 +884,6 @@ def phase_slice(gen) -> dict:
     return {"launches": launches, **timing}
 
 
-def k1_bwd_route(q, k, v, n_heads) -> str:
-    """The counter of the K1-bwd route the dispatch takes for q, k, v."""
-    strides = [s for x in (q, k, v) for s in kernels._pairwise_strides(x)]
-    return ("pairwise_attention_bwd" if kernels.pairwise_bwd_tma_route(
-        q.dtype, q.shape[0], k.shape[0], q.shape[2] // n_heads, strides)
-        else "pairwise_attention_bwd_warp")
-
-
 def phase_attention_bwd(gen) -> dict:
     """K1-bwd by both routes: the dispatch (the streaming route on its
     grid) and the warp route's own wrapper, at every case."""
@@ -820,18 +891,12 @@ def phase_attention_bwd(gen) -> dict:
     launches = collections.Counter()
 
     def case(name, nq, nk, b, d, h, dtype, mask=None, fused_qkv=False):
-        if fused_qkv:  # strided views of one projection, as the model has
-            qkv = torch.randn((nq, b, 3 * d), generator=gen, device="cuda")
-            q, k, v = qkv.to(dtype).chunk(3, dim=-1)
-        else:
-            q = torch.randn((nq, b, d), generator=gen, device="cuda").to(dtype)
-            k = torch.randn((nk, b, d), generator=gen, device="cuda").to(dtype)
-            v = torch.randn((nk, b, d), generator=gen, device="cuda").to(dtype)
+        q, k, v = k1_inputs(gen, nq, nk, b, d, dtype, fused_qkv)
         do = torch.randn((nq, b, d), generator=gen, device="cuda").to(dtype)
         scale = (d // h) ** -0.5
         ref = attention_smallseq.pairwise_token_attention_bwd_plain(
             q, k, v, do, n_heads=h, scale=scale, key_mask=mask)
-        route = k1_bwd_route(q, k, v, h)
+        route = k1_route(q, k, v, h, "bwd")
         routes[name] = route
         calls = {route: kernels.pairwise_attention_bwd}
         calls.setdefault("pairwise_attention_bwd_warp",
@@ -941,7 +1006,12 @@ def phase_attention_bwd(gen) -> dict:
 
 
 def _hash_bwd_case(gen, n, levels, table, d, f=2, interpolation="linear",
-                   table_size=None):
+                   table_size=None, nan_filled=False):
+    """One K2-bwd case through the dispatch and the scalar route's own
+    wrapper: {route: (max_abs_err, run-to-run max difference)}. With
+    ``nan_filled`` the dispatch's output memory holds NaN before the call
+    (the caching allocator hands back the block just freed), so a kernel
+    that left an entry unwritten would show it."""
     coords = torch.rand((n, d), generator=gen, device="cuda")
     coords[: n // 8] = torch.randint(0, 17, (n // 8, d), generator=gen,
                                      device="cuda").float() / 16
@@ -950,25 +1020,47 @@ def _hash_bwd_case(gen, n, levels, table, d, f=2, interpolation="linear",
     res = torch.tensor([2.0 ** (4 + i) for i in range(levels)], device="cuda")
     shape = (levels, table, f)
     ts = table_size or table
-    got = kernels.hash_encode_bwd(coords, grad_out, res, shape, ts,
-                                  interpolation == "linear")
-    again = kernels.hash_encode_bwd(coords, grad_out, res, shape, ts,
-                                    interpolation == "linear")
     kw = dict(interpolation=interpolation, table_size=table_size)
     ref = hash_encoding.hash_encode_bwd_plain(coords, grad_out, res, shape,
                                               **kw)
     abs_sum = hash_encoding.hash_encode_bwd_plain(coords, grad_out.abs(), res,
                                                   shape, **kw)
-    if got.shape != shape or not bool(got.isfinite().all()):
-        raise AssertionError(f"K2-bwd output {tuple(got.shape)}")
-    diff = (got - ref).abs()
-    if not bool((diff <= HASH_BWD_TOL * abs_sum).all()):
-        raise AssertionError(f"K2-bwd beyond {HASH_BWD_TOL} of sum|terms|: "
-                             f"max_abs_err {diff.max().item()}")
-    return diff.max().item(), (got - again).abs().max().item()
+    route = ("hash_encode_bwd" if kernels.hash_bwd_dense_route(f)
+             else "hash_encode_bwd_scalar")
+    calls = {route: kernels.hash_encode_bwd}
+    calls.setdefault("hash_encode_bwd_scalar", kernels.hash_encode_bwd_scalar)
+    out = {}
+    for counter, call in calls.items():
+        run = lambda: call(coords, grad_out, res, shape, ts,  # noqa: E731
+                           interpolation == "linear")
+        if nan_filled and counter == route:
+            filled = torch.full(shape, float("nan"), device="cuda")
+            ptr = filled.data_ptr()
+            del filled
+        kernels.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        if kernels.launch_counts != expected_launches(**{counter: 1}):
+            raise AssertionError(f"K2-bwd {counter}: launches "
+                                 f"{kernels.launch_counts}")
+        if nan_filled and counter == route and got.data_ptr() != ptr:
+            raise AssertionError("K2-bwd: the output did not reuse the "
+                                 "NaN-filled memory")
+        if got.shape != shape or not bool(got.isfinite().all()):
+            raise AssertionError(f"K2-bwd {counter}: output "
+                                 f"{tuple(got.shape)} or non-finite values")
+        diff = (got - ref).abs()
+        if not bool((diff <= HASH_BWD_TOL * abs_sum).all()):
+            raise AssertionError(f"K2-bwd {counter} beyond {HASH_BWD_TOL} of "
+                                 f"sum|terms|: max_abs_err "
+                                 f"{diff.max().item()}")
+        out[counter] = (diff.max().item(), (got - run()).abs().max().item())
+    return route, out
 
 
 def phase_hash_bwd(gen) -> dict:
+    """K2-bwd by both routes: the dispatch (the dense gradient written
+    whole at F = 2) and the scalar route's own wrapper, at every case."""
     n = 4096
     cases = {
         "spatial L16 T2^19 D3": dict(levels=16, table=2 ** 19, d=3),
@@ -980,9 +1072,23 @@ def phase_hash_bwd(gen) -> dict:
         "D4 hashed into 1000 of 1024": dict(levels=4, table=1024, d=4,
                                             table_size=1000),
     }
-    errs, repeat = {}, {}
+    routes, errs, repeat = {}, {}, {}
+    launches = collections.Counter()
+
+    def record(name, route, out):
+        routes[name] = route
+        for counter, (err, rerun) in out.items():
+            tag = name + ("" if counter == "hash_encode_bwd" else " scalar")
+            errs[tag], repeat[tag] = err, rerun
+            launches[counter] += 1
+
     for name, kw in cases.items():
-        errs[name], repeat[name] = _hash_bwd_case(gen, n, **kw)
+        record(name, *_hash_bwd_case(gen, n, **kw))
+    # the output memory NaN before the call; drawn from a generator of its
+    # own, so that the later phases' draws stay as they were
+    record("spatial, output NaN-filled", *_hash_bwd_case(
+        torch.Generator(device="cuda").manual_seed(SEED), n, levels=16,
+        table=2 ** 19, d=3, nan_filled=True))
 
     times = {}
     grid4d = astack_config().grid4d
@@ -1001,29 +1107,52 @@ def phase_hash_bwd(gen) -> dict:
             k2b_bound = bound(
                 nbytes(*pool[0], res) + 4 * math.prod(shape),
                 2 * n * hcfg.output_dim * 2 ** hcfg.coords_dim, torch.float32)
+        ts = hcfg.hash_table_size
+        # the dispatch (the dense route at F = 2) and the scalar route (the
+        # first design, after torch.zeros)
         calls = {
             "kernel": lambda c, g: kernels.hash_encode_bwd(
-                c, g, res, shape, hcfg.hash_table_size, True),
+                c, g, res, shape, ts, True),
+            "scalar": lambda c, g: kernels.hash_encode_bwd_scalar(
+                c, g, res, shape, ts, True),
             "plain": lambda c, g: hash_encoding.hash_encode_bwd_plain(
                 c, g, res, shape)}
-        for label, fn in calls.items():
+        for label in ("kernel", "scalar", "plain", "scalar", "kernel"):
             inputs = itertools.cycle(pool)
-            call = lambda: fn(*next(inputs))  # noqa: E731
-            times[f"{name}_{label}"] = graph_ms(call)
-            times[f"{name}_{label}_eager"] = cuda_ms(call)
-    print(f"[6 K2-bwd hash_encode_bwd] max_abs_err {max(errs.values()):.3g} "
-          f"(tol {HASH_BWD_TOL} of each row's sum |terms|) over {len(cases)} "
-          "cases: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-          + " | run to run: " + ", ".join(f"{k} {v:.3g}"
-                                          for k, v in repeat.items())
-          + " | ms at N=4096 (device; eager with host launch cost; each "
-          "includes zeroing the table gradient): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+            times.setdefault(f"{name}_{label}", []).append(
+                graph_ms(lambda: calls[label](*next(inputs))))
+        for label in ("kernel", "scalar", "plain"):
+            inputs = itertools.cycle(pool)
+            times[f"{name}_{label}_eager"] = [
+                cuda_ms(lambda: calls[label](*next(inputs)))]
+    worst = {r: max([e for t, e in errs.items()
+                     if t.endswith(" scalar") == (r == "scalar")],
+                    default=0.0) for r in ("dense", "scalar")}
+    print("[6 K2-bwd hash_encode_bwd] routes: F = 2 the dense gradient "
+          "written whole, a zeroing launch then the scatter (counted "
+          "hash_encode_bwd), else scalar atomics into torch.zeros "
+          "(_scalar); every case through the dispatch and the scalar route "
+          "| route per case: " + ", ".join(f"{k} {v}"
+                                           for k, v in routes.items())
+          + f" | launches {dict(launches)} | max_abs_err over {len(routes)} "
+          "cases: " + ", ".join(f"{r} {e:.3g}" for r, e in worst.items())
+          + f" (tol {HASH_BWD_TOL} of each row's sum |terms|; per case: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + ") | run to run: " + ", ".join(f"{k} {v:.3g}"
+                                           for k, v in repeat.items())
+          + " | ms at N=4096 (CUDA-graph replays in turns kernel, scalar, "
+          "plain, scalar, kernel; eager with "
+          "host launch cost; each includes zeroing or writing the whole "
+          "table gradient): " + ", ".join(
+              f"{k} {' '.join(f'{t:.4f}' for t in v)}"
+              for k, v in times.items())
           + f" | spatial bound {k2b_bound['bound_ms']:.4f} ms "
           f"({k2b_bound['bound_by']}) | {card()}")
-    return {"max_abs_err": max(errs.values()), "ms": times["spatial_kernel"],
-            "plain_ms": times["spatial_plain"], "library_ms": None,
-            **k2b_bound}
+    return {"max_abs_err": worst["dense"], "scalar_max_abs_err": worst["scalar"],
+            "ms": min(times["spatial_kernel"]),
+            "scalar_ms": min(times["spatial_scalar"]),
+            "plain_ms": times["spatial_plain"][0], "library_ms": None,
+            "launches": dict(launches), **k2b_bound}
 
 
 def _run_steps(trainer, state, batches, seed):
@@ -3573,7 +3702,8 @@ def main() -> None:
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"]},
         {"name": "pairwise_attention_fwd", "route": "cuda",
-         "source": "deepearth_tpu_torch/kernels/csrc/pairwise_attention.cu",
+         "source":
+             "deepearth_tpu_torch/kernels/csrc/pairwise_attention_fwd_tma.cu",
          "replaces": "deepearth_tpu/ops/attention_smallseq.py:156",
          "launches": sl["launches"]["pairwise_attention_fwd"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
@@ -3679,11 +3809,17 @@ def main() -> None:
     # the mma.sync routes of K3, K4, K5-fwd and K5-bwd take the bf16 shapes
     # TMA cannot (head dims, strides, K or N off the 8-element grid), K6's
     # and K7's CUDA-core routes the shapes off their tensor-core grid,
-    # K1-bwd's warp route fp32 and the shapes off its streaming grid: no
-    # main path reaches them, so their launches are phases 5's, 8's, 10's,
-    # 11's, 14's and 17's, their times the timed shapes' through their
-    # wrappers
-    mma_of = {"pairwise_attention_bwd": (
+    # K1's warp routes fp32 and the shapes off its streaming grid, K2-bwd's
+    # scalar route F != 2: no main path reaches them, so their launches are
+    # phases 3's, 5's, 6's, 8's, 10's, 11's, 14's and 17's, their times the
+    # timed shapes' through their wrappers
+    mma_of = {"pairwise_attention_fwd": (
+                  "deepearth_tpu_torch/kernels/csrc/pairwise_attention.cu",
+                  "launches_in_phase_3", k1),
+              "hash_encode_bwd": (
+                  "deepearth_tpu_torch/kernels/csrc/hash_encode.cu",
+                  "launches_in_phase_6", k2b),
+              "pairwise_attention_bwd": (
                   "deepearth_tpu_torch/kernels/csrc/pairwise_attention_bwd.cu",
                   "launches_in_phase_5", k1b),
               "vmem_attention_fwd": (
@@ -3714,9 +3850,13 @@ def main() -> None:
                   "deepearth_tpu_torch/kernels/csrc/quant_matmul.cu",
                   "launches_in_phase_17", k67["int4_bmm"])}
     # the others' old routes: _mma
-    suffix_of = {"pairwise_attention_bwd": "_warp", "int8_bmm": "_fma",
+    suffix_of = {"pairwise_attention_fwd": "_warp",
+                 "pairwise_attention_bwd": "_warp",
+                 "hash_encode_bwd": "_scalar", "int8_bmm": "_fma",
                  "int4_bmm": "_fma"}
-    phase_launches = {"pairwise_attention_bwd": k1b["launches"],
+    phase_launches = {"pairwise_attention_fwd": k1["launches"],
+                      "hash_encode_bwd": k2b["launches"],
+                      "pairwise_attention_bwd": k1b["launches"],
                       "vmem_attention_fwd": k3["launches"],
                       "vmem_attention_bwd": k3b["launches"],
                       "flash_attention_fwd": k4["launches"],

@@ -1,5 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their launch wrappers:
-K1 ``pairwise_attention_fwd`` / ``_bwd``, K2 ``hash_encode_fwd`` / ``_bwd``,
+K1 ``pairwise_attention_fwd`` / ``_bwd`` (each by one of two routes,
+:func:`pairwise_fwd_tma_route`, :func:`pairwise_bwd_tma_route`), K2
+``hash_encode_fwd`` / ``_bwd`` (the backward by one of two,
+:func:`hash_bwd_dense_route`),
 K3 ``vmem_attention_fwd`` / ``_bwd`` (each by one of three routes,
 :func:`vmem_fwd_tma_route`, :func:`vmem_bwd_tma_route`), K4
 ``flash_attention_fwd`` / ``_bwd`` (each by one of three routes,
@@ -9,8 +12,7 @@ K5 ``grouped_matmul_fwd`` (three routes, :func:`gmm_fwd_tma_route`) and
 ``grouped_matmul_split_dout`` and ``grouped_matmul_bwd_{dlhs,drhs}_tma``, or
 ``grouped_matmul_bwd_{dlhs,drhs}_mma``), K6 ``int8_bmm`` and K7
 ``int4_bmm`` (each by one of two routes, :func:`int8_bmm_tc_route`,
-:func:`int4_bmm_tc_route`); K1-bwd by one of two
-(:func:`pairwise_bwd_tma_route`).
+:func:`int4_bmm_tc_route`).
 
 The sources in ``csrc/`` have a plain C interface. At first use each ``.cu``
 is compiled with its own ``nvcc``, all at once, and the objects are linked
@@ -19,8 +21,8 @@ named by a hash of the sources, and loaded with ctypes. No PyTorch header is
 compiled, so a build takes seconds.
 
 Each wrapper checks its inputs, allocates the output with ``torch.empty``
-(``torch.zeros`` for the scatter-add), launches on the current stream,
-raises if the launch reports an error, and adds one to its entry of
+(``torch.zeros`` for K2-bwd's scalar scatter-add), launches on the current
+stream, raises if the launch reports an error, and adds one to its entry of
 :data:`launch_counts`. The wrappers know nothing of autograd: the
 ``torch.autograd.Function`` of each kernel pair lives in ``ops/``. Nothing
 here runs at import time: the CPU tests import this module on machines
@@ -46,10 +48,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Launches per kernel since the last reset_launch_counts().
-launch_counts = {"hash_encode_fwd": 0, "hash_encode_bwd": 0,
-                 # K1-bwd by route: 8 lanes a (row, head) on 16-byte
-                 # register loads (no suffix), a warp a (row, head) (_warp)
-                 "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
+launch_counts = {"hash_encode_fwd": 0,
+                 # K2-bwd by route: the dense gradient written whole with
+                 # float2 reductions (no suffix, F = 2), scalar atomics into
+                 # a zeroed gradient (_scalar)
+                 "hash_encode_bwd": 0, "hash_encode_bwd_scalar": 0,
+                 # K1 by route: 8 lanes a (row, head) on 16-byte register
+                 # loads (no suffix), a warp a (row, head) (_warp)
+                 "pairwise_attention_fwd": 0, "pairwise_attention_fwd_warp": 0,
+                 "pairwise_attention_bwd": 0,
                  "pairwise_attention_bwd_warp": 0,
                  # K3, K4, K5-fwd and K5-bwd by route: wgmma over TMA tiles
                  # (no suffix), mma.sync (bf16 off TMA's grid), CUDA cores
@@ -76,6 +83,8 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "hash_encode_fwd": [_P, _P, _P, _P, _I64, _I, _I, _I64, _I64, _I, _I, _P],
     "hash_encode_bwd": [_P, _P, _P, _P, _I64, _I, _I, _I64, _I64, _I, _I, _P],
+    "hash_encode_bwd_dense": [_P, _P, _P, _P, _I64, _I, _I, _I64, _I64, _I,
+                              _P],
     "pairwise_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I64, _I64, _I64, _I64, _I64, _I64, _F, _I, _P],
     "pairwise_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -106,6 +115,8 @@ _SIGNATURES = {
     "int4_bmm_tc": [*[_P] * 4, *[_I] * 9, _P],
     "int8_bmm_tc": [*[_P] * 4, *[_I] * 9, _P],
     "pairwise_attention_bwd_tma": [*[_P] * 8, *[_I] * 5, *[_I64] * 6, _F,
+                                   _P],
+    "pairwise_attention_fwd_tma": [*[_P] * 5, *[_I] * 5, *[_I64] * 6, _F,
                                    _P],
 }
 
@@ -232,29 +243,87 @@ def hash_encode_fwd(coords: torch.Tensor, tables: torch.Tensor,
     return out
 
 
-def hash_encode_bwd(coords: torch.Tensor, grad_out: torch.Tensor,
-                    resolutions: torch.Tensor, tables_shape, table_size: int,
-                    linear: bool) -> torch.Tensor:
-    """K2 backward: the gradient of :func:`hash_encode_fwd` with respect to
-    the tables. coords (N, D) fp32, grad_out (N, L*F) fp32, resolutions (L,)
-    fp32 on one CUDA device; tables_shape (L, T, F). Returns (L, T, F) fp32,
-    summed with atomics (the order of each sum differs from run to run)."""
+def _hash_bwd_inputs(name, coords, grad_out, resolutions, tables_shape,
+                     table_size):
+    """Checks of K2-bwd's inputs (both routes); returns (N, D, L, T, F) and
+    contiguous coords, grad_out and resolutions."""
     n, d, n_levels, level_stride, f = _hash_inputs(
-        "hash_encode_bwd", coords, tuple(tables_shape), grad_out.device,
-        resolutions, table_size)
+        name, coords, tuple(tables_shape), grad_out.device, resolutions,
+        table_size)
     _require(grad_out.dtype == torch.float32
              and grad_out.shape == (n, n_levels * f),
-             "hash_encode_bwd: grad_out must be (N, L*F) float32")
-    coords, grad_out, resolutions = (
-        coords.contiguous(), grad_out.contiguous(), resolutions.contiguous())
+             f"{name}: grad_out must be (N, L*F) float32")
+    return ((n, d, n_levels, level_stride, f), coords.contiguous(),
+            grad_out.contiguous(), resolutions.contiguous())
+
+
+def hash_bwd_dense_route(f: int) -> bool:
+    """Whether K2-bwd takes its dense route (the whole gradient written by
+    the kernel, one float2 reduction a corner, ``hash_encode_bwd_dense`` in
+    ``csrc/hash_encode.cu``): F = 2, as in every Grid4D configuration. Else
+    the scalar atomics into a zeroed gradient (``hash_encode_bwd_scalar``).
+    A function of the shape alone."""
+    return f == 2
+
+
+def hash_encode_bwd_dense(coords: torch.Tensor, grad_out: torch.Tensor,
+                          resolutions: torch.Tensor, tables_shape,
+                          table_size: int, linear: bool) -> torch.Tensor:
+    """K2-bwd's dense route, as :func:`hash_encode_bwd`, at F = 2: the
+    gradient is allocated with ``torch.empty`` and the kernels write every
+    entry, a zeroing launch then the scatter; counted as
+    ``hash_encode_bwd``."""
+    name = "hash_encode_bwd"
+    (n, d, n_levels, level_stride, f), coords, grad_out, resolutions = (
+        _hash_bwd_inputs(name, coords, grad_out, resolutions, tables_shape,
+                         table_size))
+    _require(hash_bwd_dense_route(f), f"{name}: the dense route takes F = 2")
+    if grad_out.data_ptr() % 8:  # the scatter reads it a float2 at a time
+        grad_out = grad_out.clone()
+    grad_tables = torch.empty((n_levels, level_stride, f),
+                              device=coords.device, dtype=torch.float32)
+    rc = library().hash_encode_bwd_dense(
+        coords.data_ptr(), grad_out.data_ptr(), resolutions.data_ptr(),
+        grad_tables.data_ptr(), n, d, n_levels, level_stride, table_size,
+        int(linear), torch.cuda.current_stream(coords.device).cuda_stream)
+    _check(name, rc)
+    return grad_tables
+
+
+def hash_encode_bwd_scalar(coords: torch.Tensor, grad_out: torch.Tensor,
+                           resolutions: torch.Tensor, tables_shape,
+                           table_size: int, linear: bool) -> torch.Tensor:
+    """K2-bwd's scalar route, as :func:`hash_encode_bwd`, at any F: scalar
+    fp32 atomics into a gradient zeroed by ``torch.zeros``; counted as
+    ``hash_encode_bwd_scalar``."""
+    name = "hash_encode_bwd_scalar"
+    (n, d, n_levels, level_stride, f), coords, grad_out, resolutions = (
+        _hash_bwd_inputs(name, coords, grad_out, resolutions, tables_shape,
+                         table_size))
     grad_tables = torch.zeros((n_levels, level_stride, f),
                               device=coords.device, dtype=torch.float32)
     rc = library().hash_encode_bwd(
         coords.data_ptr(), grad_out.data_ptr(), resolutions.data_ptr(),
         grad_tables.data_ptr(), n, d, n_levels, level_stride, table_size, f,
         int(linear), torch.cuda.current_stream(coords.device).cuda_stream)
-    _check("hash_encode_bwd", rc)
+    _check(name, rc)
     return grad_tables
+
+
+def hash_encode_bwd(coords: torch.Tensor, grad_out: torch.Tensor,
+                    resolutions: torch.Tensor, tables_shape, table_size: int,
+                    linear: bool) -> torch.Tensor:
+    """K2 backward: the gradient of :func:`hash_encode_fwd` with respect to
+    the tables. coords (N, D) fp32, grad_out (N, L*F) fp32, resolutions (L,)
+    fp32 on one CUDA device; tables_shape (L, T, F). Returns (L, T, F) fp32,
+    summed with atomics (the order of each sum differs from run to run), by
+    the route :func:`hash_bwd_dense_route` picks from F:
+    :func:`hash_encode_bwd_dense` (``hash_encode_bwd``) or
+    :func:`hash_encode_bwd_scalar` (``hash_encode_bwd_scalar``)."""
+    route = (hash_encode_bwd_dense if hash_bwd_dense_route(tables_shape[-1])
+             else hash_encode_bwd_scalar)
+    return route(coords, grad_out, resolutions, tables_shape, table_size,
+                 linear)
 
 
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -297,13 +366,13 @@ def _attention_inputs(q, k, v, n_heads, key_mask):
     return strides, mask_ptr
 
 
-def pairwise_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           n_heads: int, scale: float,
-                           key_mask: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """K1 forward: q (Nq, B, D), k and v (Nk, B, D) on one CUDA device,
-    float32 or bfloat16, unit stride along D; key_mask optional (B, Nk)
-    bool, True = visible. Returns (Nq, B, D) in q's dtype."""
+def pairwise_attention_fwd_warp(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, n_heads: int, scale: float,
+                                key_mask: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """K1-fwd's kernel of ``csrc/pairwise_attention.cu`` (one warp per
+    (row, head)), as :func:`pairwise_attention_fwd`, on any shapes; counted
+    as ``pairwise_attention_fwd_warp``."""
     if key_mask is not None:
         key_mask = key_mask.contiguous()
     strides, mask_ptr = _attention_inputs(q, k, v, n_heads, key_mask)
@@ -313,7 +382,7 @@ def pairwise_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
         nq, k.shape[0], b, n_heads, d // n_heads, *strides, float(scale),
         _ATTN_DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _check("pairwise_attention_fwd", rc)
+    _check("pairwise_attention_fwd_warp", rc)
     return out
 
 
@@ -361,6 +430,71 @@ def pairwise_bwd_tma_route(dtype, nq: int, nk: int, head_dim: int,
             and all(s > 0 and s % 8 == 0 for s in strides))
 
 
+def pairwise_fwd_tma_route(dtype, nq: int, nk: int, head_dim: int,
+                           strides) -> bool:
+    """Whether K1-fwd takes its streaming route (8 lanes a (row, head),
+    16-byte vectors loaded into registers,
+    ``csrc/pairwise_attention_fwd_tma.cu``): the shapes and strides
+    :func:`pairwise_bwd_tma_route` takes, so that both directions of a site
+    take the same route. Else the kernel of one warp per (row, head)
+    (``pairwise_attention_fwd_warp``). A function of the shapes and strides
+    alone."""
+    return pairwise_bwd_tma_route(dtype, nq, nk, head_dim, strides)
+
+
+def _pairwise_on_grid(route, q, k, v, n_heads) -> bool:
+    """Whether ``route`` (a ``pairwise_*_tma_route`` rule) takes q, k, v."""
+    return (q.dim() == 3 and k.dim() == 3 and v.dim() == 3
+            and n_heads > 0 and q.shape[2] % n_heads == 0
+            and route(q.dtype, q.shape[0], k.shape[0], q.shape[2] // n_heads,
+                      [s for x in (q, k, v) for s in _pairwise_strides(x)]))
+
+
+def pairwise_attention_fwd_tma(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, n_heads: int, scale: float,
+                               key_mask: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """K1-fwd's streaming route (``csrc/pairwise_attention_fwd_tma.cu``), as
+    :func:`pairwise_attention_fwd`, on the shapes and strides
+    :func:`pairwise_fwd_tma_route` takes. Counted as
+    ``pairwise_attention_fwd``."""
+    name = "pairwise_attention_fwd"
+    if key_mask is not None:
+        key_mask = key_mask.contiguous()
+    _, mask_ptr = _attention_inputs(q, k, v, n_heads, key_mask)
+    _require(_pairwise_on_grid(pairwise_fwd_tma_route, q, k, v, n_heads),
+             f"{name}: the streaming route takes bfloat16 with Nq, Nk <= "
+             f"{PAIRWISE_TMA_MAX_TOKENS}, head dims multiples of 8 up to "
+             f"{PAIRWISE_TMA_MAX_HEAD_DIM} and strides multiples of 8")
+    nq, b, d = q.shape
+    out = torch.empty((nq, b, d), device=q.device, dtype=q.dtype)
+    q, k, v = (_aligned16_view(x) for x in (q, k, v))
+    rc = library().pairwise_attention_fwd_tma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+        nq, k.shape[0], b, n_heads, d // n_heads,
+        *(s for x in (q, k, v) for s in _pairwise_strides(x)), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check(name, rc)
+    return out
+
+
+def pairwise_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           n_heads: int, scale: float,
+                           key_mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """K1 forward: q (Nq, B, D), k and v (Nk, B, D) on one CUDA device,
+    float32 or bfloat16, unit stride along D; key_mask optional (B, Nk)
+    bool, True = visible. Returns (Nq, B, D) in q's dtype. One launch, by
+    the route :func:`pairwise_fwd_tma_route` picks from the shapes and
+    strides: :func:`pairwise_attention_fwd_tma` (``pairwise_attention_fwd``)
+    or :func:`pairwise_attention_fwd_warp` (``pairwise_attention_fwd_warp``).
+    """
+    route = (pairwise_attention_fwd_tma
+             if _pairwise_on_grid(pairwise_fwd_tma_route, q, k, v, n_heads)
+             else pairwise_attention_fwd_warp)
+    return route(q, k, v, n_heads, scale, key_mask)
+
+
 def pairwise_attention_bwd_tma(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, dout: torch.Tensor,
                                n_heads: int, scale: float,
@@ -376,12 +510,10 @@ def pairwise_attention_bwd_tma(q: torch.Tensor, k: torch.Tensor,
                                                     key_mask)
     nq, b, d = q.shape
     nk, head_dim = k.shape[0], d // n_heads
-    _require(pairwise_bwd_tma_route(
-        q.dtype, nq, nk, head_dim,
-        [s for x in (q, k, v) for s in _pairwise_strides(x)]),
-        f"{name}: the streaming route takes bfloat16 with Nq, Nk <= "
-        f"{PAIRWISE_TMA_MAX_TOKENS}, head dims multiples of 8 up to "
-        f"{PAIRWISE_TMA_MAX_HEAD_DIM} and strides multiples of 8")
+    _require(_pairwise_on_grid(pairwise_bwd_tma_route, q, k, v, n_heads),
+             f"{name}: the streaming route takes bfloat16 with Nq, Nk <= "
+             f"{PAIRWISE_TMA_MAX_TOKENS}, head dims multiples of 8 up to "
+             f"{PAIRWISE_TMA_MAX_HEAD_DIM} and strides multiples of 8")
     q, k, v, dout = (_aligned16_view(x) for x in (q, k, v, dout))
     rc = library().pairwise_attention_bwd_tma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mask_ptr,
@@ -422,13 +554,9 @@ def pairwise_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from the shapes and strides: :func:`pairwise_attention_bwd_tma`
     (``pairwise_attention_bwd``) or :func:`pairwise_attention_bwd_warp`
     (``pairwise_attention_bwd_warp``)."""
-    on_grid = (q.dim() == 3 and k.dim() == 3 and v.dim() == 3
-               and n_heads > 0 and q.shape[2] % n_heads == 0
-               and pairwise_bwd_tma_route(
-                   q.dtype, q.shape[0], k.shape[0], q.shape[2] // n_heads,
-                   [s for x in (q, k, v) for s in _pairwise_strides(x)]))
-    route = pairwise_attention_bwd_tma if on_grid else \
-        pairwise_attention_bwd_warp
+    route = (pairwise_attention_bwd_tma
+             if _pairwise_on_grid(pairwise_bwd_tma_route, q, k, v, n_heads)
+             else pairwise_attention_bwd_warp)
     return route(q, k, v, dout, n_heads, scale, key_mask)
 
 

@@ -1,4 +1,6 @@
-// Token-major small-sequence multi-head attention, forward (K1-fwd).
+// Token-major small-sequence multi-head attention, forward (K1-fwd), the
+// warp route: fp32 and the shapes off the streaming route's grid
+// (pairwise_attention_fwd_tma.cu; kernels.pairwise_fwd_tma_route).
 //
 // Replaces: deepearth_tpu/ops/attention_smallseq.py `_pw_fwd_kernel`
 // (Pallas, launched by `_pw_run_fwd` through `_pw_attend`).

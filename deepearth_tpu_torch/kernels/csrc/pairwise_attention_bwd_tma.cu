@@ -57,23 +57,18 @@
 // The arithmetic order: each lane's partial dot over its vectors in element
 // order (fmaf), the butterfly, then p = exp(s - m) / sum in key order,
 // delta and each gradient as fmaf chains from 0 in key (dq) or query (dk,
-// dv) order. tests/test_torch_pairwise_tiles.py writes it out in plain
-// PyTorch.
+// dv) order. The loads, dots, butterfly and softmax are
+// pairwise_stream.cuh's, shared with the forward's streaming route
+// (pairwise_attention_fwd_tma.cu), so p here is bit for bit the forward's.
+// tests/test_torch_pairwise_tiles.py writes it out in plain PyTorch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "pairwise_stream.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace pairwise_stream;
 
 constexpr int kThreads = 256;
-constexpr int kLanes = 8;  // lanes a (row, head) unit
-// the most tokens a side: p, dp and ds of 3 x 3 pairs in registers
-constexpr int kTok = 3;
-constexpr int kMaxHeadDim = 256;
-constexpr float kNegInf = -1e30f;
 
 struct Args {
   const bf16* in[4];       // q, k, v, do
@@ -83,52 +78,6 @@ struct Args {
   int nq, nk, batch, n_heads, head_dim;
   float scale;
 };
-
-__device__ __forceinline__ uint4 load16(const bf16* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-// 8 bf16 as floats: exact
-__device__ __forceinline__ void unpack(const uint4 w, float (&f)[8]) {
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(u[i] << 16);
-    f[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 8 floats rounded to bf16 into global memory at p (16-byte aligned)
-__device__ __forceinline__ void store8(bf16* p, const float (&f)[8]) {
-  *reinterpret_cast<uint4*>(p) =
-      make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
-                 pack2(f[6], f[7]));
-}
-
-// acc[i][j] += a_i . b_j over one vector of each, for i < na, j < nb
-__device__ __forceinline__ void dots(float (&acc)[kTok][kTok],
-                                     const uint4 (&a)[kTok],
-                                     const uint4 (&b)[kTok], int na, int nb) {
-  float bf[kTok][8], x[8];
-#pragma unroll
-  for (int j = 0; j < kTok; ++j)
-    if (j < nb) unpack(b[j], bf[j]);
-#pragma unroll
-  for (int i = 0; i < kTok; ++i) {
-    if (i >= na) break;
-    unpack(a[i], x);
-#pragma unroll
-    for (int j = 0; j < kTok; ++j)
-      if (j < nb)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[i][j] = fmaf(x[e], bf[j][e], acc[i][j]);
-  }
-}
 
 // kHold: Dh <= 64, a lane's one vector a token kept in registers for the
 // gradients (past it, each slot's vectors are loaded again).
@@ -176,53 +125,18 @@ __global__ void __launch_bounds__(kThreads, 2)
     dots(dp, vd, vv, nq, nk);
   }
   // the butterflies over the unit's 8 lanes, interleaved
-#pragma unroll
-  for (int o = kLanes / 2; o > 0; o >>= 1) {
-#pragma unroll
-    for (int i = 0; i < kTok; ++i)
-#pragma unroll
-      for (int j = 0; j < kTok; ++j)
-        if (i < nq && j < nk) {
-          s[i][j] += __shfl_xor_sync(0xFFFFFFFFu, s[i][j], o);
-          dp[i][j] += __shfl_xor_sync(0xFFFFFFFFu, dp[i][j], o);
-        }
-  }
+  butterfly(nq, nk, s, dp);
 
-  uint32_t vis = (1u << nk) - 1u;
-  if (MASKED) {
-    const uint8_t* m = a.mask + b * nk;
-    vis = 0;
-#pragma unroll
-    for (int j = 0; j < kTok; ++j)
-      if (j < nk && __ldg(m + j) != 0) vis |= 1u << j;
-  }
+  const uint32_t vis = visible_keys<MASKED>(a.mask, b, nk);
   // p (in s), then ds (in dp); a row with no visible key: p = ds = 0
+  softmax<MASKED>(s, nq, nk, a.scale, vis);
 #pragma unroll
   for (int i = 0; i < kTok; ++i) {
     if (i >= nq) break;
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kTok; ++j)
-      if (j < nk) {
-        float x = s[i][j] * a.scale;
-        if (MASKED && !(vis >> j & 1u)) x = kNegInf;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-    float den = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kTok; ++j)
-      if (j < nk) {
-        s[i][j] = expf(s[i][j] - mx);
-        den += s[i][j];
-      }
     float delta = 0.0f;
 #pragma unroll
     for (int j = 0; j < kTok; ++j)
-      if (j < nk) {
-        s[i][j] = vis != 0 ? s[i][j] / den : 0.0f;
-        delta = fmaf(s[i][j], dp[i][j], delta);
-      }
+      if (j < nk) delta = fmaf(s[i][j], dp[i][j], delta);
 #pragma unroll
     for (int j = 0; j < kTok; ++j)
       if (j < nk) dp[i][j] = s[i][j] * (dp[i][j] - delta) * a.scale;

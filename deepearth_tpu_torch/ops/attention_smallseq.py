@@ -8,10 +8,11 @@ row, head).
 :func:`pairwise_token_attention` is a ``torch.autograd.Function`` that
 dispatches on the device of its input: for a CUDA tensor the forward and
 backward are the hand-written kernels K1-fwd and K1-bwd
-(``kernels/csrc/pairwise_attention.cu``; ``pairwise_attention_bwd_tma.cu``
-where ``kernels.pairwise_bwd_tma_route`` holds, as at the A-stack's sites,
-else ``pairwise_attention_bwd.cu``), for a CPU tensor their plain PyTorch
-versions
+(``kernels/csrc/pairwise_attention_fwd_tma.cu`` and
+``pairwise_attention_bwd_tma.cu`` where ``kernels.pairwise_fwd_tma_route``
+and ``kernels.pairwise_bwd_tma_route`` hold, as at the A-stack's sites,
+else ``pairwise_attention.cu`` and ``pairwise_attention_bwd.cu``), for a
+CPU tensor their plain PyTorch versions
 :func:`pairwise_token_attention_plain` and
 :func:`pairwise_token_attention_bwd_plain`.
 """

@@ -8,8 +8,10 @@ rounding.
 :func:`hash_encode` is a ``torch.autograd.Function`` that dispatches on
 the device of its input: for a CUDA tensor the forward and the table
 gradient are the hand-written kernels K2-fwd and K2-bwd
-(``kernels/csrc/hash_encode.cu``), for a CPU tensor their plain PyTorch
-versions :func:`hash_encode_plain` and :func:`hash_encode_bwd_plain`.
+(``kernels/csrc/hash_encode.cu``; K2-bwd writes the dense gradient whole
+where ``kernels.hash_bwd_dense_route`` holds, F = 2), for a CPU tensor
+their plain PyTorch versions :func:`hash_encode_plain` and
+:func:`hash_encode_bwd_plain`.
 """
 
 from __future__ import annotations

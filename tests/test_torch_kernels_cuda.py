@@ -11,9 +11,11 @@ Tolerances: K2-fwd does the plain version's fp32 operations in the same
 order, so it must be bit-identical. K1-fwd sums in another order: 1e-5 in
 fp32; in bf16 one ulp at |x| < 4 (2^-6), since an fp32 value near a
 rounding boundary may round either way. K1-bwd: the same reasons,
-elementwise (ATTN_BWD_TOL), on both its routes (the streaming kernel, the
-one-warp-per-(row, head) kernel), two runs bitwise equal. K2-bwd adds with atomics in an order that
-changes from run to run: 1e-5 of the sum of |terms| of each row. K3-fwd
+elementwise (ATTN_BWD_TOL). K1-fwd and K1-bwd on both their routes (the
+streaming kernel, the one-warp-per-(row, head) kernel), two runs bitwise
+equal. K2-bwd adds with atomics in an order that changes from run to run,
+on both its routes (the dense gradient written whole, scalar atomics into
+a zeroed gradient): 1e-5 of the sum of |terms| of each row. K3-fwd
 sums in another order than its plain version, on each route: 1e-5 in fp32,
 one bf16 ulp at |x| < 4 in bf16 (VMEM_TOL); a row whose keys are all masked
 is exactly 0; two runs are bitwise equal.
@@ -70,6 +72,10 @@ ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 ATTN_BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -7, 1e-4)}
 HASH_BWD_TOL = 1e-5
 VMEM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# the routes of K1 and K2-bwd that no main path takes
+NO_OFF_GRID_K1_K2 = {"pairwise_attention_fwd_warp": 0,
+                     "pairwise_attention_bwd_warp": 0,
+                     "hash_encode_bwd_scalar": 0}
 NO_K3_TO_K5 = {"vmem_attention_fwd": 0, "vmem_attention_fwd_mma": 0,
                "vmem_attention_fwd_fp32": 0, "vmem_attention_bwd": 0,
                "vmem_attention_bwd_mma": 0, "vmem_attention_bwd_fp32": 0,
@@ -139,11 +145,18 @@ def test_hash_encode_matches_plain(cuda, interpolation, d, levels, table, f,
     (3, 3, 4096, 768, 12, False),  # the A-stack site
     (3, 3, 4096, 768, 12, True),
     (3, 3, 1000, 768, 12, False),  # odd B
-    (2, 5, 999, 768, 12, True),  # Nq != Nk
+    (2, 5, 999, 768, 12, True),  # Nq != Nk, past the stream's 3 tokens
     (3, 3, 100, 640, 4, False),  # Dh = 160: lanes loop over the head
+    (2, 3, 777, 768, 12, True),  # Nq != Nk on the stream, a key mask
+    (3, 3, 1000, 432, 12, False),  # Dh = 36: off the 8-element grid
 ])
 def test_pairwise_attention_matches_plain(cuda, dtype, nq, nk, b, d, heads,
                                           mask):
+    """Both of K1-fwd's routes against the plain version: the dispatch
+    (the streaming kernel in bf16 on its grid, else the warp kernel) and
+    the warp kernel by its own wrapper; launches by route, two runs bitwise
+    equal."""
+    smoke = _smoke()
     g = torch.Generator(device=cuda).manual_seed(b)
     q = torch.randn((nq, b, d), generator=g, device=cuda).to(dtype)
     k, v = (torch.randn((nk, b, d), generator=g, device=cuda).to(dtype)
@@ -153,16 +166,26 @@ def test_pairwise_attention_matches_plain(cuda, dtype, nq, nk, b, d, heads,
         key_mask = torch.rand((b, nk), generator=g, device=cuda) > 0.4
         key_mask[:17] = False  # rows that see no key
     kw = dict(n_heads=heads, scale=(d // heads) ** -0.5, key_mask=key_mask)
-    kernels.reset_launch_counts()
-    out = tattn.pairwise_token_attention(q, k, v, **kw)
+    streams = (dtype == torch.bfloat16 and (d // heads) % 8 == 0
+               and nq <= 3 and nk <= 3)
     ref = tattn.pairwise_token_attention_plain(q, k, v, **kw)
-    torch.cuda.synchronize()
-    assert kernels.launch_counts["pairwise_attention_fwd"] == 1
-    assert out.dtype == dtype and out.shape == (nq, b, d)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
-                               atol=ATTN_TOL[dtype])
-    if mask:
-        assert bool((out[:, :17] == 0).all())
+    for route, name in ((tattn.pairwise_token_attention,
+                         "pairwise_attention_fwd" if streams
+                         else "pairwise_attention_fwd_warp"),
+                        (lambda q, k, v, n_heads, scale, key_mask:
+                         kernels.pairwise_attention_fwd_warp(
+                             q, k, v, n_heads, scale, key_mask),
+                         "pairwise_attention_fwd_warp")):
+        kernels.reset_launch_counts()
+        out = route(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts == smoke.expected_launches(**{name: 1})
+        assert out.dtype == dtype and out.shape == (nq, b, d)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=ATTN_TOL[dtype])
+        if mask:
+            assert bool((out[:, :17] == 0).all())
+        assert torch.equal(out, route(q, k, v, **kw))
 
 
 def test_pairwise_attention_takes_strided_views(cuda):
@@ -255,11 +278,12 @@ def test_autograd_goes_through_both_kernels(cuda):
         for x in (*leaves, tables):
             x.grad = None
         torch.cuda.synchronize()
-        # fp32: K1-bwd by its warp route
+        # fp32: K1 by its warp routes; F = 2: K2-bwd by its dense route
         assert {kernels.launch_counts[k] for k in (
-            "pairwise_attention_fwd", "pairwise_attention_bwd_warp",
+            "pairwise_attention_fwd_warp", "pairwise_attention_bwd_warp",
             "hash_encode_fwd", "hash_encode_bwd")} == (
             {1} if name == "kernel" else {0})
+        assert kernels.launch_counts["pairwise_attention_fwd"] == 0
         assert kernels.launch_counts["pairwise_attention_bwd"] == 0
     for a, b in zip(grads["kernel"], grads["plain"]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
@@ -275,23 +299,91 @@ def test_autograd_goes_through_both_kernels(cuda):
 ])
 def test_hash_encode_bwd_matches_plain(cuda, interpolation, d, levels, table,
                                        f, table_size):
+    """Both of K2-bwd's routes against the plain version: the dispatch (the
+    dense route at F = 2, else the scalar one) and the scalar route by its
+    own wrapper, with the launches by route."""
+    smoke = _smoke()
     x = coords(d + 5, 4096, d, cuda)
     g = torch.Generator(device=cuda).manual_seed(levels)
     grad_out = torch.randn((4096, levels * f), generator=g, device=cuda)
     res = torch.tensor([2.0 ** (4 + i) for i in range(levels)], device=cuda)
     shape = (levels, table, f)
     kw = dict(interpolation=interpolation, table_size=table_size)
-    kernels.reset_launch_counts()
-    got = kernels.hash_encode_bwd(x, grad_out, res, shape, table_size or table,
-                                  interpolation == "linear")
     ref = the.hash_encode_bwd_plain(x, grad_out, res, shape, **kw)
     abs_sum = the.hash_encode_bwd_plain(x, grad_out.abs(), res, shape, **kw)
+    for route, name in ((kernels.hash_encode_bwd,
+                         "hash_encode_bwd" if f == 2
+                         else "hash_encode_bwd_scalar"),
+                        (kernels.hash_encode_bwd_scalar,
+                         "hash_encode_bwd_scalar")):
+        kernels.reset_launch_counts()
+        got = route(x, grad_out, res, shape, table_size or table,
+                    interpolation == "linear")
+        torch.cuda.synchronize()
+        assert kernels.launch_counts == smoke.expected_launches(**{name: 1})
+        assert got.shape == shape
+        assert bool(((got - ref).abs() <= HASH_BWD_TOL * abs_sum).all())
+        if table_size:
+            assert bool((got[:, table_size:] == 0).all())
+
+
+_DENSE_BWD_CASES = pytest.mark.parametrize("d,levels,table,interpolation", [
+    (3, 16, 2 ** 19, "linear"),  # A-stack spatial
+    (1, 8, 2 ** 17, "linear"),  # A-stack temporal
+    (2, 3, 1001, "nearest"),  # an odd table: a tail past the 16-byte stores
+])
+
+
+def _dense_bwd_case(cuda, d, levels, table, interpolation, offset=0):
+    """coords, grad_out (a contiguous view ``offset`` floats into its
+    storage), resolutions, the table shape, and the plain version's
+    gradient and sum of |terms|."""
+    x = coords(d, 4096, d, cuda)
+    g = torch.Generator(device=cuda).manual_seed(d)
+    grad_out = torch.randn((offset + 4096 * levels * 2,), generator=g,
+                           device=cuda)[offset:].view(4096, levels * 2)
+    res = torch.tensor([2.0 ** (2 + i) for i in range(levels)], device=cuda)
+    shape = (levels, table, 2)
+    kw = dict(interpolation=interpolation)
+    ref = the.hash_encode_bwd_plain(x, grad_out, res, shape, **kw)
+    abs_sum = the.hash_encode_bwd_plain(x, grad_out.abs(), res, shape, **kw)
+    return x, grad_out, res, shape, ref, abs_sum
+
+
+@_DENSE_BWD_CASES
+def test_hash_encode_bwd_writes_every_entry(cuda, d, levels, table,
+                                            interpolation):
+    """K2-bwd's dense route into memory that holds NaN before the call (the
+    caching allocator hands back the block just freed): every entry comes
+    out finite and within the limit, so the kernels write every row
+    themselves."""
+    x, grad_out, res, shape, ref, abs_sum = _dense_bwd_case(
+        cuda, d, levels, table, interpolation)
+    filled = torch.full(shape, float("nan"), device=cuda)
+    ptr = filled.data_ptr()
+    del filled
+    got = kernels.hash_encode_bwd_dense(x, grad_out, res, shape, table,
+                                        interpolation == "linear")
     torch.cuda.synchronize()
-    assert kernels.launch_counts["hash_encode_bwd"] == 1
-    assert got.shape == shape
+    assert got.data_ptr() == ptr
+    assert bool(got.isfinite().all())
     assert bool(((got - ref).abs() <= HASH_BWD_TOL * abs_sum).all())
-    if table_size:
-        assert bool((got[:, table_size:] == 0).all())
+
+
+@_DENSE_BWD_CASES
+def test_hash_encode_bwd_takes_a_misaligned_grad_out(cuda, d, levels, table,
+                                                     interpolation):
+    """K2-bwd's dense route with grad_out a contiguous view one float into
+    its storage, which the scatter's float2 loads cannot read in place: the
+    wrapper hands the kernels an aligned copy, and the result is within the
+    limit."""
+    x, grad_out, res, shape, ref, abs_sum = _dense_bwd_case(
+        cuda, d, levels, table, interpolation, offset=1)
+    assert grad_out.is_contiguous() and grad_out.data_ptr() % 8 == 4
+    got = kernels.hash_encode_bwd_dense(x, grad_out, res, shape, table,
+                                        interpolation == "linear")
+    torch.cuda.synchronize()
+    assert bool(((got - ref).abs() <= HASH_BWD_TOL * abs_sum).all())
 
 
 def test_hash_encode_refuses_coords_gradient(cuda):
@@ -317,7 +409,7 @@ def test_astack_train_step_launches_every_kernel(cuda):
     assert kernels.launch_counts == {
         "hash_encode_fwd": 2, "hash_encode_bwd": 2,
         "pairwise_attention_fwd": 16, "pairwise_attention_bwd": 16,
-        "pairwise_attention_bwd_warp": 0, **NO_K3_TO_K5}
+        **NO_OFF_GRID_K1_K2, **NO_K3_TO_K5}
     assert np.isfinite(metrics["loss/total"].item())
     assert np.isfinite(metrics["grad_norm"].item())
 
@@ -330,6 +422,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="Nq\\*Nk"):
         big = torch.randn((9, 4, 64), device=cuda)
         tattn.pairwise_token_attention(big, big, big, n_heads=2, scale=0.125)
+    with pytest.raises(ValueError, match="streaming route"):
+        kernels.pairwise_attention_fwd_tma(q, q, q, 2, 0.125)  # fp32
+    with pytest.raises(ValueError, match="streaming route"):
+        kernels.pairwise_attention_fwd_tma(
+            *(torch.randn((3, 4, 72), device=cuda, dtype=torch.bfloat16)
+              for _ in range(3)), 2, 0.125)  # Dh = 36
+    with pytest.raises(ValueError, match="dense route"):
+        kernels.hash_encode_bwd_dense(
+            torch.rand((4, 3), device=cuda), torch.zeros((4, 6), device=cuda),
+            torch.tensor([16.0, 32.0], device=cuda), (2, 256, 3), 256, True)
     with pytest.raises(ValueError, match="streaming route"):
         kernels.pairwise_attention_bwd_tma(q, q, q, q, 2, 0.125)  # fp32
     with pytest.raises(ValueError, match="streaming route"):
@@ -696,7 +798,7 @@ def test_multimodal_train_steps_launch_k3_and_k4(cuda):
         assert kernels.launch_counts == {
             "hash_encode_fwd": 2, "hash_encode_bwd": 2,
             "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
-            "pairwise_attention_bwd_warp": 0, **NO_K3_TO_K5, **want}
+            **NO_OFF_GRID_K1_K2, **NO_K3_TO_K5, **want}
         assert np.isfinite(metrics["loss/total"].item())
         assert np.isfinite(metrics["grad_norm"].item())
 
@@ -717,7 +819,7 @@ def test_multimodal_forward_launches_k3_twice(cuda):
     assert kernels.launch_counts == {
         "hash_encode_fwd": 2, "hash_encode_bwd": 0,
         "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
-        "pairwise_attention_bwd_warp": 0, **NO_K3_TO_K5,
+        **NO_OFF_GRID_K1_K2, **NO_K3_TO_K5,
         "vmem_attention_fwd": 2}
     assert feats.shape == (3, 512) and bool(feats.isfinite().all())
 

@@ -1,23 +1,28 @@
-"""The arithmetic order of K1-bwd's streaming route, on the CPU.
+"""The arithmetic order of K1's streaming routes, forward and backward, on
+the CPU.
 
-No CUDA kernel runs here, so ``kernels/csrc/pairwise_attention_bwd_tma.cu``
-is written out in plain PyTorch as the kernel runs it, per (batch row,
-head) and for all of them at once, and held against the JAX package's
-``_pw_bwd_kernel`` (its Pallas kernel in interpret mode, through
-``jax.vjp`` of ``pairwise_token_attention(use_kernel=True)``), against the
-JAX function's XLA path with key masks, and against
-``pairwise_token_attention_bwd_plain``:
+No CUDA kernel runs here, so ``kernels/csrc/pairwise_attention_fwd_tma.cu``
+and ``pairwise_attention_bwd_tma.cu`` (whose loads, dots, butterfly and
+softmax are ``pairwise_stream.cuh``'s) are written out in plain PyTorch as
+the kernels run them, per (batch row, head) and for all of them at once,
+and held against the JAX package's ``_pw_fwd_kernel`` and ``_pw_bwd_kernel``
+(its Pallas kernels in interpret mode, through
+``pairwise_token_attention(use_kernel=True)`` and its ``jax.vjp``), against
+the JAX function's XLA path with key masks, and against
+``pairwise_token_attention_plain`` and ``pairwise_token_attention_bwd_plain``:
 
 - 8 lanes a (row, head), lane l holding the head's 16-byte vectors l,
   l + 8, ... (loaded into registers):
   each lane's partial dot over its elements in order, then a butterfly
   over the 8 lanes (xor 4, 2, 1);
 - the scores scaled, a masked key at -1e30, p = exp(s - max) / sum with
-  the max and the sum taken in key order, 0 for a row with no visible key;
-- delta_i = sum_j p_ij dp_ij in key order, ds_ij = p_ij (dp_ij - delta_i)
-  scale;
-- dq_i = sum_j ds_ij k_j in key order, dk_j = sum_i ds_ij q_i and dv_j =
-  sum_i p_ij do_i in query order, each from 0, then one cast.
+  the max and the sum taken in key order, 0 for a row with no visible key
+  (one function in both directions, so the forward's p is the backward's
+  bit for bit);
+- forward: o_i = sum_j p_ij v_j in key order from 0, then one cast;
+- backward: delta_i = sum_j p_ij dp_ij in key order, ds_ij = p_ij (dp_ij -
+  delta_i) scale; dq_i = sum_j ds_ij k_j in key order, dk_j = sum_i ds_ij
+  q_i and dv_j = sum_i p_ij do_i in query order, each from 0, then one cast.
 
 Limits: in fp32 (bf16-valued inputs, the written-out order's fp32 result)
 5e-6 absolute, as ``tests/test_torch_attention_smallseq.py`` holds the port
@@ -60,15 +65,12 @@ def lane_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return parts[0]
 
 
-def k1_bwd_tiles(q, k, v, do, n_heads, scale, key_mask=None):
-    """K1-bwd's streaming route in plain PyTorch. Returns fp32 (dq, dk, dv),
-    before the one cast to the inputs' type."""
-    nq, b, d = q.shape
-    nk = k.shape[0]
-    qf, kf, vf, dof = (x.float().reshape(x.shape[0], b, n_heads, -1)
-                       for x in (q, k, v, do))
+def stream_probs(qf, kf, scale, key_mask=None):
+    """p (Nq, Nk, B, H) from fp32 (N, B, H, Dh) q and k as
+    ``pairwise_stream.cuh``'s softmax takes it from the lane dots."""
+    nk = kf.shape[0]
+    b, n_heads = qf.shape[1:3]
     s = lane_dots(qf, kf) * scale
-    dp = lane_dots(dof, vf)
     visible = torch.ones((b, n_heads), dtype=torch.bool)
     if key_mask is not None:
         s = torch.where(key_mask.T[None, :, :, None], s,
@@ -81,8 +83,39 @@ def k1_bwd_tiles(q, k, v, do, n_heads, scale, key_mask=None):
     den = e[:, 0]
     for j in range(1, nk):
         den = den + e[:, j]
-    p = torch.where(visible, e / den[:, None], torch.zeros_like(e))
-    delta = torch.zeros_like(den)
+    return torch.where(visible, e / den[:, None], torch.zeros_like(e))
+
+
+def _heads(x, b, n_heads):
+    return x.float().reshape(x.shape[0], b, n_heads, -1)
+
+
+def k1_fwd_tiles(q, k, v, n_heads, scale, key_mask=None):
+    """K1-fwd's streaming route in plain PyTorch. Returns the fp32 output,
+    before the one cast to the inputs' type, and p."""
+    nq, b, d = q.shape
+    qf, kf, vf = (_heads(x, b, n_heads) for x in (q, k, v))
+    p = stream_probs(qf, kf, scale, key_mask)
+    out = torch.zeros_like(qf)
+    for i in range(nq):
+        for j in range(k.shape[0]):
+            out[i] = out[i] + p[i, j][..., None] * vf[j]
+    if key_mask is not None:  # exactly 0, whatever v holds
+        out = torch.where(key_mask.any(dim=1)[None, :, None, None], out,
+                          torch.zeros_like(out))
+    return out.reshape(nq, b, d), p
+
+
+def k1_bwd_tiles(q, k, v, do, n_heads, scale, key_mask=None,
+                 return_p=False):
+    """K1-bwd's streaming route in plain PyTorch. Returns fp32 (dq, dk, dv),
+    before the one cast to the inputs' type (and p with ``return_p``)."""
+    nq, b, d = q.shape
+    nk = k.shape[0]
+    qf, kf, vf, dof = (_heads(x, b, n_heads) for x in (q, k, v, do))
+    p = stream_probs(qf, kf, scale, key_mask)
+    dp = lane_dots(dof, vf)
+    delta = torch.zeros_like(p[:, 0])
     for j in range(nk):
         delta = delta + p[:, j] * dp[:, j]
     ds = p * (dp - delta[:, None]) * scale
@@ -95,7 +128,8 @@ def k1_bwd_tiles(q, k, v, do, n_heads, scale, key_mask=None):
         for i in range(nq):
             dk[j] = dk[j] + ds[i, j][..., None] * qf[i]
             dv[j] = dv[j] + p[i, j][..., None] * dof[i]
-    return dq.reshape(nq, b, d), dk.reshape(nk, b, d), dv.reshape(nk, b, d)
+    grads = (dq.reshape(nq, b, d), dk.reshape(nk, b, d), dv.reshape(nk, b, d))
+    return (*grads, p) if return_p else grads
 
 
 def inputs(seed, nq, nk, b, d, fused=False, dtype=torch.bfloat16):
@@ -201,3 +235,72 @@ def test_lane_dots_sum_every_element_once():
         a = torch.zeros((1, 1, 1, head_dim))
         a[..., :] = 1.0
         assert lane_dots(a, a).item() == head_dim
+
+
+@pytest.mark.parametrize("nq,nk", [(3, 3), (2, 3)])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_fwd_order_matches_the_interpreted_pallas_fwd_kernel(nq, nk, dtype):
+    """JAX's _pw_fwd_kernel in interpret mode (unmasked; B % 256 == 0,
+    D % 128 == 0), on the same bf16-valued inputs, at the A-stack's head
+    dim (64)."""
+    heads, scale = 4, 0.125
+    q, k, v, _ = inputs(nq * 10 + nk + 1, nq, nk, 256, 256)
+    jdt = jnp.float32 if dtype == "fp32" else jnp.bfloat16
+    ref = jattn.pairwise_token_attention(
+        *(jnp.asarray(x.float().numpy()).astype(jdt) for x in (q, k, v)),
+        n_heads=heads, scale=scale, use_kernel=True)
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    got, _ = k1_fwd_tiles(q, k, v, heads, scale)
+    if dtype == "fp32":
+        torch.testing.assert_close(got, ref, atol=TOL, rtol=0)
+    else:
+        assert_bf16_close(got.to(torch.bfloat16), ref)
+
+
+@pytest.mark.parametrize("mask", ["none", "random", "some_rows_dead"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_fwd_order_matches_plain_and_jax_with_key_masks(name, mask):
+    """The plain version and the JAX function's XLA path, in fp32, and the
+    plain version in bf16; rows with no visible key get exactly 0. Every
+    case is on the forward's streaming route."""
+    nq, nk, b, d, heads, fused = CASES[name]
+    q, k, v, _ = inputs(b * nk + 1, nq, nk, b, d, fused)
+    key_mask = mask_for(nq + 1, b, nk, mask)
+    scale = (d // heads) ** -0.5
+    strides = [s for x in (q, k, v) for s in kernels._pairwise_strides(x)]
+    assert kernels.pairwise_fwd_tma_route(torch.bfloat16, nq, nk,
+                                          d // heads, strides)
+    got, _ = k1_fwd_tiles(q, k, v, heads, scale, key_mask)
+    plain = tattn.pairwise_token_attention_plain(
+        q.float(), k.float(), v.float(), n_heads=heads, scale=scale,
+        key_mask=key_mask)
+    jm = None if key_mask is None else jnp.asarray(key_mask.numpy())
+    ref = jattn.pairwise_token_attention(
+        *(jnp.asarray(x.float().numpy()) for x in (q, k, v)), n_heads=heads,
+        scale=scale, key_mask=jm)
+    torch.testing.assert_close(got, plain, atol=TOL, rtol=0)
+    torch.testing.assert_close(got, torch.from_numpy(np.array(ref)),
+                               atol=TOL, rtol=0)
+    assert_bf16_close(got.to(torch.bfloat16),
+                      tattn.pairwise_token_attention_plain(
+                          q, k, v, n_heads=heads, scale=scale,
+                          key_mask=key_mask))
+    if mask == "some_rows_dead":
+        assert bool((got.to(torch.bfloat16)[:, ::3] == 0).all())
+
+
+@pytest.mark.parametrize("mask", ["none", "some_rows_dead"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_fwd_and_bwd_orders_share_p_bit_for_bit(name, mask):
+    """The written-out forward's p is the written-out backward's, bit for
+    bit, as the two kernels share pairwise_stream.cuh's softmax."""
+    nq, nk, b, d, heads, fused = CASES[name]
+    q, k, v, do = inputs(b + nq, nq, nk, b, d, fused)
+    key_mask = mask_for(nk, b, nk, mask)
+    scale = (d // heads) ** -0.5
+    _, p_fwd = k1_fwd_tiles(q, k, v, heads, scale, key_mask)
+    *_, p_bwd = k1_bwd_tiles(q, k, v, do, heads, scale, key_mask,
+                             return_p=True)
+    assert torch.equal(p_fwd, p_bwd)
+    if mask == "some_rows_dead":
+        assert bool((p_fwd[:, :, ::3] == 0).all())

@@ -1,4 +1,4 @@
-"""The routes that K1-bwd, K3, K4, K5-fwd, K6 and K7 take on the card,
+"""The routes that K1, K2-bwd, K3, K4, K5-fwd, K6 and K7 take on the card,
 decided on the CPU.
 
 ``kernels.gmm_fwd_tma_route``, ``kernels.flash_fwd_tma_route``,
@@ -8,12 +8,15 @@ tiles, the mma.sync kernels and the CUDA-core kernels from the shapes (and
 for the attention kernels the strides) alone,
 ``kernels.int8_bmm_tc_route`` and ``kernels.int4_bmm_tc_route`` between
 K6's and K7's tensor-core kernels and their CUDA-core ones from the shapes
-alone, and ``kernels.pairwise_bwd_tma_route`` between K1-bwd's streaming
-kernel and its one-warp-per-(row, head) kernel from the shapes and strides,
-so they are plain functions that run here. Every int8 and int4 product of
-``chip_smoke``'s decode model (phase 18) at B=1, 8 and 32 is held to the
-tensor-core routes, and the q, k and v that the A-stack's fusion attention
-hands K1 (the fused projection's views) to K1-bwd's streaming route. The
+alone, ``kernels.pairwise_fwd_tma_route`` and
+``kernels.pairwise_bwd_tma_route`` between K1's streaming kernels and its
+one-warp-per-(row, head) kernels from the shapes and strides, and
+``kernels.hash_bwd_dense_route`` between K2-bwd's dense and scalar kernels
+from F, so they are plain functions that run here. Every int8 and int4
+product of ``chip_smoke``'s decode model (phase 18) at B=1, 8 and 32 is
+held to the tensor-core routes, and the q, k and v that the A-stack's
+fusion attention hands K1 (the fused projection's views) to both of K1's
+streaming routes. The
 MLA hands
 K4 (at 4608 patches, its flash gate) or K3 (at 576, through
 ``dot_product_attention``) views of its projections: these tests build the
@@ -276,6 +279,22 @@ def test_pairwise_bwd_tma_route(dtype, nq, nk, head_dim, strides, want):
                                           strides) is want
 
 
+@pytest.mark.parametrize("dtype,nq,nk,head_dim,strides,want",
+                         PAIRWISE_ROUTE_CASES)
+def test_pairwise_fwd_tma_route(dtype, nq, nk, head_dim, strides, want):
+    """K1-fwd takes its streaming route on exactly K1-bwd's shapes."""
+    assert kernels.pairwise_fwd_tma_route(dtype, nq, nk, head_dim,
+                                          strides) is want
+
+
+@pytest.mark.parametrize("f,want", [(2, True), (1, False), (3, False),
+                                    (4, False)])
+def test_hash_bwd_dense_route(f, want):
+    """K2-bwd writes the dense gradient whole at F = 2, every Grid4D
+    configuration's."""
+    assert kernels.hash_bwd_dense_route(f) is want
+
+
 def test_pairwise_strides_ignore_dims_of_extent_one():
     x = torch.empty((1, 1, 64)).as_strided((1, 1, 64), (3, 5, 1))
     assert kernels._pairwise_strides(x) == [8, 8]
@@ -283,11 +302,9 @@ def test_pairwise_strides_ignore_dims_of_extent_one():
     assert kernels._pairwise_strides(y) == [4 * 192, 192]
 
 
-@pytest.mark.parametrize("cross", [False, True], ids=["self", "cross"])
-def test_astack_fusion_views_take_the_k1_bwd_streaming_route(cross):
-    """The A-stack's fusion attention (768 wide, 12 heads, 3 tokens) hands
-    K1 q, k and v whose shapes and strides K1-bwd's streaming route takes,
-    with 16-byte starts (no copy on the card): at a self-attention site the
+def _astack_fusion_views(cross):
+    """The q, k, v (and head count) that the A-stack's fusion attention
+    (768 wide, 12 heads, 3 tokens) hands K1: at a self-attention site the
     fused qkv projection's views, at a cross-attention site q and the kv
     projection's views."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -307,13 +324,33 @@ def test_astack_fusion_views_take_the_k1_bwd_streaming_route(cross):
     with mock.patch.object(fusion, "pairwise_token_attention", capture), \
             torch.no_grad():
         attn(x, x if cross else None)
-    q, k, v = seen["q"], seen["k"], seen["v"]
+    return seen["q"], seen["k"], seen["v"], seen["n_heads"]
+
+
+@pytest.mark.parametrize("cross", [False, True], ids=["self", "cross"])
+def test_astack_fusion_views_take_the_k1_bwd_streaming_route(cross):
+    """The A-stack's fusion attention hands K1 q, k and v whose shapes and
+    strides K1-bwd's streaming route takes, with 16-byte starts (no copy on
+    the card)."""
+    q, k, v, n_heads = _astack_fusion_views(cross)
     assert q.dtype == torch.bfloat16 and not v.is_contiguous()
-    head_dim = q.shape[-1] // seen["n_heads"]
+    head_dim = q.shape[-1] // n_heads
     assert head_dim == 64
     strides = [s for t in (q, k, v) for s in kernels._pairwise_strides(t)]
     assert kernels.pairwise_bwd_tma_route(q.dtype, q.shape[0], k.shape[0],
                                           head_dim, strides)
+    for t in (q, k, v):
+        assert t.stride(-1) == 1 and (2 * t.storage_offset()) % 16 == 0
+
+
+@pytest.mark.parametrize("cross", [False, True], ids=["self", "cross"])
+def test_astack_fusion_views_take_the_k1_fwd_streaming_route(cross):
+    """The same views take K1-fwd's streaming route, through the dispatch's
+    own rule (kernels._pairwise_on_grid), with 16-byte starts."""
+    q, k, v, n_heads = _astack_fusion_views(cross)
+    assert q.dtype == torch.bfloat16 and not v.is_contiguous()
+    assert kernels._pairwise_on_grid(kernels.pairwise_fwd_tma_route, q, k, v,
+                                     n_heads)
     for t in (q, k, v):
         assert t.stride(-1) == 1 and (2 * t.storage_offset()) % 16 == 0
 
