@@ -5,7 +5,15 @@
 
 Phases, each printing one line:
   1. device and build: requires CUDA, prints the card, builds the kernels;
-  2. K2-fwd (hash_encode_fwd) against its plain PyTorch version on the card;
+  2. K2-fwd: the Grid4D encode (grid4d_encode_fwd: every table, masks,
+     concatenation and cast in one launch) bit for bit against the plain
+     composition at the A-stack's, the decompositions' and odd configs,
+     fp32 and bf16, masks absent, partial and all False, xyzt strided, two
+     runs alike; F = 3 on the per-table kernel (hash_encode_fwd), which
+     is also held against its plain version; times of the whole encode (one
+     launch, the per-table composition, plain) at B=4096 with and without
+     masks, B=512 and B=1, beside its bound and its design's floor, and of
+     the spatial and temporal tables alone on the per-table kernel;
   3. K1-fwd (pairwise_attention_fwd) against its plain PyTorch version, by
      both its routes (as K1-bwd's in phase 5: 8 lanes a (row, head) on
      16-byte register loads, or a warp a (row, head)), at phase 5's cases;
@@ -15,7 +23,7 @@ Phases, each printing one line:
   4. the serving slice: DeepEarthModel at the A-stack configuration (hidden
      768, 12 heads, 12 fusion layers, Grid4D 16 levels on 2^19 tables + 8 on
      2^17, species vocab 232, bf16 compute) answers requests of 1, 37 and
-     4096 observations; every forward must launch K2-fwd twice and K1-fwd 16
+     4096 observations; every forward must launch K2-fwd once and K1-fwd 16
      times (all on its streaming route), and its outputs must agree with the
      same model run through the plain versions;
   5. K1-bwd (pairwise_attention_bwd) against its plain PyTorch version, by
@@ -36,7 +44,7 @@ Phases, each printing one line:
      version and the bound at the A-stack's tables;
   7. the training slice: the same model trained at B=4096 with masking
      through Trainer.fit and Trainer.evaluate; every train step must launch
-     K2-fwd 2, K2-bwd 2 (dense), K1-fwd 16 and K1-bwd 16 times (both on
+     K2-fwd 1, K2-bwd 2 (dense), K1-fwd 16 and K1-bwd 16 times (both on
      their streaming routes, none on the warp or scalar routes); 3 steps
      with the kernels must agree with 3 steps through the plain versions
      from the same state; the loss must fall over 30 steps on one repeated
@@ -53,7 +61,7 @@ Phases, each printing one line:
      tools/bench_multimodal.py (universal dim 512, 8 heads, 4 fusion layers,
      species + vision (576 V-JEPA2 patches of 1408) + language (7168), bf16)
      answers requests of 1, 32 and 512 observations; every forward must
-     launch K3-fwd 2 (on its TMA route), K2-fwd 2 and K1-fwd 0 times and
+     launch K3-fwd 2 (on its TMA route), K2-fwd 1 and K1-fwd 0 times and
      never reach a plain version, and its outputs must agree with the plain
      path's;
  10. K3-bwd (vmem_attention_bwd) against its plain PyTorch version, in bf16
@@ -75,14 +83,14 @@ Phases, each printing one line:
      B=64);
  12. the multimodal train slice at 576 patches: Trainer.fit at B=512 with
      masking and the bench script's contrastive weight; every step must
-     launch K3-fwd 2, K3-bwd 2 (both on their TMA routes), K2-fwd 2, K2-bwd
+     launch K3-fwd 2, K3-bwd 2 (both on their TMA routes), K2-fwd 1, K2-bwd
      2 and nothing else, and reach no plain version; 3 steps against the plain
      path, the loss must
      fall on one repeated batch; step time, peak memory, per-op profile;
  13. the multimodal model at 4608 patches per observation: requests of 1
-     and 16 (K4-fwd 1 on its TMA route, K2-fwd 2 per forward) and
+     and 16 (K4-fwd 1 on its TMA route, K2-fwd 1 per forward) and
      Trainer.fit at B=64 (K4-fwd 1 and K4-bwd 1 on their TMA routes, K2-fwd
-     2, K2-bwd 2 per step), no plain version reached;
+     1, K2-bwd 2 per step), no plain version reached;
      forward and 3 train steps against the plain path at B=8 (the loss
      within CLIP_TRAIN_TOL); times;
  14. K5-fwd (grouped_matmul_fwd) and K5-bwd (grouped_matmul_split_dout,
@@ -100,7 +108,7 @@ Phases, each printing one line:
      24 fusion layers, a 24-layer MLA + MoE simulator, vision (B, 4608,
      1408) and language (B, 16, 7168) through MoE-projected encoders)
      answers requests of 1, 16 and 64 observations; per forward K4-fwd 2
-     (on its TMA route), K2-fwd 2 and, at B=64 where the simulator takes
+     (on its TMA route), K2-fwd 1 and, at B=64 where the simulator takes
      the ragged path, K5
      69 on its TMA route (none at B <= 16), no plain version reached; its
      draw from a generator of its own seeded from SEED; each MoE site's
@@ -114,7 +122,7 @@ Phases, each printing one line:
      and LossWeights(contrastive=0, moe_aux=0.01), masking on; every step
      must launch K5-fwd 69 and K5-bwd's split 69 and dlhs + drhs 69 + 69,
      all on their TMA routes, K3-fwd 2, K3-bwd 2 (both on their TMA
-     routes), K2-fwd 2, K2-bwd 2 and nothing else, and reach no plain
+     routes), K2-fwd 1, K2-bwd 2 and nothing else, and reach no plain
      version; its draw from a generator
      of its own seeded from SEED; each MoE site's
      dispatch mode; 3 steps against the plain path from one start state
@@ -190,6 +198,7 @@ from deepearth_tpu_torch.configs import (
     DeepEarthConfig,
     DeepSeekBlockConfig,
     Grid4DConfig,
+    HashEncodingConfig,
     MLAConfig,
     ModalityConfig,
     MoEConfig,
@@ -207,11 +216,13 @@ from deepearth_tpu_torch.models import (
     generate,
     init_cache,
 )
+from deepearth_tpu_torch.models import grid4d as grid4d_model
 from deepearth_tpu_torch.models.deepseek import capacity
 from deepearth_tpu_torch.ops import (
     attention_smallseq,
     attention_vmem,
     flash_attention,
+    grid4d_encode,
     grouped_matmul,
     hash_encoding,
     moe,
@@ -234,7 +245,9 @@ ATTN_TOL = {torch.float32: 1e-5,  # fp32 sums in another order
 # sees its differences in every output, so its mean is the largest.
 SLICE_TOL = {"max_abs": 0.25, "mean_abs": 0.02}
 REQUEST_SIZES = (1, 37, 4096)
-K2_PER_FORWARD, K1_PER_FORWARD = 2, 16
+# K2-fwd: one launch a Grid4D forward (grid4d_encode_fwd); K2-bwd: one call
+# a table in a train step (hash_encode_bwd, spatial and temporal)
+K2_PER_FORWARD, K2_BWD_PER_STEP, K1_PER_FORWARD = 1, 2, 16
 # K1-bwd: elementwise |kernel - plain| <= rtol |plain| + atol. Both sum the
 # same fp32 products in another order (~1e-6 here) and round once to the
 # input type: in bf16 that may land one ulp apart, 2^-7 of the value.
@@ -260,7 +273,8 @@ MM_LOSS_WEIGHTS = LossWeights(contrastive=0.1)
 # launches per train step of the multimodal model at 576 patches: the vision
 # encoder's MLA and cross-attention (K3), the Grid4D tables (K2)
 MM_PER_STEP = {"vmem_attention_fwd": 2, "vmem_attention_bwd": 2,
-               "hash_encode_fwd": 2, "hash_encode_bwd": 2}
+               "grid4d_encode_fwd": K2_PER_FORWARD,
+               "hash_encode_bwd": K2_BWD_PER_STEP}
 # K3-bwd and K4-bwd: fp32 sums in another order, exp on the MUFU unit; in
 # bf16 a rounded p or ds may land on the other neighbour. Each gradient
 # within BWD_TOL of its largest entry (two bf16 ulps of it), plus 1e-6 for a
@@ -281,9 +295,11 @@ K4_MAX_REL, K4_MEAN_REL, K4_LSE_TOL = 2 ** -6, 2 ** -8, 1e-4
 CLIP_PATCHES, CLIP_BATCH, CLIP_REQUEST_SIZES = 4608, 64, (1, 16)
 CLIP_PLAIN_BATCH = 8
 # the cross-attention over 4608 keys takes the plain path, as in JAX
-CLIP_PER_FORWARD = {"flash_attention_fwd": 1, "hash_encode_fwd": 2}
+CLIP_PER_FORWARD = {"flash_attention_fwd": 1,
+                    "grid4d_encode_fwd": K2_PER_FORWARD}
 CLIP_PER_STEP = {"flash_attention_fwd": 1, "flash_attention_bwd": 1,
-                 "hash_encode_fwd": 2, "hash_encode_bwd": 2}
+                 "grid4d_encode_fwd": K2_PER_FORWARD,
+                 "hash_encode_bwd": K2_BWD_PER_STEP}
 K3_PER_FORWARD = 2
 # bf16 through the vision encoder (one MLA layer over 576 patches), the
 # token cross-attention and 4 fusion layers: kernel and plain round
@@ -304,7 +320,8 @@ FLAGSHIP_TOKENS = 22  # CLS, spacetime, 16 vision, 4 language
 # B <= 16, where capacity dispatch's one-hot einsums are small
 K5_PER_RAGGED_FORWARD = 69
 K5_PER_FORWARD = {1: 0, 16: 0, 64: K5_PER_RAGGED_FORWARD}
-FLAGSHIP_PER_FORWARD = {"flash_attention_fwd": 2, "hash_encode_fwd": 2}
+FLAGSHIP_PER_FORWARD = {"flash_attention_fwd": 2,
+                        "grid4d_encode_fwd": K2_PER_FORWARD}
 # kernel vs plain path of the flagship with the plain run routed as the
 # kernel run was (bf16 through 24 fusion and 24 simulator layers): read max
 # 0.125 and mean 0.0103 (the simulator alone at B=64) and 0.0118 (the whole
@@ -335,7 +352,7 @@ FLAGSHIP_PER_STEP = {
     "grouped_matmul_bwd_dlhs": K5_PER_RAGGED_FORWARD,
     "grouped_matmul_bwd_drhs": K5_PER_RAGGED_FORWARD,
     "vmem_attention_fwd": 2, "vmem_attention_bwd": 2,
-    "hash_encode_fwd": 2, "hash_encode_bwd": 2}
+    "grid4d_encode_fwd": K2_PER_FORWARD, "hash_encode_bwd": K2_BWD_PER_STEP}
 # kernel vs plain train path of the flagship over TRAIN_STEPS steps, routing
 # pinned, the configured schedule (lr 0, 1e-6, 2e-6, as phase 7 compares):
 # per step relative differences of the loss, the aux term and the grad norm;
@@ -523,6 +540,8 @@ def plain_versions():
     autograd through those plain forwards gives the plain backward."""
     with mock.patch.object(hash_encoding, "hash_encode",
                            hash_encoding.hash_encode_plain), \
+         mock.patch.object(grid4d_model, "grid4d_encode",
+                           grid4d_encode.grid4d_encode_plain), \
          mock.patch.object(fusion, "pairwise_token_attention",
                            attention_smallseq.pairwise_token_attention_plain), \
          mock.patch.object(attention_vmem, "vmem_attention",
@@ -541,6 +560,8 @@ def plain_versions_refused():
     def refuse(*args, **kwargs):
         raise AssertionError("a plain version ran on the card's path")
     with mock.patch.object(hash_encoding, "hash_encode_plain", refuse), \
+         mock.patch.object(hash_encoding, "hash_encode_bwd_plain", refuse), \
+         mock.patch.object(grid4d_encode, "grid4d_encode_plain", refuse), \
          mock.patch.object(attention_smallseq,
                            "pairwise_token_attention_plain", refuse), \
          mock.patch.object(attention_vmem, "vmem_attention_plain", refuse), \
@@ -571,7 +592,10 @@ def phase_build() -> None:
 
 
 def _hash_case(gen, n, levels, table, d, f=2, interpolation="linear",
-               table_size=None) -> float:
+               table_size=None) -> tuple:
+    """One table through the per-table kernel and its plain version: (max
+    abs error, the kernel's launches read from its counter, which must be
+    1)."""
     coords = torch.rand((n, d), generator=gen, device="cuda")
     # exact grid points of every level (multiples of 1/16) and the edges
     coords[: n // 8] = torch.randint(0, 17, (n // 8, d), generator=gen,
@@ -581,16 +605,149 @@ def _hash_case(gen, n, levels, table, d, f=2, interpolation="linear",
         -1e-4, 1e-4, generator=gen)
     res = torch.tensor([2.0 ** (4 + i) for i in range(levels)], device="cuda")
     kw = dict(interpolation=interpolation, table_size=table_size)
+    kernels.reset_launch_counts()
     out = hash_encoding.hash_encode(coords, tables, res, **kw)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts["hash_encode_fwd"]
+    if kernels.launch_counts != expected_launches(hash_encode_fwd=1):
+        raise AssertionError(f"per-table K2-fwd: launches "
+                             f"{kernels.launch_counts}")
     ref = hash_encoding.hash_encode_plain(coords, tables, res, **kw)
     if out.shape != (n, levels * f) or ref.shape != out.shape:
         raise AssertionError(f"K2 output shape {tuple(out.shape)}")
-    return max_err(out, ref)
+    return max_err(out, ref), launches
+
+
+def grid4d_tables(gen, grid4d: Grid4DConfig):
+    """A Grid4D encoder's tables (drawn as the model draws them),
+    resolutions and configs on the card, in grid4d_encode.TABLES order."""
+    cfgs = [grid4d.spatial, grid4d.temporal]
+    if grid4d.use_decompositions:
+        cfgs += [grid4d.decomposition] * len(grid4d_encode.DECOMPOSITIONS)
+    tables = [hash_encoding.init_hash_tables(c, generator=gen, device="cuda")
+              for c in cfgs]
+    res = [torch.tensor(c.resolutions, dtype=torch.float32, device="cuda")
+           for c in cfgs]
+    return tables, res, cfgs
+
+
+def grid4d_inputs(gen, n, masks, strided=False):
+    """xyzt (N, 4) with exact grid points of every level (multiples of
+    1/16) and the edges 0 and 1, a (N, 8) tensor's odd columns with
+    ``strided``; with ``masks`` a spatial and a temporal (N,) bool mask,
+    "all-False" for masks that are False everywhere."""
+    xyzt = torch.rand((n, 8 if strided else 4), generator=gen, device="cuda")
+    xyzt = xyzt[:, 1::2] if strided else xyzt
+    k = max(n // 8, 1)
+    xyzt[:k] = torch.randint(0, 17, (k, 4), generator=gen,
+                             device="cuda").float() / 16
+    xyzt[0] = 0.0
+    if n > 1:
+        xyzt[1] = 1.0
+    if not masks:
+        return xyzt, None, None
+    sm, tm = (torch.rand(n, generator=gen, device="cuda") > 0.3
+              for _ in range(2))
+    if masks == "all-False":
+        sm, tm = torch.zeros_like(sm), torch.zeros_like(tm)
+    return xyzt, sm, tm
+
+
+# Grid4D encodes held bit for bit against the plain composition (phase 2):
+# name: (Grid4DConfig, N, compute dtype, masks, xyzt strided)
+def grid4d_cases() -> dict:
+    astack = astack_config().grid4d
+    decomp = Grid4DConfig(n_spatial_levels=16, n_temporal_levels=8,
+                          hash_table_size=2 ** 19, use_decompositions=True)
+    # nearest corners, a table size no power of two, level counts that do
+    # not divide 32 (each lane loads its point's coordinates itself)
+    odd = Grid4DConfig(
+        spatial=HashEncodingConfig(n_levels=12, hash_table_size=3001,
+                                   coords_dim=3, interpolation="nearest"),
+        temporal=HashEncodingConfig(n_levels=5, hash_table_size=1024,
+                                    coords_dim=1, base_resolution=4,
+                                    finest_resolution=300))
+    bf16, fp32 = torch.bfloat16, torch.float32
+    return {
+        "A-stack B=4096 bf16": (astack, 4096, bf16, None, False),
+        "A-stack B=4096 bf16 masked": (astack, 4096, bf16, "partial", False),
+        "A-stack B=4096 fp32 masked": (astack, 4096, fp32, "partial", False),
+        "A-stack B=4096 bf16 all-False": (astack, 4096, bf16, "all-False",
+                                          False),
+        "A-stack B=4096 bf16 xyzt strided": (astack, 4096, bf16, "partial",
+                                             True),
+        "A-stack B=1 bf16 masked": (astack, 1, bf16, "partial", False),
+        "A-stack B=37 fp32": (astack, 37, fp32, None, True),
+        "decompositions B=1000 bf16 masked": (decomp, 1000, bf16, "partial",
+                                              False),
+        "decompositions B=1000 fp32": (decomp, 1000, fp32, None, False),
+        "nearest T=3001 L12/5 B=777 fp32 masked": (odd, 777, fp32, "partial",
+                                                   True),
+        "nearest T=3001 L12/5 B=777 bf16": (odd, 777, bf16, None, False),
+    }
+
+
+def _grid4d_case(gen, grid4d, n, dtype, masks, strided):
+    """One Grid4D encode through the dispatch, twice, and the plain
+    composition: (max abs error, both runs bitwise equal to the plain
+    version, the fused kernel's launches read from its counter, which must
+    be 2)."""
+    tables, res, cfgs = grid4d_tables(gen, grid4d)
+    xyzt, sm, tm = grid4d_inputs(gen, n, masks, strided)
+    kernels.reset_launch_counts()
+    out, again = (grid4d_encode.grid4d_encode(xyzt, tables, res, cfgs, sm, tm,
+                                              out_dtype=dtype)
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts["grid4d_encode_fwd"]
+    if kernels.launch_counts != expected_launches(grid4d_encode_fwd=2):
+        raise AssertionError(f"K2-fwd Grid4D encode: launches "
+                             f"{kernels.launch_counts}")
+    ref = grid4d_encode.grid4d_encode_plain(xyzt, tables, res, cfgs, sm, tm,
+                                            out_dtype=dtype)
+    if out.shape != (n, grid4d.output_dim) or out.dtype != dtype \
+            or ref.shape != out.shape:
+        raise AssertionError(f"K2-fwd Grid4D encode: output "
+                             f"{tuple(out.shape)} {out.dtype}")
+    return (max_err(out, ref),
+            torch.equal(out, ref) and torch.equal(again, ref), launches)
 
 
 def phase_hash(gen) -> dict:
+    """K2-fwd: the Grid4D encode (every table, masks, concatenation and
+    cast in one launch) bit for bit against the plain composition, the
+    route rule, the per-table kernel against its plain version; times of
+    the whole encode (one launch, the per-table composition, the plain
+    version) at the A-stack's B=4096 with and without masks, the multimodal
+    B=512 and B=1, and of the spatial and temporal tables alone on the
+    per-table kernel."""
+    # launches read from the counters in the checks below, before any
+    # timing launches a kernel again
+    errs, repeat, launches = {}, {}, collections.Counter()
+    for name, case in grid4d_cases().items():
+        errs[name], repeat[name], count = _grid4d_case(gen, *case)
+        launches["grid4d_encode_fwd"] += count
+    if max(errs.values()) > HASH_TOL or not all(repeat.values()):
+        raise AssertionError(f"K2-fwd Grid4D encode vs plain {errs}, both "
+                             f"runs bitwise equal to plain {repeat}")
+    # the route rule: F = 3 takes the per-table kernel
+    f3 = Grid4DConfig(n_spatial_levels=4, n_temporal_levels=2,
+                      n_features_per_level=3, hash_table_size=4096)
+    tables, res, cfgs = grid4d_tables(gen, f3)
+    xyzt, sm, tm = grid4d_inputs(gen, 512, "partial")
+    kernels.reset_launch_counts()
+    out = grid4d_encode.grid4d_encode(xyzt, tables, res, cfgs, sm, tm,
+                                      out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    if kernels.launch_counts != expected_launches(hash_encode_fwd=2):
+        raise AssertionError(f"F = 3: launches {kernels.launch_counts}")
+    launches["hash_encode_fwd"] += kernels.launch_counts["hash_encode_fwd"]
+    errs["F=3 per-table route"] = max_err(
+        out, grid4d_encode.grid4d_encode_plain(xyzt, tables, res, cfgs, sm,
+                                               tm, out_dtype=torch.bfloat16))
+
     n = 4096
-    cases = {
+    table_cases = {
         "spatial L16 T2^19 D3": dict(levels=16, table=2 ** 19, d=3),
         "temporal L8 T2^17 D1": dict(levels=8, table=2 ** 17, d=1),
         "T=3001 D3": dict(levels=4, table=3001, d=3),
@@ -600,56 +757,123 @@ def phase_hash(gen) -> dict:
         "D4 hashed into 1000 of 1024": dict(levels=4, table=1024, d=4,
                                             table_size=1000),
     }
-    errs = {name: _hash_case(gen, n, **kw) for name, kw in cases.items()}
+    table_errs = {}
+    for name, kw in table_cases.items():
+        table_errs[name], count = _hash_case(gen, n, **kw)
+        launches["hash_encode_fwd"] += count
+    errs.update({f"per-table {k}": v for k, v in table_errs.items()})
     worst = max(errs.values())
     if worst > HASH_TOL:
-        raise AssertionError(f"K2 disagrees with its plain version: {errs}")
+        raise AssertionError(f"K2-fwd disagrees with its plain version: "
+                             f"{errs}")
 
-    # time at the slice's shapes over 16 distinct coordinate sets, so that
-    # the fine levels' rows are not all in L2 from the previous call
-    times = {}
-    grid4d = astack_config().grid4d
-    for name, hcfg in (("spatial", grid4d.spatial),
-                       ("temporal", grid4d.temporal)):
-        tables = hash_encoding.init_hash_tables(hcfg, generator=gen,
-                                                device="cuda")
-        res = torch.tensor(hcfg.resolutions, dtype=torch.float32,
-                           device="cuda")
-        pool = [torch.rand((n, hcfg.coords_dim), generator=gen, device="cuda")
-                for _ in range(16)]
-        if name == "spatial":
-            k2_bound = bound(hash_fwd_bytes(pool, tables, res, hcfg),
-                             2 * n * hcfg.output_dim * 2 ** hcfg.coords_dim,
-                             torch.float32)
+    # times over 16 coordinate sets cycled in a CUDA graph, so that the
+    # fine levels' rows are not all in L2 from the previous call
+    tables, res, cfgs = grid4d_tables(gen, astack_config().grid4d)
+
+    def encode(label, xyzt, sm, tm):
+        args = (xyzt, tables, res, cfgs, sm, tm)
+        if label == "composition":  # the per-table kernel, torch around it
+            return grid4d_encode._compose(hash_encoding.hash_encode, *args,
+                                          torch.bfloat16)
+        fn = (grid4d_encode.grid4d_encode if label == "fused"
+              else grid4d_encode.grid4d_encode_plain)
+        return fn(*args, out_dtype=torch.bfloat16)
+
+    times, bounds = {}, {}
+    for size, n, masks in (("B=4096", 4096, None),
+                           ("B=4096 masked", 4096, "partial"),
+                           ("B=512", MM_BATCH, None), ("B=1", 1, None)):
+        pool = [grid4d_inputs(gen, n, masks) for _ in range(16)]
+        bounds[size] = grid4d_bounds(pool, tables, res, cfgs, torch.bfloat16)
+        for label in ("fused", "composition", "plain", "plain",
+                      "composition", "fused"):
+            inputs = itertools.cycle(pool)
+            times.setdefault(size, {}).setdefault(label, []).append(
+                graph_ms(lambda: encode(label, *next(inputs))))
+    # each table alone on the per-table kernel and its plain version, fp32 out
+    table_times, table_bounds = {}, {}
+    for i, name in enumerate(("spatial", "temporal")):
+        xyzts = [torch.rand((4096, 4), generator=gen, device="cuda")
+                 for _ in range(16)]
+        table_bounds[name] = grid4d_bounds(
+            [(x, None, None) for x in xyzts], tables[i:i + 1],
+            res[i:i + 1], cfgs[i:i + 1], torch.float32, first=i)
+        pool = [grid4d_encode._columns(x, grid4d_encode.TABLES[i][1])
+                for x in xyzts]
         for label, fn in (("kernel", hash_encoding.hash_encode),
                           ("plain", hash_encoding.hash_encode_plain)):
             coords = itertools.cycle(pool)
-            call = lambda: fn(next(coords), tables, res)  # noqa: E731
-            times[f"{name}_{label}"] = graph_ms(call)
-            times[f"{name}_{label}_eager"] = cuda_ms(call)
-    print(f"[2 K2 hash_encode_fwd] max_abs_err {worst:.3g} (tol {HASH_TOL}) "
-          f"over {len(cases)} cases | ms at N=4096 (device; eager with host "
-          "launch cost): " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
-          + f" | spatial bound {k2_bound['bound_ms']:.4f} ms "
-          f"({k2_bound['bound_by']}) | {card()}")
-    return {"max_abs_err": worst, "ms": times["spatial_kernel"],
-            "plain_ms": times["spatial_plain"], "library_ms": None,
-            **k2_bound}
+            table_times[f"{name}_{label}"] = graph_ms(
+                lambda: fn(next(coords), tables[i], res[i]))
+    best = {size: {k: min(v) for k, v in t.items()}
+            for size, t in times.items()}
+    main = best["B=4096"]
+    print(f"[2 K2-fwd grid4d_encode_fwd] bit for bit against the plain "
+          f"composition: max_abs_err {worst:.3g} (tol {HASH_TOL}) over "
+          f"{len(errs)} cases (per case: " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs.items())
+          + "), two runs bitwise equal to the plain version on every Grid4D "
+          "case; F = 3 took "
+          "the per-table kernel | whole encode xyzt -> combined (bf16), ms "
+          "in CUDA graphs over 16 coordinate sets, one launch / the "
+          "per-table composition / plain: " + "; ".join(
+              f"{size} {t['fused']:.4f} / {t['composition']:.4f} / "
+              f"{t['plain']:.4f} (bound {bounds[size]['bound_ms']:.4f}, "
+              f"design's floor {bounds[size]['floor_ms']:.4f})"
+              for size, t in best.items())
+          + " | a table alone at B=4096 (fp32 out), the per-table kernel / "
+          "plain: "
+          + "; ".join(f"{name} {table_times[name + '_kernel']:.4f} / "
+                      f"{table_times[name + '_plain']:.4f} (bound "
+                      f"{b['bound_ms']:.4f}, design's floor "
+                      f"{b['floor_ms']:.4f})"
+                      for name, b in table_bounds.items())
+          + " | every timing: "
+          + json.dumps(times) + f" | {card()}")
+    return {"max_abs_err": worst, "ms": main["fused"],
+            "plain_ms": main["plain"], "library_ms": None,
+            "composition_ms": main["composition"],
+            "floor_ms": bounds["B=4096"]["floor_ms"],
+            "table_times": table_times, "table_bounds": table_bounds,
+            "per_table_max_abs_err": max(table_errs.values()),
+            "times": best, "bounds": bounds,
+            "launches": dict(launches),
+            **{k: bounds["B=4096"][k] for k in ("bound_ms", "bound_by")}}
 
 
-def hash_fwd_bytes(pool, tables, res, hcfg) -> float:
-    """Mean bytes one K2-fwd call over the pool must move: coords and
-    resolutions in, the distinct table rows its points touch (each read
-    once), the features out."""
-    levels, table, feats = tables.shape
-    total = 0
-    for coords in pool:
-        rows = torch.cat([idx.flatten() for idx, _ in hash_encoding._cell_corners(
-            coords, res, levels, table, hcfg.hash_table_size,
-            hcfg.interpolation)])
-        total += (nbytes(coords, res) + rows.unique().numel() * feats * 4
-                  + coords.shape[0] * levels * feats * 4)
-    return total / len(pool)
+def grid4d_bounds(pool, tables, res, cfgs, dtype, first: int = 0) -> dict:
+    """Mean over the pool of one encode's bound (the coordinates and the
+    masks in, the distinct table rows its points touch, 8 bytes each, read
+    once, the output in ``dtype`` out; or its operations) and of its
+    design's floor (the distinct 32-byte sectors of those rows instead of
+    the rows). The tables are grid4d_encode.TABLES' from ``first`` on."""
+    layout = grid4d_encode.TABLES[first:first + len(tables)]
+    n_cols = len({c for _, cols, _ in layout for c in cols})
+    bound_ms, floor_ms = [], []
+    for xyzt, sm, tm in pool:
+        n = xyzt.shape[0]
+        rows = sectors = corners = 0
+        for (_, cols, _), t, r, cfg in zip(layout, tables, res, cfgs):
+            levels, table, feats = t.shape
+            idx = torch.cat([i.flatten() for i, _ in
+                             hash_encoding._cell_corners(
+                                 grid4d_encode._columns(xyzt, cols), r,
+                                 levels, table, cfg.hash_table_size,
+                                 cfg.interpolation)])
+            rows += idx.unique().numel()
+            sectors += (idx * feats * 4 // 32).unique().numel()
+            corners += idx.numel()
+        out_dim = sum(t.shape[0] * t.shape[2] for t in tables)
+        edge = (n * n_cols * 4
+                + nbytes(*(m for m in (sm, tm) if m is not None))
+                + n * out_dim * torch.finfo(dtype).bits // 8)
+        flops = 4 * corners  # a multiply and an add a corner and feature
+        bound_ms.append(bound(edge + 8 * rows, flops, torch.float32))
+        floor_ms.append(bound(edge + 32 * sectors, flops, torch.float32))
+    return {"bound_ms": sum(b["bound_ms"] for b in bound_ms) / len(pool),
+            "bound_by": bound_ms[0]["bound_by"],
+            "floor_ms": sum(b["bound_ms"] for b in floor_ms) / len(pool)}
 
 
 def k1_route(q, k, v, n_heads, direction: str) -> str:
@@ -824,7 +1048,7 @@ def phase_slice(gen) -> dict:
             outs.append(model(batch))
             feats = model.extract_features(batch)
             got = {k: kernels.launch_counts[k] - before[k] for k in before}
-            want = expected_launches(hash_encode_fwd=2 * K2_PER_FORWARD,
+            want = expected_launches(grid4d_encode_fwd=2 * K2_PER_FORWARD,
                             pairwise_attention_fwd=2 * K1_PER_FORWARD)
             if got != want:
                 raise AssertionError(f"launches per request {got} != {want}")
@@ -1232,8 +1456,8 @@ def phase_train(gen) -> dict:
     torch.cuda.synchronize()
     launches = dict(kernels.launch_counts)
     want = expected_launches(
-        hash_encode_fwd=K2_PER_FORWARD * (TRAIN_STEPS + 2),
-        hash_encode_bwd=K2_PER_FORWARD * TRAIN_STEPS,
+        grid4d_encode_fwd=K2_PER_FORWARD * (TRAIN_STEPS + 2),
+        hash_encode_bwd=K2_BWD_PER_STEP * TRAIN_STEPS,
         pairwise_attention_fwd=K1_PER_FORWARD * (TRAIN_STEPS + 2),
         pairwise_attention_bwd=K1_PER_FORWARD * TRAIN_STEPS)
     if launches != want:
@@ -1507,7 +1731,7 @@ def phase_multimodal(gen) -> dict:
                            native_seq_lens={"vision": VISION_PATCHES}).eval()
     n_params = sum(p.numel() for p in model.parameters())
     batches = [make_mm_batch(gen, n) for n in MM_REQUEST_SIZES]
-    want = expected_launches(hash_encode_fwd=2 * 2,
+    want = expected_launches(grid4d_encode_fwd=2 * K2_PER_FORWARD,
                     vmem_attention_fwd=2 * K3_PER_FORWARD)
 
     # the main path: requests through the user's entry points, counted, with
@@ -1575,7 +1799,8 @@ def phase_multimodal(gen) -> dict:
     obs_per_s = MM_BATCH / timing[MM_BATCH]["device_ms"] * 1e3
     print(f"[9 slice multimodal] {n_params / 1e6:.1f}M params | requests "
           f"{MM_REQUEST_SIZES} finite, launches per forward K3 "
-          f"{K3_PER_FORWARD} K2 2 K1 0, no plain version reached (routes "
+          f"{K3_PER_FORWARD} K2 {K2_PER_FORWARD} K1 0, no plain version "
+          "reached (routes "
           f"over the run: {route_counts(launches, 'vmem_attention_fwd')}) "
           "| vs plain "
           "path " + ", ".join(
@@ -2812,7 +3037,7 @@ def phase_flagship(gen) -> dict:
     print(f"[15 flagship serving] {n_params / 1e9:.4f}B params (bf16), "
           f"built in {build_s:.1f} s | requests {FLAGSHIP_REQUEST_SIZES} "
           f"finite; launches per request (forward and extract_features) "
-          f"{counted}, as expected: per forward K4-fwd 2, K2-fwd 2, K5 "
+          f"{counted}, as expected: per forward K4-fwd 2, K2-fwd 1, K5 "
           f"{K5_PER_RAGGED_FORWARD} at B=64 and 0 at B <= 16 (the simulator "
           "dense there); no plain version reached; routes over the run "
           f"({route_counts(launches, 'grouped_matmul_fwd')}) | dispatch modes: "
@@ -3695,12 +3920,15 @@ def main() -> None:
     k67 = phase_quant(gen)
     dec = phase_decode(gen)
     report = {"kernels": [
-        {"name": "hash_encode_fwd", "route": "cuda",
-         "source": "deepearth_tpu_torch/kernels/csrc/hash_encode.cu",
-         "replaces": "deepearth_tpu/ops/hash_encoding.py:113",
-         "launches": sl["launches"]["hash_encode_fwd"],
+        {"name": "grid4d_encode_fwd", "route": "cuda",
+         "source": "deepearth_tpu_torch/kernels/csrc/grid4d_encode.cu",
+         "replaces": "deepearth_tpu/ops/hash_encoding.py:113 (every table of"
+                     " deepearth_tpu/models/grid4d.py:53-84 with its masks, "
+                     "concatenation and cast)",
+         "launches": sl["launches"]["grid4d_encode_fwd"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"]},
+         "plain_ms": k2["plain_ms"], "composition_ms": k2["composition_ms"],
+         "floor_ms": k2["floor_ms"]},
         {"name": "pairwise_attention_fwd", "route": "cuda",
          "source":
              "deepearth_tpu_torch/kernels/csrc/pairwise_attention_fwd_tma.cu",
@@ -3880,6 +4108,20 @@ def main() -> None:
                                                "bound_by", "library_ms")}}
     report["off_main_path"] = [off_main(entry) for entry in report["kernels"]
                                if entry["name"] in mma_of]
+    # the per-table K2-fwd: HashEncoding alone and Grid4D off the
+    # one-launch route (F != 2), which no main path takes; its numbers are
+    # the spatial table's alone at B=4096
+    spatial = k2["table_bounds"]["spatial"]
+    report["off_main_path"].append({
+        "name": "hash_encode_fwd", "route": "cuda",
+        "source": "deepearth_tpu_torch/kernels/csrc/hash_encode.cu",
+        "replaces": "deepearth_tpu/ops/hash_encoding.py:113",
+        "launches_in_phase_2": k2["launches"]["hash_encode_fwd"],
+        "max_abs_err": k2["per_table_max_abs_err"],
+        "ms": k2["table_times"]["spatial_kernel"],
+        "plain_ms": k2["table_times"]["spatial_plain"],
+        "bound_ms": spatial["bound_ms"], "bound_by": spatial["bound_by"],
+        "library_ms": None})
     print(json.dumps(report))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their launch wrappers:
 K1 ``pairwise_attention_fwd`` / ``_bwd`` (each by one of two routes,
-:func:`pairwise_fwd_tma_route`, :func:`pairwise_bwd_tma_route`), K2
-``hash_encode_fwd`` / ``_bwd`` (the backward by one of two,
-:func:`hash_bwd_dense_route`),
+:func:`pairwise_fwd_tma_route`, :func:`pairwise_bwd_tma_route`), K2-fwd
+``grid4d_encode_fwd`` (a Grid4D encoder's every table, masks, concatenation
+and cast in one launch, where :func:`grid4d_encode_route` holds) and
+``hash_encode_fwd`` (one table), K2-bwd ``hash_encode_bwd`` (by one of two
+routes, :func:`hash_bwd_dense_route`),
 K3 ``vmem_attention_fwd`` / ``_bwd`` (each by one of three routes,
 :func:`vmem_fwd_tma_route`, :func:`vmem_bwd_tma_route`), K4
 ``flash_attention_fwd`` / ``_bwd`` (each by one of three routes,
@@ -48,7 +50,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Launches per kernel since the last reset_launch_counts().
-launch_counts = {"hash_encode_fwd": 0,
+launch_counts = {"grid4d_encode_fwd": 0, "hash_encode_fwd": 0,
                  # K2-bwd by route: the dense gradient written whole with
                  # float2 reductions (no suffix, F = 2), scalar atomics into
                  # a zeroed gradient (_scalar)
@@ -81,6 +83,8 @@ launch_counts = {"hash_encode_fwd": 0,
 _lib: Optional[ctypes.CDLL] = None
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
+    "grid4d_encode_fwd": [_P, _I64, _I64, _I64, _P, _P, _P, _I, _P, _I64, _I,
+                          _P],
     "hash_encode_fwd": [_P, _P, _P, _P, _I64, _I, _I, _I64, _I64, _I, _I, _P],
     "hash_encode_bwd": [_P, _P, _P, _P, _I64, _I, _I, _I64, _I64, _I, _I, _P],
     "hash_encode_bwd_dense": [_P, _P, _P, _P, _I64, _I, _I, _I64, _I64, _I,
@@ -324,6 +328,92 @@ def hash_encode_bwd(coords: torch.Tensor, grad_out: torch.Tensor,
              else hash_encode_bwd_scalar)
     return route(coords, grad_out, resolutions, tables_shape, table_size,
                  linear)
+
+
+class _Grid4DTable(ctypes.Structure):
+    """One table of :func:`grid4d_encode_fwd` (``Grid4DTable`` in
+    ``csrc/grid4d_encode.cu``)."""
+    _fields_ = [("tables", _P), ("resolutions", _P), ("level_stride", _I64),
+                ("table_size", _I64), ("n_levels", ctypes.c_int32),
+                ("d", ctypes.c_int32), ("linear", ctypes.c_int32),
+                ("mask", ctypes.c_int32), ("out_col", ctypes.c_int32),
+                ("cols", ctypes.c_int32 * 4)]
+
+
+_GRID4D_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def grid4d_encode_route(tables_dims, out_dtype) -> bool:
+    """Whether a Grid4D encoder's tables take the one-launch encode
+    (``grid4d_encode_fwd``): every table with F = 2 and D <= 4
+    (``tables_dims`` holds (F, D) of each) and an fp32 or bf16 compute
+    dtype, as in every Grid4D configuration. Else each table goes through
+    :func:`hash_encode_fwd`. A function of the config alone."""
+    return (all(f == 2 and 1 <= d <= 4 for f, d in tables_dims)
+            and out_dtype in _GRID4D_DTYPES)
+
+
+def grid4d_encode_fwd(xyzt: torch.Tensor, encodings, spatial_mask,
+                      temporal_mask, out_dtype) -> torch.Tensor:
+    """K2-fwd as a Grid4D encoder runs it: every table's encoding, times its
+    masks, concatenated and cast to ``out_dtype``, in one launch.
+
+    xyzt (N, 4) fp32 on a CUDA device, read in place with its strides;
+    ``encodings`` one (tables (L, T, 2) fp32, resolutions (L,) fp32,
+    table_size, linear, cols, mask_bits) per table in output order, cols the
+    xyzt columns of its coordinates, mask_bits 1 (times spatial_mask), 2
+    (temporal_mask) or 3 (both); a mask (N,) bool or None, a bit whose mask
+    is None ignored. Returns (N, sum of 2 L) in ``out_dtype`` (fp32 or
+    bf16), the plain composition's bits; counted as ``grid4d_encode_fwd``.
+    """
+    name = "grid4d_encode_fwd"
+    n = xyzt.shape[0]
+    _require(xyzt.is_cuda and xyzt.dtype == torch.float32 and xyzt.dim() == 2,
+             f"{name}: xyzt must be a 2-D float32 CUDA tensor")
+    _require(grid4d_encode_route([(t.shape[-1], len(c))
+                                  for t, _, _, _, c, _ in encodings],
+                                 out_dtype),
+             f"{name}: takes tables of F = 2, D <= 4, and an fp32 or bf16 "
+             "output")
+    given = 0
+    for bit, mask in ((1, spatial_mask), (2, temporal_mask)):
+        if mask is not None:
+            _require(mask.device == xyzt.device and mask.dtype == torch.bool
+                     and mask.shape == (n,),
+                     f"{name}: a mask must be (N,) bool on xyzt's device")
+            given |= bit
+    spatial_mask, temporal_mask = (
+        m.contiguous() if m is not None else None
+        for m in (spatial_mask, temporal_mask))
+    descs = (_Grid4DTable * len(encodings))()
+    col = 0
+    for desc, (tables, res, table_size, linear, cols, bits) in zip(
+            descs, encodings):
+        n_levels, level_stride, _ = tables.shape
+        _require(tables.device == res.device == xyzt.device
+                 and tables.dtype == res.dtype == torch.float32
+                 and tables.is_contiguous() and res.is_contiguous()
+                 and res.shape == (n_levels,),
+                 f"{name}: tables (L, T, 2) and resolutions (L,) must be "
+                 "contiguous float32 on xyzt's device")
+        _require(0 < table_size <= level_stride,
+                 f"{name}: table_size must fit the tables")
+        _require(all(0 <= c < xyzt.shape[1] for c in cols),
+                 f"{name}: coordinate columns out of xyzt")
+        desc.tables, desc.resolutions = tables.data_ptr(), res.data_ptr()
+        desc.level_stride, desc.table_size = level_stride, table_size
+        desc.n_levels, desc.d, desc.linear = n_levels, len(cols), int(linear)
+        desc.mask, desc.out_col = bits & given, col
+        desc.cols[:len(cols)] = cols
+        col += 2 * n_levels
+    out = torch.empty((n, col), device=xyzt.device, dtype=out_dtype)
+    rc = library().grid4d_encode_fwd(
+        xyzt.data_ptr(), n, xyzt.stride(0), xyzt.stride(1),
+        _ptr(spatial_mask), _ptr(temporal_mask), descs, len(encodings),
+        out.data_ptr(), col, _GRID4D_DTYPES[out_dtype],
+        torch.cuda.current_stream(xyzt.device).cuda_stream)
+    _check(name, rc)
+    return out
 
 
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -14,16 +14,17 @@
 // fine levels miss to HBM; the coarse levels (16^3 .. 128^3 cells map onto
 // few distinct rows) stay resident in L2.
 //
-// Design: one thread per (point, level). Consecutive threads take the levels
-// of one point, so the (N, L*F) output row of a point is written by
-// neighbouring threads. The thread computes floor(res*x) with one fp32
-// multiply (as JAX does), the 2^D corner hashes in uint32, and the d-linear
-// weights, then issues one float2 load per corner. Weights and sums use
-// round-to-nearest intrinsics so that no multiply-add is contracted: the
-// result is bit-identical to the plain PyTorch version, which sums the
-// corners in the same order (corner c has offset bit d = (c >> d) & 1).
-// Nothing is staged in shared memory: there is no reuse across threads to
-// exploit beyond what L2 already gives.
+// The per-table forward here serves HashEncoding used alone, and Grid4D
+// where grid4d_encode.cu does not take its tables (F != 2); Grid4D's encode
+// at F = 2 is one launch of grid4d_encode.cu. Design: one thread per
+// (point, level). Consecutive threads take the levels of one point, so the
+// (N, L*F) output row of a point is written by neighbouring threads. The
+// thread computes its cell and the 2^D corner rows and weights
+// (hash_grid.cuh), then issues one float2 load per corner. The result is
+// bit-identical to the plain PyTorch version, which sums the corners in the
+// same order (corner c has offset bit d = (c >> d) & 1). Nothing is staged
+// in shared memory: there is no reuse across threads to exploit beyond
+// what L2 already gives.
 //
 // K2-bwd writes the dense (L, T, F) fp32 table gradient. Its bound is that
 // one write (67.1 MB at the A-stack's spatial tables, 0.020 ms at 3.35
@@ -34,7 +35,7 @@
 //  1. hash_bwd_zero_kernel zeroes the gradient with 16-byte stores;
 //  2. hash_bwd_scatter_kernel, one thread per (point, level, corner), level
 //     by level from the finest, recomputes its corner and weight with the
-//     forward's own cell_position and cell_corner and adds
+//     forward's own hash_grid::cell_position and cell_corner and adds
 //     w_c * grad_out[point, level, :] into the corner's row with one
 //     float2 reduction (atomicAdd on a float2, native for global memory on
 //     sm_90), not two scalar atomics. On the coarse levels few cells hold
@@ -51,68 +52,33 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash_grid.cuh"
+
 namespace {
 
-__device__ __forceinline__ uint32_t hash_prime(int d) {
-  // XOR-prime spatial hash (deepearth_tpu/ops/hash_encoding.py HASH_PRIMES)
-  return d == 0 ? 1u : d == 1 ? 2654435761u : d == 2 ? 805459861u : 3674653429u;
-}
-
-// The cell of point p on level l: its lowest corner and the fractions of
-// the way across it, floor(res * x) from one fp32 multiply, as JAX does.
-template <int D>
-__device__ __forceinline__ void cell_position(
-    const float* __restrict__ coords, const float* __restrict__ resolutions,
-    int64_t p, int l, int (&grid)[D], float (&frac)[D]) {
-  const float res = resolutions[l];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const float s = __fmul_rn(res, coords[p * D + d]);
-    const float fl = floorf(s);
-    grid[d] = static_cast<int>(fl);
-    frac[d] = __fsub_rn(s, fl);
-  }
-}
-
-// Corner c of that cell (offset bit d = (c >> d) & 1): its table row on
-// level l and its d-linear weight (1 for nearest).
-template <int D, bool LINEAR>
-__device__ __forceinline__ void cell_corner(const int (&grid)[D],
-                                            const float (&frac)[D], int c,
-                                            int l, int64_t level_stride,
-                                            uint32_t table_size, int64_t& row,
-                                            float& w) {
-  uint32_t h = 0;
-  float wc = 1.0f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const int bit = (c >> d) & 1;
-    h ^= static_cast<uint32_t>(grid[d] + bit) * hash_prime(d);
-    if (LINEAR) wc = __fmul_rn(wc, bit ? frac[d] : __fsub_rn(1.0f, frac[d]));
-  }
-  const bool pow2 = (table_size & (table_size - 1)) == 0;
-  h = pow2 ? (h & (table_size - 1)) : (h % table_size);
-  row = static_cast<int64_t>(l) * level_stride + h;
-  w = wc;
-}
-
 // The 2^D (linear) or 1 (nearest) table rows that point p reads on level l,
-// and their d-linear weights. The forward and both backward designs build
-// them from cell_position and cell_corner, so the backward scatters to
-// exactly the rows, with exactly the weights, that the forward gathered.
+// and their d-linear weights, as rows of the flattened (L * level_stride)
+// table. The forward and both backward designs build them from
+// hash_grid.cuh's cell_position and cell_corner, so the backward scatters
+// to exactly the rows, with exactly the weights, that the forward gathered.
 template <int D, bool LINEAR>
 __device__ __forceinline__ void cell_corners(
     const float* __restrict__ coords, const float* __restrict__ resolutions,
     int64_t p, int l, int64_t level_stride, uint32_t table_size,
     int64_t* row, float* w) {
   constexpr int NC = LINEAR ? (1 << D) : 1;
+  float x[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) x[d] = coords[p * D + d];
   int grid[D];
   float frac[D];
-  cell_position<D>(coords, resolutions, p, l, grid, frac);
+  hash_grid::cell_position<D>(x, resolutions[l], grid, frac);
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
-    cell_corner<D, LINEAR>(grid, frac, c, l, level_stride, table_size, row[c],
-                           w[c]);
+  for (int c = 0; c < NC; ++c) {
+    uint32_t h;
+    hash_grid::cell_corner<D, LINEAR>(grid, frac, c, table_size, h, w[c]);
+    row[c] = static_cast<int64_t>(l) * level_stride + h;
+  }
 }
 
 template <int D, bool LINEAR, int FS>
@@ -236,13 +202,16 @@ __device__ __forceinline__ void scatter_corner(const DenseArgs& a,
   const int l = a.n_levels - 1 - static_cast<int>(level_from_top);
   const int64_t p = (tv - level_from_top * per_level) / NC;
   const int c = static_cast<int>(tv % NC);
+  float x[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) x[d] = a.coords[p * D + d];
   int grid[D];
   float frac[D];
-  cell_position<D>(a.coords, a.resolutions, p, l, grid, frac);
-  int64_t row;
+  hash_grid::cell_position<D>(x, a.resolutions[l], grid, frac);
+  uint32_t h;
   float w;
-  cell_corner<D, LINEAR>(grid, frac, c, l, a.level_stride, a.table_size, row,
-                         w);
+  hash_grid::cell_corner<D, LINEAR>(grid, frac, c, a.table_size, h, w);
+  int64_t row = static_cast<int64_t>(l) * a.level_stride + h;
   const float2 g = __ldg(reinterpret_cast<const float2*>(a.grad_out) +
                          p * a.n_levels + l);
   float2 term = make_float2(__fmul_rn(w, g.x), __fmul_rn(w, g.y));

@@ -1,7 +1,8 @@
 """Grid4D spacetime encoder, PyTorch port of ``deepearth_tpu/models/grid4d.py``.
 
 Hash mode encodes xyz and t (and, with ``use_decompositions``, xyt/yzt/xzt)
-through hash grids; 'sincos' mode is the table-free periodic-time +
+through hash grids, all of them at once by ``ops.grid4d_encode`` (one kernel
+launch on the card); 'sincos' mode is the table-free periodic-time +
 multi-scale-space MLP. Masks multiply the features: a masked coordinate
 contributes zeros.
 """
@@ -16,11 +17,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import Grid4DConfig
+from ..ops.grid4d_encode import DECOMPOSITIONS, grid4d_encode
 from ..ops.hash_encoding import HashEncoding
 from .layers import Dense, Init, LayerNorm
 
-# Coordinate index triples for the spacetime decompositions.
-_DECOMPOSITIONS = {"xyt": (0, 1, 3), "yzt": (1, 2, 3), "xzt": (0, 2, 3)}
 _PERIODS = ("hourly", "daily", "yearly")
 
 
@@ -52,7 +52,7 @@ class Grid4DEncoder(nn.Module):
         self.spatial = HashEncoding(cfg.spatial, pd, device=dev, generator=g)
         self.temporal = HashEncoding(cfg.temporal, pd, device=dev, generator=g)
         if cfg.use_decompositions:
-            for name in _DECOMPOSITIONS:
+            for name in DECOMPOSITIONS:
                 self.add_module(name, HashEncoding(
                     cfg.decomposition, pd, device=dev, generator=g))
         self.proj_in = Dense(cfg.output_dim, hidden_dim, init, cd)
@@ -69,20 +69,13 @@ class Grid4DEncoder(nn.Module):
         cfg = self.cfg
         if cfg.encoding_mode == "sincos":
             return self._sincos(xyzt, spatial_mask, temporal_mask)
-        feats = [_masked(self.spatial(xyzt[:, :3]), spatial_mask),
-                 _masked(self.temporal(xyzt[:, 3:4]), temporal_mask)]
+        encs = [self.spatial, self.temporal]
         if cfg.use_decompositions:
-            both = None
-            if spatial_mask is not None or temporal_mask is not None:
-                ones = torch.ones(xyzt.shape[0], dtype=torch.bool,
-                                  device=xyzt.device)
-                sm = ones if spatial_mask is None else spatial_mask
-                tm = ones if temporal_mask is None else temporal_mask
-                both = sm & tm
-            for name, idx in _DECOMPOSITIONS.items():
-                f = getattr(self, name)(xyzt[:, list(idx)])
-                feats.append(_masked(f, both))
-        combined = torch.cat(feats, dim=-1).to(self.compute_dtype)
+            encs += [getattr(self, name) for name in DECOMPOSITIONS]
+        combined = grid4d_encode(
+            xyzt, [e.tables for e in encs], [e.resolutions for e in encs],
+            [e.cfg for e in encs], spatial_mask, temporal_mask,
+            out_dtype=self.compute_dtype)
         h = F.gelu(self.proj_norm(self.proj_in(combined)))
         return self.proj_out(h)
 

@@ -245,7 +245,8 @@ def test_launch_counters_stay_zero_on_cpu(small):
                        ).sum().backward()
     assert set(kernels.launch_counts.values()) == {0}
     assert set(kernels.launch_counts) == {
-        "hash_encode_fwd", "hash_encode_bwd", "hash_encode_bwd_scalar",
+        "grid4d_encode_fwd", "hash_encode_fwd", "hash_encode_bwd",
+        "hash_encode_bwd_scalar",
         "pairwise_attention_fwd", "pairwise_attention_fwd_warp",
         "pairwise_attention_bwd", "pairwise_attention_bwd_warp",
         "vmem_attention_fwd",

@@ -7,30 +7,31 @@ so there run it without the conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: K2-fwd does the plain version's fp32 operations in the same
-order, so it must be bit-identical. K1-fwd sums in another order: 1e-5 in
-fp32; in bf16 one ulp at |x| < 4 (2^-6), since an fp32 value near a
-rounding boundary may round either way. K1-bwd: the same reasons,
-elementwise (ATTN_BWD_TOL). K1-fwd and K1-bwd on both their routes (the
-streaming kernel, the one-warp-per-(row, head) kernel), two runs bitwise
-equal. K2-bwd adds with atomics in an order that changes from run to run,
-on both its routes (the dense gradient written whole, scalar atomics into
-a zeroed gradient): 1e-5 of the sum of |terms| of each row. K3-fwd
-sums in another order than its plain version, on each route: 1e-5 in fp32,
-one bf16 ulp at |x| < 4 in bf16 (VMEM_TOL); a row whose keys are all masked
-is exactly 0; two runs are bitwise equal.
-K4-fwd rounds the unnormalised p of each key tile (the library's online
-softmax) where its plain version rounds the normalised p of the full row;
-it is held by chip_smoke.check_flash_out: 1e-5 in fp32, two bf16 ulps of
-the output's largest entry in bf16, and the mean error within 2^-8 of the
-mean |plain|; its log-sum-exp within 1e-4. K3-bwd and K4-bwd are
-held by chip_smoke.check_grads: each gradient within BWD_TOL of its largest
-entry (1e-5 in fp32, two bf16 ulps of it in bf16) plus 1e-6; dq exactly 0
-where no key is visible, dk and dv exactly 0 for a masked key. K5-fwd
-returns fp32 in both types and differs from its plain version only in the
-order of fp32 sums: chip_smoke.check_gmm, 1e-5 of the largest entry in
-fp32, K4's relative limits in bf16. K5-bwd sums in fp32 with dout kept at
-fp32 accuracy and rounds once, as its plain version does:
+Tolerances: K2-fwd (the Grid4D encode and the per-table kernel) does the
+plain version's fp32 operations in the same order, masks by an fp32
+multiply and casts once, so it must be bit-identical. K1-fwd sums in
+another order: 1e-5 in fp32; in bf16 one ulp at |x| < 4 (2^-6), since an
+fp32 value near a rounding boundary may round either way. K1-bwd: the same
+reasons, elementwise (ATTN_BWD_TOL). K1-fwd and K1-bwd on both their routes
+(the streaming kernel, the one-warp-per-(row, head) kernel), two runs
+bitwise equal. K2-bwd adds with atomics in an order that changes from run
+to run, on both its routes (the dense gradient written whole, scalar
+atomics into a zeroed gradient): 1e-5 of the sum of |terms| of each row.
+K3-fwd sums in another order than its plain version, on each route: 1e-5 in
+fp32, one bf16 ulp at |x| < 4 in bf16 (VMEM_TOL); a row whose keys are all
+masked is exactly 0; two runs are bitwise equal. K4-fwd rounds the
+unnormalised p of each key tile (the library's online softmax) where its
+plain version rounds the normalised p of the full row; it is held by
+chip_smoke.check_flash_out: 1e-5 in fp32, two bf16 ulps of the output's
+largest entry in bf16, and the mean error within 2^-8 of the mean |plain|;
+its log-sum-exp within 1e-4. K3-bwd and K4-bwd are held by
+chip_smoke.check_grads: each gradient within BWD_TOL of its largest entry
+(1e-5 in fp32, two bf16 ulps of it in bf16) plus 1e-6; dq exactly 0 where
+no key is visible, dk and dv exactly 0 for a masked key. K5-fwd returns
+fp32 in both types and differs from its plain version only in the order of
+fp32 sums: chip_smoke.check_gmm, 1e-5 of the largest entry in fp32, K4's
+relative limits in bf16. K5-bwd sums in fp32 with dout kept at fp32
+accuracy and rounds once, as its plain version does:
 chip_smoke.check_gmm_bwd, K5-fwd's limits, and in bf16 at least 99% of the
 entries equal to the plain version's; its split of dout into bf16 hi + lo
 is its plain version's bit for bit. K6 and K7 multiply bf16-rounded x by
@@ -61,6 +62,7 @@ from deepearth_tpu_torch.ops import attention as tdpa
 from deepearth_tpu_torch.ops import attention_smallseq as tattn
 from deepearth_tpu_torch.ops import attention_vmem as tvmem
 from deepearth_tpu_torch.ops import flash_attention as tflash
+from deepearth_tpu_torch.ops import grid4d_encode as tg4
 from deepearth_tpu_torch.ops import grouped_matmul as tgmm
 from deepearth_tpu_torch.ops import hash_encoding as the
 from deepearth_tpu_torch.ops import quant as tquant
@@ -393,9 +395,90 @@ def test_hash_encode_refuses_coords_gradient(cuda):
                         torch.tensor([16.0, 32.0], device=cuda))
 
 
+# chip_smoke.grid4d_cases' names: A-stack and decomposition configs, fp32
+# and bf16, masks absent, partial and all False, xyzt strided, B = 1,
+# nearest corners on level counts that do not divide 32
+GRID4D_CASES = [
+    "A-stack B=4096 bf16", "A-stack B=4096 bf16 masked",
+    "A-stack B=4096 fp32 masked", "A-stack B=4096 bf16 all-False",
+    "A-stack B=4096 bf16 xyzt strided", "A-stack B=1 bf16 masked",
+    "A-stack B=37 fp32", "decompositions B=1000 bf16 masked",
+    "decompositions B=1000 fp32", "nearest T=3001 L12/5 B=777 fp32 masked",
+    "nearest T=3001 L12/5 B=777 bf16"]
+
+
+@pytest.mark.parametrize("case", GRID4D_CASES)
+def test_grid4d_encode_matches_plain(cuda, case):
+    """K2-fwd's Grid4D encode (one launch) bit for bit against the plain
+    composition, two runs alike, one launch a run
+    (chip_smoke._grid4d_case)."""
+    smoke = _smoke()
+    assert set(smoke.grid4d_cases()) == set(GRID4D_CASES)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    err, exact, launches = smoke._grid4d_case(gen,
+                                              *smoke.grid4d_cases()[case])
+    assert err == 0 and exact and launches == 2
+
+
+def test_grid4d_encode_off_its_route_takes_the_per_table_kernel(cuda):
+    """F = 3: each table through the per-table kernel, the masks, cat and
+    cast as torch operations; equal to the plain composition."""
+    smoke = _smoke()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cfg = smoke.Grid4DConfig(n_spatial_levels=4, n_temporal_levels=2,
+                             n_features_per_level=3, hash_table_size=4096)
+    tables, res, cfgs = smoke.grid4d_tables(gen, cfg)
+    xyzt, sm, tm = smoke.grid4d_inputs(gen, 512, "partial")
+    kernels.reset_launch_counts()
+    out = tg4.grid4d_encode(xyzt, tables, res, cfgs, sm, tm,
+                            out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["grid4d_encode_fwd"] == 0
+    assert kernels.launch_counts["hash_encode_fwd"] == 2
+    assert torch.equal(out, tg4.grid4d_encode_plain(
+        xyzt, tables, res, cfgs, sm, tm, out_dtype=torch.bfloat16))
+
+
+def test_grid4d_encode_gradient_equals_the_composition(cuda):
+    """The tables' gradient through the Grid4D encode's autograd.Function
+    (one K2-bwd call a table) against autograd through the per-table
+    composition (the per-table kernel, the same K2-bwd): atomics add in another
+    order, so within 1e-5 of each gradient's largest entry."""
+    smoke = _smoke()
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    grid4d = smoke.Grid4DConfig(n_spatial_levels=16, n_temporal_levels=8,
+                                hash_table_size=2 ** 19,
+                                use_decompositions=True)
+    tables, res, cfgs = smoke.grid4d_tables(gen, grid4d)
+    leaves = [t.requires_grad_() for t in tables]
+    xyzt, sm, tm = smoke.grid4d_inputs(gen, 4096, "partial", strided=True)
+    cot = torch.randn((4096, grid4d.output_dim), generator=gen,
+                      device=cuda).bfloat16()
+    grads = {}
+    for name, want in (("function", dict(grid4d_encode_fwd=1,
+                                         hash_encode_bwd=5)),
+                       ("composition", dict(hash_encode_fwd=5,
+                                            hash_encode_bwd=5))):
+        kernels.reset_launch_counts()
+        args = (xyzt, leaves, res, cfgs, sm, tm)
+        out = (tg4.grid4d_encode(*args, out_dtype=torch.bfloat16)
+               if name == "function" else
+               tg4._compose(the.hash_encode, *args, torch.bfloat16))
+        out.backward(cot)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts == smoke.expected_launches(**want)
+        grads[name] = [t.grad.clone() for t in leaves]
+        for t in leaves:
+            t.grad = None
+    for a, b in zip(grads["function"], grads["composition"]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * b.abs().max().item())
+
+
 def test_astack_train_step_launches_every_kernel(cuda):
-    """One train step of the A-stack model at B=4096 with masking: K2-fwd 2,
-    K2-bwd 2, K1-fwd 16, K1-bwd 16 launches, and a finite loss."""
+    """One train step of the A-stack model at B=4096 with masking: K2-fwd 1
+    (the Grid4D encode), K2-bwd 2, K1-fwd 16, K1-bwd 16 launches, and a
+    finite loss."""
     smoke = _smoke()
     gen = torch.Generator(device=cuda).manual_seed(0)
     cfg = smoke.astack_config()
@@ -407,7 +490,7 @@ def test_astack_train_step_launches_every_kernel(cuda):
     state, metrics = trainer.train_step(state, batch, gen)
     torch.cuda.synchronize()
     assert kernels.launch_counts == {
-        "hash_encode_fwd": 2, "hash_encode_bwd": 2,
+        "grid4d_encode_fwd": 1, "hash_encode_fwd": 0, "hash_encode_bwd": 2,
         "pairwise_attention_fwd": 16, "pairwise_attention_bwd": 16,
         **NO_OFF_GRID_K1_K2, **NO_K3_TO_K5}
     assert np.isfinite(metrics["loss/total"].item())
@@ -778,8 +861,8 @@ def test_mla_backward_at_4608_takes_the_tma_route(cuda):
 
 def test_multimodal_train_steps_launch_k3_and_k4(cuda):
     """One train step of the multimodal model at universal dim 64 with
-    vision at 576 patches (K3-fwd 2, K3-bwd 2, K2 2/2) and at 4608 patches
-    (K4-fwd 1, K4-bwd 1, K2 2/2), masking on, no plain version reached."""
+    vision at 576 patches (K3-fwd 2, K3-bwd 2, K2 1/2) and at 4608 patches
+    (K4-fwd 1, K4-bwd 1, K2 1/2), masking on, no plain version reached."""
     smoke = _smoke()
     gen = torch.Generator(device=cuda).manual_seed(0)
     cfg = smoke.multimodal_config(hidden_dim=64)
@@ -796,8 +879,9 @@ def test_multimodal_train_steps_launch_k3_and_k4(cuda):
             state, metrics = trainer.train_step(state, batch, gen)
         torch.cuda.synchronize()
         assert kernels.launch_counts == {
-            "hash_encode_fwd": 2, "hash_encode_bwd": 2,
-            "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
+            "grid4d_encode_fwd": 1, "hash_encode_fwd": 0,
+            "hash_encode_bwd": 2, "pairwise_attention_fwd": 0,
+            "pairwise_attention_bwd": 0,
             **NO_OFF_GRID_K1_K2, **NO_K3_TO_K5, **want}
         assert np.isfinite(metrics["loss/total"].item())
         assert np.isfinite(metrics["grad_norm"].item())
@@ -805,7 +889,7 @@ def test_multimodal_train_steps_launch_k3_and_k4(cuda):
 
 def test_multimodal_forward_launches_k3_twice(cuda):
     """The multimodal model at full width, one small request: K3-fwd 2,
-    K2-fwd 2, K1-fwd 0 launches, finite features, no plain version."""
+    K2-fwd 1, K1-fwd 0 launches, finite features, no plain version."""
     smoke = _smoke()
     gen = torch.Generator(device=cuda).manual_seed(0)
     model = DeepEarthModel(smoke.multimodal_config(), generator=gen,
@@ -817,7 +901,7 @@ def test_multimodal_forward_launches_k3_twice(cuda):
         feats = model.extract_features(batch)
     torch.cuda.synchronize()
     assert kernels.launch_counts == {
-        "hash_encode_fwd": 2, "hash_encode_bwd": 0,
+        "grid4d_encode_fwd": 1, "hash_encode_fwd": 0, "hash_encode_bwd": 0,
         "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
         **NO_OFF_GRID_K1_K2, **NO_K3_TO_K5,
         "vmem_attention_fwd": 2}
