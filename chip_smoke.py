@@ -149,6 +149,19 @@ Phases, each printing one line:
      per-op profile of one int8 step at B=8 with K6's device time in it;
      kernel vs plain at B=8: the prompt's logits teacher-forced with
      routing pinned, flips counted, and the greedy tokens' agreement;
+ 19. the embedding service through the user's entry points: the README's
+     quick start (DeepEarth() on the card, a temperature and a species
+     source, predict), then DeepEarth(hidden_dim=768, n_layers=12) with
+     the same sources: predict_batch of 4096 observations (with
+     reconstructions) and 8 single predicts, each request launching K2-fwd
+     1 and K1-fwd 16 times (the quick start's 4 layers: 6), no plain
+     version reached, the outputs against the same calls through the
+     plain versions (phase 4's SLICE_TOL); the REST path
+     (DashboardServer(DataService(predictor=earth)) on 127.0.0.1, port 0,
+     DashboardClient.predict) for 8 requests, each answer bit for bit
+     predict's; save -> a fresh DeepEarth(...).load on the card predicts
+     the same bits; obs/s at B=4096, the median ms of a predict and of a
+     REST request (host wall, synchronised), beside the plain versions';
 then a JSON line of the kernels, the card's name and power limit, and
 {"ok": true, ...} as the last line. Any failure raises and exits non-zero.
 Weights are random, drawn from a seeded generator on the card.
@@ -185,15 +198,20 @@ import gc
 import itertools
 import json
 import math
+import shutil
+import statistics
 import subprocess
 import time
+from pathlib import Path
 from typing import Optional
 from unittest import mock
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from deepearth_tpu_torch import kernels
+from deepearth_tpu_torch.api import DeepEarth
 from deepearth_tpu_torch.configs import (
     DeepEarthConfig,
     DeepSeekBlockConfig,
@@ -227,6 +245,11 @@ from deepearth_tpu_torch.ops import (
     hash_encoding,
     moe,
     quant,
+)
+from deepearth_tpu_torch.serving import (
+    DashboardClient,
+    DashboardServer,
+    DataService,
 )
 from deepearth_tpu_torch.training import (
     LossWeights,
@@ -438,6 +461,23 @@ DECODE_TOL = {"max_over_ulp": 6.0, "mean_rel": 0.035, "flipped": 0.07}
 # BENCH_DECODE.json's weight bytes of the three trees
 BENCH_DECODE_BYTES = {"bf16": 4_849_386_688, "int8": 2_542_049_472,
                       "int4": 1_382_848_704}
+# the embedding service (phase 19): the README's quick start (api.DeepEarth's
+# defaults: hidden 256, 4 fusion layers, Grid4D 8 + 4 levels on 2^15
+# tables, bf16 compute), then the API at the A-stack's width (hidden 768,
+# 12 fusion layers) with the quick start's two sources: a batch job of
+# API_BATCH observations, API_REQUESTS single predicts, as many REST
+# requests; times are host wall, synchronised, the median of API_REPEATS
+# batch calls. Each request has SERVICE_TOKENS tokens (CLS, spacetime,
+# species, temperature), so the fusion stack runs token-major: one K2-fwd
+# and k1_per_forward K1-fwd launches a request, K1-fwd on the route
+# k1_fwd_counter names (4 tokens: one warp a (row, head); the streaming
+# route takes at most 3). Kernel vs plain path at phase 4's SLICE_TOL over
+# the embedding and every reconstruction.
+SERVICE_TOKENS = 4
+QUICK_START = {"location": (28.5, -81.4), "time": "2024-06-15",
+               "data": {"temperature": [22.3], "species": 17}}
+API_BATCH, API_REQUESTS, API_REPEATS = 4096, 8, 5
+API_WIDTH = {"hidden_dim": 768, "n_layers": 12}
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s of HBM and
 # operations/s by type; fp32 without the tensor cores
@@ -3868,6 +3908,313 @@ def phase_decode(gen) -> dict:
             "runs": runs, "compare": compare}
 
 
+def k1_per_forward(fusion_cfg) -> int:
+    """K1-fwd launches of a token-major forward: the self-attention of
+    every fusion layer and the cross-attention of every
+    ``cross_attention_freq``-th, from layer 0."""
+    n = fusion_cfg.num_fusion_layers
+    return n + len(range(0, n, fusion_cfg.cross_attention_freq))
+
+
+def k1_fwd_counter(n_tokens: int) -> str:
+    """The launch counter of K1-fwd's route in a token-major bf16 stack of
+    ``n_tokens`` tokens (head dims and strides on the 8-element grid): the
+    streaming route up to kernels.PAIRWISE_TMA_MAX_TOKENS, else one warp a
+    (row, head)."""
+    if n_tokens <= kernels.PAIRWISE_TMA_MAX_TOKENS:
+        return "pairwise_attention_fwd"
+    return "pairwise_attention_fwd_warp"
+
+
+def register_quick_start(earth: DeepEarth) -> DeepEarth:
+    earth.register("temperature", shape=(1,), type="numerical")
+    earth.register("species", type="categorical", num_classes=232)
+    return earth
+
+
+def api_requests(seed: int, n: int) -> list:
+    """``n`` single requests (location with altitude, ISO time, both
+    sources), drawn with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [{"location": (float(rng.uniform(-90, 90)),
+                          float(rng.uniform(-180, 180)),
+                          float(rng.uniform(0, 3000))),
+             "time": f"{int(rng.integers(2000, 2050))}-"
+                     f"{int(rng.integers(1, 13)):02d}-15",
+             "data": {"temperature": [float(rng.normal(15, 10))],
+                      "species": int(rng.integers(0, 232))}}
+            for _ in range(n)]
+
+
+def api_batch(seed: int, n: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"locations": np.stack([rng.uniform(-90, 90, n),
+                                   rng.uniform(-180, 180, n),
+                                   rng.uniform(0, 3000, n)], axis=-1),
+            "times": list(rng.uniform(0, 1, n)),
+            "data": {"temperature": rng.normal(15, 10, (n, 1)),
+                     "species": rng.integers(0, 232, n)}}
+
+
+def api_diff(pairs) -> dict:
+    """Max and mean absolute difference over (kernel, plain) numpy pairs."""
+    diff = np.concatenate([np.abs(a - b).ravel() for a, b in pairs])
+    return {"max_abs": float(diff.max()), "mean_abs": float(diff.mean())}
+
+
+def wall_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def counted(fn, want: dict, what: str):
+    """``fn()`` with every launch count set to 0 before and read after,
+    no plain version reachable; the counts must be ``want``."""
+    kernels.reset_launch_counts()
+    with plain_versions_refused():
+        out = fn()
+    torch.cuda.synchronize()
+    got = dict(kernels.launch_counts)
+    if got != expected_launches(**want):
+        raise AssertionError(f"{what}: launches {got} != {want}")
+    return out, got
+
+
+def service_kernels(gen, grid4d: Grid4DConfig) -> dict:
+    """The service path's two kernels at its shapes, held against their
+    plain versions and timed: K2-fwd at the API's Grid4D (B=4096 and B=1,
+    bf16 out, bit for bit) and K1-fwd by its route at SERVICE_TOKENS tokens
+    ((4, 4096, 768) of 12 heads, the A-stack width's; (4, 1, 256) of 4, the
+    quick start's), each twice bitwise equal; times by CUDA-graph replays
+    in turns at B=4096, beside the plain versions, the library (K1-fwd:
+    scaled_dot_product_attention) and the bound."""
+    k2 = {f"B={n}": _grid4d_case(gen, grid4d, n, torch.bfloat16, None, False)
+          for n in (API_BATCH, 1)}
+    if not all(bitwise for _, bitwise, _ in k2.values()):
+        raise AssertionError(f"K2-fwd at the API's Grid4D: {k2}")
+    tables, res, cfgs = grid4d_tables(gen, grid4d)
+    pool = [grid4d_inputs(gen, API_BATCH, None) for _ in range(16)]
+    k2_times = {}
+    for label, fn in (("kernel", grid4d_encode.grid4d_encode),
+                      ("plain", grid4d_encode.grid4d_encode_plain),
+                      ("plain", grid4d_encode.grid4d_encode_plain),
+                      ("kernel", grid4d_encode.grid4d_encode)):
+        inputs = itertools.cycle(pool)
+        k2_times.setdefault(label, []).append(graph_ms(
+            lambda: fn(next(inputs)[0], tables, res, cfgs,
+                       out_dtype=torch.bfloat16)))
+
+    k1, counter = {}, k1_fwd_counter(SERVICE_TOKENS)
+    for tag, b, d, h in ((f"B={API_BATCH}", API_BATCH, 768, 12),
+                         ("B=1", 1, 256, 4)):
+        q, k, v = k1_inputs(gen, SERVICE_TOKENS, SERVICE_TOKENS, b, d,
+                            torch.bfloat16)
+        kw = dict(n_heads=h, scale=(d // h) ** -0.5)
+        if k1_route(q, k, v, h, "fwd") != counter:
+            raise AssertionError(f"K1-fwd {tag}: not on {counter}")
+        kernels.reset_launch_counts()
+        out, again = (attention_smallseq.pairwise_token_attention(q, k, v,
+                                                                  **kw)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        if kernels.launch_counts != expected_launches(**{counter: 2}):
+            raise AssertionError(f"K1-fwd {tag}: {kernels.launch_counts}")
+        ref = attention_smallseq.pairwise_token_attention_plain(q, k, v,
+                                                                **kw)
+        k1[tag] = max_err(out, ref)
+        if k1[tag] > ATTN_TOL[torch.bfloat16] or not torch.equal(out, again):
+            raise AssertionError(f"K1-fwd {tag}: max_abs_err {k1[tag]} or "
+                                 f"two runs differ")
+    # q, k, v of the B=4096 case
+    q, k, v = k1_inputs(gen, SERVICE_TOKENS, SERVICE_TOKENS, API_BATCH, 768,
+                        torch.bfloat16)
+    calls = {"kernel": lambda: attention_smallseq.pairwise_token_attention(
+                 q, k, v, n_heads=12, scale=0.125),
+             "plain": lambda: attention_smallseq.pairwise_token_attention_plain(
+                 q, k, v, n_heads=12, scale=0.125)}
+    k1_times = {}
+    for label in ("kernel", "plain", "plain", "kernel"):
+        k1_times.setdefault(label, []).append(graph_ms(calls[label]))
+    qh, kh, vh = (bhnd(x, 12) for x in (q, k, v))
+    k1_times["library"] = [graph_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, scale=0.125))]
+    n = SERVICE_TOKENS
+    return {
+        "grid4d_encode_fwd": {
+            "max_abs_err": max(e for e, _, _ in k2.values()),
+            "ms": min(k2_times["kernel"]), "plain_ms": min(k2_times["plain"]),
+            **grid4d_bounds(pool, tables, res, cfgs, torch.bfloat16)},
+        counter: {
+            "max_abs_err": max(k1.values()), "errs": k1,
+            "ms": min(k1_times["kernel"]), "plain_ms": min(k1_times["plain"]),
+            "library_ms": k1_times["library"][0],
+            **bound(nbytes(q, k, v, q), 4 * n * n * API_BATCH * 768,
+                    torch.bfloat16)}}
+
+
+def phase_service() -> dict:
+    """The embedding service on the card through the user's entry points:
+    api.DeepEarth (the README's quick start, then the A-stack's width), the
+    REST DataService behind DashboardServer with DashboardClient, and save
+    / load."""
+    if k1_per_forward(astack_config().fusion) != K1_PER_FORWARD:
+        raise AssertionError("k1_per_forward disagrees with phase 4")
+
+    # the README's quick start, on the card by default
+    earth = register_quick_start(DeepEarth())
+    at_shapes = service_kernels(
+        torch.Generator(device="cuda").manual_seed(SEED),
+        earth._config.grid4d)
+    k1 = k1_fwd_counter(SERVICE_TOKENS)
+    quick, quick_launches = counted(
+        lambda: earth.predict(**QUICK_START),
+        {"grid4d_encode_fwd": K2_PER_FORWARD,
+         k1: k1_per_forward(earth._config.fusion)},
+        "the quick start's predict")
+    if (quick.shape != (256,) or quick.dtype != np.float32
+            or not np.isfinite(quick).all()):
+        raise AssertionError(f"quick start: {quick.shape} {quick.dtype} or "
+                             f"non-finite values")
+    with plain_versions():
+        quick_plain = earth.predict(**QUICK_START)
+    quick_err = api_diff([(quick, quick_plain)])
+
+    # the API at the A-stack's width: a batch job and single requests
+    earth = register_quick_start(DeepEarth(**API_WIDTH))
+    job = api_batch(SEED, API_BATCH)
+    singles = api_requests(SEED + 1, API_REQUESTS)
+    per_request = {"grid4d_encode_fwd": K2_PER_FORWARD, k1: K1_PER_FORWARD}
+    n_calls = 1 + API_REQUESTS
+
+    def serve():
+        out = earth.predict_batch(**job, return_reconstructions=True)
+        return out, [earth.predict(**r) for r in singles]
+    (batch_out, single_out), api_launches = counted(
+        serve, {k: n_calls * v for k, v in per_request.items()},
+        "the API's batch job and single requests")
+    emb, recon = batch_out
+    shapes = {"embedding": (API_BATCH, API_WIDTH["hidden_dim"]),
+              "spatial": (API_BATCH, 3),
+              "temporal": (API_BATCH, 1), "species": (API_BATCH, 232),
+              "temperature": (API_BATCH, 1)}
+    for key, arr in {"embedding": emb, **recon}.items():
+        if arr.shape != shapes[key] or not np.isfinite(arr).all():
+            raise AssertionError(f"B={API_BATCH} {key}: {arr.shape} or "
+                                 f"non-finite values")
+    with plain_versions():
+        ref_emb, ref_recon = earth.predict_batch(**job,
+                                                 return_reconstructions=True)
+        ref_single = [earth.predict(**r) for r in singles]
+    errs = {f"B={API_BATCH}": api_diff(
+                [(emb, ref_emb)] + [(recon[k], ref_recon[k]) for k in recon]),
+            "single": api_diff(list(zip(single_out, ref_single)))}
+    for tag, e in {"quick start": quick_err, **errs}.items():
+        if any(e[k] > SLICE_TOL[k] for k in SLICE_TOL):
+            raise AssertionError(f"API kernel vs plain path, {tag}: {e} (tol "
+                                 f"{SLICE_TOL})")
+
+    timing = {
+        "batch_ms": statistics.median(
+            wall_ms(lambda: earth.predict_batch(**job))
+            for _ in range(API_REPEATS)),
+        "predict_ms": statistics.median(
+            wall_ms(lambda: earth.predict(**r)) for r in singles)}
+    with plain_versions():
+        timing["batch_plain_ms"] = statistics.median(
+            wall_ms(lambda: earth.predict_batch(**job))
+            for _ in range(API_REPEATS))
+        timing["predict_plain_ms"] = statistics.median(
+            wall_ms(lambda: earth.predict(**r)) for r in singles)
+
+    # where a request's time goes: kernels by device time and launches
+    profiles = {"predict_batch": kernel_breakdown(
+                    lambda: earth.predict_batch(**job)),
+                "predict": kernel_breakdown(
+                    lambda: earth.predict(**singles[0]), n_calls=5)}
+    for what, (breakdown, by_op) in profiles.items():
+        timing[f"{what}_device_ms"] = sum(r[1] for r in breakdown)
+        timing[f"{what}_launches"] = sum(r[2] for r in breakdown)
+    print_breakdown(19, f"predict_batch B={API_BATCH}", "call",
+                    *profiles["predict_batch"])
+    print_breakdown(19, "one predict", "call", *profiles["predict"])
+
+    # the REST path: each answer bit for bit the API's
+    server = DashboardServer(DataService(predictor=earth), host="127.0.0.1",
+                             port=0).start()
+    try:
+        client = DashboardClient(f"http://127.0.0.1:{server.port}")
+
+        def ask():
+            walls, answers = [], []
+            for r in singles:
+                t0 = time.perf_counter()
+                answers.append(client.predict(r["location"], r["time"],
+                                              r["data"]))
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return walls, answers
+        (rest_walls, answers), _ = counted(
+            ask, {k: API_REQUESTS * v for k, v in per_request.items()},
+            "the REST requests")
+    finally:
+        server.stop()
+    for r, got in zip(singles, answers):
+        if not np.array_equal(got, earth.predict(**r)):
+            raise AssertionError("a REST answer differs from predict's")
+    timing["rest_ms"] = statistics.median(rest_walls)
+
+    # save -> load on the card: a fresh DeepEarth predicts the same bits
+    path = Path(__file__).resolve().parent / "build" / "api_save"
+    try:
+        earth.save(str(path))
+        loaded = DeepEarth(**API_WIDTH).load(str(path))
+        same = np.array_equal(loaded.predict_batch(**job), emb) and all(
+            np.array_equal(loaded.predict(**r), e)
+            for r, e in zip(singles, single_out))
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    if not same:
+        raise AssertionError("save -> load changed the predictions")
+    n_params = sum(p.numel() for p in earth._model.parameters())
+    print(f"[19 embedding service] the quick start (DeepEarth(), 4 layers): "
+          f"shape {quick.shape} finite, launches K2 "
+          f"{quick_launches['grid4d_encode_fwd']} K1 {quick_launches[k1]} "
+          f"({k1}) | DeepEarth({API_WIDTH}), "
+          f"{n_params / 1e6:.1f}M params: launches per request K2 "
+          f"{K2_PER_FORWARD} K1 {K1_PER_FORWARD} over {n_calls} API calls "
+          f"and {API_REQUESTS} REST requests, no plain version reached | "
+          f"vs plain path: quick start max "
+          f"{quick_err['max_abs']:.4g} mean {quick_err['mean_abs']:.3g}, "
+          + ", ".join(f"{k} max {v['max_abs']:.4g} mean {v['mean_abs']:.3g}"
+                      for k, v in errs.items())
+          + f" (tol {SLICE_TOL}) | predict_batch B={API_BATCH} "
+          f"{timing['batch_ms']:.3f} ms, "
+          f"{API_BATCH / timing['batch_ms'] * 1e3:.0f} obs/s (plain "
+          f"versions {timing['batch_plain_ms']:.3f} ms); "
+          f"predict median {timing['predict_ms']:.3f} ms (plain "
+          f"{timing['predict_plain_ms']:.3f}); kernels a call: "
+          f"predict_batch {timing['predict_batch_device_ms']:.3f} ms in "
+          f"{timing['predict_batch_launches']:.0f} launches, predict "
+          f"{timing['predict_device_ms']:.3f} ms in "
+          f"{timing['predict_launches']:.0f}; REST median "
+          f"{timing['rest_ms']:.3f} ms, answers bit for bit predict's | "
+          f"save -> load bit for bit | {card()}")
+    k2s, k1s = at_shapes["grid4d_encode_fwd"], at_shapes[k1]
+    print(f"[19 embedding service kernels] K2-fwd at the API's Grid4D (8 + 4 "
+          f"levels on 2^15 tables, bf16): max_abs_err {k2s['max_abs_err']:.3g}"
+          f" at B={API_BATCH} and B=1, two runs bitwise equal; B={API_BATCH} "
+          f"{k2s['ms']:.4f} ms (plain {k2s['plain_ms']:.4f}; bound "
+          f"{k2s['bound_ms']:.4f} {k2s['bound_by']}) | K1-fwd {k1} at "
+          f"({SERVICE_TOKENS}, {API_BATCH}, 768) 12 heads and "
+          f"({SERVICE_TOKENS}, 1, 256) 4 heads, bf16: max_abs_err "
+          + ", ".join(f"{t} {e:.3g}" for t, e in k1s["errs"].items())
+          + f" (tol {ATTN_TOL[torch.bfloat16]}), two runs bitwise equal; "
+          f"B={API_BATCH} {k1s['ms']:.4f} ms (plain {k1s['plain_ms']:.4f}, "
+          f"library {k1s['library_ms']:.4f}; bound {k1s['bound_ms']:.4f} "
+          f"{k1s['bound_by']}) | CUDA-graph replays | {card()}")
+    return {"launches": api_launches, "kernels": at_shapes}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--clip-batch-search", action="store_true",
@@ -3919,6 +4266,7 @@ def main() -> None:
     flag_train = phase_flagship_train(flagship_generator())
     k67 = phase_quant(gen)
     dec = phase_decode(gen)
+    svc = phase_service()
     report = {"kernels": [
         {"name": "grid4d_encode_fwd", "route": "cuda",
          "source": "deepearth_tpu_torch/kernels/csrc/grid4d_encode.cu",
@@ -3926,6 +4274,7 @@ def main() -> None:
                      " deepearth_tpu/models/grid4d.py:53-84 with its masks, "
                      "concatenation and cast)",
          "launches": sl["launches"]["grid4d_encode_fwd"],
+         "launches_in_phase_19": svc["launches"]["grid4d_encode_fwd"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "composition_ms": k2["composition_ms"],
          "floor_ms": k2["floor_ms"]},
@@ -4108,6 +4457,18 @@ def main() -> None:
                                                "bound_by", "library_ms")}}
     report["off_main_path"] = [off_main(entry) for entry in report["kernels"]
                                if entry["name"] in mma_of]
+    # the embedding service's 4 tokens take K1-fwd's warp route: on phase
+    # 19's path, its launches there
+    warp = "pairwise_attention_fwd_warp"
+    report["off_main_path"] = [e for e in report["off_main_path"]
+                               if e["name"] != warp]
+    report["kernels"].insert(2, {
+        **off_main(report["kernels"][1]), "launches": svc["launches"][warp],
+        **{key: svc["kernels"][warp][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}})
+    if k1_fwd_counter(SERVICE_TOKENS) != warp:
+        raise AssertionError("phase 19's K1-fwd route is not the warp route")
     # the per-table K2-fwd: HashEncoding alone and Grid4D off the
     # one-launch route (F != 2), which no main path takes; its numbers are
     # the spatial table's alone at B=4096

@@ -1,7 +1,10 @@
 """DeepEarth in PyTorch with hand-written CUDA kernels for Hopper.
 
 A port of ``deepearth_tpu`` (JAX, the reference) that mirrors its module
-names. It imports neither JAX nor the JAX package. Ported so far:
+names. It imports neither JAX nor the JAX package. Ported so far: the
+embedding service (``api.DeepEarth`` and its functional ``init`` /
+``register`` / ``predict``, ``registry``, the REST data service and its
+client in ``serving``, with the data and evaluation modules they read),
 ``DeepEarthModel`` with learned-embedding modalities and continuous
 modalities through universal-token encoders (MLA + SwiGLU, optionally an MoE
 projection), token-major and batch-major fusion, the DeepSeek MLA/MoE
@@ -33,6 +36,8 @@ from .configs import (
     config_to_json,
     integrated_config,
     simulator_config,
+    small_config,
+    tiny_config,
 )
 from .convert import (
     flax_params_from_model,
@@ -47,6 +52,7 @@ __all__ = [
     "MoEConfig", "OptimizerConfig", "PRESET_MODALITIES", "RopeScalingConfig",
     "TransformerConfig",
     "config_from_json", "config_to_json", "integrated_config",
-    "simulator_config", "flax_params_from_model",
+    "simulator_config", "small_config", "tiny_config",
+    "flax_params_from_model",
     "load_flax_opt_state", "load_flax_params", "DeepEarthModel",
 ]

@@ -6,8 +6,8 @@ read; dtypes are torch dtypes. :func:`config_from_json` reads the JSON that
 the JAX package's ``config_to_json`` writes, and :func:`config_to_json`
 writes the same schema, so a checkpoint's config travels between the two
 packages. The sharding section is kept as a plain dict. The presets
-(:func:`integrated_config`, the flagship; :func:`simulator_config`) are those
-of the JAX package.
+(:func:`tiny_config`, :func:`small_config`, :func:`integrated_config` the
+flagship, :func:`simulator_config`) are those of the JAX package.
 """
 
 from __future__ import annotations
@@ -375,6 +375,38 @@ class DeepEarthConfig:
 # --------------------------------------------------------------------------- #
 # Presets
 # --------------------------------------------------------------------------- #
+
+
+def tiny_config(**overrides) -> DeepEarthConfig:
+    """Tiny end-to-end config: hidden 128, 4 heads, 2 fusion layers, Grid4D
+    8 + 4 levels on 2^14 tables, and a ``species`` source (vocab 232)."""
+    cfg = DeepEarthConfig(
+        hidden_dim=128,
+        n_heads=4,
+        n_layers=2,
+        grid4d=Grid4DConfig(
+            n_spatial_levels=8,
+            n_temporal_levels=4,
+            n_features_per_level=2,
+            hash_table_size=2 ** 14,
+        ),
+        modality_encoder=TransformerConfig(hidden_dim=64, n_heads=4, n_layers=1),
+        **overrides,
+    )
+    cfg.add_modality(
+        ModalityConfig(
+            name="species",
+            encoding_type="learned_embedding",
+            input_type="categorical",
+            vocab_size=232,
+        )
+    )
+    return cfg
+
+
+def small_config(**overrides) -> DeepEarthConfig:
+    """The A-stack's default scale: :class:`DeepEarthConfig`'s defaults."""
+    return DeepEarthConfig(**overrides)
 
 
 def integrated_config(

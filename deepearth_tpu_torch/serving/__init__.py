@@ -1,7 +1,8 @@
-"""Serving front ends of the PyTorch port: the language embedding service.
-The JAX package's dashboard client and REST data service are not ported yet
-(ROADMAP.md Queue 1)."""
+"""Serving front ends of the PyTorch port: the REST data service
+(``server.DataService``, ``server.DashboardServer``), its client
+(``client.DashboardClient``), and the language embedding service."""
 
+from .client import DashboardClient
 from .language_server import (
     DeepSeekEmbedder,
     HashEmbedder,
@@ -10,9 +11,13 @@ from .language_server import (
     LanguageEmbeddingService,
     LanguageServer,
 )
+from .server import DashboardServer, DataService
 
 __all__ = [
     "DeepSeekEmbedder",
+    "DashboardClient",
+    "DashboardServer",
+    "DataService",
     "HashEmbedder",
     "HFEmbedder",
     "LanguageClient",

@@ -2,5 +2,6 @@
 helpers)."""
 
 from .logging import get_logger
+from .projection import EmbeddingProjector
 
-__all__ = ["get_logger"]
+__all__ = ["get_logger", "EmbeddingProjector"]

@@ -25,6 +25,27 @@ EXPORTS = [  # (package path, name, the port's defining submodule)
     ("serving", "LanguageServer", "serving.language_server"),
     ("serving", "DeepSeekEmbedder", "serving.language_server"),
     ("utils", "get_logger", "utils.logging"),
+    ("", "tiny_config", "configs"),
+    ("", "small_config", "configs"),
+    ("serving", "DashboardClient", "serving.client"),
+    ("serving", "DashboardServer", "serving.server"),
+    ("serving", "DataService", "serving.server"),
+    ("utils", "EmbeddingProjector", "utils.projection"),
+    *[("data", name, "data.mmap_store") for name in (
+        "MMapEmbeddingLoader", "MMapEmbeddingWriter",
+        "convert_arrays_to_store")],
+    *[("data", name, "data.observations") for name in (
+        "DatasetConfig", "ObservationDataset", "UnifiedDataCache",
+        "VJEPA2_SHAPE", "image_level_mean", "reshape_vision_embedding",
+        "spatial_attention_map", "spatial_patch", "temporal_frame")],
+    *[("evaluation", name, "evaluation.ecosystems") for name in (
+        "EcosystemCluster", "analyze_ecosystems", "ecosystem_map_html",
+        "species_similarity")],
+    *[("evaluation", name, "evaluation.retrieval") for name in (
+        "cross_modal_retrieval", "retrieval_metrics")],
+    *[("evaluation", name, "evaluation.spatiotemporal") for name in (
+        "SpatiotemporalMetrics", "binned_rmse", "knn_weights", "morans_i",
+        "temporal_consistency")],
 ]
 
 

@@ -1363,3 +1363,27 @@ def test_quantized_decode_step_launches_its_kernel(cuda, bits):
     ref, _ = run(plain=True, pinned=log)
     assert bool(got.isfinite().all())
     assert smoke.max_err(got, ref) <= 8 * smoke.bf16_ulp(ref)
+
+
+def test_quick_start_on_the_card_launches_k2_once_and_k1(cuda):
+    """The README's quick start on the card (``api.DeepEarth()``'s
+    defaults: 4 fusion layers, 4 tokens, token-major): K2-fwd 1 and K1-fwd
+    6 launches a predict, K1-fwd on its warp route (4 tokens, past the
+    streaming route's 3), and nothing else, no plain version reached; a
+    finite float32 embedding within phase 19's limit (chip_smoke.SLICE_TOL)
+    of the same predict through the plain versions."""
+    from deepearth_tpu_torch.api import DeepEarth
+
+    smoke = _smoke()
+    earth = smoke.register_quick_start(DeepEarth())
+    assert earth.device.type == "cuda"
+    assert smoke.k1_per_forward(earth._config.fusion) == 6
+    emb, _ = smoke.counted(lambda: earth.predict(**smoke.QUICK_START),
+                           {"grid4d_encode_fwd": 1,
+                            "pairwise_attention_fwd_warp": 6}, "quick start")
+    assert emb.shape == (256,) and emb.dtype == np.float32
+    assert np.isfinite(emb).all()
+    with smoke.plain_versions():
+        ref = earth.predict(**smoke.QUICK_START)
+    err = smoke.api_diff([(emb, ref)])
+    assert all(err[k] <= smoke.SLICE_TOL[k] for k in smoke.SLICE_TOL), err
