@@ -162,6 +162,30 @@ Phases, each printing one line:
      predict's; save -> a fresh DeepEarth(...).load on the card predicts
      the same bits; obs/s at B=4096, the median ms of a predict and of a
      REST request (host wall, synchronised), beside the plain versions';
+ 20. the training entry point and its siblings, as a user runs them: (a)
+     cli.train.main at the A-stack's width (768, 12 layers) on synthetic
+     data at B=4096 for 8 steps, with a checkpoint directory and a metrics
+     file; every step must launch K1-fwd 16, K1-bwd 16 (streaming routes),
+     K2-fwd 1 and K2-bwd 2 and nothing else, reach no plain version, and
+     get every batch leaf on the card; from that run's steps 3-8 under a
+     device-only profiler: ms a step by CUDA events, obs/s, the
+     host-to-device copies a step and whether they are pinned, kernel time
+     and the device's idle share; (b) the same command through the plain
+     versions, loss and grad norm of each step within TRAIN_TOL; (c)
+     Trainer.fit with echo_factor=2 over
+     device_prefetch: half the batches pulled and half the copies a step;
+     --resume with no step loads the saved state bit for bit; (d)
+     cli.prepare_data writes vision (576 x 1408, fp16) and language (7168)
+     stores over 512 observations, then --data-dir's body
+     (train_on_dataset) trains 10 steps at B=64 from an ObservationDataset,
+     one profiled run with device_prefetch and one with
+     device_prefetch_compressed: launches a step (which attention kernels
+     run), ms a step, the copies' share of a step, the idle share; the
+     same steps through the plain versions within TRAIN_TOL; K3-fwd and
+     K3-bwd at every site shape the run gave them against their plain
+     versions; the native gather bit for bit the store's read; (e)
+     cli.serve with a predictor on port 0 answers one REST predict bit for
+     bit DeepEarth.predict's;
 then a JSON line of the kernels, the card's name and power limit, and
 {"ok": true, ...} as the last line. Any failure raises and exits non-zero.
 Weights are random, drawn from a seeded generator on the card.
@@ -212,6 +236,18 @@ import torch.nn.functional as F
 
 from deepearth_tpu_torch import kernels
 from deepearth_tpu_torch.api import DeepEarth
+from deepearth_tpu_torch.cli import prepare_data as cli_prepare
+from deepearth_tpu_torch.cli import serve as cli_serve
+from deepearth_tpu_torch.cli import train as cli_train
+from deepearth_tpu_torch.data import (
+    ObservationDataset,
+    SyntheticConfig,
+    SyntheticEarthDataGenerator,
+    device_prefetch_compressed,
+    native,
+)
+from deepearth_tpu_torch.data import device_prefetch as data_device_prefetch
+from deepearth_tpu_torch.data.batches import leaves as batch_leaves
 from deepearth_tpu_torch.configs import (
     DeepEarthConfig,
     DeepSeekBlockConfig,
@@ -257,6 +293,7 @@ from deepearth_tpu_torch.training import (
     TrainState,
     create_optimizer,
 )
+from deepearth_tpu_torch.training import trainer as trainer_module
 
 SEED = 0
 HASH_TOL = 1e-6  # same fp32 operations in the same order: expect 0
@@ -477,6 +514,18 @@ SERVICE_TOKENS = 4
 QUICK_START = {"location": (28.5, -81.4), "time": "2024-06-15",
                "data": {"temperature": [22.3], "species": 17}}
 API_BATCH, API_REQUESTS, API_REPEATS = 4096, 8, 5
+
+# phase 20: the training CLI at the A-stack's width and batch (3 tokens:
+# K1 on its streaming routes), and its --data-dir body at the published
+# embedding widths (PERF.md section 1) over REAL_OBS observations
+CLI_WIDTH = ["--hidden-dim", "768", "--n-layers", "12"]
+CLI_BATCH, CLI_STEPS, CLI_LOG_EVERY = 4096, 8, 4
+CLI_PER_STEP = {"pairwise_attention_fwd": 16, "pairwise_attention_bwd": 16,
+                "grid4d_encode_fwd": 1, "hash_encode_bwd": 2}
+CLI_PINNED_PER_BATCH = 2  # xyzt and species
+REAL_OBS, REAL_BATCH, REAL_STEPS = 512, 64, 10
+VISION_STORE_SHAPE, LANGUAGE_STORE_SHAPE = (576, 1408), (7168,)
+CLI_DIR = Path(__file__).resolve().parent / "build" / "cli"
 API_WIDTH = {"hidden_dim": 768, "n_layers": 12}
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s of HBM and
@@ -4215,6 +4264,571 @@ def phase_service() -> dict:
     return {"launches": api_launches, "kernels": at_shapes}
 
 
+
+class StepWatch:
+    """Wraps the train step of every Trainer built inside :meth:`watching`:
+    CUDA events around each step, its (loss, grad_norm), how many distinct
+    batches the steps were given, and a check that every leaf of each batch
+    lies on the card (the prefetch never leaves one on the host). ``after``
+    is called after each step (a profiler's ``step``)."""
+
+    def __init__(self, after=None):
+        self.after = after
+        self.events, self.metrics = [], []
+        self.distinct, self._last = 0, None
+        # host wall in each step's call, and from one call's end to the
+        # next's start (the loop's next batch: data, prefetch, logging)
+        self.host_in, self.host_between, self._left = [], [], None
+
+    @contextlib.contextmanager
+    def watching(self):
+        make = trainer_module.make_train_step
+
+        def make_watched(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def watched(state, batch, generator):
+                off = [type(x).__name__ for x in batch_leaves(batch)
+                       if not (isinstance(x, torch.Tensor) and x.is_cuda)]
+                if off:
+                    raise AssertionError(f"batch leaves off the card: {off}")
+                if batch is not self._last:
+                    self.distinct, self._last = self.distinct + 1, batch
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                t0 = time.perf_counter()
+                if self._left is not None:
+                    self.host_between.append((t0 - self._left) * 1e3)
+                start.record()
+                state, m = step(state, batch, generator)
+                end.record()
+                self._left = time.perf_counter()
+                self.host_in.append((self._left - t0) * 1e3)
+                self.events.append((start, end))
+                self.metrics.append((m["loss/total"], m["grad_norm"]))
+                if self.after is not None:
+                    self.after()
+                return state, m
+            return watched
+        with mock.patch.object(trainer_module, "make_train_step",
+                               make_watched):
+            yield self
+        self._last = None
+
+    def ms_per_step(self, first: int = 1) -> float:
+        """Device time from the start of step ``first`` (0-based) to the end
+        of the last, per step: the card's work and its waits on the host."""
+        torch.cuda.synchronize()
+        return (self.events[first][0].elapsed_time(self.events[-1][1])
+                / (len(self.events) - first))
+
+    def runs(self) -> list:
+        return [(loss.item(), norm.item()) for loss, norm in self.metrics]
+
+    def host_ms(self, first: int = 1) -> dict:
+        """Median host wall a step from step ``first`` (0-based) on: in the
+        step's call (launches) and between calls (the next batch)."""
+        return {"in_step": statistics.median(self.host_in[first:]),
+                "between": statistics.median(self.host_between[first - 1:])}
+
+
+class Counting:
+    """An iterator that counts the batches pulled from ``source``."""
+
+    def __init__(self, source):
+        self.source, self.pulled = iter(source), 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = next(self.source)
+        self.pulled += 1
+        return item
+
+
+@contextlib.contextmanager
+def step_profile(skip: int, active: int):
+    """torch.profiler's device activities (kernels, copies) over train
+    steps ``skip + 1 .. skip + active`` (its ``step`` is called after each
+    train step); yields a dict whose "step" is that callable and whose
+    "averages" the window's key_averages. Host ops are not traced: the
+    window's cost to the host stays a few µs a launch."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    holder = {}
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=skip - 1, warmup=1, active=active,
+                                   repeat=1),
+                 on_trace_ready=lambda p: holder.update(
+                     averages=p.key_averages())) as prof:
+        holder["step"] = prof.step
+        yield holder
+    if "averages" not in holder:
+        raise AssertionError("the profiler's window did not close")
+
+
+def window_counts(averages, steps: int) -> dict:
+    """Per step of a profiled window: host-to-device copies by kind and
+    their device ms, device-to-host copies, and the kernels' device ms and
+    launches."""
+    out = collections.Counter(dict.fromkeys(
+        ("h2d_pinned", "h2d_pageable", "h2d_ms", "d2h", "kernel_ms",
+         "launches"), 0))
+    for e in averages:
+        if "CUDA" not in str(e.device_type):
+            continue
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) / 1e3
+        # a user annotation (ProfilerStep#n, the optimizer's step) spans
+        # kernels that are rows of their own
+        if (getattr(e, "is_user_annotation", False)
+                or e.key.startswith(("ProfilerStep", "Optimizer."))):
+            continue
+        if e.key.startswith("Memcpy HtoD"):
+            kind = "pinned" if "Pinned" in e.key else "pageable"
+            out[f"h2d_{kind}"] += e.count
+            out["h2d_ms"] += ms
+        elif e.key.startswith("Memcpy DtoH"):
+            out["d2h"] += e.count
+        elif not e.key.startswith(("Memcpy", "Memset")):
+            out["kernel_ms"] += ms
+            out["launches"] += e.count
+    return {k: v / steps for k, v in out.items()}
+
+
+def per_step_launches(launches: dict, steps: int) -> dict:
+    return {k: v / steps for k, v in launches.items() if v}
+
+
+def state_equal(a, b) -> bool:
+    """Two state trees (dicts, lists, tensors, numbers) equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(state_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(state_equal, a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def cli_argv(*extra: str) -> list:
+    return [*CLI_WIDTH, "--batch-size", str(CLI_BATCH), "--modalities",
+            "species", "--steps", str(CLI_STEPS), *extra]
+
+
+def profiled_train(train, steps: int) -> tuple:
+    """``train()`` under a StepWatch and a device-only profiler window over
+    its steps 3..``steps``: returns train's result, the watch, and the
+    window's counts a step. Step ms (``watch.ms_per_step(2)``) and kernel ms
+    come from the same steps of the same run."""
+    watch = StepWatch()
+    with step_profile(2, steps - 2) as prof:
+        watch.after = prof["step"]
+        with watch.watching():
+            out = train()
+    torch.cuda.synchronize()
+    return out, watch, window_counts(prof["averages"], steps - 2)
+
+
+def cli_synthetic(root: Path) -> dict:
+    """Phase 20 (a)-(c): cli.train on synthetic data at the A-stack's width
+    and batch; the same run through the plain versions; echoing; resuming.
+    """
+    argv = cli_argv("--log-every", str(CLI_LOG_EVERY),
+                    "--checkpoint-dir", str(root / "ckpt"),
+                    "--metrics-jsonl", str(root / "metrics.jsonl"))
+    args = cli_train.parse_args(argv)
+    if k1_per_forward(cli_train.make_config(args).fusion) != K1_PER_FORWARD:
+        raise AssertionError("the CLI's fusion stack is not 12 layers deep")
+    want = expected_launches(**{k: v * CLI_STEPS
+                                for k, v in CLI_PER_STEP.items()})
+
+    # (a) the user's command, counted and profiled; no plain version
+    # reachable
+    kernels.reset_launch_counts()
+    with plain_versions_refused():
+        (state, metrics), watch, copies = profiled_train(
+            lambda: cli_train.main(argv), CLI_STEPS)
+    launches = dict(kernels.launch_counts)
+    if launches != want:
+        raise AssertionError(f"cli.train launches {launches} != {want}")
+    if (len(watch.events) != CLI_STEPS or state.step != CLI_STEPS
+            or not all(math.isfinite(v) for v in metrics.values())):
+        raise AssertionError(f"cli.train: {len(watch.events)} steps, "
+                             f"state.step {state.step}, metrics {metrics}")
+    step_ms = watch.ms_per_step(2)
+    kernel_runs = watch.runs()
+    logged = [json.loads(line) for line in
+              (root / "metrics.jsonl").read_text().splitlines()]
+    if logged[-1]["step"] != CLI_STEPS or not (
+            root / "ckpt" / f"step_{CLI_STEPS:08d}.pt").exists():
+        raise AssertionError("cli.train wrote no final checkpoint or metrics")
+    final = {"model": copy.deepcopy(state.model.state_dict()),
+             "optimizer": copy.deepcopy(state.optimizer.state_dict()),
+             "step": state.step}
+    del state
+
+    if copies["h2d_pinned"] != CLI_PINNED_PER_BATCH:
+        raise AssertionError(f"cli.train's copies a step: {copies}")
+
+    # (b) the same steps, seed and batches through the plain versions
+    with plain_versions():
+        _, plain, _ = profiled_train(
+            lambda: cli_train.main(cli_argv("--log-every", "0")), CLI_STEPS)
+    plain_runs = plain.runs()
+    rel = {k: max(abs(a[i] - b[i]) / abs(b[i])
+                  for a, b in zip(kernel_runs, plain_runs))
+           for i, k in enumerate(("loss", "grad_norm"))}
+    if any(rel[k] > TRAIN_TOL[k] for k in TRAIN_TOL):
+        raise AssertionError(f"cli.train kernel vs plain: {kernel_runs} vs "
+                             f"{plain_runs} (tol {TRAIN_TOL})")
+
+    # (c) echoing: the CLI's model and data through Trainer.fit(echo 2)
+    cfg = cli_train.make_config(args)
+    cfg.add_modality(cli_train.synthetic_modalities(SyntheticConfig())[
+        "species"])
+    source = Counting(SyntheticEarthDataGenerator(
+        SyntheticConfig()).batch_iterator(CLI_BATCH))
+    pulled = []
+    with step_profile(2, CLI_STEPS - 2) as echo_prof:
+        def after():
+            pulled.append(source.pulled)
+            echo_prof["step"]()
+        echo = StepWatch(after=after)
+        with echo.watching():
+            model = DeepEarthModel(
+                cfg, generator=torch.Generator(device="cuda").manual_seed(
+                    SEED), device="cuda")
+            trainer = Trainer(model, cfg, LossWeights(contrastive=0.01),
+                              seed=SEED)
+            trainer.fit(trainer.init_state(), data_device_prefetch(source),
+                        CLI_STEPS, log_every=0, echo_factor=2)
+    echo_copies = window_counts(echo_prof["averages"], CLI_STEPS - 2)
+    echo_pulled = (pulled[-1] - pulled[1]) / (CLI_STEPS - 2)
+    if (echo.distinct != CLI_STEPS // 2 or echo_pulled != 0.5
+            or echo_copies["h2d_pinned"] != CLI_PINNED_PER_BATCH / 2):
+        raise AssertionError(f"echo 2: {echo.distinct} batches consumed, "
+                             f"{echo_pulled} pulled a step, copies "
+                             f"{echo_copies}")
+    del model, trainer
+
+    # resuming: --resume with no further step loads (a)'s state bit for bit
+    resumed, _ = cli_train.main(cli_argv(
+        "--log-every", "0", "--checkpoint-dir", str(root / "ckpt"),
+        "--resume", "--steps", "0"))
+    same = (resumed.step == final["step"]
+            and state_equal(resumed.model.state_dict(), final["model"])
+            and state_equal(resumed.optimizer.state_dict(),
+                            final["optimizer"]))
+    if not same:
+        raise AssertionError("--resume did not load the saved state bit for "
+                             "bit")
+    del resumed, final
+    free_cuda()
+    return {"launches": launches, "step_ms": step_ms, "copies": copies,
+            "host": watch.host_ms(2),
+            "metrics": metrics, "kernel_runs": kernel_runs,
+            "plain_runs": plain_runs, "plain_step_ms": plain.ms_per_step(2),
+            "rel": rel, "echo_copies": echo_copies,
+            "echo_pulled": echo_pulled, "echo_distinct": echo.distinct}
+
+
+@contextlib.contextmanager
+def k3_sites(sites: set):
+    """Adds to ``sites`` the (direction, route, dtype, scale, B, H, Nq, Nk,
+    Dqk, Dv, key mask, v strided) of every K3 launch made inside: the shapes
+    the main path gives K3."""
+    fwd, bwd = kernels.vmem_attention_fwd, kernels.vmem_attention_bwd
+
+    def add(direction, q, k, v, scale, key_mask):
+        b, h, nq, dqk = q.shape
+        sites.add((direction, attention_route(q, k, v), q.dtype,
+                   float(scale), b, h, nq, k.shape[2], dqk, v.shape[3],
+                   key_mask is not None, not v.is_contiguous()))
+
+    def fwd_seen(q, k, v, scale, key_mask=None):
+        add("fwd", q, k, v, scale, key_mask)
+        return fwd(q, k, v, scale, key_mask)
+
+    def bwd_seen(q, k, v, dout, scale, key_mask=None):
+        add("bwd", q, k, v, scale, key_mask)
+        return bwd(q, k, v, dout, scale, key_mask)
+
+    with mock.patch.object(kernels, "vmem_attention_fwd", fwd_seen), \
+            mock.patch.object(kernels, "vmem_attention_bwd", bwd_seen):
+        yield sites
+
+
+def check_k3_sites(sites: set) -> dict:
+    """K3-fwd and K3-bwd at each of the main path's sites, on inputs drawn
+    at those shapes, dtypes and scales (a generator of their own), against
+    the plain versions: the output within VMEM_TOL, the gradients within
+    BWD_TOL of their largest entries, each case on the route the path took.
+    Returns the largest error a direction and the sites checked."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for (direction, route, dtype, scale, b, h, nq, nk, dqk, dv, mask,
+         strided) in sorted(sites, key=str):
+        name = f"K3-{direction} {b}x{h} {nq}x{nk} Dqk{dqk} Dv{dv} {dtype}"
+        q, k, v, do, key_mask = attention_case(
+            gen, b, h, nq, nk, dqk, dv, dtype, mask, strided)
+        if attention_route(q, k, v) != route:
+            raise AssertionError(f"{name}: the case's route differs from the "
+                                 f"path's ({route!r})")
+        kw = dict(scale=scale, key_mask=key_mask)
+        if direction == "fwd":
+            err = max_err(kernels.vmem_attention_fwd(q, k, v, **kw),
+                          attention_vmem.vmem_attention_plain(q, k, v, **kw))
+            if err > VMEM_TOL[dtype]:
+                raise AssertionError(f"{name}: max_abs_err {err} > "
+                                     f"{VMEM_TOL[dtype]}")
+        else:
+            err = check_grads(
+                name, kernels.vmem_attention_bwd(q, k, v, do, **kw),
+                attention_vmem.vmem_attention_bwd_plain(q, k, v, do, **kw),
+                dtype, key_mask)
+        errs[direction] = max(errs[direction], err)
+        del q, k, v, do
+    if {site[0] for site in sites} != set(errs):
+        raise AssertionError(f"K3 sites of the real-data path: {sites}")
+    return {"max_abs_err": errs, "sites": sorted(
+        f"{d} B{b} H{h} {nq}x{nk} Dqk{dqk} Dv{dv}{' masked' * mask}"
+        f"{' v strided' * strided} route {route or 'TMA'}"
+        for d, route, _, _, b, h, nq, nk, dqk, dv, mask, strided in sites)}
+
+
+def write_real_dataset(root: Path):
+    """cli.prepare_data's stores at the published widths over REAL_OBS
+    observations: language (7168) through the CLI over a parquet file,
+    vision (576 x 1408, fp16) through its conversion from chunks drawn with
+    numpy; the observations as an ObservationDataset from arrays."""
+    import pandas as pd
+
+    rng = np.random.default_rng(SEED)
+    ids = np.arange(1_000_000, 1_000_000 + REAL_OBS)
+    lang = rng.standard_normal((REAL_OBS,) + LANGUAGE_STORE_SHAPE,
+                               dtype=np.float32)
+    pd.DataFrame({"gbif_id": ids, "embedding": list(lang)}).to_parquet(
+        root / "language.parquet")
+    cli_prepare.main(["--input", str(root / "language.parquet"), "--shape",
+                      *map(str, LANGUAGE_STORE_SHAPE), "--output",
+                      str(root / "language")])
+    n_elem = math.prod(VISION_STORE_SHAPE)
+    chunks = ((ids[lo:lo + REAL_BATCH],
+               rng.standard_normal((len(ids[lo:lo + REAL_BATCH]), n_elem),
+                                   dtype=np.float32))
+              for lo in range(0, REAL_OBS, REAL_BATCH))
+    cli_prepare.write_store(str(root / "vision"), VISION_STORE_SHAPE,
+                            "float16", chunks)
+    return ObservationDataset.from_arrays(
+        gbif_id=ids,
+        species=rng.choice(["Quercus", "Pinus", "Acer", "Sabal", "Serenoa"],
+                           REAL_OBS),
+        latitude=28.03 + rng.random(REAL_OBS) * 0.95,
+        longitude=-81.93 + rng.random(REAL_OBS) * 1.03,
+        year=rng.integers(2010, 2026, REAL_OBS),
+        month=rng.integers(1, 13, REAL_OBS))
+
+
+def cli_real_data(root: Path) -> dict:
+    """Phase 20 (d): the --data-dir path's body over stores that
+    cli.prepare_data wrote, with device_prefetch and with
+    device_prefetch_compressed in its place; the native gather against the
+    store."""
+    t0 = time.perf_counter()
+    ds = write_real_dataset(root)
+    write_s = time.perf_counter() - t0
+    loaders = cli_train.open_stores(str(root))
+    args = cli_train.parse_args([
+        *CLI_WIDTH, "--batch-size", str(REAL_BATCH), "--steps",
+        str(REAL_STEPS), "--log-every", "0", "--data-dir", str(root)])
+
+    sites = set()
+
+    def run(prefetch, versions=plain_versions_refused):
+        kernels.reset_launch_counts()
+        with versions(), k3_sites(sites), mock.patch.object(
+                cli_train, "device_prefetch", prefetch):
+            (state, metrics), watch, copies = profiled_train(
+                lambda: cli_train.train_on_dataset(
+                    args, cli_train.make_config(args), ds, loaders),
+                REAL_STEPS)
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"real-data path: {metrics}")
+        return {"step_ms": watch.ms_per_step(2), "host": watch.host_ms(2),
+                "launches": dict(kernels.launch_counts), "copies": copies,
+                "runs": watch.runs(),
+                "seq_len": state.model.encoder_vision.position_embedding.shape[
+                    -2]}
+
+    # one profiled run a prefetch mode, then the kernel run's steps, seed
+    # and batches through the plain versions
+    runs = {"plain": run(data_device_prefetch),
+            "int8": run(device_prefetch_compressed),
+            "versions": run(data_device_prefetch, plain_versions)}
+    launches = runs["plain"]["launches"]
+    per_step = per_step_launches(launches, REAL_STEPS)
+    if (per_step.get("grid4d_encode_fwd") != K2_PER_FORWARD
+            or per_step.get("hash_encode_bwd") != K2_BWD_PER_STEP
+            or runs["plain"]["seq_len"] != VISION_STORE_SHAPE[0]
+            or runs["int8"]["launches"] != launches):
+        raise AssertionError(f"real-data path: launches a step {per_step}, "
+                             f"int8 {runs['int8']['launches']}, vision "
+                             f"positions {runs['plain']['seq_len']}")
+    kernel_runs, plain_runs = runs["plain"]["runs"], runs["versions"]["runs"]
+    rel = {k: max(abs(a[i] - b[i]) / abs(b[i])
+                  for a, b in zip(kernel_runs, plain_runs))
+           for i, k in enumerate(("loss", "grad_norm"))}
+    if any(rel[k] > TRAIN_TOL[k] for k in TRAIN_TOL):
+        raise AssertionError(f"real-data path kernel vs plain: {kernel_runs} "
+                             f"vs {plain_runs} (tol {TRAIN_TOL})")
+    k3 = check_k3_sites(sites)
+
+    # the native gather (csrc/fast_gather.c) against the store's own read
+    if not native.native_available():
+        raise AssertionError("the native gather did not build")
+    vision = loaders["vision"]
+    rows = np.arange(0, REAL_OBS, REAL_OBS // REAL_BATCH)
+    row_bytes = vision._n_elem * vision.dtype.itemsize
+    offsets = vision.offsets[rows] * vision.dtype.itemsize
+    gather_ms = {}
+    t0 = time.perf_counter()
+    got = native.gather_rows(vision._mmap, offsets, row_bytes, n_threads=8)
+    gather_ms["native"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want, found = vision.get_batch(vision.ids[rows].tolist(),
+                                   out_dtype=np.float16)
+    gather_ms["get_batch"] = (time.perf_counter() - t0) * 1e3
+    if not found.all() or not np.array_equal(
+            got.view(np.float16).reshape(want.shape), want):
+        raise AssertionError("the native gather differs from the store's")
+    for loader in loaders.values():
+        loader.close()
+    free_cuda()
+    return {"runs": runs, "launches": launches, "per_step": per_step,
+            "rel": rel, "k3": k3, "write_s": write_s, "gather_ms": gather_ms,
+            "batch_mb": (REAL_BATCH * (math.prod(VISION_STORE_SHAPE)
+                                       + math.prod(LANGUAGE_STORE_SHAPE))
+                         * 2 / 1e6)}
+
+
+def cli_serve_request() -> dict:
+    """Phase 20 (e): cli.serve with a predictor on the card, on port 0,
+    answers one REST predict; it must equal DeepEarth.predict bit for bit
+    on a DeepEarth built the same way."""
+    earth = DeepEarth()
+    earth.register("species", type="categorical", num_classes=232)
+    request = ((28.5, -81.4), "2024-06-15", {"species": 7})
+    server = cli_serve.start(["--port", "0", "--with-predictor"])
+    try:
+        client = DashboardClient(f"http://127.0.0.1:{server.port}")
+        got, launches = counted(
+            lambda: client.predict(*request),
+            {"grid4d_encode_fwd": K2_PER_FORWARD,
+             k1_fwd_counter(3): k1_per_forward(earth._config.fusion)},
+            "cli.serve's predict")
+    finally:
+        server.stop()
+    if not np.array_equal(got, earth.predict(*request)):
+        raise AssertionError("cli.serve's answer differs from predict's")
+    return {"launches": {k: v for k, v in launches.items() if v},
+            "shape": got.shape}
+
+
+def phase_cli() -> dict:
+    """Phase 20: the training entry point and its two siblings."""
+    root = CLI_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        syn = cli_synthetic(root)
+        real = cli_real_data(root)
+        serve = cli_serve_request()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    step, per = syn["step_ms"], per_step_launches(syn["launches"], CLI_STEPS)
+    idle = 1 - syn["copies"]["kernel_ms"] / step
+    runs = real["runs"]
+    # each from one run's profiled window (steps 3..REAL_STEPS)
+    share = {k: r["copies"]["h2d_ms"] / r["step_ms"] for k, r in runs.items()}
+    real_idle = {k: 1 - r["copies"]["kernel_ms"] / r["step_ms"]
+                 for k, r in runs.items()}
+    print(f"[20 training entry point] (a) python -m "
+          f"deepearth_tpu_torch.cli.train {' '.join(CLI_WIDTH)} --batch-size "
+          f"{CLI_BATCH} --modalities species --steps {CLI_STEPS} "
+          f"--log-every {CLI_LOG_EVERY} --checkpoint-dir --metrics-jsonl, "
+          f"every number from the run's steps 3-{CLI_STEPS} under a "
+          f"device-only profiler: {step:.3f} ms a step (CUDA events), "
+          f"{CLI_BATCH / step * 1e3:.0f} obs/s; launches a step {per}, no "
+          f"plain version reached; host-to-device copies a step: "
+          f"{syn['copies']['h2d_pinned']:g} "
+          f"pinned, {syn['copies']['h2d_pageable']:g} pageable, "
+          f"{syn['copies']['h2d_ms']:.4f} ms; device-to-host "
+          f"{syn['copies']['d2h']:g}; kernels "
+          f"{syn['copies']['kernel_ms']:.3f} ms in "
+          f"{syn['copies']['launches']:.0f} launches a step, device idle "
+          f"{idle:.1%}; host ms a step (median): {syn['host']['in_step']:.3f}"
+          f" in the step's call, {syn['host']['between']:.3f} between calls "
+          f"| (b) plain versions {syn['plain_step_ms']:.3f} ms a "
+          f"step (the same window); kernel vs plain over {CLI_STEPS} steps "
+          f"(loss, grad_norm): "
+          f"kernel {syn['kernel_runs']}, plain {syn['plain_runs']}, rel diff "
+          f"{syn['rel']} (tol {TRAIN_TOL}) | (c) echo 2: "
+          f"{syn['echo_distinct']} batches over {CLI_STEPS} steps, "
+          f"{syn['echo_pulled']:g} pulled and "
+          f"{syn['echo_copies']['h2d_pinned']:g} pinned copies a step "
+          f"(without echo 1 and {syn['copies']['h2d_pinned']:g}); "
+          f"--resume loads step {CLI_STEPS} bit for bit | {card()}")
+    plain = runs["plain"]
+    print(f"[20 real-data path] (d) cli.prepare_data: {REAL_OBS} "
+          f"observations, vision {VISION_STORE_SHAPE} fp16 and language "
+          f"{LANGUAGE_STORE_SHAPE} stores in {real['write_s']:.1f} s; "
+          f"train_on_dataset (--data-dir's body) at B={REAL_BATCH}, "
+          f"{real['batch_mb']:.1f} MB a batch, {REAL_STEPS} steps, one run "
+          f"a prefetch mode (times from its steps 3-{REAL_STEPS} under a "
+          f"device-only profiler): launches "
+          f"a step {real['per_step']}, no plain version reached; the vision "
+          f"encoder sized for {plain['seq_len']} patches | "
+          f"device_prefetch {plain['step_ms']:.3f} ms a step "
+          f"({REAL_BATCH / plain['step_ms'] * 1e3:.0f} obs/s), "
+          f"copies a step {plain['copies']['h2d_pinned']:g} pinned "
+          f"{plain['copies']['h2d_pageable']:g} pageable in "
+          f"{plain['copies']['h2d_ms']:.3f} ms ({share['plain']:.1%} of the "
+          f"step, on the copy stream), kernels "
+          f"{plain['copies']['kernel_ms']:.3f} ms a step in "
+          f"{plain['copies']['launches']:.0f} launches, device idle "
+          f"{real_idle['plain']:.1%}; host ms a step (median) "
+          f"{plain['host']['in_step']:.3f} in the step's call, "
+          f"{plain['host']['between']:.3f} between calls | "
+          f"device_prefetch_compressed (int8 on the wire) "
+          f"{runs['int8']['step_ms']:.3f} ms a step (host "
+          f"{runs['int8']['host']['in_step']:.3f} in, "
+          f"{runs['int8']['host']['between']:.3f} between), copies "
+          f"{runs['int8']['copies']['h2d_ms']:.3f} ms "
+          f"({share['int8']:.1%}), kernels "
+          f"{runs['int8']['copies']['kernel_ms']:.3f} ms, device idle "
+          f"{real_idle['int8']:.1%} | plain versions "
+          f"{runs['versions']['step_ms']:.3f} ms a step; kernel vs plain over "
+          f"{REAL_STEPS} steps (loss, grad_norm): kernel {plain['runs']}, "
+          f"plain {runs['versions']['runs']}, rel diff {real['rel']} (tol "
+          f"{TRAIN_TOL}) | K3 at the path's sites {real['k3']['sites']} "
+          f"against the plain versions: max_abs_err fwd "
+          f"{real['k3']['max_abs_err']['fwd']:.3g} (tol "
+          f"{VMEM_TOL[torch.bfloat16]}), bwd "
+          f"{real['k3']['max_abs_err']['bwd']:.3g} (within "
+          f"{BWD_TOL[torch.bfloat16]} of each gradient's largest entry) | "
+          f"native gather of {REAL_BATCH} vision rows "
+          f"{real['gather_ms']['native']:.1f}"
+          f" ms (C, 8 threads) vs get_batch {real['gather_ms']['get_batch']:.1f}"
+          f" ms, bit for bit | (e) cli.serve --with-predictor on port 0: one "
+          f"REST predict {serve['shape']} bit for bit DeepEarth.predict's, "
+          f"launches {serve['launches']} | {card()}")
+    total = collections.Counter(syn["launches"])
+    total.update(real["launches"])
+    return {"launches": dict(total), "k3_max_abs_err": real["k3"]["max_abs_err"]}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--clip-batch-search", action="store_true",
@@ -4267,6 +4881,7 @@ def main() -> None:
     k67 = phase_quant(gen)
     dec = phase_decode(gen)
     svc = phase_service()
+    cli = phase_cli()
     report = {"kernels": [
         {"name": "grid4d_encode_fwd", "route": "cuda",
          "source": "deepearth_tpu_torch/kernels/csrc/grid4d_encode.cu",
@@ -4483,6 +5098,16 @@ def main() -> None:
         "plain_ms": k2["table_times"]["spatial_plain"],
         "bound_ms": spatial["bound_ms"], "bound_by": spatial["bound_by"],
         "library_ms": None})
+    # phase 20's launches: the training CLI's and its --data-dir body's
+    for entry in report["kernels"] + report["off_main_path"]:
+        if cli["launches"].get(entry["name"]):
+            entry["launches_in_phase_20"] = cli["launches"][entry["name"]]
+    # K3 at the shapes phase 20's real-data path gives it
+    for entry in report["kernels"]:
+        direction = {"vmem_attention_fwd": "fwd",
+                     "vmem_attention_bwd": "bwd"}.get(entry["name"])
+        if direction:
+            entry["max_abs_err_in_phase_20"] = cli["k3_max_abs_err"][direction]
     print(json.dumps(report))
     print(card())
     print(json.dumps({"ok": True, "device": {

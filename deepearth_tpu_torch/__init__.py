@@ -9,7 +9,11 @@ client in ``serving``, with the data and evaluation modules they read),
 modalities through universal-token encoders (MLA + SwiGLU, optionally an MoE
 projection), token-major and batch-major fusion, the DeepSeek MLA/MoE
 simulator of the flagship (``integrated_config(use_deepseek_fusion=True)``),
-the masked-reconstruction train step (``training``), and language decoding
+the masked-reconstruction train step (``training``) with its data layer
+(``data``: synthetic data, the pinned-memory prefetch to the card, echoing,
+int8 wire compression, splits, npy datasets, the native gather;
+``geospatial``) and command-line entry points (``cli.train``,
+``cli.serve``, ``cli.prepare_data``), and language decoding
 (``models.DeepSeekForCausalLM``, ``models.generate`` over the compressed MLA
 cache, int8 / int4 weights by ``ops.quant``, ``serving.language_server``),
 with CUDA kernels for the hash-grid encoding, the token-major pairwise
@@ -31,6 +35,7 @@ from .configs import (
     OptimizerConfig,
     PRESET_MODALITIES,
     RopeScalingConfig,
+    ShardingConfig,
     TransformerConfig,
     config_from_json,
     config_to_json,
@@ -50,7 +55,7 @@ __all__ = [
     "DeepEarthConfig", "DeepSeekBlockConfig", "FusionConfig", "Grid4DConfig",
     "HashEncodingConfig", "MLAConfig", "MaskingConfig", "ModalityConfig",
     "MoEConfig", "OptimizerConfig", "PRESET_MODALITIES", "RopeScalingConfig",
-    "TransformerConfig",
+    "ShardingConfig", "TransformerConfig",
     "config_from_json", "config_to_json", "integrated_config",
     "simulator_config", "small_config", "tiny_config",
     "flax_params_from_model",

@@ -5,7 +5,8 @@ The fields and ``__post_init__`` derivations are those of
 read; dtypes are torch dtypes. :func:`config_from_json` reads the JSON that
 the JAX package's ``config_to_json`` writes, and :func:`config_to_json`
 writes the same schema, so a checkpoint's config travels between the two
-packages. The sharding section is kept as a plain dict. The presets
+packages. The sharding section is kept as data (:class:`ShardingConfig`,
+read by nothing until the multi-GPU slice). The presets
 (:func:`tiny_config`, :func:`small_config`, :func:`integrated_config` the
 flagship, :func:`simulator_config`) are those of the JAX package.
 """
@@ -17,7 +18,7 @@ import json
 import math
 import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -333,6 +334,18 @@ class OptimizerConfig:
 
 
 @dataclass
+class ShardingConfig:
+    """Mesh layout: axes data / expert / model. Kept as data, so that a
+    config's JSON is the JAX package's; nothing in the port reads it until
+    the multi-GPU slice (ROADMAP.md Queue 1, item 15)."""
+
+    data_axis: str = "data"
+    expert_axis: str = "expert"
+    model_axis: str = "model"
+    mesh_shape: Optional[Tuple[int, ...]] = None
+
+
+@dataclass
 class DeepEarthConfig:
     """Main configuration."""
 
@@ -349,8 +362,7 @@ class DeepEarthConfig:
 
     masking: MaskingConfig = field(default_factory=MaskingConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
-    # mesh layout, kept as plain data until the multi-GPU slice
-    sharding: Dict[str, Any] = field(default_factory=dict)
+    sharding: ShardingConfig = field(default_factory=ShardingConfig)
 
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
@@ -504,7 +516,7 @@ _CLASSES = {
     for c in (HashEncodingConfig, Grid4DConfig, TransformerConfig,
               RopeScalingConfig, MLAConfig, MoEConfig, DeepSeekBlockConfig,
               FusionConfig, ModalityConfig, MaskingConfig, OptimizerConfig,
-              DeepEarthConfig)
+              ShardingConfig, DeepEarthConfig)
 }
 _DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
 

@@ -101,14 +101,9 @@ class SpatiotemporalMetrics:
         return binned_rmse(np.asarray(pred), np.asarray(true), np.asarray(times), n_bins)
 
 
-EARTH_RADIUS_KM = 6371.0
-
-
 def haversine_like(lat, lon, clat, clon) -> np.ndarray:
-    """Great-circle distance (km) from points to a single centre (the
-    formula of ``deepearth_tpu/data/splits.py`` ``haversine_km``)."""
-    lat1, lon1, lat2, lon2 = map(
-        np.deg2rad, (np.asarray(lat), np.asarray(lon), clat, clon))
-    a = (np.sin((lat2 - lat1) / 2) ** 2
-         + np.cos(lat1) * np.cos(lat2) * np.sin((lon2 - lon1) / 2) ** 2)
-    return 2 * EARTH_RADIUS_KM * np.arcsin(np.sqrt(np.clip(a, 0, 1)))
+    """Great-circle distance (km) from points to a single centre
+    (delegates to the data layer's haversine_km — one implementation)."""
+    from ..data.splits import haversine_km
+
+    return haversine_km(np.asarray(lat), np.asarray(lon), clat, clon)

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..configs import DeepEarthConfig, OptimizerConfig, config_to_json
+from ..data.batches import echo_on_device
 from ..models.deepseek import collect_moe_aux_losses
 from .losses import LossWeights, deepearth_loss
 from .masking import mae_patch_mask, mlm_token_mask, sample_masks
@@ -30,10 +31,6 @@ from .metrics import MetricAccumulator, format_epoch_line
 from .optimizers import FusedAdamW, Schedule, global_norm
 
 logger = logging.getLogger("DeepEarth.Trainer")
-
-ECHO_TODO = ("data echoing (echo_factor > 1) needs data/batches.py, which is "
-             "not ported yet (ROADMAP.md Queue 1, item 16)")
-
 
 # --------------------------------------------------------------------------- #
 # schedules: optax's, evaluated at a Python int count
@@ -421,11 +418,17 @@ class Trainer:
         """Run ``num_steps`` train steps. ``metric_sink``: optional object
         with ``log(metrics, step=)``. Every ``eval_every`` steps a better
         validation loss saves a checkpoint; every ``save_every`` steps one
-        is saved anyway."""
-        if echo_factor > 1:
-            raise NotImplementedError(ECHO_TODO)
+        is saved anyway.
+
+        ``echo_factor``: run each batch through this many optimizer steps
+        (data echoing; each step draws fresh masks from the trainer's
+        generator). Use when the host -> device link, not the card, bounds
+        throughput; pair with device-side batches (``device_prefetch``) so
+        repeats are free (see ``data.batches.echo_on_device``)."""
         acc = MetricAccumulator()
         it = iter(train_batches)
+        if echo_factor > 1:
+            it = echo_on_device(it, echo_factor)
         t0 = time.time()
         last_metrics: Dict[str, float] = {}
         for step in range(1, num_steps + 1):

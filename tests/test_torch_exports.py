@@ -46,6 +46,35 @@ EXPORTS = [  # (package path, name, the port's defining submodule)
     *[("evaluation", name, "evaluation.spatiotemporal") for name in (
         "SpatiotemporalMetrics", "binned_rmse", "knn_weights", "morans_i",
         "temporal_consistency")],
+    ("", "ShardingConfig", "configs"),
+    *[("utils", name, "utils.logging") for name in (
+        "setup_logging", "JSONLMetricWriter", "TensorBoardMetricWriter",
+        "MultiWriter")],
+    *[("data", name, "data.batches") for name in (
+        "collate_observations", "device_prefetch", "echo_on_device",
+        "threaded_producer")],
+    *[("data", name, "data.transfer") for name in (
+        "compress_batch", "decompress_on_device",
+        "device_prefetch_compressed", "quantize_rows")],
+    *[("data", name, "data.npy_dataset") for name in (
+        "NpySampleDataset", "write_npy_dataset")],
+    *[("data", name, "data.splits") for name in (
+        "SplitConfig", "create_spatial_temporal_split", "haversine_km",
+        "load_split", "save_split")],
+    *[("data", name, "data.synthetic") for name in (
+        "SyntheticConfig", "SyntheticEarthDataGenerator",
+        "observations_to_batch")],
+    *[("geospatial", name, "geospatial.geodesy") for name in (
+        "WGS84_A", "WGS84_E2", "WGS84_F", "GeospatialConverter",
+        "ecef_to_geodetic", "geodetic_to_ecef", "ned_to_ecef_rotation",
+        "rotation_to_ypr", "ypr_to_rotation")],
+    *[("geospatial", name, "geospatial.geofusion") for name in (
+        "GeoFusionDataLoader", "GeoFusionEntry")],
+    *[("geospatial", name, "geospatial.structures") for name in (
+        "BoundingBox", "CoordinateSet", "GeoOrientation", "GeoPoint")],
+    *[("geospatial", name, "geospatial.utils") for name in (
+        "human_unit", "safe_div", "wrap_lat", "wrap_lat_array",
+        "wrap_lat_error", "wrap_lon_error")],
 ]
 
 

@@ -1387,3 +1387,37 @@ def test_quick_start_on_the_card_launches_k2_once_and_k1(cuda):
         ref = earth.predict(**smoke.QUICK_START)
     err = smoke.api_diff([(emb, ref)])
     assert all(err[k] <= smoke.SLICE_TOL[k] for k in smoke.SLICE_TOL), err
+
+
+def test_device_prefetch_on_the_card(cuda):
+    """data.device_prefetch on the card: every leaf of every batch arrives
+    on the card with its dtype and its bits, read by the consumer's stream
+    right after the hand-over (its wait on the copy's event) while a
+    matmul step runs on that stream, and still intact after later batches
+    were sent (record_stream keeps the allocator off their memory); the
+    default device is the card."""
+    from deepearth_tpu_torch.data import device_prefetch
+    from deepearth_tpu_torch.data.batches import leaves, map_leaves
+
+    rng = np.random.default_rng(0)
+    batches = [{"xyzt": rng.random((16, 4)).astype(np.float32),
+                "modalities": {
+                    "species": rng.integers(0, 232, 16).astype(np.int32),
+                    "vision": rng.standard_normal((16, 576, 1408)).astype(
+                        np.float16)},
+                "spatial_mask": rng.random(16) < 0.5} for _ in range(5)]
+    w = torch.randn(4096, 4096, device=cuda)
+    kept, read = [], []
+    for out in device_prefetch(iter(batches), size=2):
+        for _ in range(4):
+            w = torch.tanh(w @ w)  # the step, on the consumer's stream
+        read.append(map_leaves(lambda t: t.clone(), out))
+        kept.append(out)
+    torch.cuda.synchronize()
+    for got in (kept, read):
+        assert len(got) == len(batches)
+        for out, b in zip(got, batches):
+            for t, x in zip(leaves(out), leaves(b)):
+                assert t.device.type == "cuda"
+                assert np.array_equal(t.cpu().numpy(), x)
+                assert t.cpu().numpy().dtype == x.dtype

@@ -745,8 +745,11 @@ def test_trainer_fit_evaluate_and_sink(setup):
     assert trainer.best_val < float("inf")
     val = trainer.evaluate(state, _batches(2, seed=90))
     assert np.isfinite(val["loss/total"])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        trainer.fit(state, iter(_batches(1)), 1, echo_factor=2)
+    # data echoing: one batch feeds two steps
+    step = state.step
+    state, echoed = trainer.fit(state, iter(_batches(1)), 2, echo_factor=2,
+                                log_every=2)
+    assert state.step == step + 2 and np.isfinite(echoed["loss/total"])
 
 
 def test_partial_load_params():
