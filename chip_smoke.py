@@ -186,6 +186,25 @@ Phases, each printing one line:
      versions; the native gather bit for bit the store's read; (e)
      cli.serve with a predictor on port 0 answers one REST predict bit for
      bit DeepEarth.predict's;
+ 21. the token-sequence paths: (a) K4-fwd and K4-bwd at heads above 128
+     on each route (TMA, mma.sync, CUDA cores) against their plain
+     versions: DeepSeek-V3's MLA (1 x 128 heads x 4096, Dqk 192, Dv 128)
+     and 256 / 256 over a V-JEPA2 clip (8 x 8 x 4608), timed beside the
+     bound and scaled_dot_product_attention, plus masked, causal, partial-
+     panel and off-grid cases; (b) DeepSeekForSequenceClassification at
+     DeepSeek-V3's published widths (hidden 7168, 128 heads, q-LoRA 1536,
+     kv-LoRA 512, yarn x40, vocab 129280), cut to its 3 dense layers, bf16,
+     flash on: forwards at B=1 N=4096 and B=2 N=2048 (a key mask), K4-fwd 3
+     a forward on its TMA route, the stack's output against the plain path
+     (SLICE_TOL); a cross-entropy backward at B=1 N=2048, K4-bwd 3, loss
+     and grad norm against the plain path (TRAIN_TOL); (c) the multimodal
+     train step of phase 12's model with vision decode_sequence and a text
+     token_sequence modality (512 ids, vocab 32000) at B=64 with the
+     config's MLM and MAE masks: K3-fwd 4, K3-bwd 4, K2 1/2 a step, 3 steps
+     against the plain path (TRAIN_TOL); (d) cli.convert_checkpoint
+     --verify on a DeepSeek-V3-shaped .safetensors checkpoint written here,
+     then cli.generate, 32 greedy tokens on the card, equal to an
+     in-process generate on the same parameters; the phase's wall time;
 then a JSON line of the kernels, the card's name and power limit, and
 {"ok": true, ...} as the last line. Any failure raises and exits non-zero.
 Weights are random, drawn from a seeded generator on the card.
@@ -222,6 +241,7 @@ import gc
 import itertools
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -236,6 +256,8 @@ import torch.nn.functional as F
 
 from deepearth_tpu_torch import kernels
 from deepearth_tpu_torch.api import DeepEarth
+from deepearth_tpu_torch.cli import convert_checkpoint as cli_convert
+from deepearth_tpu_torch.cli import generate as cli_generate
 from deepearth_tpu_torch.cli import prepare_data as cli_prepare
 from deepearth_tpu_torch.cli import serve as cli_serve
 from deepearth_tpu_torch.cli import train as cli_train
@@ -262,6 +284,8 @@ from deepearth_tpu_torch.configs import (
 from deepearth_tpu_torch.models import (
     DeepEarthModel,
     DeepSeekForCausalLM,
+    DeepSeekForSequenceClassification,
+    config_from_hf,
     MoELayer,
     cache_bytes_per_token,
     causal_lm_decode_step,
@@ -294,6 +318,9 @@ from deepearth_tpu_torch.training import (
     create_optimizer,
 )
 from deepearth_tpu_torch.training import trainer as trainer_module
+from deepearth_tpu_torch.convert import load_flax_params
+from deepearth_tpu_torch.serving.language_server import HashEmbedder
+from deepearth_tpu_torch.utils.checkpoint_files import read_msgpack_tree
 
 SEED = 0
 HASH_TOL = 1e-6  # same fp32 operations in the same order: expect 0
@@ -675,9 +702,48 @@ def phase_build() -> None:
     print(f"[1 device+build] {card()} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | kernels built in {seconds:.2f} s: {lib.name}")
     log = lib.with_name(lib.name + ".log").read_text()
+    print("    nvcc seconds by source: " + ", ".join(
+        line[3:] for line in log.splitlines() if line.startswith("== ")))
+    for line in ptxas_summary(log):
+        print(f"    ptxas: {line}")
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name."""
+    for i, width in itertools.product(range(len(mangled)), (1, 2, 3)):
+        digits = mangled[i:i + width]  # a <length><name> piece
+        if not digits.isdigit():
+            continue
+        name = mangled[i + width:i + width + int(digits)]
+        if name[:1].isalpha() and name.endswith("_kernel"):
+            break
+    else:
+        return mangled
+    args = re.findall(r"L([ib])(\d+)E", mangled[i + width + len(name):])
+    return name + ("<" + ",".join(
+        ("true" if v == "1" else "false") if t == "b" else v
+        for t, v in args) + ">" if args else "")
+
+
+def ptxas_summary(log: str) -> list:
+    """From the compiler's report: each kernel that spills (registers,
+    bytes stored and loaded) and each whose wgmma the compiler serialised
+    (C7515), one line each."""
+    out, current = [], None
     for line in log.splitlines():
-        if any(w in line for w in ("registers", "spill", "wgmma")):
-            print(f"    ptxas: {line.strip()}")
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current and (int(m.group(1)) or int(m.group(2))):
+            out.append(f"{kernel_label(current)} spills {m.group(1)} B "
+                       f"stored, {m.group(2)} B loaded")
+        m = re.search(r"\(C7515\).*function '(\S+)'", line)
+        if m:
+            out.append(f"{kernel_label(m.group(1))} wgmma serialised (C7515)")
+    return sorted(set(out))
 
 
 def _hash_case(gen, n, levels, table, d, f=2, interpolation="linear",
@@ -2100,24 +2166,25 @@ def check_flash_out(name, out, ref, dtype) -> float:
 
 
 def check_flash(name, q, k, v, do, out, lse, grads, key_mask=None,
-                causal=False, chunk=None) -> tuple:
+                causal=False, chunk=None, dim=0) -> tuple:
     """K4-fwd's (out, lse) and K4-bwd's grads on one case against the plain
-    versions, run ``chunk`` batch rows at a time (the plain version holds
-    (chunk, H, N, N) fp32 scores); an all-masked row's output must be 0.
-    Returns the largest output error, the mean output error over the mean
-    |plain|, and the largest gradient error."""
+    versions, run ``chunk`` batch rows (``dim`` 0) or heads (``dim`` 1) at
+    a time (the plain version holds (B, H, N, N) fp32 scores of the chunk);
+    an all-masked row's output must be 0. Returns the largest output error,
+    the mean output error over the mean |plain|, and the largest gradient
+    error."""
     kw = dict(scale=q.shape[-1] ** -0.5, causal=causal)
-    chunk = chunk or q.shape[0]
+    chunk = chunk or q.shape[dim]
     parts = []
-    for i in range(0, q.shape[0], chunk):
-        rows = slice(i, i + chunk)
-        mask = None if key_mask is None else key_mask[rows]
+    for i in range(0, q.shape[dim], chunk):
+        at = (slice(None),) * dim + (slice(i, i + chunk),)
+        mask = key_mask if key_mask is None or dim else key_mask[at]
         ref, ref_lse = flash_attention.flash_attention_plain(
-            q[rows], k[rows], v[rows], return_lse=True, key_mask=mask, **kw)
+            q[at], k[at], v[at], return_lse=True, key_mask=mask, **kw)
         parts.append((ref, ref_lse, *flash_attention.flash_attention_bwd_plain(
-            q[rows], k[rows], v[rows], out[rows], lse[rows], do[rows],
+            q[at], k[at], v[at], out[at], lse[at], do[at],
             key_mask=mask, **kw)))
-    ref, ref_lse, *ref_grads = (torch.cat(x) for x in zip(*parts))
+    ref, ref_lse, *ref_grads = (torch.cat(x, dim=dim) for x in zip(*parts))
     del parts
     if out.shape != ref.shape or out.dtype != q.dtype:
         raise AssertionError(f"K4 {name}: {out.shape} {out.dtype}")
@@ -2339,6 +2406,144 @@ def phase_flash(gen) -> tuple:
                   "mma_max_abs_err": route_err[d]["_mma"],
                   "launches": dict(route_launches),
                   **{k: base[d][k] for k in keys}} for d in ("fwd", "bwd"))
+
+
+# Phase 21's K4 shapes at heads wider than 128: name -> (B, H, N, Dqk, Dv,
+# key mask, causal, heads the plain version takes at a time). Timed: the
+# classifier's MLA at DeepSeek-V3's widths over 4096 tokens (128 heads of
+# 192 / 128) and 256 / 256 over a V-JEPA2 clip; checked besides: masked
+# and causal tiles at both widths, and widths between (200 / 136: partial
+# panels of the 256 / 256 tiles; 190 / 126: off TMA's grid, the mma.sync
+# route)
+WIDE_FLASH_TIMED = {"V3 MLA 192/128": (1, 128, 4096, 192, 128),
+                    "256/256": (8, 8, CLIP_PATCHES, 256, 256)}
+WIDE_FLASH_CASES = {
+    "V3 MLA 192/128": (1, 128, 4096, 192, 128, False, False, 16),
+    "256/256": (8, 8, CLIP_PATCHES, 256, 256, False, False, 2),
+    "masked causal N=1500 192/128": (2, 4, 1500, 192, 128, True, True, 4),
+    "masked N=1000 256/256": (2, 4, 1000, 256, 256, True, False, 4),
+    "Dqk200 Dv136 N=700": (2, 2, 700, 200, 136, False, False, 2),
+    "Dqk190 Dv126 N=700": (2, 2, 700, 190, 126, True, False, 2),
+}
+
+
+def phase_wide_flash(gen) -> dict:
+    """Phase 21 (a): K4-fwd and K4-bwd at head dims above 128 on each route
+    against the plain versions, and timed at WIDE_FLASH_TIMED."""
+    torch.cuda.empty_cache()
+    errs, routes = {}, {}
+    worst = collections.Counter()
+    route_launches = collections.Counter()
+    timing = {}
+    for name, (b, h, n, dqk, dv, mask, causal, heads) in \
+            WIDE_FLASH_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do, key_mask = attention_case(gen, b, h, n, n, dqk, dv,
+                                                   dtype, mask)
+            sc = dqk ** -0.5
+            route = attention_route(q, k, v)
+            runs = {route: (kernels.flash_attention_fwd,
+                            kernels.flash_attention_bwd)}
+            if route == "":  # bf16 on the grid: the mma.sync route too
+                runs["_mma"] = (kernels.flash_attention_fwd_mma,
+                                kernels.flash_attention_bwd_mma)
+            for rt, (fwd, bwd) in runs.items():
+                key = f"{name} {str(dtype).split('.')[-1]} {rt or 'TMA'}"
+                kernels.reset_launch_counts()
+                marks = [torch.cuda.Event(enable_timing=True)
+                         for _ in range(3)]
+                marks[0].record()
+                out, lse = fwd(q, k, v, sc, key_mask, causal)
+                marks[1].record()
+                got = bwd(q, k, v, out, lse, do, sc, key_mask, causal)
+                marks[2].record()
+                want = expected_launches(**{f"flash_attention_fwd{rt}": 1,
+                                            f"flash_attention_bwd{rt}": 1})
+                if kernels.launch_counts != want:
+                    raise AssertionError(f"K4 {key}: launches "
+                                         f"{kernels.launch_counts} != {want}")
+                route_launches.update({x: c for x, c in
+                                       kernels.launch_counts.items() if c})
+                routes[key] = rt or "TMA"
+                errs[key] = check_flash(key, q, k, v, do, out, lse, got,
+                                        key_mask, causal, chunk=heads, dim=1)
+                for d, e in zip(("fwd", "bwd"), (errs[key][0], errs[key][2])):
+                    worst[(d, rt, name in WIDE_FLASH_TIMED)] = max(
+                        worst[(d, rt, name in WIDE_FLASH_TIMED)], e)
+                if name in WIDE_FLASH_TIMED:
+                    t = timing.setdefault(name, {"fwd": {}, "bwd": {}})
+                    tag = {"": "ms", "_mma": "mma_ms", "_fp32": "fp32_ms"}[rt]
+                    if rt == "_fp32":  # ~1-7 s a call: the checked call's
+                        marks[2].synchronize()
+                        t["fwd"][tag] = marks[0].elapsed_time(marks[1])
+                        t["bwd"][tag] = marks[1].elapsed_time(marks[2])
+                    else:
+                        iters = 5 if rt == "" else 1
+                        t["fwd"][tag] = cuda_ms(
+                            lambda: fwd(q, k, v, sc), iters=iters, warmup=1)
+                        t["bwd"][tag] = cuda_ms(
+                            lambda: bwd(q, k, v, out, lse, do, sc),
+                            iters=iters, warmup=1)
+                    if rt == "":
+                        pairs = n * n
+                        t["fwd"].update(bound(nbytes(q, k, v, out, lse),
+                                              2 * b * h * pairs * (dqk + dv),
+                                              dtype))
+                        t["bwd"].update(bound(
+                            nbytes(q, k, v, out, lse, do, q, k, v),
+                            attn_bwd_flops(b, h, pairs, dqk, dv), dtype))
+                        t["fwd"]["library_ms"] = library_fwd_ms(q, k, v, sc)
+                        t["bwd"]["library_ms"] = library_bwd_ms(q, k, v, do,
+                                                                sc)
+                        t["fwd"]["plain_ms"], t["bwd"]["plain_ms"] = (
+                            plain_heads_ms(q, k, v, out, lse, do, sc, heads))
+                del out, lse, got
+            del q, k, v, do, key_mask
+            torch.cuda.empty_cache()
+
+    def row(t):
+        return (f"TMA {t['ms']:.3f}, mma.sync {t['mma_ms']:.3f}, fp32 "
+                f"{t['fp32_ms']:.3f}, plain (bf16, by head chunks) "
+                f"{t['plain_ms']:.3f}, library {fmt(t['library_ms'])}, "
+                f"bound {t['bound_ms']:.3f} ({t['bound_by']})")
+    print("[21a K4 at heads above 128] routes per case (TMA = wgmma over TMA "
+          "tiles): " + ", ".join(f"{x} {r}" for x, r in routes.items())
+          + " | max_abs_err (out, mean over mean |plain|, grads) "
+          + ", ".join(f"{x} {e[0]:.3g}/{e[1]:.3g}/{e[2]:.3g}"
+                      for x, e in errs.items())
+          + f" (tol fp32 {VMEM_TOL[torch.float32]}, bf16 {K4_MAX_REL} of the "
+          f"largest entry; grads {tags(BWD_TOL)} of each gradient's largest "
+          "entry) | ms (device, CUDA events; library = "
+          "scaled_dot_product_attention): " + "; ".join(
+              f"{x} B={WIDE_FLASH_TIMED[x][0]} H={WIDE_FLASH_TIMED[x][1]} "
+              f"N={WIDE_FLASH_TIMED[x][2]} fwd {row(t['fwd'])}, bwd "
+              f"{row(t['bwd'])}" for x, t in timing.items())
+          + f" | launches {dict(route_launches)} | {card()}")
+    out = {}
+    for x, t in timing.items():
+        for d in ("fwd", "bwd"):
+            out.setdefault(d, {})[x] = {
+                **t[d], "max_abs_err": worst[(d, "", True)],
+                "mma_max_abs_err": worst[(d, "_mma", True)],
+                "fp32_max_abs_err": worst[(d, "_fp32", True)]}
+    out["launches"] = dict(route_launches)
+    return out
+
+
+def plain_heads_ms(q, k, v, out, lse, do, scale, heads) -> tuple:
+    """Device ms of the plain K4-fwd and K4-bwd over all of q's heads,
+    ``heads`` at a time (the whole tensors' fp32 scores would not fit)."""
+    def run(fn):
+        for i in range(0, q.shape[1], heads):
+            at = (slice(None), slice(i, i + heads))
+            fn(at)
+    fwd = cuda_ms(lambda: run(lambda at: flash_attention.flash_attention_plain(
+        q[at], k[at], v[at], scale=scale)), iters=1, warmup=1)
+    bwd = cuda_ms(lambda: run(
+        lambda at: flash_attention.flash_attention_bwd_plain(
+            q[at], k[at], v[at], out[at], lse[at], do[at], scale=scale)),
+        iters=1, warmup=1)
+    return fwd, bwd
 
 
 def train_timing(trainer, batch, iters=5, plain=True) -> dict:
@@ -4829,6 +5034,404 @@ def phase_cli() -> dict:
     return {"launches": dict(total), "k3_max_abs_err": real["k3"]["max_abs_err"]}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 21: the token-sequence paths
+# --------------------------------------------------------------------------- #
+
+# DeepSeek-V3's config.json (Hugging Face hub, deepseek-ai/DeepSeek-V3): the
+# widths of phase 21's classifier, whose depth is cut to the 3 leading dense
+# layers (first_k_dense_replace), so that no MoE layer runs
+V3_HF_CONFIG = {
+    "hidden_size": 7168, "num_attention_heads": 128, "num_hidden_layers": 61,
+    "q_lora_rank": 1536, "kv_lora_rank": 512, "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64, "v_head_dim": 128, "intermediate_size": 18432,
+    "moe_intermediate_size": 2048, "n_routed_experts": 256,
+    "num_experts_per_tok": 8, "n_shared_experts": 1, "n_group": 8,
+    "topk_group": 4, "routed_scaling_factor": 2.5, "norm_topk_prob": True,
+    "first_k_dense_replace": 3, "moe_layer_freq": 1, "rms_norm_eps": 1e-6,
+    "vocab_size": 129280, "max_position_embeddings": 163840,
+    "rope_theta": 10000, "attention_bias": False,
+    "rope_scaling": {"type": "yarn", "factor": 40,
+                     "original_max_position_embeddings": 4096,
+                     "beta_fast": 32, "beta_slow": 1, "mscale": 1.0,
+                     "mscale_all_dim": 1.0}}
+CLS_LABELS = 2  # the HF sequence classifiers' default
+# forwards: (B, N, where the second row's key mask ends or None); the plain
+# path's fp32 scores at B=2, N=4096 (128 heads) would be ~17 GB a tensor,
+# several at once. The backward (a cross-entropy on labels) at B=1, N=2048:
+# at 4096 the plain autograd would keep ~26 GB of probabilities
+CLS_FORWARDS = ((1, 4096, None), (2, 2048, 1500))
+CLS_BWD_TOKENS = 2048
+CLS_PER_FORWARD = {"flash_attention_fwd": 3}  # one MLA per layer
+# the multimodal model of tools/bench_multimodal.py with vision reconstructed
+# whole (decode_sequence) and a token-sequence modality: 512 ids of the
+# decode bench's 32000-word vocabulary. Per train step K3 runs at the vision
+# encoder's MLA and cross-attention (576 keys) and the text encoder's (512
+# keys): 4 forwards, 4 backwards; the decoders' attention over 16 / 4
+# fused tokens stays on the einsum path, as in JAX
+TEXT_TOKENS, TEXT_VOCAB, TEXT_BATCH = 512, 32000, 64
+MM_TEXT_PER_STEP = {"vmem_attention_fwd": 4, "vmem_attention_bwd": 4,
+                    "grid4d_encode_fwd": K2_PER_FORWARD,
+                    "hash_encode_bwd": K2_BWD_PER_STEP}
+# the CLIs' checkpoint: DeepSeek-V3's attention shape (q head 192 = nope
+# 128 + rope 64, v 128, q-LoRA 1536, kv-LoRA 512, yarn) at a narrow width
+# (1024, 8 heads) and 2 layers (a dense one, then 8 routed experts), so that
+# the host converts it in seconds; the decode bench's vocabulary
+CKPT_HF_CONFIG = {**V3_HF_CONFIG, "hidden_size": 1024,
+                  "num_attention_heads": 8, "num_hidden_layers": 2,
+                  "intermediate_size": 2816, "moe_intermediate_size": 512,
+                  "n_routed_experts": 8, "num_experts_per_tok": 2,
+                  "n_group": 1, "topk_group": 1, "first_k_dense_replace": 1,
+                  "vocab_size": TEXT_VOCAB}
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "ckpt"
+CKPT_PROMPT = "live oak savanna near the salt marsh at dawn"
+CKPT_NEW_TOKENS = 32
+
+
+def classifier_config() -> tuple:
+    """DeepSeek-V3's block through the converter's config_from_hf, depth cut
+    to its dense layers, flash attention on."""
+    cfg, vocab = config_from_hf(V3_HF_CONFIG)
+    cfg.n_layers = cfg.first_k_dense_replace
+    cfg.mla.use_flash_attention = True
+    return cfg, vocab
+
+
+def classifier_params(cfg, vocab: int, labels: int) -> int:
+    """The classifier's parameters, reckoned from its config."""
+    m, d = cfg.mla, cfg.hidden_dim
+    attn = (d * m.q_lora_rank + m.q_lora_rank
+            + m.q_lora_rank * m.n_heads * m.q_head_dim
+            + d * (m.kv_lora_rank + m.qk_rope_head_dim) + m.kv_lora_rank
+            + m.kv_lora_rank * m.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
+            + m.n_heads * m.v_head_dim * d)
+    layer = attn + 3 * d * cfg.intermediate_size + 2 * d
+    return vocab * d + cfg.n_layers * layer + d + d * labels + labels
+
+
+def stack_output(model, fn):
+    """fn()'s result and the DeepSeek stack's output on the way."""
+    seen = []
+    hook = model.model.register_forward_hook(
+        lambda mod, args, out: seen.append(out.detach()))
+    try:
+        out = fn()
+    finally:
+        hook.remove()
+    return out, seen[0]
+
+
+def phase_classifier(gen) -> dict:
+    """Phase 21 (b): DeepSeekForSequenceClassification at DeepSeek-V3's
+    widths, K4 at 192 / 128 inside it, against the plain path."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, vocab = classifier_config()
+    reckoned = classifier_params(cfg, vocab, CLS_LABELS)
+    print(f"    21b: {reckoned / 1e9:.3f}B parameters, "
+          f"{2 * reckoned / 2 ** 30:.2f} GiB in bf16, before the build")
+    model = DeepSeekForSequenceClassification(
+        cfg, CLS_LABELS, vocab, generator=gen, device="cuda",
+        compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != reckoned:
+        raise AssertionError(f"{n_params} parameters, reckoned {reckoned}")
+    launches = collections.Counter()
+    fwd = {}
+    for b, n, last in CLS_FORWARDS:
+        ids = torch.randint(0, vocab, (b, n), generator=gen, device="cuda")
+        mask = None
+        if last is not None:
+            mask = torch.ones((b, n), dtype=torch.bool, device="cuda")
+            mask[1, last:] = False
+        with torch.no_grad():
+            (logits, h), got = counted(
+                lambda: stack_output(model, lambda: model(ids, mask)),
+                CLS_PER_FORWARD, f"classifier B={b} N={n}")
+            launches.update(got)
+            ms = cuda_ms(lambda: model(ids, mask), iters=3, warmup=1)
+            with plain_versions():
+                ref_logits, ref_h = stack_output(model,
+                                                 lambda: model(ids, mask))
+                plain_ms = cuda_ms(lambda: model(ids, mask), iters=1,
+                                   warmup=0)
+        if not (logits.shape == (b, CLS_LABELS)
+                and bool(logits.isfinite().all())):
+            raise AssertionError(f"classifier B={b}: logits {logits}")
+        diff = (h.float() - ref_h.float()).abs()
+        err = {"max_abs": diff.max().item(), "mean_abs": diff.mean().item(),
+               "logits_max_abs": max_err(logits, ref_logits)}
+        if err["max_abs"] > SLICE_TOL["max_abs"] or \
+                err["mean_abs"] > SLICE_TOL["mean_abs"]:
+            raise AssertionError(f"classifier B={b} N={n}: stack output vs "
+                                 f"plain {err} (tol {SLICE_TOL})")
+        fwd[(b, n)] = {**err, "ms": ms, "plain_ms": plain_ms}
+        del ids, mask, logits, h, ref_logits, ref_h
+        torch.cuda.empty_cache()
+
+    # the backward of a cross-entropy on labels, kernel against plain
+    ids = torch.randint(0, vocab, (1, CLS_BWD_TOKENS), generator=gen,
+                        device="cuda")
+    labels = torch.randint(0, CLS_LABELS, (1,), generator=gen, device="cuda")
+    bwd = {}
+
+    def step():
+        loss = F.cross_entropy(model(ids).float(), labels)
+        loss.backward()
+        return loss.detach()
+    for label in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        if label == "kernel":
+            loss, got = counted(step, {"flash_attention_fwd": 3,
+                                       "flash_attention_bwd": 3},
+                                "classifier backward")
+            launches.update(got)
+        else:
+            with plain_versions():
+                loss = step()
+        norm = torch.linalg.vector_norm(torch.stack([
+            torch.linalg.vector_norm(p.grad.float())
+            for p in model.parameters()])).item()
+        bwd[label] = {"loss": loss.item(), "grad_norm": norm}
+        model.zero_grad(set_to_none=True)
+        with plain_versions() if label == "plain" else \
+                contextlib.nullcontext():
+            bwd[label]["step_ms"] = wall_ms(
+                lambda: (step(), torch.cuda.synchronize()))
+    model.zero_grad(set_to_none=True)
+    rel = {k: abs(bwd["kernel"][k] - bwd["plain"][k]) / abs(bwd["plain"][k])
+           for k in TRAIN_TOL}
+    if any(rel[k] > TRAIN_TOL[k] for k in TRAIN_TOL):
+        raise AssertionError(f"classifier backward kernel vs plain {bwd} "
+                             f"(rel {rel}, tol {TRAIN_TOL})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, ids
+    torch.cuda.empty_cache()
+    print(f"[21b DeepSeekForSequenceClassification, DeepSeek-V3 widths] "
+          f"hidden {cfg.hidden_dim}, {cfg.mla.n_heads} heads (q "
+          f"{cfg.mla.q_head_dim} / v {cfg.mla.v_head_dim}), q-LoRA "
+          f"{cfg.mla.q_lora_rank}, kv-LoRA {cfg.mla.kv_lora_rank}, dense "
+          f"{cfg.intermediate_size}, vocab {vocab}, yarn x"
+          f"{cfg.mla.rope_scaling.factor:g}, {cfg.n_layers} dense layers "
+          f"(cut from 61: first_k_dense_replace), bf16, {n_params / 1e9:.3f}B"
+          f" parameters | per forward K4-fwd 3 (TMA route), no plain version "
+          "reached | stack output vs plain path: " + "; ".join(
+              f"B={b} N={n}{' masked' if last else ''} max_abs "
+              f"{fwd[(b, n)]['max_abs']:.4g} mean_abs "
+              f"{fwd[(b, n)]['mean_abs']:.4g} (logits "
+              f"{fwd[(b, n)]['logits_max_abs']:.4g}), ms {fwd[(b, n)]['ms']:.2f}"
+              f" (plain {fwd[(b, n)]['plain_ms']:.2f})"
+              for b, n, last in CLS_FORWARDS)
+          + f" (tol {SLICE_TOL}) | backward of a cross-entropy at B=1 N="
+          f"{CLS_BWD_TOKENS}: K4-fwd 3, K4-bwd 3; loss / grad norm kernel "
+          f"{bwd['kernel']['loss']:.5f} / {bwd['kernel']['grad_norm']:.5g}, "
+          f"plain {bwd['plain']['loss']:.5f} / {bwd['plain']['grad_norm']:.5g}"
+          f", rel {rel} (tol {TRAIN_TOL}); step ms kernel "
+          f"{bwd['kernel']['step_ms']:.1f}, plain {bwd['plain']['step_ms']:.1f}"
+          f" (host wall, synchronised) | peak mem {peak:.1f} GiB | {card()}")
+    return {"launches": dict(launches), "fwd": fwd, "bwd": bwd, "rel": rel}
+
+
+def text_mm_config() -> DeepEarthConfig:
+    cfg = multimodal_config()
+    cfg.modalities["vision"].decode_sequence = True
+    cfg.add_modality(ModalityConfig(
+        name="text", encoding_type="token_sequence", input_type="text",
+        vocab_size=TEXT_VOCAB, n_tokens=4, encoder_layers=1,
+        encoder_heads=8))
+    return cfg
+
+
+def make_text_batch(gen, n):
+    batch = make_mm_batch(gen, n)
+    batch["modalities"]["text"] = torch.randint(
+        0, TEXT_VOCAB, (n, TEXT_TOKENS), generator=gen, device="cuda")
+    return batch
+
+
+def phase_text_train(gen) -> dict:
+    """Phase 21 (c): the multimodal train step with token sequences (MLM)
+    and a whole-sequence vision decoder (MAE)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = text_mm_config()
+    model = DeepEarthModel(cfg, generator=gen, device="cuda",
+                           native_seq_lens={"vision": VISION_PATCHES,
+                                            "text": TEXT_TOKENS})
+    trainer = Trainer(model, cfg, MM_LOSS_WEIGHTS, seed=SEED)
+    state = trainer.init_state()
+    start = copy.deepcopy(model.state_dict())
+    batches = [make_text_batch(gen, TEXT_BATCH) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (state, metrics), launches = counted(
+        lambda: trainer.fit(state, iter(batches), TRAIN_STEPS,
+                            log_every=TRAIN_STEPS),
+        {k: v * TRAIN_STEPS for k, v in MM_TEXT_PER_STEP.items()},
+        "text train steps")
+    fit_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    for key in ("loss/text", "acc/text", "loss/vision"):
+        if not math.isfinite(metrics.get(key, math.nan)):
+            raise AssertionError(f"{key} = {metrics.get(key)}")
+    cmp = train_kernel_vs_plain(trainer, model, start, batches)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    step_ms = cuda_ms(lambda: trainer.train_step(state, batches[0], g),
+                      iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, trainer, state, batches
+    torch.cuda.empty_cache()
+    print(f"[21c train slice with token sequences] tools/bench_multimodal.py"
+          f"'s model, vision decode_sequence over {VISION_PATCHES} patches, "
+          f"text token_sequence over {TEXT_TOKENS} ids (vocab {TEXT_VOCAB}), "
+          f"B={TEXT_BATCH}, the config's MLM and MAE masks, contrastive 0.1: "
+          f"launches per step {MM_TEXT_PER_STEP} (routes over the run: "
+          + route_counts(launches, "vmem_attention_fwd", "vmem_attention_bwd")
+          + "), no plain version reached | fit loss "
+          f"{metrics['loss/total']:.4f} (text {metrics['loss/text']:.4f}, "
+          f"vision {metrics['loss/vision']:.4f}) | kernel vs plain path over "
+          f"{TRAIN_STEPS} steps (loss, grad_norm): kernel "
+          f"{cmp['runs']['kernel']}, plain {cmp['runs']['plain']}, rel diff "
+          f"{cmp['rel']} (tol {TRAIN_TOL}), params max_abs "
+          f"{cmp['param_err']:.3g} (tol {cmp['param_tol']:.3g}) | "
+          f"{step_ms:.1f} ms a step after warm-up (CUDA events over 3 "
+          f"steps; {TEXT_BATCH / step_ms * 1e3:.0f} obs/s), {fit_ms:.1f} over "
+          f"the counted fit's first steps (host wall) | peak mem "
+          f"{peak:.1f} GiB | {card()}")
+    return {"launches": launches, "cmp": cmp, "step_ms": step_ms}
+
+
+def write_safetensors_file(path: Path, tensors: dict) -> None:
+    """A .safetensors file written here, not by the port's writer: an
+    8-byte little-endian header length, the JSON header, the raw bytes."""
+    header, at, blobs = {}, 0, []
+    names = {torch.float32: "F32", torch.bfloat16: "BF16"}
+    for name, t in tensors.items():
+        raw = t.contiguous().view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [at, at + len(raw)]}
+        blobs.append(raw)
+        at += len(raw)
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(len(text).to_bytes(8, "little"))
+        f.write(text)
+        for raw in blobs:
+            f.write(raw)
+
+
+def hf_checkpoint(gen, c: dict) -> dict:
+    """An HF DeepseekV3ForCausalLM state dict for config ``c``: bf16, drawn
+    on the card from ``gen``, returned on the host."""
+    d, h = c["hidden_size"], c["num_attention_heads"]
+    qh = c["qk_nope_head_dim"] + c["qk_rope_head_dim"]
+    shapes = {"model.embed_tokens.weight": (c["vocab_size"], d),
+              "model.norm.weight": (d,),
+              "lm_head.weight": (c["vocab_size"], d)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.layers.{i}"
+        shapes.update({
+            f"{p}.input_layernorm.weight": (d,),
+            f"{p}.post_attention_layernorm.weight": (d,),
+            f"{p}.self_attn.q_a_proj.weight": (c["q_lora_rank"], d),
+            f"{p}.self_attn.q_a_layernorm.weight": (c["q_lora_rank"],),
+            f"{p}.self_attn.q_b_proj.weight": (h * qh, c["q_lora_rank"]),
+            f"{p}.self_attn.kv_a_proj_with_mqa.weight": (
+                c["kv_lora_rank"] + c["qk_rope_head_dim"], d),
+            f"{p}.self_attn.kv_a_layernorm.weight": (c["kv_lora_rank"],),
+            f"{p}.self_attn.kv_b_proj.weight": (
+                h * (c["qk_nope_head_dim"] + c["v_head_dim"]),
+                c["kv_lora_rank"]),
+            f"{p}.self_attn.o_proj.weight": (d, h * c["v_head_dim"])})
+        if i < c["first_k_dense_replace"]:
+            mlps = {f"{p}.mlp": c["intermediate_size"]}
+        else:
+            e, f = c["n_routed_experts"], c["moe_intermediate_size"]
+            shapes[f"{p}.mlp.gate.weight"] = (e, d)
+            shapes[f"{p}.mlp.gate.e_score_correction_bias"] = (e,)
+            mlps = {f"{p}.mlp.experts.{j}": f for j in range(e)}
+            mlps[f"{p}.mlp.shared_experts"] = f * c["n_shared_experts"]
+        for m, f in mlps.items():
+            shapes.update({f"{m}.gate_proj.weight": (f, d),
+                           f"{m}.up_proj.weight": (f, d),
+                           f"{m}.down_proj.weight": (d, f)})
+    out = {}
+    for name, shape in shapes.items():
+        std = 1.0 / math.sqrt(shape[-1]) if len(shape) == 2 else 0.02
+        t = torch.randn(shape, generator=gen, device="cuda") * std
+        if name.endswith("norm.weight"):
+            t = t + 1.0
+        out[name] = t.to(torch.bfloat16).cpu()
+    return out
+
+
+def phase_checkpoint_cli(gen) -> dict:
+    """Phase 21 (d): cli.convert_checkpoint --verify and cli.generate on the
+    card, the tokens against an in-process generate on the same params."""
+    root = CKPT_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "hf").mkdir(parents=True)
+    try:
+        sd = hf_checkpoint(gen, CKPT_HF_CONFIG)
+        write_safetensors_file(root / "hf" / "model.safetensors", sd)
+        (root / "hf" / "config.json").write_text(json.dumps(CKPT_HF_CONFIG))
+        n_hf = sum(t.numel() for t in sd.values())
+        del sd
+        out = root / "converted"
+        t0 = time.perf_counter()
+        (_, cfg, vocab), convert_launches = counted(
+            lambda: cli_convert.main([str(root / "hf"), str(out),
+                                      "--verify"]), {}, "convert --verify")
+        convert_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        toks, gen_launches = counted(lambda: cli_generate.main(
+            [str(out), "--prompt", CKPT_PROMPT, "--max-new-tokens",
+             str(CKPT_NEW_TOKENS)]), {}, "generate")
+        generate_s = time.perf_counter() - t0
+        # in process, on the same directory's parameters
+        params = read_msgpack_tree(out / "params.msgpack")
+        model = DeepSeekForCausalLM(
+            cfg, vocab, generator=torch.Generator(device="cuda"),
+            device="cuda", tie_embeddings=False)
+        load_flax_params(model, params)
+        ids = [t % vocab for t in HashEmbedder().tokenize(CKPT_PROMPT)]
+        with torch.no_grad():
+            ref = generate(model.eval(), torch.tensor([ids], device="cuda"),
+                           CKPT_NEW_TOKENS)[0].tolist()
+        if toks != ref or len(toks) != CKPT_NEW_TOKENS:
+            raise AssertionError(f"cli.generate {toks} != in-process {ref}")
+        msgpack_mb = (out / "params.msgpack").stat().st_size / 1e6
+        del model, params
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[21d checkpoint CLIs] an HF DeepSeek-V3-shaped checkpoint (hidden "
+          f"{cfg.hidden_dim}, {cfg.mla.n_heads} heads of q "
+          f"{cfg.mla.q_head_dim} / v {cfg.mla.v_head_dim}, kv-LoRA "
+          f"{cfg.mla.kv_lora_rank}, {cfg.n_layers} layers, the second with "
+          f"{cfg.moe.n_routed_experts} experts; {n_hf / 1e6:.1f}M bf16 "
+          f"parameters) written as .safetensors here; cli.convert_checkpoint "
+          f"--verify {convert_s:.1f} s (params.msgpack {msgpack_mb:.1f} MB, "
+          f"fp32), cli.generate {CKPT_NEW_TOKENS} greedy tokens "
+          f"{generate_s:.1f} s (host wall, build of the model included), fp32"
+          f" on the card: no hand-written kernel on these paths (launches "
+          f"{sum(convert_launches.values())} + "
+          f"{sum(gen_launches.values())}) | tokens equal an in-process "
+          f"generate on the same parameters: {toks} | {card()}")
+    return {"tokens": toks}
+
+
+def phase_tokens(gen) -> dict:
+    """Phase 21: the token-sequence paths."""
+    t0 = time.perf_counter()
+    wide = phase_wide_flash(gen)
+    cls = phase_classifier(gen)
+    text = phase_text_train(gen)
+    ckpt = phase_checkpoint_cli(gen)
+    print(f"[21 token sequences] wall {time.perf_counter() - t0:.1f} s")
+    return {"wide": wide, "classifier": cls, "text": text, "ckpt": ckpt}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--clip-batch-search", action="store_true",
@@ -4882,6 +5485,9 @@ def main() -> None:
     dec = phase_decode(gen)
     svc = phase_service()
     cli = phase_cli()
+    # phase 21 draws from a generator of its own seeded from SEED, as phases
+    # 15 and 16 do: its draws do not move with the phases before it
+    tok = phase_tokens(torch.Generator(device="cuda").manual_seed(SEED))
     report = {"kernels": [
         {"name": "grid4d_encode_fwd", "route": "cuda",
          "source": "deepearth_tpu_torch/kernels/csrc/grid4d_encode.cu",
@@ -5024,7 +5630,7 @@ def main() -> None:
                   "deepearth_tpu_torch/kernels/csrc/flash_attention.cu",
                   "launches_in_phase_11", k4),
               "flash_attention_bwd": (
-                  "deepearth_tpu_torch/kernels/csrc/flash_attention.cu",
+                  "deepearth_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
                   "launches_in_phase_11", k4b),
               "grouped_matmul_fwd": (
                   "deepearth_tpu_torch/kernels/csrc/grouped_matmul.cu",
@@ -5108,6 +5714,24 @@ def main() -> None:
                      "vmem_attention_bwd": "bwd"}.get(entry["name"])
         if direction:
             entry["max_abs_err_in_phase_20"] = cli["k3_max_abs_err"][direction]
+    # phase 21: K4 at heads above 128 (its TMA route; the mma.sync and
+    # CUDA-core routes' times beside), launched 3 times a forward and a
+    # backward of the V3-width classifier; K3 in the text train step
+    for entry in report["kernels"]:
+        name = entry["name"]
+        launched = (collections.Counter(tok["classifier"]["launches"])
+                    + collections.Counter(tok["text"]["launches"])).get(name)
+        if launched:
+            entry["launches_in_phase_21"] = launched
+        direction = {"flash_attention_fwd": "fwd",
+                     "flash_attention_bwd": "bwd"}.get(name)
+        if direction:
+            for shape, numbers in tok["wide"][direction].items():
+                key = "at_" + shape.split()[-1].replace("/", "_")
+                entry[key] = {k: numbers[k] for k in (
+                    "ms", "mma_ms", "fp32_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "max_abs_err",
+                    "mma_max_abs_err", "fp32_max_abs_err")}
     print(json.dumps(report))
     print(card())
     print(json.dumps({"ok": True, "device": {

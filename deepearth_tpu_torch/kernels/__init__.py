@@ -33,12 +33,14 @@ without ``nvcc``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -159,19 +161,25 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs, procs = [], []
-        for src in (s for s in _sources() if s.suffix == ".cu"):
-            obj = os.path.join(tmp, src.stem + ".o")
-            objs.append(obj)
-            procs.append((src.name, subprocess.Popen(
+        cus = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [os.path.join(tmp, src.stem + ".o") for src in cus]
+
+        def compile_one(src, obj):
+            # each in its own thread: the compilers run together, and each
+            # report is read as it comes (a full pipe would stall nvcc)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
                 [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            return proc, time.perf_counter() - t0
+
+        with concurrent.futures.ThreadPoolExecutor(len(cus)) as pool:
+            done = list(pool.map(compile_one, cus, objs))
         log, failed = [], []
-        for name, proc in procs:
-            out, _ = proc.communicate()
-            log.append(f"== {name}\n{out}")
+        for src, (proc, seconds) in zip(cus, done):
+            log.append(f"== {src.name} ({seconds:.1f} s)\n{proc.stdout}")
             if proc.returncode != 0:
-                failed.append(name)
+                failed.append(src.name)
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
         so = os.path.join(tmp, lib.name)
@@ -650,14 +658,16 @@ def pairwise_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return route(q, k, v, dout, n_heads, scale, key_mask)
 
 
-VMEM_MAX_SEQ, ATTN_MAX_DIM = 1024, 128
+# head dims: K3 takes at most ATTN_MAX_DIM, K4 at most FLASH_MAX_DIM
+VMEM_MAX_SEQ, ATTN_MAX_DIM, FLASH_MAX_DIM = 1024, 128, 256
 
 
 def _bhnd_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor, key_mask: Optional[torch.Tensor]):
-    """Checks shared by K3 and K4 (both directions). Returns (B, H, Nq, Nk,
-    Dqk, Dv), the (B, H, N) strides of q, k and v, and the key mask, made
-    contiguous, or None."""
+                 v: torch.Tensor, key_mask: Optional[torch.Tensor],
+                 max_dim: int = ATTN_MAX_DIM):
+    """Checks shared by K3 and K4 (both directions), head dims at most
+    ``max_dim``. Returns (B, H, Nq, Nk, Dqk, Dv), the (B, H, N) strides of
+    q, k and v, and the key mask, made contiguous, or None."""
     _require(q.is_cuda and k.device == q.device and v.device == q.device,
              f"{name}: q, k, v must lie on one CUDA device")
     _require(q.dtype in _ATTN_DTYPES and k.dtype == q.dtype
@@ -670,9 +680,8 @@ def _bhnd_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
     _require(k.shape == (b, h, nk, dqk) and v.shape == (b, h, nk, dv),
              f"{name}: k must be (B, H, Nk, Dqk) and v (B, H, Nk, Dv)")
     _require(nk >= 1, f"{name}: Nk must be at least 1")
-    _require(1 <= dqk <= ATTN_MAX_DIM and 1 <= dv <= ATTN_MAX_DIM,
-             f"{name}: head dims {dqk}, {dv} must be at most "
-             f"{ATTN_MAX_DIM}")
+    _require(1 <= dqk <= max_dim and 1 <= dv <= max_dim,
+             f"{name}: head dims {dqk}, {dv} must be at most {max_dim}")
     _require(b <= 65535 and h <= 65535,
              f"{name}: B and H must be at most 65535")
     _require(all(x.stride(3) == 1 for x in (q, k, v)),
@@ -798,10 +807,10 @@ def _vmem_bwd_inputs(name, q, k, v, dout, key_mask):
 def vmem_bwd_tma_route(dtype, d_qk: int, d_v: int, strides) -> bool:
     """Whether K3-bwd takes its TMA route (wgmma over TMA-fed tiles,
     ``csrc/flash_attention_bwd_tma.cu`` with the dq kernel's stats sweep):
-    the shapes and strides :func:`flash_bwd_tma_route` takes. Else bf16
-    takes the mma.sync route, fp32 the CUDA cores. A function of the shapes
-    and strides alone."""
-    return flash_bwd_tma_route(dtype, d_qk, d_v, strides)
+    the shapes and strides :func:`flash_bwd_tma_route` takes, head dims at
+    most ATTN_MAX_DIM. Else bf16 takes the mma.sync route, fp32 the CUDA
+    cores. A function of the shapes and strides alone."""
+    return _tma_route(dtype, d_qk, d_v, strides, ATTN_MAX_DIM)
 
 
 def vmem_attention_bwd_tma(q: torch.Tensor, k: torch.Tensor,
@@ -875,7 +884,7 @@ def _flash_fwd_inputs(q, k, v, key_mask):
     """Checks of K4-fwd's inputs; returns the shapes, q, k, v's strides, the
     key mask, and the outputs (out, lse), allocated."""
     (b, h, nq, nk, dqk, dv), strides, key_mask = _bhnd_inputs(
-        "flash attention", q, k, v, key_mask)
+        "flash attention", q, k, v, key_mask, FLASH_MAX_DIM)
     out = torch.empty((b, h, nq, dv), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
     return (b, h, nq, nk, dqk, dv), strides, key_mask, out, lse
@@ -937,7 +946,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False):
     """K4 forward: q (B, H, Nq, Dqk), k (B, H, Nk, Dqk), v (B, H, Nk, Dv) on
     one CUDA device, float32 or bfloat16, unit stride along the head dim;
-    any N >= 1, Dqk and Dv <= 128; key_mask optional (B, Nk) bool; causal:
+    any N >= 1, Dqk and Dv <= 256; key_mask optional (B, Nk) bool; causal:
     key j visible to query i iff j <= i. Returns (out (B, H, Nq, Dv) in q's
     dtype, lse (B, H, Nq) float32), both contiguous; a row whose keys are
     all masked gives out 0 and lse +inf. One launch, by the route
@@ -956,17 +965,22 @@ def _tma_strides(x: torch.Tensor):
     return [s if n > 1 else 8 for s, n in zip(x.stride()[:3], x.shape[:3])]
 
 
+def _tma_route(dtype, d_qk: int, d_v: int, strides, max_dim: int) -> bool:
+    """bf16, head dims Dqk and Dv multiples of 8 up to ``max_dim``, and
+    ``strides`` positive multiples of 8, TMA's 16-byte strides."""
+    return (dtype == torch.bfloat16
+            and all(8 <= d <= max_dim and d % 8 == 0 for d in (d_qk, d_v))
+            and all(s > 0 and s % 8 == 0 for s in strides))
+
+
 def flash_bwd_tma_route(dtype, d_qk: int, d_v: int, strides) -> bool:
     """Whether K4-bwd takes its TMA route (wgmma over TMA-fed tiles):
-    bf16, head dims Dqk and Dv multiples of 8 up to 128, and ``strides``
-    (the element strides of q, k and v along B, H and N, as
+    bf16, head dims Dqk and Dv multiples of 8 up to FLASH_MAX_DIM (256),
+    and ``strides`` (the element strides of q, k and v along B, H and N, as
     :func:`_tma_strides` gives them) positive multiples of 8, TMA's 16-byte
     strides. Else bf16 takes the mma.sync route, fp32 the CUDA cores. A
     function of the shapes and strides alone."""
-    return (dtype == torch.bfloat16
-            and all(8 <= d <= ATTN_MAX_DIM and d % 8 == 0
-                    for d in (d_qk, d_v))
-            and all(s > 0 and s % 8 == 0 for s in strides))
+    return _tma_route(dtype, d_qk, d_v, strides, FLASH_MAX_DIM)
 
 
 def _aligned16_view(x: torch.Tensor) -> torch.Tensor:
@@ -980,7 +994,7 @@ def _flash_bwd_inputs(q, k, v, out, lse, dout, key_mask):
     key mask, contiguous out, lse and dout, and the outputs (dq, dk, dv and
     the scratch delta), allocated."""
     (b, h, nq, nk, dqk, dv), strides, key_mask = _bhnd_inputs(
-        "flash attention", q, k, v, key_mask)
+        "flash attention", q, k, v, key_mask, FLASH_MAX_DIM)
     out = _like_output("flash_attention_bwd: out", out, q, (b, h, nq, dv),
                        q.dtype)
     dout = _like_output("flash_attention_bwd: dout", dout, q, (b, h, nq, dv),
@@ -1051,10 +1065,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False):
     """K4 backward: the forward's inputs, its out and lse, and dout
     (B, H, Nq, Dv) in q's dtype. Returns (dq, dk, dv), contiguous, in q's
-    dtype. One launch of the dq kernel and one of the dk/dv kernel, counted
-    as one, by the route :func:`flash_bwd_tma_route` picks from the shapes
-    and strides: :func:`flash_attention_bwd_tma` (``flash_attention_bwd``)
-    or :func:`flash_attention_bwd_mma` (``_mma``, ``_fp32``)."""
+    dtype. One launch of the dq kernel and one of the dk/dv kernel (on the
+    TMA route, heads above 256 columns in all: a dk kernel and a dv
+    kernel), counted as one, by the route :func:`flash_bwd_tma_route` picks
+    from the shapes and strides: :func:`flash_attention_bwd_tma`
+    (``flash_attention_bwd``) or :func:`flash_attention_bwd_mma` (``_mma``,
+    ``_fp32``)."""
     route = (flash_attention_bwd_tma if _on_tma_grid(flash_bwd_tma_route, q,
                                                      k, v)
              else flash_attention_bwd_mma)

@@ -1,5 +1,5 @@
 // The backward of multi-head attention, shared by K3-bwd
-// (attention_vmem_bwd.cu) and K4-bwd (flash_attention.cu).
+// (attention_vmem_bwd.cu) and K4-bwd (flash_attention_bwd.cu).
 //
 // Given q (B, H, Nq, Dqk), k (B, H, Nk, Dqk), v (B, H, Nk, Dv), an optional
 // (B, Nk) key mask (and for K4 a causal mask, key j visible to query i iff
@@ -579,19 +579,38 @@ int launch_bwd_simt(const BwdArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The shapes K4's mma.sync and CUDA-core entries take: head dims up to
+// 256.
+inline bool bad_flash_shape(int batch, int n_heads, int nq, int nk, int d_qk,
+                            int d_v) {
+  return nq < 0 || nk < 1 || d_qk < 1 || d_qk > 256 || d_v < 1 ||
+         d_v > 256 || n_heads > 65535 || batch > 65535;
+}
+
 // dtype 0 = float32, 1 = bfloat16. Returns a cudaError_t value.
+// Head dims above 128 are K4's alone (K3 takes at most 128).
 template <bool kStats>
 int launch_attention_bwd(const BwdArgs& a, int dtype, cudaStream_t stream) {
-  if (dtype == 0)
-    return a.d_qk <= 64 && a.d_v <= 64
-               ? launch_bwd_simt<64, 64, kStats>(a, stream)
-               : launch_bwd_simt<128, 128, kStats>(a, stream);
+  const bool wide = a.d_qk > 128 || a.d_v > 128;
+  if (dtype == 0) {
+    if (a.d_qk <= 64 && a.d_v <= 64)
+      return launch_bwd_simt<64, 64, kStats>(a, stream);
+    if (!wide) return launch_bwd_simt<128, 128, kStats>(a, stream);
+    if constexpr (!kStats) return launch_bwd_simt<256, 256, false>(a, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (a.d_qk <= 48 && a.d_v <= 32)  // the MLA site
     return launch_bwd_mma<3, 2, kStats>(a, stream);
   if (a.d_qk <= 64 && a.d_v <= 64)  // the query-token cross-attention
     return launch_bwd_mma<4, 4, kStats>(a, stream);
-  return launch_bwd_mma<8, 8, kStats>(a, stream);
+  if (!wide) return launch_bwd_mma<8, 8, kStats>(a, stream);
+  if constexpr (!kStats) {
+    if (a.d_qk <= 192 && a.d_v <= 128)  // DeepSeek-V3's MLA
+      return launch_bwd_mma<12, 8, false>(a, stream);
+    return launch_bwd_mma<16, 16, false>(a, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

@@ -37,13 +37,14 @@ __device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
 
 // Stores a warpgroup's 64 x N accumulator, times `row_scale` of its two rows
 // (1 for a gradient, 1 / l for attention's output), rounded to bf16, as rows
-// [row0, row0 + 64) of a contiguous (n_rows, width) matrix; rows past
-// n_rows and columns past width (even) are dropped.
+// [row0, row0 + 64) of a (n_rows, width) matrix whose rows are `ld`
+// elements apart; rows past n_rows and columns past width (even) are
+// dropped.
 template <int N>
 __device__ __forceinline__ void store_rows_bf16(bf16* dst,
                                                 const float (&acc)[N / 2],
                                                 int row0, int n_rows,
-                                                int width,
+                                                int width, int ld,
                                                 const float (&row_scale)[2]) {
   const int t = threadIdx.x % 128;
   const int r = 16 * (t / 32) + (t % 32) / 4, col0 = 2 * (t % 4);
@@ -51,7 +52,7 @@ __device__ __forceinline__ void store_rows_bf16(bf16* dst,
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + r + 8 * h;
     if (row >= n_rows) continue;
-    bf16* to = dst + static_cast<int64_t>(row) * width;
+    bf16* to = dst + static_cast<int64_t>(row) * ld;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       const int col = 8 * j + col0;
@@ -69,7 +70,7 @@ __device__ __forceinline__ void store_rows_bf16(bf16* dst,
                                                 int row0, int n_rows,
                                                 int width) {
   const float one[2] = {1.0f, 1.0f};
-  store_rows_bf16<N>(dst, acc, row0, n_rows, width, one);
+  store_rows_bf16<N>(dst, acc, row0, n_rows, width, width, one);
 }
 
 // A tensor map over (B, H, N, D) bf16 with unit stride along D and the
@@ -103,14 +104,24 @@ bool bhnd_map(CUtensorMap* map, MapOrder* order, const void* base, int b,
   return hopper_host::bf16_map(map, base, 4, dims, strides, box);
 }
 
-// The checks both TMA entries make of their q, k, v: head dims multiples of
-// 8 up to 128, B and H within the grid's y and z, strides positive
-// multiples of 8 elements, and 16-byte-aligned bases (a null base passes).
+// The 64-wide panels that hold `d` columns of a head dim: the panels a
+// TMA route loads (any further panels of its tiles stay unread where they
+// feed the head-dim products, and feed only columns dropped at the store
+// where they are a B operand).
+__host__ __device__ __forceinline__ int head_panels(int d) {
+  return (d + 63) / 64;
+}
+
+// The checks the TMA entries make of their q, k, v: head dims multiples of
+// 8 up to `max_dim` (128 for K3, 256 for K4), B and H within the grid's y
+// and z, strides positive multiples of 8 elements, and 16-byte-aligned
+// bases (a null base passes).
 bool bad_tma_inputs(int batch, int n_heads, int nq, int nk, int d_qk,
                     int d_v, const int64_t (&strides)[9],
-                    std::initializer_list<const void*> bases) {
-  bool bad = nq < 0 || nk < 1 || d_qk < 8 || d_qk > 128 || d_qk % 8 ||
-             d_v < 8 || d_v > 128 || d_v % 8 || batch > 65535 ||
+                    std::initializer_list<const void*> bases,
+                    int max_dim = 128) {
+  bool bad = nq < 0 || nk < 1 || d_qk < 8 || d_qk > max_dim || d_qk % 8 ||
+             d_v < 8 || d_v > max_dim || d_v % 8 || batch > 65535 ||
              n_heads > 65535;
   for (const int64_t s : strides) bad = bad || s < 1 || s % 8;
   for (const void* p : bases)

@@ -10,7 +10,7 @@
 // `_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq` for the backward).
 //
 // Shapes: q (B, H, Nq, Dqk), k (B, H, Nk, Dqk), v (B, H, Nk, Dv), any strides
-// along B, H and N with unit stride along the head dim; Dqk, Dv <= 128,
+// along B, H and N with unit stride along the head dim; Dqk, Dv <= 256,
 // Dqk != Dv allowed; any N (nothing is padded in device memory); an optional
 // (B, Nk) key mask; `causal`: key j visible to query i iff j <= i. The
 // multimodal model's vision encoder calls it at the V-JEPA2 clip shape:
@@ -25,7 +25,8 @@
 // The library kernel differs there: it adds a finite mask value and guards
 // only a zero sum, so such a row comes out as the mean of v.
 //
-// Backward: attention_bwd.cuh (shared with K3-bwd), with delta = di =
+// Backward (flash_attention_bwd.cu, its own file so that the two compile
+// in parallel): attention_bwd.cuh (shared with K3-bwd), with delta = di =
 // rowsum(out o dout), taken in the dq kernel's prologue, and the forward's
 // lse.
 //
@@ -37,6 +38,14 @@
 // and p goes from the q.k accumulator straight into the A operand of P.V.
 // Causal blocks stop at their last row's key. The fp32 forward runs one
 // thread per query row on the CUDA cores, with exact fp32 products.
+//
+// Heads wider than 128 (DeepSeek-V3's MLA, 192 / 128; up to 256 / 256)
+// take the same kernels at more k16 steps: mma.sync at 12 / 8 steps
+// (192 / 128) or 16 / 16, the CUDA cores at rows of 256. A warp's q
+// fragments and output (and the backward's dq, dk and dv) then outgrow the
+// registers and spill to local memory: these routes serve the shapes off
+// TMA's grid and fp32, which no main path takes; bf16 on the grid takes
+// the TMA routes.
 
 #include "attention_bwd.cuh"
 
@@ -268,11 +277,6 @@ int launch_fwd_simt(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(int batch, int n_heads, int nq, int nk, int d_qk, int d_v) {
-  return nq < 0 || nk < 1 || d_qk < 1 || d_qk > 128 || d_v < 1 ||
-         d_v > 128 || n_heads > 65535 || batch > 65535;
-}
-
 }  // namespace
 
 // q (batch, n_heads, nq, d_qk), k (.., nk, d_qk), v (.., nk, d_v) with unit
@@ -286,20 +290,25 @@ extern "C" int flash_attention_fwd(
     int d_v, int64_t q_b, int64_t q_h, int64_t q_n, int64_t k_b, int64_t k_h,
     int64_t k_n, int64_t v_b, int64_t v_h, int64_t v_n, float scale,
     int causal, int dtype, void* stream) {
-  if (bad_shape(batch, n_heads, nq, nk, d_qk, d_v))
+  if (bad_flash_shape(batch, n_heads, nq, nk, d_qk, d_v))
     return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0 || batch == 0 || n_heads == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   const Strides qs{q_b, q_h, q_n}, ks{k_b, k_h, k_n}, vs{v_b, v_h, v_n};
   float* l = static_cast<float*>(lse);
-  if (dtype == 0)
-    return d_qk <= 64 && d_v <= 64
-               ? launch_fwd_simt<64, 64>(q, k, v, key_mask, out, l, batch,
-                                         n_heads, nq, nk, d_qk, d_v, qs, ks,
-                                         vs, scale, causal, s)
-               : launch_fwd_simt<128, 128>(q, k, v, key_mask, out, l, batch,
-                                           n_heads, nq, nk, d_qk, d_v, qs,
-                                           ks, vs, scale, causal, s);
+  if (dtype == 0) {
+    if (d_qk <= 64 && d_v <= 64)
+      return launch_fwd_simt<64, 64>(q, k, v, key_mask, out, l, batch,
+                                     n_heads, nq, nk, d_qk, d_v, qs, ks, vs,
+                                     scale, causal, s);
+    if (d_qk <= 128 && d_v <= 128)
+      return launch_fwd_simt<128, 128>(q, k, v, key_mask, out, l, batch,
+                                       n_heads, nq, nk, d_qk, d_v, qs, ks,
+                                       vs, scale, causal, s);
+    return launch_fwd_simt<256, 256>(q, k, v, key_mask, out, l, batch,
+                                     n_heads, nq, nk, d_qk, d_v, qs, ks, vs,
+                                     scale, causal, s);
+  }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (d_qk <= 48 && d_v <= 32)  // the MLA site
     return launch_fwd_mma<3, 2>(q, k, v, key_mask, out, l, batch, n_heads,
@@ -309,46 +318,15 @@ extern "C" int flash_attention_fwd(
     return launch_fwd_mma<4, 4>(q, k, v, key_mask, out, l, batch, n_heads,
                                 nq, nk, d_qk, d_v, qs, ks, vs, scale, causal,
                                 s);
-  return launch_fwd_mma<8, 8>(q, k, v, key_mask, out, l, batch, n_heads, nq,
-                              nk, d_qk, d_v, qs, ks, vs, scale, causal, s);
-}
-
-// The forward's inputs plus its out and lse and dout (batch, n_heads, nq,
-// d_v), contiguous, in q's type; writes dq, dk, dv (contiguous, in q's type)
-// and delta (batch, n_heads, nq) fp32, a scratch row sum.
-extern "C" int flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* key_mask,
-    const void* out, const void* dout, const void* lse, void* dq, void* dk,
-    void* dv, void* delta, int batch, int n_heads, int nq, int nk, int d_qk,
-    int d_v, int64_t q_b, int64_t q_h, int64_t q_n, int64_t k_b, int64_t k_h,
-    int64_t k_n, int64_t v_b, int64_t v_h, int64_t v_n, float scale,
-    int causal, int dtype, void* stream) {
-  if (bad_shape(batch, n_heads, nq, nk, d_qk, d_v))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (nq == 0 || batch == 0 || n_heads == 0) return 0;
-  BwdArgs a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.out = out;
-  a.dout = dout;
-  a.key_mask = static_cast<const uint8_t*>(key_mask);
-  a.lse = const_cast<float*>(static_cast<const float*>(lse));
-  a.delta = static_cast<float*>(delta);
-  a.dq = dq;
-  a.dk = dk;
-  a.dv = dv;
-  a.batch = batch;
-  a.n_heads = n_heads;
-  a.nq = nq;
-  a.nk = nk;
-  a.d_qk = d_qk;
-  a.d_v = d_v;
-  a.qs = Strides{q_b, q_h, q_n};
-  a.ks = Strides{k_b, k_h, k_n};
-  a.vs = Strides{v_b, v_h, v_n};
-  a.scale = scale;
-  a.causal = causal;
-  return launch_attention_bwd<false>(a, dtype,
-                                     static_cast<cudaStream_t>(stream));
+  if (d_qk <= 128 && d_v <= 128)
+    return launch_fwd_mma<8, 8>(q, k, v, key_mask, out, l, batch, n_heads,
+                                nq, nk, d_qk, d_v, qs, ks, vs, scale, causal,
+                                s);
+  if (d_qk <= 192 && d_v <= 128)  // DeepSeek-V3's MLA
+    return launch_fwd_mma<12, 8>(q, k, v, key_mask, out, l, batch, n_heads,
+                                 nq, nk, d_qk, d_v, qs, ks, vs, scale,
+                                 causal, s);
+  return launch_fwd_mma<16, 16>(q, k, v, key_mask, out, l, batch, n_heads,
+                                nq, nk, d_qk, d_v, qs, ks, vs, scale, causal,
+                                s);
 }

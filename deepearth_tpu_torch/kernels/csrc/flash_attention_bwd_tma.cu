@@ -1,6 +1,7 @@
 // Attention backward on the TMA route, long-sequence (K4-bwd) and
 // mid-length (K3-bwd): wgmma over TMA-fed, 128-byte-swizzled tiles, for
-// bf16 with head dims that are multiples of 8 (at most 128) and q, k, v
+// bf16 with head dims that are multiples of 8 (at most 256 for K4, 128 for
+// K3) and q, k, v
 // strides along B, H and N that are multiples of 8 elements (TMA's 16-byte
 // strides). Other bf16 shapes take the mma.sync kernels of
 // attention_bwd.cuh, fp32 its CUDA-core ones; kernels.flash_bwd_tma_route
@@ -64,7 +65,20 @@
 //    the strides, their dims ordered by stride;
 //  - keys past Nk or masked get p = 0 (the dq kernel's bias, the dk/dv
 //    kernel's per-row flag); queries past Nq get lse = +inf, so p = 0;
-//    causal blocks skip the tiles that no row of theirs sees.
+//    causal blocks skip the tiles that no row of theirs sees;
+//  - K4's heads wider than 128 (DeepSeek-V3's MLA: 192 / 128; up to
+//    256 / 256) take tiles padded to <192, 128> or <256, 256>, only the
+//    panels that hold the head dims loaded, and as many ring stages as fit
+//    (4 at <192, 128>, 2 at <256, 256>). Their dq accumulator (96 or 128
+//    registers a thread) fits beside s, dp and ds; dk and dv together
+//    (160 or 256) would not. So the dk/dv kernel runs twice, once for dk
+//    (the s and dout.v^T products, ds, dk += ds^T q) and once for dv (the
+//    s product alone, p, dv += p^T dout): three launches where narrower
+//    heads take two. The second pass repeats q.k^T and its exps, 1 of the
+//    7 products; splitting dk's columns across passes instead would repeat
+//    both head products, and shrinking the key tile would not shrink the
+//    accumulators. A product 192 or 256 wide is two wgmma (n128 + n64 or
+//    n128 + n128, wgmma_rs_cols) into one accumulator.
 
 #include "attention_tma.cuh"
 
@@ -76,25 +90,34 @@ constexpr int kOwn = 64;      // a block's own rows
 constexpr int kStream = 64;   // rows of a streamed tile
 constexpr int kConsumers = 128, kThreads = kConsumers + 32;
 constexpr int kPanel = 64 * kTileRowBytes;  // 64 rows of one 64-wide panel
-constexpr int kStages = 4;
 
 // Shared memory of both kernels for head dims padded to DP (q, k) and DVP
-// (v, dout), each 64 or 128: a stage holds the streamed tile's panels (the
-// q or k panels first, then the dout or v panels) and 2 x 64 floats; the
-// resident tile after the stages holds the block's own 64 rows the same
-// way. Two blocks share an SM where both panels are 64 wide (their
-// accumulators fit 168 registers a thread); wider heads take one block an
-// SM and up to 255 registers (dk and dv at 128 wide are 128 of them).
+// (v, dout), each 64, 128, 192 or 256: a stage holds the streamed tile's
+// panels (the q or k panels first, then the dout or v panels) and 2 x 64
+// floats; the resident tile after the stages holds the block's own 64 rows
+// the same way; as many stages as fit in 227 KB, at most 4. Two blocks
+// share an SM where both panels are 64 wide (their accumulators fit 168
+// registers a thread); wider heads take one block an SM and up to 255
+// registers (dk and dv at 128 wide are 128 of them). Above 256 columns in
+// all, the dk/dv kernel runs once for dk and once for dv (kSplit).
 template <int DP, int DVP>
 struct Layout {
   static constexpr int kFirst = DP / 64, kSecond = DVP / 64;  // panels
   static constexpr int kFloats = (kFirst + kSecond) * kPanel;
   static constexpr int kStageBytes = kFloats + 1024;
   static constexpr int kResident = (kFirst + kSecond) * kPanel;
+  static constexpr int kFit =
+      (232448 - 1024 - 16 - kResident) / (kStageBytes + 16);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
   static constexpr int kSmem =
       ring_smem_bytes(kStages, kStageBytes, kResident);
   static constexpr int kMinBlocks = DP + DVP <= 128 ? 2 : 1;
+  static constexpr bool kSplit = DP + DVP > 256;
+  static_assert(kStages >= 2 && kSmem + 16 <= 232448, "shared memory");
 };
+
+// What a launch of the dk/dv kernel computes.
+enum DkDv { kDkDv, kDkOnly, kDvOnly };
 
 struct TmaArgs {
   MapOrder q_order, k_order, v_order, do_order;
@@ -111,43 +134,31 @@ struct TmaArgs {
   int causal;
 };
 
-// The block's own 128 rows from `row0` of each of two tensors into the
-// resident tile, completing on `bar` (one thread).
+// The 64 rows from `row0` of each of two tensors, the first's panels then
+// the second's (as many as hold `d1` and `d2` columns), into `dst`: the
+// block's resident tile or a stage, completing on `bar` (one thread; a
+// stage's full barrier also waits for the other lanes).
 template <int DP, int DVP>
-__device__ void load_resident(uint8_t* res, uint64_t* bar,
-                              const CUtensorMap* first, MapOrder fo,
-                              const CUtensorMap* second, MapOrder so,
-                              int row0, int h, int b) {
+__device__ void load_pair(uint8_t* dst, uint64_t* bar,
+                          const CUtensorMap* first, MapOrder fo, int d1,
+                          const CUtensorMap* second, MapOrder so, int d2,
+                          int row0, int h, int b) {
   using L = Layout<DP, DVP>;
-  mbar_expect_tx(bar, L::kResident);
-  for (int p = 0; p < L::kFirst; ++p)
-    load_rows(res + p * kPanel, first, fo, bar, p, row0, h, b);
-  for (int p = 0; p < L::kSecond; ++p)
-    load_rows(res + (L::kFirst + p) * kPanel, second, so, bar, p, row0, h,
-              b);
-}
-
-// One streamed tile of 64 rows from `row0` of two tensors into a stage
-// (one thread; the stage's full barrier also waits for the other lanes).
-template <int DP, int DVP>
-__device__ void load_stream(uint8_t* st, uint64_t* full,
-                            const CUtensorMap* first, MapOrder fo,
-                            const CUtensorMap* second, MapOrder so,
-                            int row0, int h, int b) {
-  using L = Layout<DP, DVP>;
-  mbar_expect_tx(full, L::kFloats);
-  for (int p = 0; p < L::kFirst; ++p)
-    load_rows(st + p * kPanel, first, fo, full, p, row0, h, b);
-  for (int p = 0; p < L::kSecond; ++p)
-    load_rows(st + (L::kFirst + p) * kPanel, second, so, full, p, row0, h,
+  const int n1 = head_panels(d1), n2 = head_panels(d2);
+  mbar_expect_tx(bar, (n1 + n2) * kPanel);
+  for (int p = 0; p < n1; ++p)
+    load_rows(dst + p * kPanel, first, fo, bar, p, row0, h, b);
+  for (int p = 0; p < n2; ++p)
+    load_rows(dst + (L::kFirst + p) * kPanel, second, so, bar, p, row0, h,
               b);
 }
 
 // The two products over the head dim: acc1 = (the block's 64 resident rows
 // of the first tensor) . (the stage's first tensor)^T
-// over `ks1` k16 steps, acc2 the same for the second tensors over `ks2`;
-// both 64 x 64, both operands K-major. Waits for them.
-template <int DP, int DVP>
+// over `ks1` k16 steps, acc2 the same for the second tensors over `ks2`
+// (not taken, and acc2 not touched, without kSecondProduct); both 64 x 64,
+// both operands K-major. Waits for them.
+template <int DP, int DVP, bool kSecondProduct = true>
 __device__ __forceinline__ void head_products(float (&acc1)[32],
                                               float (&acc2)[32],
                                               const uint8_t* res,
@@ -155,9 +166,11 @@ __device__ __forceinline__ void head_products(float (&acc1)[32],
                                               int ks1, int ks2) {
   using L = Layout<DP, DVP>;
   zero_acc(acc1);
-  zero_acc(acc2);
   fence_operands(acc1);
-  fence_operands(acc2);
+  if constexpr (kSecondProduct) {
+    zero_acc(acc2);
+    fence_operands(acc2);
+  }
   wgmma_fence();
 #pragma unroll
   for (int j = 0; j < DP / 16; ++j) {
@@ -172,7 +185,7 @@ __device__ __forceinline__ void head_products(float (&acc1)[32],
   const uint8_t* st2 = st + L::kFirst * kPanel;
 #pragma unroll
   for (int j = 0; j < DVP / 16; ++j) {
-    if (j >= ks2) break;
+    if (!kSecondProduct || j >= ks2) break;
     wgmma_m64n64k16<0, 0>(
         acc2,
         sw128_desc(res2 + (j / 4) * kPanel + 32 * (j % 4), 16,
@@ -182,7 +195,7 @@ __device__ __forceinline__ void head_products(float (&acc1)[32],
   wgmma_commit();
   wgmma_wait<0>();
   fence_operands(acc1);
-  fence_operands(acc2);
+  if constexpr (kSecondProduct) fence_operands(acc2);
 }
 
 // ----------------------------------------------------------------- dk/dv ----
@@ -190,7 +203,8 @@ __device__ __forceinline__ void head_products(float (&acc1)[32],
 // Both kernels: DP, DVP the panel widths of q / k and v / dout; NQ, NV the
 // widths of the products whose N is Dqk or Dv (at most DP, DVP); kMasked:
 // p is masked per key (a key mask, causal, or Nk not a multiple of 64).
-template <int DP, int DVP, int NQ, int NV, bool kMasked>
+// kWhat: dk and dv, or (heads above 256 columns in all) one of them.
+template <int DP, int DVP, int NQ, int NV, bool kMasked, DkDv kWhat>
 __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
     flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                 const __grid_constant__ CUtensorMap map_k,
@@ -198,6 +212,8 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
                                 const __grid_constant__ CUtensorMap map_do,
                                 const TmaArgs a) {
   using L = Layout<DP, DVP>;
+  constexpr int kStages = L::kStages;
+  constexpr bool kDk = kWhat != kDvOnly, kDv = kWhat != kDkOnly;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t res_bar;
   if (threadIdx.x == 0) mbar_init(&res_bar, 1);
@@ -214,8 +230,8 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
   if (threadIdx.x >= kConsumers) {  // producer warp
     const int lane = threadIdx.x - kConsumers;
     if (lane == 0)
-      load_resident<DP, DVP>(res, &res_bar, &map_k, a.k_order, &map_v,
-                             a.v_order, key0, h, b);
+      load_pair<DP, DVP>(res, &res_bar, &map_k, a.k_order, a.d_qk, &map_v,
+                         a.v_order, a.d_v, key0, h, b);
     // each lane's two rows of a tile's stats, fetched a tile ahead so that
     // their latency passes while the ring is full
     float lse2[2], dscale[2];
@@ -239,8 +255,9 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
       }
       if (i + 1 < n_tiles) fetch(i + 1);
       if (lane == 0)
-        load_stream<DP, DVP>(st, &ring.full[at.stage], &map_q, a.q_order,
-                             &map_do, a.do_order, i * kStream, h, b);
+        load_pair<DP, DVP>(st, &ring.full[at.stage], &map_q, a.q_order,
+                           a.d_qk, &map_do, a.do_order, a.d_v, i * kStream,
+                           h, b);
       else
         mbar_arrive(&ring.full[at.stage]);
     }
@@ -262,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
   }
   const int ks1 = (a.d_qk + 15) / 16, ks2 = (a.d_v + 15) / 16;
   const float scale_log2 = a.scale * kLog2e;
-  float dk[NQ / 2], dv[NV / 2];
+  float dk[kDk ? NQ / 2 : 1], dv[kDv ? NV / 2 : 1];
   zero_acc(dk);
   zero_acc(dv);
   mbar_wait(&res_bar, 0);
@@ -272,7 +289,7 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
     const uint8_t* st = ring.tiles + at.stage * L::kStageBytes;
     const float* stats = reinterpret_cast<const float*>(st + L::kFloats);
     float s[32], dp[32];
-    head_products<DP, DVP>(s, dp, res, st, ks1, ks2);
+    head_products<DP, DVP, kDk>(s, dp, res, st, ks1, ks2);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -289,45 +306,49 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
               !kMasked || (visible[hh] && (!a.causal || key[hh] <= query))
                   ? e
                   : 0.0f;
-          dp[x] = p * fmaf(dp[x], a.scale, -dscale);  // ds
+          if (kDk) dp[x] = p * fmaf(dp[x], a.scale, -dscale);  // ds
           s[x] = p;
         }
       }
     }
-    uint32_t pa[4][4], da[4][4];
+    uint32_t pa[kDv ? 4 : 1][4], da[kDk ? 4 : 1][4];
 #pragma unroll
     for (int k16 = 0; k16 < 4; ++k16) {
-      wgmma_a_frag(pa[k16], s, k16);
-      wgmma_a_frag(da[k16], dp, k16);
+      if constexpr (kDv) wgmma_a_frag(pa[k16], s, k16);
+      if constexpr (kDk) wgmma_a_frag(da[k16], dp, k16);
     }
     // dv += p^T . dout, dk += ds^T . q: the tile's rows are the reduction,
     // its panels MN-major B operands
-    fence_operands(dv);
-    fence_operands(dk);
+    if constexpr (kDv) fence_operands(dv);
+    if constexpr (kDk) fence_operands(dk);
     wgmma_fence();
+    constexpr uint64_t kHi = (2 * kPanel) >> 4;  // column 128 of a B operand
 #pragma unroll
     for (int k16 = 0; k16 < 4; ++k16) {
-      wgmma_rs<NV, 1>(
-          dv, pa[k16],
-          sw128_desc(st + L::kFirst * kPanel + 2048 * k16, kPanel, 1024));
-      wgmma_rs<NQ, 1>(dk, da[k16],
-                      sw128_desc(st + 2048 * k16, kPanel, 1024));
+      if constexpr (kDv)
+        wgmma_rs_cols<NV, 1>(
+            dv, pa[k16],
+            sw128_desc(st + L::kFirst * kPanel + 2048 * k16, kPanel, 1024),
+            kHi);
+      if constexpr (kDk)
+        wgmma_rs_cols<NQ, 1>(dk, da[k16],
+                             sw128_desc(st + 2048 * k16, kPanel, 1024), kHi);
     }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_operands(dv);
-    fence_operands(dk);
+    if constexpr (kDv) fence_operands(dv);
+    if constexpr (kDk) fence_operands(dk);
 #pragma unroll
     for (int k16 = 0; k16 < 4; ++k16) {
-      fence_operands(pa[k16]);
-      fence_operands(da[k16]);
+      if constexpr (kDv) fence_operands(pa[k16]);
+      if constexpr (kDk) fence_operands(da[k16]);
     }
     release(ring, at.stage);
   }
-  store_rows_bf16<NQ>(a.dk + bh * a.nk * a.d_qk, dk, key0, a.nk,
-                      a.d_qk);
-  store_rows_bf16<NV>(a.dv + bh * a.nk * a.d_v, dv, key0, a.nk,
-                       a.d_v);
+  if constexpr (kDk)
+    store_rows_bf16<NQ>(a.dk + bh * a.nk * a.d_qk, dk, key0, a.nk, a.d_qk);
+  if constexpr (kDv)
+    store_rows_bf16<NV>(a.dv + bh * a.nk * a.d_v, dv, key0, a.nk, a.d_v);
 }
 
 // -------------------------------------------------------------------- dq ----
@@ -346,6 +367,7 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
                               const __grid_constant__ CUtensorMap map_do,
                               const TmaArgs a) {
   using L = Layout<DP, DVP>;
+  constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t res_bar;
   if (threadIdx.x == 0) mbar_init(&res_bar, 1);
@@ -362,8 +384,8 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
   if (threadIdx.x >= kConsumers) {  // producer warp
     const int lane = threadIdx.x - kConsumers;
     if (lane == 0)
-      load_resident<DP, DVP>(res, &res_bar, &map_q, a.q_order, &map_do,
-                             a.do_order, q0, h, b);
+      load_pair<DP, DVP>(res, &res_bar, &map_q, a.q_order, a.d_qk, &map_do,
+                         a.do_order, a.d_v, q0, h, b);
     const uint8_t* mask_row =
         a.key_mask ? a.key_mask + static_cast<int64_t>(b) * a.nk : nullptr;
     Cursor<kStages> at;
@@ -379,8 +401,9 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
         seen_key[r] = seen ? 1.0f : 0.0f;
       }
       if (lane == 0)
-        load_stream<DP, DVP>(st, &ring.full[at.stage], &map_k, a.k_order,
-                             &map_v, a.v_order, i * kStream, h, b);
+        load_pair<DP, DVP>(st, &ring.full[at.stage], &map_k, a.k_order,
+                           a.d_qk, &map_v, a.v_order, a.d_v, i * kStream, h,
+                           b);
       else
         mbar_arrive(&ring.full[at.stage]);
     }
@@ -526,8 +549,9 @@ __global__ void __launch_bounds__(kThreads, Layout<DP, DVP>::kMinBlocks)
     wgmma_fence();
 #pragma unroll
     for (int k16 = 0; k16 < 4; ++k16)
-      wgmma_rs<NQ, 1>(dq, da[k16],
-                      sw128_desc(st + 2048 * k16, kPanel, 1024));
+      wgmma_rs_cols<NQ, 1>(dq, da[k16],
+                           sw128_desc(st + 2048 * k16, kPanel, 1024),
+                           (2 * kPanel) >> 4);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(dq);
@@ -552,27 +576,41 @@ int launch_tma(const CUtensorMap (&maps)[4], const TmaArgs& a, int batch,
   using L = Layout<DP, DVP>;
   const auto dq_kernel =
       flash_bwd_dq_wgmma_kernel<DP, DVP, NQ, NV, kMaskDq, kStats>;
-  const auto dkdv_kernel =
-      flash_bwd_dkdv_wgmma_kernel<DP, DVP, NQ, NV, kMaskDkdv>;
+  // dk and dv in one kernel, or (L::kSplit) a dk kernel then a dv kernel
+  const auto dkdv_kernel = flash_bwd_dkdv_wgmma_kernel<
+      DP, DVP, NQ, NV, kMaskDkdv, L::kSplit ? kDkOnly : kDkDv>;
   static const cudaError_t attr = [&] {
-    const cudaError_t e = cudaFuncSetAttribute(
+    cudaError_t e = cudaFuncSetAttribute(
         dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
-    return e != cudaSuccess
-               ? e
-               : cudaFuncSetAttribute(
-                     dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                     L::kSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+    if constexpr (L::kSplit) {
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            flash_bwd_dkdv_wgmma_kernel<DP, DVP, NQ, NV, kMaskDkdv, kDvOnly>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+    }
+    return e;
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((a.nq + kOwn - 1) / kOwn, a.n_heads, batch);
   dq_kernel<<<grid, kThreads, L::kSmem, stream>>>(maps[0], maps[1], maps[2],
                                                   maps[3], a);
-  const cudaError_t e = cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   grid.x = (a.nk + kOwn - 1) / kOwn;
   dkdv_kernel<<<grid, kThreads, L::kSmem, stream>>>(maps[0], maps[1],
                                                     maps[2], maps[3], a);
-  return static_cast<int>(cudaGetLastError());
+  e = cudaGetLastError();
+  if constexpr (L::kSplit) {
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_bwd_dkdv_wgmma_kernel<DP, DVP, NQ, NV, kMaskDkdv, kDvOnly>
+        <<<grid, kThreads, L::kSmem, stream>>>(maps[0], maps[1], maps[2],
+                                               maps[3], a);
+    e = cudaGetLastError();
+  }
+  return static_cast<int>(e);
 }
 
 template <bool kStats, int DP, int DVP, int NQ = DP, int NV = DVP>
@@ -609,11 +647,18 @@ int launch_for_dims(TmaArgs& a, const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidPitchValue);  // map refused
   if (d_qk == 48 && d_v == 32)  // the multimodal MLA: exact widths
     return launch_tma<kStats, 64, 64, 48, 32>(maps, a, batch, stream);
-  if (d_qk <= 64)
+  if (d_qk <= 64 && d_v <= 128)
     return d_v <= 64 ? launch_tma<kStats, 64, 64>(maps, a, batch, stream)
                      : launch_tma<kStats, 64, 128>(maps, a, batch, stream);
-  return d_v <= 64 ? launch_tma<kStats, 128, 64>(maps, a, batch, stream)
-                   : launch_tma<kStats, 128, 128>(maps, a, batch, stream);
+  if (d_qk <= 128 && d_v <= 128)
+    return d_v <= 64 ? launch_tma<kStats, 128, 64>(maps, a, batch, stream)
+                     : launch_tma<kStats, 128, 128>(maps, a, batch, stream);
+  if constexpr (!kStats) {  // K4's wider heads; K3 takes at most 128
+    if (d_qk <= 192 && d_v <= 128)  // DeepSeek-V3's MLA: 192 / 128
+      return launch_tma<kStats, 192, 128>(maps, a, batch, stream);
+    return launch_tma<kStats, 256, 256>(maps, a, batch, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 TmaArgs make_args(const void* key_mask, const void* dout, void* lse,
@@ -640,9 +685,9 @@ TmaArgs make_args(const void* key_mask, const void* dout, void* lse,
 
 }  // namespace
 
-// As flash_attention_bwd (flash_attention.cu) for bf16 only: q, k, v
+// As flash_attention_bwd (flash_attention_bwd.cu) for bf16 only: q, k, v
 // 16-byte aligned with element strides along batch, head and sequence that
-// are multiples of 8, head dims multiples of 8 up to 128; key_mask (batch,
+// are multiples of 8, head dims multiples of 8 up to 256; key_mask (batch,
 // nk) bytes or null; out, dout (batch, n_heads, nq, d_v) and lse
 // (batch, n_heads, nq) fp32 contiguous; writes dq, dk, dv (contiguous,
 // bf16) and delta (batch, n_heads, nq) fp32. Returns a cudaError_t value;
@@ -656,7 +701,7 @@ extern "C" int flash_attention_bwd_tma(
     int causal, void* stream) {
   const int64_t strides[9] = {q_b, q_h, q_n, k_b, k_h, k_n, v_b, v_h, v_n};
   if (bad_tma_inputs(batch, n_heads, nq, nk, d_qk, d_v, strides,
-                     {q, k, v, out, dout}))
+                     {q, k, v, out, dout}, 256))
     return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0 || batch == 0 || n_heads == 0) return 0;
   TmaArgs a = make_args(key_mask, dout, const_cast<void*>(lse), dq, dk, dv,

@@ -1,6 +1,6 @@
 // Long-sequence attention forward (K4-fwd), the TMA route: wgmma over
 // TMA-fed, 128-byte-swizzled tiles, for bf16 with head dims that are
-// multiples of 8 (at most 128) and q, k, v strides along B, H and N that
+// multiples of 8 (at most 256) and q, k, v strides along B, H and N that
 // are multiples of 8 elements (TMA's 16-byte strides). Other bf16 shapes
 // take the mma.sync kernel of flash_attention.cu, fp32 its CUDA-core one;
 // kernels.flash_fwd_tma_route chooses from the shapes and strides alone.
@@ -51,6 +51,17 @@
 //    and softmaxes interleave on the SM by themselves;
 //  - strided views (the MLA's v) are read in place: the tensor maps take
 //    the strides, their dims ordered by stride;
+//  - heads wider than 128 (DeepSeek-V3's MLA: Dqk 192, Dv 128; up to 256 /
+//    256) take q and k tiles padded to 192 or 256: 192 is three 64-wide
+//    panels (a swizzled TMA box is 64 bf16 wide), and only the panels that
+//    hold the head dim are loaded. At <192, 128> a stage of 128 keys is
+//    80 KB and two fit beside the 48 KB q tile; at 256, tiles of 64 keys
+//    (48 KB a stage, three stages, 64 KB of q). Dv above 128 is split
+//    across blocks: each block of a query tile computes the scores and the
+//    softmax and P.V for 128 of the output columns (two blocks a tile at
+//    Dv 256, one extra q.k^T each). A 256-wide output in one block (128
+//    registers a thread beside the scores and p) spilled and ran ~20 times
+//    slower on an H100 (PERF.md);
 //  - causal blocks stop at the key tile of their last row and mask the
 //    rest per element; rows past Nq (zeros from TMA) are not stored. The
 //    output goes out as bf16 pairs straight from the registers.
@@ -68,11 +79,26 @@ constexpr int kRows = 128;  // a block's query rows: two warpgroups of 64
 constexpr int kConsumers = 256, kThreads = kConsumers + 128;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
-// Shared memory for head dims padded to DP (q, k) and DVP (v), each 64 or
-// 128, and key tiles of KN: a stage holds a key tile's k panels then its v
-// panels (KN rows of 64 columns each); after the stages, the block's q
-// panels (kRows rows) and a float per key and stage (0 or -inf: the key's
-// bias).
+// Stages of KN-key tiles with head dims padded to DP (q, k) and DVP (v)
+// that fit in 227 KB beside the block's q panels: each takes its tiles, its
+// biases and two barriers; the alignment 1024 bytes, q_bar 16.
+constexpr int fwd_stages_fit(int dp, int dvp, int kn) {
+  return (232448 - 1024 - 16 - dp / 64 * kRows * kTileRowBytes) /
+         ((dp + dvp) / 64 * kn * kTileRowBytes + kn * 4 + 16);
+}
+
+// Keys a tile: 128, or 64 where anything is masked (at 128 the masking's
+// registers would spill) or where two stages of 128 keys do not fit.
+constexpr int fwd_key_tile(int dp, int dvp, bool masked) {
+  return masked || fwd_stages_fit(dp, dvp, 128) < 2 ? 64 : 128;
+}
+
+// Shared memory for head dims padded to DP (q, k: 64, 128, 192 or 256) and
+// DVP (the block's v columns: 64 or 128), and key tiles of KN: a stage
+// holds a key tile's k panels then its v panels (KN rows of 64 columns
+// each); after the stages,
+// the block's q panels (kRows rows) and a float per key and stage (0 or
+// -inf: the key's bias).
 template <int DP, int DVP, int KN>
 struct FwdLayout {
   static constexpr int kPanel = KN * kTileRowBytes;
@@ -80,10 +106,8 @@ struct FwdLayout {
   static constexpr int kFirst = DP / 64, kSecond = DVP / 64;  // panels
   static constexpr int kStageBytes = (kFirst + kSecond) * kPanel;
   static constexpr int kResident = kFirst * kQPanel;
-  // as many stages as fit in 227 KB beside q (at most 4): each takes its
-  // tiles, its biases and two barriers; the alignment 1024 bytes, q_bar 16
-  static constexpr int kFit = (232448 - 1024 - 16 - kResident) /
-                              (kStageBytes + KN * 4 + 16);
+  // as many stages as fit beside q, at most 4
+  static constexpr int kFit = fwd_stages_fit(DP, DVP, KN);
   static constexpr int kStages = kFit < 4 ? kFit : 4;
   static constexpr int kExtra = kResident + kStages * KN * 4;
   static constexpr int kSmem = ring_smem_bytes(kStages, kStageBytes, kExtra);
@@ -96,13 +120,14 @@ struct FwdArgs {
   bf16* out;                // (B, H, Nq, Dv), contiguous
   float* lse;               // (B, H, Nq)
   int n_heads, nq, nk, d_qk, d_v;
+  int v_blocks;  // blocks a query tile, each 128 output columns (Dv > 128)
   float scale;
   int causal;
 };
 
-// DP, DVP: the panel widths of q / k and v; NV: the width of P.V (Dv, or
-// the panel's width); KN: keys a tile; kMasked: p is masked per key (a key
-// mask, causal, or Nk not a multiple of KN).
+// DP, DVP: the panel widths of q / k and of the block's v columns; NV: the
+// width of P.V (Dv, or the panels' width); KN: keys a tile; kMasked: p is
+// masked per key (a key mask, causal, or Nk not a multiple of KN).
 template <int DP, int DVP, int NV, int KN, bool kMasked>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -121,7 +146,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   uint8_t* q_tile = ring.tiles + L::kStages * L::kStageBytes;
   float* biases = reinterpret_cast<float*>(q_tile + L::kResident);
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
+  const int b = blockIdx.z, h = blockIdx.y;
+  // the block's query tile and its output columns [v0, v0 + d_vb)
+  const int q0 = blockIdx.x / a.v_blocks * kRows;
+  const int vb = blockIdx.x % a.v_blocks, v0 = 128 * vb;
+  const int d_vb = min(a.d_v - v0, 128);
   const int64_t bh = static_cast<int64_t>(b) * a.n_heads + h;
   // causal: no row of this block sees a key after its last row
   const int n_keys = a.causal ? min(a.nk, q0 + kRows) : a.nk;
@@ -134,9 +163,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x >= kConsumers + 32) return;
     const int lane = threadIdx.x - kConsumers;
+    const int n_first = head_panels(a.d_qk), n_second = head_panels(d_vb);
     if (lane == 0) {
-      mbar_expect_tx(&q_bar, L::kResident);
-      for (int p = 0; p < L::kFirst; ++p)
+      mbar_expect_tx(&q_bar, n_first * L::kQPanel);
+      for (int p = 0; p < n_first; ++p)
         load_rows(q_tile + p * L::kQPanel, &map_q, a.q_order, &q_bar, p, q0,
                   h, b);
     }
@@ -158,13 +188,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (lane == 0) {
         uint64_t* full = &ring.full[at.stage];
-        mbar_expect_tx(full, L::kStageBytes);
-        for (int p = 0; p < L::kFirst; ++p)
+        mbar_expect_tx(full, (n_first + n_second) * L::kPanel);
+        for (int p = 0; p < n_first; ++p)
           load_rows(st + p * L::kPanel, &map_k, a.k_order, full, p, i * KN,
                     h, b);
-        for (int p = 0; p < L::kSecond; ++p)
+        for (int p = 0; p < n_second; ++p)
           load_rows(st + (L::kFirst + p) * L::kPanel, &map_v, a.v_order,
-                    full, p, i * KN, h, b);
+                    full, 2 * vb + p, i * KN, h, b);
       } else {
         mbar_arrive(&ring.full[at.stage]);
       }
@@ -337,23 +367,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int hh = 0; hh < 2; ++hh) {
     const float lt = quad_sum(l[hh]);
     inv_l[hh] = lt > 0.0f ? 1.0f / lt : 0.0f;
-    if (t % 4 == 0 && query[hh] < a.nq)
+    if (vb == 0 && t % 4 == 0 && query[hh] < a.nq)
       a.lse[bh * a.nq + query[hh]] =
           lt > 0.0f ? m2[hh] * kLn2 + logf(lt) : INFINITY;
   }
-  store_rows_bf16<NV>(a.out + bh * a.nq * a.d_v, o, row0, a.nq, a.d_v,
-                      inv_l);
+  store_rows_bf16<NV>(a.out + bh * a.nq * a.d_v + v0, o, row0, a.nq, d_vb,
+                      a.d_v, inv_l);
 }
 
 // ------------------------------------------------------------------ host ----
 
 // The kernel for these head dims and masking, its tensor maps (boxes of
-// kRows query rows, KN key rows) and its launch. KN: tiles of 128 keys, 64
-// where anything is masked (at 128 the masking's registers would spill).
+// kRows query rows, KN key rows) and its launch.
 template <int DP, int DVP, int NV, bool kMasked>
 int launch_fwd(FwdArgs& a, const void* q, const void* k, const void* v,
                int batch, const int64_t (&st)[9], cudaStream_t stream) {
-  constexpr int KN = kMasked ? 64 : 128;
+  constexpr int KN = fwd_key_tile(DP, DVP, kMasked);
   using L = FwdLayout<DP, DVP, KN>;
   const auto kernel = flash_fwd_wgmma_kernel<DP, DVP, NV, KN, kMasked>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -367,17 +396,19 @@ int launch_fwd(FwdArgs& a, const void* q, const void* k, const void* v,
       !bhnd_map(&maps[2], &a.v_order, v, batch, a.n_heads, a.nk, a.d_v,
                 st[6], st[7], st[8], KN))
     return static_cast<int>(cudaErrorInvalidPitchValue);  // map refused
-  const dim3 grid((a.nq + kRows - 1) / kRows, a.n_heads, batch);
+  const dim3 grid((a.nq + kRows - 1) / kRows * a.v_blocks, a.n_heads,
+                  batch);
   kernel<<<grid, kThreads, L::kSmem, stream>>>(maps[0], maps[1], maps[2], a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Without the masking of p where nothing is masked: no key mask, not
-// causal, Nk a multiple of 128.
+// causal, Nk a multiple of the unmasked kernel's key tile.
 template <int DP, int DVP, int NV = DVP>
 int launch_fwd(FwdArgs& a, const void* q, const void* k, const void* v,
                int batch, const int64_t (&st)[9], cudaStream_t stream) {
-  return a.key_mask != nullptr || a.causal || a.nk % 128
+  return a.key_mask != nullptr || a.causal ||
+                 a.nk % fwd_key_tile(DP, DVP, false)
              ? launch_fwd<DP, DVP, NV, true>(a, q, k, v, batch, st, stream)
              : launch_fwd<DP, DVP, NV, false>(a, q, k, v, batch, st, stream);
 }
@@ -386,7 +417,7 @@ int launch_fwd(FwdArgs& a, const void* q, const void* k, const void* v,
 
 // As flash_attention_fwd (flash_attention.cu) for bf16 only: q, k, v
 // 16-byte aligned with element strides along batch, head and sequence that
-// are multiples of 8, head dims multiples of 8 up to 128; key_mask (batch,
+// are multiples of 8, head dims multiples of 8 up to 256; key_mask (batch,
 // nk) bytes or null; writes out (batch, n_heads, nq, d_v) bf16 and lse
 // (batch, n_heads, nq) fp32, contiguous. Returns a cudaError_t value; 0 on
 // a clean launch.
@@ -397,7 +428,8 @@ extern "C" int flash_attention_fwd_tma(
     int64_t k_n, int64_t v_b, int64_t v_h, int64_t v_n, float scale,
     int causal, void* stream) {
   const int64_t st[9] = {q_b, q_h, q_n, k_b, k_h, k_n, v_b, v_h, v_n};
-  if (bad_tma_inputs(batch, n_heads, nq, nk, d_qk, d_v, st, {q, k, v, out}))
+  if (bad_tma_inputs(batch, n_heads, nq, nk, d_qk, d_v, st, {q, k, v, out},
+                     256))
     return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0 || batch == 0 || n_heads == 0) return 0;
   FwdArgs a;
@@ -409,13 +441,19 @@ extern "C" int flash_attention_fwd_tma(
   a.nk = nk;
   a.d_qk = d_qk;
   a.d_v = d_v;
+  a.v_blocks = d_v > 128 ? 2 : 1;
   a.scale = scale;
   a.causal = causal;
   const auto s = static_cast<cudaStream_t>(stream);
   if (d_qk <= 64 && d_v <= 64)  // the multimodal MLA's Dv 32 at n32
     return d_v <= 32 ? launch_fwd<64, 64, 32>(a, q, k, v, batch, st, s)
                      : launch_fwd<64, 64>(a, q, k, v, batch, st, s);
+  // Dv above 128: 128 columns a block
   if (d_qk <= 64) return launch_fwd<64, 128>(a, q, k, v, batch, st, s);
-  return d_v <= 64 ? launch_fwd<128, 64>(a, q, k, v, batch, st, s)
-                   : launch_fwd<128, 128>(a, q, k, v, batch, st, s);
+  if (d_qk <= 128)
+    return d_v <= 64 ? launch_fwd<128, 64>(a, q, k, v, batch, st, s)
+                     : launch_fwd<128, 128>(a, q, k, v, batch, st, s);
+  if (d_qk <= 192)  // DeepSeek-V3's MLA: 192 / 128
+    return launch_fwd<192, 128>(a, q, k, v, batch, st, s);
+  return launch_fwd<256, 128>(a, q, k, v, batch, st, s);
 }

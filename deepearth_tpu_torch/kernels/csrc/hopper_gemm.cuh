@@ -406,6 +406,25 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
     wgmma_m64n128k16_rs<TransB>(d, a, b);
 }
 
+// d (64 x N fp32) += A (registers) . B, N = 32, 48, 64, 128, 192 or 256,
+// the B operand MN-major in 64-column panels. Above 128 columns as two
+// products over the same A: columns [0, 128) from b, [128, N) from b
+// advanced by `hi` (the byte offset of B's column 128, >> 4). The two
+// halves of d are the register layout of one m64nN accumulator.
+template <int N, int TransB>
+__device__ __forceinline__ void wgmma_rs_cols(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, uint64_t hi) {
+  if constexpr (N <= 128) {
+    wgmma_rs<N, TransB>(d, a, b);
+  } else {
+    static_assert(N == 192 || N == 256, "wgmma_rs_cols: N is 192 or 256");
+    wgmma_rs<128, TransB>(*reinterpret_cast<float(*)[64]>(&d[0]), a, b);
+    wgmma_rs<N - 128, TransB>(
+        *reinterpret_cast<float(*)[N / 2 - 64]>(&d[64]), a, b + hi);
+  }
+}
+
 // The register A operand of columns 16 t .. 16 t + 15 of an accumulator
 // (its 8-column groups 2 t and 2 t + 1), rounded to bf16.
 template <int N>

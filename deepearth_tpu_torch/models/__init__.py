@@ -3,6 +3,7 @@ from .deepearth import DeepEarthModel
 from .deepseek import (
     DeepSeekBlock,
     DeepSeekForCausalLM,
+    DeepSeekForSequenceClassification,
     DeepSeekTransformer,
     MLAttention,
     MoELayer,
@@ -36,7 +37,8 @@ from .transformer import GatedMLP, KernelParam, MLP
 
 __all__ = [
     "ModalityDecoder", "SpatiotemporalDecoder", "DeepEarthModel",
-    "DeepSeekBlock", "DeepSeekForCausalLM", "DeepSeekTransformer",
+    "DeepSeekBlock", "DeepSeekForCausalLM",
+    "DeepSeekForSequenceClassification", "DeepSeekTransformer",
     "MLAttention", "MoELayer",
     "SwiGLUMLP", "collect_moe_aux_losses", "select_dispatch_mode",
     "UniversalTokenEncoder", "CrossModalFusion", "FusionAttention",

@@ -3,11 +3,13 @@
 Batch schema (torch tensors on the model's device):
     xyzt:                 (B, 4) normalized coordinates
     modalities:           {name: (B,) int category ids | (B, Din) |
-                          (B, S, Din) native features}
+                          (B, S, Din) native features | (B, S) int token
+                          ids of a token_sequence modality}
     modality_masks:       {name: (B,) bool} True = visible (False -> mask
                           token)
-    modality_patch_masks: {name: (B, S) bool} True = visible patch; a hidden
-                          patch of a (B, S, Din) input contributes zeros
+    modality_patch_masks: {name: (B, S) bool} True = visible patch or token;
+                          a hidden patch of a (B, S, Din) input, or the
+                          embedding of a hidden token, contributes zeros
     spatial_mask:         (B,) bool True = visible
     temporal_mask:        (B,) bool True = visible
     spatial_positions:    optional {name: (B, n, 2)}; a modality with a
@@ -18,6 +20,7 @@ Batch schema (torch tensors on the model's device):
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Mapping, Optional
 
@@ -25,22 +28,13 @@ import torch
 from torch import nn
 
 from ..configs import DeepEarthConfig, ModalityConfig
+from ..ops.attention import dot_product_attention
 from .decoders import ModalityDecoder, SpatiotemporalDecoder
 from .deepseek import DeepSeekTransformer
 from .encoders import UniversalTokenEncoder
 from .fusion import CrossModalFusion
 from .grid4d import Grid4DEncoder
-from .layers import Dense, Embed, Init
-
-_TODO = {
-    "token_sequence": "models/encoders.py token_sequence inputs "
-                      "(ROADMAP.md Queue 1, item 9)",
-    "decode_sequence": "TokenSequenceDecoder (ROADMAP.md Queue 1, item 9)",
-}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {_TODO[what]}")
+from .layers import Dense, Embed, Init, LayerNorm
 
 
 def _native_dim(m: ModalityConfig) -> int:
@@ -59,11 +53,48 @@ def _square_side(n: int) -> Optional[int]:
     return side if n > 1 and side * side == n else None
 
 
+class TokenSequenceDecoder(nn.Module):
+    """Per-position outputs from a modality's fused tokens: ``seq_len``
+    learned position queries cross-attend into them (bias-free q, k, v and
+    o projections, ``n_heads`` heads), a residual, LayerNorm, then a Dense
+    to ``vocab_size``: MLM logits of a token sequence, or (``vocab_size``
+    the native feature dim) the full-sequence MAE reconstruction."""
+
+    def __init__(self, seq_len: int, vocab_size: int, dim: int,
+                 n_heads: int, init: Init, compute_dtype: torch.dtype):
+        super().__init__()
+        self.seq_len, self.n_heads = seq_len, n_heads
+        self.compute_dtype = compute_dtype
+        self.position_queries = init.normal((seq_len, dim))
+        for name in ("q", "k", "v", "o"):
+            self.add_module(name, Dense(dim, dim, init, compute_dtype,
+                                        use_bias=False))
+        self.norm = LayerNorm(dim, 1e-6, init, compute_dtype)
+        self.vocab_proj = Dense(dim, vocab_size, init, compute_dtype)
+
+    def forward(self, fused_tokens: torch.Tensor) -> torch.Tensor:
+        """fused_tokens (B, n_tokens, dim) -> (B, seq_len, vocab_size)."""
+        B, n, D = fused_tokens.shape
+        S, H = self.seq_len, self.n_heads
+        Dh = D // H
+        q_in = self.position_queries.to(self.compute_dtype)[None].expand(
+            B, S, D)
+        kv = fused_tokens.to(self.compute_dtype)
+        q = self.q(q_in).view(B, S, H, Dh).transpose(1, 2)
+        k = self.k(kv).view(B, n, H, Dh).transpose(1, 2)
+        v = self.v(kv).view(B, n, H, Dh).transpose(1, 2)
+        out = dot_product_attention(q, k, v, scale=Dh ** -0.5)
+        h = q_in + self.o(out.transpose(1, 2).reshape(B, S, D))
+        return self.vocab_proj(self.norm(h))
+
+
 class DeepEarthModel(nn.Module):
     """Grid4D spacetime token + per-modality universal tokens (learned
-    embeddings, or universal-token encoders over native features) -> fusion
-    -> (with ``fusion.deepseek_block``, the DeepSeek MLA/MoE simulator over
-    the fused tokens) -> reconstruction decoders.
+    embeddings, or universal-token encoders over native features or over a
+    token sequence's embeddings) -> fusion -> (with
+    ``fusion.deepseek_block``, the DeepSeek MLA/MoE simulator over the fused
+    tokens) -> reconstruction decoders (a token sequence's, and a
+    decode_sequence modality's, per position).
 
     Args:
         config: the model configuration.
@@ -72,9 +103,13 @@ class DeepEarthModel(nn.Module):
         device: where the parameters live: the card unless the caller asks
             for another device (``device="cpu"``).
         native_seq_lens: each continuous modality's native sequence length S
-            for (B, S, Din) inputs (1, the default, for (B, Din) inputs). It
-            sizes the encoder's position table, as the first batch does in
-            the JAX package; longer inputs interpolate the table.
+            for (B, S, Din) inputs (1, the default, for (B, Din) inputs), and
+            each token_sequence modality's S for its (B, S) ids (required).
+            It sizes the encoder's position table, as the first batch does
+            in the JAX package (longer inputs interpolate the table), and
+            the position queries of a token_sequence modality's decoder and
+            of a decode_sequence modality's, which is built where its S is
+            given here (the (B, S, Din) inputs it reconstructs whole).
     """
 
     def __init__(self, config: DeepEarthConfig, *,
@@ -82,15 +117,17 @@ class DeepEarthModel(nn.Module):
                  native_seq_lens: Optional[Mapping[str, int]] = None):
         super().__init__()
         cfg = config
-        for m in cfg.modalities.values():
-            if m.encoding_type == "token_sequence":
-                raise _not_ported("token_sequence")
-            if m.decode_sequence:
-                raise _not_ported("decode_sequence")
+        native_seq_lens = dict(native_seq_lens or {})
+        for name, m in cfg.modalities.items():
+            if m.encoding_type == "token_sequence" and \
+                    name not in native_seq_lens:
+                raise ValueError(
+                    f"token_sequence modality {name!r}: give its sequence "
+                    "length in native_seq_lens (it sizes the position table "
+                    "and the decoder's position queries)")
         self.config = cfg
         cd = cfg.compute_dtype
         D = cfg.fusion.universal_dim
-        native_seq_lens = dict(native_seq_lens or {})
         init = Init(generator, device, cfg.param_dtype)
         self.grid4d = Grid4DEncoder(cfg.grid4d, cfg.hidden_dim, init, cd)
         if cfg.hidden_dim != D:
@@ -99,10 +136,15 @@ class DeepEarthModel(nn.Module):
         self.modality_names = sorted(cfg.modalities)
         for name in self.modality_names:
             m = cfg.modalities[name]
-            if m.encoding_type == "learned_embedding":
+            if m.encoding_type in ("learned_embedding", "token_sequence"):
                 self.add_module(f"embed_{name}",
                                 Embed(m.vocab_size, D, init, cd))
-            else:
+            if m.encoding_type == "token_sequence":
+                # the encoder runs over the (B, S, D) embeddings
+                self.add_module(f"encoder_{name}", UniversalTokenEncoder(
+                    dataclasses.replace(m, input_dim=D), D, init, cd,
+                    native_seq_len=native_seq_lens[name]))
+            elif m.encoding_type != "learned_embedding":
                 self.add_module(f"encoder_{name}", UniversalTokenEncoder(
                     m, D, init, cd,
                     native_seq_len=native_seq_lens.get(name, 1)))
@@ -119,8 +161,16 @@ class DeepEarthModel(nn.Module):
         self.spatial_decoder = SpatiotemporalDecoder(D, 3, init, cd)
         self.temporal_decoder = SpatiotemporalDecoder(D, 1, init, cd)
         for name in self.modality_names:
-            self.add_module(f"decoder_{name}", ModalityDecoder(
-                D, _native_dim(cfg.modalities[name]), init, cd))
+            m = cfg.modalities[name]
+            if m.encoding_type == "token_sequence" or (
+                    m.decode_sequence and name in native_seq_lens):
+                # MLM logits per token, or the MAE reconstruction per patch
+                decoder = TokenSequenceDecoder(
+                    native_seq_lens[name], _native_dim(m), D,
+                    m.encoder_heads, init, cd)
+            else:
+                decoder = ModalityDecoder(D, _native_dim(m), init, cd)
+            self.add_module(f"decoder_{name}", decoder)
 
     def forward(self, batch: Dict[str, Any],
                 generator: Optional[torch.Generator] = None
@@ -144,11 +194,18 @@ class DeepEarthModel(nn.Module):
             if name not in modalities:
                 continue
             x = modalities[name]
+            kind = cfg.modalities[name].encoding_type
             if name in patch_masks and x.dim() == 3:
                 # MAE-style patch masking: hidden patches contribute zeros
                 x = x * patch_masks[name][..., None].to(x.dtype)
-            if cfg.modalities[name].encoding_type == "learned_embedding":
+            if kind == "learned_embedding":
                 tok = getattr(self, f"embed_{name}")(x)[:, None, :]
+            elif kind == "token_sequence":
+                # (B, S) ids -> embeddings; MLM-hidden positions are zeroed
+                emb = getattr(self, f"embed_{name}")(x)
+                if name in patch_masks:
+                    emb = emb * patch_masks[name][..., None].to(emb.dtype)
+                tok = getattr(self, f"encoder_{name}")(emb, generator)
             else:
                 tok = getattr(self, f"encoder_{name}")(x, generator)
             if name in masks:
@@ -184,9 +241,19 @@ class DeepEarthModel(nn.Module):
         recon = {"spatial": self.spatial_decoder(st_fused),
                  "temporal": self.temporal_decoder(st_fused)}
         for name in self.modality_names:
-            if name in tokens:
-                pooled = fusion_out["modality_tokens"][name].mean(dim=1)
-                recon[name] = getattr(self, f"decoder_{name}")(pooled)
+            if name not in tokens:
+                continue
+            fused = fusion_out["modality_tokens"][name]
+            decoder = getattr(self, f"decoder_{name}")
+            m = cfg.modalities[name]
+            whole = m.encoding_type == "token_sequence" or (
+                m.decode_sequence and modalities[name].dim() == 3)
+            if whole != isinstance(decoder, TokenSequenceDecoder):
+                raise ValueError(
+                    f"decode_sequence modality {name!r}: its sequence "
+                    "decoder is built from native_seq_lens for (B, S, Din) "
+                    f"inputs, got {tuple(modalities[name].shape)}")
+            recon[name] = decoder(fused if whole else fused.mean(dim=1))
         return {
             "reconstructions": recon,
             "fused_representation": fusion_out["fused_representation"],

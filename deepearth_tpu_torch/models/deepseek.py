@@ -1,7 +1,8 @@
 """DeepSeek-style components, PyTorch port of
 ``deepearth_tpu/models/deepseek.py``: MLA attention, the SwiGLU MLP, the
-MoE layer and its dispatch rule, the decoder block, the sequential stack and
-the causal LM over it (token decoding: ``models/generation.py``).
+MoE layer and its dispatch rule, the decoder block, the sequential stack,
+the causal LM over it (token decoding: ``models/generation.py``) and the
+pooled sequence classifier.
 
 MLA attention over at least ``flash_min_seq`` tokens (with
 ``use_flash_attention``) runs the flash kernels K4-fwd/K4-bwd on the card,
@@ -37,8 +38,7 @@ from .layers import Dense, Embed, Init, dropout
 FLASH_SHAPE = (
     "MLA attention over {n} >= flash_min_seq={m} tokens runs the flash "
     "kernel K4 on the card, which takes head dims up to {most}, not Dqk "
-    "{qh} and Dv {vh}: wider heads (DeepSeek-V3's 192) wait for ROADMAP.md "
-    "Queue 1, item 13")
+    "{qh} and Dv {vh}")
 PIPELINE_TODO = ("pipelined DeepSeek stacks (pipeline_stages > 1) are not "
                  "ported yet (ROADMAP.md Queue 1, item 15)")
 
@@ -404,3 +404,45 @@ class DeepSeekForCausalLM(nn.Module):
         if self.tie_embeddings:
             return self.embed_tokens.attend(h.to(self.param_dtype))
         return self.lm_head(h)
+
+
+class DeepSeekForSequenceClassification(nn.Module):
+    """Pooled classifier head over the DeepSeek stack: token ids through an
+    embedding (``vocab_size`` set) or (B, S, hidden) features, the stack
+    (not causal) with the key mask, the mean over the unmasked positions,
+    then the ``score`` Dense (with bias) to ``num_labels`` logits.
+    Parameters are made in ``param_dtype`` on ``device`` (the card unless
+    the caller names another) from ``generator``."""
+
+    def __init__(self, cfg: DeepSeekBlockConfig, num_labels: int,
+                 vocab_size: Optional[int] = None, *,
+                 generator: torch.Generator, device="cuda",
+                 compute_dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        init = Init(generator, device, param_dtype)
+        self.cfg, self.num_labels = cfg, num_labels
+        self.compute_dtype = compute_dtype
+        if vocab_size is not None:
+            self.embed_tokens = Embed(vocab_size, cfg.hidden_dim, init,
+                                      compute_dtype)
+        self.model = DeepSeekTransformer(cfg, init, compute_dtype)
+        self.score = Dense(cfg.hidden_dim, num_labels, init, compute_dtype)
+
+    def forward(self, inputs: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """inputs (B, S) ids or (B, S, hidden) features -> (B, num_labels)
+        logits; attention_mask optional (B, S) bool, True = a real
+        position."""
+        if hasattr(self, "embed_tokens"):
+            h = self.embed_tokens(inputs)
+        else:
+            h = inputs.to(self.compute_dtype)
+        h = self.model(h, key_mask=attention_mask, generator=generator)
+        if attention_mask is not None:
+            w = attention_mask[..., None].to(h.dtype)
+            pooled = (h * w).sum(1) / w.sum(1).clamp_min(1.0)
+        else:
+            pooled = h.mean(dim=1)
+        return self.score(pooled)

@@ -251,9 +251,9 @@ def load_hf_checkpoint(
         for n in names:
             full = os.path.join(path, n)
             if n.endswith(".safetensors"):
-                from safetensors.numpy import load_file
+                from ..utils.checkpoint_files import read_safetensors
 
-                sd.update(load_file(full))
+                sd.update(read_safetensors(full))
             elif n.endswith((".bin", ".pt", ".pth")):
                 import torch
 

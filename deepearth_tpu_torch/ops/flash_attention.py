@@ -18,9 +18,11 @@ probabilities from it and takes ``di = rowsum(out o dout)``, as the
 library's backward does.
 
 What the port does not copy from the JAX call site: the TPU layout (v
-zero-padded to q's head dim, N padded to a multiple of 128, segment ids for
-the pads and the key mask). The kernels take Dqk != Dv, any N and a (B, N)
-key mask. One semantic difference is kept on purpose: a query whose keys are
+zero-padded to q's head dim, q and k zero-padded to a multiple of 128 above
+128, N padded to a multiple of 128, segment ids for the pads and the key
+mask). The kernels take Dqk != Dv up to 256 each (DeepSeek-V3's 192 / 128
+among them: their TMA routes pad inside, loading only the 64-wide panels
+that hold the head dims), any N and a (B, N) key mask. One semantic difference is kept on purpose: a query whose keys are
 all masked outputs 0, the repository's convention, where the library kernel
 outputs the mean of v (it adds a finite mask value and guards only a zero
 sum).
@@ -35,7 +37,7 @@ import torch
 from .. import kernels
 from .attention_vmem import NEG_BIG
 
-MAX_DIM = kernels.ATTN_MAX_DIM
+MAX_DIM = kernels.FLASH_MAX_DIM
 
 
 def supported(dqk: int, dv: int) -> bool:
@@ -142,7 +144,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Args:
         q: (B, H, Nq, Dqk); k: (B, H, Nk, Dqk); v: (B, H, Nk, Dv); head dims
-            at most 128.
+            at most 256.
         key_mask: optional (B, Nk) bool, False = masked out.
         causal: key j is visible to query i iff j <= i.
 

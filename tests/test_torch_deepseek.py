@@ -165,7 +165,8 @@ def mla_cfgs(**kw):
 
 
 @pytest.mark.parametrize("variant", ["plain", "q_lora", "yarn_bias",
-                                     "key_mask", "causal", "flash_gate_cpu"])
+                                     "key_mask", "causal", "flash_gate_cpu",
+                                     "v3_heads_flash"])
 def test_mla_matches_jax(variant):
     kw = {}
     if variant == "q_lora":
@@ -177,6 +178,11 @@ def test_mla_matches_jax(variant):
     if variant == "flash_gate_cpu":
         # N >= flash_min_seq: the CPU runs the plain path, as JAX on the CPU
         kw = dict(use_flash_attention=True, flash_min_seq=16)
+    if variant == "v3_heads_flash":
+        # DeepSeek-V3's head widths (q 192 = nope 128 + rope 64, v 128) with
+        # flash on: no longer refused; the CPU runs the plain path
+        kw = dict(qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+                  use_flash_attention=True, flash_min_seq=16)
     jc, tc = mla_cfgs(**kw)
     x = features(4, B, N, D)
     mask = None
@@ -298,3 +304,54 @@ def test_deepseek_config_json_round_trips():
     assert block.moe.n_routed_experts == 4 and block.moe.hidden_dim == D
     back = jcfg.config_from_json(tcfg.config_to_json(port))
     assert back.fusion.deepseek_block == cfg.fusion.deepseek_block
+
+
+# --------------------------------------------------------------------------- #
+# DeepSeekForSequenceClassification
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("inputs", ["ids", "features"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_sequence_classifier_matches_jax(inputs, masked):
+    """Token ids (the embedding) or (B, N, D) features through the stack
+    with and without a key mask, the masked mean and the score head; the
+    port's parameters come from JAX's init through load_flax_params and go
+    back through flax_params_from_model unchanged."""
+    from deepearth_tpu_torch.convert import flax_params_from_model
+
+    jc_mla, tc_mla = mla_cfgs(q_lora_rank=24)
+    jc = jcfg.DeepSeekBlockConfig(hidden_dim=D, n_layers=2,
+                                  intermediate_size=96, mla=jc_mla)
+    tc = tcfg.DeepSeekBlockConfig(hidden_dim=D, n_layers=2,
+                                  intermediate_size=96, mla=tc_mla)
+    vocab = 50 if inputs == "ids" else None
+    if inputs == "ids":
+        x = np.random.default_rng(8).integers(0, 50, (B, N)).astype(np.int32)
+    else:
+        x = features(8, B, N, D)
+    mask = None
+    if masked:
+        mask = np.ones((B, N), bool)
+        mask[1, 13:] = False
+    apply, params, mod = jax_module_pair(
+        jds.DeepSeekForSequenceClassification(jc, 7, vocab),
+        tds.DeepSeekForSequenceClassification(
+            tc, 7, vocab, generator=torch.Generator().manual_seed(0),
+            device="cpu"), x, mask)
+    assert sorted(params) == sorted(
+        (["embed_tokens"] if vocab else []) + ["model", "score"])
+    ref = apply(params, jnp.asarray(x),
+                None if mask is None else jnp.asarray(mask))
+    with torch.no_grad():
+        out = mod(torch.from_numpy(x),
+                  None if mask is None else torch.from_numpy(mask))
+    assert out.shape == (B, 7)
+    close_rel(out, ref)
+    back = flax_params_from_model(mod)
+    flat = jax.tree_util.tree_leaves_with_path(params)
+    assert len(flat) == len(jax.tree_util.tree_leaves(back))
+    for path, leaf in flat:
+        node = back
+        for key in path:
+            node = node[key.key]
+        np.testing.assert_array_equal(node, np.asarray(leaf))

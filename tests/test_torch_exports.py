@@ -16,6 +16,7 @@ EXPORTS = [  # (package path, name, the port's defining submodule)
     ("models", "config_from_hf", "models.hf_convert"),
     ("models", "convert_hf_state_dict", "models.hf_convert"),
     ("models", "load_hf_checkpoint", "models.hf_convert"),
+    ("models", "DeepSeekForSequenceClassification", "models.deepseek"),
     ("ops", "HASH_PRIMES", "ops.hash_encoding"),
     ("ops", "yarn_get_mscale", "ops.rope"),
     ("serving", "HashEmbedder", "serving.language_server"),

@@ -15,6 +15,11 @@ summed in other orders); bf16 one bf16 ulp of each output's largest entry
 exp(s - lse), so a p or ds rounded to bf16 may land on the other
 neighbour). Every row sees at least one key (key 0 stays visible), except in
 the test that pins where the two differ: a row whose keys are all masked.
+
+Heads wider than 128 (192 / 128, DeepSeek-V3's MLA, and 256 / 256) are held
+against JAX's ``dot_product_attention``, the einsum path JAX takes on the
+CPU, and its ``jax.vjp``, with a key mask and causal: fp32, 2e-5 of each
+output's largest entry.
 """
 
 import jax
@@ -161,4 +166,58 @@ def test_all_masked_row_is_zero_where_the_library_gives_the_mean_of_v():
 
 def test_supported_head_dims():
     assert tflash.supported(48, 32) and tflash.supported(128, 128)
-    assert not tflash.supported(192, 128) and not tflash.supported(64, 129)
+    assert tflash.supported(192, 128) and tflash.supported(256, 256)
+    assert tflash.supported(64, 129)
+    assert not tflash.supported(264, 128) and not tflash.supported(64, 257)
+
+
+# Heads wider than 128 (DeepSeek-V3's MLA, 192 / 128, and the widest the
+# JAX package's padding gives, 256 / 256), held against JAX's
+# dot_product_attention, the einsum path JAX takes on the CPU, and its
+# jax.vjp: fp32, 2e-5 of each output's largest entry.
+WIDE = {  # name: (Dqk, Dv, key mask, causal)
+    "192_128": (192, 128, False, False),
+    "192_128_key_mask_causal": (192, 128, True, True),
+    "256_256_key_mask": (256, 256, True, False),
+    "256_256_causal": (256, 256, False, True),
+}
+
+
+@pytest.mark.parametrize("name", list(WIDE))
+def test_plain_versions_at_wide_heads_match_jax_attention(name):
+    from deepearth_tpu.ops.attention import dot_product_attention
+
+    dqk, dv, masked, causal = WIDE[name]
+    b, h, n = 2, 2, 40
+    rng = np.random.default_rng(20 + list(WIDE).index(name))
+    q, k = (rng.standard_normal((b, h, n, dqk)).astype(np.float32)
+            for _ in range(2))
+    v, do = (rng.standard_normal((b, h, n, dv)).astype(np.float32)
+             for _ in range(2))
+    mask = rng.uniform(size=(b, n)) > 0.3
+    mask[:, 0] = True  # every causal row sees a key
+    scale = dqk ** -0.5
+    jmask = jnp.asarray(mask) if masked else None
+    ref, vjp = jax.vjp(lambda q_, k_, v_: dot_product_attention(
+        q_, k_, v_, scale=scale, key_mask=jmask, is_causal=causal),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    ref_grads = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    kw = dict(scale=scale, key_mask=torch.from_numpy(mask) if masked else None,
+              causal=causal)
+    out, lse = tflash.flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    grads = tflash.flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo, **kw)
+    assert out.shape == (b, h, n, dv)
+    np.testing.assert_allclose(out.numpy(), f32(ref), rtol=0,
+                               atol=tolerance(f32(ref), "fp32"))
+    for got, r, label in zip(grads, ref_grads, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(got.numpy(), f32(r), rtol=0,
+                                   atol=tolerance(f32(r), "fp32"),
+                                   err_msg=label)
+    # the autograd.Function takes the same plain versions for CPU tensors
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    again = tflash.flash_attention(*leaves, **kw)
+    again.backward(tdo)
+    assert torch.equal(again, out)
+    for leaf, g in zip(leaves, grads):
+        assert torch.equal(leaf.grad, g)

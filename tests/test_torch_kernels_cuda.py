@@ -689,13 +689,23 @@ def test_vmem_attention_autograd_runs_k3_bwd(cuda):
     (1, 8, 4608, 128, 128, False, False, True),  # the flagship's clip MLA
     (2, 2, 700, 40, 36, False, False, False),  # off TMA's grid: mma.sync
     (2, 2, 700, 128, 64, True, False, False),  # Dqk != Dv, both panels
+    # heads above 128: DeepSeek-V3's MLA (192 / 128), and 256 / 256 (Dv
+    # split across two blocks in the forward, dk and dv in two kernels in
+    # the backward)
+    (1, 16, 1024, 192, 128, False, False, True),
+    (2, 2, 1500, 192, 128, True, True, False),
+    (2, 4, 1000, 256, 256, True, False, False),
+    (1, 4, 4608, 256, 256, False, False, True),
+    (2, 2, 700, 200, 136, False, True, False),  # partial panels
+    (2, 2, 700, 190, 126, True, False, False),  # off TMA's grid: mma.sync
 ])
 def test_flash_attention_matches_plain(cuda, dtype, b, h, n, dqk, dv, mask,
                                        causal, strided):
     """K4-fwd and K4-bwd against their plain versions, each by the route
     the shapes and strides choose (TMA for bf16 on the 8-element grid,
     mma.sync for other bf16, CUDA cores for fp32), once on that route's
-    counter, two runs of each bitwise equal."""
+    counter, two runs of each bitwise equal; bf16 on the grid also on the
+    mma.sync route (its wrappers take any shapes)."""
     smoke = _smoke()
     g = torch.Generator(device=cuda).manual_seed(n + dqk)
     q, k, v, dout, key_mask = smoke.attention_case(g, b, h, n, n, dqk, dv,
@@ -732,6 +742,13 @@ def test_flash_attention_matches_plain(cuda, dtype, b, h, n, dqk, dv, mask,
     if mask:
         assert bool((out[0] == 0).all())  # the library would give mean(v)
     smoke.check_grads("K4-bwd", got, ref_grads, dtype, key_mask)
+    if route == "":
+        out, lse = kernels.flash_attention_fwd_mma(q, k, v, kw["scale"],
+                                                   key_mask, causal)
+        smoke.check_flash_out("K4-fwd mma.sync", out, ref, dtype)
+        smoke.check_grads("K4-bwd mma.sync", kernels.flash_attention_bwd_mma(
+            q, k, v, out, lse, dout, kw["scale"], key_mask, causal),
+            ref_grads, dtype, key_mask)
 
 
 def test_mla_flash_gate_runs_k4_on_the_card(cuda):
@@ -773,7 +790,7 @@ def test_mla_flash_gate_runs_k4_on_the_card(cuda):
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn((1, 2, 40, 48), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
-        wide = torch.randn((1, 2, 40, 192), device=cuda, dtype=torch.bfloat16)
+        wide = torch.randn((1, 2, 40, 264), device=cuda, dtype=torch.bfloat16)
         kernels.flash_attention_fwd(wide, wide, q, 0.1)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         kernels.flash_attention_fwd(q.half(), q.half(), q.half(), 0.1)
@@ -787,12 +804,25 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
     out, lse = kernels.flash_attention_fwd(q, q, q, 0.1)
     with pytest.raises(ValueError, match="lse"):
         kernels.flash_attention_bwd(q, q, q, out, lse[:, :1], out, 0.1)
+    # DeepSeek-V3's heads (q 192, v 128) run K4; above 256 the MLA raises
     cfg = MLAConfig(hidden_dim=64, n_heads=2, kv_lora_rank=16,
                     qk_rope_head_dim=64, qk_nope_head_dim=128, v_head_dim=128,
                     use_flash_attention=True, flash_min_seq=16)
     mla = MLAttention(cfg, Init(torch.Generator(device=cuda), cuda),
                       torch.bfloat16)
-    with torch.no_grad(), pytest.raises(ValueError, match="item 13"):
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        x = torch.randn((1, 32, 64), device=cuda)
+        out = mla(x)
+        with _smoke().plain_versions():
+            ref = mla(x)
+    assert kernels.launch_counts["flash_attention_fwd"] == 1
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        2e-2 * ref.float().abs().max().item()
+    cfg.qk_nope_head_dim = 200
+    mla = MLAttention(cfg, Init(torch.Generator(device=cuda), cuda),
+                      torch.bfloat16)
+    with torch.no_grad(), pytest.raises(ValueError, match="up to 256"):
         mla(torch.randn((1, 32, 64), device=cuda))
 
 

@@ -258,20 +258,50 @@ def test_batch_major_layout_not_ported(pair):
 @pytest.mark.parametrize("what", ["continuous_values", "token_sequence",
                                   "deepseek_block"])
 def test_unported_branches_raise(what):
-    """continuous_values is ported, with its MoE projection, and so is the
-    simulator; a continuous modality's sequence decoder, token sequences
-    and a pipelined simulator are not."""
-    cfg = config_from_json(jcfg.config_to_json(small_jax_config()))
+    """A pipelined simulator still raises. The other two branches are
+    ported and match JAX's forward: a continuous modality with its MoE
+    projection and decode_sequence (its (B, S, Din) input reconstructed
+    whole by a TokenSequenceDecoder), and a token sequence ((B, S) ids, an
+    embedding zeroed at MLM-hidden positions, the encoder, per-token
+    logits)."""
     if what == "deepseek_block":
+        cfg = config_from_json(jcfg.config_to_json(small_jax_config()))
         cfg.fusion.deepseek_block = DeepSeekBlockConfig(hidden_dim=128,
                                                         pipeline_stages=2)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DeepEarthModel(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+        return
+    jc = small_jax_config()
+    m = jc.modalities["species"]
+    m.encoding_type, m.use_moe_projection, m.decode_sequence = what, True, True
+    m.n_tokens, m.encoder_layers, m.encoder_heads = 4, 1, 4
+    rng = np.random.default_rng(12)
+    S = 7
+    if what == "continuous_values":
+        m.input_dim, m.vocab_size = 24, None
+        x = rng.standard_normal((B, S, 24)).astype(np.float32)
     else:
-        cfg.modalities["species"].encoding_type = what
-        cfg.modalities["species"].use_moe_projection = True
-        cfg.modalities["species"].decode_sequence = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeepEarthModel(cfg, generator=torch.Generator().manual_seed(0),
-                       device="cpu")
+        x = rng.integers(0, VOCAB, (B, S)).astype(np.int32)
+    batch = {"xyzt": rng.uniform(0.0, 1.0, (B, 4)).astype(np.float32),
+             "modalities": {"species": x},
+             "modality_patch_masks": {"species": rng.uniform(size=(B, S))
+                                      > 0.3}}
+    jmodel = JaxModel(jc)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                  to_jax(batch))["params"]
+    model = DeepEarthModel(config_from_json(jcfg.config_to_json(jc)),
+                           generator=torch.Generator().manual_seed(0),
+                           device="cpu", native_seq_lens={"species": S})
+    load_flax_params(model, jax.tree_util.tree_map(np.asarray, params))
+    ref = jax.jit(jmodel.apply)({"params": params}, to_jax(batch))
+    with torch.no_grad():
+        out = model(to_torch(batch))
+    width = 24 if what == "continuous_values" else VOCAB
+    assert out["reconstructions"]["species"].shape == (B, S, width)
+    for key in ("spatial", "temporal", "species"):
+        close(out["reconstructions"][key], ref["reconstructions"][key])
+    close(out["fused_representation"], ref["fused_representation"])
 
 
 def test_model_without_a_device_needs_a_card(monkeypatch):

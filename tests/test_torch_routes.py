@@ -62,13 +62,18 @@ def test_gmm_fwd_tma_route(dtype, m, k, n, want):
 
 CONTIGUOUS = [8 * 4608 * 48, 4608 * 48, 48]
 # (dtype, Dqk, Dv, the strides of q, k, v along B, H, N, whether the TMA
-# routes take them); K4-fwd, K4-bwd and K3-bwd share the rule
+# routes take them); K4-fwd and K4-bwd share the rule, with head dims up to
+# 256 (K3's routes stop at 128: VMEM_ROUTE_CASES)
 ATTENTION_ROUTE_CASES = [
     (torch.bfloat16, 48, 32, CONTIGUOUS * 3, True),  # the multimodal MLA
     (torch.bfloat16, 128, 128, [8 * 4608 * 128, 128, 1024] * 3, True),
     (torch.bfloat16, 64, 64, [64] * 9, True),
     (torch.bfloat16, 8, 8, [8] * 9, True),
-    (torch.bfloat16, 136, 128, [8 * 136] * 9, False),  # past 128
+    (torch.bfloat16, 136, 128, [8 * 136] * 9, True),  # past 128
+    (torch.bfloat16, 192, 128, [8 * 192] * 9, True),  # DeepSeek-V3's MLA
+    (torch.bfloat16, 256, 256, [8 * 256] * 9, True),
+    (torch.bfloat16, 264, 128, [8 * 264] * 9, False),  # past 256
+    (torch.bfloat16, 192, 264, [8 * 264] * 9, False),
     (torch.bfloat16, 40, 36, [8 * 40] * 9, False),  # Dv off the grid
     (torch.bfloat16, 4, 8, [8] * 9, False),  # below 8
     (torch.bfloat16, 48, 32, CONTIGUOUS * 2 + [8 * 4608 * 66, 66, 528],
