@@ -205,6 +205,30 @@ Phases, each printing one line:
      --verify on a DeepSeek-V3-shaped .safetensors checkpoint written here,
      then cli.generate, 32 greedy tokens on the card, equal to an
      in-process generate on the same parameters; the phase's wall time;
+ 22. activation checkpointing and the rest of models/: (a) phase 16's
+     flagship train step (576 patches, B=64) for 3 steps with remat off,
+     then with every modality's encoder_remat and fusion.remat at 'full'
+     and at 'dots', each run's model built from one seed: loss, aux term
+     and grad norm against remat off (FLAGSHIP_TRAIN_TOL), dispatch modes
+     and routed-token counts equal at every site and step, every kernel's
+     launches a step as without remat except the forward kernels inside the
+     checkpointed blocks (K5-fwd, K3-fwd), which must rise; step ms by CUDA
+     events and peak memory per run; (b) the C-stack at its published
+     widths: BidirectionalReconstructor(full_vision_output=True) trained 3
+     make_bidirectional_steps on clips of 8 x 24 x 24 x 1408 at B=256,
+     MultimodalAutoencoder (232 species) 3 make_autoencoder_steps at B=512,
+     MultimodalSharedSpace over (B, 576, 1408) and (B, 7168) at B=64 (K3-fwd
+     and K3-bwd at 577 keys, against the plain path: SLICE_TOL, TRAIN_TOL),
+     MultimodalUNet and BimodalMLPUNet train steps and species_topk; (c)
+     ModalityEncoder at 768 / 12 on B=4096, a 4-layer Transformer at 768 /
+     12 over 576 tokens with interleaved RoPE (K3 4/4 a step) and a 3-level
+     HierarchicalFusion over the multimodal fusion at B=512 (K1 on its last,
+     8-token level), each against the plain path; (d)
+     create_inductive_simulator('standard') with its flash gate on, B=8 x
+     1024 tokens with a token_mask: a forward (K4-fwd 24, K5-fwd 69)
+     against the plain path with routing pinned, a backward with remat
+     against one without (TRAIN_TOL); each part from a generator of its own
+     seeded from SEED; the phase's wall time;
 then a JSON line of the kernels, the card's name and power limit, and
 {"ok": true, ...} as the last line. Any failure raises and exits non-zero.
 Weights are random, drawn from a seeded generator on the card.
@@ -212,7 +236,10 @@ Weights are random, drawn from a seeded generator on the card.
     python3 chip_smoke.py --clip-batch-search
 
 runs only the flagship's train step at 4608 patches per observation and
-prints the largest batch that fits, without the last two lines.
+prints the largest batch that fits without activation checkpointing, then
+the largest with every modality's encoder_remat and fusion.remat at
+'full', with each one's step ms and peak memory, without the last two
+lines.
 
     python3 chip_smoke.py --flagship-train-spread 1 2 3 4 5 6
 
@@ -278,24 +305,39 @@ from deepearth_tpu_torch.configs import (
     MLAConfig,
     ModalityConfig,
     MoEConfig,
+    OptimizerConfig,
     TransformerConfig,
     integrated_config,
+    simulator_config,
 )
 from deepearth_tpu_torch.models import (
+    BidirectionalReconstructor,
+    BimodalMLPUNet,
     DeepEarthModel,
     DeepSeekForCausalLM,
     DeepSeekForSequenceClassification,
+    DeepSeekTransformer,
+    HierarchicalFusion,
+    MaskingStrategy,
+    ModalityEncoder,
+    MultimodalAutoencoder,
+    MultimodalSharedSpace,
+    MultimodalUNet,
+    Transformer,
     config_from_hf,
     MoELayer,
     cache_bytes_per_token,
     causal_lm_decode_step,
+    create_inductive_simulator,
     full_cache_bytes_per_token,
     fusion,
     generate,
     init_cache,
+    species_topk,
 )
 from deepearth_tpu_torch.models import grid4d as grid4d_model
 from deepearth_tpu_torch.models.deepseek import capacity
+from deepearth_tpu_torch.models.layers import Init
 from deepearth_tpu_torch.ops import (
     attention_smallseq,
     attention_vmem,
@@ -316,6 +358,8 @@ from deepearth_tpu_torch.training import (
     Trainer,
     TrainState,
     create_optimizer,
+    make_autoencoder_step,
+    make_bidirectional_step,
 )
 from deepearth_tpu_torch.training import trainer as trainer_module
 from deepearth_tpu_torch.convert import load_flax_params
@@ -474,8 +518,10 @@ FLAGSHIP_TRAIN_TOL = {"loss": TRAIN_TOL_FACTOR * PLAIN_VS_PLAIN_LOSS,
 PLAIN_VS_PLAIN_CLIP_LOSS = 2.32e-3
 CLIP_TRAIN_TOL = {"loss": TRAIN_TOL_FACTOR * PLAIN_VS_PLAIN_CLIP_LOSS,
                   "grad_norm": TRAIN_TOL["grad_norm"]}
-# the batches tried for the train step at 4608 patches, largest first
-CLIP_SEARCH_BATCHES = (64, 48, 32, 24, 16, 12, 8, 4, 2, 1)
+# the batches tried for the train step at 4608 patches, largest first,
+# without activation checkpointing and then with every modality's
+# encoder_remat and fusion.remat at 'full'
+CLIP_SEARCH_BATCHES = (128, 96, 64, 48, 32, 24, 16, 12, 8, 4, 2, 1)
 # K6 / K7 against their plain versions (phase 17): (E, C, D, F) of the decode
 # path at tools/bench_decode.py's widths. Dense projections reach them at
 # E=1 with C the batch: q_proj 2048 -> 3072, kv_a_proj_with_mqa 2048 -> 576
@@ -3712,37 +3758,62 @@ def mm_train_spread(seeds) -> None:
 
 def clip_batch_search(gen) -> None:
     """The flagship's train step at 4608 patches per observation, without
-    activation checkpointing: the largest batch of CLIP_SEARCH_BATCHES that
-    fits on the card, its step time, peak memory and dispatch modes."""
-    cfg = flagship_train_config()
-    model = DeepEarthModel(cfg, generator=gen, device=gen.device,
-                           native_seq_lens={"vision": CLIP_PATCHES,
-                                            "language": 16})
-    trainer = Trainer(model, cfg, FLAGSHIP_TRAIN_WEIGHTS, seed=SEED)
-    tried = []
-    for b in CLIP_SEARCH_BATCHES:
-        batch = make_flagship_batch(gen, b, CLIP_PATCHES)
-        failed = False
-        try:
-            timing = train_timing(trainer, batch, iters=2, plain=False)
-        except torch.cuda.OutOfMemoryError:
-            failed = True
-        model.zero_grad(set_to_none=True)
-        del batch
+    activation checkpointing and then with every modality's encoder_remat
+    and fusion.remat at 'full': for each, the largest batch of
+    CLIP_SEARCH_BATCHES that fits on the card, its step time, peak memory
+    and dispatch modes."""
+    found = {}
+    for policy in (None, "full"):
         free_cuda()
-        if failed:
-            tried.append(f"B={b} out of memory")
-            continue
-        print(f"[clip batch search] flagship train step at {CLIP_PATCHES} "
-              f"patches, no activation checkpointing: "
-              + "; ".join(tried + [f"B={b} fits"])
-              + f" | B={b}: step ms eager (CUDA events over 2 steps) "
-              f"{turns(timing)}, {b / timing['step_ms'] * 1e3:.2f} obs/s, "
-              f"peak mem {timing['peak_gib']:.2f} GiB | dispatch modes: "
-              + ", ".join(f"{k} {v}" for k, v in site_modes(model).items())
-              + f" | {card()}")
-        return
-    raise AssertionError(f"no batch fits: {tried}")
+        cfg = flagship_train_config()
+        set_remat_config(cfg, policy)
+        model = DeepEarthModel(cfg, generator=gen, device=gen.device,
+                               native_seq_lens={"vision": CLIP_PATCHES,
+                                                "language": 16})
+        trainer = Trainer(model, cfg, FLAGSHIP_TRAIN_WEIGHTS, seed=SEED)
+        what = ("no activation checkpointing" if policy is None else
+                f"encoder_remat and fusion.remat at '{policy}'")
+        tried = []
+        for b in CLIP_SEARCH_BATCHES:
+            batch = make_flagship_batch(gen, b, CLIP_PATCHES)
+            failed = False
+            try:
+                timing = train_timing(trainer, batch, iters=2, plain=False)
+            except torch.cuda.OutOfMemoryError:
+                failed = True
+            model.zero_grad(set_to_none=True)
+            del batch
+            free_cuda()
+            if failed:
+                tried.append(f"B={b} out of memory")
+                continue
+            batch = make_flagship_batch(gen, b, CLIP_PATCHES)
+            timing.update(step_peaks(trainer, batch))
+            del batch
+            free_cuda()
+            found[policy] = (b, timing)
+            print(f"[clip batch search] flagship train step at "
+                  f"{CLIP_PATCHES} patches, {what}: "
+                  + "; ".join(tried + [f"B={b} fits"])
+                  + f" | B={b}: step ms eager (CUDA events over 2 steps) "
+                  f"{turns(timing)}, {b / timing['step_ms'] * 1e3:.2f} "
+                  f"obs/s, peak mem {timing['peak_gib']:.2f} GiB (one step "
+                  f"from a fresh state: {timing['step_gib']:.2f} GiB, its "
+                  f"forward and backward {timing['fwd_bwd_gib']:.2f} GiB) "
+                  "| dispatch "
+                  "modes: " + ", ".join(f"{k} {v}" for k, v in
+                                        site_modes(model).items())
+                  + f" | {card()}")
+            break
+        del model, trainer
+        if policy not in found:
+            raise AssertionError(f"{what}: no batch fits: {tried}")
+    (b0, t0), (b1, t1) = found[None], found["full"]
+    print(f"[clip batch search] largest batch without remat B={b0} "
+          f"({t0['step_ms']:.1f} ms a step, {t0['peak_gib']:.2f} GiB; forward "
+          f"and backward {t0['fwd_bwd_gib']:.2f}), with remat 'full' B={b1} "
+          f"({t1['step_ms']:.1f} ms a step, {t1['peak_gib']:.2f} GiB; forward"
+          f" and backward {t1['fwd_bwd_gib']:.2f}) | {card()}")
 
 
 def bf16_ulp(x: torch.Tensor) -> float:
@@ -5432,11 +5503,767 @@ def phase_tokens(gen) -> dict:
     return {"wide": wide, "classifier": cls, "text": text, "ckpt": ckpt}
 
 
+# --------------------------------------------------------------------------- #
+# phase 22: activation checkpointing, the A-stack blocks, the fusion
+# pyramid, the C-stack and the inductive simulator
+# --------------------------------------------------------------------------- #
+
+# (a) the flagship's train step of phase 16 (576 patches, B=64, bf16 first
+# moment, factored second moment, moe_aux 0.01) with remat off, then with
+# every modality's encoder_remat and fusion.remat (the fusion layers and the
+# simulator's blocks) under each policy; TRAIN_STEPS steps each, every run's
+# model built from one seed and trained on the same batches
+REMAT_RUNS = (None, "full", "dots")
+# the kernels a flagship step launches in the forward inside a checkpointed
+# block (the simulator's K5-fwd, the vision encoder's K3-fwd): the
+# recompute launches them again
+REMAT_FWD_KERNELS = ("grouped_matmul_fwd", "vmem_attention_fwd")
+# (b) the C-stack at its published widths (V-JEPA2 1408 per patch, an image
+# of 576 patches or a clip of 8 x 24 x 24 for the full-grid decoder, a
+# 7168-wide language embedding) and each module's default widths, bf16
+# compute over fp32 parameters; the optimizer's cosine schedule without
+# warmup (lr 1e-4 at the first step). The full-grid decoder's batch is
+# bounded by memory, not time: 3 steps at B=192 took ~0.4 s and 45.2 GiB
+# on an H100 (PERF.md), so B=256 reaches ~60 GiB
+CSTACK_BIDIR_BATCH, CSTACK_AE_BATCH, CSTACK_SHARED_BATCH = 256, 512, 64
+CSTACK_UNET_BATCH, N_SPECIES, CSTACK_STEPS = 512, 232, 3
+CSTACK_OPT = OptimizerConfig(warmup_steps=0)
+# (c) the A-stack blocks at the A-stack's width (768, 12 heads): the
+# modality encoder (its transformer 4 layers deep, as the A-stack's) at
+# B=4096, a 4-layer transformer over 576 tokens with interleaved RoPE (K3 at
+# 576 keys, 64-wide heads); a 3-level pyramid over the multimodal config's
+# fusion (512 wide, 4 layers) with 16 vision and 4 language tokens
+ASTACK_ENC_BATCH, ASTACK_TF_BATCH, ASTACK_LAYERS = 4096, 64, 4
+HIER_BATCH, HIER_LEVELS = 512, 3
+# (d) the inductive simulator's standard preset (24 layers, 2048 wide, 16
+# heads, 8 experts), bf16, its MLA's flash gate on (the preset leaves it
+# off, and JAX then takes its plain path at 192-wide heads), at B=8 over
+# 1024 tokens with 15% of them masked
+SIM_BATCH, SIM_TOKENS, SIM_MASK_RATIO = 8, 1024, 0.15
+
+
+def set_remat_config(cfg: DeepEarthConfig, policy: Optional[str]) -> None:
+    """Every modality's encoder_remat and fusion.remat on under ``policy``
+    (None: off)."""
+    on, name = policy is not None, policy or "full"
+    cfg.fusion.remat, cfg.fusion.remat_policy = on, name
+    for m in cfg.modalities.values():
+        m.encoder_remat, m.encoder_remat_policy = on, name
+
+
+def step_loads(model) -> list:
+    """Each MoE site's routed-token counts of its last call, in order."""
+    return [m.load.clone() for m in moe_sites(model).values()]
+
+
+def read_peak_before_update(state) -> list:
+    """Make ``state``'s optimizer read the peak memory (GiB) as each update
+    starts, into the returned list: the peak of the forward and backward
+    alone when the peak is reset as each step starts."""
+    update, readings = state.optimizer.step, []
+
+    def step():
+        readings.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        update()
+    state.optimizer.step = step
+    return readings
+
+
+def step_peaks(trainer, batch) -> dict:
+    """One train step of ``trainer`` from a fresh state: the peak memory of
+    its forward and backward and of the whole step, in GiB."""
+    st = trainer.init_state()
+    readings = read_peak_before_update(st)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(st, batch, torch.Generator(device="cuda").manual_seed(3))
+    torch.cuda.synchronize()
+    peaks = {"fwd_bwd_gib": readings[0],
+             "step_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del st
+    trainer.model.zero_grad(set_to_none=True)
+    return peaks
+
+
+def remat_train_run(policy: Optional[str]) -> dict:
+    """TRAIN_STEPS flagship train steps with remat at ``policy``: the model
+    built from flagship_generator() (the same weights every run), the
+    batches and the trainer's masks from seeded generators of their own."""
+    free_cuda()
+    cfg = flagship_train_config()
+    set_remat_config(cfg, policy)
+    model = DeepEarthModel(cfg, generator=flagship_generator(),
+                           device="cuda",
+                           native_seq_lens={"vision": VISION_PATCHES,
+                                            "language": 16})
+    stacks = [m for m in model.modules()
+              if isinstance(m, (fusion.CrossModalFusion, DeepSeekTransformer))]
+    if any(m.remat != (policy is not None) for m in stacks):
+        raise AssertionError(f"remat {policy}: a stack built otherwise")
+    weights_sum = sum(p.float().sum().item() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    batches = [make_flagship_batch(gen, FLAGSHIP_TRAIN_BATCH, VISION_PATCHES)
+               for _ in range(TRAIN_STEPS)]
+    trainer = Trainer(model, cfg, FLAGSHIP_TRAIN_WEIGHTS, seed=SEED)
+    st = trainer.init_state()
+    before_update = read_peak_before_update(st)
+    steps, peak = [], 0.0
+    with plain_versions_refused():
+        for batch in batches:
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            st, m = trainer.train_step(st, batch, trainer.generator)
+            end.record()
+            end.synchronize()
+            steps.append({
+                "ms": start.elapsed_time(end),
+                "metrics": tuple(m[k].item() for k in
+                                 ("loss/total", "loss/moe_aux", "grad_norm")),
+                "launches": {k: v for k, v in kernels.launch_counts.items()
+                             if v},
+                "modes": site_modes(model), "loads": step_loads(model)})
+            peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+    del st, trainer, model, batches
+    free_cuda()
+    return {"steps": steps, "peak_gib": peak, "weights_sum": weights_sum,
+            "fwd_bwd_peak_gib": max(before_update)}
+
+
+def phase_remat_train() -> dict:
+    runs = {policy: remat_train_run(policy) for policy in REMAT_RUNS}
+    off = runs[None]
+    want = {k: v for k, v in expected_launches(**FLAGSHIP_PER_STEP).items()
+            if v}
+    for s in off["steps"]:
+        if s["launches"] != want:
+            raise AssertionError(f"remat off: launches a step "
+                                 f"{s['launches']} != {want}")
+    rel, added = {}, {}
+    for policy in REMAT_RUNS[1:]:
+        run = runs[policy]
+        if run["weights_sum"] != off["weights_sum"]:
+            raise AssertionError(f"remat {policy}: other weights")
+        rel[policy] = train_rel([s["metrics"] for s in run["steps"]],
+                                [s["metrics"] for s in off["steps"]])
+        for s, s0 in zip(run["steps"], off["steps"]):
+            if s["modes"] != s0["modes"] or not all(
+                    torch.equal(a, b) for a, b in zip(s["loads"],
+                                                      s0["loads"])):
+                raise AssertionError(f"remat {policy}: dispatch modes or "
+                                     "routed-token counts differ from remat "
+                                     "off")
+            for name in set(s["launches"]) | set(s0["launches"]):
+                n, n0 = s["launches"].get(name, 0), s0["launches"].get(name, 0)
+                if name in REMAT_FWD_KERNELS:
+                    if n <= n0:
+                        raise AssertionError(
+                            f"remat {policy}: {name} {n} a step, no more "
+                            f"than without remat ({n0})")
+                elif n != n0:
+                    raise AssertionError(f"remat {policy}: {name} {n} a step"
+                                         f" != {n0} without remat")
+        added[policy] = {k: run["steps"][-1]["launches"][k]
+                         - off["steps"][-1]["launches"][k]
+                         for k in REMAT_FWD_KERNELS}
+
+    def line(policy):
+        run = runs[policy]
+        ms = [s["ms"] for s in run["steps"]]
+        launches = run["steps"][-1]["launches"]
+        return (f"{policy or 'off'}: step ms (CUDA events) "
+                + ", ".join(f"{x:.1f}" for x in ms)
+                + f" (steps 2-{TRAIN_STEPS} mean "
+                f"{statistics.mean(ms[1:]):.1f}), peak {run['peak_gib']:.2f}"
+                f" GiB a step, {run['fwd_bwd_peak_gib']:.2f} GiB in its "
+                f"forward and backward (before the update), a step launches "
+                f"K5-fwd "
+                f"{launches.get('grouped_matmul_fwd', 0)}, K5-bwd "
+                f"{launches.get('grouped_matmul_bwd_dlhs', 0)} / "
+                f"{launches.get('grouped_matmul_bwd_drhs', 0)}, K3 "
+                f"{launches.get('vmem_attention_fwd', 0)} / "
+                f"{launches.get('vmem_attention_bwd', 0)}, K4 "
+                f"{launches.get('flash_attention_fwd', 0)} / "
+                f"{launches.get('flash_attention_bwd', 0)}; (loss, moe_aux, "
+                f"grad norm) by step {[s['metrics'] for s in run['steps']]}")
+    print(f"[22a remat, flagship train step] B={FLAGSHIP_TRAIN_BATCH}, "
+          f"{VISION_PATCHES} patches, bf16, {FLAGSHIP_TRAIN_WEIGHTS}, every "
+          "modality's encoder_remat and fusion.remat (the fusion layers and "
+          "the simulator's blocks) | " + " | ".join(line(p) for p in
+                                                   REMAT_RUNS)
+          + " | against remat off, rel diff: " + "; ".join(
+              f"{p} " + ", ".join(f"{k} {v:.3g}" for k, v in r.items())
+              for p, r in rel.items())
+          + f" (tol {FLAGSHIP_TRAIN_TOL}); dispatch modes and routed tokens "
+          "equal at every site and step; launches the recompute adds a step "
+          + "; ".join(f"{p} {a}" for p, a in added.items())
+          + ", every other kernel as without remat | " + card())
+    for policy, r in rel.items():
+        if any(r[k] > FLAGSHIP_TRAIN_TOL[k] for k in FLAGSHIP_TRAIN_TOL):
+            raise AssertionError(f"remat {policy} against remat off: {r} "
+                                 f"(tol {FLAGSHIP_TRAIN_TOL})")
+    total = collections.Counter()
+    for run in runs.values():
+        for s in run["steps"]:
+            total.update(s["launches"])
+    return {"launches": dict(total),
+            "peak_gib": {p or "off": runs[p]["peak_gib"] for p in runs},
+            "fwd_bwd_peak_gib": {p or "off": runs[p]["fwd_bwd_peak_gib"]
+                                 for p in runs}}
+
+
+def timed_steps(step, state, batch, gen, n=CSTACK_STEPS):
+    """``n`` recipe steps on one batch: per step (loss, ms by CUDA
+    events)."""
+    out = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch, gen)
+        end.record()
+        end.synchronize()
+        out.append((m["loss/total"].item(), start.elapsed_time(end)))
+    return out
+
+
+def check_falls(name, steps) -> None:
+    losses = [loss for loss, _ in steps]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"{name}: losses {losses} not finite or not "
+                             "falling on one repeated batch")
+
+
+def grad_norm_of(module) -> float:
+    return torch.linalg.vector_norm(torch.stack([
+        p.grad.float().norm() for p in module.parameters()
+        if p.grad is not None])).item()
+
+
+def backward_run(module, forward, loss_of, plain: bool) -> tuple:
+    """forward() and the backward of loss_of(its output), through the
+    kernels (every plain version made to raise) or through the plain
+    versions: (the output, the loss, the module's gradient norm)."""
+    module.zero_grad(set_to_none=True)
+    with (plain_versions() if plain else plain_versions_refused()):
+        out = forward()
+        loss = loss_of(out)
+        loss.backward()
+    return out, loss.item(), grad_norm_of(module)
+
+
+def loss_grad_rel(kernel: tuple, plain: tuple) -> dict:
+    """Relative loss and grad-norm differences of two backward_run
+    results."""
+    return {key: abs(kernel[i] - plain[i]) / abs(plain[i])
+            for i, key in ((1, "loss"), (2, "grad_norm"))}
+
+
+def phase_cstack(gen) -> dict:
+    """(b): the C-stack's modules and recipes at their published widths."""
+    bf = torch.bfloat16
+    init = Init(gen, "cuda")
+    res, launches = {}, collections.Counter()
+
+    # the bidirectional reconstructor decoding the full V-JEPA2 grid
+    model = BidirectionalReconstructor(full_vision_output=True, init=init,
+                                       compute_dtype=bf)
+    b = CSTACK_BIDIR_BATCH
+    batch = {"vision": torch.randn((b, 4608, 1408), generator=gen,
+                                   device="cuda").to(bf),
+             "language": torch.randn((b, 7168), generator=gen,
+                                     device="cuda").to(bf)}
+    with torch.no_grad():
+        out = model.eval()(**batch)["vision_from_language"]
+    if tuple(out.shape) != (b, 8, 24, 24, 1408) or not bool(
+            out.isfinite().all()):
+        raise AssertionError(f"full-grid decode {tuple(out.shape)}")
+    del out
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res["bidirectional"] = timed_steps(
+        make_bidirectional_step(model),
+        TrainState(model, create_optimizer(model.parameters(), CSTACK_OPT)),
+        batch, gen)
+    res["bidirectional_peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches.update(kernels.launch_counts)
+    check_falls("bidirectional", res["bidirectional"])
+    del model, batch
+    free_cuda()
+
+    # the fusion-bottleneck autoencoder with its 232-species classifier
+    model = MultimodalAutoencoder(n_species=N_SPECIES, init=init,
+                                  compute_dtype=bf)
+    b = CSTACK_AE_BATCH
+    batch = {"vision": torch.randn((b, VISION_PATCHES, 1408), generator=gen,
+                                   device="cuda").to(bf),
+             "language": torch.randn((b, 7168), generator=gen,
+                                     device="cuda").to(bf),
+             "species": torch.randint(0, N_SPECIES, (b,), generator=gen,
+                                      device="cuda")}
+    kernels.reset_launch_counts()
+    res["autoencoder"] = timed_steps(
+        make_autoencoder_step(model),
+        TrainState(model, create_optimizer(model.parameters(), CSTACK_OPT)),
+        batch, gen)
+    launches.update(kernels.launch_counts)
+    check_falls("autoencoder", res["autoencoder"])
+    del model, batch
+    free_cuda()
+
+    # the shared latent space: 32 latents cross-attend into 577 tokens (K3)
+    model = MultimodalSharedSpace({"vision": 1408, "language": 7168},
+                                  init=init, compute_dtype=bf)
+    b = CSTACK_SHARED_BATCH
+    feats = {"vision": torch.randn((b, VISION_PATCHES, 1408), generator=gen,
+                                   device="cuda").to(bf),
+             "language": torch.randn((b, 7168), generator=gen,
+                                     device="cuda").to(bf)}
+    targets = {"vision": feats["vision"].float().mean(dim=1),
+               "language": feats["language"].float()}
+
+    def shared_step(plain):
+        return backward_run(
+            model, lambda: model(feats),
+            lambda out: sum(((out["reconstructions"][k].float() - t) ** 2)
+                            .mean() for k, t in targets.items()), plain)
+    kernels.reset_launch_counts()
+    with torch.no_grad(), plain_versions_refused():
+        out_k = model(feats)
+    fwd_launches = dict(kernels.launch_counts)
+    with torch.no_grad(), plain_versions():
+        out_p = model(feats)
+    diff = output_diff(
+        {"fused_representation": out_k["shared_embedding"],
+         "reconstructions": {**out_k["reconstructions"],
+                             "latents": out_k["latents"]}},
+        {"fused_representation": out_p["shared_embedding"],
+         "reconstructions": {**out_p["reconstructions"],
+                             "latents": out_p["latents"]}})
+    kernels.reset_launch_counts()
+    run_k = shared_step(False)
+    step_launches = dict(kernels.launch_counts)
+    run_p = shared_step(True)
+    shared_ms = cuda_ms(lambda: shared_step(False), iters=5, warmup=1)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: model(feats), iters=10, warmup=2)
+    launches.update(fwd_launches)
+    launches.update(step_launches)
+    res["shared"] = {"diff": diff, "ms": shared_ms,
+                     "fwd_ms": fwd_ms, "fwd_launches": fwd_launches,
+                     "step_launches": step_launches}
+    want_fwd = {"vmem_attention_fwd": 2}
+    if {k: v for k, v in fwd_launches.items() if v} != want_fwd:
+        raise AssertionError(f"shared space forward launches "
+                             f"{fwd_launches} != {want_fwd}")
+    if step_launches["vmem_attention_bwd"] != 2:
+        raise AssertionError(f"shared space step launches {step_launches}")
+    if any(diff[k] > SLICE_TOL[k] for k in SLICE_TOL):
+        raise AssertionError(f"shared space kernel vs plain {diff}")
+    shared_rel = res["shared"]["rel"] = loss_grad_rel(run_k, run_p)
+    if any(shared_rel[k] > TRAIN_TOL[k] for k in TRAIN_TOL):
+        raise AssertionError(f"shared space kernel vs plain {shared_rel}")
+    del model, feats, targets, out_k, out_p, run_k, run_p
+    free_cuda()
+
+    # the MLP U-Nets: cross-modal (30% of the language features hidden) and
+    # image <-> species over a learned 232-row table, then top-5 retrieval
+    b = CSTACK_UNET_BATCH
+    unet = MultimodalUNet(1408, 7168, init=init, compute_dtype=bf)
+    vision = torch.randn((b, VISION_PATCHES, 1408), generator=gen,
+                         device="cuda").to(bf)
+    language = torch.randn((b, 7168), generator=gen, device="cuda").to(bf)
+    target = torch.cat([vision.float().mean(dim=1), language.float()], -1)
+
+    def unet_step(state, batch, g):
+        unet.train()
+        unet.zero_grad(set_to_none=True)
+        out = unet(vision, language, g)
+        recon = torch.cat([out["vision_recon"], out["language_recon"]], -1)
+        loss = ((recon.float() - target) ** 2).mean()
+        loss.backward()
+        state.optimizer.step()
+        return state, {"loss/total": loss.detach()}
+    res["unet"] = timed_steps(unet_step, TrainState(unet, create_optimizer(
+        unet.parameters(), CSTACK_OPT)), None, gen)
+    check_falls("multimodal U-Net", res["unet"])
+    del unet, vision, language, target
+
+    bimodal = BimodalMLPUNet(N_SPECIES, init=init, compute_dtype=bf)
+    emb = torch.randn((b, 2048), generator=gen, device="cuda")
+
+    def bimodal_step(state, batch, g):
+        bimodal.train()
+        bimodal.zero_grad(set_to_none=True)
+        out = bimodal(embedding=emb, generator=g)
+        loss = ((out["recon"].float() - out["target"].float()) ** 2).mean()
+        loss.backward()
+        state.optimizer.step()
+        return state, {"loss/total": loss.detach()}
+    res["bimodal"] = timed_steps(bimodal_step, TrainState(
+        bimodal, create_optimizer(bimodal.parameters(), CSTACK_OPT)), None,
+        gen)
+    check_falls("bimodal U-Net", res["bimodal"])
+    bimodal.eval()
+    with torch.no_grad():
+        recon = bimodal(embedding=emb)["recon"]
+        top = species_topk(recon.float(), bimodal.table().float(), k=5)
+        res["topk_ms"] = cuda_ms(lambda: species_topk(
+            recon.float(), bimodal.table().float(), k=5), iters=20)
+    if tuple(top.shape) != (b, 5) or top.dtype != torch.int32 or not bool(
+            ((top >= 0) & (top < N_SPECIES)).all()):
+        raise AssertionError(f"species_topk {tuple(top.shape)} {top.dtype}")
+    del bimodal, emb, recon, top
+    free_cuda()
+    res["launches"] = dict(launches)
+    return res
+
+
+def pyramid_inputs(gen, b, d):
+    """A 3-level pyramid's inputs: spacetime and species tokens, 16 vision
+    tokens on a 4 x 4 grid, 4 language tokens, each with its time."""
+    tokens = {"spacetime": 1, "species": 1, "vision": 16, "language": 4}
+    toks = {n: torch.randn((b, k, d), generator=gen, device="cuda").to(
+        torch.bfloat16) for n, k in tokens.items()}
+    g = (torch.arange(4, device="cuda", dtype=torch.float32) + 0.5) / 4
+    gy, gx = torch.meshgrid(g, g, indexing="ij")
+    grid = torch.stack([gx.reshape(-1), gy.reshape(-1)], -1)
+    spatial = {"vision": grid[None].expand(b, 16, 2)}
+    t = torch.rand((b, 1, 1), generator=gen, device="cuda")
+    temporal = {n: t.expand(b, k, 1) for n, k in tokens.items()}
+    return toks, spatial, temporal
+
+
+def phase_astack_blocks(gen) -> dict:
+    """(c): the A-stack's modality encoder and transformer at 768 / 12,
+    and HierarchicalFusion over the multimodal config's fusion."""
+    bf = torch.bfloat16
+    init = Init(gen, "cuda")
+    res, launches = {}, collections.Counter()
+    tcfg = TransformerConfig(hidden_dim=768, n_heads=12,
+                             n_layers=ASTACK_LAYERS,
+                             rope_variant="interleaved")
+
+    # the modality encoder: one token per observation, plain attention
+    enc = ModalityEncoder(1408, 768, tcfg, init, bf).eval()
+    x = torch.randn((ASTACK_ENC_BATCH, 1408), generator=gen, device="cuda")
+    mask = torch.rand((ASTACK_ENC_BATCH,), generator=gen, device="cuda") > 0.2
+    kernels.reset_launch_counts()
+    with torch.inference_mode(), plain_versions_refused():
+        out = enc(x, mask)
+        res["encoder_ms"] = cuda_ms(lambda: enc(x, mask), iters=10)
+    if tuple(out.shape) != (ASTACK_ENC_BATCH, 768) or not bool(
+            out.isfinite().all()) or any(kernels.launch_counts.values()):
+        raise AssertionError("modality encoder: shape, values or launches")
+    del enc, x, mask, out
+
+    # the transformer over 576 tokens: K3 in every layer
+    tf = Transformer(tcfg, init, bf)
+    x = torch.randn((ASTACK_TF_BATCH, VISION_PATCHES, 768), generator=gen,
+                    device="cuda").to(bf)
+
+    def tf_run(plain):
+        return backward_run(tf, lambda: tf(x),
+                            lambda out: out.float().square().mean(), plain)
+    kernels.reset_launch_counts()
+    run_k = tf_run(False)
+    tf_launches = dict(kernels.launch_counts)
+    run_p = tf_run(True)
+    res["transformer"] = {
+        "diff": output_diff({"fused_representation": run_k[0],
+                             "reconstructions": {}},
+                            {"fused_representation": run_p[0],
+                             "reconstructions": {}}),
+        "rel": loss_grad_rel(run_k, run_p),
+        "ms": cuda_ms(lambda: tf_run(False), iters=3, warmup=1),
+        "plain_ms": cuda_ms(lambda: tf_run(True), iters=3, warmup=1),
+        "launches": {k: v for k, v in tf_launches.items() if v},
+        "all_launches": tf_launches}
+    want = {"vmem_attention_fwd": ASTACK_LAYERS,
+            "vmem_attention_bwd": ASTACK_LAYERS}
+    if res["transformer"]["launches"] != want:
+        raise AssertionError(f"transformer launches {tf_launches} != {want}")
+    launches.update(tf_launches)
+    del tf, x, run_k, run_p
+    free_cuda()
+
+    # the fusion pyramid: 23, 13 and 8 tokens; the last level token-major
+    fcfg = multimodal_config().fusion
+    names = ["spacetime", "species", "vision", "language"]
+    pyr = HierarchicalFusion(fcfg, names, init, bf, num_levels=HIER_LEVELS,
+                             spatial=True)
+    toks, spatial, temporal = pyramid_inputs(gen, HIER_BATCH,
+                                             fcfg.universal_dim)
+    per_level = {}
+
+    def level_hooks():
+        hooks = []
+        for lv in range(HIER_LEVELS):
+            mod = getattr(pyr, f"level_{lv}")
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, a, lv=lv: per_level.__setitem__(
+                    lv, dict(kernels.launch_counts))))
+            hooks.append(mod.register_forward_hook(
+                lambda m, a, o, lv=lv: per_level.__setitem__(lv, {
+                    k: kernels.launch_counts[k] - per_level[lv][k]
+                    for k in per_level[lv]
+                    if kernels.launch_counts[k] - per_level[lv][k]})))
+        return hooks
+
+    def pyr_run(plain):
+        return backward_run(
+            pyr, lambda: pyr(toks, spatial, temporal),
+            lambda out: out["fused_representation"].float().square().mean(),
+            plain)
+    hooks = level_hooks()
+    kernels.reset_launch_counts()
+    run_k = pyr_run(False)
+    for h in hooks:
+        h.remove()
+    pyr_launches = dict(kernels.launch_counts)
+    run_p = pyr_run(True)
+    diff = output_diff(*[
+        {"fused_representation": out["fused_representation"],
+         "reconstructions": dict(enumerate(out["level_representations"]))}
+        for out in (run_k[0], run_p[0])])
+    k1_fwd = k1_per_forward(fcfg)
+    res["pyramid"] = {
+        "diff": diff, "rel": loss_grad_rel(run_k, run_p),
+        "per_level": dict(per_level),
+        "launches": {k: v for k, v in pyr_launches.items() if v},
+        "ms": cuda_ms(lambda: pyr_run(False), iters=3, warmup=1),
+        "plain_ms": cuda_ms(lambda: pyr_run(True), iters=3, warmup=1)}
+    want = {"pairwise_attention_fwd_warp": k1_fwd,
+            "pairwise_attention_bwd_warp": k1_fwd}
+    if res["pyramid"]["launches"] != want or per_level.get(0) or \
+            per_level.get(1) or per_level.get(2) != {
+                "pairwise_attention_fwd_warp": k1_fwd}:
+        raise AssertionError(f"pyramid launches {pyr_launches}, per level "
+                             f"{per_level} (want {want}, all forward ones at"
+                             " level 2)")
+    launches.update(pyr_launches)
+    for part in ("transformer", "pyramid"):
+        d, r = res[part]["diff"], res[part]["rel"]
+        if any(d[k] > SLICE_TOL[k] for k in SLICE_TOL) or any(
+                r[k] > TRAIN_TOL[k] for k in TRAIN_TOL):
+            raise AssertionError(f"{part} kernel vs plain {d}, {r}")
+    del pyr, toks, spatial, temporal, run_k, run_p
+    free_cuda()
+    res["launches"] = dict(launches)
+    return res
+
+
+def phase_inductive_simulator(gen) -> dict:
+    """(d): create_inductive_simulator('standard'): a token_mask forward
+    against the plain path (routing pinned), and a remat-on backward
+    against the same backward without remat."""
+    bf = torch.bfloat16
+    mla = dataclasses.replace(simulator_config("standard").mla,
+                              use_flash_attention=True)
+    t0 = time.perf_counter()
+    sim, scfg = create_inductive_simulator(
+        "standard", generator=gen, device="cuda", compute_dtype=bf,
+        param_dtype=bf, mla=mla)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in sim.parameters())
+    tokens = torch.randn((SIM_BATCH, SIM_TOKENS, scfg.hidden_dim),
+                         generator=gen, device="cuda").to(bf)
+    mask = MaskingStrategy(SIM_MASK_RATIO).random(gen, SIM_BATCH, SIM_TOKENS)
+    sites = [n for n, m in sim.named_modules() if isinstance(m, MoELayer)]
+    n_moe = len(sites)
+
+    sim.eval()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        with gate_log() as log_k, plain_versions_refused():
+            out_k = sim(tokens, mask)
+        fwd_launches = {k: v for k, v in kernels.launch_counts.items() if v}
+        modes = sorted({m.mode for m in sim.modules()
+                        if isinstance(m, MoELayer)})
+        with gate_log(log_k) as log_p, plain_versions():
+            out_p = sim(tokens, mask)
+        fwd_ms = cuda_ms(lambda: sim(tokens, mask), iters=3, warmup=1)
+    diff = output_diff({"fused_representation": out_k, "reconstructions": {}},
+                       {"fused_representation": out_p, "reconstructions": {}})
+    shares = flipped_shares(sites, log_k, log_p)
+    del out_k, out_p, log_k, log_p
+    want = {"flash_attention_fwd": scfg.n_layers,
+            "grouped_matmul_fwd": 3 * n_moe}
+    if fwd_launches != want or modes != ["ragged"]:
+        raise AssertionError(f"simulator forward launches {fwd_launches} "
+                             f"(want {want}), modes {modes}")
+
+    # the masked tokens' reconstruction, backward without and with remat,
+    # in turns after a warm-up run (off, on, on, off): each setting's
+    # numbers from its first timed run, its ms the lesser of its two
+    sim.train()
+    hidden = (~mask)[..., None].float()
+    runs = {}
+    free_cuda()
+    for turn, remat in enumerate((False, False, True, True, False)):
+        sim.transformer.remat = remat
+        sim.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with plain_versions_refused():
+            out = sim(tokens, mask, torch.Generator(device="cuda"))
+            loss = (((out.float() - tokens.float()) ** 2) * hidden).sum() / (
+                hidden.sum() * scfg.hidden_dim)
+            loss.backward()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        if turn and remat not in runs:
+            runs[remat] = {
+                "loss": loss.item(), "grad_norm": grad_norm_of(sim),
+                "ms": ms, "peak_gib": torch.cuda.max_memory_allocated()
+                / 2 ** 30, "launches": {k: v for k, v in
+                                        kernels.launch_counts.items() if v}}
+        elif turn:
+            runs[remat]["ms"] = min(runs[remat]["ms"], ms)
+        del out, loss
+    sim.transformer.remat = False
+    rel = {k: abs(runs[True][k] - runs[False][k]) / abs(runs[False][k])
+           for k in ("loss", "grad_norm")}
+    for name in ("flash_attention_fwd", "grouped_matmul_fwd"):
+        if runs[True]["launches"].get(name, 0) != 2 * runs[False][
+                "launches"].get(name, 0):
+            raise AssertionError(f"simulator remat: {name} "
+                                 f"{runs[True]['launches']} against "
+                                 f"{runs[False]['launches']}")
+    for name in ("flash_attention_bwd", "grouped_matmul_bwd_dlhs",
+                 "grouped_matmul_bwd_drhs"):
+        if runs[True]["launches"].get(name) != runs[False]["launches"].get(
+                name) or not runs[False]["launches"].get(name):
+            raise AssertionError(f"simulator remat: {name} "
+                                 f"{runs[True]['launches']} against "
+                                 f"{runs[False]['launches']}")
+    del sim, tokens, mask, hidden
+    free_cuda()
+    if any(diff[k] > FLAGSHIP_TOL[k] for k in FLAGSHIP_TOL) or any(
+            v > FLAGSHIP_MAX_FLIPPED for v in shares.values()):
+        raise AssertionError(f"simulator kernel vs plain {diff}, flips "
+                             f"{shares}")
+    if any(rel[k] > TRAIN_TOL[k] for k in TRAIN_TOL):
+        raise AssertionError(f"simulator remat vs no remat {rel}")
+    total = collections.Counter(fwd_launches)
+    for r in runs.values():
+        total.update(r["launches"])
+    return {"n_params": n_params, "build_s": build_s, "fwd_ms": fwd_ms,
+            "fwd_launches": fwd_launches, "diff": diff, "shares": shares,
+            "runs": runs, "rel": rel, "launches": dict(total)}
+
+
+def phase_remat() -> dict:
+    """Phase 22: remat on the flagship's train step, the C-stack, the
+    A-stack blocks with the fusion pyramid, the inductive simulator; each
+    part draws from a generator of its own seeded from SEED."""
+    t0 = time.perf_counter()
+    train = phase_remat_train()
+    t_a = time.perf_counter()
+    cs = phase_cstack(torch.Generator(device="cuda").manual_seed(SEED + 2))
+    sh = cs["shared"]
+
+    def steps(name):
+        return ", ".join(f"{loss:.4f} / {ms:.1f} ms" for loss, ms in cs[name])
+    t_b = time.perf_counter()
+    print(f"[22b C-stack] bf16 over fp32 parameters | "
+          f"BidirectionalReconstructor(full_vision_output=True) at "
+          f"B={CSTACK_BIDIR_BATCH} (clips of 8 x 24 x 24 x 1408, language "
+          f"7168; the (B, 8, 24, 24, 1408) grid out), make_bidirectional_step"
+          f" x{CSTACK_STEPS} on one batch (loss / ms): {steps('bidirectional')}"
+          f", peak {cs['bidirectional_peak']:.2f} GiB | MultimodalAutoencoder"
+          f"({N_SPECIES} species) at B={CSTACK_AE_BATCH}, "
+          f"make_autoencoder_step x{CSTACK_STEPS}: {steps('autoencoder')} | "
+          f"MultimodalSharedSpace at B={CSTACK_SHARED_BATCH} over vision "
+          f"(B, {VISION_PATCHES}, 1408) and language (B, 7168): 577 keys, "
+          f"32 latents, 32-wide heads; forward launches {sh['fwd_launches']}"
+          f" ({route_counts(sh['fwd_launches'], 'vmem_attention_fwd')}), "
+          f"reconstruction-MSE step launches "
+          + route_counts(sh["step_launches"], "vmem_attention_fwd",
+                         "vmem_attention_bwd")
+          + f"; forward {sh['fwd_ms']:.3f} ms, step {sh['ms']:.3f} ms; kernel"
+          f" vs plain: outputs max {sh['diff']['max_abs']:.4g} mean "
+          f"{sh['diff']['mean_abs']:.3g} (tol {SLICE_TOL}), loss / grad norm "
+          f"rel {sh['rel']['loss']:.3g} / {sh['rel']['grad_norm']:.3g} (tol "
+          f"{TRAIN_TOL}) | MultimodalUNet at B={CSTACK_UNET_BATCH} (30% of "
+          f"the language features masked): {steps('unet')} | "
+          f"BimodalMLPUNet({N_SPECIES}, 2048) image direction at "
+          f"B={CSTACK_UNET_BATCH}: {steps('bimodal')}; species_topk(k=5) "
+          f"{cs['topk_ms']:.3f} ms | the bidirectional, autoencoder and "
+          f"U-Net paths launch no hand-written kernel (their attention has 4 "
+          f"keys, or none) | {card()}")
+    ab = phase_astack_blocks(torch.Generator(device="cuda").manual_seed(
+        SEED + 3))
+    t_c = time.perf_counter()
+    tf, py = ab["transformer"], ab["pyramid"]
+    print(f"[22c A-stack blocks] ModalityEncoder(1408 -> 768, 12 heads, "
+          f"{ASTACK_LAYERS} layers) at B={ASTACK_ENC_BATCH}: "
+          f"{ab['encoder_ms']:.3f} ms a forward, no kernel (one token) | "
+          f"Transformer(768, 12 heads, {ASTACK_LAYERS} layers, interleaved "
+          f"RoPE) over {VISION_PATCHES} tokens at B={ASTACK_TF_BATCH}, "
+          f"forward + backward: launches {tf['launches']} ("
+          + route_counts(tf["all_launches"], "vmem_attention_fwd",
+                         "vmem_attention_bwd")
+          + f"), {tf['ms']:.2f} ms (plain {tf['plain_ms']:.2f}); kernel vs "
+          f"plain output max {tf['diff']['max_abs']:.4g} mean "
+          f"{tf['diff']['mean_abs']:.3g}, loss / grad norm rel "
+          f"{tf['rel']['loss']:.3g} / {tf['rel']['grad_norm']:.3g} | "
+          f"HierarchicalFusion({HIER_LEVELS} levels) over the multimodal "
+          f"fusion (512 wide, 4 layers) at B={HIER_BATCH}: 23, 13 and 8 "
+          f"tokens; K1-fwd by level {py['per_level']} (the 8-token level "
+          f"token-major, on K1's warp route past its streaming route's "
+          f"{kernels.PAIRWISE_TMA_MAX_TOKENS} tokens), forward + backward "
+          f"launches {py['launches']}, {py['ms']:.2f} ms (plain "
+          f"{py['plain_ms']:.2f}); kernel vs plain outputs max "
+          f"{py['diff']['max_abs']:.4g} mean {py['diff']['mean_abs']:.3g}, "
+          f"loss / grad norm rel {py['rel']['loss']:.3g} / "
+          f"{py['rel']['grad_norm']:.3g} (tol {SLICE_TOL}, {TRAIN_TOL}) | "
+          f"{card()}")
+    sim = phase_inductive_simulator(torch.Generator(
+        device="cuda").manual_seed(SEED + 4))
+    t_d = time.perf_counter()
+    r0, r1 = sim["runs"][False], sim["runs"][True]
+    print(f"[22d inductive simulator] create_inductive_simulator('standard')"
+          f" (24 layers, 2048 wide, 16 heads, 8 experts; flash on), "
+          f"{sim['n_params'] / 1e9:.4f}B params (bf16), built in "
+          f"{sim['build_s']:.1f} s | B={SIM_BATCH} x {SIM_TOKENS} tokens, "
+          f"{SIM_MASK_RATIO:.0%} masked: forward launches "
+          f"{sim['fwd_launches']}, {sim['fwd_ms']:.2f} ms; kernel vs plain "
+          f"(routing pinned) max {sim['diff']['max_abs']:.4g} mean "
+          f"{sim['diff']['mean_abs']:.3g} (tol {FLAGSHIP_TOL}), flips mean "
+          f"{statistics.mean(sim['shares'].values()):.3g} max "
+          f"{max(sim['shares'].values()):.3g} (tol {FLAGSHIP_MAX_FLIPPED}) | "
+          f"masked-token MSE forward + backward (CUDA events, the lesser of "
+          f"two in turns after a warm-up): without remat {r0['ms']:.1f} ms, "
+          f"peak "
+          f"{r0['peak_gib']:.2f} GiB, launches {r0['launches']}; with remat "
+          f"('full') {r1['ms']:.1f} ms, peak {r1['peak_gib']:.2f} GiB, "
+          f"launches {r1['launches']}; loss / grad norm rel "
+          f"{sim['rel']['loss']:.3g} / {sim['rel']['grad_norm']:.3g} (tol "
+          f"{TRAIN_TOL}) | {card()}")
+    print(f"[22 remat and model zoo] wall {t_d - t0:.1f} s (a "
+          f"{t_a - t0:.1f}, b {t_b - t_a:.1f}, c {t_c - t_b:.1f}, d "
+          f"{t_d - t_c:.1f})")
+    total = collections.Counter()
+    for part in (train, cs, ab, sim):
+        total.update(part["launches"])
+    return {"launches": dict(total), "train": train}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--clip-batch-search", action="store_true",
                         help="only the flagship's train step at 4608 patches"
-                             ": the largest batch that fits")
+                             ": the largest batch that fits, without and "
+                             "with remat")
     parser.add_argument("--flagship-train-spread", type=int, nargs="+",
                         metavar="SEED",
                         help="only phase 16's kernel-vs-plain train "
@@ -5488,6 +6315,7 @@ def main() -> None:
     # phase 21 draws from a generator of its own seeded from SEED, as phases
     # 15 and 16 do: its draws do not move with the phases before it
     tok = phase_tokens(torch.Generator(device="cuda").manual_seed(SEED))
+    remat = phase_remat()
     report = {"kernels": [
         {"name": "grid4d_encode_fwd", "route": "cuda",
          "source": "deepearth_tpu_torch/kernels/csrc/grid4d_encode.cu",
@@ -5732,6 +6560,11 @@ def main() -> None:
                     "ms", "mma_ms", "fp32_ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms", "max_abs_err",
                     "mma_max_abs_err", "fp32_max_abs_err")}
+    # phase 22: remat on the flagship's train step, the C-stack, the A-stack
+    # blocks and the fusion pyramid, the inductive simulator
+    for entry in report["kernels"] + report["off_main_path"]:
+        if remat["launches"].get(entry["name"]):
+            entry["launches_in_phase_22"] = remat["launches"][entry["name"]]
     print(json.dumps(report))
     print(card())
     print(json.dumps({"ok": True, "device": {

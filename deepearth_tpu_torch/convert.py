@@ -5,7 +5,9 @@ The port names its submodules after the flax modules, so a flax path maps to
 a torch parameter name by joining with dots and renaming the leaf: Dense
 ``kernel`` -> ``weight`` (transposed from (in, out) to (out, in)), LayerNorm
 ``scale`` -> ``weight``, Embed ``embedding`` -> ``weight``; RMSNorm's
-``weight`` is ``weight`` in both. Every other leaf (``tables``,
+``weight`` is ``weight`` in both. A Conv ``kernel`` (kernel, in, out)
+becomes ``weight`` with its axes reversed, (out, in, kernel), as
+``numpy.ndarray.T`` reverses them. Every other leaf (``tables``,
 ``cls_token``, ``modality_embed_*``, ``position_embedding``,
 ``query_tokens``, ``pool_query``, ``spatial_embed_x``, ...) keeps its name.
 So do the leaves of a quantized model (``ops.quant.quantize_decoder_params``
@@ -85,11 +87,11 @@ def _flax_leaves_of(model: nn.Module
                     ) -> Dict[str, Tuple[Tuple[str, ...], bool]]:
     """Each torch parameter name -> (its flax path, whether it is stored
     transposed), from the type of the module that owns it."""
-    from .models.layers import Dense, Embed, LayerNorm
+    from .models.layers import Conv1d, Dense, Embed, LayerNorm
     from .models.transformer import KernelParam
     from .ops.norms import RMSNorm
 
-    weight_leaf = {Dense: "kernel", KernelParam: "kernel",
+    weight_leaf = {Dense: "kernel", KernelParam: "kernel", Conv1d: "kernel",
                    LayerNorm: "scale", Embed: "embedding", RMSNorm: "weight"}
     out = {}
     for mod_name, mod in model.named_modules():

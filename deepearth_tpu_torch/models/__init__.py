@@ -1,3 +1,8 @@
+from .bidirectional import (
+    BidirectionalReconstructor,
+    MultimodalAutoencoder,
+    VisionSequenceDecoder,
+)
 from .decoders import ModalityDecoder, SpatiotemporalDecoder
 from .deepearth import DeepEarthModel
 from .deepseek import (
@@ -9,13 +14,15 @@ from .deepseek import (
     MoELayer,
     SwiGLUMLP,
     collect_moe_aux_losses,
+    remat_wrap,
     select_dispatch_mode,
 )
-from .encoders import UniversalTokenEncoder
+from .encoders import ModalityEncoder, UniversalTokenEncoder
 from .fusion import (
     CrossModalFusion,
     FusionAttention,
     FusionLayer,
+    HierarchicalFusion,
     SpatialTemporalEmbedding,
 )
 from .generation import causal_lm_decode_step, generate
@@ -33,7 +40,28 @@ from .mla_decode import (
     full_cache_bytes_per_token,
     init_cache,
 )
-from .transformer import GatedMLP, KernelParam, MLP
+from .mlp_unet import (
+    BimodalMLPUNet,
+    MLPUNet,
+    MultimodalUNet,
+    input_feature_mask,
+    species_topk,
+)
+from .shared_space import LatentPool, MultimodalSharedSpace
+from .simulator import (
+    DatasetSpecificDecoder,
+    InductiveSimulator,
+    MaskingStrategy,
+    create_inductive_simulator,
+)
+from .transformer import (
+    GatedMLP,
+    KernelParam,
+    MLP,
+    MultiHeadAttention,
+    Transformer,
+    TransformerBlock,
+)
 
 __all__ = [
     "ModalityDecoder", "SpatiotemporalDecoder", "DeepEarthModel",
@@ -47,5 +75,12 @@ __all__ = [
     "GatedMLP",
     "KernelParam", "MLP", "causal_lm_decode_step", "generate", "MLACache",
     "cache_bytes_per_token", "decode_sequence", "decode_step",
-    "full_cache_bytes_per_token", "init_cache",
+    "full_cache_bytes_per_token", "init_cache", "remat_wrap",
+    "BidirectionalReconstructor", "MultimodalAutoencoder",
+    "VisionSequenceDecoder", "ModalityEncoder", "HierarchicalFusion",
+    "BimodalMLPUNet", "MLPUNet", "MultimodalUNet", "input_feature_mask",
+    "species_topk", "LatentPool", "MultimodalSharedSpace",
+    "DatasetSpecificDecoder", "InductiveSimulator", "MaskingStrategy",
+    "create_inductive_simulator", "MultiHeadAttention", "Transformer",
+    "TransformerBlock",
 ]

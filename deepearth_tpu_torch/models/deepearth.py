@@ -152,12 +152,16 @@ class DeepEarthModel(nn.Module):
         # the default grid: a square token count above 1
         spatial = cfg.fusion.spatial_aware and any(
             _square_side(_n_tokens(m)) for m in cfg.modalities.values())
+        # fusion.remat checkpoints both the fusion layers and the
+        # simulator's blocks, as in the JAX package
+        remat = dict(remat=cfg.fusion.remat,
+                     remat_policy=cfg.fusion.remat_policy)
         self.fusion = CrossModalFusion(
             cfg.fusion, ["spacetime"] + self.modality_names, init, cd,
-            spatial=spatial)
+            spatial=spatial, **remat)
         if cfg.fusion.deepseek_block is not None:
             self.simulator = DeepSeekTransformer(cfg.fusion.deepseek_block,
-                                                 init, cd)
+                                                 init, cd, **remat)
         self.spatial_decoder = SpatiotemporalDecoder(D, 3, init, cd)
         self.temporal_decoder = SpatiotemporalDecoder(D, 1, init, cd)
         for name in self.modality_names:

@@ -15,21 +15,28 @@ which the port has none of: a config's ``sequence_axis`` and
 ``ring_min_seq`` are read and ignored, as the JAX package ignores them where
 no mesh is set. Pipelined stages (``pipeline_stages > 1``) are not ported
 and raise (ROADMAP.md Queue 1, item 15).
+
+Activation checkpointing (:func:`remat_wrap`, the JAX package's ``nn.remat``
+with its three policies) wraps one block at a time: the stack's blocks
+here, a fusion stack's layers in ``models/fusion.py``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
-from typing import Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from ..configs import DeepSeekBlockConfig, MLAConfig, MoEConfig
 from ..ops import flash_attention as flash
 from ..ops import moe as moe_ops
+from ..ops import remat as remat_sites
 from ..ops.attention import dot_product_attention
 from ..ops.norms import RMSNorm
 from ..ops.rope import apply_rope_deepseek, rope_tables, yarn_get_mscale
@@ -41,6 +48,82 @@ FLASH_SHAPE = (
     "{qh} and Dv {vh}")
 PIPELINE_TODO = ("pipelined DeepSeek stacks (pipeline_stages > 1) are not "
                  "ported yet (ROADMAP.md Queue 1, item 15)")
+
+_aten = torch.ops.aten
+# the outputs each dots policy keeps: matmuls without batch dims (JAX's
+# dots_with_no_batch_dims_saveable), and with them the batched ones
+# (dots_saveable)
+_SAVED_BY_POLICY = {
+    "dots": frozenset({_aten.mm.default, _aten.addmm.default}),
+    "dots_saveable": frozenset({_aten.mm.default, _aten.addmm.default,
+                                _aten.bmm.default, _aten.baddbmm.default}),
+}
+
+
+def remat_context_fn(policy: Optional[str] = "full") -> Optional[Callable]:
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a remat policy
+    name: None for 'full' (and None or ''), which recomputes the whole
+    block; for 'dots' and 'dots_saveable' selective checkpointing that saves
+    the outputs of the policy's matmul ops and recomputes every other op,
+    and every op a hand-written kernel's forward runs (``ops.remat``'s
+    kernel sites: a Pallas call is not a dot in JAX either). Any other name
+    raises JAX's ``ValueError``."""
+    if policy in (None, "", "full"):
+        return None
+    if policy not in _SAVED_BY_POLICY:
+        raise ValueError(
+            f"unknown remat policy {policy!r}; want full|dots|dots_saveable")
+    saved = _SAVED_BY_POLICY[policy]
+    CheckpointPolicy = torch_checkpoint.CheckpointPolicy
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        if op in saved and not remat_sites.in_kernel_site():
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return functools.partial(
+        torch_checkpoint.create_selective_checkpoint_contexts, policy_fn)
+
+
+def remat_wrap(module: nn.Module, policy: Optional[str] = "full"
+               ) -> Callable:
+    """``module`` under activation checkpointing with a named policy, the
+    JAX package's ``remat_wrap`` (``nn.remat``): the returned callable takes
+    the module's arguments, with ``generator`` as a keyword.
+
+    'full' recomputes the whole block in the backward; 'dots' keeps the
+    outputs of matmuls without batch dims and recomputes the rest;
+    'dots_saveable' also keeps the batched ones (:func:`remat_context_fn`).
+    ``torch.utils.checkpoint`` runs non-reentrant: tensors that leave the
+    block by a side channel (an MoE layer's ``aux_loss``) keep their graph.
+
+    Dropout draws its masks from ``generator``, which the checkpoint does
+    not restore. The forward draws from it as without remat; the recompute
+    draws from a copy set to its state at the block's entry, so it sees the
+    forward's masks and the caller's generator ends as without remat.
+    Without grad mode the block just runs.
+    """
+    context_fn = remat_context_fn(policy)
+    extra = {} if context_fn is None else {"context_fn": context_fn}
+
+    def run(*args, generator: Optional[torch.Generator] = None, **kwargs):
+        if not torch.is_grad_enabled():
+            return module(*args, generator=generator, **kwargs)
+        entry_state = None if generator is None else generator.get_state()
+        calls = [0]
+
+        def block(*a, **kw):
+            calls[0] += 1
+            if calls[0] == 1:
+                return module(*a, generator=generator, **kw)
+            replay = None
+            if generator is not None:
+                replay = torch.Generator(device=generator.device)
+                replay.set_state(entry_state)
+            with remat_sites.recomputing():
+                return module(*a, generator=replay, **kw)
+        return torch_checkpoint.checkpoint(block, *args, use_reentrant=False,
+                                           **extra, **kwargs)
+    return run
 
 
 class MLAttention(nn.Module):
@@ -283,9 +366,10 @@ class MoELayer(nn.Module):
             raise ValueError(f"unknown dispatch_mode {mode!r}")
         if cfg.n_shared_experts:
             y = y + self.shared_experts(xf)
-        self.aux_loss = moe_ops.load_balance_aux_loss(
+        aux_loss = moe_ops.load_balance_aux_loss(
             gate.scores, gate.topk_idx, cfg.n_routed_experts)
-        self.load, self.mode = load, mode
+        if not remat_sites.is_recomputing():  # keep the forward's values
+            self.aux_loss, self.load, self.mode = aux_loss, load, mode
         return y.reshape(x.shape).to(x.dtype)
 
 
@@ -293,11 +377,15 @@ class MoELayer(nn.Module):
 def collect_moe_aux_losses(model: nn.Module) -> Iterator[List[torch.Tensor]]:
     """Inside, every call of a :class:`MoELayer` of ``model`` appends its
     ``aux_loss`` to the yielded list, in call order: the values flax sows
-    as ``moe_aux_loss``, one per call."""
+    as ``moe_aux_loss``, one per call. A checkpointed block's recompute in a
+    backward run inside appends nothing."""
     values: List[torch.Tensor] = []
-    hooks = [m.register_forward_hook(
-        lambda mod, args, out: values.append(mod.aux_loss))
-        for m in model.modules() if isinstance(m, MoELayer)]
+
+    def keep(mod, args, out):
+        if not remat_sites.is_recomputing():
+            values.append(mod.aux_loss)
+    hooks = [m.register_forward_hook(keep)
+             for m in model.modules() if isinstance(m, MoELayer)]
     try:
         yield values
     finally:
@@ -344,13 +432,19 @@ class DeepSeekBlock(nn.Module):
 
 
 class DeepSeekTransformer(nn.Module):
-    """``n_layers`` decoder blocks and a final RMSNorm, run in sequence."""
+    """``n_layers`` decoder blocks and a final RMSNorm, run in sequence;
+    with ``remat`` each block under :func:`remat_wrap` with
+    ``remat_policy`` (both plain attributes, read at every forward)."""
 
     def __init__(self, cfg: DeepSeekBlockConfig, init: Init,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, *, remat: bool = False,
+                 remat_policy: str = "full"):
         super().__init__()
         if cfg.pipeline_stages and cfg.pipeline_stages > 1:
             raise NotImplementedError(PIPELINE_TODO)
+        if remat:
+            remat_context_fn(remat_policy)  # an unknown name raises here
+        self.remat, self.remat_policy = remat, remat_policy
         self.n_layers = cfg.n_layers
         for i in range(cfg.n_layers):
             self.add_module(f"layer_{i}",
@@ -363,7 +457,10 @@ class DeepSeekTransformer(nn.Module):
                 is_causal: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(x, key_mask, is_causal, generator)
+            layer = getattr(self, f"layer_{i}")
+            if self.remat:
+                layer = remat_wrap(layer, self.remat_policy)
+            x = layer(x, key_mask, is_causal, generator=generator)
         return self.norm(x)
 
 

@@ -1,12 +1,20 @@
-"""Universal-token modality encoder, PyTorch port of ``UniversalTokenEncoder``
-and ``_CrossAttention`` in ``deepearth_tpu/models/encoders.py``.
+"""Modality encoders, PyTorch port of ``deepearth_tpu/models/encoders.py``:
+the A-stack's ``ModalityEncoder``, ``UniversalTokenEncoder`` and
+``_CrossAttention``.
 
-Native embeddings (B, S, input_dim) or (B, input_dim) are projected to the
-universal dim (plus, with ``use_moe_projection``, a 4-expert top-2 MoE of the
-projection), given learned positions, run through a DeepSeek transformer
-(MLA + SwiGLU) and reduced to ``n_tokens`` universal tokens: learned query
-tokens cross-attend into the sequence (``n_tokens > 1``), or attention
-pooling makes one token. The result is RMSNorm'd.
+``ModalityEncoder`` projects one (B, input_dim) vector per observation, adds
+a learned modality embedding, runs a one-token ``Transformer`` (the (B,)
+mask as its key mask: a masked observation's attention outputs zeros),
+projects to the output dim and LayerNorms with eps 1e-5, torch's default,
+which the JAX package keeps for parity with the reference.
+
+The universal-token encoder: native embeddings (B, S, input_dim) or (B,
+input_dim) are projected to the universal dim (plus, with
+``use_moe_projection``, a 4-expert top-2 MoE of the projection), given
+learned positions, run through a DeepSeek transformer (MLA + SwiGLU) and
+reduced to ``n_tokens`` universal tokens: learned query tokens cross-attend
+into the sequence (``n_tokens > 1``), or attention pooling makes one token.
+The result is RMSNorm'd.
 
 flax sizes the position table from the first batch it sees; the port builds
 its modules before any data, so the caller gives the modality's native
@@ -20,11 +28,13 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..configs import DeepSeekBlockConfig, MLAConfig, ModalityConfig, MoEConfig
+from ..configs import (DeepSeekBlockConfig, MLAConfig, ModalityConfig,
+                       MoEConfig, TransformerConfig)
 from ..ops.attention import dot_product_attention
 from ..ops.norms import RMSNorm
 from .deepseek import DeepSeekTransformer, MoELayer
-from .layers import Dense, Init
+from .layers import Dense, Init, LayerNorm
+from .transformer import Transformer
 
 MAX_POSITIONS = 4608  # the longest native sequence (V-JEPA2 patches)
 
@@ -49,6 +59,30 @@ def encoder_transformer_config(m: ModalityConfig,
             sequence_axis=m.encoder_sequence_axis,
             ring_min_seq=m.encoder_ring_min_seq),
         moe=None)
+
+
+class ModalityEncoder(nn.Module):
+    """A-stack per-modality encoder: (B, input_dim) -> (B, output_dim)."""
+
+    def __init__(self, input_dim: int, output_dim: int,
+                 encoder_cfg: TransformerConfig, init: Init,
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        H, cd = encoder_cfg.hidden_dim, compute_dtype
+        self.input_projection = Dense(input_dim, H, init, cd)
+        self.modality_embedding = init.normal((1, 1, H))
+        self.transformer = Transformer(encoder_cfg, init, cd)
+        self.output_projection = Dense(H, output_dim, init, cd)
+        self.norm = LayerNorm(output_dim, 1e-5, init, cd)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, input_dim); mask optional (B,) bool, True = visible."""
+        h = self.input_projection(x)[:, None, :]  # (B, 1, H)
+        h = h + self.modality_embedding.to(h.dtype)
+        key_mask = mask[:, None] if mask is not None else None
+        h = self.transformer(h, key_mask, generator)[:, 0]
+        return self.norm(self.output_projection(h))
 
 
 class _CrossAttention(nn.Module):
@@ -96,7 +130,8 @@ class UniversalTokenEncoder(nn.Module):
         n_pos = min(max_positions, max(native_seq_len, m.n_tokens))
         self.position_embedding = init.normal((n_pos, D))
         self.transformer = DeepSeekTransformer(
-            encoder_transformer_config(m, D), init, compute_dtype)
+            encoder_transformer_config(m, D), init, compute_dtype,
+            remat=m.encoder_remat, remat_policy=m.encoder_remat_policy)
         if m.n_tokens > 1:
             self.query_tokens = init.normal((1, m.n_tokens, D))
             self.token_cross_attention = _CrossAttention(
@@ -122,7 +157,9 @@ class UniversalTokenEncoder(nn.Module):
     def forward(self, native: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """native: (B, S, input_dim) or (B, input_dim). Returns
-        (B, n_tokens, universal_dim) in the compute dtype."""
+        (B, n_tokens, universal_dim) in the compute dtype. With the
+        modality's ``encoder_remat`` the stack's blocks are checkpointed
+        (``encoder_remat_policy``)."""
         m, cd = self.modality, self.compute_dtype
         if native.dim() == 2:
             native = native[:, None, :]

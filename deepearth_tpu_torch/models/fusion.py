@@ -10,7 +10,11 @@ the stack runs token-major, (N, B, D), and every attention site is
 and every site is :func:`dot_product_attention`. Parameters do not depend
 on the layout. In training mode dropout (``cfg.dropout``) follows each
 attention output and the MLP, as in the JAX package; its masks come from the
-generator the caller passes to ``forward``.
+generator the caller passes to ``forward``. With ``remat`` each layer runs
+under ``models/deepseek.py`` ``remat_wrap``.
+
+:class:`HierarchicalFusion` stacks fusion levels with a strided convolution
+between them and fuses the levels' CLS tokens.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from ..configs import FusionConfig, TransformerConfig
 from ..ops.attention import dot_product_attention
 from ..ops.attention_smallseq import pairwise_token_attention, rope_token_major
 from ..ops.rope import apply_rope_half, rope_tables
-from .layers import Dense, Init, LayerNorm, dropout
+from .deepseek import remat_context_fn, remat_wrap
+from .layers import Conv1d, Dense, Init, LayerNorm, dropout
 from .transformer import GatedMLP, KernelParam, MLP
 
 
@@ -179,13 +184,19 @@ class FusionLayer(nn.Module):
 
 
 class CrossModalFusion(nn.Module):
-    """CLS + embedded modality tokens through ``num_fusion_layers`` layers."""
+    """CLS + embedded modality tokens through ``num_fusion_layers`` layers;
+    with ``remat`` each layer under ``remat_wrap`` with ``remat_policy``
+    (plain attributes, read at every forward)."""
 
     def __init__(self, cfg: FusionConfig, modality_names: Sequence[str],
                  init: Init, compute_dtype: torch.dtype, *,
-                 spatial: bool = False):
+                 spatial: bool = False, remat: bool = False,
+                 remat_policy: str = "full"):
         super().__init__()
         D = cfg.universal_dim
+        if remat:
+            remat_context_fn(remat_policy)  # an unknown name raises here
+        self.remat, self.remat_policy = remat, remat_policy
         self.cfg = cfg
         self.modality_names = tuple(modality_names)
         self.compute_dtype = compute_dtype
@@ -237,6 +248,8 @@ class CrossModalFusion(nn.Module):
             ctx = None
             if layer.use_cross_attention:
                 ctx = h_inputs if cfg.cross_attention_context == "inputs" else h
+            if self.remat:
+                layer = remat_wrap(layer, self.remat_policy)
             h = layer(h, ctx, generator=generator, token_major=token_major)
         h = self.final_norm(h)
         if token_major:
@@ -247,3 +260,60 @@ class CrossModalFusion(nn.Module):
             "all_tokens": h,
             "modality_tokens": {n: h[:, s:e] for n, (s, e) in boundaries.items()},
         }
+
+
+class HierarchicalFusion(nn.Module):
+    """A pyramid of ``num_levels`` fusion stacks (``level_{i}``, each a
+    :class:`CrossModalFusion` over ``cfg``). Between levels each modality's
+    fused tokens pass a convolution of kernel and stride
+    ``downscale_factor`` (``down_{level}_{name}``, flax's 'SAME' padding:
+    ceil(n / f) tokens) and the positions are taken with stride f; the
+    levels' CLS tokens are concatenated and ``final_fusion`` projects them
+    to the universal dim. Each level picks its own layout from its token
+    count, so the smaller levels may run token-major (K1 on the card)."""
+
+    def __init__(self, cfg: FusionConfig, modality_names: Sequence[str],
+                 init: Init, compute_dtype: torch.dtype, *,
+                 num_levels: int = 3, downscale_factor: int = 2,
+                 spatial: bool = False):
+        super().__init__()
+        D = cfg.universal_dim
+        self.num_levels, self.downscale_factor = num_levels, downscale_factor
+        self.modality_names = tuple(modality_names)
+        for level in range(num_levels):
+            self.add_module(f"level_{level}", CrossModalFusion(
+                cfg, self.modality_names, init, compute_dtype,
+                spatial=spatial))
+            if level < num_levels - 1:
+                for name in self.modality_names:
+                    self.add_module(f"down_{level}_{name}", Conv1d(
+                        D, D, downscale_factor, downscale_factor, init,
+                        compute_dtype))
+        self.final_fusion = Dense(num_levels * D, D, init, compute_dtype)
+
+    def forward(self, modality_tokens: Dict[str, torch.Tensor],
+                spatial_positions: Optional[Dict[str, torch.Tensor]] = None,
+                temporal_positions: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, object]:
+        """Returns the fused representation (B, D), each level's CLS token
+        and their concatenation (B, num_levels * D)."""
+        f = self.downscale_factor
+        level_reps = []
+        current, sp, tp = modality_tokens, spatial_positions, \
+            temporal_positions
+        for level in range(self.num_levels):
+            out = getattr(self, f"level_{level}")(current, sp, tp,
+                                                  generator=generator)
+            level_reps.append(out["fused_representation"])
+            if level < self.num_levels - 1:
+                current = {name: getattr(self, f"down_{level}_{name}")(tokens)
+                           for name, tokens in out["modality_tokens"].items()}
+                if sp is not None:
+                    sp = {k: v[:, ::f] for k, v in sp.items()}
+                if tp is not None:
+                    tp = {k: v[:, ::f] for k, v in tp.items()}
+        multi_scale = torch.cat(level_reps, dim=-1)
+        return {"fused_representation": self.final_fusion(multi_scale),
+                "level_representations": level_reps,
+                "multi_scale_representation": multi_scale}

@@ -47,8 +47,11 @@ class Init:
             self.empty(shape).normal_(0.0, std, generator=self.generator))
 
     def lecun_normal(self, shape_out_in) -> nn.Parameter:
-        """flax's default Dense kernel init: truncated normal, var 1/fan_in."""
-        std = math.sqrt(1.0 / shape_out_in[1]) / 0.87962566103423978
+        """flax's default Dense and Conv kernel init: truncated normal, var
+        1/fan_in, fan_in every axis but the first (a conv's (out, in, k):
+        in * k)."""
+        fan_in = math.prod(shape_out_in[1:])
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
         return nn.Parameter(nn.init.trunc_normal_(
             self.empty(shape_out_in), 0.0, std, -2 * std, 2 * std,
             generator=self.generator))
@@ -93,6 +96,31 @@ class Dense(nn.Module):
         cd = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(cd)
         return F.linear(x.to(cd), self.weight.to(cd), bias)
+
+
+class Conv1d(nn.Module):
+    """flax ``nn.Conv`` over one spatial axis, on (B, N, C) inputs, with its
+    default 'SAME' padding: ceil(N / stride) outputs, the zeros split as
+    flax splits them (the smaller half before). The weight is stored
+    (out, in, kernel), as ``torch.nn.Conv1d`` stores it; the flax kernel is
+    (kernel, in, out), so the two are each other's axes reversed."""
+
+    def __init__(self, d_in: int, d_out: int, kernel_size: int, stride: int,
+                 init: Init, compute_dtype: torch.dtype):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.kernel_size, self.stride = kernel_size, stride
+        self.weight = init.lecun_normal((d_out, d_in, kernel_size))
+        self.bias = init.zeros((d_out,))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, N, C_in) -> (B, ceil(N / stride), C_out)."""
+        cd, k, s = self.compute_dtype, self.kernel_size, self.stride
+        n = x.shape[1]
+        pad = max((-(-n // s) - 1) * s + k - n, 0)
+        h = F.pad(x.to(cd).transpose(1, 2), (pad // 2, pad - pad // 2))
+        out = F.conv1d(h, self.weight.to(cd), self.bias.to(cd), stride=s)
+        return out.transpose(1, 2)
 
 
 class LayerNorm(nn.Module):

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from . import remat
 
 NEG_INF = -1e30  # the finite -inf of the JAX package
 
@@ -130,11 +131,12 @@ class _PairwiseAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, key_mask, n_heads, scale):
         ctx.save_for_backward(q, k, v, key_mask)
         ctx.n_heads, ctx.scale = n_heads, scale
-        if q.device.type == "cpu":
-            return pairwise_token_attention_plain(
-                q, k, v, n_heads=n_heads, scale=scale, key_mask=key_mask)
-        return kernels.pairwise_attention_fwd(q, k, v, n_heads, scale,
-                                              key_mask)
+        with remat.kernel_site():
+            if q.device.type == "cpu":
+                return pairwise_token_attention_plain(
+                    q, k, v, n_heads=n_heads, scale=scale, key_mask=key_mask)
+            return kernels.pairwise_attention_fwd(q, k, v, n_heads, scale,
+                                                  key_mask)
 
     @staticmethod
     def backward(ctx, dout):

@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from .. import kernels
+from . import remat
 
 NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_SEQ = kernels.VMEM_MAX_SEQ
@@ -96,10 +97,11 @@ class _VmemAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, key_mask, scale):
         ctx.save_for_backward(q, k, v, key_mask)
         ctx.scale = scale
-        if q.device.type == "cpu":
-            return vmem_attention_plain(q, k, v, scale=scale,
-                                        key_mask=key_mask)
-        return kernels.vmem_attention_fwd(q, k, v, scale, key_mask)
+        with remat.kernel_site():
+            if q.device.type == "cpu":
+                return vmem_attention_plain(q, k, v, scale=scale,
+                                            key_mask=key_mask)
+            return kernels.vmem_attention_fwd(q, k, v, scale, key_mask)
 
     @staticmethod
     def backward(ctx, dout):

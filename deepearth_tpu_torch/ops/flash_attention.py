@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 
 from .. import kernels
+from . import remat
 from .attention_vmem import NEG_BIG
 
 MAX_DIM = kernels.FLASH_MAX_DIM
@@ -112,13 +113,14 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, scale, causal):
-        if q.device.type == "cpu":
-            out, lse = flash_attention_plain(q, k, v, scale=scale,
-                                             key_mask=key_mask,
-                                             causal=causal, return_lse=True)
-        else:
-            out, lse = kernels.flash_attention_fwd(q, k, v, scale, key_mask,
-                                                   causal)
+        with remat.kernel_site():
+            if q.device.type == "cpu":
+                out, lse = flash_attention_plain(
+                    q, k, v, scale=scale, key_mask=key_mask, causal=causal,
+                    return_lse=True)
+            else:
+                out, lse = kernels.flash_attention_fwd(q, k, v, scale,
+                                                       key_mask, causal)
         ctx.save_for_backward(q, k, v, key_mask, out, lse)
         ctx.scale, ctx.causal = scale, causal
         return out

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from . import remat
 
 def supported(lhs: torch.Tensor, rhs: torch.Tensor,
               group_sizes: torch.Tensor) -> bool:
@@ -105,9 +106,10 @@ class _GroupedMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, lhs, rhs, group_sizes):
         ctx.save_for_backward(lhs, rhs, group_sizes)
-        if lhs.device.type == "cpu":
-            return gmm_plain(lhs, rhs, group_sizes)
-        return kernels.grouped_matmul_fwd(lhs, rhs, group_sizes)
+        with remat.kernel_site():
+            if lhs.device.type == "cpu":
+                return gmm_plain(lhs, rhs, group_sizes)
+            return kernels.grouped_matmul_fwd(lhs, rhs, group_sizes)
 
     @staticmethod
     def backward(ctx, dout):

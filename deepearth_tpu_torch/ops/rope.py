@@ -18,6 +18,7 @@ import functools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..configs import RopeScalingConfig
@@ -104,14 +105,15 @@ def rope_cos_sin(seq_len: int, dim: int, theta: float = 10000.0,
         emb = freqs
     else:
         raise ValueError(f"unknown rope layout {layout!r}")
-    # cos and sin of the fp32 angles taken in float64 and rounded once to
-    # fp32, then scaled in fp32 as JAX scales its fp32 cos and sin. On the
-    # CPU, torch's first cos of a process (MKL's vector math) now and then
-    # keeps only about half the mantissa (~1.5e-4 off at fp32); in float64
-    # such a call still lands within an fp32 ulp.
-    emb = emb.double()
-    return (torch.cos(emb).float() * mscale,
-            torch.sin(emb).float() * mscale)
+    # cos and sin of the fp32 angles taken in float64 by numpy on the host
+    # and rounded once to fp32, then scaled in fp32 as JAX scales its fp32
+    # cos and sin. On the CPU, torch's first threaded cos of a process now
+    # and then keeps only about half the mantissa (~1.5e-4 off at fp32),
+    # and in float64 it may still land an fp32 ulp away from the next
+    # call's; numpy's single-threaded cos gives the same bits every call.
+    angles = emb.double().cpu().numpy()
+    return tuple(torch.from_numpy(fn(angles)).to(emb.device).float() * mscale
+                 for fn in (np.cos, np.sin))
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,5 +1,6 @@
 """Training layer of the PyTorch port: masking, losses, metrics, the fused
-AdamW, and the train and eval steps with their Trainer."""
+AdamW, the train and eval steps with their Trainer, and the named recipes
+(the C-stack's steps, the frozen-parameter optimizer)."""
 
 from .losses import (
     LossWeights,
@@ -15,6 +16,12 @@ from .metrics import (
     time_error_hours,
 )
 from .optimizers import FusedAdamW, global_norm, optimizer_state_bytes
+from .recipes import (
+    create_vision_decoder_finetune_state,
+    frozen_optimizer,
+    make_autoencoder_step,
+    make_bidirectional_step,
+)
 from .trainer import (
     MultiSteps,
     TrainState,
@@ -32,5 +39,6 @@ __all__ = [
     "format_epoch_line", "time_error_hours", "FusedAdamW", "global_norm",
     "optimizer_state_bytes", "MultiSteps", "TrainState", "Trainer",
     "create_optimizer", "make_eval_step", "make_train_step",
-    "partial_load_params",
+    "partial_load_params", "create_vision_decoder_finetune_state",
+    "frozen_optimizer", "make_autoencoder_step", "make_bidirectional_step",
 ]

@@ -76,6 +76,23 @@ EXPORTS = [  # (package path, name, the port's defining submodule)
     *[("geospatial", name, "geospatial.utils") for name in (
         "human_unit", "safe_div", "wrap_lat", "wrap_lat_array",
         "wrap_lat_error", "wrap_lon_error")],
+    *[("models", name, "models.transformer") for name in (
+        "MultiHeadAttention", "TransformerBlock", "Transformer")],
+    ("models", "ModalityEncoder", "models.encoders"),
+    ("models", "HierarchicalFusion", "models.fusion"),
+    *[("models", name, "models.simulator") for name in (
+        "InductiveSimulator", "create_inductive_simulator",
+        "MaskingStrategy", "DatasetSpecificDecoder")],
+    *[("models", name, "models.shared_space") for name in (
+        "LatentPool", "MultimodalSharedSpace")],
+    *[("models", name, "models.bidirectional") for name in (
+        "VisionSequenceDecoder", "BidirectionalReconstructor",
+        "MultimodalAutoencoder")],
+    *[("models", name, "models.mlp_unet") for name in (
+        "MLPUNet", "MultimodalUNet", "BimodalMLPUNet", "species_topk")],
+    *[("training", name, "training.recipes") for name in (
+        "frozen_optimizer", "make_bidirectional_step",
+        "make_autoencoder_step", "create_vision_decoder_finetune_state")],
 ]
 
 

@@ -39,6 +39,10 @@ weights exact in bf16 and sum in fp32, as their plain versions do, in
 another order: 1e-5 of the largest entry in fp32 outputs, one bf16 ulp of
 it in bf16 outputs (chip_smoke.QUANT_FP32_REL, chip_smoke.bf16_ulp); K6 and
 K7 on both their routes (tensor cores, CUDA cores), two runs bitwise equal.
+Under activation checkpointing ('full' and 'dots') a block's K1, K3, K4 or
+K5 runs its forward again in the backward on the same inputs; each is
+deterministic (two runs bitwise equal), so the block's gradients equal the
+unwrapped block's bit for bit.
 """
 
 import contextlib
@@ -53,10 +57,19 @@ from deepearth_tpu_torch import kernels
 from deepearth_tpu_torch.models import DeepEarthModel
 from deepearth_tpu_torch.configs import (
     DeepSeekBlockConfig,
+    FusionConfig,
     MLAConfig,
     MoEConfig,
+    TransformerConfig,
 )
-from deepearth_tpu_torch.models.deepseek import MLAttention, MoELayer
+from deepearth_tpu_torch.models.deepseek import (
+    DeepSeekBlock,
+    MLAttention,
+    MoELayer,
+    remat_wrap,
+)
+from deepearth_tpu_torch.models.fusion import FusionLayer
+from deepearth_tpu_torch.models.transformer import TransformerBlock
 from deepearth_tpu_torch.models.layers import Init
 from deepearth_tpu_torch.ops import attention as tdpa
 from deepearth_tpu_torch.ops import attention_smallseq as tattn
@@ -1451,3 +1464,79 @@ def test_device_prefetch_on_the_card(cuda):
                 assert t.device.type == "cuda"
                 assert np.array_equal(t.cpu().numpy(), x)
                 assert t.cpu().numpy().dtype == x.dtype
+
+
+def _remat_block(kind, gen):
+    """(a bf16 block holding one kernel, its input, the kernels it launches
+    in a forward): K1 in a token-major fusion layer (self- and
+    cross-attention over 3 tokens), K3 in a transformer block over 300
+    tokens, K4 in a DeepSeek block's MLA over 1024 tokens, K5 in a DeepSeek
+    block whose MoE takes the ragged path (its MLA over 300 tokens runs
+    K3)."""
+    init = Init(gen, "cuda", torch.bfloat16)
+    bf = torch.bfloat16
+    mla = dict(hidden_dim=128, n_heads=4, kv_lora_rank=32,
+               qk_rope_head_dim=16, qk_nope_head_dim=48, v_head_dim=64)
+    if kind == "K1":
+        block = FusionLayer(FusionConfig(universal_dim=128, num_heads=4),
+                            0, init, bf)
+        x = torch.randn((3, 64, 128), generator=gen, device="cuda")
+        return (block, x.to(bf), {"pairwise_attention_fwd": 2},
+                lambda b, h: b(h, h, token_major=True))
+    if kind == "K3":
+        block = TransformerBlock(TransformerConfig(hidden_dim=128, n_heads=2),
+                                 init, bf)
+        x = torch.randn((4, 300, 128), generator=gen, device="cuda")
+        return block, x.to(bf), {"vmem_attention_fwd": 1}, None
+    cfg = DeepSeekBlockConfig(
+        hidden_dim=128, n_layers=2, intermediate_size=256,
+        mla=MLAConfig(**mla, use_flash_attention=True),
+        moe=MoEConfig(n_routed_experts=8, num_experts_per_tok=2,
+                      moe_intermediate_size=256, hidden_dim=128,
+                      dispatch_mode="ragged"))
+    if kind == "K4":
+        block = DeepSeekBlock(cfg, 0, init, bf)
+        x = torch.randn((2, 1024, 128), generator=gen, device="cuda")
+        return block, x.to(bf), {"flash_attention_fwd": 1}, None
+    block = DeepSeekBlock(cfg, 1, init, bf)  # its MLA: K3 at 300 keys
+    x = torch.randn((4, 300, 128), generator=gen, device="cuda")
+    return (block, x.to(bf), {"grouped_matmul_fwd": 3,
+                              "vmem_attention_fwd": 1}, None)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("kind", ["K1", "K3", "K4", "K5"])
+def test_kernels_under_remat_give_the_unwrapped_gradients(cuda, kind,
+                                                          policy):
+    """The block's input and parameter gradients with the block under
+    remat_wrap equal the unwrapped block's bit for bit; the forward kernel
+    launches once more (the recompute), the backward kernels as often."""
+    smoke = _smoke()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    block, x, fwd, call = _remat_block(kind, gen)
+    call = call or (lambda b, h: b(h))
+    dout = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+    runs = {}
+    for wrapped in (False, True):
+        fn = remat_wrap(block, policy) if wrapped else block
+        h = x.clone().requires_grad_()
+        block.zero_grad(set_to_none=True)
+        kernels.reset_launch_counts()
+        with smoke.plain_versions_refused():
+            out = call(fn, h)
+            out.backward(dout)
+        torch.cuda.synchronize()
+        runs[wrapped] = (out.detach(), h.grad, {
+            n: p.grad for n, p in block.named_parameters()
+            if p.grad is not None}, dict(kernels.launch_counts))
+    (out0, dx0, g0, n0), (out1, dx1, g1, n1) = runs[False], runs[True]
+    assert torch.equal(out1, out0)
+    assert torch.equal(dx1, dx0)
+    assert g1.keys() == g0.keys() and g0
+    for name, g in g0.items():
+        assert torch.equal(g1[name], g), name
+    for name, count in fwd.items():
+        assert n0[name] == count and n1[name] == 2 * count, (name, n0, n1)
+    assert {k: v for k, v in n1.items() if k not in fwd} == {
+        k: v for k, v in n0.items() if k not in fwd}
+

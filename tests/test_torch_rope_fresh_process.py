@@ -73,6 +73,35 @@ def test_port_rope_tables_hold_in_fresh_processes():
     assert max(max(r) for r in reads) <= 1e-6, reads
 
 
+REPEAT = r"""
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from deepearth_tpu_torch.configs import RopeScalingConfig
+from deepearth_tpu_torch.ops.rope import rope_cos_sin
+same = True
+for dim in (16, 64):
+    for layout in ("half", "interleaved"):
+        a, b = (rope_cos_sin(600, dim, 10000.0, RopeScalingConfig(), layout)
+                for _ in range(2))
+        same &= all(torch.equal(x, y) for x, y in zip(a, b))
+print(same)
+"""
+
+
+def test_port_rope_tables_repeat_bit_for_bit_in_fresh_processes():
+    """A process's first tables equal its second bit for bit (the cached
+    tables of ``rope_tables`` are a first call's), with 6 processes
+    starting at once as xdist workers do."""
+    def run(_):
+        return subprocess.run([sys.executable, "-c", REPEAT, REPO],
+                              capture_output=True, text=True,
+                              check=True).stdout.strip()
+    with ThreadPoolExecutor(6) as pool:
+        reads = list(pool.map(run, range(12)))
+    assert reads == ["True"] * 12, reads
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--procs", type=int, default=240)
