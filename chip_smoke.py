@@ -229,6 +229,26 @@ Phases, each printing one line:
      against the plain path with routing pinned, a backward with remat
      against one without (TRAIN_TOL); each part from a generator of its own
      seeded from SEED; the phase's wall time;
+ 23. Gaussian splatting, the viewer and export, at tools/bench_splat.py's
+     width (256 x 256, fx = fy = 220, camera at z = 2.5, tiles of 16, K =
+     512, 3.5 sigma; scenes from init_scene): (a) render_tiled at G =
+     2,000, 16,000, 65,536 and 262,144 and the dense render at 2,000 and
+     16,000, each launching K8 (splat_bin, tiled) and K9-fwd
+     (splat_composite_fwd) once and held against the plain path; K8 bit
+     for bit, K9-fwd and K9-bwd (splat_composite_bwd) against their plain
+     versions at each scene's lists (SPLAT_IMAGE_TOL, SPLAT_GRAD_TOL; K9-bwd
+     at the tiled sizes and the dense 2,000), each timed by CUDA events
+     beside its plain version, its bound and its exp floor; (b) 3
+     make_train_step steps (Adam) tiled at 65,536 and dense at 2,000, K8
+     1, K9-fwd 1, K9-bwd 1 a step, against the plain path from one state
+     (SPLAT_TRAIN_TOL), and fit_scene_adaptive on the tiled renderer with
+     at least one densify that resizes the scene, whose loss must fall by
+     half; (c) DataService(viewer_views=...) answering GET /visualizer on
+     127.0.0.1 with the viewer's HTML, and export_model_forward of the
+     A-stack api.DeepEarth serves (768 / 12, the quick start's sources, B =
+     64) reloaded with load_exported: its launches K2-fwd 1 and K1-fwd 16
+     through the registered operators, its outputs the eager forward's bit
+     for bit; the phase's wall time;
 then a JSON line of the kernels, the card's name and power limit, and
 {"ok": true, ...} as the last line. Any failure raises and exits non-zero.
 Weights are random, drawn from a seeded generator on the card.
@@ -265,6 +285,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import math
@@ -273,6 +294,7 @@ import shutil
 import statistics
 import subprocess
 import time
+import urllib.request
 from pathlib import Path
 from typing import Optional
 from unittest import mock
@@ -347,6 +369,7 @@ from deepearth_tpu_torch.ops import (
     hash_encoding,
     moe,
     quant,
+    splat,
 )
 from deepearth_tpu_torch.serving import (
     DashboardClient,
@@ -363,6 +386,16 @@ from deepearth_tpu_torch.training import (
 )
 from deepearth_tpu_torch.training import trainer as trainer_module
 from deepearth_tpu_torch.convert import load_flax_params
+from deepearth_tpu_torch.export import export_model_forward, load_exported
+from deepearth_tpu_torch.reconstruction import (
+    Camera,
+    CameraIntrinsics,
+    ViewCloud,
+    euler_adjust_matrix,
+    render_viewer_html,
+    unproject_depth,
+)
+from deepearth_tpu_torch.reconstruction import gaussian_splat
 from deepearth_tpu_torch.serving.language_server import HashEmbedder
 from deepearth_tpu_torch.utils.checkpoint_files import read_msgpack_tree
 
@@ -712,7 +745,9 @@ def plain_versions():
                            flash_attention.flash_attention_plain), \
          mock.patch.object(grouped_matmul, "gmm", grouped_matmul.gmm_plain), \
          mock.patch.object(kernels, "int8_bmm", quant.int8_bmm_plain), \
-         mock.patch.object(kernels, "int4_bmm", quant.int4_bmm_plain):
+         mock.patch.object(kernels, "int4_bmm", quant.int4_bmm_plain), \
+         mock.patch.object(splat, "composite", splat.composite_plain), \
+         mock.patch.object(kernels, "splat_bin", splat.bin_tiles_plain):
         yield
 
 
@@ -736,7 +771,10 @@ def plain_versions_refused():
          mock.patch.object(grouped_matmul, "gmm_bwd_plain", refuse), \
          mock.patch.object(grouped_matmul, "split_dout_plain", refuse), \
          mock.patch.object(quant, "int8_bmm_plain", refuse), \
-         mock.patch.object(quant, "int4_bmm_plain", refuse):
+         mock.patch.object(quant, "int4_bmm_plain", refuse), \
+         mock.patch.object(splat, "bin_tiles_plain", refuse), \
+         mock.patch.object(splat, "composite_plain", refuse), \
+         mock.patch.object(splat, "composite_bwd_plain", refuse):
         yield
 
 
@@ -6258,6 +6296,439 @@ def phase_remat() -> dict:
     return {"launches": dict(total), "train": train}
 
 
+# phase 23: Gaussian splatting at tools/bench_splat.py's width (256 x 256,
+# fx = fy = 220, the camera at z = 2.5, init_scene at extent 1, tiles of 16,
+# K = 512, 3.5 sigma), the /visualizer route, and the export of the
+# service's A-stack
+SPLAT_SIZE, SPLAT_TILE, SPLAT_K = 256, 16, 512
+SPLAT_TILED_G = (2_000, 16_000, 65_536, 262_144)
+SPLAT_DENSE_G = (2_000, 16_000)
+SPLAT_TRAIN = (("tiled", 65_536), ("dense", 2_000))
+SPLAT_STEPS, SPLAT_LR = 3, 1e-2
+# K8 is exact. K9-fwd rounds its colour sums and transmittance product in
+# another order than the plain version's cumprod and einsum, an error that
+# grows like the square root of the list's length: 1e-5 of the image's
+# largest entry for the tiles' 512-entry lists, 1e-4 for the dense image's
+# thousands. K9-bwd divides the transmittance back out of the final one
+# and its dense sums meet in atomics in any order: each gradient within
+# 1e-4 (tiles) or 1e-3 (dense) of its largest entry.
+SPLAT_IMAGE_TOL = {"tiled": 1e-5, "dense": 1e-4}
+SPLAT_GRAD_TOL = {"tiled": 1e-4, "dense": 1e-3}
+# the train steps: Adam divides each gradient entry by its own size, so an
+# entry whose sum over the pixels nearly cancels (its sign set by rounding)
+# could move up to 2 lr the other way in one run. The losses agree to 1e-5,
+# at most 0.1% of the scene's entries may part by more than 1e-4, and none
+# by more than 2 lr, one Adam step turned round (readings: no entry past
+# 1e-4, the largest difference 3.8e-5).
+SPLAT_TRAIN_TOL = {"loss_rel": 1e-5, "share_off": 1e-3, "off": 1e-4,
+                   "max": 2 * SPLAT_LR}
+# fp32 operations per (pixel, list entry) that the function itself needs,
+# counted from csrc/gaussian_splat.cu without its bookkeeping (the
+# transmittance's renormalisation, the zero test, indexing). Alpha: dx, dy,
+# the quadratic form (8), its scale, the opacity, the clip (14) and an exp.
+# K9-fwd: alpha, the weight, three colour FMAs, the transmittance (23).
+# K9-bwd: alpha; 1 - alpha and the transmittance before the entry (2);
+# d alpha (9); the weight and d colour (4); the colour behind (9); the
+# clip's gradient (2); d opacity (1); d q (2); d abc (5); d xy (10); the
+# sum over the pixels of the nine gradients (9): 67 and one exp. K8: the
+# hit test per (tile, Gaussian read) (7).
+SPLAT_FWD_OPS, SPLAT_BWD_OPS, SPLAT_BIN_OPS = 23, 67, 7
+SPLAT_FINAL_BYTES = 2 * 4  # K9-fwd's kept transmittance, a pixel
+SPLAT_ENTRY_BYTES = 9 * 4  # xy, abc, opacity, colour of a list entry
+SPLAT_GAUSSIAN_BYTES = 2 * 4 + 4 + 1  # xy, radius, valid of a Gaussian
+ADAPTIVE = {"n_init": 256, "steps": 60, "densify_every": 20,
+            "densify_until": 41, "lr": 2e-2, "extent": 0.5,
+            "grad_threshold": 1e-7, "split_scale": 0.04}
+EXPORT_BATCH = 64
+
+
+def splat_camera() -> Camera:
+    return Camera(torch.eye(3, device="cuda"),
+                  torch.tensor([0.0, 0.0, 2.5], device="cuda"), 220.0, 220.0,
+                  SPLAT_SIZE / 2, SPLAT_SIZE / 2, SPLAT_SIZE, SPLAT_SIZE)
+
+
+def splat_inputs(scene, cam, kind: str) -> dict:
+    """What render / render_tiled hand K8 and K9 (their own
+    gaussian_splat.dense_lists / tile_lists), with the (pixel, entry)
+    pairs K9 composites over filled slots and, tiled, the Gaussians K8
+    reads: each tile's up to its K-th hit, or all G."""
+    if kind == "dense":
+        lists = gaussian_splat.dense_lists(scene, cam)
+        return {"lists": lists.lists, "geometry": lists.geometry,
+                "pairs": SPLAT_SIZE * SPLAT_SIZE * scene.means.shape[0]}
+    lists = gaussian_splat.tile_lists(scene, cam, tile_size=SPLAT_TILE,
+                                      max_per_tile=SPLAT_K)
+    idx, count = lists.idx, lists.count
+    scanned = torch.where(count == idx.shape[1], idx[:, -1].long() + 1,
+                          torch.full_like(count, scene.means.shape[0]).long())
+    return {"binning": lists.binning, "idx": idx, "count": count,
+            "lists": lists.lists, "geometry": lists.geometry,
+            "pairs": int(count.sum()) * SPLAT_TILE * SPLAT_TILE,
+            "scanned": int(scanned.sum()), "read": int(scanned.max())}
+
+
+def splat_bounds(inp: dict) -> dict:
+    """Each kernel's bound at these inputs (fp32 operations at the fp32
+    peak, bytes at the HBM rate), and K9's exp floor: K9-fwd as a render
+    calls it (the image written), K9-bwd reading the lists, dout and the
+    kept transmittance and writing the lists' gradients."""
+    lists_bytes = nbytes(*inp["lists"])
+    pixels = SPLAT_SIZE * SPLAT_SIZE
+    image = 3 * 4 * pixels
+    out = {"fwd": bound(lists_bytes + image, SPLAT_FWD_OPS * inp["pairs"],
+                        torch.float32),
+           "bwd": bound(2 * lists_bytes + image + SPLAT_FINAL_BYTES * pixels,
+                        SPLAT_BWD_OPS * inp["pairs"], torch.float32)}
+    out["fwd"]["exp_floor_ms"] = exp_floor_ms(inp["pairs"])
+    out["bwd"]["exp_floor_ms"] = exp_floor_ms(inp["pairs"])
+    if "binning" in inp:
+        out["bin"] = bound(SPLAT_GAUSSIAN_BYTES * inp["read"]
+                           + nbytes(inp["idx"], inp["count"]),
+                           SPLAT_BIN_OPS * inp["scanned"], torch.float32)
+    return out
+
+
+def splat_kernels(scene, cam, kind: str, gen, backward: bool) -> dict:
+    """K8 (tiled), K9-fwd and, with ``backward``, K9-bwd at one scene's
+    inputs: held against their plain versions, timed by CUDA events beside
+    them and their bounds."""
+    inp = splat_inputs(scene, cam, kind)
+    lists, geometry = inp["lists"], inp["geometry"]
+    out = {"bounds": splat_bounds(inp), "pairs": inp["pairs"]}
+    if kind == "tiled":
+        idx, count = splat.bin_tiles_plain(*inp["binning"])
+        if not (torch.equal(idx, inp["idx"])
+                and torch.equal(count, inp["count"])):
+            raise AssertionError(f"K8 vs plain at G={scene.means.shape[0]}")
+        out["bin_ms"] = cuda_ms(lambda: kernels.splat_bin(*inp["binning"]),
+                                iters=20)
+        out["bin_plain_ms"] = cuda_ms(
+            lambda: splat.bin_tiles_plain(*inp["binning"]), iters=3,
+            warmup=1)
+        out["filled"] = float(inp["count"].float().mean() / inp["idx"].shape[1])
+    img = kernels.splat_composite_fwd(*lists, None, *geometry)
+    ref = splat.composite_plain(*lists, None, *geometry)
+    out["fwd_err"] = max_err(img, ref) / ref.abs().max().item()
+    out["fwd_abs_err"] = max_err(img, ref)
+    if out["fwd_err"] > SPLAT_IMAGE_TOL[kind]:
+        raise AssertionError(f"K9-fwd vs plain, {kind} G="
+                             f"{scene.means.shape[0]}: {out['fwd_err']:.3g} "
+                             f"of the largest entry")
+    out["fwd_ms"] = cuda_ms(
+        lambda: kernels.splat_composite_fwd(*lists, None, *geometry), iters=10)
+    out["fwd_plain_ms"] = cuda_ms(
+        lambda: splat.composite_plain(*lists, None, *geometry), iters=2,
+        warmup=1)
+    if not backward:
+        return out
+    dout = torch.randn(img.shape, generator=gen, device="cuda")
+    _, t_final = kernels.splat_composite_fwd(*lists, None, *geometry,
+                                             keep_final=True)
+    grads = kernels.splat_composite_bwd(*lists, None, t_final, dout,
+                                        *geometry)
+    ref_grads = splat.composite_bwd_plain(*lists, None, dout, *geometry)
+    out["bwd_err"] = max(max_err(g, r) / r.abs().max().item()
+                         for g, r in zip(grads[:4], ref_grads[:4]))
+    out["bwd_abs_err"] = max(max_err(g, r)
+                             for g, r in zip(grads[:4], ref_grads[:4]))
+    if out["bwd_err"] > SPLAT_GRAD_TOL[kind]:
+        raise AssertionError(f"K9-bwd vs plain, {kind} G="
+                             f"{scene.means.shape[0]}: {out['bwd_err']:.3g} "
+                             f"of the largest entry")
+    out["bwd_ms"] = cuda_ms(lambda: kernels.splat_composite_bwd(
+        *lists, None, t_final, dout, *geometry), iters=10)
+    out["bwd_plain_ms"] = cuda_ms(lambda: splat.composite_bwd_plain(
+        *lists, None, dout, *geometry), iters=2, warmup=1)
+    return out
+
+
+def splat_train(gen, kind: str, g: int) -> dict:
+    """SPLAT_STEPS make_train_step steps (forward, backward, Adam) on one
+    scene, with the kernels and through the plain versions from the same
+    state; the target is another scene's render."""
+    cam = splat_camera()
+    render = (gaussian_splat.render if kind == "dense"
+              else gaussian_splat.render_tiled)
+    with torch.no_grad():
+        target = render(gaussian_splat.init_scene(gen, g), cam)
+    start = gaussian_splat.init_scene(gen, g)
+    runs = {}
+    for plain in (False, True):
+        init, step = gaussian_splat.make_train_step(cam, SPLAT_LR, kind)
+        scene, opt, losses, ms = start, init(start), [], []
+        kernels.reset_launch_counts()
+        with plain_versions() if plain else plain_versions_refused():
+            for _ in range(SPLAT_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scene, opt, loss = step(scene, opt, target)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss))
+        runs[plain] = {"scene": scene, "losses": losses, "ms": ms,
+                       "launches": dict(kernels.launch_counts)}
+    want = expected_launches(splat_bin=SPLAT_STEPS if kind == "tiled" else 0,
+                             splat_composite_fwd=SPLAT_STEPS,
+                             splat_composite_bwd=SPLAT_STEPS)
+    if runs[False]["launches"] != want:
+        raise AssertionError(f"{kind} train steps: launches "
+                             f"{runs[False]['launches']} != {want}")
+    k, p = runs[False], runs[True]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k["losses"],
+                                                       p["losses"]))
+    diff = torch.cat([(a - b).abs().flatten()
+                      for a, b in zip(k["scene"], p["scene"])])
+    share = float((diff > SPLAT_TRAIN_TOL["off"]).float().mean())
+    if (loss_rel > SPLAT_TRAIN_TOL["loss_rel"]
+            or share > SPLAT_TRAIN_TOL["share_off"]
+            or float(diff.max()) > SPLAT_TRAIN_TOL["max"]
+            or not all(torch.isfinite(t).all() for t in k["scene"])):
+        raise AssertionError(f"{kind} G={g} train steps, kernel vs plain: "
+                             f"loss rel {loss_rel:.3g}, share off {share:.3g}"
+                             f", largest difference {float(diff.max()):.3g}"
+                             f" (tol {SPLAT_TRAIN_TOL})")
+    return {"losses": k["losses"], "plain_losses": p["losses"],
+            "ms": k["ms"], "plain_ms": p["ms"], "loss_rel": loss_rel,
+            "share_off": share, "max_param_diff": float(diff.max()),
+            "launches": k["launches"]}
+
+
+def splat_adaptive(gen) -> dict:
+    """fit_scene_adaptive on the tiled renderer against the render of a
+    tight cluster of bright Gaussians (the JAX package's densification
+    test at 256 x 256): at least one densify must resize the scene and the
+    loss must fall."""
+    cam = splat_camera()
+    true = gaussian_splat.init_scene(gen, 48, extent=0.15)
+    true = true._replace(
+        opacity_logits=torch.full((48,), 2.5, device="cuda"),
+        colors=torch.randn((48, 3), generator=gen, device="cuda") * 2)
+    with torch.no_grad():
+        target = gaussian_splat.render_tiled(true, cam)
+        first = gaussian_splat.init_scene(
+            torch.Generator(device="cuda").manual_seed(SEED),
+            ADAPTIVE["n_init"], ADAPTIVE["extent"])
+        loss0 = float(torch.mean(
+            (gaussian_splat.render_tiled(first, cam) - target) ** 2))
+    resizes = []
+    densify = gaussian_splat.densify_and_prune
+
+    def counting(scene, *args, **kw):
+        new, src = densify(scene, *args, **kw)
+        resizes.append((scene.means.shape[0], new.means.shape[0]))
+        return new, src
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(gaussian_splat, "densify_and_prune", counting), \
+            plain_versions_refused():
+        scene, loss = gaussian_splat.fit_scene_adaptive(
+            target, cam, renderer="tiled", seed=SEED, **ADAPTIVE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    steps = ADAPTIVE["steps"]
+    want = expected_launches(splat_bin=steps, splat_composite_fwd=steps,
+                             splat_composite_bwd=steps)
+    if launches != want:
+        raise AssertionError(f"adaptive fit: launches {launches} != {want}")
+    if not resizes or all(a == b for a, b in resizes):
+        raise AssertionError(f"adaptive fit: no densify resized: {resizes}")
+    if not (math.isfinite(loss) and loss < 0.5 * loss0):
+        raise AssertionError(f"adaptive fit: loss {loss0} -> {loss}")
+    return {"loss0": loss0, "loss": loss, "resizes": resizes,
+            "g": scene.means.shape[0], "seconds": seconds,
+            "launches": launches}
+
+
+def splat_visualizer() -> dict:
+    """DataService(viewer_views=...) answers GET /visualizer on 127.0.0.1
+    with reconstruction.render_viewer_html of its views: two views of
+    depth maps unprojected with the splat camera's intrinsics."""
+    rng = np.random.default_rng(SEED)
+    k = CameraIntrinsics(fx=220.0, fy=220.0, cx=SPLAT_SIZE / 2,
+                         cy=SPLAT_SIZE / 2, width=SPLAT_SIZE,
+                         height=SPLAT_SIZE)
+    views = [ViewCloud(
+        points_cam=unproject_depth(
+            rng.uniform(1.0, 4.0, (SPLAT_SIZE, SPLAT_SIZE)), k,
+            stride=4).astype(np.float32),
+        colors=rng.integers(0, 256, ((SPLAT_SIZE // 4) ** 2, 3)).astype(
+            np.uint8),
+        rotation_body_to_world=euler_adjust_matrix(0, 0, 30 * i),
+        translation=np.array([0.1 * i, 0.0, 0.0]), name=f"view {i}")
+        for i in range(2)]
+    srv = DashboardServer(DataService(viewer_views=views), port=0).start()
+    try:
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/visualizer", timeout=60) as r:
+            status, body = r.status, r.read().decode()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        srv.stop()
+    if status != 200 or body != render_viewer_html(views):
+        raise AssertionError(f"/visualizer: status {status}, body of "
+                             f"{len(body)} characters is not the viewer's")
+    return {"bytes": len(body), "ms": ms,
+            "points": sum(len(v.points_cam) for v in views)}
+
+
+def splat_export() -> dict:
+    """export_model_forward of the A-stack api.DeepEarth serves (the quick
+    start's sources at hidden 768, 12 layers), reloaded with load_exported:
+    the program launches K1-fwd and K2-fwd through their operators, as
+    often as the eager forward, and gives its outputs bit for bit."""
+    earth = register_quick_start(DeepEarth(**API_WIDTH))
+    job = api_batch(SEED, EXPORT_BATCH)
+    earth.predict_batch(**job)  # builds the model
+    model = earth._model
+    batch = earth._prepare_batch(job["locations"], job["times"], job["data"])
+    per_forward = {"grid4d_encode_fwd": K2_PER_FORWARD,
+                   k1_fwd_counter(SERVICE_TOKENS): K1_PER_FORWARD}
+    t0 = time.perf_counter()
+    blob = export_model_forward(model, None, batch)
+    export_s = time.perf_counter() - t0
+    fn = load_exported(blob)
+    (fused, recon), launches = counted(lambda: fn(batch), per_forward,
+                                       "the exported A-stack")
+
+    def eager():
+        with torch.no_grad():
+            return model(batch)
+    ref, _ = counted(eager, per_forward, "the eager A-stack")
+    same = torch.equal(fused, ref["fused_representation"]) and all(
+        torch.equal(recon[k], ref["reconstructions"][k]) for k in recon)
+    if not same or recon.keys() != ref["reconstructions"].keys():
+        err = max_err(fused, ref["fused_representation"])
+        raise AssertionError(f"exported A-stack vs eager: max {err}")
+    targets = {n.target for n in torch.export.load(
+        io.BytesIO(blob)).graph_module.graph.nodes if n.op == "call_function"}
+    ops = sorted(str(t) for t in targets if str(t).startswith("deepearth."))
+    return {"bytes": len(blob), "export_s": export_s, "launches": launches,
+            "ops": ops,
+            "ms": statistics.median(host_ms(lambda: fn(batch), iters=5)),
+            "eager_ms": statistics.median(host_ms(eager, iters=5))}
+
+
+def phase_splat() -> dict:
+    """Phase 23: Gaussian splatting, the viewer and the export; its
+    generator seeded from SEED."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    t0 = time.perf_counter()
+    cam = splat_camera()
+    tiled, dense, main = {}, {}, collections.Counter()
+    for kind, sizes, table, render in (
+            ("tiled", SPLAT_TILED_G, tiled, gaussian_splat.render_tiled),
+            ("dense", SPLAT_DENSE_G, dense, gaussian_splat.render)):
+        for g in sizes:
+            scene = gaussian_splat.init_scene(gen, g)
+            want = ({"splat_bin": 1} if kind == "tiled" else {}) | {
+                "splat_composite_fwd": 1}
+            with torch.no_grad():
+                img, launches = counted(lambda: render(scene, cam), want,
+                                        f"render {kind} G={g}")
+                with plain_versions():
+                    ref = render(scene, cam)
+            main.update(launches)
+            if img.shape != (SPLAT_SIZE, SPLAT_SIZE, 3) or not torch.isfinite(
+                    img).all():
+                raise AssertionError(f"{kind} G={g}: {img.shape} or "
+                                     f"non-finite values")
+            # K9-bwd at the train steps' sizes: the plain backward keeps
+            # every (pixel, entry) intermediate, 42 GB at the dense 16,000
+            row = splat_kernels(scene, cam, kind, gen, backward=(
+                kind == "tiled" or (kind, g) in SPLAT_TRAIN))
+            row["render_err"] = max_err(img, ref) / ref.abs().max().item()
+            if row["render_err"] > SPLAT_IMAGE_TOL[kind]:
+                raise AssertionError(f"render {kind} G={g} vs plain: "
+                                     f"{row['render_err']:.3g}")
+            with torch.no_grad():
+                row["render_ms"] = cuda_ms(lambda: render(scene, cam),
+                                           iters=10)
+                with plain_versions():
+                    row["render_plain_ms"] = cuda_ms(
+                        lambda: render(scene, cam), iters=2, warmup=1)
+            table[g] = row
+    t_render = time.perf_counter()
+    train = {}
+    for kind, g in SPLAT_TRAIN:
+        train[kind] = splat_train(gen, kind, g)
+        main.update(train[kind]["launches"])
+    adaptive = splat_adaptive(gen)
+    main.update(adaptive["launches"])
+    t_train = time.perf_counter()
+    viewer = splat_visualizer()
+    exported = splat_export()
+    t_end = time.perf_counter()
+
+    def fmt_row(g, r):
+        b = r["bounds"]
+        parts = [f"G={g}"]
+        if "bin_ms" in r:
+            parts.append(f"K8 {r['bin_ms']:.4f} ms (plain "
+                         f"{r['bin_plain_ms']:.3f}, bound "
+                         f"{b['bin']['bound_ms']:.4f} {b['bin']['bound_by']};"
+                         f" slots filled {r['filled']:.1%})")
+        parts.append(
+            f"K9-fwd {r['fwd_ms']:.4f} (plain {r['fwd_plain_ms']:.3f}, bound "
+            f"{b['fwd']['bound_ms']:.4f} {b['fwd']['bound_by']}, exp floor "
+            f"{b['fwd']['exp_floor_ms']:.4f}; err {r['fwd_err']:.2g})")
+        if "bwd_ms" in r:
+            parts.append(
+                f"K9-bwd {r['bwd_ms']:.4f} (plain {r['bwd_plain_ms']:.3f}, "
+                f"bound {b['bwd']['bound_ms']:.4f} {b['bwd']['bound_by']}, "
+                f"exp floor {b['bwd']['exp_floor_ms']:.4f}; err "
+                f"{r['bwd_err']:.2g})")
+        parts.append(f"render {r['render_ms']:.3f} ms (plain "
+                     f"{r['render_plain_ms']:.3f}; err {r['render_err']:.2g})")
+        return ", ".join(parts)
+    print(f"[23a splat render] {SPLAT_SIZE} x {SPLAT_SIZE}, fx = fy = 220, "
+          f"z = 2.5, init_scene extent 1, tiles of {SPLAT_TILE}, K = "
+          f"{SPLAT_K}, 3.5 sigma; per scene: launches of each render "
+          f"(counters reset before, read after) K8 1 + K9-fwd 1 tiled, "
+          f"K9-fwd 1 dense; kernel vs plain (tol image {SPLAT_IMAGE_TOL}, "
+          f"gradients {SPLAT_GRAD_TOL} of the largest entry; K8 exact); ms "
+          f"by CUDA events | tiled: "
+          + " | ".join(fmt_row(g, r) for g, r in tiled.items())
+          + " | dense: " + " | ".join(fmt_row(g, r) for g, r in dense.items())
+          + f" | {card()}")
+    tr = " | ".join(
+        f"{kind} G={g}: losses {[round(x, 6) for x in train[kind]['losses']]}"
+        f" (plain {[round(x, 6) for x in train[kind]['plain_losses']]}), "
+        f"step ms {[round(x, 2) for x in train[kind]['ms']]} (plain "
+        f"{[round(x, 2) for x in train[kind]['plain_ms']]}), loss rel "
+        f"{train[kind]['loss_rel']:.3g}, entries off by > "
+        f"{SPLAT_TRAIN_TOL['off']} {train[kind]['share_off']:.3g}, max "
+        f"{train[kind]['max_param_diff']:.3g}"
+        for kind, g in SPLAT_TRAIN)
+    print(f"[23b splat training] make_train_step x{SPLAT_STEPS} (forward, "
+          f"backward, Adam lr {SPLAT_LR}), kernel vs plain from one state "
+          f"(tol {SPLAT_TRAIN_TOL}); K8 1 (tiled), K9-fwd 1, K9-bwd 1 a step"
+          f" | {tr} | fit_scene_adaptive(tiled, {ADAPTIVE}): scene "
+          f"{ADAPTIVE['n_init']} -> {adaptive['g']} by {adaptive['resizes']}"
+          f", loss {adaptive['loss0']:.6f} -> {adaptive['loss']:.6f}, "
+          f"{adaptive['seconds']:.2f} s, launches "
+          f"{ {k: v for k, v in adaptive['launches'].items() if v} } | "
+          f"{card()}")
+    print(f"[23c viewer and export] GET /visualizer: {viewer['bytes']} "
+          f"characters ({viewer['points']} points, 2 views), "
+          f"{viewer['ms']:.1f} ms, the viewer's HTML | export_model_forward "
+          f"of DeepEarth(768, 12) with the quick start's sources at "
+          f"B={EXPORT_BATCH}: {exported['bytes']} bytes in "
+          f"{exported['export_s']:.1f} s, operators {exported['ops']}; the "
+          f"reloaded program's launches "
+          f"{ {k: v for k, v in exported['launches'].items() if v} }, "
+          f"outputs bit for bit the eager forward's; {exported['ms']:.2f} ms"
+          f" a call (eager {exported['eager_ms']:.2f}) | {card()}")
+    print(f"[23 splatting, viewer, export] wall {t_end - t0:.1f} s (renders "
+          f"{t_render - t0:.1f}, training {t_train - t_render:.1f}, viewer "
+          f"and export {t_end - t_train:.1f})")
+    return {"tiled": tiled, "dense": dense, "train": train,
+            "adaptive": adaptive, "viewer": viewer, "export": exported,
+            "launches": dict(main)}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--clip-batch-search", action="store_true",
@@ -6316,6 +6787,7 @@ def main() -> None:
     # 15 and 16 do: its draws do not move with the phases before it
     tok = phase_tokens(torch.Generator(device="cuda").manual_seed(SEED))
     remat = phase_remat()
+    splats = phase_splat()
     report = {"kernels": [
         {"name": "grid4d_encode_fwd", "route": "cuda",
          "source": "deepearth_tpu_torch/kernels/csrc/grid4d_encode.cu",
@@ -6429,6 +6901,33 @@ def main() -> None:
                              k67["int4_bmm"])):
         entry.update({key: phase[key] for key in
                       ("bound_ms", "bound_by", "library_ms")})
+    # phase 23's kernels, at the tiled train step's scene (G = 65,536);
+    # every scene's numbers under "at_G". No PyTorch call computes them.
+    at = splats["tiled"][dict(SPLAT_TRAIN)["tiled"]]
+    for name, key, replaces, exact in (
+            ("splat_bin", "bin", ":253-259 (XLA: render_tiled's intersect "
+             "test and lax.top_k)", True),
+            ("splat_composite_fwd", "fwd", ":261-283 (XLA: render_tiled's "
+             "compositing) and :143-157 (render's)", False),
+            ("splat_composite_bwd", "bwd", ":261-283 and :143-157 (their "
+             "gradient: jax.grad of XLA)", False)):
+        rows = {f"{kind} {g}": r for kind in ("tiled", "dense")
+                for g, r in splats[kind].items() if f"{key}_ms" in r}
+        report["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "deepearth_tpu_torch/kernels/csrc/gaussian_splat.cu",
+            "replaces": "deepearth_tpu/reconstruction/gaussian_splat.py"
+                        + replaces,
+            "launches": splats["launches"][name],
+            "max_abs_err": 0.0 if exact else at[f"{key}_abs_err"],
+            "ms": at[f"{key}_ms"], "plain_ms": at[f"{key}_plain_ms"],
+            **{k: at["bounds"][key][k] for k in ("bound_ms", "bound_by")},
+            "library_ms": None,
+            "at_G": {tag: {"ms": r[f"{key}_ms"],
+                           "plain_ms": r[f"{key}_plain_ms"],
+                           **r["bounds"][key],
+                           "max_rel_err": 0.0 if exact else r[f"{key}_err"]}
+                     for tag, r in rows.items()}})
     for k in report["kernels"]:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
@@ -6565,6 +7064,12 @@ def main() -> None:
     for entry in report["kernels"] + report["off_main_path"]:
         if remat["launches"].get(entry["name"]):
             entry["launches_in_phase_22"] = remat["launches"][entry["name"]]
+    # phase 23: the exported A-stack's program (K1-fwd on its warp route,
+    # K2-fwd), beside the splatting kernels' own entries
+    for entry in report["kernels"] + report["off_main_path"]:
+        if splats["export"]["launches"].get(entry["name"]):
+            entry["launches_in_phase_23_export"] = (
+                splats["export"]["launches"][entry["name"]])
     print(json.dumps(report))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -168,3 +168,25 @@ def load_flax_opt_state(optimizer, model: nn.Module, opt_state) -> None:
             st["nu"] = torch.from_numpy(nu.T if transposed else nu)
         state["state"].append(st)
     optimizer.load_state_dict(state)
+
+
+def gaussian_scene_from_jax(scene, device="cpu"):
+    """The JAX package's ``GaussianScene`` (its five fields as arrays) as
+    the port's :class:`~deepearth_tpu_torch.reconstruction.GaussianScene`
+    of fp32 tensors on ``device``."""
+    from .reconstruction.gaussian_splat import GaussianScene
+
+    return GaussianScene(*(torch.tensor(np.asarray(f), dtype=torch.float32,
+                                        device=device) for f in scene))
+
+
+def camera_from_jax(cam, device="cpu"):
+    """The JAX package's ``Camera`` as the port's: rotation and translation
+    as fp32 tensors on ``device``, the intrinsics and size as they are."""
+    from .reconstruction.gaussian_splat import Camera
+
+    return Camera(torch.tensor(np.asarray(cam.rotation), dtype=torch.float32,
+                               device=device),
+                  torch.tensor(np.asarray(cam.translation),
+                               dtype=torch.float32, device=device),
+                  cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height)

@@ -1,7 +1,13 @@
-"""Evaluation layer of the PyTorch port: its own copies of the JAX
-package's numpy-only ecosystem, retrieval and spatiotemporal metrics (the
-linear probes are ROADMAP.md Queue 1, item 18)."""
+"""Evaluation layer of the PyTorch port: linear probes on frozen features
+(trained with torch, on the card by default), and its own copies of the JAX
+package's numpy-only ecosystem, retrieval and spatiotemporal metrics."""
 
+from .probes import (
+    DeepEarthEvaluator,
+    ProbeResult,
+    classification_metrics,
+    regression_metrics,
+)
 from .ecosystems import (
     EcosystemCluster,
     analyze_ecosystems,
@@ -24,6 +30,10 @@ __all__ = [
     "analyze_ecosystems",
     "ecosystem_map_html",
     "species_similarity",
+    "DeepEarthEvaluator",
+    "ProbeResult",
+    "classification_metrics",
+    "regression_metrics",
     "SpatiotemporalMetrics",
     "binned_rmse",
     "knn_weights",

@@ -14,7 +14,8 @@ K5 ``grouped_matmul_fwd`` (three routes, :func:`gmm_fwd_tma_route`) and
 ``grouped_matmul_split_dout`` and ``grouped_matmul_bwd_{dlhs,drhs}_tma``, or
 ``grouped_matmul_bwd_{dlhs,drhs}_mma``), K6 ``int8_bmm`` and K7
 ``int4_bmm`` (each by one of two routes, :func:`int8_bmm_tc_route`,
-:func:`int4_bmm_tc_route`).
+:func:`int4_bmm_tc_route`), and Gaussian splatting's K8 ``splat_bin`` and
+K9 ``splat_composite_fwd`` / ``_bwd`` (``csrc/gaussian_splat.cu``).
 
 The sources in ``csrc/`` have a plain C interface. At first use each ``.cu``
 is compiled with its own ``nvcc``, all at once, and the objects are linked
@@ -29,6 +30,15 @@ stream, raises if the launch reports an error, and adds one to its entry of
 ``torch.autograd.Function`` of each kernel pair lives in ``ops/``. Nothing
 here runs at import time: the CPU tests import this module on machines
 without ``nvcc``.
+
+``torch.export`` traces with fake tensors, which have no data for ctypes.
+The kernels of the A-stack forward that ``api.DeepEarth`` serves, K1-fwd
+and K2-fwd's Grid4D encode, are therefore registered as custom operators
+(``torch.ops.deepearth.pairwise_attention_fwd`` and ``.grid4d_encode_fwd``,
+each with a fake implementation): under an export trace their wrappers
+call the operator, which the exported program keeps and which runs the
+wrapper again when the program runs. Every other kernel launch raises a
+``ValueError`` under an export trace (:func:`library`, :data:`EXPORT_TODO`).
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -80,7 +90,10 @@ launch_counts = {"grid4d_encode_fwd": 0, "hash_encode_fwd": 0,
                  # K6 and K7 by route: tensor cores in one cluster launch
                  # (no suffix), CUDA-core FMAs (shapes off its grid)
                  "int8_bmm": 0, "int8_bmm_fma": 0, "int4_bmm": 0,
-                 "int4_bmm_fma": 0}
+                 "int4_bmm_fma": 0,
+                 # K8 and K9: Gaussian splatting's binning and compositing
+                 "splat_bin": 0, "splat_composite_fwd": 0,
+                 "splat_composite_bwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -124,7 +137,13 @@ _SIGNATURES = {
                                    _P],
     "pairwise_attention_fwd_tma": [*[_P] * 5, *[_I] * 5, *[_I64] * 6, _F,
                                    _P],
+    "splat_bin": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "splat_composite_fwd": [*[_P] * 5, *[_I] * 6, _P, _P, _P],
+    "splat_composite_bwd": [*[_P] * 7, *[_I] * 6, *[_P] * 5, _P],
 }
+
+EXPORT_TODO = ("ROADMAP.md Queue 1, item 21: only K1-fwd and K2-fwd's Grid4D "
+               "encode are registered as custom operators")
 
 
 def reset_launch_counts() -> None:
@@ -193,8 +212,14 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use. Every launch goes
+    through it, so under an export trace it raises ``ValueError``: ctypes
+    cannot launch on fake tensors, and only the kernels registered as
+    operators (which divert before they launch) can be traced."""
     global _lib
+    if torch.compiler.is_exporting():
+        raise ValueError("torch.export reached a kernel launch, which it "
+                         f"cannot trace: {EXPORT_TODO}")
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
@@ -373,7 +398,16 @@ def grid4d_encode_fwd(xyzt: torch.Tensor, encodings, spatial_mask,
     (temporal_mask) or 3 (both); a mask (N,) bool or None, a bit whose mask
     is None ignored. Returns (N, sum of 2 L) in ``out_dtype`` (fp32 or
     bf16), the plain composition's bits; counted as ``grid4d_encode_fwd``.
+    Under an export trace: the operator
+    ``torch.ops.deepearth.grid4d_encode_fwd``, which calls this.
     """
+    if torch.compiler.is_exporting():
+        return torch.ops.deepearth.grid4d_encode_fwd(
+            xyzt, [e[0] for e in encodings], [e[1] for e in encodings],
+            [int(e[2]) for e in encodings], [bool(e[3]) for e in encodings],
+            [c for e in encodings for c in e[4]],
+            [len(e[4]) for e in encodings], [int(e[5]) for e in encodings],
+            spatial_mask, temporal_mask, out_dtype)
     name = "grid4d_encode_fwd"
     n = xyzt.shape[0]
     _require(xyzt.is_cuda and xyzt.dtype == torch.float32 and xyzt.dim() == 2,
@@ -586,7 +620,12 @@ def pairwise_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the route :func:`pairwise_fwd_tma_route` picks from the shapes and
     strides: :func:`pairwise_attention_fwd_tma` (``pairwise_attention_fwd``)
     or :func:`pairwise_attention_fwd_warp` (``pairwise_attention_fwd_warp``).
+    Under an export trace: the operator
+    ``torch.ops.deepearth.pairwise_attention_fwd``, which calls this.
     """
+    if torch.compiler.is_exporting():
+        return torch.ops.deepearth.pairwise_attention_fwd(
+            q, k, v, key_mask, n_heads, float(scale))
     route = (pairwise_attention_fwd_tma
              if _pairwise_on_grid(pairwise_fwd_tma_route, q, k, v, n_heads)
              else pairwise_attention_fwd_warp)
@@ -1607,3 +1646,178 @@ def int4_bmm(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
             and tuple(w_p.shape[:2]) == (x.shape[0], x.shape[2] // 2)):
         return int4_bmm_tc(x, w_p, scale, out_dtype)
     return int4_bmm_fma(x, w_p, scale, out_dtype)
+
+
+# -- K8 and K9: Gaussian splatting (csrc/gaussian_splat.cu) ------------------ #
+
+
+def _float_inputs(name: str, device, *tensors) -> None:
+    _require(all(t.device == device and t.dtype == torch.float32
+                 for t in tensors),
+             f"{name}: inputs must be float32 on one CUDA device")
+
+
+def splat_bin(xy: torch.Tensor, radius: torch.Tensor, valid: torch.Tensor,
+              tiles_x: int, tiles_y: int, tile_size: int, k: int):
+    """K8, the tile binning of ``render_tiled``: xy (G, 2) and radius (G,)
+    fp32 and valid (G,) bool of the depth-sorted Gaussians, on one CUDA
+    device; a tiles_x x tiles_y grid of tile_size-pixel tiles. Returns idx
+    (tiles, k) int32, each tile's first k Gaussians (in sorted order) that
+    are valid and whose box of half width tile_size / 2 + radius about their
+    mean holds the tile's centre, unfilled slots 0, and count (tiles,)
+    int32, the slots filled. Counted as ``splat_bin``."""
+    name = "splat_bin"
+    _require(xy.is_cuda, f"{name}: xy must lie on a CUDA device")
+    g = xy.shape[0]
+    _require(xy.shape == (g, 2) and radius.shape == (g,)
+             and valid.shape == (g,) and valid.dtype == torch.bool
+             and valid.device == xy.device,
+             f"{name}: xy must be (G, 2), radius (G,) and valid (G,) bool")
+    _float_inputs(name, xy.device, xy, radius)
+    _require(0 < k <= g and tile_size > 0, f"{name}: k must be in 1..G")
+    xy, radius, valid = (t.contiguous() for t in (xy, radius, valid))
+    tiles = tiles_x * tiles_y
+    idx = torch.empty((tiles, k), device=xy.device, dtype=torch.int32)
+    count = torch.empty((tiles,), device=xy.device, dtype=torch.int32)
+    rc = library().splat_bin(
+        xy.data_ptr(), radius.data_ptr(), valid.data_ptr(), g, tiles_x,
+        tiles_y, tile_size, k, idx.data_ptr(), count.data_ptr(),
+        torch.cuda.current_stream(xy.device).cuda_stream)
+    _check(name, rc)
+    return idx, count
+
+
+def _splat_lists(name, xy, abc, opac, color, background, height, width,
+                 region_h, region_w):
+    """Checks of K9's inputs; returns (L, K) and the inputs contiguous."""
+    _require(xy.is_cuda, f"{name}: xy must lie on a CUDA device")
+    _require(xy.dim() == 3 and xy.shape[2] == 2,
+             f"{name}: xy must be (L, K, 2)")
+    lists, k = xy.shape[:2]
+    _require(abc.shape == (lists, k, 3) and opac.shape == (lists, k)
+             and color.shape == (lists, k, 3),
+             f"{name}: abc and color must be (L, K, 3), opac (L, K)")
+    _float_inputs(name, xy.device, xy, abc, opac, color,
+                  *([] if background is None else [background]))
+    _require(background is None or background.shape == (3,),
+             f"{name}: background must be (3,)")
+    _require(region_h > 0 and region_w > 0 and height % region_h == 0
+             and width % region_w == 0
+             and lists == (height // region_h) * (width // region_w),
+             f"{name}: one list a region_h x region_w region of the image")
+    return (lists, k), [None if t is None else t.contiguous()
+                        for t in (xy, abc, opac, color, background)]
+
+
+def splat_composite_fwd(xy: torch.Tensor, abc: torch.Tensor,
+                        opac: torch.Tensor, color: torch.Tensor,
+                        background: Optional[torch.Tensor], height: int,
+                        width: int, region_h: int, region_w: int,
+                        keep_final: bool = False):
+    """K9 forward: front-to-back compositing of ordered lists. xy (L, K, 2)
+    entry means in pixels, abc (L, K, 3) the coefficients of the quadratic
+    form a dx^2 + b dx dy + c dy^2, opac (L, K), color (L, K, 3), background
+    (3,) or None, fp32 on one CUDA device; list l is composited over region
+    l (row-major) of a height x width image cut into region_h x region_w
+    regions. Per pixel, alpha_j = clip(opac_j exp(-q_j / 2), 0, 0.995) and
+    the colour is sum_j alpha_j T_j color_j + T_K background, T_j the
+    product of (1 - alpha_i) over i < j. Returns (height, width, 3) fp32;
+    with ``keep_final`` also t_final (height, width, 2) fp32, each pixel's
+    T_K as mantissa and binary exponent, which :func:`splat_composite_bwd`
+    reads. Counted as ``splat_composite_fwd``."""
+    name = "splat_composite_fwd"
+    (lists, k), (xy, abc, opac, color, background) = _splat_lists(
+        name, xy, abc, opac, color, background, height, width, region_h,
+        region_w)
+    out = torch.empty((height, width, 3), device=xy.device,
+                      dtype=torch.float32)
+    t_final = (torch.empty((height, width, 2), device=xy.device,
+                           dtype=torch.float32) if keep_final else None)
+    rc = library().splat_composite_fwd(
+        xy.data_ptr(), abc.data_ptr(), opac.data_ptr(), color.data_ptr(),
+        _ptr(background), lists, k, height, width, region_h, region_w,
+        out.data_ptr(), _ptr(t_final),
+        torch.cuda.current_stream(xy.device).cuda_stream)
+    _check(name, rc)
+    return (out, t_final) if keep_final else out
+
+
+def splat_composite_bwd(xy: torch.Tensor, abc: torch.Tensor,
+                        opac: torch.Tensor, color: torch.Tensor,
+                        background: Optional[torch.Tensor],
+                        t_final: torch.Tensor, dout: torch.Tensor,
+                        height: int, width: int, region_h: int,
+                        region_w: int):
+    """K9 backward: the forward's inputs, the t_final it kept and dout
+    (height, width, 3) fp32; one walk of each list, back to front.
+    Returns the gradients of xy, abc, opac, color and background (None
+    without one), each summed over the pixels of its region with one atomic
+    add a block and entry (a region of at most 256 pixels is one block, so
+    the tiled gradients are added once, in a fixed order). jnp.clip's
+    gradient: 1 inside (0, 0.995), 1/2 on a bound. Counted as
+    ``splat_composite_bwd``."""
+    name = "splat_composite_bwd"
+    (lists, k), (xy, abc, opac, color, background) = _splat_lists(
+        name, xy, abc, opac, color, background, height, width, region_h,
+        region_w)
+    _require(dout.shape == (height, width, 3) and dout.dtype == torch.float32
+             and dout.device == xy.device,
+             f"{name}: dout must be (height, width, 3) float32")
+    _require(t_final.shape == (height, width, 2)
+             and t_final.dtype == torch.float32 and t_final.device == xy.device,
+             f"{name}: t_final must be (height, width, 2) float32")
+    dout, t_final = dout.contiguous(), t_final.contiguous()
+    grads = [torch.zeros_like(t) for t in (xy, abc, opac, color)]
+    dbg = None if background is None else torch.zeros_like(background)
+    rc = library().splat_composite_bwd(
+        xy.data_ptr(), abc.data_ptr(), opac.data_ptr(), color.data_ptr(),
+        _ptr(background), t_final.data_ptr(), dout.data_ptr(), lists, k,
+        height, width, region_h, region_w, *(g.data_ptr() for g in grads),
+        _ptr(dbg), torch.cuda.current_stream(xy.device).cuda_stream)
+    _check(name, rc)
+    return (*grads, dbg)
+
+
+# -- custom operators for torch.export --------------------------------------- #
+
+
+@torch.library.custom_op("deepearth::pairwise_attention_fwd", mutates_args=())
+def _pairwise_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor,
+                               key_mask: Optional[torch.Tensor],
+                               n_heads: int, scale: float) -> torch.Tensor:
+    """K1-fwd as an operator: :func:`pairwise_attention_fwd`."""
+    return pairwise_attention_fwd(q, k, v, n_heads, scale, key_mask)
+
+
+@_pairwise_attention_fwd_op.register_fake
+def _(q, k, v, key_mask, n_heads, scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("deepearth::grid4d_encode_fwd", mutates_args=())
+def _grid4d_encode_fwd_op(xyzt: torch.Tensor, tables: List[torch.Tensor],
+                          resolutions: List[torch.Tensor],
+                          table_sizes: List[int], linear: List[bool],
+                          cols: List[int], n_cols: List[int],
+                          mask_bits: List[int],
+                          spatial_mask: Optional[torch.Tensor],
+                          temporal_mask: Optional[torch.Tensor],
+                          out_dtype: torch.dtype) -> torch.Tensor:
+    """K2-fwd's Grid4D encode as an operator: :func:`grid4d_encode_fwd`,
+    each table's coordinate columns flattened into ``cols`` (``n_cols`` a
+    table)."""
+    starts = [sum(n_cols[:i]) for i in range(len(n_cols))]
+    encodings = [(t, r, size, lin, tuple(cols[s:s + n]), bits)
+                 for t, r, size, lin, s, n, bits in zip(
+                     tables, resolutions, table_sizes, linear, starts,
+                     n_cols, mask_bits)]
+    return grid4d_encode_fwd(xyzt, encodings, spatial_mask, temporal_mask,
+                             out_dtype)
+
+
+@_grid4d_encode_fwd_op.register_fake
+def _(xyzt, tables, resolutions, table_sizes, linear, cols, n_cols,
+      mask_bits, spatial_mask, temporal_mask, out_dtype):
+    width = sum(t.shape[0] * t.shape[2] for t in tables)
+    return xyzt.new_empty((xyzt.shape[0], width), dtype=out_dtype)

@@ -8,9 +8,10 @@ Re-implements the reference Flask dashboard surface
 Python stdlib HTTP server. Routes:
 
   GET  /                               — minimal HTML frontend over the JSON API
-  GET  /visualizer                     — the point-cloud viewer: not ported
-                                         yet (a scene given to DataService
-                                         raises; without one, 404)
+  GET  /visualizer                     — interactive point-cloud alignment
+                                         viewer (self-contained HTML of the
+                                         DataService's viewer_views; 404
+                                         without a scene)
   GET  /api/config                     — dataset/runtime config
   GET  /api/progress                   — training/loading progress polling
   GET  /api/health                     — health/status
@@ -86,13 +87,10 @@ class DataService:
         dict served at /api/config; image_dir: local directory backing the
         image proxy (``<gbif>_<n>.jpg`` — the reference proxied GBIF URLs,
         zero-egress here); static_dir: files served under /static/;
-        viewer_views: the /visualizer scene, which needs
-        ``reconstruction/interactive.py`` and is not ported yet (raises
-        ``NotImplementedError``)."""
-        if viewer_views is not None:
-            raise NotImplementedError(
-                "the /visualizer scene (reconstruction/interactive.py) is not "
-                "ported yet: ROADMAP.md Queue 1, item 19")
+        viewer_views: a list of ``reconstruction.ViewCloud`` served as the
+        self-contained HTML point-cloud viewer at /visualizer (reference:
+        reconstruction/interactive_visualizer.py, an open3d window there)."""
+        self.viewer_views = viewer_views
         self.obs = observations or {}
         self.vision_loader = vision_loader
         self.language_loader = language_loader
@@ -602,8 +600,15 @@ def make_handler(service: DataService):
                         return self._send_file(p)
                     return self._send(404, {"error": "not found"})
                 if parts == ["visualizer"]:
-                    return self._send(
-                        404, {"error": "no viewer scene configured"}
+                    if service.viewer_views is None:
+                        return self._send(
+                            404, {"error": "no viewer scene configured"}
+                        )
+                    from ..reconstruction.interactive import render_viewer_html
+
+                    return self._send_raw(
+                        render_viewer_html(service.viewer_views).encode(),
+                        "text/html; charset=utf-8",
                     )
                 if parts == ["api", "config"]:
                     return self._send(200, service.config)

@@ -15,7 +15,13 @@ from .metrics import (
     format_epoch_line,
     time_error_hours,
 )
-from .optimizers import FusedAdamW, global_norm, optimizer_state_bytes
+from .optimizers import (
+    Adam,
+    AdamState,
+    FusedAdamW,
+    global_norm,
+    optimizer_state_bytes,
+)
 from .recipes import (
     create_vision_decoder_finetune_state,
     frozen_optimizer,
@@ -36,9 +42,10 @@ __all__ = [
     "LossWeights", "clip_contrastive_loss", "deepearth_loss",
     "species_contrastive_loss", "mae_patch_mask", "mlm_token_mask",
     "sample_masks", "MetricAccumulator", "coordinate_error_meters",
-    "format_epoch_line", "time_error_hours", "FusedAdamW", "global_norm",
-    "optimizer_state_bytes", "MultiSteps", "TrainState", "Trainer",
-    "create_optimizer", "make_eval_step", "make_train_step",
+    "format_epoch_line", "time_error_hours", "FusedAdamW", "Adam",
+    "AdamState", "global_norm", "optimizer_state_bytes", "MultiSteps",
+    "TrainState", "Trainer", "create_optimizer", "make_eval_step",
+    "make_train_step",
     "partial_load_params", "create_vision_decoder_finetune_state",
     "frozen_optimizer", "make_autoencoder_step", "make_bidirectional_step",
 ]

@@ -29,8 +29,9 @@ multi-tensor launches instead of ~15 per leaf).
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Optional, Union
+from typing import Callable, Iterable, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
@@ -208,3 +209,57 @@ def optimizer_state_bytes(params: Iterable[torch.Tensor],
         else:
             total += p.numel() * (2 if second_moment == "bfloat16" else 4)
     return total
+
+
+def _like(params, items):
+    """``items`` in the container type of ``params`` (a tuple or a
+    NamedTuple)."""
+    items = list(items)
+    return type(params)(*items) if hasattr(params, "_fields") else tuple(items)
+
+
+class AdamState(NamedTuple):
+    """:class:`Adam`'s state: the update count and both moments, each in
+    the container of the parameters."""
+
+    count: int
+    mu: tuple
+    nu: tuple
+
+    def remap(self, src_rows) -> "AdamState":
+        """Both moments of row i taken from row ``src_rows[i]`` of every
+        leaf: rows added by a resize inherit their source row's moments."""
+        src = torch.as_tensor(np.asarray(src_rows), dtype=torch.long,
+                              device=self.mu[0].device)
+        return AdamState(self.count, _like(self.mu, (t[src] for t in self.mu)),
+                         _like(self.nu, (t[src] for t in self.nu)))
+
+
+class Adam:
+    """``optax.adam(lr)`` over a tuple or NamedTuple of tensors, functional
+    as optax is: ``init(params)``, then ``update(grads, state)`` returns
+    the updates to add and the new state. Bias-corrected moments, ``eps``
+    outside the square root, in optax's order of operations (the bias
+    corrections 1 - b^count in fp32)."""
+
+    def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+
+    def init(self, params) -> AdamState:
+        return AdamState(0, _like(params, map(torch.zeros_like, params)),
+                         _like(params, map(torch.zeros_like, params)))
+
+    def update(self, grads, state: AdamState) -> Tuple[tuple, AdamState]:
+        b1, b2 = self.b1, self.b2
+        count = state.count + 1
+        mu = _like(grads, ((1 - b1) * g + b1 * m
+                           for g, m in zip(grads, state.mu)))
+        nu = _like(grads, ((1 - b2) * g ** 2 + b2 * v
+                           for g, v in zip(grads, state.nu)))
+        c1, c2 = (1 - torch.tensor(b, device=grads[0].device) ** count
+                  for b in (b1, b2))
+        updates = _like(grads, (
+            -self.lr * ((m / c1) / (torch.sqrt(v / c2) + self.eps))
+            for m, v in zip(mu, nu)))
+        return updates, AdamState(count, mu, nu)

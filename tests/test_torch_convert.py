@@ -239,6 +239,13 @@ def test_launch_counters_stay_zero_on_cpu(small):
         x = torch.randn(2, 3, 256)
         quant.int8_bmm(x, *quant.quantize_int8(torch.randn(2, 256, 128)))
         quant.int4_bmm(x, *quant.quantize_int4(torch.randn(2, 256, 128)))
+    from deepearth_tpu_torch.reconstruction import gaussian_splat as gs
+    scene = gs.init_scene(torch.Generator().manual_seed(0), 20)
+    cam = gs.Camera(torch.eye(3), torch.tensor([0.0, 0.0, 2.5]), 16.0, 16.0,
+                    8.0, 8.0, 16, 16)
+    for render in (gs.render, gs.render_tiled):
+        leaves = [t.requires_grad_() for t in scene]
+        render(gs.GaussianScene(*leaves), cam).sum().backward()
     grouped_matmul.gmm(torch.randn(7, 8, requires_grad=True),
                        torch.randn(3, 8, 5, requires_grad=True),
                        torch.tensor([2, 0, 5], dtype=torch.int32)
@@ -261,4 +268,5 @@ def test_launch_counters_stay_zero_on_cpu(small):
         "grouped_matmul_bwd_dlhs_mma", "grouped_matmul_bwd_dlhs_fp32",
         "grouped_matmul_bwd_drhs", "grouped_matmul_bwd_drhs_mma",
         "grouped_matmul_bwd_drhs_fp32", "int8_bmm", "int8_bmm_fma",
-        "int4_bmm", "int4_bmm_fma"}
+        "int4_bmm", "int4_bmm_fma", "splat_bin", "splat_composite_fwd",
+        "splat_composite_bwd"}

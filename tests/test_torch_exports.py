@@ -93,6 +93,32 @@ EXPORTS = [  # (package path, name, the port's defining submodule)
     *[("training", name, "training.recipes") for name in (
         "frozen_optimizer", "make_bidirectional_step",
         "make_autoencoder_step", "create_vision_decoder_finetune_state")],
+    *[("reconstruction", name, "reconstruction.gaussian_splat") for name in (
+        "Camera", "GaussianScene", "densify_and_prune", "fit_scene",
+        "fit_scene_adaptive", "init_scene", "project_gaussians",
+        "prune_scene", "quat_to_rotmat", "render", "render_tiled",
+        "reset_opacity")],
+    *[("reconstruction", name, "reconstruction.geofusion_dataset")
+      for name in ("CameraIntrinsics", "Frame", "GeoFusionDataset")],
+    *[("reconstruction", name, "reconstruction.interactive") for name in (
+        "ViewCloud", "apply_view_transform", "build_scene",
+        "candidate_transforms", "euler_adjust_matrix", "render_viewer_html",
+        "write_viewer")],
+    *[("reconstruction", name, "reconstruction.visualize") for name in (
+        "plot_attention_map", "plot_observation_map", "plot_point_cloud",
+        "save_render")],
+    *[("reconstruction", name, "reconstruction.point_cloud") for name in (
+        "depth_to_world_cloud", "load_ply", "save_ply", "transform_points",
+        "unproject_depth", "voxel_downsample")],
+    *[("evaluation", name, "evaluation.probes") for name in (
+        "DeepEarthEvaluator", "ProbeResult", "classification_metrics",
+        "regression_metrics")],
+    *[("utils", name, "export") for name in (
+        "export_forward", "export_model_forward", "load_exported")],
+    *[("utils", name, "utils.monitor") for name in (
+        "ResourceMonitor", "resource_snapshot")],
+    *[("utils", name, "utils.profiling") for name in (
+        "StepTimer", "benchmark_fn", "trace")],
 ]
 
 

@@ -104,6 +104,8 @@ NO_K3_TO_K5 = {"vmem_attention_fwd": 0, "vmem_attention_fwd_mma": 0,
                "grouped_matmul_bwd_drhs": 0, "grouped_matmul_bwd_drhs_mma": 0,
                "grouped_matmul_bwd_drhs_fp32": 0, "int8_bmm": 0,
                "int8_bmm_fma": 0, "int4_bmm": 0, "int4_bmm_fma": 0}
+NO_SPLAT = {"splat_bin": 0, "splat_composite_fwd": 0,
+            "splat_composite_bwd": 0}
 
 
 def _smoke():
@@ -505,7 +507,7 @@ def test_astack_train_step_launches_every_kernel(cuda):
     assert kernels.launch_counts == {
         "grid4d_encode_fwd": 1, "hash_encode_fwd": 0, "hash_encode_bwd": 2,
         "pairwise_attention_fwd": 16, "pairwise_attention_bwd": 16,
-        **NO_OFF_GRID_K1_K2, **NO_K3_TO_K5}
+        **NO_OFF_GRID_K1_K2, **NO_K3_TO_K5, **NO_SPLAT}
     assert np.isfinite(metrics["loss/total"].item())
     assert np.isfinite(metrics["grad_norm"].item())
 
@@ -925,7 +927,7 @@ def test_multimodal_train_steps_launch_k3_and_k4(cuda):
             "grid4d_encode_fwd": 1, "hash_encode_fwd": 0,
             "hash_encode_bwd": 2, "pairwise_attention_fwd": 0,
             "pairwise_attention_bwd": 0,
-            **NO_OFF_GRID_K1_K2, **NO_K3_TO_K5, **want}
+            **NO_OFF_GRID_K1_K2, **NO_K3_TO_K5, **NO_SPLAT, **want}
         assert np.isfinite(metrics["loss/total"].item())
         assert np.isfinite(metrics["grad_norm"].item())
 
@@ -946,7 +948,7 @@ def test_multimodal_forward_launches_k3_twice(cuda):
     assert kernels.launch_counts == {
         "grid4d_encode_fwd": 1, "hash_encode_fwd": 0, "hash_encode_bwd": 0,
         "pairwise_attention_fwd": 0, "pairwise_attention_bwd": 0,
-        **NO_OFF_GRID_K1_K2, **NO_K3_TO_K5,
+        **NO_OFF_GRID_K1_K2, **NO_K3_TO_K5, **NO_SPLAT,
         "vmem_attention_fwd": 2}
     assert feats.shape == (3, 512) and bool(feats.isfinite().all())
 
@@ -1540,3 +1542,254 @@ def test_kernels_under_remat_give_the_unwrapped_gradients(cuda, kind,
     assert {k: v for k, v in n1.items() if k not in fwd} == {
         k: v for k, v in n0.items() if k not in fwd}
 
+
+
+# -- K8 and K9: Gaussian splatting ------------------------------------------- #
+
+# K9-fwd composites in fp32 in the plain version's order per pixel; the
+# colour sums and the transmittance product round in another order (a
+# sequential loop against cumprod and einsum), an error that grows like the
+# square root of the list's length: 1e-5 of the image's largest entry for
+# lists up to 512 entries, 1e-4 for the dense image's thousands. K9-bwd
+# recovers each entry's transmittance by dividing the final one back, and
+# its dense sums meet in atomics in any order: each gradient within 1e-4 of
+# its largest entry for the tiles (one block a tile: one add an entry, two
+# runs bitwise equal, except the background's sum over the tiles), 1e-3 for
+# the dense image's sums over 65,536 pixels.
+SPLAT_IMAGE_TOL = {"tiled": 1e-5, "dense": 1e-4}
+SPLAT_GRAD_TOL = {"tiled": 1e-4, "dense": 1e-3}
+
+
+def splat_scene(seed, g, behind, device, extent=1.0):
+    """A random scene (numpy from ``seed``), ``behind`` Gaussians behind
+    the camera of :func:`splat_camera`."""
+    from deepearth_tpu_torch.reconstruction import GaussianScene
+
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-extent, extent, (g, 3))
+    means[:behind, 2] = rng.uniform(-4.0, -2.6, behind)
+    return GaussianScene(*(torch.tensor(a, dtype=torch.float32, device=device)
+                           for a in (means,
+                                     np.log(0.03) + 0.3 * rng.normal(size=(g, 3)),
+                                     rng.normal(size=(g, 4)),
+                                     rng.normal(size=(g, 3)),
+                                     rng.normal(0.5, 1.5, g))))
+
+
+def splat_camera(device, size=64):
+    from deepearth_tpu_torch.reconstruction import Camera
+
+    return Camera(torch.eye(3, device=device),
+                  torch.tensor([0.0, 0.0, 2.5], device=device),
+                  size * 220 / 256, size * 220 / 256, size / 2, size / 2,
+                  size, size)
+
+
+def splat_lists(scene, cam, kind, k=None):
+    """The inputs render / render_tiled give K9 (and K8's, tiled)."""
+    from deepearth_tpu_torch.reconstruction import gaussian_splat as tgs
+
+    lists = (tgs.dense_lists(scene, cam) if kind == "dense"
+             else tgs.tile_lists(scene, cam, max_per_tile=k))
+    return lists.lists, lists.geometry, lists.binning
+
+
+SPLAT_CASES = {  # name: (kind, G, behind, K, scene extent)
+    "tiled_k512": ("tiled", 4000, 40, 512, 1.0),
+    "tiled_over_budget": ("tiled", 4000, 40, 16, 1.0),
+    "tiled_empty_tiles": ("tiled", 300, 10, 64, 0.1),
+    "dense": ("dense", 1500, 30, None, 1.0),
+}
+
+
+@pytest.mark.parametrize("name", SPLAT_CASES)
+def test_splat_bin_matches_plain(cuda, name):
+    from deepearth_tpu_torch.ops import splat
+
+    kind, g, behind, k, extent = SPLAT_CASES[name]
+    if kind == "dense":
+        k = 64
+    scene = splat_scene(0, g, behind, cuda, extent)
+    _, _, binning = splat_lists(scene, splat_camera(cuda), "tiled", k)
+    kernels.reset_launch_counts()
+    idx, count = kernels.splat_bin(*binning)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["splat_bin"] == 1
+    ref_idx, ref_count = splat.bin_tiles_plain(*binning)
+    assert torch.equal(count, ref_count)
+    assert torch.equal(idx, ref_idx)
+    if name == "tiled_empty_tiles":
+        assert (count == 0).any() and (count > 0).any()
+    if name == "tiled_over_budget":
+        assert (count == k).any()
+
+
+@pytest.mark.parametrize("background", [False, True], ids=["no_bg", "bg"])
+@pytest.mark.parametrize("name", SPLAT_CASES)
+def test_splat_composite_matches_plain(cuda, name, background):
+    from deepearth_tpu_torch.ops import splat
+
+    kind, g, behind, k, extent = SPLAT_CASES[name]
+    scene = splat_scene(1, g, behind, cuda, extent)
+    lists, geometry, _ = splat_lists(scene, splat_camera(cuda), kind, k)
+    bg = torch.tensor([0.2, 0.3, 0.4], device=cuda) if background else None
+    kernels.reset_launch_counts()
+    out, t_final = kernels.splat_composite_fwd(*lists, bg, *geometry,
+                                               keep_final=True)
+    render_only = kernels.splat_composite_fwd(*lists, bg, *geometry)
+    dout = torch.randn(out.shape, generator=torch.Generator(
+        device="cuda").manual_seed(2), device=cuda)
+    grads = kernels.splat_composite_bwd(*lists, bg, t_final, dout, *geometry)
+    again = kernels.splat_composite_bwd(*lists, bg, t_final, dout, *geometry)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["splat_composite_fwd"] == 2
+    assert kernels.launch_counts["splat_composite_bwd"] == 2
+    assert torch.equal(out, render_only)
+    ref = splat.composite_plain(*lists, bg, *geometry)
+    assert (out - ref).abs().max() <= SPLAT_IMAGE_TOL[kind] * ref.abs().max()
+    # the kept transmittance: the plain image of black entries over white
+    xy, abc, opac, color = lists
+    ref_t = splat.composite_plain(xy, abc, opac, torch.zeros_like(color),
+                                  torch.ones(3, device=cuda), *geometry)
+    got_t = torch.ldexp(t_final[..., :1], t_final[..., 1:].int())
+    assert (got_t - ref_t).abs().max() <= SPLAT_IMAGE_TOL[kind]
+    ref_grads = splat.composite_bwd_plain(*lists, bg, dout, *geometry)
+    for got, want, rerun in zip(grads, ref_grads, again):
+        if want is None:
+            assert got is None and not background
+            continue
+        assert (got - want).abs().max() <= (
+            SPLAT_GRAD_TOL[kind] * want.abs().max())
+        if kind == "tiled" and got.dim() > 1:  # not the background's sum
+            assert torch.equal(got, rerun)
+    # a zeroed entry (unfilled slot, behind the camera) adds no gradient
+    off = lists[2] == 0
+    assert all((grads[i][off] == 0).all() for i in (0, 1, 3))
+
+
+def test_splat_render_and_gradients_go_through_the_kernels(cuda):
+    """render / render_tiled and their backward on the card launch K8
+    (tiled), K9-fwd and K9-bwd once each and no plain version, and agree
+    with the plain versions; the Gaussians behind the camera get zero
+    gradients."""
+    from deepearth_tpu_torch.reconstruction import GaussianScene
+    from deepearth_tpu_torch.reconstruction import gaussian_splat as tgs
+
+    smoke = _smoke()
+    scene = splat_scene(3, 2000, 20, cuda)
+    cam = splat_camera(cuda)
+    target = torch.rand((64, 64, 3), generator=torch.Generator(
+        device="cuda").manual_seed(4), device=cuda)
+    for kind, fn, want in (
+            ("dense", tgs.render, {"splat_composite_fwd": 1,
+                                   "splat_composite_bwd": 1}),
+            ("tiled", tgs.render_tiled, {"splat_bin": 1,
+                                         "splat_composite_fwd": 1,
+                                         "splat_composite_bwd": 1})):
+        runs = []
+        for plain in (False, True):
+            leaves = [t.clone().requires_grad_(True) for t in scene]
+            kernels.reset_launch_counts()
+            with (smoke.plain_versions() if plain
+                  else smoke.plain_versions_refused()):
+                img = fn(GaussianScene(*leaves), cam)
+                loss = torch.mean((img - target) ** 2)
+                grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            if not plain:
+                assert {n: c for n, c in kernels.launch_counts.items()
+                        if c} == want
+            runs.append((img.detach(), grads))
+        (img, grads), (ref_img, ref_grads) = runs
+        assert (img - ref_img).abs().max() <= (
+            SPLAT_IMAGE_TOL[kind] * ref_img.abs().max())
+        behind = scene.means[:, 2] < -2.5
+        for got, ref in zip(grads, ref_grads):
+            assert (got - ref).abs().max() <= (
+                SPLAT_GRAD_TOL[kind] * ref.abs().max() + 1e-12)
+            assert (got[behind] == 0).all()
+
+
+def test_splat_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    xy = torch.zeros((2, 4, 2), device=cuda)
+    abc, col = torch.zeros((2, 4, 3), device=cuda), torch.zeros((2, 4, 3),
+                                                                device=cuda)
+    opac = torch.zeros((2, 4), device=cuda)
+    with pytest.raises(ValueError, match="one list a region"):
+        kernels.splat_composite_fwd(xy, abc, opac, col, None, 16, 16, 16, 16)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.splat_composite_fwd(xy.double(), abc, opac, col, None, 16,
+                                    32, 16, 16)
+    with pytest.raises(ValueError, match="k must be"):
+        kernels.splat_bin(torch.zeros((3, 2), device=cuda),
+                          torch.zeros(3, device=cuda),
+                          torch.ones(3, dtype=torch.bool, device=cuda),
+                          2, 2, 16, 4)
+
+
+# -- the operators torch.export traces: K1-fwd, K2-fwd ----------------------- #
+
+
+def test_k1_and_k2_operators_pass_opcheck(cuda):
+    """torch.library.opcheck on the two registered operators: the schema,
+    the fake implementation against the kernel's output, and the op through
+    AOT dispatch with dynamic shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn((3, 64, 256), generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(3))
+    torch.library.opcheck(torch.ops.deepearth.pairwise_attention_fwd.default,
+                          (q, k, v, None, 4, 0.125))
+    mask = torch.rand((64, 3), generator=gen, device=cuda) > 0.3
+    torch.library.opcheck(torch.ops.deepearth.pairwise_attention_fwd.default,
+                          (q.float(), k.float(), v.float(), mask, 4, 0.125))
+    xyzt = torch.rand((100, 4), generator=gen, device=cuda)
+    tables = [torch.randn((l, 2 ** 12, 2), generator=gen, device=cuda) * 1e-2
+              for l in (4, 2)]
+    res = [torch.tensor([16.0 * 2 ** i for i in range(t.shape[0])],
+                        device=cuda) for t in tables]
+    spatial = torch.rand(100, generator=gen, device=cuda) > 0.5
+    torch.library.opcheck(torch.ops.deepearth.grid4d_encode_fwd.default,
+                          (xyzt, tables, res, [2 ** 12, 2 ** 12],
+                           [True, True], [0, 1, 2, 3], [3, 1], [1, 2],
+                           spatial, None, torch.bfloat16))
+
+
+def test_exported_quick_start_launches_k1_and_k2(cuda):
+    """export_model_forward of the README's quick start, reloaded: the
+    program launches K2-fwd and K1-fwd as the eager forward does, through
+    the operators, and gives its outputs bit for bit."""
+    from deepearth_tpu_torch.api import DeepEarth
+    from deepearth_tpu_torch.export import export_model_forward, load_exported
+
+    smoke = _smoke()
+    earth = smoke.register_quick_start(DeepEarth())
+    job = smoke.api_batch(3, 16)
+    earth.predict_batch(**job)
+    batch = earth._prepare_batch(job["locations"], job["times"], job["data"])
+    blob = export_model_forward(earth._model, None, batch)
+    fn = load_exported(blob)
+    runs = []
+    for call in (lambda: fn(batch), lambda: earth._model(batch)):
+        kernels.reset_launch_counts()
+        with torch.no_grad(), smoke.plain_versions_refused():
+            out = call()
+        torch.cuda.synchronize()
+        runs.append((out, {n: c for n, c in kernels.launch_counts.items()
+                           if c}))
+    (fused, recon), got = runs[0]
+    ref, want = runs[1]
+    assert got == want == {"grid4d_encode_fwd": 1,
+                           "pairwise_attention_fwd_warp": 6}
+    assert torch.equal(fused, ref["fused_representation"])
+    assert all(torch.equal(recon[k], ref["reconstructions"][k])
+               for k in ref["reconstructions"])
+
+
+def test_export_refuses_a_model_reaching_another_kernel(cuda):
+    """A forward that reaches a kernel with no operator (K3-fwd here)
+    raises ValueError under the export trace, naming the ROADMAP item."""
+    from deepearth_tpu_torch.export import export_fn
+
+    q = torch.randn((2, 2, 300, 64), device=cuda)
+    with pytest.raises(ValueError, match="item 21"):
+        export_fn(lambda x: tvmem.vmem_attention(x, x, x, scale=0.125), q)

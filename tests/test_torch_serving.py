@@ -4,8 +4,8 @@ serving``) and the numpy modules it reads, on the CPU.
 The routes are the JAX package's own tests of ``DashboardServer`` /
 ``DashboardClient`` (``tests/test_serving_data_engine.py``), run through the
 port's, plus ``/api/predict`` answering the port's ``DeepEarth`` bit for bit,
-its first requests arriving together, and ``/visualizer``, whose scene is not
-ported yet. The port's copies of the numpy-only modules (projection and its
+its first requests arriving together, and ``/visualizer`` over the port's
+``reconstruction.interactive``. The port's copies of the numpy-only modules (projection and its
 native UMAP, the mmap store, the observation data engine, the ecosystem,
 spatiotemporal and retrieval metrics) give the JAX modules' outputs on the
 same seeded inputs, exactly: the same numpy code.
@@ -361,16 +361,32 @@ def test_first_requests_together_build_the_model_once():
 
 
 def test_visualizer_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 19"):
-        DataService(viewer_views=[{"points": np.zeros((4, 3))}])
-    srv = DashboardServer(DataService(), port=0).start()
+    """The name predates the port of the viewer: /visualizer now serves the
+    DataService's scene as reconstruction.render_viewer_html gives it, and
+    answers 404 without one."""
+    from deepearth_tpu_torch.reconstruction import (ViewCloud,
+                                                    render_viewer_html)
+
+    rng = np.random.default_rng(0)
+    views = [ViewCloud(points_cam=rng.normal(size=(5, 3)).astype(np.float32),
+                       colors=None, rotation_body_to_world=np.eye(3),
+                       translation=np.zeros(3), name="v0")]
+    with_scene = DashboardServer(DataService(viewer_views=views),
+                                 port=0).start()
+    without = DashboardServer(DataService(), port=0).start()
     try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{with_scene.port}/visualizer",
+                timeout=30) as r:
+            assert r.headers["Content-Type"].startswith("text/html")
+            assert r.read().decode() == render_viewer_html(views)
         with pytest.raises(urllib.error.HTTPError) as e:
-            urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/visualizer",
-                                   timeout=30)
+            urllib.request.urlopen(
+                f"http://127.0.0.1:{without.port}/visualizer", timeout=30)
         assert e.value.code == 404
     finally:
-        srv.stop()
+        with_scene.stop()
+        without.stop()
 
 
 # -- the numpy copies against the JAX package's modules --------------------- #
