@@ -275,6 +275,13 @@ patches at B=512, 4608 at B=8), once per seed (the weights and batches drawn
 from it), and beside each plain against plain with K3's or K4's plain
 version summing P.V in two halves, and prints each seed's differences,
 without the last two lines.
+
+    python3 chip_smoke.py --splat-plans
+
+runs only K9-fwd and K9-bwd at phase 23's tiled (G = 65,536) and dense
+(G = 2,000) scenes under kernels.splat_plan's split of the lists and the
+others of SPLAT_PLAN_SWEEP, timed by CUDA-graph replays, without the last
+two lines.
 """
 
 from __future__ import annotations
@@ -6306,12 +6313,13 @@ SPLAT_DENSE_G = (2_000, 16_000)
 SPLAT_TRAIN = (("tiled", 65_536), ("dense", 2_000))
 SPLAT_STEPS, SPLAT_LR = 3, 1e-2
 # K8 is exact. K9-fwd rounds its colour sums and transmittance product in
-# another order than the plain version's cumprod and einsum, an error that
-# grows like the square root of the list's length: 1e-5 of the image's
-# largest entry for the tiles' 512-entry lists, 1e-4 for the dense image's
-# thousands. K9-bwd divides the transmittance back out of the final one
-# and its dense sums meet in atomics in any order: each gradient within
-# 1e-4 (tiles) or 1e-3 (dense) of its largest entry.
+# another order than the plain version's cumprod and einsum (a list in
+# runs, the runs combined), an error that grows like the square root of
+# the list's length: 1e-5 of the image's largest entry for the tiles'
+# 512-entry lists, 1e-4 for the dense image's thousands. K9-bwd divides
+# each entry's (1 - alpha) back out of the transmittance after its run and
+# its dense sums meet in atomics in any order: each gradient within 1e-4
+# (tiles) or 1e-3 (dense) of its largest entry.
 SPLAT_IMAGE_TOL = {"tiled": 1e-5, "dense": 1e-4}
 SPLAT_GRAD_TOL = {"tiled": 1e-4, "dense": 1e-3}
 # the train steps: Adam divides each gradient entry by its own size, so an
@@ -6323,8 +6331,8 @@ SPLAT_GRAD_TOL = {"tiled": 1e-4, "dense": 1e-3}
 SPLAT_TRAIN_TOL = {"loss_rel": 1e-5, "share_off": 1e-3, "off": 1e-4,
                    "max": 2 * SPLAT_LR}
 # fp32 operations per (pixel, list entry) that the function itself needs,
-# counted from csrc/gaussian_splat.cu without its bookkeeping (the
-# transmittance's renormalisation, the zero test, indexing). Alpha: dx, dy,
+# without any design's bookkeeping (the transmittance's renormalisation,
+# the runs' state and their combination, the zero test, indexing). Alpha: dx, dy,
 # the quadratic form (8), its scale, the opacity, the clip (14) and an exp.
 # K9-fwd: alpha, the weight, three colour FMAs, the transmittance (23).
 # K9-bwd: alpha; 1 - alpha and the transmittance before the entry (2);
@@ -6333,7 +6341,9 @@ SPLAT_TRAIN_TOL = {"loss_rel": 1e-5, "share_off": 1e-3, "off": 1e-4,
 # sum over the pixels of the nine gradients (9): 67 and one exp. K8: the
 # hit test per (tile, Gaussian read) (7).
 SPLAT_FWD_OPS, SPLAT_BWD_OPS, SPLAT_BIN_OPS = 23, 67, 7
-SPLAT_FINAL_BYTES = 2 * 4  # K9-fwd's kept transmittance, a pixel
+# the final transmittance a pixel, what the function must hand its
+# gradient; K9's per-run state (20 B a pixel and run) is its design's cost
+SPLAT_FINAL_BYTES = 2 * 4
 SPLAT_ENTRY_BYTES = 9 * 4  # xy, abc, opacity, colour of a list entry
 SPLAT_GAUSSIAN_BYTES = 2 * 4 + 4 + 1  # xy, radius, valid of a Gaussian
 ADAPTIVE = {"n_init": 256, "steps": 60, "densify_every": 20,
@@ -6411,11 +6421,24 @@ def splat_kernels(scene, cam, kind: str, gen, backward: bool) -> dict:
     ref = splat.composite_plain(*lists, None, *geometry)
     out["fwd_err"] = max_err(img, ref) / ref.abs().max().item()
     out["fwd_abs_err"] = max_err(img, ref)
+    # the mean signed error of the kernel's image and the plain one against
+    # the plain arithmetic in float64, relative to each entry (from 1e-3)
+    exact = splat.composite_plain(*(t.double() for t in lists), None,
+                                  *geometry)
+    for key, got in (("fwd_bias", img), ("fwd_plain_bias", ref)):
+        out[key] = float(((got.double() - exact)
+                          / exact.abs().clamp_min(1e-3)).mean())
+    del exact
     if out["fwd_err"] > SPLAT_IMAGE_TOL[kind]:
         raise AssertionError(f"K9-fwd vs plain, {kind} G="
                              f"{scene.means.shape[0]}: {out['fwd_err']:.3g} "
                              f"of the largest entry")
-    out["fwd_ms"] = cuda_ms(
+    # K9's device time by CUDA-graph replays (a tiled call is shorter than
+    # the wrapper's host time, which events over back-to-back calls read),
+    # and by events as PR 19's phase took it
+    out["fwd_ms"] = graph_ms(
+        lambda: kernels.splat_composite_fwd(*lists, None, *geometry))
+    out["fwd_events_ms"] = cuda_ms(
         lambda: kernels.splat_composite_fwd(*lists, None, *geometry), iters=10)
     out["fwd_plain_ms"] = cuda_ms(
         lambda: splat.composite_plain(*lists, None, *geometry), iters=2,
@@ -6423,9 +6446,9 @@ def splat_kernels(scene, cam, kind: str, gen, backward: bool) -> dict:
     if not backward:
         return out
     dout = torch.randn(img.shape, generator=gen, device="cuda")
-    _, t_final = kernels.splat_composite_fwd(*lists, None, *geometry,
-                                             keep_final=True)
-    grads = kernels.splat_composite_bwd(*lists, None, t_final, dout,
+    _, state = kernels.splat_composite_fwd(*lists, None, *geometry,
+                                           keep_state=True)
+    grads = kernels.splat_composite_bwd(*lists, None, state, dout,
                                         *geometry)
     ref_grads = splat.composite_bwd_plain(*lists, None, dout, *geometry)
     out["bwd_err"] = max(max_err(g, r) / r.abs().max().item()
@@ -6436,8 +6459,10 @@ def splat_kernels(scene, cam, kind: str, gen, backward: bool) -> dict:
         raise AssertionError(f"K9-bwd vs plain, {kind} G="
                              f"{scene.means.shape[0]}: {out['bwd_err']:.3g} "
                              f"of the largest entry")
-    out["bwd_ms"] = cuda_ms(lambda: kernels.splat_composite_bwd(
-        *lists, None, t_final, dout, *geometry), iters=10)
+    out["bwd_ms"] = graph_ms(lambda: kernels.splat_composite_bwd(
+        *lists, None, state, dout, *geometry))
+    out["bwd_events_ms"] = cuda_ms(lambda: kernels.splat_composite_bwd(
+        *lists, None, state, dout, *geometry), iters=10)
     out["bwd_plain_ms"] = cuda_ms(lambda: splat.composite_bwd_plain(
         *lists, None, dout, *geometry), iters=2, warmup=1)
     return out
@@ -6539,6 +6564,50 @@ def splat_adaptive(gen) -> dict:
     return {"loss0": loss0, "loss": loss, "resizes": resizes,
             "g": scene.means.shape[0], "seconds": seconds,
             "launches": launches}
+
+
+# other splits of K9's lists than kernels.splat_plan's (segments, pixel
+# groups a block), for --splat-plans
+SPLAT_PLAN_SWEEP = {"tiled": ((4, 2), (8, 2), (2, 2), (8, 1)),
+                    "dense": ((8, 1), (8, 2), (4, 1), (15, 1))}
+
+
+def splat_plan_sweep() -> None:
+    """K9-fwd (keeping its state) and K9-bwd at phase 23's tiled G = 65,536
+    and dense G = 2,000 scenes under kernels.splat_plan's split and the
+    others of SPLAT_PLAN_SWEEP: device ms by CUDA-graph replays, the median
+    of 3 rounds over the splits, and the image against the plain one."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    cam = splat_camera()
+    for kind, g in (("tiled", 65_536), ("dense", 2_000)):
+        inp = splat_inputs(gaussian_splat.init_scene(gen, g), cam, kind)
+        lists, geometry = inp["lists"], inp["geometry"]
+        dout = torch.randn((SPLAT_SIZE, SPLAT_SIZE, 3), generator=gen,
+                           device="cuda")
+        ref = splat.composite_plain(*lists, None, *geometry)
+        plan = kernels.splat_plan(lists[0].shape[1], *geometry[2:])
+        plans = (plan,) + tuple(p for p in SPLAT_PLAN_SWEEP[kind]
+                                if p != plan)
+        times = {p: ([], []) for p in plans}
+        errs = {}
+        for _ in range(3):
+            for p in plans:
+                with mock.patch.object(kernels, "splat_plan",
+                                       lambda k, h, w, p=p: p):
+                    img, state = kernels.splat_composite_fwd(
+                        *lists, None, *geometry, keep_state=True)
+                    errs[p] = max_err(img, ref) / ref.abs().max().item()
+                    times[p][0].append(graph_ms(
+                        lambda: kernels.splat_composite_fwd(
+                            *lists, None, *geometry, keep_state=True)))
+                    times[p][1].append(graph_ms(
+                        lambda: kernels.splat_composite_bwd(
+                            *lists, None, state, dout, *geometry)))
+        print(f"[splat plans] {kind} G={g}, (segments, groups a block), "
+              f"kernels.splat_plan's first: " + "; ".join(
+                  f"{p}: K9-fwd {statistics.median(f):.4f} ms, K9-bwd "
+                  f"{statistics.median(b):.4f} ms, image err {errs[p]:.2g}"
+                  for p, (f, b) in times.items()) + f" | {card()}")
 
 
 def splat_visualizer() -> dict:
@@ -6664,6 +6733,9 @@ def phase_splat() -> dict:
 
     def fmt_row(g, r):
         b = r["bounds"]
+
+        def share(key):  # the unchanged bound over the kernel's time
+            return f"{b[key]['bound_ms'] / r[key + '_ms']:.1%} of its bound"
         parts = [f"G={g}"]
         if "bin_ms" in r:
             parts.append(f"K8 {r['bin_ms']:.4f} ms (plain "
@@ -6671,12 +6743,16 @@ def phase_splat() -> dict:
                          f"{b['bin']['bound_ms']:.4f} {b['bin']['bound_by']};"
                          f" slots filled {r['filled']:.1%})")
         parts.append(
-            f"K9-fwd {r['fwd_ms']:.4f} (plain {r['fwd_plain_ms']:.3f}, bound "
+            f"K9-fwd {r['fwd_ms']:.4f} ({share('fwd')}; events "
+            f"{r['fwd_events_ms']:.4f}; plain {r['fwd_plain_ms']:.3f}, bound "
             f"{b['fwd']['bound_ms']:.4f} {b['fwd']['bound_by']}, exp floor "
-            f"{b['fwd']['exp_floor_ms']:.4f}; err {r['fwd_err']:.2g})")
+            f"{b['fwd']['exp_floor_ms']:.4f}; err {r['fwd_err']:.2g}, bias "
+            f"against float64 {r['fwd_bias']:.2g}, plain's "
+            f"{r['fwd_plain_bias']:.2g})")
         if "bwd_ms" in r:
             parts.append(
-                f"K9-bwd {r['bwd_ms']:.4f} (plain {r['bwd_plain_ms']:.3f}, "
+                f"K9-bwd {r['bwd_ms']:.4f} ({share('bwd')}; events "
+                f"{r['bwd_events_ms']:.4f}; plain {r['bwd_plain_ms']:.3f}, "
                 f"bound {b['bwd']['bound_ms']:.4f} {b['bwd']['bound_by']}, "
                 f"exp floor {b['bwd']['exp_floor_ms']:.4f}; err "
                 f"{r['bwd_err']:.2g})")
@@ -6689,7 +6765,8 @@ def phase_splat() -> dict:
           f"(counters reset before, read after) K8 1 + K9-fwd 1 tiled, "
           f"K9-fwd 1 dense; kernel vs plain (tol image {SPLAT_IMAGE_TOL}, "
           f"gradients {SPLAT_GRAD_TOL} of the largest entry; K8 exact); ms "
-          f"by CUDA events | tiled: "
+          f"by CUDA events, K9's by CUDA-graph replays (events beside) | "
+          f"tiled: "
           + " | ".join(fmt_row(g, r) for g, r in tiled.items())
           + " | dense: " + " | ".join(fmt_row(g, r) for g, r in dense.items())
           + f" | {card()}")
@@ -6739,6 +6816,9 @@ def main() -> None:
                         metavar="SEED",
                         help="only phase 16's kernel-vs-plain train "
                              "comparison, once per seed")
+    parser.add_argument("--splat-plans", action="store_true",
+                        help="only K9 at phase 23's tiled and dense scenes "
+                             "under other splits of its lists")
     parser.add_argument("--mm-train-spread", type=int, nargs="+",
                         metavar="SEED",
                         help="only phases 12's and 13's kernel-vs-plain "
@@ -6758,6 +6838,9 @@ def main() -> None:
         return
     if args.mm_train_spread:
         mm_train_spread(args.mm_train_spread)
+        return
+    if args.splat_plans:
+        splat_plan_sweep()
         return
     k2 = phase_hash(gen)
     k1 = phase_attention(gen)
@@ -6923,7 +7006,11 @@ def main() -> None:
             "ms": at[f"{key}_ms"], "plain_ms": at[f"{key}_plain_ms"],
             **{k: at["bounds"][key][k] for k in ("bound_ms", "bound_by")},
             "library_ms": None,
+            # K9: ms by graph replays, events_ms over the wrapper's calls
+            **({} if exact else {"events_ms": at[f"{key}_events_ms"]}),
             "at_G": {tag: {"ms": r[f"{key}_ms"],
+                           **({} if exact else
+                              {"events_ms": r[f"{key}_events_ms"]}),
                            "plain_ms": r[f"{key}_plain_ms"],
                            **r["bounds"][key],
                            "max_rel_err": 0.0 if exact else r[f"{key}_err"]}

@@ -138,8 +138,8 @@ _SIGNATURES = {
     "pairwise_attention_fwd_tma": [*[_P] * 5, *[_I] * 5, *[_I64] * 6, _F,
                                    _P],
     "splat_bin": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "splat_composite_fwd": [*[_P] * 5, *[_I] * 6, _P, _P, _P],
-    "splat_composite_bwd": [*[_P] * 7, *[_I] * 6, *[_P] * 5, _P],
+    "splat_composite_fwd": [*[_P] * 5, *[_I] * 8, _P, _P, _P],
+    "splat_composite_bwd": [*[_P] * 7, *[_I] * 8, *[_P] * 5, _P],
 }
 
 EXPORT_TODO = ("ROADMAP.md Queue 1, item 21: only K1-fwd and K2-fwd's Grid4D "
@@ -1687,6 +1687,39 @@ def splat_bin(xy: torch.Tensor, radius: torch.Tensor, valid: torch.Tensor,
     return idx, count
 
 
+# K9's split of a region's list: runs of at least SPLAT_SEGMENT_MIN
+# entries, at most SPLAT_SEGMENTS_MAX of them, and blocks of at most
+# SPLAT_BLOCK_WARPS warps, one a (run, 8 x 16 pixel group)
+SPLAT_SEGMENT_MIN, SPLAT_SEGMENTS_MAX, SPLAT_BLOCK_WARPS = 128, 8, 16
+SPLAT_GROUP = (8, 16)  # a warp's pixels: rows, columns
+SPLAT_STATE = 5  # kept a (pixel, segment): T mantissa, exponent; B (3)
+
+
+def splat_plan(k: int, region_h: int, region_w: int):
+    """K9's split, from the list's length and the region's size alone:
+    (segments, pixel groups a block). A list of K entries is cut into
+    ``segments`` runs of ``ceil(K / segments)`` entries, a warp compositing
+    one run over an 8 x 16 group of pixels. Where a region's groups fit in
+    one block with a warp each, the block holds the whole region (a 16 x 16
+    tile: 2 groups x 4 runs of 128 at K = 512) and its gradients are added
+    once, in a fixed order; else a block holds one group (the dense image:
+    512 blocks of 8 runs)."""
+    groups = -(-region_h // SPLAT_GROUP[0]) * -(-region_w // SPLAT_GROUP[1])
+    segments = max(1, min(SPLAT_SEGMENTS_MAX, -(-k // SPLAT_SEGMENT_MIN)))
+    if groups <= SPLAT_BLOCK_WARPS:
+        return min(segments, SPLAT_BLOCK_WARPS // groups), groups
+    return segments, 1
+
+
+def splat_state_shape(lists: int, k: int, region_h: int, region_w: int):
+    """The shape of the state K9-fwd keeps for K9-bwd: (L, segments, 5,
+    region_h * region_w), per segment and region pixel (row-major) the
+    transmittance after the segment as mantissa and binary exponent and
+    the colour seen behind the segment."""
+    return (lists, splat_plan(k, region_h, region_w)[0], SPLAT_STATE,
+            region_h * region_w)
+
+
 def _splat_lists(name, xy, abc, opac, color, background, height, width,
                  region_h, region_w):
     """Checks of K9's inputs; returns (L, K) and the inputs contiguous."""
@@ -1713,7 +1746,7 @@ def splat_composite_fwd(xy: torch.Tensor, abc: torch.Tensor,
                         opac: torch.Tensor, color: torch.Tensor,
                         background: Optional[torch.Tensor], height: int,
                         width: int, region_h: int, region_w: int,
-                        keep_final: bool = False):
+                        keep_state: bool = False):
     """K9 forward: front-to-back compositing of ordered lists. xy (L, K, 2)
     entry means in pixels, abc (L, K, 3) the coefficients of the quadratic
     form a dx^2 + b dx dy + c dy^2, opac (L, K), color (L, K, 3), background
@@ -1721,40 +1754,43 @@ def splat_composite_fwd(xy: torch.Tensor, abc: torch.Tensor,
     l (row-major) of a height x width image cut into region_h x region_w
     regions. Per pixel, alpha_j = clip(opac_j exp(-q_j / 2), 0, 0.995) and
     the colour is sum_j alpha_j T_j color_j + T_K background, T_j the
-    product of (1 - alpha_i) over i < j. Returns (height, width, 3) fp32;
-    with ``keep_final`` also t_final (height, width, 2) fp32, each pixel's
-    T_K as mantissa and binary exponent, which :func:`splat_composite_bwd`
-    reads. Counted as ``splat_composite_fwd``."""
+    product of (1 - alpha_i) over i < j. Each list is composited in
+    :func:`splat_plan`'s segments and the segments combined. Returns
+    (height, width, 3) fp32; with ``keep_state`` also the state
+    (:func:`splat_state_shape`) :func:`splat_composite_bwd` reads. Counted
+    as ``splat_composite_fwd``."""
     name = "splat_composite_fwd"
     (lists, k), (xy, abc, opac, color, background) = _splat_lists(
         name, xy, abc, opac, color, background, height, width, region_h,
         region_w)
+    segments, groups = splat_plan(k, region_h, region_w)
     out = torch.empty((height, width, 3), device=xy.device,
                       dtype=torch.float32)
-    t_final = (torch.empty((height, width, 2), device=xy.device,
-                           dtype=torch.float32) if keep_final else None)
+    state = (torch.empty(splat_state_shape(lists, k, region_h, region_w),
+                         device=xy.device, dtype=torch.float32)
+             if keep_state else None)
     rc = library().splat_composite_fwd(
         xy.data_ptr(), abc.data_ptr(), opac.data_ptr(), color.data_ptr(),
         _ptr(background), lists, k, height, width, region_h, region_w,
-        out.data_ptr(), _ptr(t_final),
+        segments, groups, out.data_ptr(), _ptr(state),
         torch.cuda.current_stream(xy.device).cuda_stream)
     _check(name, rc)
-    return (out, t_final) if keep_final else out
+    return (out, state) if keep_state else out
 
 
 def splat_composite_bwd(xy: torch.Tensor, abc: torch.Tensor,
                         opac: torch.Tensor, color: torch.Tensor,
                         background: Optional[torch.Tensor],
-                        t_final: torch.Tensor, dout: torch.Tensor,
+                        state: torch.Tensor, dout: torch.Tensor,
                         height: int, width: int, region_h: int,
                         region_w: int):
-    """K9 backward: the forward's inputs, the t_final it kept and dout
-    (height, width, 3) fp32; one walk of each list, back to front.
+    """K9 backward: the forward's inputs, the state it kept and dout
+    (height, width, 3) fp32; each segment walked once, back to front.
     Returns the gradients of xy, abc, opac, color and background (None
     without one), each summed over the pixels of its region with one atomic
-    add a block and entry (a region of at most 256 pixels is one block, so
-    the tiled gradients are added once, in a fixed order). jnp.clip's
-    gradient: 1 inside (0, 0.995), 1/2 on a bound. Counted as
+    add a block and entry (a 16 x 16 tile is one block, so the tiled
+    gradients are added once, in a fixed order). jnp.clip's gradient: 1
+    inside (0, 0.995), 1/2 on a bound. Counted as
     ``splat_composite_bwd``."""
     name = "splat_composite_bwd"
     (lists, k), (xy, abc, opac, color, background) = _splat_lists(
@@ -1763,17 +1799,20 @@ def splat_composite_bwd(xy: torch.Tensor, abc: torch.Tensor,
     _require(dout.shape == (height, width, 3) and dout.dtype == torch.float32
              and dout.device == xy.device,
              f"{name}: dout must be (height, width, 3) float32")
-    _require(t_final.shape == (height, width, 2)
-             and t_final.dtype == torch.float32 and t_final.device == xy.device,
-             f"{name}: t_final must be (height, width, 2) float32")
-    dout, t_final = dout.contiguous(), t_final.contiguous()
+    shape = splat_state_shape(lists, k, region_h, region_w)
+    _require(state.shape == shape and state.dtype == torch.float32
+             and state.device == xy.device,
+             f"{name}: state must be {shape} float32")
+    segments, groups = splat_plan(k, region_h, region_w)
+    dout, state = dout.contiguous(), state.contiguous()
     grads = [torch.zeros_like(t) for t in (xy, abc, opac, color)]
     dbg = None if background is None else torch.zeros_like(background)
     rc = library().splat_composite_bwd(
         xy.data_ptr(), abc.data_ptr(), opac.data_ptr(), color.data_ptr(),
-        _ptr(background), t_final.data_ptr(), dout.data_ptr(), lists, k,
-        height, width, region_h, region_w, *(g.data_ptr() for g in grads),
-        _ptr(dbg), torch.cuda.current_stream(xy.device).cuda_stream)
+        _ptr(background), state.data_ptr(), dout.data_ptr(), lists, k,
+        height, width, region_h, region_w, segments, groups,
+        *(g.data_ptr() for g in grads), _ptr(dbg),
+        torch.cuda.current_stream(xy.device).cuda_stream)
     _check(name, rc)
     return (*grads, dbg)
 

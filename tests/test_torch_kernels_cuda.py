@@ -1546,16 +1546,17 @@ def test_kernels_under_remat_give_the_unwrapped_gradients(cuda, kind,
 
 # -- K8 and K9: Gaussian splatting ------------------------------------------- #
 
-# K9-fwd composites in fp32 in the plain version's order per pixel; the
-# colour sums and the transmittance product round in another order (a
-# sequential loop against cumprod and einsum), an error that grows like the
-# square root of the list's length: 1e-5 of the image's largest entry for
-# lists up to 512 entries, 1e-4 for the dense image's thousands. K9-bwd
-# recovers each entry's transmittance by dividing the final one back, and
-# its dense sums meet in atomics in any order: each gradient within 1e-4 of
-# its largest entry for the tiles (one block a tile: one add an entry, two
-# runs bitwise equal, except the background's sum over the tiles), 1e-3 for
-# the dense image's sums over 65,536 pixels.
+# K9-fwd composites in fp32, a list in runs (kernels.splat_plan) combined
+# per pixel; the colour sums and the transmittance product round in
+# another order than the plain version's cumprod and einsum (and its exp
+# is one ex2), an error that grows like the square root of the list's
+# length: 1e-5 of the image's largest entry for lists up to 512 entries,
+# 1e-4 for the dense image's thousands. K9-bwd recovers each entry's
+# transmittance by multiplying the one after its run by reciprocals, and
+# its dense sums meet in atomics in any order: each gradient within 1e-4
+# of its largest entry for the tiles (one block a tile: one add an entry,
+# two runs bitwise equal, except the background's sum over the tiles),
+# 1e-3 for the dense image's sums over 65,536 pixels.
 SPLAT_IMAGE_TOL = {"tiled": 1e-5, "dense": 1e-4}
 SPLAT_GRAD_TOL = {"tiled": 1e-4, "dense": 1e-3}
 
@@ -1634,25 +1635,35 @@ def test_splat_composite_matches_plain(cuda, name, background):
     lists, geometry, _ = splat_lists(scene, splat_camera(cuda), kind, k)
     bg = torch.tensor([0.2, 0.3, 0.4], device=cuda) if background else None
     kernels.reset_launch_counts()
-    out, t_final = kernels.splat_composite_fwd(*lists, bg, *geometry,
-                                               keep_final=True)
+    out, state = kernels.splat_composite_fwd(*lists, bg, *geometry,
+                                             keep_state=True)
     render_only = kernels.splat_composite_fwd(*lists, bg, *geometry)
     dout = torch.randn(out.shape, generator=torch.Generator(
         device="cuda").manual_seed(2), device=cuda)
-    grads = kernels.splat_composite_bwd(*lists, bg, t_final, dout, *geometry)
-    again = kernels.splat_composite_bwd(*lists, bg, t_final, dout, *geometry)
+    grads = kernels.splat_composite_bwd(*lists, bg, state, dout, *geometry)
+    again = kernels.splat_composite_bwd(*lists, bg, state, dout, *geometry)
     torch.cuda.synchronize()
     assert kernels.launch_counts["splat_composite_fwd"] == 2
     assert kernels.launch_counts["splat_composite_bwd"] == 2
     assert torch.equal(out, render_only)
     ref = splat.composite_plain(*lists, bg, *geometry)
     assert (out - ref).abs().max() <= SPLAT_IMAGE_TOL[kind] * ref.abs().max()
-    # the kept transmittance: the plain image of black entries over white
+    # the kept state: per (run, pixel) the transmittance after the run and
+    # the colour behind it, as the plain segment algebra keeps them
     xy, abc, opac, color = lists
+    assert state.shape == kernels.splat_state_shape(
+        xy.shape[0], xy.shape[1], *geometry[2:])
+    _, ref_state = splat.composite_segments_plain(*lists, bg, *geometry)
+    got_ends = torch.ldexp(state[:, :, 0], state[:, :, 1].int())
+    ref_ends = torch.ldexp(ref_state[:, :, 0], ref_state[:, :, 1].int())
+    assert (got_ends - ref_ends).abs().max() <= SPLAT_IMAGE_TOL[kind]
+    assert ((state[:, :, 2:] - ref_state[:, :, 2:]).abs().max()
+            <= SPLAT_IMAGE_TOL[kind] * ref_state[:, :, 2:].abs().max())
+    # the final transmittance: the plain image of black entries over white
     ref_t = splat.composite_plain(xy, abc, opac, torch.zeros_like(color),
                                   torch.ones(3, device=cuda), *geometry)
-    got_t = torch.ldexp(t_final[..., :1], t_final[..., 1:].int())
-    assert (got_t - ref_t).abs().max() <= SPLAT_IMAGE_TOL[kind]
+    got_t = splat.final_transmittance(state, *geometry)
+    assert (got_t - ref_t[..., 0]).abs().max() <= SPLAT_IMAGE_TOL[kind]
     ref_grads = splat.composite_bwd_plain(*lists, bg, dout, *geometry)
     for got, want, rerun in zip(grads, ref_grads, again):
         if want is None:
@@ -1710,6 +1721,41 @@ def test_splat_render_and_gradients_go_through_the_kernels(cuda):
             assert (got[behind] == 0).all()
 
 
+@pytest.mark.parametrize("kind, g, backward", [
+    ("tiled", 65_536, True), ("dense", 16_000, False),
+    ("dense", 2_000, True)], ids=["tiled_65536", "dense_16000", "dense_2000"])
+def test_splat_composite_at_phase_23_shapes(cuda, kind, g, backward):
+    """K9-fwd (and K9-bwd) against their plain versions at phase 23's
+    scenes (256 x 256, init_scene at G, tiles of 16 with K = 512); the
+    tiled backward twice, bitwise equal."""
+    from deepearth_tpu_torch.ops import splat
+    from deepearth_tpu_torch.reconstruction import gaussian_splat as tgs
+
+    smoke = _smoke()
+    gen = torch.Generator(device="cuda").manual_seed(g)
+    scene = tgs.init_scene(gen, g)
+    inp = smoke.splat_inputs(scene, smoke.splat_camera(), kind)
+    lists, geometry = inp["lists"], inp["geometry"]
+    kernels.reset_launch_counts()
+    out, state = kernels.splat_composite_fwd(*lists, None, *geometry,
+                                             keep_state=True)
+    ref = splat.composite_plain(*lists, None, *geometry)
+    assert (out - ref).abs().max() <= SPLAT_IMAGE_TOL[kind] * ref.abs().max()
+    if not backward:
+        return
+    dout = torch.randn(out.shape, generator=gen, device=cuda)
+    grads = kernels.splat_composite_bwd(*lists, None, state, dout, *geometry)
+    again = kernels.splat_composite_bwd(*lists, None, state, dout, *geometry)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["splat_composite_bwd"] == 2
+    ref_grads = splat.composite_bwd_plain(*lists, None, dout, *geometry)
+    for got, want, rerun in zip(grads[:4], ref_grads[:4], again[:4]):
+        assert (got - want).abs().max() <= (
+            SPLAT_GRAD_TOL[kind] * want.abs().max())
+        if kind == "tiled":
+            assert torch.equal(got, rerun)
+
+
 def test_splat_wrappers_reject_what_the_kernels_do_not_take(cuda):
     xy = torch.zeros((2, 4, 2), device=cuda)
     abc, col = torch.zeros((2, 4, 3), device=cuda), torch.zeros((2, 4, 3),
@@ -1720,6 +1766,12 @@ def test_splat_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         kernels.splat_composite_fwd(xy.double(), abc, opac, col, None, 16,
                                     32, 16, 16)
+    # the state of the single-walk design, a pixel's final transmittance
+    with pytest.raises(ValueError, match="state must be"):
+        kernels.splat_composite_bwd(xy, abc, opac, col, None,
+                                    torch.zeros((16, 32, 2), device=cuda),
+                                    torch.zeros((16, 32, 3), device=cuda),
+                                    16, 32, 16, 16)
     with pytest.raises(ValueError, match="k must be"):
         kernels.splat_bin(torch.zeros((3, 2), device=cuda),
                           torch.zeros(3, device=cuda),
