@@ -235,10 +235,13 @@ Phases, each printing one line:
      2,000, 16,000, 65,536 and 262,144 and the dense render at 2,000 and
      16,000, each launching K8 (splat_bin, tiled) and K9-fwd
      (splat_composite_fwd) once and held against the plain path; K8 bit
-     for bit, K9-fwd and K9-bwd (splat_composite_bwd) against their plain
-     versions at each scene's lists (SPLAT_IMAGE_TOL, SPLAT_GRAD_TOL; K9-bwd
-     at the tiled sizes and the dense 2,000), each timed by CUDA events
-     beside its plain version, its bound and its exp floor; (b) 3
+     for bit against bin_tiles_plain and bin_tiles_chunked_plain (and at
+     splat_bin_edges' cases and splat_bin_grids' grids, two launches
+     bitwise equal), K9-fwd and K9-bwd (splat_composite_bwd) against their
+     plain versions at each scene's lists (SPLAT_IMAGE_TOL, SPLAT_GRAD_TOL;
+     K9-bwd at the tiled sizes and the dense 2,000), each timed by
+     CUDA-graph replays (events beside) next to its plain version, its
+     bound and its exp floor; (b) 3
      make_train_step steps (Adam) tiled at 65,536 and dense at 2,000, K8
      1, K9-fwd 1, K9-bwd 1 a step, against the plain path from one state
      (SPLAT_TRAIN_TOL), and fit_scene_adaptive on the tiled renderer with
@@ -282,6 +285,14 @@ runs only K9-fwd and K9-bwd at phase 23's tiled (G = 65,536) and dense
 (G = 2,000) scenes under kernels.splat_plan's split of the lists and the
 others of SPLAT_PLAN_SWEEP, timed by CUDA-graph replays, without the last
 two lines.
+
+    python3 chip_smoke.py --splat-bin
+
+runs only K8 at phase 23's tiled scenes (G = 2,000 to 262,144), timed by
+CUDA-graph replays and by events, bit for bit against bin_tiles_plain,
+without the last two lines. Copied into another tree's root and run there
+(the parent commit unpacked with git archive), it times that tree's K8:
+parent, this tree, this tree, parent in one machine compares the two.
 """
 
 from __future__ import annotations
@@ -6352,6 +6363,185 @@ ADAPTIVE = {"n_init": 256, "steps": 60, "densify_every": 20,
 EXPORT_BATCH = 64
 
 
+def splat_bin_edges(device) -> dict:
+    """K8's edge cases, drawn with numpy from SEED: name -> (xy, radius,
+    valid, tiles_x, tiles_y, tile_size, k, chunk) on ``device``, chunk
+    small enough that chunk boundaries fall inside the tiles' first k. The
+    tests hold them against JAX's top_k on the CPU and the kernel against
+    both plain versions on the card, as phase 23 does."""
+    rng = np.random.default_rng(SEED)
+
+    def spread(g, size, r_lo=1.0, r_hi=24.0):
+        return (rng.uniform(-8, size + 8, (g, 2)), rng.uniform(r_lo, r_hi, g),
+                np.ones(g, bool))
+
+    cases = {}
+    # box edges exactly on tile centres: |x - centre| == 8 + r in fp32
+    xy, r, v = spread(64, 64)
+    centre = 8.0 + 16.0 * rng.integers(0, 4, 64)
+    r = rng.choice([0.5, 1.25, 3.0, 7.75, 20.5], 64)
+    sign = rng.choice([-1.0, 1.0], 64)
+    xy[:, 0] = centre + sign * (8.0 + r)
+    xy[::3, 1] = 8.0 + 16.0 * rng.integers(0, 4, 22) + 8.0 + r[::3]
+    xy[1::5, 0] = np.nextafter(xy[1::5, 0].astype(np.float32),
+                               np.float32(np.inf))
+    cases["edge_on_centre"] = (xy, r, v, 4, 4, 16, 16, 16)
+    # infinite, negative and NaN reaches; infinite means
+    xy, r, v = spread(40, 64)
+    r[:4] = np.inf
+    r[4:7] = -np.inf
+    r[7:10] = -3.0
+    r[10:12] = -8.0  # a reach of exactly 0
+    r[12:14] = np.nan
+    xy[14, 0], r[14] = np.inf, np.inf
+    xy[15, 1], r[15] = -np.inf, 5.0
+    cases["inf_radius"] = (xy, r, v, 4, 4, 16, 8, 8)
+    # means of +-1e30, with reaches below, at and past them
+    xy, r, v = spread(48, 64)
+    xy[:24:2, 0] = 1e30
+    xy[1:24:2, 1] = -1e30
+    r[:8] = 1e30
+    r[8:16] = 3e30
+    cases["huge_xy"] = (xy, r, v, 4, 4, 16, 12, 5)
+    # means far off screen whose box edge falls on screen: p - centre
+    # rounds by up to 128 px there, so the superset needs its e
+    p = rng.choice([3e8, -7e8, 2e9], 64) * rng.uniform(1, 1.01, 64)
+    edge = rng.uniform(-40, 300, 64)
+    xy, r, v = spread(64, 256)
+    xy[np.arange(64), rng.integers(0, 2, 64)] = p
+    r = np.abs(p - edge) - 8.0
+    cases["far_rounding"] = (xy, r, v, 16, 16, 16, 24, 16)
+    # NaN means (valid), NaN radii
+    xy, r, v = spread(40, 64)
+    xy[:6, 0] = np.nan
+    xy[6:10, 1] = np.nan
+    r[10:13] = np.nan
+    cases["nan_xy_valid"] = (xy, r, v, 4, 4, 16, 8, 8)
+    xy, r, v = spread(30, 64)
+    cases["all_invalid"] = (xy, r, np.zeros(30, bool), 4, 4, 16, 8, 8)
+    xy, r, v = spread(50, 64, 20.0, 60.0)
+    v[::7] = False
+    cases["k_equals_g"] = (xy, r, v, 4, 4, 16, 50, 16)
+    xy, r, v = spread(200, 80)
+    xy[:, 1] *= 48 / 80
+    cases["non_square"] = (xy, r, v, 5, 3, 16, 30, 32)
+    xy, r, v = spread(300, 64, 16.0, 40.0)
+    cases["chunk_inside_first_k"] = (xy, r, v, 4, 4, 16, 64, 7)
+    xy, r, v = spread(101, 64)
+    cases["g_not_multiple"] = (xy, r, v, 4, 4, 16, 20, 32)
+    xy = rng.uniform(28, 36, (400, 2))
+    cases["chunks_past_k"] = (xy, rng.uniform(2, 6, 400),
+                              np.ones(400, bool), 4, 4, 16, 8, 16)
+    xy, r, v = spread(120, 70)
+    xy[:, 1] *= 40 / 70
+    cases["tile_of_10"] = (xy, r, v, 7, 4, 10, 16, 24)
+    return {name: (torch.tensor(xy, dtype=torch.float32, device=device),
+                   torch.tensor(r, dtype=torch.float32, device=device),
+                   torch.tensor(v, device=device), *rest)
+            for name, (xy, r, v, *rest) in cases.items()}
+
+
+def splat_bin_grids(device) -> dict:
+    """K8 on grids larger than phase 23's, drawn with numpy from SEED:
+    1024 x 1024 pixels (T = 4,096, one window of its counters), 2048 x
+    2048 (T = 16,384, three windows of rows) and 80,000 x 32 (5,000 x 2
+    tiles, windows along the row), as splat_bin_edges gives its cases
+    (chunk: kernels.splat_bin_chunk(G))."""
+    rng = np.random.default_rng(SEED + 1)
+    cases = {}
+    for name, g, tiles_x, tiles_y, k, r_hi in (
+            ("grid_1024px", 3000, 64, 64, 64, 120.0),
+            ("grid_2048px", 3000, 128, 128, 32, 300.0),
+            ("grid_5000x2_tiles", 1500, 5000, 2, 16, 2000.0)):
+        size = np.array([tiles_x, tiles_y]) * 16
+        xy = rng.uniform(-20, size + 20, (g, 2))
+        cases[name] = (torch.tensor(xy, dtype=torch.float32, device=device),
+                       torch.tensor(rng.uniform(4.0, r_hi, g),
+                                    dtype=torch.float32, device=device),
+                       torch.tensor(rng.uniform(size=g) > 0.1,
+                                    device=device),
+                       tiles_x, tiles_y, 16, k, None)
+    return cases
+
+
+def splat_bin_at(binning, chunk: Optional[int]):
+    """kernels.splat_bin with chunks of ``chunk`` (None:
+    kernels.splat_bin_chunk's)."""
+    if chunk is None:
+        return kernels.splat_bin(*binning)
+    with mock.patch.object(kernels, "splat_bin_chunk", lambda g: chunk):
+        return kernels.splat_bin(*binning)
+
+
+def splat_bin_edge_check() -> str:
+    """K8 bit for bit against bin_tiles_plain and bin_tiles_chunked_plain
+    at splat_bin_edges' cases and splat_bin_grids' grids, launched twice
+    (bitwise equal), one splat_bin launch a call; raises on a mismatch."""
+    done = []
+    for name, (*binning, chunk) in (splat_bin_edges("cuda")
+                                    | splat_bin_grids("cuda")).items():
+        ref = splat.bin_tiles_plain(*binning)
+        kernels.reset_launch_counts()
+        got = splat_bin_at(binning, chunk)
+        again = splat_bin_at(binning, chunk)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(
+            (*got, *again, *splat.bin_tiles_chunked_plain(*binning, chunk)),
+            ref * 3))
+        if not same or kernels.launch_counts["splat_bin"] != 2:
+            raise AssertionError(f"K8 at {name}: not the plain lists, or "
+                                 f"{kernels.launch_counts['splat_bin']} "
+                                 f"launches for 2 calls")
+        done.append(f"{name} (G={binning[0].shape[0]}, {binning[3]} x "
+                    f"{binning[4]} tiles, k={binning[6]}, "
+                    f"{float(ref[1].float().mean()) / binning[6]:.0%} filled)")
+    return "bit for bit both plain versions: " + ", ".join(done)
+
+
+# other chunks for K8 than kernels.splat_bin_chunk's, for --splat-bin
+SPLAT_BIN_CHUNKS = (32, 64, 128, 256)
+
+
+def splat_bin_times() -> None:
+    """K8 alone at phase 23's tiled G (each scene init_scene from a
+    generator seeded SEED + 5, phase 23's camera): ms by CUDA-graph
+    replays and by CUDA events over the wrapper's calls, beside the
+    Gaussians the longest tile reads, the tests of all tiles' scans and
+    the slots filled, the lists bit for bit bin_tiles_plain's. Run from
+    another tree's root, it times that tree's K8 the same way."""
+    cam = splat_camera()
+    rows = []
+    for g in SPLAT_TILED_G:
+        scene = gaussian_splat.init_scene(
+            torch.Generator(device="cuda").manual_seed(SEED + 5), g)
+        inp = splat_inputs(scene, cam, "tiled")
+        binning = inp["binning"]
+        ref = splat.bin_tiles_plain(*binning)
+        if not (torch.equal(ref[0], inp["idx"])
+                and torch.equal(ref[1], inp["count"])):
+            raise AssertionError(f"K8 vs plain at G={g}")
+        ms = graph_ms(lambda: kernels.splat_bin(*binning))
+        events = cuda_ms(lambda: kernels.splat_bin(*binning), iters=20)
+        passes = ", ".join(
+            f"{kernel_label(name)} {dev_ms * 1e3:.2f} us"
+            for name, dev_ms, _ in kernel_breakdown(
+                lambda: kernels.splat_bin(*binning), n_calls=10)[0]
+            if "splat_bin" in name)
+        # other chunks than kernels.splat_bin_chunk's, where the tree has
+        # them
+        chunk = getattr(kernels, "splat_bin_chunk", None)
+        others = "".join(
+            f", chunk {c}: {graph_ms(lambda: splat_bin_at(binning, c)):.4f}"
+            for c in SPLAT_BIN_CHUNKS if chunk and c != chunk(g))
+        rows.append(f"G={g}: {ms:.4f} ms (events {events:.4f}; the "
+                    f"profiler's device time a call: {passes}{others}); "
+                    f"read {inp['read']}, scanned {inp['scanned']}, filled "
+                    f"{float(inp['count'].float().mean()) / binning[6]:.1%}")
+    print(f"[splat bin] K8 of {kernels.build().name} at {SPLAT_SIZE} x "
+          f"{SPLAT_SIZE}, K = {SPLAT_K}, by CUDA-graph replays: "
+          + " | ".join(rows) + f" | {card()}")
+
+
 def splat_camera() -> Camera:
     return Camera(torch.eye(3, device="cuda"),
                   torch.tensor([0.0, 0.0, 2.5], device="cuda"), 220.0, 220.0,
@@ -6407,16 +6597,24 @@ def splat_kernels(scene, cam, kind: str, gen, backward: bool) -> dict:
     lists, geometry = inp["lists"], inp["geometry"]
     out = {"bounds": splat_bounds(inp), "pairs": inp["pairs"]}
     if kind == "tiled":
-        idx, count = splat.bin_tiles_plain(*inp["binning"])
-        if not (torch.equal(idx, inp["idx"])
-                and torch.equal(count, inp["count"])):
+        binning = inp["binning"]
+        # K8 bit for bit against both plain versions, and a second launch
+        # bit for bit the render's
+        got = (*splat.bin_tiles_plain(*binning),
+               *splat.bin_tiles_chunked_plain(*binning),
+               *kernels.splat_bin(*binning))
+        if not all(torch.equal(a, b) for a, b in zip(
+                got, (inp["idx"], inp["count"]) * 3)):
             raise AssertionError(f"K8 vs plain at G={scene.means.shape[0]}")
-        out["bin_ms"] = cuda_ms(lambda: kernels.splat_bin(*inp["binning"]),
-                                iters=20)
+        # by CUDA-graph replays (events over the wrapper's calls read its
+        # host time), and by events beside them
+        out["bin_ms"] = graph_ms(lambda: kernels.splat_bin(*binning))
+        out["bin_events_ms"] = cuda_ms(lambda: kernels.splat_bin(*binning),
+                                       iters=20)
         out["bin_plain_ms"] = cuda_ms(
-            lambda: splat.bin_tiles_plain(*inp["binning"]), iters=3,
-            warmup=1)
+            lambda: splat.bin_tiles_plain(*binning), iters=3, warmup=1)
         out["filled"] = float(inp["count"].float().mean() / inp["idx"].shape[1])
+        out["read"], out["scanned"] = inp["read"], inp["scanned"]
     img = kernels.splat_composite_fwd(*lists, None, *geometry)
     ref = splat.composite_plain(*lists, None, *geometry)
     out["fwd_err"] = max_err(img, ref) / ref.abs().max().item()
@@ -6719,6 +6917,7 @@ def phase_splat() -> dict:
                     row["render_plain_ms"] = cuda_ms(
                         lambda: render(scene, cam), iters=2, warmup=1)
             table[g] = row
+    edges = splat_bin_edge_check()
     t_render = time.perf_counter()
     train = {}
     for kind, g in SPLAT_TRAIN:
@@ -6738,10 +6937,13 @@ def phase_splat() -> dict:
             return f"{b[key]['bound_ms'] / r[key + '_ms']:.1%} of its bound"
         parts = [f"G={g}"]
         if "bin_ms" in r:
-            parts.append(f"K8 {r['bin_ms']:.4f} ms (plain "
+            parts.append(f"K8 {r['bin_ms']:.4f} ms ({share('bin')}; events "
+                         f"{r['bin_events_ms']:.4f}; plain "
                          f"{r['bin_plain_ms']:.3f}, bound "
-                         f"{b['bin']['bound_ms']:.4f} {b['bin']['bound_by']};"
-                         f" slots filled {r['filled']:.1%})")
+                         f"{b['bin']['bound_ms']:.4f} {b['bin']['bound_by']}"
+                         f" over the {r['read']} Gaussians the longest tile "
+                         f"reads, {r['scanned']} tests in all; slots filled "
+                         f"{r['filled']:.1%})")
         parts.append(
             f"K9-fwd {r['fwd_ms']:.4f} ({share('fwd')}; events "
             f"{r['fwd_events_ms']:.4f}; plain {r['fwd_plain_ms']:.3f}, bound "
@@ -6764,8 +6966,10 @@ def phase_splat() -> dict:
           f"{SPLAT_K}, 3.5 sigma; per scene: launches of each render "
           f"(counters reset before, read after) K8 1 + K9-fwd 1 tiled, "
           f"K9-fwd 1 dense; kernel vs plain (tol image {SPLAT_IMAGE_TOL}, "
-          f"gradients {SPLAT_GRAD_TOL} of the largest entry; K8 exact); ms "
-          f"by CUDA events, K9's by CUDA-graph replays (events beside) | "
+          f"gradients {SPLAT_GRAD_TOL} of the largest entry; K8 exact); "
+          f"kernel ms by CUDA-graph replays (events beside), the rest by "
+          f"CUDA events | K8 at its edge cases and large grids: "
+          f"{edges} | "
           f"tiled: "
           + " | ".join(fmt_row(g, r) for g, r in tiled.items())
           + " | dense: " + " | ".join(fmt_row(g, r) for g, r in dense.items())
@@ -6819,6 +7023,9 @@ def main() -> None:
     parser.add_argument("--splat-plans", action="store_true",
                         help="only K9 at phase 23's tiled and dense scenes "
                              "under other splits of its lists")
+    parser.add_argument("--splat-bin", action="store_true",
+                        help="only K8 at phase 23's tiled scenes, by "
+                             "CUDA-graph replays")
     parser.add_argument("--mm-train-spread", type=int, nargs="+",
                         metavar="SEED",
                         help="only phases 12's and 13's kernel-vs-plain "
@@ -6841,6 +7048,9 @@ def main() -> None:
         return
     if args.splat_plans:
         splat_plan_sweep()
+        return
+    if args.splat_bin:
+        splat_bin_times()
         return
     k2 = phase_hash(gen)
     k1 = phase_attention(gen)
@@ -7006,11 +7216,10 @@ def main() -> None:
             "ms": at[f"{key}_ms"], "plain_ms": at[f"{key}_plain_ms"],
             **{k: at["bounds"][key][k] for k in ("bound_ms", "bound_by")},
             "library_ms": None,
-            # K9: ms by graph replays, events_ms over the wrapper's calls
-            **({} if exact else {"events_ms": at[f"{key}_events_ms"]}),
+            # ms by graph replays, events_ms over the wrapper's calls
+            "events_ms": at[f"{key}_events_ms"],
             "at_G": {tag: {"ms": r[f"{key}_ms"],
-                           **({} if exact else
-                              {"events_ms": r[f"{key}_events_ms"]}),
+                           "events_ms": r[f"{key}_events_ms"],
                            "plain_ms": r[f"{key}_plain_ms"],
                            **r["bounds"][key],
                            "max_rel_err": 0.0 if exact else r[f"{key}_err"]}

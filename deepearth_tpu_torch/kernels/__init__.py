@@ -137,7 +137,7 @@ _SIGNATURES = {
                                    _P],
     "pairwise_attention_fwd_tma": [*[_P] * 5, *[_I] * 5, *[_I64] * 6, _F,
                                    _P],
-    "splat_bin": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "splat_bin": [_P, _P, _P, *[_I] * 6, _P, _P, _P, _P],
     "splat_composite_fwd": [*[_P] * 5, *[_I] * 8, _P, _P, _P],
     "splat_composite_bwd": [*[_P] * 7, *[_I] * 8, *[_P] * 5, _P],
 }
@@ -1657,6 +1657,23 @@ def _float_inputs(name: str, device, *tensors) -> None:
              f"{name}: inputs must be float32 on one CUDA device")
 
 
+# K8's chunks: the depth-sorted Gaussians cut into at most SPLAT_BIN_CHUNKS
+# chunks of a power of two from SPLAT_BIN_CHUNK_MIN to SPLAT_BIN_CHUNK_MAX
+# Gaussians (the write pass holds a chunk's rectangles in shared memory and
+# scans them a ballot of 32 at a time for each tile)
+SPLAT_BIN_CHUNK_MIN, SPLAT_BIN_CHUNK_MAX, SPLAT_BIN_CHUNKS = 64, 256, 32
+
+
+def splat_bin_chunk(g: int) -> int:
+    """K8's chunk from G alone: the least power of two from 64 that cuts G
+    into at most 32 chunks, at most 256 (64 at G = 2,000, 256 from 8,192
+    up: 63 chunks at 16,000, 1,024 at 262,144)."""
+    chunk = SPLAT_BIN_CHUNK_MIN
+    while chunk < SPLAT_BIN_CHUNK_MAX and chunk * SPLAT_BIN_CHUNKS < g:
+        chunk *= 2
+    return chunk
+
+
 def splat_bin(xy: torch.Tensor, radius: torch.Tensor, valid: torch.Tensor,
               tiles_x: int, tiles_y: int, tile_size: int, k: int):
     """K8, the tile binning of ``render_tiled``: xy (G, 2) and radius (G,)
@@ -1665,7 +1682,10 @@ def splat_bin(xy: torch.Tensor, radius: torch.Tensor, valid: torch.Tensor,
     (tiles, k) int32, each tile's first k Gaussians (in sorted order) that
     are valid and whose box of half width tile_size / 2 + radius about their
     mean holds the tile's centre, unfilled slots 0, and count (tiles,)
-    int32, the slots filled. Counted as ``splat_bin``."""
+    int32, the slots filled. The Gaussians are taken in chunks of
+    :func:`splat_bin_chunk` (G): three launches (count, prefix, write) over
+    tiles * (chunks + 1) + 1 int32 of slots and a rectangle of tiles for
+    each Gaussian as scratch, counted once as ``splat_bin``."""
     name = "splat_bin"
     _require(xy.is_cuda, f"{name}: xy must lie on a CUDA device")
     g = xy.shape[0]
@@ -1675,14 +1695,23 @@ def splat_bin(xy: torch.Tensor, radius: torch.Tensor, valid: torch.Tensor,
              f"{name}: xy must be (G, 2), radius (G,) and valid (G,) bool")
     _float_inputs(name, xy.device, xy, radius)
     _require(0 < k <= g and tile_size > 0, f"{name}: k must be in 1..G")
-    xy, radius, valid = (t.contiguous() for t in (xy, radius, valid))
+    chunk = splat_bin_chunk(g)
     tiles = tiles_x * tiles_y
+    chunks = -(-g // chunk)
+    _require(tiles_x >= 0 and tiles_y >= 0
+             and tiles * (chunks + 1) < 2 ** 31 - 1,
+             f"{name}: {tiles_x} x {tiles_y} tiles do not fit an int32 grid")
+    xy, radius, valid = (t.contiguous() for t in (xy, radius, valid))
+    # the chunks' slots on each tile and the last live chunk, then each
+    # Gaussian's rectangle of tiles (int4, from a multiple of 4)
+    offsets = torch.empty(((tiles * (chunks + 1) + 4) // 4 * 4 + 4 * g,),
+                          device=xy.device, dtype=torch.int32)
     idx = torch.empty((tiles, k), device=xy.device, dtype=torch.int32)
     count = torch.empty((tiles,), device=xy.device, dtype=torch.int32)
     rc = library().splat_bin(
         xy.data_ptr(), radius.data_ptr(), valid.data_ptr(), g, tiles_x,
-        tiles_y, tile_size, k, idx.data_ptr(), count.data_ptr(),
-        torch.cuda.current_stream(xy.device).cuda_stream)
+        tiles_y, tile_size, k, chunk, offsets.data_ptr(), idx.data_ptr(),
+        count.data_ptr(), torch.cuda.current_stream(xy.device).cuda_stream)
     _check(name, rc)
     return idx, count
 

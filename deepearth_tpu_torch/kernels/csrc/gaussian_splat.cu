@@ -23,6 +23,34 @@
 // on a bound, 0 outside), an entry of zero opacity shows nothing (the
 // caller zeroes the unfilled slots and the Gaussians behind the camera).
 //
+// What bounds K8 on the card. JAX tests every (tile, Gaussian) pair and
+// takes top_k per tile; a tile's first K hits can lie anywhere in the
+// depth-sorted list, and a block a tile scanning it in order waits on the
+// sparsest tile's scan: hundreds of dependent passes of loads, a ballot
+// and barriers, almost no arithmetic. This design works across the
+// Gaussians instead, in chunks of kernels.splat_bin_chunk(G):
+//
+// * A Gaussian's hit set is a rectangle of tiles (the test is one interval
+//   along each axis), found exactly in JAX's fp32 order inside a superset
+//   reckoned in fp64 (bin_axis): a handful of tests for its ~25 tiles.
+// * Count: a block a chunk, a thread a Gaussian, one shared atomic a hit:
+//   the chunk's hits on each tile. The rectangles are kept for the write.
+// * Prefix: a warp a tile scans its counts over the chunks (contiguous,
+//   tile-major), giving each chunk its first slot in the tile's list, the
+//   tile its count, and the card the last chunk with a slot below K.
+// * Write: resident blocks walk the (chunk, 32 tiles) items up to that
+//   chunk; where slots start below K, a warp takes 4 of the tiles and
+//   scans the chunk's rectangles in index order, 32 a read: a ballot a
+//   tile, each hit's slot the chunk's first plus a popcount. Chunks past
+//   the lists' ends are never visited, so the work no longer follows the
+//   longest tile's scan; no atomic decides an order, so the lists are the
+//   same from run to run.
+//
+// What holds it back (PERF.md): three launches, each a DRAM or L2 round
+// trip and a few barriers deep, ~3-7 us each at screen sizes; the count
+// pass reads and counts all G, where the old scan stopped at each tile's
+// K-th hit.
+//
 // What bounds K9 on the card. Per (pixel, list entry) the forward issues
 // ~15 fp32 instructions and one exp, the backward ~50, one exp and one
 // reciprocal: the issue slots of the fp32 pipes, if the list's entries
@@ -68,8 +96,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // K8's block
-constexpr int kWarps = kThreads / 32;
 constexpr float kClip = 0.995f;
 
 // K9's layout
@@ -85,50 +111,270 @@ constexpr int kState = 5;   // kept a (pixel, segment): T mantissa, exponent;
 constexpr float kExp2Scale = -0.72134752044448170f;  // -log2(e) / 2
 static_assert(kPix == 4, "a thread's pixels are read as one float4");
 
-__global__ void __launch_bounds__(kThreads)
-    splat_bin_kernel(const float* __restrict__ xy,
-                     const float* __restrict__ radius,
-                     const uint8_t* __restrict__ valid, int g, int tiles_x,
-                     int tile_size, int k, int* __restrict__ idx,
-                     int* __restrict__ count) {
-  __shared__ int warp_hits[kWarps];
-  __shared__ int filled;
-  int tile = blockIdx.x;
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // the tile's centre and half width, as JAX forms them in fp32
-  float cx = (float)((tile % tiles_x) * tile_size) + tile_size / 2.0f;
-  float cy = (float)((tile / tiles_x) * tile_size) + tile_size / 2.0f;
-  float half = tile_size / 2.0f;
-  if (threadIdx.x == 0) filled = 0;
-  __syncthreads();
-  for (int base = 0; base < g; base += kThreads) {
-    int i = base + threadIdx.x;
-    bool hit = false;
-    if (i < g && valid[i]) {
-      float reach = half + radius[i];
-      hit = fabsf(xy[2 * i] - cx) <= reach && fabsf(xy[2 * i + 1] - cy) <= reach;
+// K8's layout
+constexpr int kBinThreads = 256;
+constexpr int kBinWarps = kBinThreads / 32;
+constexpr int kBinChunkMax = kBinThreads;  // Gaussians a chunk: one a thread
+constexpr int kBinCells = 8192;  // the count pass's counters, at most (32 KB)
+constexpr int kBinWriters = 4;   // write blocks an SM, at most
+constexpr int kBinPerWarp = 32 / kBinWarps;  // a write warp's tiles, at most
+
+// K8's inputs: the depth-sorted Gaussians cut into `chunks` chunks of
+// `chunk` (the last may be shorter), a tiles_x x tiles_y grid of
+// tile_size-pixel tiles (inv_tile = 1.0 / tile_size), lists of k; rects
+// (G) is scratch.
+struct Bins {
+  const float* xy;
+  const float* radius;
+  const uint8_t* valid;
+  int4* rects;  // each Gaussian's tiles, from the count pass to the write
+  double inv_tile;
+  int g, tiles_x, tiles_y, tile_size, k, chunk, chunks;
+};
+
+// JAX's test along one axis, in its fp32 order: tile t's centre is
+// float(t * ts) + ts / 2.0, and the test |p - centre| <= reach.
+__device__ __forceinline__ bool bin_hit(float p, float reach, int t, int ts) {
+  return fabsf(p - ((float)(t * ts) + ts / 2.0f)) <= reach;
+}
+
+// The tiles along one axis that pass bin_hit, as [lo, hi] (empty when lo >
+// hi). fl(p - centre) does not increase as the centre grows, so they are
+// one interval. A NaN p or reach, or a negative reach, passes nowhere; an
+// infinite reach everywhere (inf <= inf); an infinite p with a finite
+// reach nowhere. Else p - centre rounds by at most 2^-24 (|p| + |centre|),
+// so every passing centre lies strictly inside p +- (reach + e), e twice
+// that bound plus 2^-10 (more than fp64's own rounding of the interval):
+// its tiles, reckoned in fp64 and clamped to the grid, hold the interval,
+// which is found exactly by testing inward from both ends (at most a tile
+// each at screen sizes).
+__device__ int2 bin_axis(float p, float reach, int tiles, int ts,
+                         double inv) {
+  const int2 none = make_int2(1, 0);
+  if (isnan(p) || !(reach >= 0.0f)) return none;
+  if (isinf(reach)) return make_int2(0, tiles - 1);
+  if (isinf(p)) return none;
+  double e = ((double)fabsf(p) + (double)tiles * ts) * 0x1p-23 + 0x1p-10;
+  double a = ((double)p - reach - e) * inv - 0.5;
+  double b = ((double)p + reach + e) * inv - 0.5;
+  if (b < 0.0 || a > (double)(tiles - 1)) return none;
+  int lo = a <= 0.0 ? 0 : (int)ceil(a);
+  int hi = b >= (double)(tiles - 1) ? tiles - 1 : (int)b;
+  while (lo <= hi && !bin_hit(p, reach, lo, ts)) ++lo;
+  while (hi >= lo && !bin_hit(p, reach, hi, ts)) --hi;
+  return make_int2(lo, hi);
+}
+
+// A Gaussian's inputs, all loaded at once: one round trip to memory.
+struct BinIn {
+  float x, y, radius;
+  bool valid;
+};
+
+__device__ __forceinline__ BinIn bin_load(const Bins& p, int i) {
+  return {p.xy[2 * (long long)i], p.xy[2 * (long long)i + 1], p.radius[i],
+          p.valid[i] != 0};
+}
+
+// The tiles a Gaussian meets, (x lo, x hi, y lo, y hi): JAX's hit set, a
+// rectangle since the test is one interval along each axis.
+__device__ int4 bin_rect(const Bins& p, const BinIn& in) {
+  const int4 none = make_int4(1, 0, 1, 0);
+  if (!in.valid) return none;
+  const float reach = p.tile_size / 2.0f + in.radius;
+  const int2 x = bin_axis(in.x, reach, p.tiles_x, p.tile_size, p.inv_tile);
+  const int2 y = bin_axis(in.y, reach, p.tiles_y, p.tile_size, p.inv_tile);
+  if (x.x > x.y || y.x > y.y) return none;
+  return make_int4(x.x, x.y, y.x, y.y);
+}
+
+// The count pass's window of tiles: as many whole rows of the grid as
+// kBinCells counters hold, or a part of one row.
+__host__ __device__ __forceinline__ int2 bin_window(int tiles_x,
+                                                    int tiles_y) {
+  const int wx = tiles_x < kBinCells ? tiles_x : kBinCells;
+  const int wy = kBinCells / wx;
+  return make_int2(wx, tiles_y < wy ? tiles_y : wy);
+}
+
+// K8 pass 1, a block a chunk, a thread a Gaussian: each tile's hits in the
+// chunk, into column `chunk` of counts (tiles, chunks + 1), by one shared
+// atomic a hit (a Gaussian meets ~25 tiles at screen sizes). The
+// rectangles are kept for the write pass. A grid whose counters pass
+// kBinCells is counted a window of tiles at a time (bin_window; the
+// counters are the launch's dynamic shared memory). The loads are issued
+// before the counters are zeroed. Block 0 also sets the last live chunk
+// (after the counts) to -1.
+__global__ void __launch_bounds__(kBinThreads)
+    splat_bin_count_kernel(Bins p, int* __restrict__ counts) {
+  extern __shared__ int cells[];
+  const int tiles = p.tiles_x * p.tiles_y, chunk = blockIdx.x;
+  const int i = chunk * p.chunk + threadIdx.x;
+  const long long row = p.chunks + 1;
+  const bool mine = threadIdx.x < p.chunk && i < p.g;
+  const BinIn in = mine ? bin_load(p, i) : BinIn{0.0f, 0.0f, 0.0f, false};
+  if (chunk == 0 && threadIdx.x == 0) counts[tiles * row] = -1;
+  const int2 win = bin_window(p.tiles_x, p.tiles_y);
+  int4 r = make_int4(1, 0, 1, 0);
+  for (int y0 = 0; y0 < p.tiles_y; y0 += win.y) {
+    for (int x0 = 0; x0 < p.tiles_x; x0 += win.x) {
+      const int w = min(win.x, p.tiles_x - x0), h = min(win.y, p.tiles_y - y0);
+      for (int z = threadIdx.x; z < w * h; z += kBinThreads) cells[z] = 0;
+      __syncthreads();
+      if (y0 == 0 && x0 == 0) {
+        r = bin_rect(p, in);
+        if (mine) p.rects[i] = r;
+      }
+      const int ax = max(r.x, x0), bx = min(r.y, x0 + w - 1);
+      const int ay = max(r.z, y0), by = min(r.w, y0 + h - 1);
+      for (int y = ay; y <= by; ++y)
+        for (int x = ax; x <= bx; ++x)
+          atomicAdd(&cells[(y - y0) * w + x - x0], 1);
+      __syncthreads();
+      for (int z = threadIdx.x; z < w * h; z += kBinThreads) {
+        const int y = z / w, x = z - y * w;
+        counts[((long long)(y0 + y) * p.tiles_x + x0 + x) * row + chunk] =
+            cells[z];
+      }
+      __syncthreads();
     }
-    unsigned ballot = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) warp_hits[warp] = __popc(ballot);
-    __syncthreads();
-    int before = filled;
-    for (int w = 0; w < warp; ++w) before += warp_hits[w];
-    int slot = before + __popc(ballot & ((1u << lane) - 1u));
-    if (hit && slot < k) idx[(long long)tile * k + slot] = i;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int total = filled;
-      for (int w = 0; w < kWarps; ++w) total += warp_hits[w];
-      filled = total;
-    }
-    __syncthreads();
-    if (filled >= k) break;
   }
-  int n = filled < k ? filled : k;
-  // unfilled slots point at Gaussian 0 (their opacity is zeroed)
-  for (int s = n + threadIdx.x; s < k; s += kThreads)
-    idx[(long long)tile * k + s] = 0;
-  if (threadIdx.x == 0) count[tile] = n;
+}
+
+// K8 pass 2, a warp a tile: the exclusive prefix of the tile's counts over
+// the chunks, in place (column c becomes chunk c's first slot, column
+// `chunks` the tile's hits in all), count = min(hits, k), 0 in slots
+// count..k, and the last chunk with a hit whose slot is below k, the
+// largest over the tiles, after the counts. A round takes 32 R chunks: R
+// coalesced loads a lane, R independent shuffle scans.
+template <int R>
+__global__ void __launch_bounds__(kBinThreads)
+    splat_bin_prefix_kernel(Bins p, int* __restrict__ offsets,
+                            int* __restrict__ idx, int* __restrict__ count) {
+  __shared__ int warp_last[kBinWarps];
+  const int tiles = p.tiles_x * p.tiles_y, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, tile = blockIdx.x * kBinWarps + warp;
+  int live = -1;
+  if (tile < tiles) {
+    int* row = offsets + (long long)tile * (p.chunks + 1);
+    int carry = 0;
+    for (int c0 = 0; c0 < p.chunks; c0 += 32 * R) {
+      int v[R], incl[R];
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        const int c = c0 + s * 32 + lane;
+        v[s] = c < p.chunks ? row[c] : 0;
+        incl[s] = v[s];
+      }
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          const int o = __shfl_up_sync(0xffffffffu, incl[s], d);
+          if (lane >= d) incl[s] += o;
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        const int c = c0 + s * 32 + lane, start = carry + incl[s] - v[s];
+        if (c < p.chunks) {
+          row[c] = start;
+          if (v[s] > 0 && start < p.k) live = c;
+        }
+        carry += __shfl_sync(0xffffffffu, incl[s], 31);
+      }
+    }
+    live = __reduce_max_sync(0xffffffffu, live);
+    const int n = min(carry, p.k);
+    if (lane == 0) {
+      row[p.chunks] = carry;
+      count[tile] = n;
+    }
+    // unfilled slots point at Gaussian 0 (their opacity is zeroed)
+    int* list = idx + (long long)tile * p.k;
+    for (int s = n + lane; s < p.k; s += 32) list[s] = 0;
+  }
+  if (lane == 0) warp_last[warp] = live;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kBinWarps; ++w) live = max(live, warp_last[w]);
+    if (live >= 0)
+      atomicMax(offsets + (long long)tiles * (p.chunks + 1), live);
+  }
+}
+
+// K8 pass 3: the chunks' hits on each tile whose slots start below k,
+// written in index order. Blocks walk the items (chunk, 32 tiles), chunk
+// by chunk, up to the last live chunk. An item loads its tiles' slots and
+// its chunk's rectangles at once (and, first, the last live chunk); if its
+// tiles are all full before its chunk, or have no hit in it, it does
+// nothing. Else the rectangles go to shared memory, and a warp takes up to
+// kBinPerWarp of the live tiles and scans the rectangles 32 at a time, one
+// read for all its tiles: a ballot of each tile's hits, each hit's slot the
+// chunk's first slot plus the hits before it (a popcount), until each
+// tile's hits in the chunk or its list's end.
+__global__ void __launch_bounds__(kBinThreads)
+    splat_bin_write_kernel(Bins p, const int* __restrict__ offsets,
+                           int* __restrict__ idx) {
+  __shared__ int4 rects[kBinChunkMax];
+  const int tiles = p.tiles_x * p.tiles_y, groups = (tiles + 31) / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int4 none = make_int4(1, 0, 1, 0);
+  const int* last_live = offsets + (long long)tiles * (p.chunks + 1);
+  int last = -1;
+  for (long long item = blockIdx.x; item < (long long)p.chunks * groups;
+       item += gridDim.x) {
+    const int chunk = (int)(item / groups);
+    const int group = (int)(item - (long long)chunk * groups);
+    const int t = group * 32 + lane, first = chunk * p.chunk;
+    const int n = min(p.chunk, p.g - first);
+    int start = 0, stop = 0;
+    if (t < tiles) {
+      const int* row = offsets + (long long)t * (p.chunks + 1) + chunk;
+      start = row[0];
+      stop = row[1];
+    }
+    const int4 r = threadIdx.x < n ? p.rects[first + threadIdx.x] : none;
+    if (item == blockIdx.x) last = *last_live;
+    if (chunk > last) break;  // items ascend by chunk
+    stop = min(stop, p.k);
+    const unsigned live = __ballot_sync(0xffffffffu, start < stop);
+    if (live == 0) continue;  // the same in every warp
+    __syncthreads();  // the last item's scans are done with the rectangles
+    if (threadIdx.x < n) rects[threadIdx.x] = r;
+    __syncthreads();
+    // this warp's tiles: the live tiles warp, warp + 8, ... in bit order
+    int tx[kBinPerWarp], ty[kBinPerWarp], slot[kBinPerWarp], end[kBinPerWarp];
+    long long list[kBinPerWarp];
+#pragma unroll
+    for (int q = 0; q < kBinPerWarp; ++q) {
+      const unsigned b = __fns(live, 0, warp + kBinWarps * q + 1);
+      const int lb = b < 32 ? (int)b : 0, tile = group * 32 + lb;
+      tx[q] = tile % p.tiles_x;
+      ty[q] = tile / p.tiles_x;
+      list[q] = (long long)tile * p.k;
+      slot[q] = __shfl_sync(0xffffffffu, start, lb);
+      end[q] = b < 32 ? __shfl_sync(0xffffffffu, stop, lb) : 0;
+    }
+    for (int j0 = 0; j0 < n; j0 += 32) {
+      bool open = false;
+#pragma unroll
+      for (int q = 0; q < kBinPerWarp; ++q) open |= slot[q] < end[q];
+      if (!open) break;  // the same in every lane
+      const int j = j0 + lane;
+      const int4 g = j < n ? rects[j] : none;
+#pragma unroll
+      for (int q = 0; q < kBinPerWarp; ++q) {
+        const bool hit =
+            g.x <= tx[q] && tx[q] <= g.y && g.z <= ty[q] && ty[q] <= g.w;
+        const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+        const int s = slot[q] + __popc(ballot & below);
+        if (hit && s < end[q]) idx[list[q] + s] = first + j;
+        slot[q] += __popc(ballot);
+      }
+    }
+  }
 }
 
 // -- K9 ---------------------------------------------------------------------
@@ -697,17 +943,58 @@ int k9_lists(Lists& p, int lists, int segments, int groups_per_block,
 extern "C" {
 
 // K8: xy (G, 2), radius (G) fp32 and valid (G) uint8 of the depth-sorted
-// Gaussians; tiles_x * tiles_y tiles of tile_size pixels. Writes idx
+// Gaussians; tiles_x * tiles_y tiles of tile_size pixels; chunks of `chunk`
+// Gaussians (1..kBinChunkMax); offsets: tiles * (ceil(G / chunk) + 1) + 1
+// int32 of scratch, then (from a multiple of 4) 4 G int32 more. Writes idx
 // (tiles, k) int32 (the first k hits in order, then 0) and count (tiles)
-// int32 (the hits kept, at most k).
+// int32 (the hits kept, at most k). Three launches: count, prefix, write.
 int splat_bin(const float* xy, const float* radius, const uint8_t* valid,
-              int g, int tiles_x, int tiles_y, int tile_size, int k, int* idx,
-              int* count, cudaStream_t stream) {
-  int tiles = tiles_x * tiles_y;
+              int g, int tiles_x, int tiles_y, int tile_size, int k,
+              int chunk, int* offsets, int* idx, int* count,
+              cudaStream_t stream) {
+  long long tiles = (long long)tiles_x * tiles_y;
   if (tiles == 0 || k == 0) return 0;
-  splat_bin_kernel<<<tiles, kThreads, 0, stream>>>(xy, radius, valid, g,
-                                                   tiles_x, tile_size, k, idx,
-                                                   count);
+  if (g < 1 || chunk < 1 || chunk > kBinChunkMax || tile_size < 1 ||
+      tiles_x < 0 || tiles_y < 0)
+    return (int)cudaErrorInvalidValue;
+  int chunks = (g + chunk - 1) / chunk;
+  if (tiles * (chunks + 1) >= 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  int4* rects = reinterpret_cast<int4*>(offsets +
+                                        (tiles * (chunks + 1) + 4) / 4 * 4);
+  Bins p{xy, radius, valid, rects, 1.0 / tile_size, g, tiles_x, tiles_y,
+         tile_size, k, chunk, chunks};
+  int device = 0, sms = 0;
+  int rc = (int)cudaGetDevice(&device);
+  if (rc == 0)
+    rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     device);
+  if (rc != 0) return rc;
+  long long items = (long long)p.chunks * ((tiles + 31) / 32);
+  int writers = (int)(items < (long long)sms * kBinWriters
+                          ? items : (long long)sms * kBinWriters);
+  int2 win = bin_window(tiles_x, tiles_y);
+  splat_bin_count_kernel<<<p.chunks, kBinThreads,
+                           (size_t)win.x * win.y * sizeof(int), stream>>>(
+      p, offsets);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  int blocks = (int)((tiles + kBinWarps - 1) / kBinWarps);
+  if (p.chunks <= 32)
+    splat_bin_prefix_kernel<1><<<blocks, kBinThreads, 0, stream>>>(
+        p, offsets, idx, count);
+  else if (p.chunks <= 64)
+    splat_bin_prefix_kernel<2><<<blocks, kBinThreads, 0, stream>>>(
+        p, offsets, idx, count);
+  else if (p.chunks <= 256)
+    splat_bin_prefix_kernel<8><<<blocks, kBinThreads, 0, stream>>>(
+        p, offsets, idx, count);
+  else
+    splat_bin_prefix_kernel<32><<<blocks, kBinThreads, 0, stream>>>(
+        p, offsets, idx, count);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  splat_bin_write_kernel<<<writers, kBinThreads, 0, stream>>>(p, offsets,
+                                                              idx);
   return (int)cudaGetLastError();
 }
 

@@ -9,6 +9,10 @@ over dense (pixels, K) arrays; here they are hand-written kernels:
 * :func:`bin_tiles`: K8 (``kernels.splat_bin``) for a CUDA tensor, for a
   CPU tensor :func:`bin_tiles_plain`. Its indices carry no gradient, as
   ``argsort`` and ``top_k`` carry none in JAX.
+  :func:`bin_tiles_chunked_plain` is K8's algorithm written out in plain
+  PyTorch (each Gaussian's rectangle of tiles, the hits of each chunk of
+  Gaussians on each tile, their prefix over the chunks, the ordered
+  write), which the tests hold against JAX and the kernel against.
 * :func:`composite`: a ``torch.autograd.Function`` over K9's forward and
   backward (``kernels.splat_composite_fwd`` / ``_bwd``, the forward keeping
   per pixel and list segment the transmittance after the segment and the
@@ -73,6 +77,79 @@ def bin_tiles_plain(xy: torch.Tensor, radius: torch.Tensor,
         idx.append(torch.where(ok, kidx, 0).to(torch.int32))
         count.append(ok.sum(-1).to(torch.int32))
     return torch.cat(idx), torch.cat(count)
+
+
+def _tile_span(p: torch.Tensor, reach: torch.Tensor, tiles: int,
+               tile_size: int):
+    """K8's tiles along one axis (its ``bin_axis``): those whose centre
+    ``float(t * ts) + ts / 2.0`` passes JAX's fp32 test ``|p - centre| <=
+    reach``, one interval (fl(p - centre) does not increase with the
+    centre), as int64 (lo, hi), empty where lo > hi. A NaN p or reach, or a
+    negative reach, passes nowhere; an infinite reach everywhere; an
+    infinite p with a finite reach nowhere. Else the test runs only inside
+    the tiles that p +- (reach + e) reaches in fp64, e twice the bound
+    2^-24 (|p| + |centre|) on the rounding of p - centre plus 2^-10: the
+    kernel's superset."""
+    centre = (torch.arange(tiles, device=p.device) * tile_size).float() \
+        + tile_size / 2.0
+    finite = torch.isfinite(p) & torch.isfinite(reach) & (reach >= 0)
+    pd = torch.where(finite, p, 0.0).double()
+    rd = torch.where(finite, reach, 0.0).double()
+    e = (pd.abs() + float(tiles) * tile_size) * 2.0 ** -23 + 2.0 ** -10
+    a = (pd - rd - e) * (1.0 / tile_size) - 0.5
+    b = (pd + rd + e) * (1.0 / tile_size) - 0.5
+    lo = torch.where(a <= 0.0, 0.0, a.ceil())
+    hi = torch.where(b >= tiles - 1, tiles - 1.0, b.floor())
+    hi = torch.where((b < 0) | (a > tiles - 1), -1.0, hi)
+    t = torch.arange(tiles, device=p.device)
+    inside = (t >= lo[:, None]) & (t <= hi[:, None])
+    test = (p[:, None] - centre).abs() <= reach[:, None]
+    test &= inside | (torch.isinf(reach) & ~torch.isnan(p))[:, None]
+    some = test.any(1)
+    first = test.int().argmax(1)
+    last = tiles - 1 - test.flip(1).int().argmax(1)
+    return torch.where(some, first, 1), torch.where(some, last, 0)
+
+
+def bin_tiles_chunked_plain(xy: torch.Tensor, radius: torch.Tensor,
+                            valid: torch.Tensor, tiles_x: int, tiles_y: int,
+                            tile_size: int, k: int,
+                            chunk: Optional[int] = None):
+    """K8's algorithm in plain PyTorch (any device), :func:`bin_tiles_plain`'s
+    result: each Gaussian's hits as a rectangle of tiles (:func:`_tile_span`
+    along each axis); the Gaussians cut into chunks of ``chunk``
+    (``kernels.splat_bin_chunk(G)`` by default); each chunk's hits on each
+    tile counted, their exclusive prefix over the chunks each chunk's first
+    slot in the tile's list, count = min(hits, k); each hit written at its
+    chunk's first slot plus the hits before it in the chunk, where that is
+    below k; unfilled slots 0."""
+    g = xy.shape[0]
+    chunk = kernels.splat_bin_chunk(g) if chunk is None else chunk
+    reach = tile_size / 2.0 + radius
+    x0, x1 = _tile_span(xy[:, 0], reach, tiles_x, tile_size)
+    y0, y1 = _tile_span(xy[:, 1], reach, tiles_y, tile_size)
+    keep = valid & (x0 <= x1) & (y0 <= y1)
+    tiles = tiles_x * tiles_y
+    tile = torch.arange(tiles, device=xy.device)
+    tx, ty = tile % tiles_x, tile // tiles_x
+
+    def hits(first: int) -> torch.Tensor:  # (chunk, tiles) bool
+        s = slice(first, first + chunk)
+        return (keep[s, None] & (x0[s, None] <= tx) & (tx <= x1[s, None])
+                & (y0[s, None] <= ty) & (ty <= y1[s, None]))
+
+    starts = range(0, g, chunk)
+    counts = torch.stack([hits(first).sum(0) for first in starts])
+    offsets = counts.cumsum(0) - counts
+    idx = torch.zeros((tiles, k), dtype=torch.int32, device=xy.device)
+    for c, first in enumerate(starts):
+        if not ((counts[c] > 0) & (offsets[c] < k)).any():
+            continue
+        h = hits(first)
+        slot = offsets[c] + h.cumsum(0) - 1
+        rows, cols = (h & (slot < k)).nonzero(as_tuple=True)
+        idx[cols, slot[rows, cols]] = (first + rows).to(torch.int32)
+    return idx, counts.sum(0).clamp(max=k).to(torch.int32)
 
 
 def bin_tiles(xy: torch.Tensor, radius: torch.Tensor, valid: torch.Tensor,

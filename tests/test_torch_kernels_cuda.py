@@ -1559,6 +1559,9 @@ def test_kernels_under_remat_give_the_unwrapped_gradients(cuda, kind,
 # 1e-3 for the dense image's sums over 65,536 pixels.
 SPLAT_IMAGE_TOL = {"tiled": 1e-5, "dense": 1e-4}
 SPLAT_GRAD_TOL = {"tiled": 1e-4, "dense": 1e-3}
+# K8 is exact: its lists and counts bit for bit both plain versions'
+# (bin_tiles_plain, JAX's top_k; bin_tiles_chunked_plain, its own
+# algorithm), and two launches bitwise equal.
 
 
 def splat_scene(seed, g, behind, device, extent=1.0):
@@ -1619,10 +1622,43 @@ def test_splat_bin_matches_plain(cuda, name):
     ref_idx, ref_count = splat.bin_tiles_plain(*binning)
     assert torch.equal(count, ref_count)
     assert torch.equal(idx, ref_idx)
+    chunked = splat.bin_tiles_chunked_plain(*binning)
+    assert torch.equal(chunked[0], idx) and torch.equal(chunked[1], count)
+    again = kernels.splat_bin(*binning)
+    assert torch.equal(again[0], idx) and torch.equal(again[1], count)
     if name == "tiled_empty_tiles":
         assert (count == 0).any() and (count > 0).any()
     if name == "tiled_over_budget":
         assert (count == k).any()
+
+
+# chip_smoke.splat_bin_edges' cases and splat_bin_grids' grids (T = 4,096
+# in one window of K8's counters, 16,384 in three, 5,000 x 2 tiles)
+SPLAT_BIN_EDGES = ("edge_on_centre", "inf_radius", "huge_xy", "far_rounding",
+                   "nan_xy_valid", "all_invalid", "k_equals_g", "non_square",
+                   "chunk_inside_first_k", "g_not_multiple", "chunks_past_k",
+                   "tile_of_10", "grid_1024px", "grid_2048px",
+                   "grid_5000x2_tiles")
+
+
+@pytest.mark.parametrize("name", SPLAT_BIN_EDGES)
+def test_splat_bin_edges_match_plain(cuda, name):
+    from deepearth_tpu_torch.ops import splat
+
+    smoke = _smoke()
+    cases = smoke.splat_bin_edges(cuda) | smoke.splat_bin_grids(cuda)
+    assert set(cases) == set(SPLAT_BIN_EDGES)
+    *binning, chunk = cases[name]
+    kernels.reset_launch_counts()
+    idx, count = smoke.splat_bin_at(binning, chunk)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["splat_bin"] == 1
+    ref_idx, ref_count = splat.bin_tiles_plain(*binning)
+    assert torch.equal(count, ref_count) and torch.equal(idx, ref_idx)
+    chunked = splat.bin_tiles_chunked_plain(*binning, chunk)
+    assert torch.equal(chunked[0], idx) and torch.equal(chunked[1], count)
+    again = smoke.splat_bin_at(binning, chunk)
+    assert torch.equal(again[0], idx) and torch.equal(again[1], count)
 
 
 @pytest.mark.parametrize("background", [False, True], ids=["no_bg", "bg"])

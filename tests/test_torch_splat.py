@@ -18,6 +18,9 @@ five scene fields within 1e-4 of each field's largest entry; three Adam
 steps against optax within 1e-5.
 """
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +34,9 @@ from deepearth_tpu_torch.convert import camera_from_jax, gaussian_scene_from_jax
 from deepearth_tpu_torch.ops import splat
 from deepearth_tpu_torch.reconstruction import gaussian_splat as tgs
 from deepearth_tpu_torch.training.optimizers import Adam, AdamState
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke as smoke  # noqa: E402  (the repository's root, above)
 
 torch.set_num_threads(2)
 
@@ -152,10 +158,17 @@ def jax_tile_selection(scene, cam, k, ts=16):
         jnp.maximum(0.25 * (a - c) ** 2 + b * b, 0.0))
     radius = 3.5 * jnp.sqrt(jnp.maximum(lam_max, 0.0))
     valid = depth > 1e-4
+    kidx, ok = jax_top_k(xy, radius, valid, cam.width // ts,
+                         cam.height // ts, ts, k)
+    return xy, radius, valid, kidx, ok
+
+
+def jax_top_k(xy, radius, valid, tiles_x, tiles_y, ts, k):
+    """render_tiled's intersect test and lax.top_k over every tile at once
+    (its lax.map over chunks of tiles selects each tile alone): each tile's
+    first k hits (kidx, ok)."""
     g = xy.shape[0]
-    ntx = cam.width // ts
-    n_tiles = ntx * (cam.height // ts)
-    tile_iy, tile_ix = jnp.divmod(jnp.arange(n_tiles), ntx)
+    tile_iy, tile_ix = jnp.divmod(jnp.arange(tiles_x * tiles_y), tiles_x)
     centers = jnp.stack([tile_ix * ts + ts / 2.0, tile_iy * ts + ts / 2.0],
                         axis=-1)
     dxy = jnp.abs(xy[None] - centers[:, None, :])
@@ -163,7 +176,18 @@ def jax_tile_selection(scene, cam, k, ts=16):
                                 axis=-1)
     key = jnp.where(hit, -jnp.arange(g, dtype=jnp.int32)[None], -(g + 1))
     kv, kidx = jax.lax.top_k(key, k)
-    return xy, radius, valid, np.asarray(kidx), np.asarray(kv > -(g + 1))
+    return np.asarray(kidx), np.asarray(kv > -(g + 1))
+
+
+def assert_top_k(idx, count, kidx, ok):
+    """K8's lists (idx, count) are JAX's selection: the same hits in the
+    filled slots, the rest 0."""
+    k = idx.shape[1]
+    np.testing.assert_array_equal(count.numpy(), ok.sum(-1))
+    filled = np.arange(k)[None] < count.numpy()[:, None]
+    np.testing.assert_array_equal(filled, ok)
+    np.testing.assert_array_equal(idx.numpy()[ok], kidx[ok])
+    assert (idx.numpy()[~ok] == 0).all()
 
 
 @pytest.mark.parametrize("k", [8, 120, 300])
@@ -176,11 +200,46 @@ def test_bin_tiles_equals_top_k(make, k):
     idx, count = splat.bin_tiles(
         torch.tensor(np.asarray(xy)), torch.tensor(np.asarray(radius)),
         torch.tensor(np.asarray(valid)), SIZE // 16, SIZE // 16, 16, k)
-    np.testing.assert_array_equal(count.numpy(), ok.sum(-1))
-    filled = np.arange(k)[None] < count.numpy()[:, None]
-    np.testing.assert_array_equal(filled, ok)
-    np.testing.assert_array_equal(idx.numpy()[ok], kidx[ok])
-    assert (idx.numpy()[~ok] == 0).all()
+    assert_top_k(idx, count, kidx, ok)
+
+
+@pytest.mark.parametrize("chunk", [None, 7, 100])
+@pytest.mark.parametrize("k", [8, 120, 300])
+@pytest.mark.parametrize("make", [numpy_scene, clustered_scene],
+                         ids=["spread", "clustered"])
+def test_bin_tiles_chunked_equals_top_k(make, k, chunk):
+    """K8's algorithm (rectangles, counts per chunk, their prefix, the
+    ordered write) in plain PyTorch gives JAX's selection, with chunks of
+    kernels.splat_bin_chunk(G) (None: 64 here), 7 and 100, boundaries
+    inside the tiles' first k."""
+    scene = make(2)
+    k = min(k, scene.means.shape[0])
+    xy, radius, valid, kidx, ok = jax_tile_selection(scene, jax_camera(), k)
+    idx, count = splat.bin_tiles_chunked_plain(
+        torch.tensor(np.asarray(xy)), torch.tensor(np.asarray(radius)),
+        torch.tensor(np.asarray(valid)), SIZE // 16, SIZE // 16, 16, k,
+        chunk)
+    assert_top_k(idx, count, kidx, ok)
+
+
+BIN_EDGES = {**smoke.splat_bin_edges("cpu"), **smoke.splat_bin_grids("cpu")}
+
+
+@pytest.mark.parametrize("name", BIN_EDGES)
+def test_bin_tiles_edges_equal_top_k(name):
+    """Both plain versions of K8 against JAX's test and top_k at
+    chip_smoke.splat_bin_edges' cases (box edges on tile centres, infinite,
+    negative and NaN reaches, means of +-1e30 and far off screen, NaN
+    means marked valid, nothing valid, k = G, grids that are not square,
+    chunk boundaries inside the first k, G not a multiple of the chunk,
+    chunks whose first slot is past k, tiles of 10) and splat_bin_grids'
+    large grids."""
+    xy, radius, valid, tiles_x, tiles_y, ts, k, chunk = BIN_EDGES[name]
+    kidx, ok = jax_top_k(jnp.asarray(xy.numpy()), jnp.asarray(radius.numpy()),
+                         jnp.asarray(valid.numpy()), tiles_x, tiles_y, ts, k)
+    binning = (xy, radius, valid, tiles_x, tiles_y, ts, k)
+    assert_top_k(*splat.bin_tiles_plain(*binning), kidx, ok)
+    assert_top_k(*splat.bin_tiles_chunked_plain(*binning, chunk), kidx, ok)
 
 
 @pytest.mark.parametrize("name", RENDERS)
