@@ -142,8 +142,9 @@ Phases, each printing one line:
  18. decode at tools/bench_decode.py's config (2.424B parameters, bf16,
      tied embeddings): bf16, int8 and int4 trees (the int8 / int4 ones by
      quantize_decoder_params, their bytes BENCH_DECODE.json's), greedy
-     generate of 256 tokens after a 64-token prompt at B=1, 8, 32 over a
-     bf16 cache; per call K6 319 x 177 = 56,463 times (int8), K7 as many
+     generate of 128 tokens (the config's 256 cut: the phase is
+     host-bound) after a 64-token prompt at B=1, 8, 32 over a bf16 cache;
+     per call K6 191 x 177 = 33,807 times (int8), K7 as many
      (int4), each all on its tensor-core route, neither at bf16, no plain
      version reached; wall time, tokens/s, ms per step, peak memory, a
      per-op profile of one int8 step at B=8 with K6's device time in it;
@@ -252,6 +253,32 @@ Phases, each printing one line:
      64) reloaded with load_exported: its launches K2-fwd 1 and K1-fwd 16
      through the registered operators, its outputs the eager forward's bit
      for bit; the phase's wall time;
+ 24. the examples and exported programs: (a) the port's
+     examples/quick_test main(device="cuda") at its own size (60 steps at
+     B=16: K2-fwd 1 and K2-bwd 2 a step, K1-fwd and K1-bwd 3 a step on
+     their warp routes), (b) examples/density_field main(device="cuda")
+     (300 steps at B=4096, Grid4D 12 + 6 levels on 2^16 tables: K2-fwd 1,
+     K2-bwd 2 a step; corr > 0.9), every plain version refused and the
+     launches counted over each run; (c) one program a forward operator,
+     made with export_forward / export_fn (parameters an argument),
+     reloaded with load_exported and run on the card against the eager
+     call: tools/bench_multimodal.py's model at 576 patches, B=32 (K3-fwd 2,
+     K2-fwd 1) and at 4608 patches, B=1 (K4-fwd 1); the flagship cut to 2
+     fusion and 2 simulator layers at 4608 patches, B=64 (K4-fwd 2, K5-fwd
+     3, ragged); tools/bench_decode.py's decoder cut to 2 layers, the
+     prefill's first token at B=8 over its int8 tree (K6) and its int4 tree
+     (K7); hash_encode at the A-stack's spatial table (L16, 2^19, N=4096;
+     K2 per table); render_tiled at G = 65,536 (K8, K9-fwd) and render at
+     2,000 (K9-fwd), 256 x 256: each program's deepearth operators, its
+     launches and the eager call's (equal), outputs bit for bit or within
+     the phase's kernel-vs-plain limit, export seconds and bytes, ms a call
+     beside eager; (d) examples/florida_pipeline main(device="cuda") where
+     pandas, pyarrow and sklearn import (80 steps at B=16, K2 1/2 and K1
+     3/3 a step on the warp routes, a 200-step probe; else a line naming
+     what does not import); (e) each kernel again on the first arguments
+     each of those runs gave it at each shape (the path's own tensors),
+     against its plain version at the limits of the earlier phases that
+     hold it (path_inputs, PATH_CHECKS); the phase's wall time;
 then a JSON line of the kernels, the card's name and power limit, and
 {"ok": true, ...} as the last line. Any failure raises and exits non-zero.
 Weights are random, drawn from a seeded generator on the card.
@@ -303,6 +330,8 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import importlib.util
+import inspect
 import io
 import itertools
 import json
@@ -312,6 +341,7 @@ import shutil
 import statistics
 import subprocess
 import time
+import types
 import urllib.request
 from pathlib import Path
 from typing import Optional
@@ -349,6 +379,7 @@ from deepearth_tpu_torch.configs import (
     TransformerConfig,
     integrated_config,
     simulator_config,
+    tiny_config,
 )
 from deepearth_tpu_torch.models import (
     BidirectionalReconstructor,
@@ -404,7 +435,15 @@ from deepearth_tpu_torch.training import (
 )
 from deepearth_tpu_torch.training import trainer as trainer_module
 from deepearth_tpu_torch.convert import load_flax_params
-from deepearth_tpu_torch.export import export_model_forward, load_exported
+from deepearth_tpu_torch.examples import density_field as ex_density
+from deepearth_tpu_torch.examples import florida_pipeline as ex_florida
+from deepearth_tpu_torch.examples import quick_test as ex_quick
+from deepearth_tpu_torch.export import (
+    export_fn,
+    export_forward,
+    export_model_forward,
+    load_exported,
+)
 from deepearth_tpu_torch.reconstruction import (
     Camera,
     CameraIntrinsics,
@@ -598,9 +637,11 @@ QUANT_LINE_CASE = "q_proj C8"
 # outputs within one bf16 ulp of the largest entry (the same sums, rounded
 # once: a value near a rounding boundary may land on the other neighbour)
 QUANT_FP32_REL = 1e-5
-# decode at tools/bench_decode.py's config (phase 18): prefill 64 + 256 new
-# tokens, bf16 parameters and cache, greedy, tied embeddings
-DECODE_VOCAB, DECODE_PROMPT, DECODE_NEW = 32000, 64, 256
+# decode at tools/bench_decode.py's config (phase 18): prefill 64 + 128 new
+# tokens (the config generates 256; the phase is host-bound, a third of the
+# script's time at 256, and is cut so that the script keeps inside its time
+# limit), bf16 parameters and cache, greedy, tied embeddings
+DECODE_VOCAB, DECODE_PROMPT, DECODE_NEW = 32000, 64, 128
 DECODE_BATCHES = (1, 8, 32)
 DECODE_STEPS = DECODE_PROMPT + DECODE_NEW - 1
 # K6 (int8) or K7 (int4) calls per decode step, as tools/bench_decode.py's
@@ -7010,6 +7051,606 @@ def phase_splat() -> dict:
             "launches": dict(main)}
 
 
+
+# -- phase 24: the examples and the exported programs ----------------------- #
+
+# the exported programs' configurations: depth cut to EXPORT_LAYERS where a
+# stack is deeper (the operators' shapes are a layer's), widths as published
+EXPORT_LAYERS = 2
+EXPORT_MM_BATCH, EXPORT_CLIP_BATCH = 32, 1
+EXPORT_FLAGSHIP_BATCH = FLAGSHIP_TRAIN_BATCH  # ragged dispatch (phase 15)
+EXPORT_DECODE_BATCH = 8
+EXPORT_HASH = {"levels": 16, "table": 2 ** 19, "d": 3, "n": 4096}
+EXPORT_SPLAT = (("tiled", 65_536), ("dense", 2_000))
+EXPORT_TIMED_CALLS = 5
+
+
+def flat_tensors(out) -> list:
+    """The tensors of a (nested) tuple, list or dict, dicts by sorted key."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in flat_tensors(out[k])]
+    return [t for x in out for t in flat_tensors(x)]
+
+
+def limit_abs(tol: dict):
+    """A check of max and mean |program - eager| over every output against
+    ``tol`` ({"max_abs", "mean_abs"}), as phase 4 holds kernel vs plain."""
+    def check(got, ref):
+        diff = torch.cat([(a.float() - b.float()).abs().flatten()
+                          for a, b in zip(got, ref)])
+        value = {"max_abs": diff.max().item(), "mean_abs": diff.mean().item()}
+        return value, all(value[k] <= tol[k] for k in tol)
+    return check
+
+
+def limit_rel(tol: float):
+    """A check of max |program - eager| over the largest |eager| entry."""
+    def check(got, ref):
+        value = max(max_err(a, b) / max(b.abs().max().item(), 1e-30)
+                    for a, b in zip(got, ref))
+        return value, value <= tol
+    return check
+
+
+def limit_ulps(tol: float):
+    """A check of max |program - eager| in bf16 ulps of the largest entry,
+    as phase 18 holds decode logits kernel vs plain."""
+    def check(got, ref):
+        value = max(max_err(a, b) / bf16_ulp(b) for a, b in zip(got, ref))
+        return value, value <= tol
+    return check
+
+
+def _shape_key(x):
+    """What decides a kernel's shapes and route: each tensor's shape,
+    strides, dtype and 16-byte alignment, every other argument as it is."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.stride(), x.dtype, x.data_ptr() % 16
+    if isinstance(x, (list, tuple)):
+        return tuple(_shape_key(y) for y in x)
+    return x
+
+
+@contextlib.contextmanager
+def path_inputs(seen: dict):
+    """Keeps in ``seen`` the arguments of the first call at each shape key
+    of every dispatcher in PATH_CHECKS made inside, as bound to its
+    parameters: the path's own tensors, not copies, so that a check made
+    after the run sees the path's layout (an exported program's operators
+    call the same dispatchers when it runs; calls under the export trace,
+    on fake tensors, are passed over)."""
+    def watch(name, fn):
+        params = inspect.signature(fn)
+
+        def call(*args, **kwargs):
+            if not torch.compiler.is_exporting():
+                bound = params.bind(*args, **kwargs)
+                bound.apply_defaults()
+                a = dict(bound.arguments)
+                seen.setdefault((name, _shape_key(list(a.values()))), a)
+            return fn(*args, **kwargs)
+        return call
+    with contextlib.ExitStack() as stack:
+        for name in PATH_CHECKS:
+            stack.enter_context(mock.patch.object(
+                kernels, name, watch(name, getattr(kernels, name))))
+        yield seen
+
+
+def _held(what: str, value: float, ok: bool, limit: str) -> tuple:
+    if not ok:
+        raise AssertionError(f"{what} vs plain at the path's inputs: "
+                             f"{value} beyond {limit}")
+    return value, limit
+
+
+def _check_k1_fwd(a):
+    kw = dict(n_heads=a["n_heads"], scale=a["scale"], key_mask=a["key_mask"])
+    err = max_err(kernels.pairwise_attention_fwd(**a),
+                  attention_smallseq.pairwise_token_attention_plain(
+                      a["q"], a["k"], a["v"], **kw))
+    tol = ATTN_TOL[a["q"].dtype]
+    return _held("K1-fwd", err, err <= tol, f"ATTN_TOL {tol}")
+
+
+def _check_k1_bwd(a):
+    rtol, atol = ATTN_BWD_TOL[a["q"].dtype]
+    got = kernels.pairwise_attention_bwd(**a)
+    ref = attention_smallseq.pairwise_token_attention_bwd_plain(
+        a["q"], a["k"], a["v"], a["dout"], n_heads=a["n_heads"],
+        scale=a["scale"], key_mask=a["key_mask"])
+    ok = all(bool(((g.float() - r.float()).abs()
+                   <= rtol * r.float().abs() + atol).all())
+             for g, r in zip(got, ref))
+    return _held("K1-bwd", max(max_err(g, r) for g, r in zip(got, ref)), ok,
+                 f"ATTN_BWD_TOL {rtol}|x| + {atol}")
+
+
+def _check_grid4d(a):
+    enc = a["encodings"]
+    if [(tuple(e[4]), e[5]) for e in enc] != [
+            (cols, bits) for _, cols, bits in grid4d_encode.TABLES[:len(enc)]]:
+        raise AssertionError(f"K2-fwd Grid4D: tables off grid4d_encode."
+                             f"TABLES' order: {[e[4:] for e in enc]}")
+    cfgs = [types.SimpleNamespace(
+        interpolation="linear" if e[3] else "nearest", hash_table_size=e[2])
+        for e in enc]
+    out = kernels.grid4d_encode_fwd(**a)
+    ref = grid4d_encode.grid4d_encode_plain(
+        a["xyzt"], [e[0] for e in enc], [e[1] for e in enc], cfgs,
+        a["spatial_mask"], a["temporal_mask"], out_dtype=a["out_dtype"])
+    return _held("K2-fwd Grid4D", max_err(out, ref), torch.equal(out, ref),
+                 "bit for bit")
+
+
+def _hash_kw(a) -> dict:
+    return dict(interpolation="linear" if a["linear"] else "nearest",
+                table_size=a["table_size"])
+
+
+def _check_k2_fwd(a):
+    err = max_err(kernels.hash_encode_fwd(**a), hash_encoding.hash_encode_plain(
+        a["coords"], a["tables"], a["resolutions"], **_hash_kw(a)))
+    return _held("K2-fwd", err, err <= HASH_TOL, f"HASH_TOL {HASH_TOL}")
+
+
+def _check_k2_bwd(a):
+    args = (a["coords"], a["grad_out"], a["resolutions"],
+            tuple(a["tables_shape"]))
+    ref = hash_encoding.hash_encode_bwd_plain(*args, **_hash_kw(a))
+    abs_sum = hash_encoding.hash_encode_bwd_plain(
+        args[0], args[1].abs(), *args[2:], **_hash_kw(a))
+    diff = (kernels.hash_encode_bwd(**a) - ref).abs()
+    return _held("K2-bwd", diff.max().item(),
+                 bool((diff <= HASH_BWD_TOL * abs_sum).all()),
+                 f"HASH_BWD_TOL {HASH_BWD_TOL} of sum|terms|")
+
+
+def _check_k3_fwd(a):
+    err = max_err(kernels.vmem_attention_fwd(**a),
+                  attention_vmem.vmem_attention_plain(
+                      a["q"], a["k"], a["v"], scale=a["scale"],
+                      key_mask=a["key_mask"]))
+    tol = VMEM_TOL[a["q"].dtype]
+    return _held("K3-fwd", err, err <= tol, f"VMEM_TOL {tol}")
+
+
+def _check_k4_fwd(a):
+    """K4-fwd's (out, lse), the plain version CLIP_PLAIN_BATCH batch rows
+    at a time, as check_flash holds them."""
+    q, k, v, mask = a["q"], a["k"], a["v"], a["key_mask"]
+    out, lse = kernels.flash_attention_fwd(**a)
+    parts = [flash_attention.flash_attention_plain(
+        q[i:i + CLIP_PLAIN_BATCH], k[i:i + CLIP_PLAIN_BATCH],
+        v[i:i + CLIP_PLAIN_BATCH], scale=a["scale"], causal=a["causal"],
+        key_mask=None if mask is None else mask[i:i + CLIP_PLAIN_BATCH],
+        return_lse=True) for i in range(0, q.shape[0], CLIP_PLAIN_BATCH)]
+    ref, ref_lse = (torch.cat(x) for x in zip(*parts))
+    del parts
+    finite = ref_lse.isfinite()
+    _held("K4-fwd lse", max_err(lse[finite], ref_lse[finite]),
+          torch.equal(lse.isinf(), ~finite) and max_err(
+              lse[finite], ref_lse[finite]) <= K4_LSE_TOL,
+          f"K4_LSE_TOL {K4_LSE_TOL}")
+    err, mean_rel = check_flash_out("at the path's inputs", out, ref, q.dtype)
+    return err, _rel_limit(q.dtype, f"VMEM_TOL {VMEM_TOL[q.dtype]}",
+                           mean_rel)
+
+
+def _rel_limit(dtype, fp32_limit: str, mean_rel: float) -> str:
+    """The limits check_flash_out or check_gmm held, as a row names them:
+    ``fp32_limit`` in fp32, else K4_MAX_REL of the largest entry; the mean
+    error over the mean |plain| within K4_MEAN_REL."""
+    top = (fp32_limit if dtype == torch.float32
+           else f"K4_MAX_REL {K4_MAX_REL} of the largest entry")
+    return f"{top}, mean {mean_rel:.3g} within K4_MEAN_REL {K4_MEAN_REL}"
+
+
+def _check_k5_fwd(a):
+    lhs = a["lhs"]
+    err, mean_rel = check_gmm(
+        "at the path's inputs", kernels.grouped_matmul_fwd(**a),
+        grouped_matmul.gmm_plain(lhs, a["rhs"], a["group_sizes"]), lhs.dtype)
+    return err, _rel_limit(
+        lhs.dtype, f"K5_FP32_REL {K5_FP32_REL} of the largest entry",
+        mean_rel)
+
+
+def _check_quant(label: str, kernel: str, plain):
+    """K6 or K7 (``kernel``) against ``plain`` as phase 17 holds them: one
+    bf16 ulp of the largest entry, QUANT_FP32_REL of it in fp32."""
+    def check(a):
+        x, w, scale, dtype = a.values()
+        ref = plain(x, w, scale, dtype)
+        got = getattr(kernels, kernel)(**a)
+        tol = (QUANT_FP32_REL * ref.abs().max().item()
+               if dtype == torch.float32 else bf16_ulp(ref))
+        err = max_err(got, ref)
+        return _held(label, err, got.shape == ref.shape and err <= tol,
+                     f"{tol:.3g}, phase 17's limit")
+    return check
+
+
+def _check_k8(a):
+    got = kernels.splat_bin(**a)
+    ref = splat.bin_tiles_plain(*a.values())
+    return _held("K8", max(max_err(g, r) for g, r in zip(got, ref)),
+                 all(torch.equal(g, r) for g, r in zip(got, ref)),
+                 "bit for bit")
+
+
+def _check_k9_fwd(a):
+    geometry = [a[k] for k in ("height", "width", "region_h", "region_w")]
+    kind = "dense" if geometry[2:] == geometry[:2] else "tiled"
+    lists = [a[k] for k in ("xy", "abc", "opac", "color", "background")]
+    img = kernels.splat_composite_fwd(*lists, *geometry)
+    ref = splat.composite_plain(*lists, *geometry)
+    rel = max_err(img, ref) / ref.abs().max().item()
+    tol = SPLAT_IMAGE_TOL[kind]
+    return _held(f"K9-fwd {kind}", rel, rel <= tol,
+                 f"SPLAT_IMAGE_TOL[{kind}] {tol} of the largest entry")
+
+
+# phase 24's kernel dispatchers: (label, check on the arguments a path gave
+# it, against its plain version at the earlier phases' limit)
+PATH_CHECKS = {"pairwise_attention_fwd": ("K1-fwd", _check_k1_fwd),
+               "pairwise_attention_bwd": ("K1-bwd", _check_k1_bwd),
+               "grid4d_encode_fwd": ("K2-fwd Grid4D", _check_grid4d),
+               "hash_encode_fwd": ("K2-fwd", _check_k2_fwd),
+               "hash_encode_bwd": ("K2-bwd", _check_k2_bwd),
+               "vmem_attention_fwd": ("K3-fwd", _check_k3_fwd),
+               "flash_attention_fwd": ("K4-fwd", _check_k4_fwd),
+               "grouped_matmul_fwd": ("K5-fwd", _check_k5_fwd),
+               "int8_bmm": ("K6", _check_quant("K6", "int8_bmm",
+                                               quant.int8_bmm_plain)),
+               "int4_bmm": ("K7", _check_quant("K7", "int4_bmm",
+                                               quant.int4_bmm_plain)),
+               "splat_bin": ("K8", _check_k8),
+               "splat_composite_fwd": ("K9-fwd", _check_k9_fwd)}
+
+
+def check_path_inputs(seen: dict) -> list:
+    """Each kernel on every set of arguments ``seen`` holds (path_inputs),
+    against its plain version on the same tensors; one row a (kernel,
+    shape key): the label, the tensors' shapes, the error and its limit.
+    Raises where one is beyond its limit."""
+    rows = []
+    with torch.no_grad():
+        for (name, _), a in seen.items():
+            label, check = PATH_CHECKS[name]
+            value, limit = check(a)
+            shapes = ", ".join(f"{k}{tuple(v.shape)}" for k, v in a.items()
+                               if isinstance(v, torch.Tensor))
+            dtype = next(v.dtype for v in a.values()
+                         if isinstance(v, torch.Tensor)
+                         and v.is_floating_point())
+            rows.append(f"{label} {shapes} {str(dtype).split('.')[-1]}: "
+                        f"{value:.3g} ({limit})")
+    seen.clear()
+    torch.cuda.synchronize()
+    return rows
+
+
+def export_case(what: str, export, fn, args, want: dict, limit: tuple,
+                cut: str) -> dict:
+    """One exported program: ``export()`` gives its bytes, reloaded with
+    load_exported and called on ``args``; ``fn(*args)`` is the eager call.
+    Both launch ``want`` (counters reset before, read after, every plain
+    version refused); the program's outputs against the eager call's: bit
+    for bit, or within ``limit`` ((name, check)); export seconds, bytes, the
+    program's deepearth operators, ms a call of each (synchronised host
+    wall, median of EXPORT_TIMED_CALLS)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = export()
+    export_s = time.perf_counter() - t0
+    program = load_exported(blob)
+
+    def eager():
+        with torch.no_grad():
+            return fn(*args)
+    with path_inputs({}) as seen:
+        got, launches = counted(lambda: program(*args), want,
+                                f"the exported {what}")
+        ref, _ = counted(eager, want, f"the eager {what}")
+    got, ref = flat_tensors(got), flat_tensors(ref)
+    if len(got) != len(ref) or any(a.shape != b.shape or a.dtype != b.dtype
+                                   for a, b in zip(got, ref)):
+        raise AssertionError(f"exported {what}: outputs "
+                             f"{[tuple(a.shape) for a in got]} vs eager "
+                             f"{[tuple(b.shape) for b in ref]}")
+    exact = all(torch.equal(a, b) for a, b in zip(got, ref))
+    agreement = "bit for bit"
+    if not exact:
+        value, ok = limit[1](got, ref)
+        agreement = f"{value} against {limit[0]}"
+        if not ok:
+            raise AssertionError(f"exported {what} vs eager: {agreement}")
+    targets = {str(n.target) for n in torch.export.load(
+        io.BytesIO(blob)).graph_module.graph.nodes if n.op == "call_function"}
+    del got, ref
+    vs_plain = check_path_inputs(seen)
+    return {"what": what, "cut": cut, "bytes": len(blob),
+            "vs_plain": vs_plain,
+            "export_s": export_s, "launches": launches,
+            "ops": sorted(t for t in targets if t.startswith("deepearth.")),
+            "agreement": agreement,
+            "ms": statistics.median(host_ms(lambda: program(*args),
+                                            EXPORT_TIMED_CALLS)),
+            "eager_ms": statistics.median(host_ms(eager,
+                                                  EXPORT_TIMED_CALLS))}
+
+
+def model_export(what, model, batch, want, tol, cut) -> dict:
+    """export_forward of a DeepEarthModel, its parameters an argument."""
+    params = {k: v.detach() for k, v in model.named_parameters()}
+
+    def eager(p, b):
+        out = model.eval()(b)
+        return out["fused_representation"], out["reconstructions"]
+    return export_case(what, lambda: export_forward(model, params, batch),
+                       eager, (params, batch), want, tol, cut)
+
+
+class DecodeFirstToken(torch.nn.Module):
+    """The prefill's first step over a decoder tree: ``ids`` (B,) through
+    one causal_lm_decode_step into fresh caches of ``max_len`` slots made
+    here; returns the logits (B, vocab)."""
+
+    def __init__(self, tree, max_len: int):
+        super().__init__()
+        self.tree, self.max_len = tree, max_len
+
+    def forward(self, ids):
+        cfg = self.tree.cfg
+        caches = [init_cache(cfg.mla, ids.shape[0], self.max_len,
+                             torch.bfloat16, ids.device)
+                  for _ in range(cfg.n_layers)]
+        logits, _ = causal_lm_decode_step(self.tree, caches, ids,
+                                          self.max_len)
+        return logits
+
+
+def params_export(what, module, args, want, tol, cut) -> dict:
+    """export_fn of ``module``'s forward with its parameters an argument
+    (torch.func.functional_call), so that no weights enter the program."""
+    params = {k: v.detach() for k, v in module.named_parameters()}
+
+    def fn(p, *a):
+        return torch.func.functional_call(module, p, a)
+    return export_case(what, lambda: export_fn(fn, params, *args), fn,
+                       (params, *args), want, tol, cut)
+
+
+def example_run(name: str, main, want: dict) -> dict:
+    """One example's main(device="cuda") at its own size, every plain
+    version refused, its launches over the run counted (``want``)."""
+    t0 = time.perf_counter()
+    with path_inputs({}) as seen:
+        res, launches = counted(lambda: main(device="cuda"), want,
+                                f"examples/{name} on the card")
+    wall = time.perf_counter() - t0
+    return {**res, "launches": launches, "wall_s": wall,
+            "vs_plain": check_path_inputs(seen)}
+
+
+def k1_k2_run(forwards: int, steps: int, n_tokens: int) -> dict:
+    """The launches of a tiny_config model's ``forwards`` forwards, ``steps``
+    of them train steps, over ``n_tokens`` fusion tokens: K2-fwd 1 and
+    K1-fwd 3 a forward, K2-bwd 2 and K1-bwd 3 a step, K1 on the route its
+    tokens give."""
+    k1 = k1_per_forward(tiny_config().fusion)
+    fwd = k1_fwd_counter(n_tokens)
+    return {"grid4d_encode_fwd": forwards * K2_PER_FORWARD,
+            "hash_encode_bwd": steps * K2_BWD_PER_STEP,
+            fwd: forwards * k1, fwd.replace("fwd", "bwd"): steps * k1}
+
+
+FLORIDA_NEEDS = ("pandas", "pyarrow", "sklearn")  # parquet, k-means
+
+
+def examples_on_card() -> dict:
+    """Phase 24 (a), (b), (d): the examples' main(device="cuda") at their
+    own sizes; the Florida example only where FLORIDA_NEEDS import."""
+    out = {"quick_test": example_run(  # CLS, spacetime, species, weather
+        "quick_test", ex_quick.main,
+        k1_k2_run(ex_quick.STEPS + 1, ex_quick.STEPS, 4))}
+    steps = ex_density.STEPS
+    out["density_field"] = example_run(
+        "density_field", ex_density.main,
+        {"grid4d_encode_fwd": steps + 1, "hash_encode_bwd": 2 * steps})
+    if all(importlib.util.find_spec(m) for m in FLORIDA_NEEDS):
+        # 80 train steps and one feature forward over CLS, spacetime,
+        # species, 2 vision and 1 language tokens
+        out["florida_pipeline"] = example_run(
+            "florida_pipeline", ex_florida.main,
+            k1_k2_run(ex_florida.STEPS + 1, ex_florida.STEPS, 6))
+    return out
+
+
+def exported_programs() -> dict:
+    """Phase 24 (c): one exported program per new operator, each at a
+    configuration's full width (depth cut to EXPORT_LAYERS where deeper),
+    reloaded and run on the card against the eager call. Each part draws
+    from a generator of its own seeded from SEED."""
+    def generator():
+        return torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    gen = generator()
+    cfg = multimodal_config()
+    for patches, b, kernel, n in (
+            (VISION_PATCHES, EXPORT_MM_BATCH, "vmem_attention_fwd",
+             K3_PER_FORWARD),
+            (CLIP_PATCHES, EXPORT_CLIP_BATCH, "flash_attention_fwd", 1)):
+        model = DeepEarthModel(cfg, generator=gen, device="cuda",
+                               native_seq_lens={"vision": patches}).eval()
+        rows.append(model_export(
+            f"multimodal model, {patches} patches, B={b}", model,
+            make_mm_batch(gen, b, patches),
+            {kernel: n, "grid4d_encode_fwd": K2_PER_FORWARD},
+            ("MM_SLICE_TOL", limit_abs(MM_SLICE_TOL)),
+            "none (tools/bench_multimodal.py:44-65, 4 fusion layers)"))
+        del model
+        free_cuda()
+
+    gen = generator()
+    cfg = integrated_config(num_fusion_layers=EXPORT_LAYERS,
+                            use_deepseek_fusion=True,
+                            param_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16)
+    model = DeepEarthModel(cfg, generator=gen, device="cuda",
+                           native_seq_lens={"vision": CLIP_PATCHES,
+                                            "language": 16}).eval()
+    n_moe = EXPORT_LAYERS - cfg.fusion.deepseek_block.first_k_dense_replace
+    rows.append(model_export(
+        f"flagship, {CLIP_PATCHES} patches, B={EXPORT_FLAGSHIP_BATCH} "
+        f"({sum(p.numel() for p in model.parameters()) / 1e9:.3f}B)", model,
+        make_flagship_batch(gen, EXPORT_FLAGSHIP_BATCH),
+        {**FLAGSHIP_PER_FORWARD, "grouped_matmul_fwd": 3 * n_moe},
+        ("FLAGSHIP_TOL", limit_abs(FLAGSHIP_TOL)),
+        f"fusion and simulator 24 -> {EXPORT_LAYERS} layers "
+        "(tools/bench_flagship.py:103-143)"))
+    del model
+    free_cuda()
+
+    gen = generator()
+    dcfg = dataclasses.replace(decode_config(), n_layers=EXPORT_LAYERS)
+    model = DeepSeekForCausalLM(dcfg, DECODE_VOCAB, generator=gen,
+                                device="cuda", compute_dtype=torch.bfloat16,
+                                param_dtype=torch.bfloat16).eval()
+    ids = torch.randint(0, DECODE_VOCAB, (EXPORT_DECODE_BATCH,),
+                        generator=gen, device="cuda")
+    for bits in (8, 4):
+        tree = quant.quantize_decoder_params(model, bits=bits)
+        want = collections.Counter()
+        for (b, *_), calls in decode_products(tree,
+                                              EXPORT_DECODE_BATCH).items():
+            want[f"int{b}_bmm"] += calls
+        rows.append(params_export(
+            f"int{bits} decoder, the prefill's first token, "
+            f"B={EXPORT_DECODE_BATCH}",
+            DecodeFirstToken(tree, DECODE_PROMPT + DECODE_NEW), (ids,),
+            dict(want),
+            ("DECODE_TOL max_over_ulp",
+             limit_ulps(DECODE_TOL["max_over_ulp"])),
+            f"20 -> {EXPORT_LAYERS} layers; only the prompt's first token "
+            "is exported, one decode step on fresh caches, not the "
+            "64-token prefill (tools/bench_decode.py:67-86)"))
+        del tree
+    del model
+    free_cuda()
+
+    gen = generator()
+    h = EXPORT_HASH
+    coords = torch.rand((h["n"], h["d"]), generator=gen, device="cuda")
+    tables = torch.empty((h["levels"], h["table"], 2), device="cuda"
+                         ).uniform_(-1e-4, 1e-4, generator=gen)
+    res = torch.tensor([2.0 ** (4 + i) for i in range(h["levels"])],
+                       device="cuda")
+    rows.append(export_case(
+        f"hash_encode, L{h['levels']} 2^19 F2 D{h['d']} N={h['n']}",
+        lambda: export_fn(lambda c, t, r: hash_encoding.hash_encode(
+            c, t, r, table_size=h["table"]), coords, tables, res),
+        lambda c, t, r: hash_encoding.hash_encode(c, t, r,
+                                                  table_size=h["table"]),
+        (coords, tables, res), {"hash_encode_fwd": 1},
+        ("HASH_TOL", limit_rel(HASH_TOL)),
+        "none (the A-stack's spatial table, bench.py:59-77)"))
+
+    gen = generator()
+    cam = splat_camera()
+    for kind, g in EXPORT_SPLAT:
+        scene = gaussian_splat.init_scene(gen, g)
+        render = {"tiled": gaussian_splat.render_tiled,
+                  "dense": gaussian_splat.render}[kind]
+
+        def fn(*fields, render=render):
+            return render(gaussian_splat.GaussianScene(*fields), cam)
+        rows.append(export_case(
+            f"{kind} render, G={g}, {SPLAT_SIZE} x {SPLAT_SIZE}",
+            lambda: export_fn(fn, *scene), fn, tuple(scene),
+            ({"splat_bin": 1} if kind == "tiled" else {})
+            | {"splat_composite_fwd": 1},
+            (f"SPLAT_IMAGE_TOL[{kind}]", limit_rel(SPLAT_IMAGE_TOL[kind])),
+            "none (tools/bench_splat.py:49-52)"))
+    return rows
+
+
+def phase_examples_export() -> dict:
+    """Phase 24: the examples on the card and an exported program for each
+    forward operator added beside K1-fwd's and the Grid4D encode's."""
+    t0 = time.perf_counter()
+    examples = examples_on_card()
+    t_examples = time.perf_counter()
+    rows = exported_programs()
+    t_end = time.perf_counter()
+    q, d = examples["quick_test"], examples["density_field"]
+
+    def per(launches, steps):
+        return {k: v / steps for k, v in launches.items() if v}
+    print(f"[24a examples/quick_test] main(device='cuda'), "
+          f"{q['n_params'] / 1e6:.2f}M params, {ex_quick.STEPS} steps at "
+          f"B=16 (and one forward at B=8): launches over the run "
+          f"{ {k: v for k, v in q['launches'].items() if v} } (per step "
+          f"about {per(q['launches'], ex_quick.STEPS)}; K1 on its warp "
+          f"route: 4 tokens), no plain version reached; losses every 20 "
+          f"steps {[round(x, 4) for x in q['losses']]}, final "
+          f"{q['loss']:.4f}; spatial decode in [0, 1], the loss fell; "
+          f"{q['wall_s']:.1f} s | {card()}")
+    print(f"[24b examples/density_field] main(device='cuda'), "
+          f"{ex_density.STEPS} steps at B={ex_density.BATCH}, Grid4D 12 + 6 "
+          f"levels on 2^16 tables, fp32: launches over the run "
+          f"{ {k: v for k, v in d['launches'].items() if v} } (K2-fwd 1 and "
+          f"K2-bwd 2 a step, one eval forward), final loss "
+          f"{d['loss']:.5f}, rmse {d['rmse']:.4f}, corr {d['corr']:.4f} "
+          f"(> 0.9); {d['wall_s']:.1f} s | {card()}")
+    f = examples.get("florida_pipeline")
+    if f is None:
+        missing = [m for m in FLORIDA_NEEDS
+                   if importlib.util.find_spec(m) is None]
+        print(f"[24d examples/florida_pipeline] not run: {missing} do not "
+              f"import here (it writes parquet through pandas and clusters "
+              f"with sklearn; tests/test_torch_examples.py runs it on the "
+              f"CPU)")
+    else:
+        print(f"[24d examples/florida_pipeline] main(device='cuda'): "
+              f"parquet and mmap stores of 600 observations, splits, "
+              f"{ex_florida.STEPS} train steps at B=16 and a 200-step probe "
+              f"on the card: launches over the run "
+              f"{ {k: v for k, v in f['launches'].items() if v} } (K2 1/2 "
+              f"and K1 3/3 a step on the warp routes: 6 tokens; one "
+              f"feature forward), no plain version reached; loss "
+              f"{f['loss']:.4f}, probe accuracy {f['probe_accuracy']:.3f}, "
+              f"silhouette {f['silhouette']:.3f}; {f['wall_s']:.1f} s | "
+              f"{card()}")
+    for r in rows:
+        print(f"[24c exported {r['what']}] cut: {r['cut']}; export_fn "
+              f"{r['export_s']:.2f} s, {r['bytes']} bytes, operators "
+              f"{r['ops']}; the reloaded program's launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} } (the "
+              f"eager call's the same, no plain version reached); outputs "
+              f"vs eager {r['agreement']}; {r['ms']:.2f} ms a call (eager "
+              f"{r['eager_ms']:.2f}) | {card()}")
+    checked = [(f"examples/{name}", r["vs_plain"])
+               for name, r in examples.items()]
+    checked += [(f"exported {r['what']}", r["vs_plain"]) for r in rows]
+    print("[24e kernels vs plain at the paths' inputs] each kernel again on "
+          "the first arguments each run above gave it at each shape (the "
+          "path's own tensors), against its plain version at the earlier "
+          "phases' limits | " + " | ".join(
+              f"{what}: " + "; ".join(found) for what, found in checked))
+    print(f"[24 examples and exported programs] wall {t_end - t0:.1f} s "
+          f"(examples {t_examples - t0:.1f}, exports "
+          f"{t_end - t_examples:.1f})")
+    launches = collections.Counter()
+    for r in rows:
+        launches.update(r["launches"])
+    return {"examples": examples, "exports": rows,
+            "launches": dict(launches)}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--clip-batch-search", action="store_true",
@@ -7081,6 +7722,7 @@ def main() -> None:
     tok = phase_tokens(torch.Generator(device="cuda").manual_seed(SEED))
     remat = phase_remat()
     splats = phase_splat()
+    examples = phase_examples_export()
     report = {"kernels": [
         {"name": "grid4d_encode_fwd", "route": "cuda",
          "source": "deepearth_tpu_torch/kernels/csrc/grid4d_encode.cu",
@@ -7366,6 +8008,14 @@ def main() -> None:
         if splats["export"]["launches"].get(entry["name"]):
             entry["launches_in_phase_23_export"] = (
                 splats["export"]["launches"][entry["name"]])
+    # phase 24: the examples on the card and the exported programs, every
+    # forward kernel through its operator
+    in_24 = collections.Counter(examples["launches"])
+    for run in examples["examples"].values():
+        in_24.update(run["launches"])
+    for entry in report["kernels"] + report["off_main_path"]:
+        if in_24.get(entry["name"]):
+            entry["launches_in_phase_24"] = in_24[entry["name"]]
     print(json.dumps(report))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,16 @@
 """Data layer of the PyTorch port: the synthetic generator, the mmap
 embedding store, the observation data engine, batching with the pinned-memory
 prefetch to the card, int8 wire compression, train/test splits and the npy
-dataset. The numpy modules are the port's own copies of the JAX package's;
-``data/extractors.py`` (pretrained backbones) is not ported yet (ROADMAP.md
-Queue 1)."""
+dataset, and the frozen-backbone extractors. The numpy modules are the
+port's own copies of the JAX package's."""
 
+from .extractors import (
+    BaseModalityExtractor,
+    LanguageModelExtractor,
+    StubExtractor,
+    VJEPA2Extractor,
+    run_parallel_extraction,
+)
 from .batches import (
     collate_observations,
     device_prefetch,
@@ -48,6 +54,11 @@ from .synthetic import (
 )
 
 __all__ = [
+    "BaseModalityExtractor",
+    "LanguageModelExtractor",
+    "StubExtractor",
+    "VJEPA2Extractor",
+    "run_parallel_extraction",
     "NpySampleDataset",
     "write_npy_dataset",
     "DatasetConfig",

@@ -8,12 +8,16 @@ tests/run_tests.py:264-329, its TorchScript / ONNX export checks). The
 program is keyed to the shapes and dtypes it was traced with: export per
 served batch shape.
 
-On the card the program calls the hand-written kernels K1-fwd and K2-fwd's
-Grid4D encode through the operators ``kernels`` registers
-(``torch.ops.deepearth.*``), never their plain versions; a forward that
-reaches any other kernel raises ``ValueError`` while it is traced
-(``kernels.EXPORT_TODO``). :func:`load_exported` imports ``kernels`` so that
-a reloaded program finds those operators.
+On the card the program calls every forward kernel through the operators
+``kernels`` registers (``torch.ops.deepearth.*``: K1-fwd, K2-fwd's Grid4D
+encode and per-table kernel, K3-fwd, K4-fwd, K5-fwd, K6, K7, K8 and
+K9-fwd), never their plain versions, so that any forward of the port
+exports: the A-stack, the multimodal and flagship models, a quantized
+decoder, a splatting render. A program is an inference program, traced
+without autograd as JAX's is: the backward kernels are not operators, and
+a function that reaches one raises ``ValueError`` while it is traced.
+:func:`load_exported` imports ``kernels`` so that a reloaded program finds
+the operators.
 """
 
 from __future__ import annotations
@@ -41,11 +45,13 @@ def export_fn(fn: Callable, *example_args) -> bytes:
     ``example_args`` without autograd (an inference program, as JAX's) to
     bytes. ``fn`` runs once on them first: tables the port caches per shape
     on the host (RoPE's cos / sin) are then made from real tensors and
-    enter the program as constants."""
+    enter the program as constants. The bytes hold no copy of the example
+    arguments (parameters passed as one stay out, as in JAX's)."""
     module = fn if isinstance(fn, nn.Module) else _Fn(fn)
     with torch.no_grad():
         module(*example_args)
         program = torch.export.export(module, tuple(example_args))
+    program.example_inputs = None
     buf = io.BytesIO()
     torch.export.save(program, buf)
     return buf.getvalue()

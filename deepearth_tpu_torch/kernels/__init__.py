@@ -32,19 +32,25 @@ here runs at import time: the CPU tests import this module on machines
 without ``nvcc``.
 
 ``torch.export`` traces with fake tensors, which have no data for ctypes.
-The kernels of the A-stack forward that ``api.DeepEarth`` serves, K1-fwd
-and K2-fwd's Grid4D encode, are therefore registered as custom operators
-(``torch.ops.deepearth.pairwise_attention_fwd`` and ``.grid4d_encode_fwd``,
-each with a fake implementation): under an export trace their wrappers
-call the operator, which the exported program keeps and which runs the
-wrapper again when the program runs. Every other kernel launch raises a
-``ValueError`` under an export trace (:func:`library`, :data:`EXPORT_TODO`).
+Every forward kernel is therefore registered as a custom operator
+(``torch.ops.deepearth.*``, each with a fake implementation that returns
+the shapes and dtypes its wrapper allocates): K1-fwd
+(``pairwise_attention_fwd``), K2-fwd (``grid4d_encode_fwd`` and the
+per-table ``hash_encode_fwd``), K3-fwd (``vmem_attention_fwd``), K4-fwd
+(``flash_attention_fwd``), K5-fwd (``grouped_matmul_fwd``), K6
+(``int8_bmm``), K7 (``int4_bmm``), K8 (``splat_bin``) and K9-fwd
+(``splat_composite_fwd``). Under an export trace each of these wrappers
+calls its operator, which the exported program keeps and which runs the
+wrapper again, route and all, when the program runs. An exported program
+is an inference program: the backward kernels are not operators, and
+their launch under an export trace raises ``ValueError`` (:func:`library`).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -52,7 +58,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -142,9 +148,6 @@ _SIGNATURES = {
     "splat_composite_bwd": [*[_P] * 7, *[_I] * 8, *[_P] * 5, _P],
 }
 
-EXPORT_TODO = ("ROADMAP.md Queue 1, item 21: only K1-fwd and K2-fwd's Grid4D "
-               "encode are registered as custom operators")
-
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
@@ -214,12 +217,15 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use. Every launch goes
     through it, so under an export trace it raises ``ValueError``: ctypes
-    cannot launch on fake tensors, and only the kernels registered as
-    operators (which divert before they launch) can be traced."""
+    cannot launch on fake tensors, and only the forward kernels, which are
+    registered as operators and divert to them before they launch, can be
+    traced."""
     global _lib
     if torch.compiler.is_exporting():
-        raise ValueError("torch.export reached a kernel launch, which it "
-                         f"cannot trace: {EXPORT_TODO}")
+        raise ValueError(
+            "torch.export reached a kernel launch outside the deepearth "
+            "operators: an exported program is an inference program (the "
+            "forward kernels are operators; the backward kernels are not)")
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
@@ -262,7 +268,9 @@ def hash_encode_fwd(coords: torch.Tensor, tables: torch.Tensor,
                     resolutions: torch.Tensor, table_size: int,
                     linear: bool) -> torch.Tensor:
     """K2 forward: coords (N, D) fp32, tables (L, T, F) fp32, resolutions (L,)
-    fp32, all on one CUDA device. Returns (N, L*F) fp32."""
+    fp32, all on one CUDA device. Returns (N, L*F) fp32. Under an export
+    trace: the operator ``torch.ops.deepearth.hash_encode_fwd``, which calls
+    this."""
     n, d, n_levels, level_stride, f = _hash_inputs(
         "hash_encode_fwd", coords, tables.shape, tables.device, resolutions,
         table_size)
@@ -623,9 +631,6 @@ def pairwise_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Under an export trace: the operator
     ``torch.ops.deepearth.pairwise_attention_fwd``, which calls this.
     """
-    if torch.compiler.is_exporting():
-        return torch.ops.deepearth.pairwise_attention_fwd(
-            q, k, v, key_mask, n_heads, float(scale))
     route = (pairwise_attention_fwd_tma
              if _pairwise_on_grid(pairwise_fwd_tma_route, q, k, v, n_heads)
              else pairwise_attention_fwd_warp)
@@ -817,7 +822,9 @@ def vmem_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, Nq, Dv), contiguous, in q's dtype. One launch, by the route
     :func:`vmem_fwd_tma_route` picks from the shapes and strides:
     :func:`vmem_attention_fwd_tma` (``vmem_attention_fwd``) or
-    :func:`vmem_attention_fwd_mma` (``_mma``, ``_fp32``)."""
+    :func:`vmem_attention_fwd_mma` (``_mma``, ``_fp32``). Under an export
+    trace: the operator ``torch.ops.deepearth.vmem_attention_fwd``, which
+    calls this."""
     route = (vmem_attention_fwd_tma if _on_tma_grid(vmem_fwd_tma_route, q, k,
                                                     v)
              else vmem_attention_fwd_mma)
@@ -982,7 +989,8 @@ def flash_attention_fwd_mma(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float, key_mask: Optional[torch.Tensor] = None,
-                        causal: bool = False):
+                        causal: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 forward: q (B, H, Nq, Dqk), k (B, H, Nk, Dqk), v (B, H, Nk, Dv) on
     one CUDA device, float32 or bfloat16, unit stride along the head dim;
     any N >= 1, Dqk and Dv <= 256; key_mask optional (B, Nk) bool; causal:
@@ -991,7 +999,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     all masked gives out 0 and lse +inf. One launch, by the route
     :func:`flash_fwd_tma_route` picks from the shapes and strides:
     :func:`flash_attention_fwd_tma` (``flash_attention_fwd``) or
-    :func:`flash_attention_fwd_mma` (``_mma``, ``_fp32``)."""
+    :func:`flash_attention_fwd_mma` (``_mma``, ``_fp32``). Under an export
+    trace: the operator ``torch.ops.deepearth.flash_attention_fwd``, which
+    calls this."""
     route = (flash_attention_fwd_tma if _on_tma_grid(flash_fwd_tma_route, q,
                                                      k, v)
              else flash_attention_fwd_mma)
@@ -1210,7 +1220,9 @@ def grouped_matmul_fwd(lhs: torch.Tensor, rhs: torch.Tensor,
     the kernel reads them itself. M = 0 launches nothing. The route is
     chosen from the shapes alone (:func:`gmm_fwd_tma_route`):
     :func:`grouped_matmul_fwd_tma` (counted ``grouped_matmul_fwd``) or
-    :func:`grouped_matmul_fwd_mma` (``_mma``, ``_fp32``)."""
+    :func:`grouped_matmul_fwd_mma` (``_mma``, ``_fp32``). Under an export
+    trace: the operator ``torch.ops.deepearth.grouped_matmul_fwd``, which
+    calls this."""
     if (lhs.dim() == 2 and rhs.dim() == 3 and rhs.shape[1] == lhs.shape[1]
             and lhs.dtype == rhs.dtype
             and gmm_fwd_tma_route(lhs.dtype, *lhs.shape, rhs.shape[2])):
@@ -1602,14 +1614,15 @@ def int8_bmm_fma(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
 
 
 def int8_bmm(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
-             out_dtype=torch.bfloat16) -> torch.Tensor:
+             out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """K6: x (E, C, D) float32 or bfloat16, w_q (E, D, Fp) int8 (Fp a
     multiple of 4), scale (E, 1, F) float32 with F <= Fp, on one CUDA
     device. Returns (E, C, F) in ``out_dtype`` (float32 or bfloat16):
     scale times the fp32 sum of bf16(x) times w_q, no atomics. The route is
     chosen from the shapes alone (:func:`int8_bmm_tc_route`):
     :func:`int8_bmm_tc` (counted ``int8_bmm``) or :func:`int8_bmm_fma`
-    (``int8_bmm_fma``)."""
+    (``int8_bmm_fma``). Under an export trace: the operator
+    ``torch.ops.deepearth.int8_bmm``, which calls this."""
     if (x.dim() == 3 and w_q.dim() == 3
             and int8_bmm_tc_route(*x.shape, w_q.shape[2])
             and tuple(w_q.shape[:2]) == (x.shape[0], x.shape[2])):
@@ -1635,12 +1648,13 @@ def int4_bmm_fma(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
 
 
 def int4_bmm(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
-             out_dtype=torch.bfloat16) -> torch.Tensor:
+             out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """K7: as :func:`int8_bmm` over w_p (E, D/2, Fp) split-half int4 bytes
     (row i in the low nibble, row i + D/2 in the high nibble); D even. The
     route is chosen from the shapes alone (:func:`int4_bmm_tc_route`):
     :func:`int4_bmm_tc` (counted ``int4_bmm``) or :func:`int4_bmm_fma`
-    (``int4_bmm_fma``)."""
+    (``int4_bmm_fma``). Under an export trace: the operator
+    ``torch.ops.deepearth.int4_bmm``, which calls this."""
     if (x.dim() == 3 and w_p.dim() == 3
             and int4_bmm_tc_route(*x.shape, w_p.shape[2])
             and tuple(w_p.shape[:2]) == (x.shape[0], x.shape[2] // 2)):
@@ -1675,7 +1689,8 @@ def splat_bin_chunk(g: int) -> int:
 
 
 def splat_bin(xy: torch.Tensor, radius: torch.Tensor, valid: torch.Tensor,
-              tiles_x: int, tiles_y: int, tile_size: int, k: int):
+              tiles_x: int, tiles_y: int, tile_size: int,
+              k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K8, the tile binning of ``render_tiled``: xy (G, 2) and radius (G,)
     fp32 and valid (G,) bool of the depth-sorted Gaussians, on one CUDA
     device; a tiles_x x tiles_y grid of tile_size-pixel tiles. Returns idx
@@ -1685,7 +1700,9 @@ def splat_bin(xy: torch.Tensor, radius: torch.Tensor, valid: torch.Tensor,
     int32, the slots filled. The Gaussians are taken in chunks of
     :func:`splat_bin_chunk` (G): three launches (count, prefix, write) over
     tiles * (chunks + 1) + 1 int32 of slots and a rectangle of tiles for
-    each Gaussian as scratch, counted once as ``splat_bin``."""
+    each Gaussian as scratch, counted once as ``splat_bin``. Under an export
+    trace: the operator ``torch.ops.deepearth.splat_bin``, which calls
+    this."""
     name = "splat_bin"
     _require(xy.is_cuda, f"{name}: xy must lie on a CUDA device")
     g = xy.shape[0]
@@ -1787,7 +1804,13 @@ def splat_composite_fwd(xy: torch.Tensor, abc: torch.Tensor,
     :func:`splat_plan`'s segments and the segments combined. Returns
     (height, width, 3) fp32; with ``keep_state`` also the state
     (:func:`splat_state_shape`) :func:`splat_composite_bwd` reads. Counted
-    as ``splat_composite_fwd``."""
+    as ``splat_composite_fwd``. Under an export trace (an inference
+    program, so without ``keep_state``): the operator
+    ``torch.ops.deepearth.splat_composite_fwd``, which calls this."""
+    if torch.compiler.is_exporting() and not keep_state:
+        return torch.ops.deepearth.splat_composite_fwd(
+            xy, abc, opac, color, background, int(height), int(width),
+            int(region_h), int(region_w))
     name = "splat_composite_fwd"
     (lists, k), (xy, abc, opac, color, background) = _splat_lists(
         name, xy, abc, opac, color, background, height, width, region_h,
@@ -1849,20 +1872,68 @@ def splat_composite_bwd(xy: torch.Tensor, abc: torch.Tensor,
 # -- custom operators for torch.export --------------------------------------- #
 
 
-@torch.library.custom_op("deepearth::pairwise_attention_fwd", mutates_args=())
-def _pairwise_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor,
-                               key_mask: Optional[torch.Tensor],
-                               n_heads: int, scale: float) -> torch.Tensor:
-    """K1-fwd as an operator: :func:`pairwise_attention_fwd`."""
-    return pairwise_attention_fwd(q, k, v, n_heads, scale, key_mask)
+def _operator(dispatcher, fake):
+    """``dispatcher`` registered as the custom operator ``deepearth::<its
+    name>`` (the schema from its annotations, ``fake`` returning the shapes
+    and dtypes it allocates), and a function that calls that operator under
+    an export trace and ``dispatcher`` itself otherwise: the operator runs
+    the dispatcher, route and all, when the program runs, and an eager call
+    pays no operator dispatch."""
+    op = torch.library.custom_op(f"deepearth::{dispatcher.__name__}",
+                                 dispatcher, mutates_args=())
+    op.register_fake(fake)
+
+    @functools.wraps(dispatcher)
+    def call(*args, **kwargs):
+        if torch.compiler.is_exporting():
+            return op(*args, **kwargs)
+        return dispatcher(*args, **kwargs)
+    return call
 
 
-@_pairwise_attention_fwd_op.register_fake
-def _(q, k, v, key_mask, n_heads, scale):
-    return q.new_empty(q.shape)
+# the fakes: the shapes and dtypes each dispatcher allocates
+def _attention_fake(q, k, v, *args, **kwargs):
+    return q.new_empty((*q.shape[:-1], v.shape[-1]))
 
 
+def _flash_fake(q, k, v, scale, key_mask=None, causal=False):
+    return (_attention_fake(q, k, v),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+def _hash_fake(coords, tables, resolutions, table_size, linear):
+    width = tables.shape[0] * tables.shape[2]
+    return coords.new_empty((coords.shape[0], width), dtype=torch.float32)
+
+
+def _gmm_fake(lhs, rhs, group_sizes):
+    return lhs.new_empty((lhs.shape[0], rhs.shape[2]), dtype=torch.float32)
+
+
+def _quant_fake(x, w, scale, out_dtype=torch.bfloat16):
+    return x.new_empty((*x.shape[:2], scale.shape[2]), dtype=out_dtype)
+
+
+def _splat_bin_fake(xy, radius, valid, tiles_x, tiles_y, tile_size, k):
+    tiles = tiles_x * tiles_y
+    return (xy.new_empty((tiles, k), dtype=torch.int32),
+            xy.new_empty((tiles,), dtype=torch.int32))
+
+
+pairwise_attention_fwd = _operator(pairwise_attention_fwd, _attention_fake)
+hash_encode_fwd = _operator(hash_encode_fwd, _hash_fake)
+vmem_attention_fwd = _operator(vmem_attention_fwd, _attention_fake)
+flash_attention_fwd = _operator(flash_attention_fwd, _flash_fake)
+grouped_matmul_fwd = _operator(grouped_matmul_fwd, _gmm_fake)
+int8_bmm = _operator(int8_bmm, _quant_fake)
+int4_bmm = _operator(int4_bmm, _quant_fake)
+splat_bin = _operator(splat_bin, _splat_bin_fake)
+
+
+# Two operators are written out, their dispatchers diverting to them
+# themselves: the Grid4D encode's per-table tuples have no schema type (the
+# operator takes them as flat lists), and K9-fwd's operator leaves out
+# keep_state (an exported program keeps no state for a backward).
 @torch.library.custom_op("deepearth::grid4d_encode_fwd", mutates_args=())
 def _grid4d_encode_fwd_op(xyzt: torch.Tensor, tables: List[torch.Tensor],
                           resolutions: List[torch.Tensor],
@@ -1889,3 +1960,20 @@ def _(xyzt, tables, resolutions, table_sizes, linear, cols, n_cols,
       mask_bits, spatial_mask, temporal_mask, out_dtype):
     width = sum(t.shape[0] * t.shape[2] for t in tables)
     return xyzt.new_empty((xyzt.shape[0], width), dtype=out_dtype)
+
+
+@torch.library.custom_op("deepearth::splat_composite_fwd", mutates_args=())
+def _splat_composite_fwd_op(xy: torch.Tensor, abc: torch.Tensor,
+                            opac: torch.Tensor, color: torch.Tensor,
+                            background: Optional[torch.Tensor], height: int,
+                            width: int, region_h: int,
+                            region_w: int) -> torch.Tensor:
+    """K9-fwd as an operator, without the state a backward reads:
+    :func:`splat_composite_fwd`."""
+    return splat_composite_fwd(xy, abc, opac, color, background, height,
+                               width, region_h, region_w)
+
+
+@_splat_composite_fwd_op.register_fake
+def _(xy, abc, opac, color, background, height, width, region_h, region_w):
+    return xy.new_empty((height, width, 3), dtype=torch.float32)

@@ -1,7 +1,8 @@
 """Utilities of the PyTorch port: logging, profiling, resource monitoring,
-embedding projection (own copies of the JAX package's numpy-only helpers),
-and the export functions, re-exported from the package's ``export`` as the
-JAX package re-exports them."""
+embedding projection, the wandb-compatible metric sink and the artifacts'
+round stamp (own copies of the JAX package's numpy-only helpers), and the
+export functions, re-exported from the package's ``export`` as the JAX
+package re-exports them."""
 
 from .logging import (
     JSONLMetricWriter,
@@ -16,6 +17,7 @@ from ..export import export_forward, export_model_forward, load_exported
 from .monitor import ResourceMonitor, resource_snapshot
 from .profiling import StepTimer, benchmark_fn, trace
 from .projection import EmbeddingProjector
+from .wandb_sink import WandbSink
 
 __all__ = [
     "export_forward",
@@ -32,4 +34,5 @@ __all__ = [
     "TensorBoardMetricWriter",
     "MultiWriter",
     "EmbeddingProjector",
+    "WandbSink",
 ]

@@ -8,8 +8,8 @@ JAX's (300 Adam steps in fp32, sums in another order); the metric functions
 are numpy copies and agree exactly. The exported programs of a tiny
 DeepEarthModel, reloaded, give the eager port's outputs exactly (the same
 ATen operations on the same inputs) and JAX's exported StableHLO program's
-within 1e-5 in fp32. Export on the card (custom operators for K1-fwd and
-K2-fwd, the refusal of every other kernel) is held by
+within 1e-5 in fp32. Export on the card (every forward kernel a custom
+operator, the refusal of the backward kernels) is held by
 ``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py``; here the
 dispatch under an export trace is checked on fake CUDA tensors.
 """
@@ -202,10 +202,12 @@ def test_export_model_forward_leaves_the_model_as_it_was(export_pair):
 
 
 def test_export_dispatch_under_a_trace_on_fake_cuda_tensors():
-    """Under an export trace, K1-fwd and K2-fwd's Grid4D encode call their
-    registered operators (the fake implementations give the shapes), and
-    every other kernel launch, from a dispatcher or a route's own entry,
-    raises ValueError naming the ROADMAP item."""
+    """Under an export trace the forward kernels call their registered
+    operators (the fake implementations give the shapes): K1-fwd, K2-fwd's
+    Grid4D encode and per-table kernel, K6 and K8 here (every forward
+    operator in tests/test_torch_export_ops.py); a backward kernel's
+    launch (K5-bwd's split here) raises ValueError: an exported program is
+    an inference program."""
     with FakeTensorMode(), mock.patch.object(torch.compiler, "is_exporting",
                                              lambda: True):
         q = torch.empty((3, 4, 64), device="cuda")
@@ -219,24 +221,25 @@ def test_export_dispatch_under_a_trace_on_fake_cuda_tensors():
                    (tables[1], res[1], 64, True, (3,), 2)],
             None, None, torch.bfloat16)
         assert out.shape == (5, 10) and out.dtype == torch.bfloat16
+        out = kernels.hash_encode_fwd(xyzt, tables[0], res[0], 64, True)
+        assert out.shape == (5, 6) and out.dtype == torch.float32
         x = torch.empty((2, 3, 64), dtype=torch.bfloat16, device="cuda")
         w = torch.empty((2, 64, 32), dtype=torch.int8, device="cuda")
         scale = torch.empty((2, 1, 32), device="cuda")
-        for call in (lambda: kernels.int8_bmm(x, w, scale),
-                     lambda: kernels.grouped_matmul_split_dout(
-                         torch.empty((4, 8), device="cuda")),
-                     lambda: kernels.hash_encode_fwd(xyzt, tables[0], res[0],
-                                                     64, True),
-                     lambda: kernels.splat_bin(
-                         torch.empty((5, 2), device="cuda"),
-                         torch.empty(5, device="cuda"),
-                         torch.empty(5, dtype=torch.bool, device="cuda"),
-                         1, 1, 16, 2)):
-            with pytest.raises(ValueError, match="item 21"):
-                call()
+        out = kernels.int8_bmm(x, w, scale)
+        assert out.shape == (2, 3, 32) and out.dtype == torch.bfloat16
+        idx, count = kernels.splat_bin(
+            torch.empty((5, 2), device="cuda"), torch.empty(5, device="cuda"),
+            torch.empty(5, dtype=torch.bool, device="cuda"), 1, 1, 16, 2)
+        assert idx.shape == (1, 2) and count.shape == (1,)
+        assert idx.dtype == count.dtype == torch.int32
+        with pytest.raises(ValueError, match="inference program"):
+            kernels.grouped_matmul_split_dout(torch.empty((4, 8),
+                                                          device="cuda"))
     assert set(kernels.launch_counts.values()) == {0}
-    assert hasattr(torch.ops.deepearth, "pairwise_attention_fwd")
-    assert hasattr(torch.ops.deepearth, "grid4d_encode_fwd")
+    for name in ("pairwise_attention_fwd", "grid4d_encode_fwd",
+                 "hash_encode_fwd", "int8_bmm", "splat_bin"):
+        assert hasattr(torch.ops.deepearth, name)
 
 
 # -- profiling and monitor --------------------------------------------------- #

@@ -119,6 +119,10 @@ EXPORTS = [  # (package path, name, the port's defining submodule)
         "ResourceMonitor", "resource_snapshot")],
     *[("utils", name, "utils.profiling") for name in (
         "StepTimer", "benchmark_fn", "trace")],
+    *[("data", name, "data.extractors") for name in (
+        "BaseModalityExtractor", "LanguageModelExtractor", "StubExtractor",
+        "VJEPA2Extractor", "run_parallel_extraction")],
+    ("utils", "WandbSink", "utils.wandb_sink"),
 ]
 
 

@@ -46,6 +46,7 @@ unwrapped block's bit for bit.
 """
 
 import contextlib
+import io
 import os
 import sys
 
@@ -1826,10 +1827,10 @@ def test_k1_and_k2_operators_pass_opcheck(cuda):
     q, k, v = (torch.randn((3, 64, 256), generator=gen, device=cuda).to(
         torch.bfloat16) for _ in range(3))
     torch.library.opcheck(torch.ops.deepearth.pairwise_attention_fwd.default,
-                          (q, k, v, None, 4, 0.125))
+                          (q, k, v, 4, 0.125, None))
     mask = torch.rand((64, 3), generator=gen, device=cuda) > 0.3
     torch.library.opcheck(torch.ops.deepearth.pairwise_attention_fwd.default,
-                          (q.float(), k.float(), v.float(), mask, 4, 0.125))
+                          (q.float(), k.float(), v.float(), 4, 0.125, mask))
     xyzt = torch.rand((100, 4), generator=gen, device=cuda)
     tables = [torch.randn((l, 2 ** 12, 2), generator=gen, device=cuda) * 1e-2
               for l in (4, 2)]
@@ -1874,10 +1875,117 @@ def test_exported_quick_start_launches_k1_and_k2(cuda):
 
 
 def test_export_refuses_a_model_reaching_another_kernel(cuda):
-    """A forward that reaches a kernel with no operator (K3-fwd here)
-    raises ValueError under the export trace, naming the ROADMAP item."""
+    """A function that reaches a backward kernel (K3-bwd here; none is an
+    operator) raises ValueError under the export trace: an exported
+    program is an inference program."""
     from deepearth_tpu_torch.export import export_fn
 
     q = torch.randn((2, 2, 300, 64), device=cuda)
-    with pytest.raises(ValueError, match="item 21"):
-        export_fn(lambda x: tvmem.vmem_attention(x, x, x, scale=0.125), q)
+    with pytest.raises(ValueError, match="inference program"):
+        export_fn(lambda x: kernels.vmem_attention_bwd(x, x, x, x, 0.125), q)
+
+
+def _operator_cases(cuda):
+    """name -> (the operator, a function reaching it through the ops
+    layer, its inputs on the card at a small shape)."""
+    from deepearth_tpu_torch.ops import splat as tsplat
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    res = torch.tensor([16.0 * 1.5 ** i for i in range(8)], device=cuda)
+    w8 = torch.randint(-127, 128, (1, 256, 384), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    w4 = torch.randint(-128, 128, (1, 128, 384), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    scale = torch.rand((1, 1, 384), generator=gen, device=cuda) * 1e-2
+    xy = torch.rand((300, 2), generator=gen, device=cuda) * 64
+    radius = torch.rand(300, generator=gen, device=cuda) * 6
+    valid = torch.rand(300, generator=gen, device=cuda) > 0.1
+    lists = (rand(16, 96, 2).abs() * 16, rand(16, 96, 3).abs() * 0.05,
+             torch.rand((16, 96), generator=gen, device=cuda),
+             torch.rand((16, 96, 3), generator=gen, device=cuda))
+    bf = torch.bfloat16
+    return {
+        "hash_encode_fwd": (lambda c, t: the.hash_encode(
+            c, t, res, table_size=2 ** 12), (
+                torch.rand((1000, 3), generator=gen, device=cuda),
+                rand(8, 2 ** 12, 2) * 1e-2)),
+        "vmem_attention_fwd": (lambda q, k, v: tvmem.vmem_attention(
+            q, k, v, scale=0.125), tuple(rand(2, 4, 300, 64, dtype=bf)
+                                         for _ in range(3))),
+        "flash_attention_fwd": (lambda q, k, v: tflash.flash_attention(
+            q, k, v, scale=0.125, causal=True), tuple(
+                rand(1, 2, 1100, 64, dtype=bf) for _ in range(3))),
+        "grouped_matmul_fwd": (lambda lhs, rhs, sizes: tgmm.gmm(
+            lhs, rhs, sizes), (
+                rand(100, 64, dtype=bf), rand(4, 64, 128, dtype=bf),
+                torch.tensor([30, 0, 50, 20], dtype=torch.int32,
+                             device=cuda))),
+        "int8_bmm": (lambda x, w, s: tquant.int8_bmm(x, w, s), (
+            rand(1, 8, 256, dtype=bf), w8, scale)),
+        "int4_bmm": (lambda x, w, s: tquant.int4_bmm(x, w, s), (
+            rand(1, 8, 256, dtype=bf), w4, scale)),
+        "splat_bin": (lambda a, r, m: tsplat.bin_tiles(a, r, m, 4, 4, 16, 32),
+                      (xy, radius, valid)),
+        "splat_composite_fwd": (lambda *t: tsplat.composite(
+            *t, None, 64, 64, 16, 16), lists),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "hash_encode_fwd", "vmem_attention_fwd", "flash_attention_fwd",
+    "grouped_matmul_fwd", "int8_bmm", "int4_bmm", "splat_bin",
+    "splat_composite_fwd"])
+def test_exported_forward_operator_matches_eager(cuda, name):
+    """export_fn of a function reaching one forward kernel through the ops
+    layer, reloaded: the program holds the operator, launches the kernel
+    as the eager call does (no plain version reached), and gives its
+    outputs bit for bit."""
+    from deepearth_tpu_torch.export import export_fn, load_exported
+
+    smoke = _smoke()
+    fn, args = _operator_cases(cuda)[name]
+    blob = export_fn(fn, *args)
+    program = load_exported(blob)
+    runs = []
+    for call in (lambda: program(*args), lambda: fn(*args)):
+        kernels.reset_launch_counts()
+        with torch.no_grad(), smoke.plain_versions_refused():
+            out = call()
+        torch.cuda.synchronize()
+        runs.append((out if isinstance(out, tuple) else (out,),
+                     {n: c for n, c in kernels.launch_counts.items() if c}))
+    (got, got_launches), (want, want_launches) = runs
+    assert got_launches == want_launches and len(want_launches) == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    targets = {str(n.target) for n in torch.export.load(
+        io.BytesIO(blob)).graph_module.graph.nodes if n.op == "call_function"}
+    assert f"deepearth.{name}.default" in targets
+
+
+def test_forward_operators_pass_opcheck(cuda):
+    """torch.library.opcheck on the eight forward operators added beside
+    K1-fwd's and the Grid4D encode's: the schema, each fake against the
+    kernel's output (shapes, strides, dtypes), and the operator through AOT
+    dispatch with dynamic shapes, at _operator_cases' inputs."""
+    cases = _operator_cases(cuda)
+    coords, tables = cases["hash_encode_fwd"][1]
+    res = torch.tensor([16.0 * 1.5 ** i for i in range(8)], device=cuda)
+    q, k, v = cases["vmem_attention_fwd"][1]
+    fq, fk, fv = cases["flash_attention_fwd"][1]
+    x, w8, scale = cases["int8_bmm"][1]
+    ops = torch.ops.deepearth
+    for op, args in (
+            (ops.hash_encode_fwd, (coords, tables, res, 2 ** 12, True)),
+            (ops.vmem_attention_fwd, (q, k, v, 0.125, None)),
+            (ops.flash_attention_fwd, (fq, fk, fv, 0.125, None, True)),
+            (ops.grouped_matmul_fwd, cases["grouped_matmul_fwd"][1]),
+            (ops.int8_bmm, (x, w8, scale, torch.bfloat16)),
+            (ops.int4_bmm, (*cases["int4_bmm"][1], torch.float32)),
+            (ops.splat_bin, (*cases["splat_bin"][1], 4, 4, 16, 32)),
+            (ops.splat_composite_fwd, (*cases["splat_composite_fwd"][1],
+                                       None, 64, 64, 16, 16))):
+        torch.library.opcheck(op.default, args)
