@@ -142,9 +142,9 @@ Phases, each printing one line:
  18. decode at tools/bench_decode.py's config (2.424B parameters, bf16,
      tied embeddings): bf16, int8 and int4 trees (the int8 / int4 ones by
      quantize_decoder_params, their bytes BENCH_DECODE.json's), greedy
-     generate of 128 tokens (the config's 256 cut: the phase is
+     generate of 64 tokens (the config's 256 cut: the phase is
      host-bound) after a 64-token prompt at B=1, 8, 32 over a bf16 cache;
-     per call K6 191 x 177 = 33,807 times (int8), K7 as many
+     per call K6 127 x 177 = 22,479 times (int8), K7 as many
      (int4), each all on its tensor-core route, neither at bf16, no plain
      version reached; wall time, tokens/s, ms per step, peak memory, a
      per-op profile of one int8 step at B=8 with K6's device time in it;
@@ -279,6 +279,26 @@ Phases, each printing one line:
      each of those runs gave it at each shape (the path's own tensors),
      against its plain version at the limits of the earlier phases that
      hold it (path_inputs, PATH_CHECKS); the phase's wall time;
+ 25. the multi-GPU layer on the one card: (a) the flagship
+     (integrated_config, bf16) with its simulator pipelined in 4 stages
+     (prefix 4, 20 layers in stages of 5; PIPE_BATCH observations at 4608
+     patches, the most microbatches whose MoE calls all take the ragged
+     route), its weights the sequential flagship's stacked
+     (stack_sequential_state): one forward each, the pipelined one routed
+     as the sequential one was (gate_log, flips counted per layer), the
+     outputs within phase 15's limits, K4-fwd, K5 and K2 launches counted
+     against the schedule's, and each kernel at each shape the pipelined
+     forward gave it held against its plain version on those tensors
+     (path_inputs, PATH_CHECKS, as phase 24 (e)); (b) DistributedTrainer
+     on one NCCL rank, fsdp_axes=('data',), phase 16's flagship train
+     step (576 patches, B=64) for 3 steps against Trainer on the same
+     weights, batches and generator (routed as Trainer's run was;
+     FLAGSHIP_TRAIN_TOL), the kernel launches a step phase 16's, peak
+     memory; the sharded state saved and restored through
+     torch.distributed.checkpoint, then a 4th
+     step against the same step without the round trip (its loss and aux
+     term bit for bit); (c) device_prefetch(sharding=batch_sharding(mesh))
+     on that rank: every leaf on the card; the phase's wall time;
 then a JSON line of the kernels, the card's name and power limit, and
 {"ok": true, ...} as the last line. Any failure raises and exits non-zero.
 Weights are random, drawn from a seeded generator on the card.
@@ -320,6 +340,14 @@ CUDA-graph replays and by events, bit for bit against bin_tiles_plain,
 without the last two lines. Copied into another tree's root and run there
 (the parent commit unpacked with git archive), it times that tree's K8:
 parent, this tree, this tree, parent in one machine compares the two.
+
+    chiprun --chips 4 -- python3 chip_smoke.py --multi-card
+
+needs 4 cards: runs tests/torch_dist_worker.py's scenarios (ring attention,
+pipeline_apply, the pipelined stack, every DistributedTrainer leg of
+tests/test_torch_distributed.py, the sharded checkpoint, device_prefetch)
+over NCCL, one rank a card, and holds every rank's numbers against the
+same scenarios over gloo on the CPU, without the last two lines.
 """
 
 from __future__ import annotations
@@ -336,10 +364,12 @@ import io
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import statistics
 import subprocess
+import sys
 import time
 import types
 import urllib.request
@@ -407,8 +437,11 @@ from deepearth_tpu_torch.models import (
     species_topk,
 )
 from deepearth_tpu_torch.models import grid4d as grid4d_model
-from deepearth_tpu_torch.models.deepseek import capacity
+from deepearth_tpu_torch.models.deepseek import (capacity, pipeline_split,
+                                                 select_dispatch_mode,
+                                                 stack_sequential_state)
 from deepearth_tpu_torch.models.layers import Init
+from deepearth_tpu_torch.parallel import batch_sharding
 from deepearth_tpu_torch.ops import (
     attention_smallseq,
     attention_vmem,
@@ -637,11 +670,12 @@ QUANT_LINE_CASE = "q_proj C8"
 # outputs within one bf16 ulp of the largest entry (the same sums, rounded
 # once: a value near a rounding boundary may land on the other neighbour)
 QUANT_FP32_REL = 1e-5
-# decode at tools/bench_decode.py's config (phase 18): prefill 64 + 128 new
+# decode at tools/bench_decode.py's config (phase 18): prefill 64 + 64 new
 # tokens (the config generates 256; the phase is host-bound, a third of the
-# script's time at 256, and is cut so that the script keeps inside its time
-# limit), bf16 parameters and cache, greedy, tied embeddings
-DECODE_VOCAB, DECODE_PROMPT, DECODE_NEW = 32000, 64, 128
+# script's time at 256, and is cut, to 128 and then 64, so that the script
+# keeps inside its time limit), bf16 parameters and cache, greedy, tied
+# embeddings
+DECODE_VOCAB, DECODE_PROMPT, DECODE_NEW = 32000, 64, 64
 DECODE_BATCHES = (1, 8, 32)
 DECODE_STEPS = DECODE_PROMPT + DECODE_NEW - 1
 # K6 (int8) or K7 (int4) calls per decode step, as tools/bench_decode.py's
@@ -3315,15 +3349,16 @@ def site_modes(model) -> dict:
 def gate_log(pinned: Optional[list] = None):
     """Log every MoE gate's top-k choice made inside, in call order. With
     ``pinned``, the log of an earlier run, each call routes as that run did
-    (its weights from this run's own scores), and the log keeps this run's
-    own choice: the difference between two runs is then their arithmetic,
-    and a flipped near-tie is counted, not propagated."""
+    (its weights from this run's own scores; a None entry: its own
+    choice), and the log keeps this run's own choice: the difference
+    between two runs is then their arithmetic, and a flipped near-tie is
+    counted, not propagated."""
     real, log = moe.moe_gate, []
 
     def gate(logits, bias, **kw):
         g = real(logits, bias, **kw)
         log.append(g.topk_idx)
-        if pinned is None:
+        if pinned is None or pinned[len(log) - 1] is None:
             return g
         idx = pinned[len(log) - 1]
         w = torch.gather(g.scores, 1, idx.long())
@@ -7651,6 +7686,511 @@ def phase_examples_export() -> dict:
             "launches": dict(launches)}
 
 
+# phase 25: the flagship's simulator in PIPE_STAGES pipeline stages (24
+# layers, first_k_dense_replace 1: a prefix of 4, then 4 stages of 5) at
+# PIPE_BATCH observations: in 2 microbatches of 48, the fewest rows whose
+# simulator MoE calls route ragged (E=8, K=2: 48 x 22 tokens pass the
+# dense route's S E C <= 2^22; 32 do not, so B=64 would run 1)
+PIPE_STAGES, PIPE_BATCH = 4, 96
+
+
+def pipe_microbatches(cfg, batch: int) -> int:
+    """The most microbatches, up to JAX's default min(4P, B), dividing the
+    batch, whose every MoE call (a microbatch of FLAGSHIP_TOKENS tokens an
+    observation) takes the ragged route K5 runs."""
+    moe_cfg = cfg.fusion.deepseek_block.moe
+    for m in range(min(4 * PIPE_STAGES, batch), 0, -1):
+        if batch % m == 0 and select_dispatch_mode(
+                moe_cfg, batch // m * FLAGSHIP_TOKENS, "cuda") == "ragged":
+            return m
+    raise AssertionError(f"no microbatch of {batch} routes ragged")
+
+
+def with_pipelined_simulator(state: dict, cfg) -> dict:
+    """A sequential model's state dict with the simulator's layers stacked
+    into the stages of cfg's pipelined simulator."""
+    sim = {n[len("simulator."):]: v for n, v in state.items()
+           if n.startswith("simulator.")}
+    out = {n: v for n, v in state.items() if not n.startswith("simulator.")}
+    out.update({f"simulator.{n}": v for n, v in stack_sequential_state(
+        sim, cfg.fusion.deepseek_block).items()})
+    return out
+
+
+def pipelined_pins(log: list, n_outside: int, blk, m: int, mb: int,
+                   n_tok: int) -> tuple:
+    """The sequential run's gate log (n_outside calls outside the
+    simulator, then one a simulator MoE layer) laid out in the pipelined
+    run's call order (the prefix, then each tick's stages' layers), each
+    real call pinned to its microbatch's rows of its layer's choice, each
+    bubble call None; and for each pinned call its layer."""
+    prefix, pattern = pipeline_split(blk, blk.pipeline_stages)
+    k = len(pattern)
+    first = blk.first_k_dense_replace
+    of_layer = {L: log[n_outside + L - first] for L in range(first,
+                                                               blk.n_layers)}
+    pins, layers = list(log[:n_outside]), [None] * n_outside
+    for L in range(first, prefix):
+        pins.append(of_layer[L])
+        layers.append(L)
+    for t in range(m + blk.pipeline_stages - 1):
+        for s in range(blk.pipeline_stages):
+            for i in range(k):
+                L, j = prefix + s * k + i, t - s
+                if 0 <= j < m:
+                    pins.append(of_layer[L][j * mb * n_tok:
+                                            (j + 1) * mb * n_tok])
+                    layers.append(L)
+                else:
+                    pins.append(None)
+                    layers.append(None)
+    return pins, layers
+
+
+def pipelined_flagship() -> dict:
+    """Phase 25 (a)."""
+    gen = flagship_generator()
+    cfg = integrated_config(use_deepseek_fusion=True,
+                            param_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16)
+    native = {"vision": CLIP_PATCHES, "language": 16}
+    t0 = time.perf_counter()
+    seq = DeepEarthModel(cfg, generator=gen, device=gen.device,
+                         native_seq_lens=native).eval()
+    m = pipe_microbatches(cfg, PIPE_BATCH)
+    cfg_pp = copy.deepcopy(cfg)
+    blk = cfg_pp.fusion.deepseek_block
+    blk.pipeline_stages, blk.pipeline_microbatches = PIPE_STAGES, m
+    pipe = DeepEarthModel(cfg_pp, generator=torch.Generator(), device="meta",
+                          native_seq_lens=native)
+    pipe.to_empty(device="cuda")
+    pipe.load_state_dict(with_pipelined_simulator(seq.state_dict(), cfg_pp))
+    # and the buffers no state dict holds (the hash grids' resolutions)
+    buffers = dict(seq.named_buffers())
+    with torch.no_grad():
+        for name, buf in pipe.named_buffers():
+            buf.copy_(buffers[name])
+    pipe.eval()
+    build_s = time.perf_counter() - t0
+    batch = make_flagship_batch(gen, PIPE_BATCH)
+    outside = [n for n in moe_sites(seq) if not n.startswith("simulator.")]
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        with gate_log() as log_s:
+            out_s = seq(batch)
+        torch.cuda.synchronize()
+        launches_s = dict(kernels.launch_counts)
+        del seq
+        free_cuda()
+        pins, layers = pipelined_pins(log_s, len(outside), blk, m,
+                                      PIPE_BATCH // m, FLAGSHIP_TOKENS)
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        with plain_versions_refused(), gate_log(pins) as log_p, \
+                path_inputs({}) as seen:
+            out_p = pipe(batch)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = dict(kernels.launch_counts)
+        # one more forward by CUDA events (the first one warmed it up)
+        fwd_ms = cuda_ms(lambda: pipe.extract_features(batch), iters=1,
+                         warmup=0)
+    if len(log_p) != len(pins):
+        raise AssertionError(f"{len(log_p)} gate calls, {len(pins)} laid "
+                             "out")
+    prefix, pattern = pipeline_split(blk, PIPE_STAGES)
+    ticks = m + PIPE_STAGES - 1
+    # the sequential forward's launches, the simulator's 23 ragged MoE
+    # calls (3 K5 each) in place of the schedule's: the prefix's, then
+    # every stage's at every tick (outside the simulator, the encoders' MoE
+    # projections route by their own sizes: ragged at B=96 for the vision
+    # encoder's, 96 x 4608 tokens past dense_all's budget)
+    sim_calls = blk.n_layers - blk.first_k_dense_replace
+    moe_calls = (prefix - blk.first_k_dense_replace
+                 + ticks * PIPE_STAGES * sum(pattern))
+    want = dict(launches_s)
+    want["grouped_matmul_fwd"] += 3 * (moe_calls - sim_calls)
+    if launches != want:
+        raise AssertionError(f"pipelined flagship launches {launches} != "
+                             f"{want}")
+    by_layer = collections.defaultdict(list)
+    for own, pin, L in zip(log_p, pins, layers):
+        if pin is not None and L is not None:
+            by_layer[L].append((own.sort(dim=-1).values
+                                != pin.sort(dim=-1).values).any(dim=-1))
+    shares = {L: torch.cat(v).float().mean().item()
+              for L, v in sorted(by_layer.items())}
+    diff = output_diff(out_p, out_s)
+    del out_s, out_p
+    free_cuda()
+    # the pipelined path's kernels on its own inputs (the microbatches'
+    # rows, the encoders' B=96) against their plain versions: both sides of
+    # the comparison above run the same kernels
+    t2 = time.perf_counter()
+    vs_plain = check_path_inputs(seen)
+    check_s = time.perf_counter() - t2
+    del pipe, seen
+    free_cuda()
+    if any(diff[k] > FLAGSHIP_TOL[k] for k in FLAGSHIP_TOL):
+        raise AssertionError(f"pipelined vs sequential flagship: {diff} "
+                             f"(tol {FLAGSHIP_TOL})")
+    if max(shares.values()) > FLAGSHIP_MAX_FLIPPED:
+        raise AssertionError(f"routing flipped: {shares}")
+    return dict(m=m, mb=PIPE_BATCH // m, prefix=prefix, k=len(pattern),
+                ticks=ticks, launches=launches, diff=diff, shares=shares,
+                build_s=build_s, forward_s=forward_s, fwd_ms=fwd_ms,
+                peak=peak, vs_plain=vs_plain, check_s=check_s)
+
+
+def distributed_flagship_train(mesh) -> dict:
+    """Phase 25 (b)."""
+    from deepearth_tpu_torch.training.distributed import DistributedTrainer
+
+    free_cuda()
+    gen = flagship_generator()
+    cfg = flagship_train_config()
+    model = DeepEarthModel(cfg, generator=gen, device=gen.device,
+                           native_seq_lens={"vision": VISION_PATCHES,
+                                            "language": 16})
+    start = {k: v.detach().to("cpu", copy=True)
+             for k, v in model.state_dict().items()}
+    b = FLAGSHIP_TRAIN_BATCH
+    batches = [make_flagship_batch(gen, b, VISION_PATCHES)
+               for _ in range(TRAIN_STEPS)]
+    # Trainer: the reference run
+    trainer = Trainer(model, cfg, FLAGSHIP_TRAIN_WEIGHTS, seed=SEED)
+    st = trainer.init_state()
+    ref, walls = [], {"trainer": [], "distributed": []}
+    with gate_log() as log_t:
+        for batch in batches:
+            t = time.perf_counter()
+            st, mt = trainer.train_step(st, batch, trainer.generator)
+            ref.append(tuple(mt[k].item() for k in
+                             ("loss/total", "loss/moe_aux", "grad_norm")))
+            walls["trainer"].append((time.perf_counter() - t) * 1e3)
+    del st
+    model.zero_grad(set_to_none=True)
+    model.load_state_dict(start)
+    del start
+    free_cuda()
+    # DistributedTrainer on the same weights, batches and seed, routed as
+    # the Trainer run was
+    ckpt = Path("build") / "phase25_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    dt = DistributedTrainer(model, cfg, FLAGSHIP_TRAIN_WEIGHTS, mesh=mesh,
+                            seed=SEED, fsdp_axes=("data",),
+                            checkpoint_dir=str(ckpt))
+    state = dt.init_state()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    with plain_versions_refused(), gate_log(log_t) as log_d:
+        for batch in batches:
+            t = time.perf_counter()
+            state, md = dt.step(state, batch)
+            runs.append(tuple(md[k].item() for k in
+                              ("loss/total", "loss/moe_aux", "grad_norm")))
+            walls["distributed"].append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(kernels.launch_counts)
+    want = expected_launches(
+        **{name: n * TRAIN_STEPS for name, n in FLAGSHIP_PER_STEP.items()})
+    if launches != want:
+        raise AssertionError(f"DistributedTrainer launches over "
+                             f"{TRAIN_STEPS} steps {launches} != {want}")
+    names = list(moe_sites(model))
+    sites = [f"{n} step {i + 1}" for i in range(TRAIN_STEPS) for n in names]
+    shares = flipped_shares(sites, log_t, log_d)
+    rel = train_rel(runs, ref)
+    # the sharded state through torch.distributed.checkpoint, then a 4th
+    # step with and without the round trip, from one generator state
+    t = time.perf_counter()
+    dt.save(state, TRAIN_STEPS)
+    save_s = time.perf_counter() - t
+    size_gb = sum(f.stat().st_size for f in ckpt.rglob("*")
+                  if f.is_file()) / 1e9
+    g_state = dt.generator.get_state()
+    with gate_log() as log_a:
+        state, m_a = dt.step(state, batches[0])
+    dt.generator.set_state(g_state)
+    t = time.perf_counter()
+    state = dt.restore(state)
+    restore_s = time.perf_counter() - t
+    restored_step = state.step
+    with gate_log(log_a):
+        state, m_b = dt.step(state, batches[0])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    after = {k: (m_a[k].item(), m_b[k].item())
+             for k in ("loss/total", "loss/moe_aux", "grad_norm")}
+    del state, dt, trainer, model, batches
+    free_cuda()
+    if any(rel[k] > FLAGSHIP_TRAIN_TOL[k] for k in FLAGSHIP_TRAIN_TOL):
+        raise AssertionError(f"DistributedTrainer vs Trainer: {rel} (tol "
+                             f"{FLAGSHIP_TRAIN_TOL})")
+    if max(shares.values()) > FLAGSHIP_MAX_FLIPPED:
+        raise AssertionError(f"routing flipped: {shares}")
+    if restored_step != TRAIN_STEPS:
+        raise AssertionError(f"restored step {restored_step}")
+    for k in ("loss/total", "loss/moe_aux"):
+        if after[k][0] != after[k][1]:
+            raise AssertionError(f"step {TRAIN_STEPS + 1} after the round "
+                                 f"trip: {k} {after[k]}")
+    g_rel = abs(after["grad_norm"][0] - after["grad_norm"][1]) / abs(
+        after["grad_norm"][0])
+    if g_rel > FLAGSHIP_TRAIN_TOL["grad_norm"]:
+        raise AssertionError(f"grad norm after the round trip {after}")
+    return dict(ref=ref, runs=runs, rel=rel, shares=shares, peak=peak,
+                launches=launches, walls=walls, save_s=save_s,
+                restore_s=restore_s, size_gb=size_gb, after=after,
+                g_rel=g_rel)
+
+
+def sharded_prefetch(mesh) -> dict:
+    """Phase 25 (c)."""
+    rng = np.random.default_rng(SEED)
+    batches = [{"xyzt": rng.random((8, 4), dtype=np.float32),
+                "modalities": {"species": rng.integers(0, 232, 8)}}
+               for _ in range(3)]
+    out = list(data_device_prefetch(iter(batches), size=2,
+                                    sharding=batch_sharding(mesh)))
+    leaves = [x for o in out for x in batch_leaves(o)]
+    if not leaves or not all(x.is_cuda for x in leaves):
+        raise AssertionError("a sharded prefetch leaf is not on the card")
+    for o, b in zip(out, batches):
+        if not np.array_equal(o["xyzt"].cpu().numpy(), b["xyzt"]):
+            raise AssertionError("one rank's rows are the whole batch")
+    return dict(n=len(leaves))
+
+
+def phase_distributed() -> dict:
+    """Phase 25: the multi-GPU layer at world size 1 (the machine's one
+    card; NCCL refuses two ranks on one device)."""
+    from deepearth_tpu_torch.parallel import create_mesh
+    from deepearth_tpu_torch.training.distributed import \
+        initialize_distributed
+
+    t0 = time.perf_counter()
+    a = pipelined_flagship()
+    t_a = time.perf_counter()
+    initialize_distributed(device="cuda")
+    try:
+        mesh = create_mesh()
+        b = distributed_flagship_train(mesh)
+        t_b = time.perf_counter()
+        c = sharded_prefetch(mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    t_end = time.perf_counter()
+    lk = a["launches"]
+    print(f"[25a pipelined flagship] simulator in {PIPE_STAGES} stages "
+          f"(prefix {a['prefix']}, {a['k']} layers a stage), B={PIPE_BATCH} "
+          f"at {CLIP_PATCHES} patches in {a['m']} microbatches of "
+          f"{a['mb']} ({a['ticks']} ticks), weights the sequential "
+          f"flagship's stacked; built in {a['build_s']:.1f} s | launches of "
+          f"the forward: K4-fwd {lk.get('flash_attention_fwd', 0)}, K5 "
+          f"{lk.get('grouped_matmul_fwd', 0)} (every MoE call ragged, bubble "
+          f"ticks included), K2-fwd {lk.get('grid4d_encode_fwd', 0)}; no "
+          f"plain version reached | vs the sequential stack, routed as it "
+          f"was: outputs max {a['diff']['max_abs']:.4g} mean "
+          f"{a['diff']['mean_abs']:.3g} (tol {FLAGSHIP_TOL}); own routing "
+          f"would flip, by layer: " + " ".join(
+              f"{L}:{v:.3g}" for L, v in a["shares"].items())
+          + f" (tol {FLAGSHIP_MAX_FLIPPED}) | first forward "
+          f"{a['forward_s'] * 1e3:.1f} ms host wall (peak mem "
+          f"{a['peak']:.2f} GiB), extract_features {a['fwd_ms']:.2f} ms by "
+          f"CUDA events | kernels vs plain at the path's inputs "
+          f"({a['check_s']:.1f} s): " + "; ".join(a["vs_plain"])
+          + f" | {card()}")
+    print(f"[25b DistributedTrainer, 1 NCCL rank] fsdp_axes=('data',), "
+          f"phase 16's step (B={FLAGSHIP_TRAIN_BATCH}, {VISION_PATCHES} "
+          f"patches, masking on) for {TRAIN_STEPS} steps: launches "
+          f"{ {k: v for k, v in b['launches'].items() if v} } (phase 16's "
+          f"per step x {TRAIN_STEPS}), no plain version reached | (loss, "
+          f"moe_aux, grad_norm) DistributedTrainer {b['runs']}, Trainer "
+          f"{b['ref']}; rel diff " + ", ".join(
+              f"{k} {v:.3g}" for k, v in b["rel"].items())
+          + f" (tol {FLAGSHIP_TRAIN_TOL}), routing pinned to Trainer's, "
+          f"largest flip share {max(b['shares'].values()):.3g} | peak mem "
+          f"{b['peak']:.2f} GiB | host wall per step (ms) Trainer "
+          f"{[round(w, 1) for w in b['walls']['trainer']]}, "
+          f"DistributedTrainer "
+          f"{[round(w, 1) for w in b['walls']['distributed']]} | "
+          f"torch.distributed.checkpoint: save {b['save_s']:.1f} s "
+          f"({b['size_gb']:.2f} GB), restore {b['restore_s']:.1f} s; step "
+          f"{TRAIN_STEPS + 1} with and without the round trip: "
+          + ", ".join(f"{k} {v[0]!r} / {v[1]!r}"
+                      for k, v in b["after"].items())
+          + f" (loss and aux bit for bit; grad norm rel {b['g_rel']:.3g}: "
+          f"K2-bwd's atomics) | {card()}")
+    print(f"[25c sharded prefetch] device_prefetch(sharding="
+          f"batch_sharding(mesh)) on one rank: {c['n']} leaves, every one "
+          f"on the card")
+    print(f"[25 multi-GPU layer] wall {t_end - t0:.1f} s (a "
+          f"{t_a - t0:.1f}, b {t_b - t_a:.1f}, c {t_end - t_b:.1f})")
+    launches = collections.Counter(a["launches"])
+    launches.update(b["launches"])
+    return {"launches": dict(launches)}
+
+
+# --multi-card: the CPU tests' gloo scenarios over NCCL, one rank a card
+MULTI_CARD_RANKS = 4
+MULTI_CARD_SCENARIOS = ("ring_pipeline", "trainer")
+# each float of the NCCL run within MULTI_CARD_TOL of the gloo run's
+# largest entry (a number: of itself), or within the tests' bar against
+# JAX: 1e-4 on a gradient (a leaf under MULTI_CARD_GRAD_KEYS), 1e-5 on
+# anything else. The pipelined stack's router has a near-tie at the tests'
+# data: the card's fp32 (~1e-7 from the CPU's) moves its gradients by up
+# to ~1e-3 of their largest entries (~2e-5), as a 1e-7 relative nudge of
+# its input does on the CPU
+MULTI_CARD_TOL, MULTI_CARD_ATOL, MULTI_CARD_GRAD_ATOL = 1e-4, 1e-5, 1e-4
+MULTI_CARD_GRAD_KEYS = {"grads", "grad", "dx", "dq", "dk", "dv"}
+MULTI_CARD_TIMEOUT_S = 240
+
+
+def start_ranks(scenario: str, device: str, workdir: Path) -> list:
+    """tests/torch_dist_worker.py's ``scenario`` as MULTI_CARD_RANKS
+    processes (NCCL, rank r on card r, with ``device='cuda'``; gloo on the
+    CPU with ``'cpu'``), each logging to ``workdir/log<rank>``."""
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                        "LOCAL_RANK")}
+    env.update(PYTHONPATH=str(root), DIST_TEST_DEVICE=device)
+    procs = []
+    for r in range(MULTI_CARD_RANKS):
+        with open(workdir / f"log{r}", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(root / "tests" / "torch_dist_worker.py"),
+                 scenario, str(r), str(MULTI_CARD_RANKS), str(workdir)],
+                stdout=log, stderr=subprocess.STDOUT, env=env))
+    return procs
+
+
+def wait_ranks(procs: list, workdir: Path, what: str) -> list:
+    """Every rank's result; kills them all and raises (with each log's
+    tail) where one fails or MULTI_CARD_TIMEOUT_S passes."""
+    def tails():
+        return "\n".join(f"rank {r}: " + (workdir / f"log{r}").read_text()[
+            -2000:] for r in range(len(procs)))
+    deadline = time.monotonic() + MULTI_CARD_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise AssertionError(f"{what}: ranks still running after "
+                             f"{MULTI_CARD_TIMEOUT_S} s\n{tails()}")
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"{what}: exit codes "
+                             f"{[p.returncode for p in procs]}\n{tails()}")
+    return [torch.load(workdir / f"rank{r}.pt", weights_only=False)
+            for r in range(len(procs))]
+
+
+def held_to(got, want, where: str, worst: dict, faults: list) -> None:
+    """``got`` (the NCCL run's) against ``want`` (the gloo run's), leaf by
+    leaf: floats and float arrays within MULTI_CARD_TOL of the reference's
+    largest entry or the absolute bar of their kind, anything else equal;
+    the worst (share of the largest entry, absolute difference) under each
+    key kept in ``worst``, each leaf beyond its bar added to ``faults``."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            faults.append(f"{where}: keys {sorted(got)} != {sorted(want)}")
+            return
+        for k in want:
+            held_to(got[k], want[k], f"{where}/{k}", worst, faults)
+        return
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            faults.append(f"{where}: {len(got)} items != {len(want)}")
+            return
+        for i, (g, w) in enumerate(zip(got, want)):
+            held_to(g, w, f"{where}/{i}", worst, faults)
+        return
+    top = "/".join(where.split("/")[:3])
+    if isinstance(want, float) or (isinstance(want, np.ndarray)
+                                   and want.dtype.kind == "f"):
+        g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        if g.shape != w.shape:
+            faults.append(f"{where}: shape {g.shape} != {w.shape}")
+            return
+        if not w.size:
+            return
+        scale = float(np.abs(w).max())
+        err = float(np.abs(g - w).max())
+        rel = err / scale if scale else err
+        was = worst.get(top, (0.0, 0.0))
+        worst[top] = (max(was[0], rel), max(was[1], err))
+        atol = (MULTI_CARD_GRAD_ATOL
+                if MULTI_CARD_GRAD_KEYS & set(where.split("/"))
+                else MULTI_CARD_ATOL)
+        if err > max(MULTI_CARD_TOL * scale, atol):
+            faults.append(f"{where}: NCCL vs gloo {err:.3g} ({rel:.3g} of "
+                          f"the largest entry {scale:.3g})")
+        return
+    same = (np.array_equal(got, want) if isinstance(want, np.ndarray)
+            else got == want)
+    if not same:
+        faults.append(f"{where}: {got!r} != {want!r}")
+
+
+def multi_card() -> None:
+    """The gloo scenarios of tests/test_torch_ring_pipeline.py and
+    tests/test_torch_distributed.py (ring attention, pipeline_apply, the
+    pipelined stack over 'data' x 'pipe', every DistributedTrainer leg,
+    the sharded checkpoint, device_prefetch) over NCCL on
+    MULTI_CARD_RANKS cards, every rank's every number held against the
+    same scenario over gloo on the CPU, run alongside (which the CPU
+    tests hold against JAX)."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < MULTI_CARD_RANKS:
+        raise RuntimeError(f"--multi-card needs {MULTI_CARD_RANKS} cards, "
+                           f"found {n_cards}")
+    base = Path(__file__).resolve().parent / "build" / "multi_card"
+    t0 = time.perf_counter()
+    gloo = {sc: start_ranks(sc, "cpu", base / f"{sc}_gloo")
+            for sc in MULTI_CARD_SCENARIOS}
+    nccl, walls = {}, {}
+    for sc in MULTI_CARD_SCENARIOS:
+        t = time.perf_counter()
+        nccl[sc] = wait_ranks(start_ranks(sc, "cuda", base / f"{sc}_nccl"),
+                              base / f"{sc}_nccl", f"{sc} over NCCL")
+        walls[sc] = time.perf_counter() - t
+    ref = {sc: wait_ranks(p, base / f"{sc}_gloo", f"{sc} over gloo")
+           for sc, p in gloo.items()}
+    faults: list = []
+    for sc in MULTI_CARD_SCENARIOS:
+        worst: dict = {}
+        for r in range(MULTI_CARD_RANKS):
+            held_to(nccl[sc][r], ref[sc][r], f"{sc}/rank{r}", worst, faults)
+        by_key = {}
+        for k, (rel, err) in worst.items():
+            key = k.split("/", 2)[2]
+            was = by_key.get(key, (0.0, 0.0))
+            by_key[key] = (max(was[0], rel), max(was[1], err))
+        print(f"[multi-card {sc}] {MULTI_CARD_RANKS} NCCL ranks, one a card,"
+              f" in {walls[sc]:.1f} s; every rank's numbers against the gloo"
+              f" run's, worst share of the largest entry / absolute "
+              f"difference by key (tol {MULTI_CARD_TOL} of it, or "
+              f"{MULTI_CARD_GRAD_ATOL} on a gradient, {MULTI_CARD_ATOL} "
+              f"else): " + ", ".join(
+                  f"{k} {v[0]:.3g} / {v[1]:.3g}"
+                  for k, v in sorted(by_key.items())))
+    shutil.rmtree(base, ignore_errors=True)
+    if faults:
+        raise AssertionError(f"{len(faults)} leaves beyond their bar:\n"
+                             + "\n".join(faults[:40]))
+    print(f"[multi-card] wall {time.perf_counter() - t0:.1f} s | "
+          + card().replace("\n", "; "))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--clip-batch-search", action="store_true",
@@ -7667,6 +8207,9 @@ def main() -> None:
     parser.add_argument("--splat-bin", action="store_true",
                         help="only K8 at phase 23's tiled scenes, by "
                              "CUDA-graph replays")
+    parser.add_argument("--multi-card", action="store_true",
+                        help=f"only the CPU tests' gloo scenarios over NCCL "
+                             f"on {MULTI_CARD_RANKS} cards, against gloo")
     parser.add_argument("--mm-train-spread", type=int, nargs="+",
                         metavar="SEED",
                         help="only phases 12's and 13's kernel-vs-plain "
@@ -7678,6 +8221,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     phase_build()
+    if args.multi_card:
+        multi_card()
+        return
     if args.clip_batch_search:
         clip_batch_search(gen)
         return
@@ -7723,6 +8269,7 @@ def main() -> None:
     remat = phase_remat()
     splats = phase_splat()
     examples = phase_examples_export()
+    distributed = phase_distributed()
     report = {"kernels": [
         {"name": "grid4d_encode_fwd", "route": "cuda",
          "source": "deepearth_tpu_torch/kernels/csrc/grid4d_encode.cu",
@@ -8016,6 +8563,12 @@ def main() -> None:
     for entry in report["kernels"] + report["off_main_path"]:
         if in_24.get(entry["name"]):
             entry["launches_in_phase_24"] = in_24[entry["name"]]
+    # phase 25: the pipelined flagship's forward and the DistributedTrainer
+    # steps on one NCCL rank
+    for entry in report["kernels"] + report["off_main_path"]:
+        if distributed["launches"].get(entry["name"]):
+            entry["launches_in_phase_25"] = (
+                distributed["launches"][entry["name"]])
     print(json.dumps(report))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,10 @@ cache, int8 / int4 weights by ``ops.quant``, ``serving.language_server``),
 with CUDA kernels for the hash-grid encoding, the token-major pairwise
 attention, mid-length and flash attention and the grouped matmul of the
 ragged expert path (each forward and backward), and the int8 / int4
-fused-dequant matmuls of decode; see ROADMAP.md for what is still to come.
+fused-dequant matmuls of decode; and the multi-GPU layer (``parallel``:
+meshes, JAX's sharding rules, ring attention, the GPipe pipeline;
+``training.distributed``: the DistributedTrainer); see ROADMAP.md for what
+is still to come.
 """
 
 from .configs import (

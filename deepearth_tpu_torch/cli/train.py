@@ -13,6 +13,10 @@ Examples:
     # the same on the CPU
     python -m deepearth_tpu_torch.cli.train --device cpu --steps 2
 
+    # data parallel over the cards of a node (NCCL; the DistributedTrainer)
+    torchrun --nproc_per_node 8 -m deepearth_tpu_torch.cli.train \
+        --distributed --steps 1000
+
 It takes the JAX script's arguments plus ``--device`` (``cuda``, the
 default, or ``cpu``), builds the same ``DeepEarthConfig`` and modality
 registry, and writes the same ``config.json`` beside its checkpoints.
@@ -51,8 +55,6 @@ from ..models import DeepEarthModel
 from ..training import LossWeights, Trainer
 from ..utils.logging import JSONLMetricWriter, setup_logging
 
-DISTRIBUTED_TODO = ("--distributed needs the multi-GPU slice, which is not "
-                    "ported yet (ROADMAP.md Queue 1, item 15)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -171,6 +173,16 @@ def run(args, cfg: DeepEarthConfig, batches: Iterable[Dict[str, Any]],
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = DeepEarthModel(cfg, generator=gen, device=device,
                            native_seq_lens=native_seq_lens(first_batch))
+    if args.distributed:
+        # the JAX script's distributed path: the default loss weights, no
+        # checkpoints
+        from ..training.distributed import DistributedTrainer
+
+        trainer = DistributedTrainer(model, cfg, seed=args.seed)
+        state = trainer.init_state(first_batch)
+        state, metrics = trainer.fit(state, batches, args.steps,
+                                     log_every=args.log_every)
+        return finish(args, state, metrics)
     trainer = Trainer(
         model, cfg, LossWeights(contrastive=0.01),
         checkpoint_dir=args.checkpoint_dir, seed=args.seed,
@@ -187,6 +199,11 @@ def run(args, cfg: DeepEarthConfig, batches: Iterable[Dict[str, Any]],
     )
     if args.checkpoint_dir:
         trainer.save(state, int(state.step))
+    return finish(args, state, metrics)
+
+
+def finish(args, state, metrics):
+    """Write the metrics line where asked and print them."""
     if args.metrics_jsonl:
         w = JSONLMetricWriter(args.metrics_jsonl)
         w.log(metrics, int(state.step))
@@ -268,6 +285,7 @@ def train_on_dataset(args, cfg: DeepEarthConfig, ds: ObservationDataset,
     def make_batches():
         return cache.batch_iterator(
             args.batch_size, seed=args.seed, steps=args.steps + 1,
+            process_shard=args.distributed,
         )
 
     batches = device_prefetch(threaded_producer(make_batches), size=2,
@@ -284,7 +302,11 @@ def main(argv=None):
     args = parse_args(argv)
     setup_logging()
     if args.distributed:
-        raise NotImplementedError(DISTRIBUTED_TODO)
+        # joins the ranks torchrun (or the JAX launch variables) describe:
+        # NCCL on the card, gloo with --device cpu
+        from ..training.distributed import initialize_distributed
+
+        initialize_distributed(device=args.device)
     cfg = make_config(args)
     if not args.data_dir:
         return train_synthetic(args, cfg)

@@ -167,7 +167,8 @@ class MLAConfig:
     # kernel K4
     use_flash_attention: bool = False
     flash_min_seq: int = 1024
-    # ring attention over a mesh axis (not ported yet: the port has no mesh)
+    # ring attention over this mesh axis under an ambient mesh
+    # (ops.sharding.use_mesh; parallel/ring.py)
     sequence_axis: Optional[str] = None
     ring_batch_axis: str = "data"
     ring_min_seq: int = 512
@@ -213,7 +214,8 @@ class DeepSeekBlockConfig:
     moe_layer_freq: int = 1
     rms_norm_eps: float = 1e-6
     dropout: float = 0.0
-    # GPipe over the layer stack (not ported yet: ROADMAP.md item 15)
+    # GPipe over the layer stack: the layers after pipeline_split's prefix
+    # in P stages (models/deepseek.py PipelineStages, parallel/pipeline.py)
     pipeline_stages: int = 0
     pipeline_microbatches: int = 0
 
@@ -335,9 +337,10 @@ class OptimizerConfig:
 
 @dataclass
 class ShardingConfig:
-    """Mesh layout: axes data / expert / model. Kept as data, so that a
-    config's JSON is the JAX package's; nothing in the port reads it until
-    the multi-GPU slice (ROADMAP.md Queue 1, item 15)."""
+    """Mesh layout: axes data / expert / model. ``mesh_shape``, where set,
+    is the default mesh's shape of ``training.distributed``'s trainer
+    (``parallel.create_mesh``); the axis names are JAX's, kept so that a
+    config's JSON is the JAX package's."""
 
     data_axis: str = "data"
     expert_axis: str = "expert"

@@ -14,6 +14,9 @@ So do the leaves of a quantized model (``ops.quant.quantize_decoder_params``
 on either side): ``kernel_q`` / ``kernel_q4`` (stored (D, Fp) as in JAX, not
 transposed), the ``scale`` beside them, and an MoE layer's ``w_*_q``,
 ``w_*_q4`` and ``w_*_scale``; their int8 values stay int8.
+A pipelined stack's ``pipe/stages/layer_i/...`` leaves carry the stage axis
+first: each is transposed (or not) stage by stage, the stage axis staying
+in front.
 Nothing here imports JAX: trees are nested mappings of numpy arrays.
 """
 
@@ -37,6 +40,24 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
             yield from _leaves(value, path)
         else:
             yield path, np.asarray(value)
+
+
+def flax_perm(ndim: int, transposed: bool, stacked: bool = False
+              ) -> Tuple[int, ...]:
+    """The port dim of each flax dim of a leaf: all reversed for a
+    transposed leaf (``.T``), all but a stacked leaf's leading stage axis;
+    the same order otherwise. Each is its own inverse."""
+    if not transposed:
+        return tuple(range(ndim))
+    if stacked:
+        return (0,) + tuple(range(ndim - 1, 0, -1))
+    return tuple(range(ndim - 1, -1, -1))
+
+
+def _to_port(value: np.ndarray, path: Tuple[str, ...], transposed: bool
+             ) -> np.ndarray:
+    return np.transpose(value, flax_perm(value.ndim, transposed,
+                                         "stages" in path[:-1]))
 
 
 def _torch_name(flax_path: Tuple[str, ...], quant: bool = False) -> str:
@@ -63,8 +84,7 @@ def load_flax_params(model: nn.Module, tree: Mapping[str, Any]) -> None:
         if name not in params or name in pending:
             raise ValueError(f"flax leaf {'/'.join(path)} has no torch "
                              f"parameter {name!r} of its own")
-        if path[-1] == "kernel":
-            value = value.T
+        value = _to_port(value, path, path[-1] == "kernel")
         if tuple(value.shape) != tuple(params[name].shape):
             raise ValueError(
                 f"{'/'.join(path)}: flax shape {value.shape} does not match "
@@ -96,13 +116,16 @@ def _flax_leaves_of(model: nn.Module
     out = {}
     for mod_name, mod in model.named_modules():
         modules = tuple(mod_name.split(".")) if mod_name else ()
+        # a pipelined stack's stacked copy of a module names its leaves as
+        # that module does
+        kind = getattr(mod, "flax_type", type(mod))
         for pname, _ in mod.named_parameters(recurse=False):
             leaf = pname
             if pname == "weight":
-                if type(mod) not in weight_leaf:
+                if kind not in weight_leaf:
                     raise ValueError(f"no flax name for the weight of a "
-                                     f"{type(mod).__name__}")
-                leaf = weight_leaf[type(mod)]
+                                     f"{kind.__name__}")
+                leaf = weight_leaf[kind]
             out[".".join(modules + (pname,))] = (modules + (leaf,),
                                                  leaf == "kernel")
     return out
@@ -132,8 +155,7 @@ def flax_params_from_model(model: nn.Module) -> Dict[str, Any]:
     params = dict(model.named_parameters())
     tree: Dict[str, Any] = {}
     for name, (path, transposed) in _flax_leaves_of(model).items():
-        value = _numpy(params[name])
-        _set(tree, path, value.T if transposed else value)
+        _set(tree, path, _to_port(_numpy(params[name]), path, transposed))
     return tree
 
 
@@ -157,7 +179,8 @@ def load_flax_opt_state(optimizer, model: nn.Module, opt_state) -> None:
         path, transposed = leaves[name]
         mu = np.array(_get(opt_state.mu, path), np.float32)
         nu = _get(opt_state.nu, path)
-        st = {"mu": torch.from_numpy(mu.T if transposed else mu)}
+        st = {"mu": torch.from_numpy(np.ascontiguousarray(
+            _to_port(mu, path, transposed)))}
         if hasattr(nu, "row"):
             row = torch.from_numpy(np.array(nu.row, np.float32))
             col = torch.from_numpy(np.array(nu.col, np.float32))
@@ -165,7 +188,8 @@ def load_flax_opt_state(optimizer, model: nn.Module, opt_state) -> None:
                                                                          col)
         else:
             nu = np.array(nu, np.float32)
-            st["nu"] = torch.from_numpy(nu.T if transposed else nu)
+            st["nu"] = torch.from_numpy(np.ascontiguousarray(
+                _to_port(nu, path, transposed)))
         state["state"].append(st)
     optimizer.load_state_dict(state)
 

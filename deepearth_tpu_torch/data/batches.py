@@ -18,8 +18,6 @@ from typing import Any, Dict, Iterable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-SHARDING_TODO = ("device_prefetch(sharding=...) needs the multi-GPU slice, "
-                 "which is not ported yet (ROADMAP.md Queue 1, item 15)")
 
 
 def map_leaves(fn, tree):
@@ -82,11 +80,28 @@ def device_prefetch(
 
     As the JAX package's prefetch: ``size`` batches are pulled before the
     first is yielded, and one more each time the consumer takes one.
+
+    ``sharding``: a ``parallel.Sharding`` such as ``batch_sharding(mesh)``;
+    each batch is cut to this rank's rows (its block along the spec's
+    first axis) before it is staged, as JAX places a batch with a
+    NamedSharding.
     """
-    if sharding is not None:
-        raise NotImplementedError(SHARDING_TODO)
     device = torch.device("cuda" if device is None else device)
     it = iter(iterator)
+    if sharding is not None:
+        # this rank's rows of each batch only (the leading dim over the
+        # spec's first axis), as JAX's NamedSharding places them
+        from ..parallel.mesh import Sharding, local_rows
+
+        if not isinstance(sharding, Sharding):
+            raise TypeError(f"sharding must be a parallel.Sharding "
+                            f"(batch_sharding(mesh)), not {sharding!r}")
+        axis = sharding.spec[0]
+
+        def mine(x):
+            x = np.asarray(x)
+            return x if x.ndim == 0 else local_rows(x, sharding.mesh, axis)
+        it = (map_leaves(mine, b) for b in it)
     buf: collections.deque = collections.deque()
 
     if device.type == "cpu":

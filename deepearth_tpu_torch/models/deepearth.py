@@ -29,6 +29,7 @@ from torch import nn
 
 from ..configs import DeepEarthConfig, ModalityConfig
 from ..ops.attention import dot_product_attention
+from ..ops.sharding import shard_hint
 from .decoders import ModalityDecoder, SpatiotemporalDecoder
 from .deepseek import DeepSeekTransformer
 from .encoders import UniversalTokenEncoder
@@ -215,7 +216,7 @@ class DeepEarthModel(nn.Module):
             if name in masks:
                 keep = masks[name][:, None, None]
                 tok = torch.where(keep, tok, self.mask_token.to(tok.dtype))
-            tokens[name] = tok
+            tokens[name] = shard_hint(tok, "data")
 
         # default positions: a square token count above 1 gets a grid of
         # spatial positions, and every token inherits the observation's

@@ -10,11 +10,25 @@ as the JAX package runs its library flash kernel on the TPU; on the CPU it
 stays on ``dot_product_attention``, as the JAX package does there. An MoE
 layer's ``auto`` dispatch takes the ragged path (the grouped matmul K5) on
 the card where the JAX package takes it on the TPU, and ``scatter`` on the
-CPU, as the JAX package does there. Ring attention needs a device mesh,
-which the port has none of: a config's ``sequence_axis`` and
-``ring_min_seq`` are read and ignored, as the JAX package ignores them where
-no mesh is set. Pipelined stages (``pipeline_stages > 1``) are not ported
-and raise (ROADMAP.md Queue 1, item 15).
+CPU, as the JAX package does there. Under an ambient mesh
+(``ops.sharding.use_mesh``, the part of ``jax.set_mesh``) a config's
+``sequence_axis`` runs MLA attention as ring attention over that axis
+(``parallel.ring``) where N >= ``ring_min_seq`` divides evenly by its size;
+without one it is read and ignored, as in JAX. While each rank holds its
+own rows of the batch, an MoE layer chooses its dispatch for the global
+batch's token count, as JAX's global program does: on a capacity-free mode
+(``ragged``, ``dense_all``) it routes its own tokens and sums the load
+statistics of its load-balance loss over 'data'; on a capacity mode it
+gathers the tokens over 'data' first. A pipelined stack then runs each
+rank's share of every global microbatch.
+
+A stack with ``pipeline_stages = P > 1`` runs its shortest aligning prefix
+of layers in sequence, then the rest as P stages of k layers each, their
+parameters stacked on a leading stage axis (``pipe.stages.layer_i``, flax's
+``pipe/stages/layer_i``), through a GPipe schedule of M + P - 1 ticks
+(``parallel.pipeline``): every stage at every tick in one process, as JAX's
+``vmap`` over stages; one stage a rank over an ambient mesh's 'pipe'
+group.
 
 Activation checkpointing (:func:`remat_wrap`, the JAX package's ``nn.remat``
 with its three policies) wraps one block at a time: the stack's blocks
@@ -26,7 +40,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-from typing import Callable, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -40,14 +54,15 @@ from ..ops import remat as remat_sites
 from ..ops.attention import dot_product_attention
 from ..ops.norms import RMSNorm
 from ..ops.rope import apply_rope_deepseek, rope_tables, yarn_get_mscale
+from ..ops.sharding import ambient_mesh, data_rows_group, rows_local, \
+    shard_hint, use_mesh
+from ..parallel import comm
 from .layers import Dense, Embed, Init, dropout
 
 FLASH_SHAPE = (
     "MLA attention over {n} >= flash_min_seq={m} tokens runs the flash "
     "kernel K4 on the card, which takes head dims up to {most}, not Dqk "
     "{qh} and Dv {vh}")
-PIPELINE_TODO = ("pipelined DeepSeek stacks (pipeline_stages > 1) are not "
-                 "ported yet (ROADMAP.md Queue 1, item 15)")
 
 _aten = torch.ops.aten
 # the outputs each dots policy keeps: matmuls without batch dims (JAX's
@@ -165,7 +180,9 @@ class MLAttention(nn.Module):
         H, rope_d = cfg.n_heads, cfg.qk_rope_head_dim
         qh, nope, vh = cfg.q_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim
         # the gate decides from the config and the device type alone
-        use_flash = (cfg.use_flash_attention and N >= cfg.flash_min_seq
+        ring_mesh = self._ring_mesh(N)
+        use_flash = (ring_mesh is None and cfg.use_flash_attention
+                     and N >= cfg.flash_min_seq
                      and x.is_cuda)
         if use_flash and not flash.supported(qh, vh):
             raise ValueError(FLASH_SHAPE.format(
@@ -190,8 +207,13 @@ class MLAttention(nn.Module):
                                device=x.device)
         q_pe = apply_rope_deepseek(q_pe, cos, sin).to(q_nope.dtype)
         k_pe = apply_rope_deepseek(k_pe, cos, sin).to(k_nope.dtype)
-        query = torch.cat([q_nope, q_pe], dim=-1)
-        key = torch.cat([k_nope, k_pe.expand(B, H, N, rope_d)], dim=-1)
+        # (B, H, N, Dh): batch over 'data', heads over 'model' in JAX's
+        # layout rule
+        query = shard_hint(torch.cat([q_nope, q_pe], dim=-1), "data",
+                           "model")
+        key = shard_hint(torch.cat([k_nope, k_pe.expand(B, H, N, rope_d)],
+                                   dim=-1), "data", "model")
+        v = shard_hint(v, "data", "model")
 
         scale = qh ** -0.5
         rs = cfg.rope_scaling
@@ -199,7 +221,19 @@ class MLAttention(nn.Module):
             ms = yarn_get_mscale(rs.factor, rs.mscale_all_dim)
             scale = scale * ms * ms
 
-        if use_flash:
+        if ring_mesh is not None:
+            from ..parallel.ring import ring_attention
+
+            ba = cfg.ring_batch_axis
+            # rows split over 'data' already are not split again
+            batch_axis = (ba if not rows_local() and ba in ring_mesh.shape
+                          and B % ring_mesh.shape[ba] == 0 else None)
+            out = ring_attention(
+                query, key.to(query.dtype), v.to(query.dtype), scale=scale,
+                mesh=ring_mesh, axis_name=cfg.sequence_axis,
+                key_mask=key_mask, is_causal=is_causal,
+                batch_axis=batch_axis).to(v.dtype)
+        elif use_flash:
             out = flash.flash_attention(
                 query, key.to(query.dtype), v.to(query.dtype), scale=scale,
                 key_mask=key_mask, causal=is_causal).to(v.dtype)
@@ -209,6 +243,19 @@ class MLAttention(nn.Module):
                                         is_causal=is_causal)
         out = self.o_proj(out.transpose(1, 2).reshape(B, N, H * vh))
         return dropout(out, cfg.attention_dropout, self.training, generator)
+
+    def _ring_mesh(self, n: int):
+        """The ambient mesh when ring attention applies: ``sequence_axis``
+        a mesh axis of size > 1 dividing N, and N >= ``ring_min_seq``.
+        A pure function of (config, mesh), the same on every rank."""
+        cfg = self.cfg
+        if cfg.sequence_axis is None or n < cfg.ring_min_seq:
+            return None
+        mesh = ambient_mesh()
+        if mesh is None:
+            return None
+        size = mesh.shape.get(cfg.sequence_axis, 1)
+        return mesh if size > 1 and n % size == 0 else None
 
 
 class SwiGLUMLP(nn.Module):
@@ -332,16 +379,28 @@ class MoELayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg, cd = self.cfg, self.compute_dtype
-        xf = x.reshape(-1, x.shape[-1])
+        E = cfg.n_routed_experts
+        x_local = x.reshape(-1, x.shape[-1])
+        # rows split over 'data': the mode is chosen for the global batch's
+        # token count, as JAX's global program chooses it. ragged and
+        # dense_all route each token alone, so each rank routes its own and
+        # only the load statistics are summed over 'data'; the capacity
+        # modes' slots follow the global token order, so they route the
+        # gathered tokens (the ranks' in turn)
+        group = data_rows_group()
+        n_ranks = comm.group_size(group)
+        mode = cfg.dispatch_mode
+        if mode == "auto":
+            mode = select_dispatch_mode(cfg, x_local.shape[0] * n_ranks,
+                                        x_local.device)
+        gathered = n_ranks > 1 and mode in ("scatter", "dense")
+        xf = comm.gather_rows(x_local, group) if gathered else x_local
         S = xf.shape[0]
         gate = moe_ops.moe_gate(
             xf.float() @ self.router_weight.T, self.e_score_correction_bias,
             top_k=cfg.num_experts_per_tok, n_group=cfg.n_group,
             topk_group=cfg.topk_group, norm_topk_prob=cfg.norm_topk_prob,
             routed_scaling_factor=cfg.routed_scaling_factor)
-        mode = cfg.dispatch_mode
-        if mode == "auto":
-            mode = select_dispatch_mode(cfg, S, xf.device)
         xc = xf.to(cd)
         weights = [w.to(cd) for w in (self.w_gate, self.w_up, self.w_down)]
         if mode == "dense_all":
@@ -350,24 +409,35 @@ class MoELayer(nn.Module):
         elif mode == "ragged":
             y = moe_ops.ragged_expert_ffn(xc, gate.topk_idx,
                                           gate.topk_weight, *weights)
-            load = moe_ops.expert_load(gate.topk_idx, cfg.n_routed_experts)
+            load = moe_ops.expert_load(gate.topk_idx, E)
         elif mode == "scatter":
             y, load = moe_ops.scatter_dispatch_ffn(
                 xc, gate.topk_idx, gate.topk_weight, *weights,
                 capacity(cfg, S))
         elif mode == "dense":
             dispatch, combine, load = moe_ops.make_dispatch_combine(
-                gate.topk_idx, gate.topk_weight,
-                n_experts=cfg.n_routed_experts, capacity=capacity(cfg, S))
+                gate.topk_idx, gate.topk_weight, n_experts=E,
+                capacity=capacity(cfg, S))
             expert_in = torch.einsum("sec,sd->ecd", dispatch.to(cd), xc)
             expert_out = moe_ops.expert_ffn(expert_in, *weights)
             y = torch.einsum("sec,ecd->sd", combine.to(cd), expert_out)
         else:
             raise ValueError(f"unknown dispatch_mode {mode!r}")
+        if gathered:
+            n = x_local.shape[0]
+            y = y[comm.group_rank(group) * n:][:n]
         if cfg.n_shared_experts:
-            y = y + self.shared_experts(xf)
-        aux_loss = moe_ops.load_balance_aux_loss(
-            gate.scores, gate.topk_idx, cfg.n_routed_experts)
+            y = y + self.shared_experts(x_local)
+        if n_ranks > 1 and not gathered:
+            counts, probs = moe_ops.load_balance_sums(gate.scores,
+                                                      gate.topk_idx, E)
+            load = comm.all_reduce_rows(counts, group)
+            probs = comm.all_reduce_rows(probs, group)
+            total = S * n_ranks
+            aux_loss = E * torch.sum(load / total * (probs / total))
+        else:
+            aux_loss = moe_ops.load_balance_aux_loss(gate.scores,
+                                                     gate.topk_idx, E)
         if not remat_sites.is_recomputing():  # keep the forward's values
             self.aux_loss, self.load, self.mode = aux_loss, load, mode
         return y.reshape(x.shape).to(x.dtype)
@@ -377,15 +447,21 @@ class MoELayer(nn.Module):
 def collect_moe_aux_losses(model: nn.Module) -> Iterator[List[torch.Tensor]]:
     """Inside, every call of a :class:`MoELayer` of ``model`` appends its
     ``aux_loss`` to the yielded list, in call order: the values flax sows
-    as ``moe_aux_loss``, one per call. A checkpointed block's recompute in a
-    backward run inside appends nothing."""
+    as ``moe_aux_loss``, one per call; a pipelined stack appends one term
+    per MoE layer of its stages (:class:`PipelineStages`). A checkpointed
+    block's recompute in a backward run inside appends nothing."""
     values: List[torch.Tensor] = []
 
     def keep(mod, args, out):
         if not remat_sites.is_recomputing():
             values.append(mod.aux_loss)
+
+    def keep_pipelined(mod, args, out):
+        values.extend(mod.moe_aux_terms)
     hooks = [m.register_forward_hook(keep)
              for m in model.modules() if isinstance(m, MoELayer)]
+    hooks += [m.register_forward_hook(keep_pipelined)
+              for m in model.modules() if isinstance(m, PipelineStages)]
     try:
         yield values
     finally:
@@ -431,24 +507,196 @@ class DeepSeekBlock(nn.Module):
         return x + (self.moe(h) if hasattr(self, "moe") else self.mlp(h))
 
 
+def pipeline_split(cfg: DeepSeekBlockConfig, n_stages: int):
+    """The smallest sequential prefix p such that layers p..n_layers split
+    into ``n_stages`` equal stages with one dense / MoE pattern (stacked
+    stage parameters need one structure); returns (p, the pattern). The
+    flagship (24 layers, first_k_dense_replace=1, 4 stages) gives p = 4.
+    Raises ``ValueError`` where no prefix aligns, as JAX does."""
+    for p in range(cfg.n_layers - n_stages + 1):
+        rem = cfg.n_layers - p
+        if rem % n_stages:
+            continue
+        k = rem // n_stages
+        pats = [tuple(layer_uses_moe(cfg, p + s * k + i) for i in range(k))
+                for s in range(n_stages)]
+        if all(q == pats[0] for q in pats):
+            return p, pats[0]
+    raise ValueError(
+        f"no prefix split of {cfg.n_layers} layers into {n_stages} uniform "
+        f"pipeline stages (first_k_dense_replace={cfg.first_k_dense_replace},"
+        f" moe_layer_freq={cfg.moe_layer_freq})")
+
+
+def _stacked_tree(template: nn.Module, blocks: List[nn.Module]) -> nn.Module:
+    """A module tree shaped as ``template`` whose parameters are those of
+    ``blocks`` stacked on a leading axis; each node keeps the template
+    node's type as ``flax_type`` (convert.py names its leaves by it)."""
+    holder = nn.Module()
+    holder.flax_type = type(template)
+    for name, _ in template.named_parameters(recurse=False):
+        holder.register_parameter(name, nn.Parameter(torch.stack(
+            [getattr(b, name).detach() for b in blocks])))
+    for name, child in template.named_children():
+        holder.add_module(name, _stacked_tree(
+            child, [getattr(b, name) for b in blocks]))
+    return holder
+
+
+class PipelineStages(nn.Module):
+    """The pipelined part of a stack (flax's ``pipe``): ``stages.layer_i``
+    holds layer i of every stage, its parameters stacked on a leading
+    stage axis of size P, and runs them through the GPipe schedule.
+
+    Each MoE layer of a stage adds one term to the load-balance loss, the
+    mean over (tick, stage) of its calls, bubble ticks included: the value
+    flax sows through ``nn.scan`` and ``nn.vmap`` (``moe_aux_terms``, read
+    by :func:`collect_moe_aux_losses`)."""
+
+    def __init__(self, cfg: DeepSeekBlockConfig, pattern, n_stages: int,
+                 init: Init, compute_dtype: torch.dtype):
+        super().__init__()
+        self.cfg, self.pattern, self.n_stages = cfg, tuple(pattern), n_stages
+        self.stages = nn.Module()
+        templates = []
+        for i, use_moe in enumerate(self.pattern):
+            blocks = [DeepSeekBlock(cfg, i, init, compute_dtype,
+                                    force_moe=bool(use_moe))
+                      for _ in range(n_stages)]
+            self.stages.add_module(f"layer_{i}",
+                                   _stacked_tree(blocks[0], blocks))
+            templates.append(blocks[0].to("meta"))
+        # the blocks that run each stage's slice of the stacked parameters
+        # (torch.func.functional_call); kept out of the module tree
+        self.__dict__["_templates"] = templates
+        self.moe_aux_terms: List[torch.Tensor] = []
+
+    def _param_names(self, i: int) -> List[str]:
+        return [n for n, _ in getattr(self.stages,
+                                      f"layer_{i}").named_parameters()]
+
+    def stage_params(self, s: int) -> List[torch.Tensor]:
+        """Stage s's parameter slices, layer by layer, in
+        :meth:`_param_names` order."""
+        return [p[s] for i in range(len(self.pattern))
+                for p in getattr(self.stages, f"layer_{i}").parameters()]
+
+    def _run_stage(self, params, x, mask, is_causal, generator, remat,
+                   remat_policy, mesh, rows_local):
+        """One stage (its k blocks) on one microbatch; returns (y, the
+        MoE layers' aux losses as a (k,) fp32 vector)."""
+        aux = []
+        it = iter(params)
+        for i, template in enumerate(self._templates):
+            names = self._param_names(i)
+            named = {n: next(it) for n in names}
+            template.train(self.training)
+
+            def block(a, m, causal, generator=None, _t=template, _p=named):
+                # rows_local: this rank's share of a global microbatch;
+                # else the global microbatch whole; alike in the forward
+                # and in any recompute
+                with use_mesh(mesh, rows_local=rows_local):
+                    return torch.func.functional_call(
+                        _t, _p, (a, m, causal), {"generator": generator})
+            fn = remat_wrap(block, remat_policy) if remat else block
+            x = fn(x, mask, is_causal, generator=generator)
+            aux.append(template.moe.aux_loss.float() if hasattr(
+                template, "moe") else torch.zeros((), device=x.device))
+        return x, torch.stack(aux)
+
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor],
+                is_causal: bool, generator: Optional[torch.Generator],
+                remat: bool = False, remat_policy: str = "full"
+                ) -> torch.Tensor:
+        """With the rows split over 'data' (n ranks), JAX's microbatches
+        are the global batch's: where each holds a multiple of n rows,
+        every rank runs its share of each (``comm.rows_to_shares``), the MoE
+        layers summing their statistics over 'data' per call; else every
+        rank runs the gathered batch whole."""
+        from ..parallel import pipeline
+
+        cfg, P = self.cfg, self.n_stages
+        mesh = ambient_mesh()
+        rows = data_rows_group()
+        n_ranks = comm.group_size(rows)
+        n_local, N, D = x.shape
+        B = n_local * n_ranks
+        m = cfg.pipeline_microbatches
+        if not m:
+            m = min(4 * P, B)
+            while B % m:
+                m -= 1
+        if B % m:
+            raise ValueError(f"batch {B} % microbatches {m} != 0")
+        shares = (B // m) % n_ranks == 0
+        if shares:
+            x = comm.rows_to_shares(x, rows, m)
+            if key_mask is not None:
+                key_mask = comm.rows_to_shares(key_mask, rows, m)
+        else:
+            x = comm.gather_rows(x, rows)
+            if key_mask is not None:
+                key_mask = comm.gather_rows(key_mask, rows)
+        mb = x.shape[0] // m
+        x_mb = x.reshape(m, mb, N, D)
+        mask_mb = (key_mask.reshape(m, mb, N)
+                   if key_mask is not None else None)
+        pipe = mesh.group("pipe") if mesh is not None else None
+        run = functools.partial(self._run_stage, is_causal=is_causal,
+                                remat=remat, remat_policy=remat_policy,
+                                mesh=mesh, rows_local=shares and n_ranks > 1)
+        if pipe is None:
+            out_mb, aux = pipeline.gpipe_local(
+                lambda s, a, mk: run(self.stage_params(s), a, mk,
+                                     generator=generator),
+                P, x_mb, mask_mb)
+        else:
+            if mesh.shape["pipe"] != P:
+                raise ValueError(f"pipeline_stages {P} != the mesh's 'pipe' "
+                                 f"size {mesh.shape['pipe']}")
+            me = comm.group_rank(pipe)
+            out_mb, aux = pipeline.gpipe_group(
+                lambda a, mk, params, gen: run(params, a, mk, generator=gen),
+                self.stage_params(me), x_mb, mask_mb, pipe, generator,
+                n_aux=len(self.pattern))
+            aux = comm.all_reduce_replicated(aux, pipe)
+        ticks = m + P - 1
+        self.moe_aux_terms = [aux[i] / (ticks * P)
+                              for i, use in enumerate(self.pattern) if use]
+        out = out_mb.reshape(m * mb, N, D)
+        if shares:
+            return comm.shares_to_rows(out, rows, m)
+        return out[comm.group_rank(rows) * n_local:][:n_local]
+
+
 class DeepSeekTransformer(nn.Module):
     """``n_layers`` decoder blocks and a final RMSNorm, run in sequence;
     with ``remat`` each block under :func:`remat_wrap` with
-    ``remat_policy`` (both plain attributes, read at every forward)."""
+    ``remat_policy`` (both plain attributes, read at every forward).
+
+    With ``pipeline_stages = P > 1`` the layers after
+    :func:`pipeline_split`'s prefix run as P pipeline stages
+    (:class:`PipelineStages`, ``self.pipe``); the output equals the
+    sequential stack's on the same weights."""
 
     def __init__(self, cfg: DeepSeekBlockConfig, init: Init,
                  compute_dtype: torch.dtype, *, remat: bool = False,
                  remat_policy: str = "full"):
         super().__init__()
-        if cfg.pipeline_stages and cfg.pipeline_stages > 1:
-            raise NotImplementedError(PIPELINE_TODO)
         if remat:
             remat_context_fn(remat_policy)  # an unknown name raises here
         self.remat, self.remat_policy = remat, remat_policy
         self.n_layers = cfg.n_layers
-        for i in range(cfg.n_layers):
+        pattern = None
+        if cfg.pipeline_stages and cfg.pipeline_stages > 1:
+            self.n_layers, pattern = pipeline_split(cfg, cfg.pipeline_stages)
+        for i in range(self.n_layers):
             self.add_module(f"layer_{i}",
                             DeepSeekBlock(cfg, i, init, compute_dtype))
+        if pattern is not None:
+            self.pipe = PipelineStages(cfg, pattern, cfg.pipeline_stages,
+                                       init, compute_dtype)
         self.norm = RMSNorm(cfg.hidden_dim, cfg.rms_norm_eps,
                             device=init.device)
 
@@ -461,7 +709,36 @@ class DeepSeekTransformer(nn.Module):
             if self.remat:
                 layer = remat_wrap(layer, self.remat_policy)
             x = layer(x, key_mask, is_causal, generator=generator)
+        if hasattr(self, "pipe"):
+            x = self.pipe(x, key_mask, is_causal, generator, self.remat,
+                          self.remat_policy)
         return self.norm(x)
+
+
+def stack_sequential_state(state: Dict[str, torch.Tensor],
+                           cfg: DeepSeekBlockConfig
+                           ) -> Dict[str, torch.Tensor]:
+    """A sequential stack's state dict (``layer_j.*``, ``norm.*``) as the
+    pipelined stack's of ``cfg`` (``cfg.pipeline_stages`` stages): the
+    prefix layers as they are, stage s's layer i from layer
+    prefix + s k + i, stacked (``parallel.stack_stage_params``)."""
+    from ..parallel.pipeline import stack_stage_params
+
+    P = cfg.pipeline_stages
+    prefix, pattern = pipeline_split(cfg, P)
+    k = len(pattern)
+    out = {n: v for n, v in state.items()
+           if not n.startswith("layer_")
+           or int(n.split(".")[0][6:]) < prefix}
+    for i in range(k):
+        per_stage = []
+        for s in range(P):
+            head = f"layer_{prefix + s * k + i}."
+            per_stage.append({n[len(head):]: v for n, v in state.items()
+                              if n.startswith(head)})
+        for n, v in stack_stage_params(per_stage).items():
+            out[f"pipe.stages.layer_{i}.{n}"] = v
+    return out
 
 
 class DeepSeekForCausalLM(nn.Module):

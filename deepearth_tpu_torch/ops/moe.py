@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from . import grouped_matmul
+from .sharding import shard_hint
 
 
 class GateResult(NamedTuple):
@@ -175,8 +176,12 @@ def dense_all_expert_ffn(xf: torch.Tensor, topk_idx: torch.Tensor,
     w_dense = w_dense.to(xf.dtype).float()
     y = torch.zeros(xf.shape, dtype=torch.float32, device=xf.device)
     for i in range(e):
-        h = F.silu(xf @ w_gate[i]) * (xf @ w_up[i])
-        y += (h @ w_down[i]).float() * w_dense[:, i:i + 1]
+        # JAX's (E, N, F) layout hints, one expert at a time: tokens over
+        # 'data', features over 'model'
+        h = F.silu(shard_hint(xf @ w_gate[i], "data", "model")) * \
+            shard_hint(xf @ w_up[i], "data", "model")
+        y += shard_hint(h @ w_down[i], "data", None).float() * \
+            w_dense[:, i:i + 1]
     return y.to(xf.dtype), expert_load(topk_idx, e)
 
 
@@ -204,6 +209,17 @@ def load_balance_aux_loss(scores: torch.Tensor, topk_idx: torch.Tensor,
     f = mask.mean(dim=0)
     p = (scores / (scores.sum(dim=-1, keepdim=True) + 1e-20)).mean(dim=0)
     return n_experts * torch.sum(f * p)
+
+
+def load_balance_sums(scores: torch.Tensor, topk_idx: torch.Tensor,
+                      n_experts: int):
+    """The sums over tokens that :func:`load_balance_aux_loss` takes the
+    means of: (E,) tokens routed per expert and (E,) normalised scores.
+    Summed over the ranks that each route their own tokens, they give the
+    global loss, E sum_e (counts_e / S) (scores_e / S)."""
+    counts = F.one_hot(topk_idx.long(), n_experts).float().sum(dim=(0, 1))
+    probs = (scores / (scores.sum(dim=-1, keepdim=True) + 1e-20)).sum(dim=0)
+    return counts, probs
 
 
 def ragged_expert_ffn(xf: torch.Tensor, topk_idx: torch.Tensor,

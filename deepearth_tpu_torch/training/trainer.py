@@ -201,10 +201,35 @@ def _model_device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _gather_leaves(tree, n_rows: int, group, keys=None):
+    """Every tensor leaf of ``tree`` (under ``keys`` at its top, where
+    given) whose first dim is ``n_rows``, gathered over ``group`` in rank
+    order (``parallel.comm.gather_rows``: differentiable, its backward a
+    reduce-scatter); other leaves as they are."""
+    from ..parallel.comm import gather_rows
+
+    def one(x):
+        if isinstance(x, torch.Tensor) and x.dim() >= 1 \
+                and x.shape[0] == n_rows:
+            return gather_rows(x, group)
+        return x
+    if keys is None:
+        return _map_batch(one, tree)
+    return {k: (_map_batch(one, v) if k in keys else v)
+            for k, v in tree.items()}
+
+
+# the model outputs deepearth_loss reads
+_LOSS_OUTPUTS = ("reconstructions", "modality_tokens", "fused_representation")
+
+
 def make_train_step(model: nn.Module, config: DeepEarthConfig,
                     loss_weights: Optional[LossWeights] = None,
                     apply_masking: bool = True,
-                    microbatch_steps: int = 1) -> Callable:
+                    microbatch_steps: int = 1, *,
+                    rows_group=None,
+                    grad_sync: Optional[Callable[[], None]] = None
+                    ) -> Callable:
     """The train step ``(state, batch, generator) -> (state, metrics)``:
     sample masks, forward in training mode, loss, backward, update.
 
@@ -216,15 +241,34 @@ def make_train_step(model: nn.Module, config: DeepEarthConfig,
     batch leaf whose first axis is the batch), accumulates their gradients
     and averages them, so the update sees the full-batch mean gradient;
     each microbatch draws its own masks.
+
+    ``rows_group``: a process group over which the batch's rows are split
+    (``DistributedTrainer``'s 'data' axis): this rank holds its contiguous
+    block of each (micro)batch. Masks are then drawn for the whole batch,
+    alike on every rank, and sliced; the loss is taken over the model's
+    outputs gathered from every rank (the global masked means, the
+    contrastive term over the whole batch), and each rank's backward takes
+    1/size of it, so the ranks' gradients sum to the global one.
+    ``grad_sync`` runs after the backward and before the gradient norm and
+    the update (the trainer's all-reduce).
     """
+    from ..parallel.comm import group_rank, group_size
+
     weights = loss_weights or LossWeights()
+    n_ranks = group_size(rows_group)
+    my_rank = group_rank(rows_group)
     modality_names = tuple(sorted(config.modalities))
     modality_probs = {n: m.mask_prob for n, m in config.modalities.items()}
     k = int(microbatch_steps)
 
+    def mine(tree, n):
+        return _map_batch(lambda x: x[my_rank * n:(my_rank + 1) * n], tree)
+
     def mask_batch(batch, generator):
-        masks = sample_masks(generator, batch["xyzt"].shape[0],
-                             modality_names, config.masking, modality_probs)
+        n = batch["xyzt"].shape[0]
+        # drawn for every rank's rows, then this rank's kept
+        masks = mine(sample_masks(generator, n * n_ranks, modality_names,
+                                  config.masking, modality_probs), n)
         batch = {**batch, **masks}
         patch_masks = dict(batch.get("modality_patch_masks", {}))
         for name in modality_names:
@@ -233,13 +277,13 @@ def make_train_step(model: nn.Module, config: DeepEarthConfig,
             x = batch["modalities"][name]
             m = config.modalities[name]
             if m.encoding_type == "token_sequence" and x.dim() == 2:
-                patch_masks[name] = mlm_token_mask(
-                    generator, x.shape[0], x.shape[1],
-                    config.masking.language_token_mask_prob)
+                patch_masks[name] = mine(mlm_token_mask(
+                    generator, n * n_ranks, x.shape[1],
+                    config.masking.language_token_mask_prob), n)
             elif m.encoding_type == "continuous_values" and x.dim() == 3:
-                patch_masks[name] = mae_patch_mask(
-                    generator, x.shape[0], x.shape[1],
-                    config.masking.vision_patch_mask_prob)
+                patch_masks[name] = mine(mae_patch_mask(
+                    generator, n * n_ranks, x.shape[1],
+                    config.masking.vision_patch_mask_prob), n)
         if patch_masks:
             batch = {**batch, "modality_patch_masks": patch_masks}
         return batch
@@ -249,10 +293,14 @@ def make_train_step(model: nn.Module, config: DeepEarthConfig,
             batch = mask_batch(batch, generator)
         with collect_moe_aux_losses(model) as aux:
             out = model(batch, generator=generator)
+        if n_ranks > 1:
+            n = batch["xyzt"].shape[0]
+            out = _gather_leaves(out, n, rows_group, _LOSS_OUTPUTS)
+            batch = _gather_leaves(batch, n, rows_group)
         loss, metrics = deepearth_loss(
             out, batch, config, weights,
             {"moe_aux_loss": aux} if aux else None)
-        loss.backward()
+        (loss / n_ranks if n_ranks > 1 else loss).backward()
         return {name: v.detach() for name, v in metrics.items()}
 
     def train_step(state: TrainState, batch: Dict[str, Any],
@@ -279,6 +327,8 @@ def make_train_step(model: nn.Module, config: DeepEarthConfig,
                     if p.grad is not None:
                         p.grad.mul_(1.0 / k)
             metrics = {name: v / k for name, v in metrics.items()}
+        if grad_sync is not None:
+            grad_sync()
         with torch.no_grad():
             metrics["grad_norm"] = global_norm(
                 p.grad for p in model.parameters() if p.grad is not None)

@@ -353,9 +353,20 @@ def test_device_prefetch_on_the_cpu(size):
 
 
 def test_device_prefetch_refuses_sharding():
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """A sharding that is not the port's (``parallel.Sharding``) is
+    refused; ``batch_sharding(mesh)`` places this rank's rows (on one
+    process, an abstract mesh: coordinate 0 of 'data')."""
+    from deepearth_tpu_torch.parallel import Mesh, batch_sharding
+
+    with pytest.raises(TypeError, match="Sharding"):
         next(tdata.device_prefetch(iter([mixed_batch(0)]), device="cpu",
                                    sharding=object()))
+    b = mixed_batch(0)
+    out = next(tdata.device_prefetch(
+        iter([b]), device="cpu",
+        sharding=batch_sharding(Mesh(("data", "model"), (2, 1)))))
+    half = b["xyzt"].shape[0] // 2
+    np.testing.assert_array_equal(out["xyzt"].numpy(), b["xyzt"][:half])
 
 
 def test_echo_on_device_order():

@@ -270,8 +270,9 @@ def test_encoder_derives_the_jax_head_dims():
 
 @pytest.mark.parametrize("what", ["moe_layer", "moe_projection", "pipeline"])
 def test_unported_deepseek_options_raise(what):
-    """MoE layers and the MoE projection are ported (they build); pipelined
-    stacks, with or without MoE layers, still raise."""
+    """MoE layers, the MoE projection and pipelined stacks are ported (they
+    build); a pipelined stack whose layers no prefix splits into uniform
+    stages raises JAX's ValueError."""
     _, tc_mla = mla_cfgs()
     if what == "moe_projection":
         m = tcfg.ModalityConfig(name="v", input_dim=8, use_moe_projection=True)
@@ -285,8 +286,13 @@ def test_unported_deepseek_options_raise(what):
         assert hasattr(tds.DeepSeekTransformer(cfg, port_init(),
                                                torch.float32).layer_1, "moe")
     cfg.pipeline_stages = 2
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tds.DeepSeekTransformer(cfg, port_init(), torch.float32)
+    if moe is not None:
+        # [dense, MoE] splits into no two uniform stages
+        with pytest.raises(ValueError, match="no prefix split"):
+            tds.DeepSeekTransformer(cfg, port_init(), torch.float32)
+    else:
+        stack = tds.DeepSeekTransformer(cfg, port_init(), torch.float32)
+        assert stack.n_layers == 0 and stack.pipe.n_stages == 2
 
 
 def test_deepseek_config_json_round_trips():

@@ -22,7 +22,6 @@ from deepearth_tpu.models.decoders import (
 from deepearth_tpu.models.fusion import CrossModalFusion as JaxFusion
 from deepearth_tpu.models.grid4d import Grid4DEncoder as JaxGrid4D
 from deepearth_tpu_torch import (
-    DeepSeekBlockConfig,
     config_from_json,
     kernels,
     load_flax_params,
@@ -258,19 +257,31 @@ def test_batch_major_layout_not_ported(pair):
 @pytest.mark.parametrize("what", ["continuous_values", "token_sequence",
                                   "deepseek_block"])
 def test_unported_branches_raise(what):
-    """A pipelined simulator still raises. The other two branches are
-    ported and match JAX's forward: a continuous modality with its MoE
-    projection and decode_sequence (its (B, S, Din) input reconstructed
-    whole by a TokenSequenceDecoder), and a token sequence ((B, S) ids, an
-    embedding zeroed at MLM-hidden positions, the encoder, per-token
-    logits)."""
+    """The three branches once unported, each now matching JAX's forward:
+    a pipelined simulator (2 stages, the JAX package's vmapped schedule), a
+    continuous modality with its MoE projection and decode_sequence (its
+    (B, S, Din) input reconstructed whole by a TokenSequenceDecoder), and a
+    token sequence ((B, S) ids, an embedding zeroed at MLM-hidden
+    positions, the encoder, per-token logits)."""
     if what == "deepseek_block":
-        cfg = config_from_json(jcfg.config_to_json(small_jax_config()))
-        cfg.fusion.deepseek_block = DeepSeekBlockConfig(hidden_dim=128,
-                                                        pipeline_stages=2)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DeepEarthModel(cfg, generator=torch.Generator().manual_seed(0),
-                           device="cpu")
+        jc = small_jax_config()
+        jc.fusion.deepseek_block = jcfg.DeepSeekBlockConfig(
+            hidden_dim=128, pipeline_stages=2)
+        batch = numpy_batch(3)
+        jmodel = JaxModel(jc)
+        params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                      to_jax(batch))["params"]
+        assert "pipe" in params["simulator"]
+        model = DeepEarthModel(config_from_json(jcfg.config_to_json(jc)),
+                               generator=torch.Generator().manual_seed(0),
+                               device="cpu")
+        load_flax_params(model, jax.tree_util.tree_map(np.asarray, params))
+        ref = jax.jit(jmodel.apply)({"params": params}, to_jax(batch))
+        with torch.no_grad():
+            out = model(to_torch(batch))
+        for key in ("spatial", "temporal", "species"):
+            close(out["reconstructions"][key], ref["reconstructions"][key])
+        close(out["fused_representation"], ref["fused_representation"])
         return
     jc = small_jax_config()
     m = jc.modalities["species"]
