@@ -347,7 +347,22 @@ needs 4 cards: runs tests/torch_dist_worker.py's scenarios (ring attention,
 pipeline_apply, the pipelined stack, every DistributedTrainer leg of
 tests/test_torch_distributed.py, the sharded checkpoint, device_prefetch)
 over NCCL, one rank a card, and holds every rank's numbers against the
-same scenarios over gloo on the CPU, without the last two lines.
+same scenarios over gloo on the CPU; then phase 16's flagship train step
+on the 4 cards split as JAX's mesh splits it (data 2 x expert 2 x model 1,
+fsdp_axes=('data', 'expert'); ranks of this script started with
+--split-rank) against the single-card Trainer on the same weights,
+batches and config in the same call: losses, aux and grad norm, routing
+flips, each card's peak memory (below the single card's) and stored
+state bytes, step ms, and rank 0's kernels on its own inputs (its rows:
+K2 and K3 at B=32) held against their plain versions (path_inputs,
+PATH_CHECKS); without the last two lines. A leg computed in bf16 on fp32
+parameters and the numbers that depend on which tensors a device's
+kernels save are held against JAX or the port's own step by the CPU tests
+alone, not against gloo (MULTI_CARD_HELD_APART).
+
+    python3 chip_smoke.py --multi-card --split-only
+
+runs only that flagship scenario (4 cards).
 """
 
 from __future__ import annotations
@@ -3345,14 +3360,28 @@ def site_modes(model) -> dict:
             for k, v in modes.items()}
 
 
+def rows_of(idx: torch.Tensor, n: int, part: tuple) -> torch.Tensor:
+    """The rows of a logged (S, K) choice that a gate of ``n`` tokens saw:
+    all of them, or where n is a share of S, share ``part[0]`` of
+    ``part[1]`` (a 'data' rank's own tokens), on the card."""
+    if idx.shape[0] != n:
+        if idx.shape[0] != n * part[1]:
+            raise AssertionError(f"a gate of {n} tokens against a log of "
+                                 f"{idx.shape[0]} over {part[1]} ranks")
+        idx = idx[part[0] * n:(part[0] + 1) * n]
+    return idx.to("cuda")
+
+
 @contextlib.contextmanager
-def gate_log(pinned: Optional[list] = None):
+def gate_log(pinned: Optional[list] = None, part: tuple = (0, 1)):
     """Log every MoE gate's top-k choice made inside, in call order. With
     ``pinned``, the log of an earlier run, each call routes as that run did
     (its weights from this run's own scores; a None entry: its own
     choice), and the log keeps this run's own choice: the difference
     between two runs is then their arithmetic, and a flipped near-tie is
-    counted, not propagated."""
+    counted, not propagated. A gate that routes a 'data' rank's own tokens
+    takes its rows of the pinned choice (``part``: the rank's index and the
+    rank count, ``rows_of``)."""
     real, log = moe.moe_gate, []
 
     def gate(logits, bias, **kw):
@@ -3360,7 +3389,7 @@ def gate_log(pinned: Optional[list] = None):
         log.append(g.topk_idx)
         if pinned is None or pinned[len(log) - 1] is None:
             return g
-        idx = pinned[len(log) - 1]
+        idx = rows_of(pinned[len(log) - 1], logits.shape[0], part)
         w = torch.gather(g.scores, 1, idx.long())
         if kw["top_k"] > 1 and kw["norm_topk_prob"]:
             w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
@@ -5694,9 +5723,9 @@ def read_peak_before_update(state) -> list:
     alone when the peak is reset as each step starts."""
     update, readings = state.optimizer.step, []
 
-    def step():
+    def step(**kwargs):
         readings.append(torch.cuda.max_memory_allocated() / 2 ** 30)
-        update()
+        update(**kwargs)
     state.optimizer.step = step
     return readings
 
@@ -7252,6 +7281,21 @@ def _check_k3_fwd(a):
     return _held("K3-fwd", err, err <= tol, f"VMEM_TOL {tol}")
 
 
+def _check_k3_bwd(a):
+    """K3-bwd's dq, dk and dv, each within BWD_TOL of its plain version's
+    largest entry (check_grads' bar)."""
+    got = kernels.vmem_attention_bwd(**a)
+    ref = attention_vmem.vmem_attention_bwd_plain(
+        a["q"], a["k"], a["v"], a["dout"], scale=a["scale"],
+        key_mask=a["key_mask"])
+    tol = BWD_TOL[a["q"].dtype]
+    errs = [(max_err(g, r), tol * r.float().abs().max().item() + 1e-6)
+            for g, r in zip(got, ref)]
+    return _held("K3-bwd", max(e for e, _ in errs),
+                 all(e <= t for e, t in errs),
+                 f"BWD_TOL {tol} of the largest entry")
+
+
 def _check_k4_fwd(a):
     """K4-fwd's (out, lse), the plain version CLIP_PLAIN_BATCH batch rows
     at a time, as check_flash holds them."""
@@ -7336,6 +7380,7 @@ PATH_CHECKS = {"pairwise_attention_fwd": ("K1-fwd", _check_k1_fwd),
                "hash_encode_fwd": ("K2-fwd", _check_k2_fwd),
                "hash_encode_bwd": ("K2-bwd", _check_k2_bwd),
                "vmem_attention_fwd": ("K3-fwd", _check_k3_fwd),
+               "vmem_attention_bwd": ("K3-bwd", _check_k3_bwd),
                "flash_attention_fwd": ("K4-fwd", _check_k4_fwd),
                "grouped_matmul_fwd": ("K5-fwd", _check_k5_fwd),
                "int8_bmm": ("K6", _check_quant("K6", "int8_bmm",
@@ -8046,7 +8091,14 @@ MULTI_CARD_SCENARIOS = ("ring_pipeline", "trainer")
 # to ~1e-3 of their largest entries (~2e-5), as a 1e-7 relative nudge of
 # its input does on the CPU
 MULTI_CARD_TOL, MULTI_CARD_ATOL, MULTI_CARD_GRAD_ATOL = 1e-4, 1e-5, 1e-4
-MULTI_CARD_GRAD_KEYS = {"grads", "grad", "dx", "dq", "dk", "dv"}
+MULTI_CARD_GRAD_KEYS = {"grads", "full_grads", "grad", "dx", "dq", "dk",
+                        "dv"}
+# held apart from the gloo run: the trainer leg computed in bf16 (the card's
+# bf16 rounds otherwise than the CPU's; tests/test_torch_distributed.py
+# holds it against the port's single-process step), and the bytes of the
+# tensors made from gathered weights and of those autograd keeps (they
+# depend on which tensors a device's kernels save)
+MULTI_CARD_HELD_APART = {"fsdp_bf16", "made_peak", "kept"}
 MULTI_CARD_TIMEOUT_S = 240
 
 
@@ -8071,13 +8123,14 @@ def start_ranks(scenario: str, device: str, workdir: Path) -> list:
     return procs
 
 
-def wait_ranks(procs: list, workdir: Path, what: str) -> list:
+def wait_ranks(procs: list, workdir: Path, what: str,
+               timeout: float = MULTI_CARD_TIMEOUT_S) -> list:
     """Every rank's result; kills them all and raises (with each log's
-    tail) where one fails or MULTI_CARD_TIMEOUT_S passes."""
+    tail) where one fails or ``timeout`` seconds pass."""
     def tails():
         return "\n".join(f"rank {r}: " + (workdir / f"log{r}").read_text()[
             -2000:] for r in range(len(procs)))
-    deadline = time.monotonic() + MULTI_CARD_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -8086,7 +8139,7 @@ def wait_ranks(procs: list, workdir: Path, what: str) -> list:
             p.kill()
             p.wait()
         raise AssertionError(f"{what}: ranks still running after "
-                             f"{MULTI_CARD_TIMEOUT_S} s\n{tails()}")
+                             f"{timeout} s\n{tails()}")
     if any(p.returncode for p in procs):
         raise AssertionError(f"{what}: exit codes "
                              f"{[p.returncode for p in procs]}\n{tails()}")
@@ -8105,7 +8158,8 @@ def held_to(got, want, where: str, worst: dict, faults: list) -> None:
             faults.append(f"{where}: keys {sorted(got)} != {sorted(want)}")
             return
         for k in want:
-            held_to(got[k], want[k], f"{where}/{k}", worst, faults)
+            if k not in MULTI_CARD_HELD_APART:
+                held_to(got[k], want[k], f"{where}/{k}", worst, faults)
         return
     if isinstance(want, (list, tuple)):
         if len(got) != len(want):
@@ -8191,6 +8245,310 @@ def multi_card() -> None:
           + card().replace("\n", "; "))
 
 
+# --multi-card's flagship scenario: phase 16's train step (B=64 over 576
+# patches, masking on, bf16 first moment, factored second moment,
+# moe_aux=0.01) on MULTI_CARD_RANKS cards, one NCCL rank a card, split as
+# JAX's mesh splits it: data 2 x expert 2 x model 1 with
+# fsdp_axes=('data', 'expert'). The 'expert' axis demotes the MoE layers'
+# ragged dispatch, so no K5 runs: the encoders' MoE projections take
+# dense_all, the simulator's layers scatter at 1,408 global tokens. Held
+# against the single-card Trainer on the same weights, batches, masks and
+# demoted config in the same call (routing pinned to it, flips counted, the
+# loss, aux and grad norm within FLAGSHIP_TRAIN_TOL); every card's peak
+# below that step's
+SPLIT_MESH = (2, 2, 1)
+SPLIT_FSDP = ("data", "expert")
+SPLIT_PER_STEP = {"vmem_attention_fwd": 2, "vmem_attention_bwd": 2,
+                  "grid4d_encode_fwd": K2_PER_FORWARD,
+                  "hash_encode_bwd": K2_BWD_PER_STEP}
+SPLIT_TIMEOUT_S = 420
+STEP_METRICS = ("loss/total", "loss/moe_aux", "grad_norm")
+
+
+def demoted_flagship(gen):
+    """Phase 16's flagship and its config, the MoE layers' ragged dispatch
+    demoted as an 'expert' axis demotes it (DistributedTrainer)."""
+    from deepearth_tpu_torch.training.distributed import \
+        _demote_ragged_dispatch
+
+    cfg = _demote_ragged_dispatch(flagship_train_config())
+    model = DeepEarthModel(cfg, generator=gen, device=gen.device,
+                           native_seq_lens={"vision": VISION_PATCHES,
+                                            "language": 16})
+    for mod in moe_sites(model).values():
+        mod.cfg = _demote_ragged_dispatch(mod.cfg)
+    batches = [make_flagship_batch(gen, FLAGSHIP_TRAIN_BATCH, VISION_PATCHES)
+               for _ in range(TRAIN_STEPS)]
+    return cfg, model, batches
+
+
+def timed_train_steps(step, batches) -> tuple:
+    """Each step's (loss, aux, grad norm) and synchronised host ms."""
+    out, ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        out.append(tuple(m[k].item() for k in STEP_METRICS))
+    return out, ms
+
+
+def split_reference(workdir: Path) -> dict:
+    """The single-card Trainer's TRAIN_STEPS steps on card 0, its gate log
+    kept in ``workdir/reference.pt`` for the ranks."""
+    free_cuda()
+    cfg, model, batches = demoted_flagship(flagship_generator())
+    trainer = Trainer(model, cfg, FLAGSHIP_TRAIN_WEIGHTS, seed=SEED)
+    st = trainer.init_state()
+    state_bytes = sum(t.numel() * t.element_size() for t in itertools.chain(
+        model.parameters(), (v for p in st.optimizer.params
+                             for v in st.optimizer.state[p].values())))
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step(batch):
+        nonlocal st
+        st, m = trainer.train_step(st, batch, trainer.generator)
+        return m
+    with gate_log() as log:
+        steps, ms = timed_train_steps(step, batches)
+    ref = dict(steps=steps, ms=ms, state_bytes=state_bytes,
+               peak=torch.cuda.max_memory_allocated(),
+               launches=dict(kernels.launch_counts),
+               modes=site_modes(model), log=[t.cpu() for t in log])
+    torch.save(ref, workdir / "reference.pt")
+    del st, trainer, model, batches, log
+    free_cuda()
+    return ref
+
+
+def split_profile(step) -> dict:
+    """One more step under torch.profiler (host and device): its host
+    wall, the kernels' device ms and launches, NCCL's share of them, and
+    the largest host ops by self time and kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    dev, host = [], []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        annotation = (getattr(e, "is_user_annotation", False)
+                      or e.key.startswith(("ProfilerStep", "Optimizer.")))
+        if "CUDA" in str(e.device_type) and dev_us > 0 and not annotation:
+            dev.append((e.key, dev_us / 1e3, e.count))
+        elif e.self_cpu_time_total > 0:
+            host.append((e.key, e.self_cpu_time_total / 1e3, e.count))
+    nccl = [r for r in dev if "nccl" in r[0].lower()]
+    return dict(
+        wall_ms=wall, kernel_ms=sum(r[1] for r in dev),
+        launches=sum(r[2] for r in dev), nccl_ms=sum(r[1] for r in nccl),
+        nccl_launches=sum(r[2] for r in nccl),
+        dev_top=sorted(dev, key=lambda r: -r[1])[:8],
+        host_top=sorted(host, key=lambda r: -r[1])[:12])
+
+
+def all_gather_rate(mb: int = 256, iters: int = 5) -> float:
+    """GB/s each rank receives in an all-gather of ``mb`` MB over the
+    world (bf16, after a warm-up call; CUDA events)."""
+    world = torch.distributed.get_world_size()
+    part = torch.ones(mb * 2 ** 19 // world, dtype=torch.bfloat16,
+                      device="cuda")
+    out = torch.empty(part.numel() * world, dtype=part.dtype,
+                      device="cuda")
+    torch.distributed.all_gather_into_tensor(out, part)
+    ms = cuda_ms(lambda: torch.distributed.all_gather_into_tensor(
+        out, part), iters=iters, warmup=1)
+    return (world - 1) * part.numel() * 2 / ms / 1e6
+
+
+def split_rank(rank: int, workdir: Path) -> None:
+    """One rank of the flagship scenario (``--split-rank``): NCCL rank
+    ``rank`` on card ``rank``, its results in ``workdir/rank<rank>.pt``."""
+    from deepearth_tpu_torch.parallel import AXES, create_mesh
+    from deepearth_tpu_torch.training.distributed import DistributedTrainer
+
+    torch.cuda.set_device(rank)
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"file://{workdir / 'store'}", rank=rank,
+        world_size=MULTI_CARD_RANKS)
+    try:
+        mesh = create_mesh(mesh_shape=SPLIT_MESH, axis_names=AXES)
+        ref = torch.load(workdir / "reference.pt", weights_only=False)
+        cfg, model, batches = demoted_flagship(flagship_generator())
+        dt = DistributedTrainer(model, cfg, FLAGSHIP_TRAIN_WEIGHTS,
+                                mesh=mesh, seed=SEED, fsdp_axes=SPLIT_FSDP,
+                                lr_scale_by_data_parallel=False)
+        state = dt.init_state()
+        free_cuda()
+        stored = dt.local_bytes()
+        part = (mesh.coordinate("data"), mesh.shape["data"])
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        gathered, made = [], []
+
+        def step(batch):
+            nonlocal state
+            state, m = dt.step(state, batch)
+            gathered.append(dt.gathered_peak)
+            made.append(dt.made_peak)
+            return m
+        with gate_log(ref["log"], part) as log:
+            steps, ms = timed_train_steps(step, batches)
+        names = list(moe_sites(model))
+        sites = [f"{n} step {i + 1}" for i in range(TRAIN_STEPS)
+                 for n in names]
+        mine = [rows_of(r, x.shape[0], part).cpu()
+                for r, x in zip(ref["log"], log)]
+        shares = flipped_shares(sites, [x.cpu() for x in log], mine)
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(kernels.launch_counts)
+        profiled = split_profile(lambda: step(batches[0]))
+        bandwidth = all_gather_rate()
+        # rank 0's kernels on its own inputs (its rows of the global batch:
+        # K3 at B=32, K2 at its points) against their plain versions, in
+        # one more step (path_inputs keeps the path's tensors)
+        vs_plain, checked, fault = [], [], None
+        with (path_inputs({}) if rank == 0
+              else contextlib.nullcontext({})) as seen:
+            step(batches[1])
+        if rank == 0:
+            checked = sorted({name for name, _ in seen})
+            try:
+                vs_plain = check_path_inputs(seen)
+            except AssertionError as e:
+                fault = str(e)
+        del seen
+        torch.save(dict(
+            steps=steps, ms=ms, peak=peak, launches=launches,
+            shares=shares, profile=profiled, bandwidth=bandwidth,
+            stored=sum(stored.values()),
+            stored_params=sum(v for k, v in stored.items()
+                              if k.startswith("params/")),
+            experts={n: m.experts for n, m in moe_sites(model).items()},
+            coords={ax: mesh.coordinate(ax) for ax in mesh.axis_names},
+            modes=site_modes(model), gathered=gathered, made=made,
+            unit_bytes=max(dt.unit_bytes().values()), vs_plain=vs_plain,
+            checked=checked, vs_plain_fault=fault),
+            workdir / f"rank{rank}.pt")
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def multi_card_split() -> None:
+    """The flagship scenario (see SPLIT_MESH): the single-card reference on
+    card 0, then MULTI_CARD_RANKS ranks of this script (``--split-rank``),
+    each number held against the reference."""
+    base = Path(__file__).resolve().parent / "build" / "multi_card" / "split"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ref = split_reference(base)
+    t_ref = time.perf_counter() - t0
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                        "LOCAL_RANK")}
+    # NCCL's choice of transport between the cards, read from its log
+    env.update(PYTHONPATH=str(root), NCCL_DEBUG="INFO",
+               NCCL_DEBUG_SUBSYS="INIT")
+    procs = []
+    for r in range(MULTI_CARD_RANKS):
+        with open(base / f"log{r}", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(root / "chip_smoke.py"), "--split-rank",
+                 str(r), str(base)], stdout=log, stderr=subprocess.STDOUT,
+                env=env))
+    got = wait_ranks(procs, base, "the flagship over NCCL", SPLIT_TIMEOUT_S)
+    t_ranks = time.perf_counter() - t0 - t_ref
+    transports = sorted(set(re.findall(r" via (\S+)",
+                                       (base / "log0").read_text())))
+    faults = []
+    want = expected_launches(**{k: v * TRAIN_STEPS
+                                for k, v in SPLIT_PER_STEP.items()})
+    for r, g in enumerate(got):
+        if g["steps"] != got[0]["steps"]:
+            faults.append(f"rank {r}'s metrics {g['steps']} != rank 0's")
+        if g["launches"] != want:
+            faults.append(f"rank {r}: launches {g['launches']} != {want}")
+        if g["peak"] >= ref["peak"]:
+            faults.append(f"rank {r}: peak {g['peak']} >= the single "
+                          f"card's {ref['peak']}")
+        worst = max(g["shares"].values())
+        if worst > FLAGSHIP_MAX_FLIPPED:
+            faults.append(f"rank {r}: routing flipped for {worst:.4f}")
+        c = g["coords"]["expert"]
+        for n, (first, count) in g["experts"].items():
+            E = 8 if n.startswith("simulator.") else 4
+            if (first, count) != (c * E // 2, E // 2):
+                faults.append(f"rank {r}: {n} ran experts {first}.."
+                              f"{first + count - 1} of {E}")
+    if got[0]["vs_plain_fault"]:
+        faults.append(f"rank 0's kernels at its inputs: "
+                      f"{got[0]['vs_plain_fault']}")
+    elif set(SPLIT_PER_STEP) - set(got[0]["checked"]):
+        faults.append(f"rank 0's kernels at its inputs: checked "
+                      f"{got[0]['checked']}, not all of {list(SPLIT_PER_STEP)}")
+    rel = train_rel(got[0]["steps"], ref["steps"])
+    if any(rel[k] > FLAGSHIP_TRAIN_TOL[k] for k in FLAGSHIP_TRAIN_TOL):
+        faults.append(f"4 cards vs 1: {rel} (tol {FLAGSHIP_TRAIN_TOL})")
+    gib = 2 ** 30
+    print(f"[multi-card split] phase 16's flagship step (B="
+          f"{FLAGSHIP_TRAIN_BATCH}, {VISION_PATCHES} patches, masking on, "
+          f"{FLAGSHIP_TRAIN_WEIGHTS}, bf16 mu, factored nu) on "
+          f"{MULTI_CARD_RANKS} NCCL ranks, mesh data x expert x model "
+          f"{SPLIT_MESH}, fsdp_axes={SPLIT_FSDP}, {TRAIN_STEPS} steps; "
+          f"dispatch {got[0]['modes']} | (loss, moe_aux, grad_norm) 4 cards "
+          f"{got[0]['steps']}, 1 card {ref['steps']}; rel diff " + ", ".join(
+              f"{k} {v:.3g}" for k, v in rel.items())
+          + f" (tol {FLAGSHIP_TRAIN_TOL}), routing pinned to the single "
+          f"card's, largest flip share by rank "
+          f"{[round(max(g['shares'].values()), 4) for g in got]} | peak "
+          f"GiB by card {[round(g['peak'] / gib, 2) for g in got]}, one "
+          f"card {ref['peak'] / gib:.2f} | stored state GB by rank "
+          f"{[round(g['stored'] / 1e9, 3) for g in got]} (params "
+          f"{[round(g['stored_params'] / 1e9, 3) for g in got]}), one card "
+          f"{ref['state_bytes'] / 1e9:.3f} | most whole bytes gathered at "
+          f"once (GB) by rank {[round(max(g['gathered']) / 1e9, 3) for g in got]}"
+          f", largest unit {got[0]['unit_bytes'] / 1e9:.3f}, made from them "
+          f"at once (casts, concatenations; GB) by rank "
+          f"{[round(max(g['made']) / 1e9, 3) for g in got]} | rank 0's "
+          f"kernels vs plain at its inputs: {'; '.join(got[0]['vs_plain'])}"
+          f" | step ms by "
+          f"rank {[[round(x, 1) for x in g['ms']] for g in got]}, one card "
+          f"{[round(x, 1) for x in ref['ms']]} | launches a rank "
+          f"{ {k: v for k, v in got[0]['launches'].items() if v} }, one "
+          f"card { {k: v for k, v in ref['launches'].items() if v} } | "
+          f"experts by rank "
+          f"{[sorted(set(g['experts'].values())) for g in got]} | "
+          f"reference {t_ref:.1f} s, ranks {t_ranks:.1f} s | {card()}")
+    prof = got[0]["profile"]
+    print(f"[multi-card split profile, rank 0, one more step] host wall "
+          f"{prof['wall_ms']:.1f} ms; kernels {prof['kernel_ms']:.1f} ms of "
+          f"device time in {prof['launches']} launches, NCCL "
+          f"{prof['nccl_ms']:.1f} ms in {prof['nccl_launches']}; kernels "
+          "by device ms (launches): " + "; ".join(
+              f"{k[:50]} {ms:.1f} ({n})" for k, ms, n in prof["dev_top"])
+          + " | host ops by self ms (calls): " + "; ".join(
+              f"{k[:40]} {ms:.1f} ({n})" for k, ms, n in prof["host_top"])
+          + f" | a 256 MB bf16 all-gather: GB/s received by rank "
+          f"{[round(g['bandwidth'], 1) for g in got]}; NCCL's transports "
+          f"(rank 0's log): {transports}")
+    shutil.rmtree(base, ignore_errors=True)
+    if faults:
+        raise AssertionError("the flagship over 4 cards:\n"
+                             + "\n".join(faults))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--clip-batch-search", action="store_true",
@@ -8210,6 +8568,11 @@ def main() -> None:
     parser.add_argument("--multi-card", action="store_true",
                         help=f"only the CPU tests' gloo scenarios over NCCL "
                              f"on {MULTI_CARD_RANKS} cards, against gloo")
+    parser.add_argument("--split-only", action="store_true",
+                        help="with --multi-card: only its flagship scenario")
+    parser.add_argument("--split-rank", nargs=2, metavar=("RANK", "DIR"),
+                        help="one rank of --multi-card's flagship scenario "
+                             "(started by it)")
     parser.add_argument("--mm-train-spread", type=int, nargs="+",
                         metavar="SEED",
                         help="only phases 12's and 13's kernel-vs-plain "
@@ -8219,10 +8582,16 @@ def main() -> None:
         raise RuntimeError("chip_smoke.py needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.split_rank:
+        kernels.library()  # built by the --multi-card run that started it
+        split_rank(int(args.split_rank[0]), Path(args.split_rank[1]))
+        return
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     phase_build()
     if args.multi_card:
-        multi_card()
+        if not args.split_only:
+            multi_card()
+        multi_card_split()
         return
     if args.clip_batch_search:
         clip_batch_search(gen)

@@ -54,8 +54,8 @@ from ..ops import remat as remat_sites
 from ..ops.attention import dot_product_attention
 from ..ops.norms import RMSNorm
 from ..ops.rope import apply_rope_deepseek, rope_tables, yarn_get_mscale
-from ..ops.sharding import ambient_mesh, data_rows_group, rows_local, \
-    shard_hint, use_mesh
+from ..ops.sharding import ambient_mesh, data_rows_group, expert_split, \
+    rows_local, shard_hint, use_mesh
 from ..parallel import comm
 from .layers import Dense, Embed, Init, dropout
 
@@ -351,8 +351,21 @@ class MoELayer(nn.Module):
     sows the first two, as ``moe_aux_loss`` and ``moe_load``): ``aux_loss``,
     the load-balance loss, differentiable through the router's scores;
     ``load``, the (E,) tokens routed per expert; ``mode``, the dispatch mode
-    it took. :func:`collect_moe_aux_losses` gathers ``aux_loss`` over every
-    call of a forward.
+    it took; ``experts``, (the first, the count) of the experts it ran.
+    :func:`collect_moe_aux_losses` gathers ``aux_loss`` over every call of
+    a forward.
+
+    Under an ambient mesh whose 'expert' axis has more than one rank and
+    divides E (``ops.sharding.expert_split``), the layer runs only this
+    rank's block of E / ranks experts (the block of the weights that the
+    'expert' rule gives it), on every token it routes: the gate sees all E
+    experts, the route (``dense_all``, ``scatter`` or ``dense``; ``ragged``
+    raises) keeps the whole routing's slots and runs the block's, and the
+    blocks' outputs are summed over 'expert' (the backward passes the
+    gradient on); the tokens and the gate weights enter through
+    ``comm.split_inputs``, so their gradients, and every weight's before
+    the experts, are whole and alike on the axis's ranks. The load
+    statistics and the aux loss see every expert.
     """
 
     def __init__(self, cfg: MoEConfig, init: Init,
@@ -375,7 +388,7 @@ class MoELayer(nn.Module):
         if cfg.n_shared_experts:
             self.shared_experts = SwiGLUMLP(D, F_ * cfg.n_shared_experts,
                                             init, compute_dtype)
-        self.aux_loss = self.load = self.mode = None
+        self.aux_loss = self.load = self.mode = self.experts = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg, cd = self.cfg, self.compute_dtype
@@ -402,25 +415,48 @@ class MoELayer(nn.Module):
             topk_group=cfg.topk_group, norm_topk_prob=cfg.norm_topk_prob,
             routed_scaling_factor=cfg.routed_scaling_factor)
         xc = xf.to(cd)
+        topk_weight = gate.topk_weight
         weights = [w.to(cd) for w in (self.w_gate, self.w_up, self.w_down)]
+        # experts over 'expert': this rank runs its block of them on every
+        # token it routes, and the blocks' outputs are added over the axis
+        split = expert_split(E)
+        first, n_mine, reduce = 0, E, None
+        if split is not None:
+            ep, first, n_mine = split
+            if mode == "ragged":
+                raise ValueError("the ragged dispatch has no expert-parallel "
+                                 "layout: DistributedTrainer demotes it "
+                                 "under an 'expert' axis")
+            weights = [self._experts_of(w, first, n_mine) for w in weights]
+            xc = comm.split_inputs(xc, ep)
+            topk_weight = comm.split_inputs(topk_weight, ep)
+
+            def reduce(y, ep=ep):
+                return comm.all_reduce_replicated(y, ep)
+        block = dict(first_expert=first, n_experts=E, reduce=reduce)
         if mode == "dense_all":
             y, load = moe_ops.dense_all_expert_ffn(
-                xc, gate.topk_idx, gate.topk_weight, *weights)
+                xc, gate.topk_idx, topk_weight, *weights, **block)
         elif mode == "ragged":
-            y = moe_ops.ragged_expert_ffn(xc, gate.topk_idx,
-                                          gate.topk_weight, *weights)
+            y = moe_ops.ragged_expert_ffn(xc, gate.topk_idx, topk_weight,
+                                          *weights)
             load = moe_ops.expert_load(gate.topk_idx, E)
         elif mode == "scatter":
             y, load = moe_ops.scatter_dispatch_ffn(
-                xc, gate.topk_idx, gate.topk_weight, *weights,
-                capacity(cfg, S))
+                xc, gate.topk_idx, topk_weight, *weights, capacity(cfg, S),
+                **block)
         elif mode == "dense":
             dispatch, combine, load = moe_ops.make_dispatch_combine(
-                gate.topk_idx, gate.topk_weight, n_experts=E,
+                gate.topk_idx, topk_weight, n_experts=E,
                 capacity=capacity(cfg, S))
-            expert_in = torch.einsum("sec,sd->ecd", dispatch.to(cd), xc)
+            mine = slice(first, first + n_mine)
+            expert_in = torch.einsum("sec,sd->ecd",
+                                     dispatch[:, mine].to(cd), xc)
             expert_out = moe_ops.expert_ffn(expert_in, *weights)
-            y = torch.einsum("sec,ecd->sd", combine.to(cd), expert_out)
+            y = torch.einsum("sec,ecd->sd", combine[:, mine].to(cd),
+                             expert_out)
+            if reduce is not None:
+                y = reduce(y.float()).to(cd)
         else:
             raise ValueError(f"unknown dispatch_mode {mode!r}")
         if gathered:
@@ -440,7 +476,21 @@ class MoELayer(nn.Module):
                                                      gate.topk_idx, E)
         if not remat_sites.is_recomputing():  # keep the forward's values
             self.aux_loss, self.load, self.mode = aux_loss, load, mode
+            self.experts = (first, n_mine)
         return y.reshape(x.shape).to(x.dtype)
+
+    def _experts_of(self, w: torch.Tensor, first: int, n: int
+                    ) -> torch.Tensor:
+        """Experts [first, first + n) of a stacked expert weight: the
+        weight itself where it holds only those (this rank's block under
+        the 'expert' rule), else its slice."""
+        E = self.cfg.n_routed_experts
+        if w.shape[0] == n:
+            return w
+        if w.shape[0] == E:
+            return w[first:first + n]
+        raise ValueError(f"expert weight of {w.shape[0]} experts: want {E}, "
+                         f"or this rank's {n}")
 
 
 @contextlib.contextmanager

@@ -17,11 +17,17 @@ Top-k takes the lower index first among equal values, as ``jax.lax.top_k``
 does, and every sort is stable: which tokens an expert drops, and which of
 two tied experts wins, follow the JAX package. Nothing here reads a value
 back to the host on the card's path.
+
+``dense_all_expert_ffn`` and ``scatter_dispatch_ffn`` also run a block of
+the experts (``first_expert`` on, ``n_experts`` in all: the weights hold
+that block), routing over all of them: the result is this block's part of
+the combined output, in fp32, passed through ``reduce`` (the sum over the
+ranks that hold the other blocks) before its cast.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -125,18 +131,27 @@ def position_in_expert(topk_idx: torch.Tensor, n_experts: int
 def scatter_dispatch_ffn(xf: torch.Tensor, topk_idx: torch.Tensor,
                          topk_weight: torch.Tensor, w_gate: torch.Tensor,
                          w_up: torch.Tensor, w_down: torch.Tensor,
-                         capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                         capacity: int, *, first_expert: int = 0,
+                         n_experts: Optional[int] = None,
+                         reduce: Optional[Callable] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity dispatch by gathers: the semantics of the one-hot path (the
     same priority, the same drops) in O(N K D) + O(E C D). Each assignment
     gets a slot, dropped ones a trash slot that reads and writes a zero row.
+    With a block of the experts (module docstring) the slots are the whole
+    routing's and the block runs its own.
 
     Returns (N, D) in xf's type and load (E,).
     """
     n, d = xf.shape
     k = topk_idx.shape[1]
     e = w_gate.shape[0]
-    flat_e, pos, load = position_in_expert(topk_idx, e)
-    slot = torch.where(pos < capacity, flat_e.long() * capacity + pos,
+    flat_e, pos, load = position_in_expert(topk_idx, n_experts or e)
+    slot = torch.where(pos < capacity,
+                       (flat_e.long() - first_expert) * capacity + pos,
+                       e * capacity)
+    # another block's expert: the trash slot
+    slot = torch.where((slot >= 0) & (slot < e * capacity), slot,
                        e * capacity)
     token_of = torch.arange(n, device=xf.device).repeat(k)  # k-major rows
     # slot -> source token; unfilled slots keep n, the zero row
@@ -150,13 +165,20 @@ def scatter_dispatch_ffn(xf: torch.Tensor, topk_idx: torch.Tensor,
                          expert_out.new_zeros((1, d))])
     gathered = out_pad[slot]  # (K*N, D)
     w = topk_weight.T.reshape(-1)[:, None].to(gathered.dtype)
-    y = (gathered * w).reshape(k, n, d).sum(dim=0).to(xf.dtype)
+    if reduce is None:
+        y = (gathered * w).reshape(k, n, d).sum(dim=0).to(xf.dtype)
+    else:
+        y = reduce((gathered * w).reshape(k, n, d).float().sum(dim=0)).to(
+            xf.dtype)
     return y, load
 
 
 def dense_all_expert_ffn(xf: torch.Tensor, topk_idx: torch.Tensor,
                          topk_weight: torch.Tensor, w_gate: torch.Tensor,
-                         w_up: torch.Tensor, w_down: torch.Tensor
+                         w_up: torch.Tensor, w_down: torch.Tensor, *,
+                         first_expert: int = 0,
+                         n_experts: Optional[int] = None,
+                         reduce: Optional[Callable] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every token through every expert, combined by the gate weights:
     drop-free routing with no dispatch. Each expert's gate, up and down
@@ -168,20 +190,23 @@ def dense_all_expert_ffn(xf: torch.Tensor, topk_idx: torch.Tensor,
     Returns (N, D) in xf's type and load (E,), the tokens routed per expert.
     """
     n = xf.shape[0]
-    e = w_gate.shape[0]
+    e = n_experts or w_gate.shape[0]
     # (N, E) gate weights: zeros except each token's K chosen experts
     w_dense = torch.zeros((n, e), dtype=torch.float32,
                           device=xf.device).scatter_add_(
         1, topk_idx.long(), topk_weight.float())
     w_dense = w_dense.to(xf.dtype).float()
     y = torch.zeros(xf.shape, dtype=torch.float32, device=xf.device)
-    for i in range(e):
+    for i in range(w_gate.shape[0]):
         # JAX's (E, N, F) layout hints, one expert at a time: tokens over
         # 'data', features over 'model'
         h = F.silu(shard_hint(xf @ w_gate[i], "data", "model")) * \
             shard_hint(xf @ w_up[i], "data", "model")
+        col = first_expert + i
         y += shard_hint(h @ w_down[i], "data", None).float() * \
-            w_dense[:, i:i + 1]
+            w_dense[:, col:col + 1]
+    if reduce is not None:
+        y = reduce(y)
     return y.to(xf.dtype), expert_load(topk_idx, e)
 
 

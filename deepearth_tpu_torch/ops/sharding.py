@@ -11,10 +11,14 @@ splits it); computations that span the batch in JAX's global program (the
 MoE dispatch and its load-balance loss, a pipelined stack's microbatches)
 then communicate over 'data' (:func:`data_rows_group`).
 
+Where the ambient mesh's 'expert' axis has more than one rank and divides
+an MoE layer's expert count, the layer computes only this rank's experts
+(:func:`expert_split`), as JAX's layout puts the experts over 'expert'.
+
 :func:`shard_hint` keeps the JAX package's call sites. There it pins a
 large activation's layout for GSPMD; here a rank's tensors are its own
-blocks already (each rank computes its data rows whole: ROADMAP.md item
-15b), so the hint returns ``x`` unchanged, with a mesh or without.
+blocks already (its data rows, its experts; the matmuls are not split over
+'model'), so the hint returns ``x`` unchanged, with a mesh or without.
 """
 
 from __future__ import annotations
@@ -55,6 +59,27 @@ def data_rows_group():
     if not rows_local():
         return None
     return ambient_mesh().group("data")
+
+
+def expert_split(n_experts: int):
+    """(the 'expert' process group, this rank's first expert, its expert
+    count) while the ambient mesh's 'expert' axis has more than one rank
+    and divides ``n_experts``; else None. Raises where the mesh names such
+    an axis but has no process group for it."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return None
+    ranks = int(mesh.shape.get("expert", 1))
+    if ranks <= 1 or n_experts % ranks:
+        return None
+    group = mesh.group("expert")
+    if group is None:
+        raise RuntimeError(f"{mesh} splits the experts over 'expert' "
+                           f"({ranks} ranks) but has no process group for "
+                           "it: build it with create_mesh over initialised "
+                           "ranks")
+    per = n_experts // ranks
+    return group, mesh.coordinate("expert") * per, per
 
 
 def shard_hint(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:

@@ -195,6 +195,15 @@ def param_spec(path: str, shape: Tuple[int, ...], mesh: MeshLike,
     return spec
 
 
+def splits_experts(path: str, shape: Tuple[int, ...],
+                   mesh: MeshLike) -> bool:
+    """Whether the rules put 'expert' on a stacked MoE weight's expert dim
+    (each rank then keeps its own experts; ``fsdp_axes`` never moves
+    'expert' off it)."""
+    return any("expert" in _names(e)
+               for e in _base_param_spec(path, shape, mesh))
+
+
 def _base_param_spec(path: str, shape: Tuple[int, ...],
                      mesh: MeshLike) -> Spec:
     ms = _shape_of(mesh)

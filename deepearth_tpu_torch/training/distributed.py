@@ -11,21 +11,44 @@
   losses and MoE routing see the global batch (``make_train_step``'s
   ``rows_group``), so the numbers are the single-device step's.
 
-How a step runs. Each sharded leaf is gathered whole for the step (a
-DTensor ``full_tensor``); each 'data' rank computes its own rows (an MoE
-layer on a capacity-free route sums only its load statistics over 'data';
-on a capacity route it gathers the tokens; a pipelined stack runs the
-rank's share of every global microbatch); ranks along 'expert' and 'model'
-compute their data rows alike, ranks along 'sequence' split attention by
-ring (``parallel.ring``) and ranks along 'pipe' run one pipeline stage
-each (``parallel.pipeline``). The gradients are summed over 'data' (and a
-stacked stage's over 'pipe') into whole gradients, the fused AdamW update
-runs on the whole leaves, so the global norm and a factored second
-moment's row and column means are the global leaf's, and each rank keeps
-its block of the new parameters and moments; the whole copies are freed
-until the next step. So ``fsdp_axes`` lowers the storage between steps,
-not a step's peak. The expert all-to-all and the tensor-parallel split of
-the matmuls are not done: each rank computes the whole of its rows.
+How a step runs: as JAX's GSPMD runs its step over the same shardings.
+Each parameter stays this rank's block. The model runs in units (each
+DeepSeek decoder layer, MoE layer, fusion layer, transformer block and
+pipelined stack, and one root unit for the leaves outside them); just
+before a unit runs, each of its blocks is all-gathered whole over the
+axes that split it (``comm.gather_unit``), and once it has run the whole
+copies are freed. A tensor autograd saved from a whole copy does not keep
+it: the backward gathers the copy again where it unpacks the tensor
+(``comm.saved_whole_hooks``; a checkpointed block's recompute gathers
+anew), and frees it once the copy's gradient is complete. Nor does a
+tensor made from the copies and the parameters used as they are alone (a
+layer's cast of its weights to the compute dtype, a concatenation of
+weights): autograd keeps how it was made, and the backward makes it again
+from the copies. A whole copy's gradient goes back to the block by the
+meaning of each axis: summed over 'data' (its ranks compute different
+rows; a reduce-scatter, an all-reduce where the leaf is whole over
+'data') and over 'pipe' for a stacked stage's leaf; taken as this rank's
+block without a sum over 'expert', 'model' and 'sequence', whose ranks
+compute the same rows and so the same gradient.
+No rank holds the whole model's weights or gradients at once, in the
+parameters' dtype or the compute dtype.
+
+The experts of an MoE layer are split over 'expert': a rank keeps its
+E / ranks experts (their rule's block, never gathered over 'expert'),
+runs them on every token it routes, and the blocks' outputs are summed
+over the axis (``models.deepseek.MoELayer``); an MoE layer on a capacity
+route gathers its tokens over 'data' first, so its slots follow the
+global token order. Ranks along 'sequence' split attention by ring
+(``parallel.ring``) and ranks along 'pipe' run one pipeline stage each
+(``parallel.pipeline``); the matmuls are not split over 'model' and a
+'pipe' rank gathers every stage's weights for the step.
+
+The fused AdamW update runs on the blocks (``FusedAdamW``'s
+``layouts``): the global norm sums each element's square once over the
+mesh, a factored second moment's row and column means add the blocks'
+partial sums over the ranks that split the reduced dim; its factors are
+kept at the block's rows and columns. ``MultiSteps``'s accumulators are
+blocks too.
 
 Checkpoints are ``torch.distributed.checkpoint`` directories of the
 sharded state, one per step; Orbax's format is JAX's own and the port does
@@ -34,8 +57,10 @@ not write it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import math
 import os
 import re
 import shutil
@@ -47,12 +72,14 @@ import torch.distributed as dist
 
 from ..configs import DeepEarthConfig
 from ..data.batches import map_leaves
+from ..ops import remat as remat_sites
 from ..ops.sharding import use_mesh
 from ..parallel import comm
 from ..parallel.mesh import (Mesh, Sharding, create_mesh,
                              module_leaf_layouts, param_spec,
-                             placements_for)
+                             placements_for, splits_experts)
 from .losses import LossWeights
+from .optimizers import BlockLayout
 from .trainer import MultiSteps, TrainState, create_optimizer, \
     make_train_step
 
@@ -141,14 +168,40 @@ def _demote_ragged_dispatch(cfg):
 
 
 class _Leaf:
-    """One tensor of the train state: where it lives whole (a parameter's
-    data or an optimizer state entry) and its sharding."""
+    """One tensor of the train state: where this rank's block of it lives
+    (a parameter's data or an optimizer state entry), its sharding and the
+    whole leaf's shape."""
 
-    def __init__(self, key: str, get, put, sharding: Sharding, shape):
-        self.key, self.get, self.put = key, get, put
+    def __init__(self, key: str, get, sharding: Sharding, shape):
+        self.key, self.get = key, get
         self.sharding, self.shape = sharding, tuple(shape)
-        self.sharded = not sharding.is_trivial(self.shape)
-        self.local: Optional[torch.Tensor] = None
+
+
+def _unit_types() -> tuple:
+    """The modules that gather their own blocks when they run."""
+    from ..models.deepseek import DeepSeekBlock, MoELayer, PipelineStages
+    from ..models.fusion import FusionLayer
+    from ..models.transformer import TransformerBlock
+
+    return (DeepSeekBlock, MoELayer, PipelineStages, FusionLayer,
+            TransformerBlock)
+
+
+def _factor_sharding(sh: Sharding, dropped: int) -> Sharding:
+    """A factored second moment's sharding: its parameter's, the dim the
+    mean runs over (``dropped``) held whole (every rank holding a part of it
+    computes the same factor) and the dims after it moved down one."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for pl in sh.placements:
+        if isinstance(pl, Shard) and pl.dim == dropped:
+            out.append(Replicate())
+        elif isinstance(pl, Shard) and pl.dim > dropped:
+            out.append(Shard(pl.dim - 1))
+        else:
+            out.append(pl)
+    return Sharding(sh.mesh, None, tuple(out))
 
 
 class DistributedTrainer:
@@ -163,7 +216,14 @@ class DistributedTrainer:
     global batch, as in JAX. ``apply_masking=False`` takes the masks from
     the batch (the port's extension, for runs held against another). Under
     an expert axis > 1 a ragged MoE dispatch is demoted to 'auto', in the
-    trainer's config and in the model's MoE layers."""
+    trainer's config and in the model's MoE layers.
+
+    :meth:`init_state` makes the model the trainer's, once: its
+    parameters become this rank's blocks and its units gather them in
+    forward hooks, so the model runs only inside :meth:`step` (a forward
+    elsewhere raises) and a second ``init_state`` raises. To evaluate or
+    export it, :meth:`full_params` gathers the parameters whole into a
+    state dict for a model of the same config."""
 
     keep = 3
 
@@ -200,152 +260,280 @@ class DistributedTrainer:
         self.apply_masking = apply_masking
         if int(self.mesh.shape.get("expert", 1)) > 1:
             self.config = _demote_ragged_dispatch(self.config)
-            from ..models.deepseek import MoELayer
+            from ..models.deepseek import MoELayer, PipelineStages
 
-            for mod in model.modules():
-                if isinstance(mod, MoELayer):
-                    mod.cfg = _demote_ragged_dispatch(mod.cfg)
+            layers = [m for m in model.modules() if isinstance(m, MoELayer)]
+            for mod in model.modules():  # the stages' blocks, kept apart
+                if isinstance(mod, PipelineStages):
+                    layers += [m for t in mod._templates
+                               for m in t.modules()
+                               if isinstance(m, MoELayer)]
+            for mod in layers:
+                mod.cfg = _demote_ragged_dispatch(mod.cfg)
         device = next(model.parameters()).device
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(seed)
         self._leaves: List[_Leaf] = []
         self._step_fn = None
+        self._units: Dict[torch.nn.Module, list] = {}
+        self._sync: List[Tuple[torch.nn.Parameter, tuple]] = []
+        self._splitting = False
+        self._open: List[Tuple[list, comm.UnitGather]] = []
+        self.gathered_peak = self.made_peak = 0
 
     # -- state --------------------------------------------------------------- #
+
+    def _sharding(self, path: str, shape, perm) -> Sharding:
+        spec = param_spec(path, shape, self.mesh, self.fsdp_axes) \
+            if shape else ()
+        return Sharding(self.mesh, spec, placements_for(spec, self.mesh,
+                                                        perm))
+
+    def _layout(self, sh: Sharding, whole: Tuple[int, ...]) -> BlockLayout:
+        """The optimizer's view of a block: per dim the groups splitting it;
+        counted in the global norm by the first rank of each axis that holds
+        it whole."""
+        from torch.distributed.tensor import Shard
+
+        dim_groups = [[] for _ in whole]
+        counted = True
+        for ax, pl in zip(self.mesh.axis_names, sh.placements):
+            group = self.mesh.group(ax)
+            if group is None:
+                continue
+            if isinstance(pl, Shard):
+                dim_groups[pl.dim].append(group)
+            elif self.mesh.coordinate(ax):
+                counted = False
+        return BlockLayout(whole, tuple(tuple(g) for g in dim_groups),
+                           counted)
+
+    def _plan(self, path: str, sh: Sharding, whole: Tuple[int, ...],
+              experts: bool) -> Tuple[Optional[comm.ParamGather], tuple]:
+        """How a parameter's block is gathered for its unit (None: it is
+        used as it is) and the groups its gradient is summed over after the
+        backward (where it is not gathered). ``experts``: the rules put
+        'expert' on the leaf's expert dim (``splits_experts``)."""
+        from torch.distributed.tensor import Shard
+
+        stage = "/stages/" in f"/{path}/"
+        axes, sums = [], []
+        for index, (ax, pl) in enumerate(zip(self.mesh.axis_names,
+                                             sh.placements)):
+            group = self.mesh.group(ax)
+            if group is None:
+                continue
+            rows = ax == "data" or (ax == "pipe" and stage)
+            if not isinstance(pl, Shard):
+                if rows:
+                    sums.append(group)
+                continue
+            if ax == "expert" and experts:
+                # the rank's own experts: never gathered over 'expert'
+                if any(isinstance(p, Shard) and p.dim == pl.dim and a != ax
+                       for a, p in zip(self.mesh.axis_names, sh.placements)
+                       if self.mesh.group(a) is not None):
+                    raise ValueError(f"{path}: its expert dim is split over "
+                                     "'expert' and another axis")
+                continue
+            axes.append(comm.GatherAxis(index, group, pl.dim, rows))
+        if not axes:
+            return None, tuple(sums)
+        shape = [s.stop - s.start for s in sh.local_slices(whole)]
+        for ax in axes:
+            shape[ax.dim] *= comm.group_size(ax.group)
+        return comm.ParamGather(tuple(reversed(axes)), tuple(sums),
+                                tuple(shape)), ()
 
     def init_state(self, sample_batch: Optional[Dict[str, Any]] = None
                    ) -> TrainState:
         """The model's parameters (alike on every rank: the mesh's first
-        rank's are broadcast) and a fresh optimizer, stored sharded.
-        ``sample_batch`` is not needed (the port's model is built
-        already); it is taken for JAX's call shape."""
+        rank's are broadcast), each then kept as this rank's block, and a
+        fresh optimizer over the blocks. ``sample_batch`` is not needed
+        (the port's model is built already); it is taken for JAX's call
+        shape."""
+        if self._leaves:
+            raise RuntimeError("init_state ran already: the model's "
+                               "parameters are this rank's blocks")
+        layouts = module_leaf_layouts(self.model)
+        named = dict(self.model.named_parameters())
+        info = {}
         with torch.no_grad():
             # the mesh's first rank's parameters, axis by axis
-            params = [p.data for p in self.model.parameters()]
+            params = [p.data for p in named.values()]
             for axis in self.mesh.axis_names:
                 group = self.mesh.group(axis)
                 if group is not None:
                     comm.broadcast_(params, group)
+            for name, p in named.items():
+                path, shape, perm = layouts[name]
+                sh = self._sharding(path, shape, perm)
+                whole = tuple(p.shape)
+                if not sh.is_trivial(whole):
+                    p.data = p.data[sh.local_slices(whole)].clone()
+                info[name] = (path, sh, whole,
+                              splits_experts(path, shape, self.mesh))
+        norm_groups = tuple(g for g in map(self.mesh.group,
+                                           self.mesh.axis_names)
+                            if g is not None)
         state = TrainState(self.model, create_optimizer(
-            self.model.parameters(), self.config.optimizer))
-        self._leaves = self._make_leaves(state)
-        for leaf in self._leaves:
-            if leaf.sharded:
-                leaf.local = leaf.get()[leaf.sharding.local_slices(
-                    leaf.shape)].clone()
-        self._release()
-        data = self.mesh.group("data")
+            self.model.parameters(), self.config.optimizer,
+            layouts=[self._layout(info[n][1], info[n][2]) for n in named],
+            norm_groups=norm_groups))
+        self._leaves = self._make_leaves(state, info)
+        plans, self._sync = {}, []
+        for name, p in named.items():
+            plan, sums = self._plan(*info[name])
+            if plan is not None:
+                plans[id(p)] = plan
+            else:
+                self._sync.append((p, sums))
+        self._units = self._make_units(plans)
         self._step_fn = make_train_step(
             self.model, self.config, self.loss_weights,
             apply_masking=self.apply_masking,
             microbatch_steps=self.microbatch_steps,
-            rows_group=data, grad_sync=self._sync_grads)
+            rows_group=self.mesh.group("data"), grad_sync=self._sync_grads)
         return state
 
-    def _make_leaves(self, state: TrainState) -> List[_Leaf]:
-        mesh, fsdp = self.mesh, self.fsdp_axes
-        layouts = module_leaf_layouts(self.model)
+    def _make_leaves(self, state: TrainState, info) -> List[_Leaf]:
+        leaves = []
         named = dict(self.model.named_parameters())
         by_id = {id(p): n for n, p in named.items()}
-        leaves = []
-
-        def sharding(path, shape, perm):
-            spec = param_spec(path, shape, mesh, fsdp) if shape else ()
-            return Sharding(mesh, spec, placements_for(spec, mesh, perm))
-
         for name, p in named.items():
-            path, shape, perm = layouts[name]
-
-            def get(p=p):
-                return p.data
-
-            def put(v, p=p):
-                p.data = v
-            leaves.append(_Leaf(f"params/{name}", get, put,
-                                sharding(path, shape, perm), p.shape))
+            _, sh, whole, _ = info[name]
+            leaves.append(_Leaf(f"params/{name}", lambda p=p: p.data, sh,
+                                whole))
         opt = state.optimizer
         inner = opt.inner if isinstance(opt, MultiSteps) else opt
         for p in inner.params:
             name = by_id[id(p)]
-            path, shape, perm = layouts[name]
+            _, sh, whole, _ = info[name]
             st = inner.state[p]
-            transposed = perm != tuple(range(len(perm)))
             for key in sorted(st):
-                if key in ("nu_row", "nu_col"):
-                    # JAX's factored leaves: 'row' is the mean over the
-                    # flax kernel's last axis, the port's nu_col where the
-                    # port stores the kernel transposed
-                    jax_leaf = {("nu_row", False): "row",
-                                ("nu_col", False): "col",
-                                ("nu_row", True): "col",
-                                ("nu_col", True): "row"}[key, transposed]
-                    shp = tuple(st[key].shape)
-                    sh = sharding(f"{path}/{jax_leaf}", shp,
-                                  tuple(range(len(shp))))
+                # a factored moment is the mean over the last dim (nu_row)
+                # or the one before it (nu_col), kept at the block's rows
+                # and columns
+                if key == "nu_row":
+                    shs, shape = _factor_sharding(sh, len(whole) - 1), \
+                        whole[:-1]
+                elif key == "nu_col":
+                    shs, shape = _factor_sharding(sh, len(whole) - 2), \
+                        whole[:-2] + whole[-1:]
                 else:
-                    sh = sharding(path, shape, perm)
-
-                def get(st=st, key=key):
-                    return st[key]
-
-                def put(v, st=st, key=key):
-                    st[key] = v
-                leaves.append(_Leaf(f"opt/{name}/{key}", get, put, sh,
-                                    st[key].shape))
+                    shs, shape = sh, whole
+                leaves.append(_Leaf(f"opt/{name}/{key}",
+                                    lambda st=st, key=key: st[key], shs,
+                                    shape))
         if isinstance(opt, MultiSteps):
             for i, p in enumerate(opt.params):
-                name = by_id[id(p)]
-                path, shape, perm = layouts[name]
-
-                def get(i=i):
-                    return opt.acc[i]
-
-                def put(v, i=i):
-                    opt.acc[i] = v
-                leaves.append(_Leaf(f"acc/{name}", get, put,
-                                    sharding(path, shape, perm), p.shape))
+                _, sh, whole, _ = info[by_id[id(p)]]
+                leaves.append(_Leaf(f"acc/{by_id[id(p)]}",
+                                    lambda i=i: opt.acc[i], sh, whole))
         return leaves
 
-    def _materialize(self) -> None:
-        """Gather each sharded leaf whole for the step."""
-        for leaf in self._leaves:
-            if leaf.sharded:
-                leaf.put(self._dtensor(leaf).full_tensor())
+    def _make_units(self, plans) -> Dict[torch.nn.Module, list]:
+        """Each unit's gathered parameters, (owner module, name, block,
+        plan): the model is the root unit of what no other unit holds."""
+        units: Dict[torch.nn.Module, list] = {}
+        kinds = _unit_types()
 
-    def _release(self) -> None:
-        """Keep this rank's block of each sharded leaf; free the whole."""
-        with torch.no_grad():
-            for leaf in self._leaves:
-                if leaf.sharded:
-                    full = leaf.get()
-                    if full.numel():
-                        leaf.local.copy_(
-                            full[leaf.sharding.local_slices(leaf.shape)])
-                    leaf.put(full.new_empty(0))
+        def walk(mod, unit):
+            if isinstance(mod, kinds):
+                unit = mod
+            for pname, p in mod._parameters.items():
+                if p is not None and id(p) in plans:
+                    units.setdefault(unit, []).append(
+                        (mod, pname, p, plans[id(p)]))
+            for child in mod.children():
+                walk(child, unit)
+        walk(self.model, self.model)
+        for unit, entries in units.items():
+            unit.register_forward_pre_hook(
+                lambda mod, args, e=entries: self._gather(e))
+            # also where the forward raises: a checkpoint's recompute stops
+            # early by raising inside the block
+            unit.register_forward_hook(
+                lambda mod, args, out, e=entries: self._free(e),
+                always_call=True)
+        return units
+
+    def _gather(self, entries) -> None:
+        """Before a unit runs: its parameters whole, in their modules."""
+        if not self._splitting:
+            raise RuntimeError(
+                "the model's parameters are this rank's blocks: it runs "
+                "inside DistributedTrainer.step; full_params() gives the "
+                "whole parameters")
+        wholes, handle = comm.gather_unit([e[2] for e in entries],
+                                          [e[3] for e in entries])
+        self._open.append((entries, handle))
+        for (owner, name, _, _), whole in zip(entries, wholes):
+            owner._parameters[name] = whole
+
+    def _free(self, entries) -> None:
+        """After a unit ran: its blocks back in their modules, the whole
+        copies freed (kept by a checkpoint's recompute, which the backward
+        frees as it goes)."""
+        if not self._splitting:
+            return
+        done, handle = self._open.pop()
+        if done is not entries:
+            raise RuntimeError("units closed out of order")
+        for owner, name, p, _ in entries:
+            owner._parameters[name] = p
+        if not remat_sites.is_recomputing():
+            handle.release()
+
+    @contextlib.contextmanager
+    def _split(self):
+        """Inside, the units gather their blocks as they run."""
+        self._splitting = True
+        comm.reset_gathered_peak()
+        try:
+            with (comm.saved_whole_hooks([p for p, _ in self._sync])
+                  if self._units else contextlib.nullcontext()):
+                yield
+        finally:
+            self._splitting = False
+            while self._open:  # a forward that raised
+                entries, handle = self._open.pop()
+                for owner, name, p, _ in entries:
+                    owner._parameters[name] = p
+                handle.release()
+            self.gathered_peak = comm.gathered_stats["peak"]
+            self.made_peak = comm.made_stats["peak"]
+
+    def unit_bytes(self) -> Dict[str, int]:
+        """Each unit's gathered bytes (its own parameters, not an inner
+        unit's, each whole but for the experts of other 'expert' ranks), by
+        module name ('' the root)."""
+        names = {m: n for n, m in self.model.named_modules()}
+        return {names[u]: sum(math.prod(plan.shape) * p.element_size()
+                              for _, _, p, plan in entries)
+                for u, entries in self._units.items()}
 
     def _dtensor(self, leaf: _Leaf):
         from torch.distributed.tensor import DTensor
 
         dm = self.mesh.device_mesh
         full = torch.empty(leaf.shape, device="meta")
-        return DTensor.from_local(leaf.local, dm, leaf.sharding.placements,
+        return DTensor.from_local(leaf.get(), dm, leaf.sharding.placements,
                                   run_check=False, shape=leaf.shape,
                                   stride=full.stride())
 
     def _sync_grads(self) -> None:
-        """Sum the gradients over 'data' (rows) and a stacked stage's over
-        'pipe' (stages), into whole gradients on every rank."""
-        data, pipe = self.mesh.group("data"), self.mesh.group("pipe")
-        grads, stage_grads = [], []
-        for name, p in self.model.named_parameters():
-            if p.grad is None:
-                continue
-            grads.append(p.grad)
-            if ".stages." in f".{name}.":
-                stage_grads.append(p.grad)
+        """Sum the gradients of the parameters used as they are (not
+        gathered) over 'data' (rows) and a stacked stage's over 'pipe'
+        (stages); a gathered parameter's gradient came back summed."""
+        by_groups: Dict[tuple, list] = {}
+        for p, groups in self._sync:
+            if p.grad is not None and groups:
+                by_groups.setdefault(groups, []).append(p.grad)
         with torch.no_grad():
-            comm.all_reduce_(grads, data)
-            comm.all_reduce_(stage_grads, pipe)
+            for groups, grads in by_groups.items():
+                for group in groups:
+                    comm.all_reduce_(grads, group)
 
     # -- batches ------------------------------------------------------------- #
 
@@ -408,35 +596,66 @@ class DistributedTrainer:
     def step(self, state: TrainState, batch: Dict[str, Any], *,
              local_of: Optional[int] = None):
         """One train step. With ``local_of=N``, ``batch`` is this process's
-        share of a global batch of N rows; otherwise the whole batch."""
+        share of a global batch of N rows; otherwise the whole batch.
+        ``gathered_peak`` is then the most whole bytes the units held at
+        once in it, ``made_peak`` the most bytes of tensors made from them
+        alone (casts, concatenations)."""
         local = (self.shard_batch_from_local(batch, local_of)
                  if local_of is not None else self.shard_batch(batch))
-        self._materialize()
-        try:
-            with use_mesh(self.mesh, rows_local=True):
-                state, metrics = self._step_fn(state, local, self.generator)
-        finally:
-            self._release()
+        with use_mesh(self.mesh, rows_local=True), self._split():
+            state, metrics = self._step_fn(state, local, self.generator)
         return state, metrics
+
+    def _wholes(self, blocks: List[torch.Tensor], leaves: List[_Leaf]
+                ) -> List[torch.Tensor]:
+        """Copies of the whole leaves of which ``blocks`` are this rank's
+        blocks (a collective: one all-gather an axis and dtype)."""
+        from torch.distributed.tensor import Shard
+
+        plans = []
+        for leaf in leaves:
+            axes = tuple(
+                comm.GatherAxis(i, self.mesh.group(ax), pl.dim, False)
+                for i, (ax, pl) in reversed(list(enumerate(zip(
+                    self.mesh.axis_names, leaf.sharding.placements))))
+                if isinstance(pl, Shard) and self.mesh.group(ax) is not None)
+            plans.append(comm.ParamGather(axes, (), leaf.shape))
+        return [w if w is not b else b.clone()
+                for w, b in zip(comm._gather_all(blocks, plans), blocks)]
 
     def full_state(self, prefix: str = "") -> Dict[str, torch.Tensor]:
         """A copy of every state leaf whose key starts with ``prefix``,
-        whole (a collective: every rank calls it): ``params/<name>`` and
-        ``opt/<name>/<moment>``."""
-        return {leaf.key[len(prefix):]: (
-            self._dtensor(leaf).full_tensor() if leaf.sharded
-            else leaf.get().clone())
-            for leaf in self._leaves if leaf.key.startswith(prefix)}
+        whole (a collective: every rank calls it): ``params/<name>``,
+        ``opt/<name>/<moment>`` and ``acc/<name>``."""
+        leaves = [leaf for leaf in self._leaves
+                  if leaf.key.startswith(prefix)]
+        wholes = self._wholes([leaf.get() for leaf in leaves], leaves)
+        return {leaf.key[len(prefix):]: w for leaf, w in zip(leaves, wholes)}
 
     def full_params(self) -> Dict[str, torch.Tensor]:
         """A copy of every parameter whole (a collective), e.g. to evaluate
         or export the trained model."""
         return self.full_state("params/")
 
+    def full_grads(self) -> Dict[str, torch.Tensor]:
+        """A copy of every parameter's gradient of the last step whole (a
+        collective), by parameter name; a parameter without one is left
+        out."""
+        leaves = {leaf.key: leaf for leaf in self._leaves}
+        named = [(n, p) for n, p in self.model.named_parameters()
+                 if p.grad is not None]
+        wholes = self._wholes([p.grad for _, p in named],
+                              [leaves[f"params/{n}"] for n, _ in named])
+        return {n: w for (n, _), w in zip(named, wholes)}
+
     def local_numels(self) -> Dict[str, int]:
         """Each state leaf's stored element count on this rank."""
-        return {leaf.key: (leaf.local.numel() if leaf.sharded
-                           else leaf.get().numel()) for leaf in self._leaves}
+        return {leaf.key: leaf.get().numel() for leaf in self._leaves}
+
+    def local_bytes(self) -> Dict[str, int]:
+        """Each state leaf's stored bytes on this rank."""
+        return {leaf.key: leaf.get().numel() * leaf.get().element_size()
+                for leaf in self._leaves}
 
     # -- checkpoints --------------------------------------------------------- #
 
@@ -450,12 +669,8 @@ class DistributedTrainer:
             out["mini_step"] = torch.tensor(opt.mini_step)
             out["gradient_step"] = torch.tensor(opt.gradient_step)
         for leaf in self._leaves:
-            if self.mesh.device_mesh is None:
-                out[leaf.key] = leaf.local if leaf.sharded else leaf.get()
-            else:
-                if not leaf.sharded:
-                    leaf.local = leaf.get()
-                out[leaf.key] = self._dtensor(leaf)
+            out[leaf.key] = (leaf.get() if self.mesh.device_mesh is None
+                             else self._dtensor(leaf))
         return out
 
     def saved_steps(self) -> List[int]:
@@ -509,7 +724,7 @@ class DistributedTrainer:
             for leaf in self._leaves:
                 got = target[leaf.key]
                 got = got.to_local() if hasattr(got, "to_local") else got
-                dst = leaf.local if leaf.sharded else leaf.get()
+                dst = leaf.get()
                 if got.data_ptr() != dst.data_ptr():  # else loaded in place
                     dst.copy_(got)
         opt = state.optimizer

@@ -24,21 +24,34 @@ first moment is float32 or, with ``mu_dtype=torch.bfloat16``, bf16.
 The JAX package concatenates small leaves into one vector to save TPU
 launches; the ``_foreach`` ops are the same idea on the GPU (a few
 multi-tensor launches instead of ~15 per leaf).
+
+Over ranks that each hold a block of every leaf (``DistributedTrainer``),
+``layouts`` gives each parameter its :class:`BlockLayout`: the update runs
+on the blocks and stays the whole leaf's. The global norm sums each
+element's square once over the ranks (``norm_groups``); a factored leaf's
+row and column means sum the block's partial sums over the ranks that
+split the reduced dim, then divide by the whole dim's length; whether a
+leaf is factored follows its whole shape.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, NamedTuple, Optional, Tuple, Union
+from typing import (Callable, Iterable, List, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.comm import all_reduce_
 
 Schedule = Callable[[int], float]
 
 
-def _use_factored(p: torch.Tensor, min_size: int) -> bool:
-    return p.dim() >= 2 and p.shape[-1] >= min_size and p.shape[-2] >= min_size
+def _use_factored(shape: Sequence[int], min_size: int) -> bool:
+    return (len(shape) >= 2 and shape[-1] >= min_size
+            and shape[-2] >= min_size)
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -46,6 +59,44 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     ``global_norm``)."""
     norms = torch._foreach_norm([t.float() for t in tensors])
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+class BlockLayout(NamedTuple):
+    """A parameter held as this rank's block of a whole leaf: the whole
+    leaf's ``shape``; for each of its dims the process groups whose ranks
+    hold the dim's other parts (``dim_groups``); whether this rank counts
+    the block in the global norm (``counted``: one rank of those holding
+    the same block)."""
+
+    shape: Tuple[int, ...]
+    dim_groups: Tuple[tuple, ...]
+    counted: bool = True
+
+
+def sharded_global_norm(tensors: Sequence[Optional[torch.Tensor]],
+                        counted: Sequence[bool], groups: Sequence,
+                        device) -> torch.Tensor:
+    """The global norm of leaves the ranks hold in blocks: the squares of
+    the blocks this rank counts, summed over every group in ``groups`` in
+    turn (the mesh's axes), then the square root."""
+    mine = [t.float() for t, c in zip(tensors, counted)
+            if c and t is not None]
+    sq = (torch.stack(torch._foreach_norm(mine)).square().sum() if mine
+          else torch.zeros((), dtype=torch.float32, device=device))
+    for group in groups:
+        dist.all_reduce(sq, group=group)
+    return sq.sqrt()
+
+
+def _sum_over(pairs) -> None:
+    """Each tensor summed in place over its groups: one flat all-reduce a
+    group (and dtype) for all the tensors that name it."""
+    by_group: dict = {}
+    for t, groups in pairs:
+        for group in groups:
+            by_group.setdefault(group, []).append(t)
+    for group, tensors in by_group.items():
+        all_reduce_(tensors, group)
 
 
 class FusedAdamW(torch.optim.Optimizer):
@@ -58,6 +109,10 @@ class FusedAdamW(torch.optim.Optimizer):
             as a scale inside the moment update.
         mu_dtype: dtype of the first moment (None: the parameter's).
         second_moment: 'float32' | 'bfloat16' | 'factored'.
+        layouts: each parameter's :class:`BlockLayout` where the parameters
+            are blocks of whole leaves (None: each is whole).
+        norm_groups: the groups the global norm's sum runs over (with
+            ``layouts``).
     """
 
     def __init__(self, params, lr: Union[float, Schedule], b1: float = 0.9,
@@ -65,7 +120,9 @@ class FusedAdamW(torch.optim.Optimizer):
                  weight_decay: float = 0.0, clip_norm: Optional[float] = None,
                  mu_dtype: Optional[torch.dtype] = None,
                  second_moment: str = "float32",
-                 min_dim_size_to_factor: int = 128):
+                 min_dim_size_to_factor: int = 128,
+                 layouts: Optional[List[BlockLayout]] = None,
+                 norm_groups: Sequence = ()):
         if second_moment not in ("float32", "bfloat16", "factored"):
             raise ValueError(f"unknown second_moment {second_moment!r}")
         super().__init__(params, dict(b1=b1, b2=b2, eps=eps,
@@ -76,18 +133,29 @@ class FusedAdamW(torch.optim.Optimizer):
         self.second_moment = second_moment
         self.min_dim_size_to_factor = min_dim_size_to_factor
         self.count = 0  # updates applied so far (optax's state.count)
-        for p in self.params:
-            self._init_state(p)
+        params = self.params
+        if layouts is not None and len(layouts) != len(params):
+            raise ValueError(f"{len(layouts)} layouts for {len(params)} "
+                             "parameters")
+        self.layouts = layouts
+        self.norm_groups = tuple(norm_groups)
+        for i, p in enumerate(params):
+            self._init_state(p, self._layout(i, p))
 
     @property
     def params(self):
         return [p for g in self.param_groups for p in g["params"]]
 
-    def _init_state(self, p: torch.Tensor) -> None:
+    def _layout(self, i: int, p: torch.Tensor) -> BlockLayout:
+        if self.layouts is None:
+            return BlockLayout(tuple(p.shape), ((),) * p.dim())
+        return self.layouts[i]
+
+    def _init_state(self, p: torch.Tensor, layout: BlockLayout) -> None:
         st = self.state[p]
         st["mu"] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
         if (self.second_moment == "factored"
-                and _use_factored(p, self.min_dim_size_to_factor)):
+                and _use_factored(layout.shape, self.min_dim_size_to_factor)):
             st["nu_row"] = torch.zeros(p.shape[:-1], dtype=torch.float32,
                                        device=p.device)
             st["nu_col"] = torch.zeros(p.shape[:-2] + p.shape[-1:],
@@ -97,11 +165,23 @@ class FusedAdamW(torch.optim.Optimizer):
                         else torch.float32)
             st["nu"] = torch.zeros_like(p, dtype=nu_dtype)
 
+    def grad_norm(self, grads: Sequence[Optional[torch.Tensor]]
+                  ) -> torch.Tensor:
+        """The global norm of the whole gradient whose blocks (or whole
+        leaves) ``grads`` are, in parameter order (None: a zero)."""
+        if self.layouts is None or not self.norm_groups:
+            return global_norm(g for g in grads if g is not None)
+        return sharded_global_norm(grads, [lay.counted for lay in
+                                           self.layouts], self.norm_groups,
+                                   self.params[0].device)
+
     def learning_rate(self, count: int) -> float:
         return float(self.lr(count)) if callable(self.lr) else float(self.lr)
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, grad_norm: Optional[torch.Tensor] = None):
+        """One update; ``grad_norm``: the gradients' :meth:`grad_norm`
+        where the caller has it (the clip then needs no collective)."""
         if closure is not None:
             raise ValueError("FusedAdamW.step takes no closure")
         # a parameter without a gradient gets a zero one, as in JAX, where
@@ -117,16 +197,17 @@ class FusedAdamW(torch.optim.Optimizer):
         c1 = 1.0 - b1 ** self.count
         c2 = 1.0 - b2 ** self.count
         if self.clip_norm is not None:
-            norm = global_norm(grads)
+            norm = self.grad_norm(grads) if grad_norm is None else grad_norm
             scale = torch.clamp(self.clip_norm / norm.clamp_min(1e-16),
                                 max=1.0)
             gs = torch._foreach_mul([g.float() for g in grads], scale)
         else:
             gs = [g.float() for g in grads]
         factored = ["nu_row" in self.state[p] for p in params]
-        for p, g, f in zip(params, gs, factored):
-            if f:
-                self._factored_leaf(p, g, lr, c1, c2, b1, b2, eps, wd)
+        self._factored_leaves(
+            [(p, g, self._layout(i, p)) for i, (p, g, f) in
+             enumerate(zip(params, gs, factored)) if f],
+            lr, c1, c2, b1, b2, eps, wd)
         # every other leaf in one sweep of multi-tensor (foreach) kernels
         ps = [p for p, f in zip(params, factored) if not f]
         gs = [g for g, f in zip(gs, factored) if not f]
@@ -154,22 +235,54 @@ class FusedAdamW(torch.optim.Optimizer):
             if st["nu"].dtype != torch.float32:
                 st["nu"].copy_(nu)
 
-    def _factored_leaf(self, p, g, lr, c1, c2, b1, b2, eps, wd) -> None:
-        st = self.state[p]
-        mu = st["mu"].float().mul_(b1).add_((1.0 - b1) * g)
-        g2 = g * g
-        row = st["nu_row"].mul_(b2).add_((1.0 - b2) * g2.mean(dim=-1))
-        col = st["nu_col"].mul_(b2).add_((1.0 - b2) * g2.mean(dim=-2))
-        # v_ij = R_i C_j / mean_i(R): exact when g^2 is rank 1
-        r_mean = row.mean(dim=-1, keepdim=True)
-        vhat = (row[..., :, None] * col[..., None, :]
-                / r_mean[..., None].clamp_min(1e-30)) / c2
-        upd = (mu / c1) / (vhat.sqrt() + eps)
-        if wd:
-            upd = upd + wd * p.float()
-        if st["mu"].dtype != torch.float32:
-            st["mu"].copy_(mu)
-        p.add_((-lr * upd).to(p.dtype))
+    def _factored_leaves(self, items, lr, c1, c2, b1, b2, eps, wd
+                         ) -> None:
+        """The factored leaves' updates; ``items``: (parameter, fp32
+        gradient, layout). Where other ranks hold parts of a reduced dim,
+        the block's sums are added over them, all leaves' at once, then
+        divided by the whole dim's length."""
+        # g is (..., R, C): the groups holding the other columns, the
+        # other rows
+        splits = [(lay.dim_groups[-1], lay.dim_groups[-2])
+                  for _, _, lay in items]
+        incs = []
+        for (p, g, lay), (c_split, r_split) in zip(items, splits):
+            g2 = g * g
+            incs.append([g2.sum(dim=-1) if c_split else g2.mean(dim=-1),
+                         g2.sum(dim=-2) if r_split else g2.mean(dim=-2)])
+        _sum_over([(inc[0], c) for inc, (c, _) in zip(incs, splits)]
+                  + [(inc[1], r) for inc, (_, r) in zip(incs, splits)])
+        rows, r_sums = [], []
+        for (p, g, lay), (c_split, r_split), (row_inc, col_inc) in zip(
+                items, splits, incs):
+            st = self.state[p]
+            n_rows, n_cols = lay.shape[-2], lay.shape[-1]
+            if c_split:
+                row_inc = row_inc / n_cols
+            if r_split:
+                col_inc = col_inc / n_rows
+            row = st["nu_row"].mul_(b2).add_((1.0 - b2) * row_inc)
+            st["nu_col"].mul_(b2).add_((1.0 - b2) * col_inc)
+            rows.append(row)
+            r_sums.append(row.sum(dim=-1) if r_split
+                          else row.mean(dim=-1))
+        _sum_over([(t, r) for t, (_, r) in zip(r_sums, splits)])
+        for (p, g, lay), (_, r_split), row, r_mean in zip(
+                items, splits, rows, r_sums):
+            st = self.state[p]
+            if r_split:
+                r_mean = r_mean / lay.shape[-2]
+            col = st["nu_col"]
+            mu = st["mu"].float().mul_(b1).add_((1.0 - b1) * g)
+            # v_ij = R_i C_j / mean_i(R): exact when g^2 is rank 1
+            vhat = (row[..., :, None] * col[..., None, :]
+                    / r_mean[..., None, None].clamp_min(1e-30)) / c2
+            upd = (mu / c1) / (vhat.sqrt() + eps)
+            if wd:
+                upd = upd + wd * p.float()
+            if st["mu"].dtype != torch.float32:
+                st["mu"].copy_(mu)
+            p.add_((-lr * upd).to(p.dtype))
 
     def state_dict(self):
         """The count and each parameter's moments, in parameter order (the
@@ -203,7 +316,7 @@ def optimizer_state_bytes(params: Iterable[torch.Tensor],
     for p in params:
         mu_itemsize = (mu_dtype or p.dtype).itemsize
         total += p.numel() * mu_itemsize
-        if second_moment == "factored" and _use_factored(p, 128):
+        if second_moment == "factored" and _use_factored(p.shape, 128):
             total += 4 * (math.prod(p.shape[:-1])
                           + math.prod(p.shape[:-2] + p.shape[-1:]))
         else:

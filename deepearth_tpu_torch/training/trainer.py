@@ -28,7 +28,7 @@ from ..models.deepseek import collect_moe_aux_losses
 from .losses import LossWeights, deepearth_loss
 from .masking import mae_patch_mask, mlm_token_mask, sample_masks
 from .metrics import MetricAccumulator, format_epoch_line
-from .optimizers import FusedAdamW, Schedule, global_norm
+from .optimizers import FusedAdamW, Schedule
 
 logger = logging.getLogger("DeepEarth.Trainer")
 
@@ -162,15 +162,19 @@ def create_schedule(cfg: OptimizerConfig) -> Union[float, Schedule]:
 
 
 def create_optimizer(params: Iterable[torch.Tensor],
-                     cfg: OptimizerConfig) -> Optimizer:
+                     cfg: OptimizerConfig,
+                     layouts: Optional[list] = None,
+                     norm_groups: tuple = ()) -> Optimizer:
     """The configured AdamW over ``params``. ``cfg.fused=False`` (optax's
     clip_by_global_norm chained with adamw in the JAX package) is the same
-    math and gets the same optimizer."""
+    math and gets the same optimizer. ``layouts`` and ``norm_groups``:
+    ``FusedAdamW``'s, for parameters held as blocks of whole leaves."""
     opt = FusedAdamW(
         params, create_schedule(cfg), b1=cfg.b1, b2=cfg.b2,
         weight_decay=cfg.weight_decay, clip_norm=cfg.grad_clip_norm,
         mu_dtype=torch.bfloat16 if cfg.moment_dtype == "bfloat16" else None,
-        second_moment=cfg.second_moment)
+        second_moment=cfg.second_moment, layouts=layouts,
+        norm_groups=norm_groups)
     if cfg.grad_accum_steps > 1:
         return MultiSteps(opt, cfg.grad_accum_steps)
     return opt
@@ -250,7 +254,9 @@ def make_train_step(model: nn.Module, config: DeepEarthConfig,
     contrastive term over the whole batch), and each rank's backward takes
     1/size of it, so the ranks' gradients sum to the global one.
     ``grad_sync`` runs after the backward and before the gradient norm and
-    the update (the trainer's all-reduce).
+    the update (the trainer's all-reduce). ``grad_norm`` is the optimizer's
+    (``FusedAdamW.grad_norm``: over the ranks where each holds blocks of the
+    leaves), and the update clips with it.
     """
     from ..parallel.comm import group_rank, group_size
 
@@ -329,10 +335,15 @@ def make_train_step(model: nn.Module, config: DeepEarthConfig,
             metrics = {name: v / k for name, v in metrics.items()}
         if grad_sync is not None:
             grad_sync()
+        opt = state.optimizer
+        inner = opt.inner if isinstance(opt, MultiSteps) else opt
         with torch.no_grad():
-            metrics["grad_norm"] = global_norm(
-                p.grad for p in model.parameters() if p.grad is not None)
-        state.optimizer.step()
+            metrics["grad_norm"] = inner.grad_norm(
+                [p.grad for p in inner.params])
+        if isinstance(opt, MultiSteps):  # clips the mean at its k-th step
+            opt.step()
+        else:
+            opt.step(grad_norm=metrics["grad_norm"])
         state.step += 1
         return state, metrics
 

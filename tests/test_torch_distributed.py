@@ -19,7 +19,14 @@ the batch, ``apply_masking=False``) for 2 steps in each leg:
   pipelined in 2 stages;
 * sp over ('data' 2, 'sequence' 2) and over 'sequence' 2, the vision
   encoder's MLA as ring attention;
-* dp over 4 fed by each process's share (``step(local_of=8)``).
+* dp over 4 fed by each process's share (``step(local_of=8)``);
+* FSDP with the fusion layers and the simulator's blocks checkpointed
+  (remat 'dots'), held against JAX's step without remat;
+* the capacity routes under the expert split on (2, 2, 1):
+  ``dispatch_mode='scatter'`` with ``fsdp_axes=('data', 'expert')`` at
+  capacity_factor 2 (no drops: held against JAX's drop-free step) and 0.5
+  (drops), and ``'dense'`` (one-hot) at 0.5, both held against JAX's
+  scatter step at 0.5 (its slots and drops are JAX's dense step's too).
 
 The 2-rank legs run two at once, one on each half of the world (the halves
 of a (replica, ...) mesh), so each pair costs one leg's time.
@@ -33,6 +40,21 @@ element count per leaf equal to the size of JAX's shard
 (``NamedSharding.shard_shape``), sharded checkpoint save -> a trainer over
 another model -> restore -> the next step equal to the uninterrupted one on
 every rank, the learning-rate scaling, and device_prefetch(sharding=...).
+
+The split of the step (each unit's blocks gathered only while it runs, the
+gradients back to the blocks, the experts over 'expert'): in every leg
+that gathers, a rank never holds more whole bytes than twice its largest
+unit's, and less than the whole model's; the tensors made from them alone
+(casts, concatenations) at most one unit's bytes at once; and autograd
+keeps, of what does not depend on the batch, less than the smallest unit's
+bytes (measured apart from the counters, over two forwards). Each
+parameter's gradient has its block's shape; under 'expert' 2 each MoE
+layer runs its 2 of 4 experts, and all 3 of 3 (their weights split over
+'expert' on another dim by FSDP); the 'expert' ranks' gradients of a leaf
+they hold alike are equal, and the whole gradients are JAX's (none summed
+twice over 'expert'). The model runs only inside the trainer's step. A leg
+with fp32 parameters computed in bf16 is held against the port's own
+single-process step.
 """
 
 import os
@@ -62,12 +84,23 @@ from deepearth_tpu_torch.training.optimizers import FusedAdamW  # noqa: E402
 torch.set_num_threads(2)
 
 
-# the JAX reference of each leg: (pipelined, microbatch_steps)
-REFS = ((False, 1), (False, 2), (True, 1))
+# the JAX reference of each leg: (pipelined, microbatch_steps, the MoE's
+# dispatch mode, capacity factor and expert count). JAX's 'dense' and
+# 'scatter' keep the same slots and drop the same assignments, so the
+# port's capacity legs with drops are held to JAX's scatter step; at
+# capacity_factor 2 no assignment is dropped (C = 40 slots, 40 tokens), and
+# that leg is held to JAX's drop-free step
+REFS = ((False, 1, "auto", 2.0, 4), (False, 2, "auto", 2.0, 4),
+        (True, 1, "auto", 2.0, 4), (False, 1, "scatter", 0.5, 4),
+        (False, 1, "auto", 2.0, 3))
 
 
 def ref_of(leg):
-    return (leg.startswith("pp"), 2 if leg == "fsdp_mb" else 1)
+    cfg = {**L.LEGS, **L.LEGS_2}.get(leg, (None,) * 4)[3] or {}
+    if cfg.get("capacity_factor", 2.0) < 2.0:
+        return (False, 1, "scatter", cfg["capacity_factor"], 4)
+    return (leg.startswith("pp"), 2 if leg == "fsdp_mb" else 1, "auto", 2.0,
+            cfg.get("n_experts", 4))
 
 
 @pytest.fixture(scope="module")
@@ -79,14 +112,45 @@ def results(tmp_path_factory):
 
     with ThreadPoolExecutor(len(REFS)) as pool:
         refs = dict(zip(REFS, pool.map(lambda r: jax_run(*r), REFS)))
+    refs.update({leg: port_run(leg) for leg in L.PORT_REF_LEGS})
     return collect(procs, workdir, timeout=300), refs
 
 
-def jax_run(pipelined, microbatch_steps):
+def port_run(leg):
+    """The port's single-process step on ``leg``'s config (make_train_step
+    over the whole batch): each step's loss and gradient norm."""
+    from deepearth_tpu_torch.data.batches import map_leaves
+    from deepearth_tpu_torch.training import LossWeights
+    from deepearth_tpu_torch.training.trainer import (
+        TrainState, create_optimizer, make_train_step)
+
+    cfg = L.make_cfg(**L.LEGS[leg][3])
+    model = L.make_model(cfg)
+    step = make_train_step(model, cfg, LossWeights(**L.LOSS_WEIGHTS),
+                           apply_masking=False)
+    state = TrainState(model, create_optimizer(model.parameters(),
+                                               cfg.optimizer))
+    batch = map_leaves(lambda x: torch.as_tensor(np.asarray(x)),
+                       L.numpy_batch())
+    gen = torch.Generator().manual_seed(0)
+    out = {"loss": [], "grad_norm": []}
+    for _ in range(L.STEPS):
+        state, m = step(state, batch, gen)
+        out["loss"].append(float(m["loss/total"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    return out
+
+
+def jax_run(pipelined, microbatch_steps, dispatch_mode, capacity_factor,
+            n_experts):
     """JAX's single-device steps from the port model's parameters (the
     pipelined simulator's, for the pp legs): each step's loss and gradient
-    norm, and Adam's first moments after step 1 as {port name: array}."""
-    cfg = L.make_cfg(pipeline_stages=2 if pipelined else 0)
+    norm, Adam's first moments after step 1 as {port name: array}, and the
+    step-1 gradients they hold (as ``grads``: mu / (1 - b1) / the clip
+    scale)."""
+    cfg = L.make_cfg(pipeline_stages=2 if pipelined else 0,
+                     dispatch_mode=dispatch_mode,
+                     capacity_factor=capacity_factor, n_experts=n_experts)
     model = L.pipelined_model(cfg) if pipelined else L.make_model(cfg)
     jc = jcfg.config_from_json(config_to_json(cfg))
     jmodel = JaxModel(jc)
@@ -108,6 +172,11 @@ def jax_run(pipelined, microbatch_steps):
             load_flax_opt_state(ref, model, state.opt_state)
             out["mu"] = {n: ref.state[p]["mu"].numpy()
                          for n, p in model.named_parameters()}
+            clip = cfg.optimizer.grad_clip_norm
+            scale = (1.0 if clip is None
+                     else min(1.0, clip / out["grad_norm"][0]))
+            out["grads"] = {n: mu / ((1.0 - cfg.optimizer.b1) * scale)
+                            for n, mu in out["mu"].items()}
     return out
 
 
@@ -115,7 +184,8 @@ def rel_close(a, b, rtol):
     assert abs(a - b) <= rtol * abs(b), (a, b, abs(a - b) / abs(b))
 
 
-LEG_NAMES = list(L.LEGS) + ["dp4_local"] + list(L.LEGS_2)
+LEG_NAMES = ([n for n in L.LEGS if n not in L.PORT_REF_LEGS] + ["dp4_local"]
+             + list(L.LEGS_2))
 
 
 def ranks_of(ranks, leg):
@@ -156,6 +226,22 @@ def test_leg_first_moments_match_jax(results, leg):
             np.testing.assert_allclose(got[name], w, rtol=0,
                                        atol=1e-4 * np.abs(w).max(),
                                        err_msg=name)
+
+
+@pytest.mark.parametrize("leg", L.PORT_REF_LEGS)
+def test_leg_matches_single_process_step(results, leg):
+    """fp32 parameters computed in bf16, split: every rank's losses and
+    gradient norms against the port's single-process step on the same
+    config, within the bf16 train step's bars of chip_smoke.py's TRAIN_TOL
+    (2e-3 on the loss, 2e-2 on the norm): each rank rounds its rows' bf16
+    gradients before they are summed, the single process the whole
+    batch's (bf16 against fp32 moves this step's norm by 1.2%)."""
+    ranks, refs = results
+    ref = refs[leg]
+    for r in ranks_of(ranks, leg):
+        for i, m in enumerate(r[leg]["metrics"]):
+            rel_close(m["loss/total"], ref["loss"][i], 2e-3)
+            rel_close(m["grad_norm"], ref["grad_norm"][i], 2e-2)
 
 
 def test_ragged_demoted_under_expert_axis(results):
@@ -225,3 +311,124 @@ def test_device_prefetch_places_each_ranks_rows(results):
             np.testing.assert_array_equal(
                 got["vision"][s], want["modalities"]["vision"][d * 4:
                                                                (d + 1) * 4])
+
+
+# -- the split of the step ---------------------------------------------------- #
+
+# the legs whose ranks gather some parameter for its unit
+GATHERING = ["fsdp", "fsdp_mb", "ep_tp", "pp", "scatter", "scatter_drop",
+             "fsdp_remat", "fsdp_bf16", "fsdp_e3", "fsdp2", "tp2", "pp2"]
+# the legs with an 'expert' axis of 2 (E = 4 in the tiny config)
+EXPERT_LEGS = ["dp_ep", "ep_tp", "fsdp", "fsdp_mb", "scatter", "scatter_drop",
+               "dense", "fsdp_remat", "ep2"]
+
+
+@pytest.mark.parametrize("leg", GATHERING)
+def test_whole_bytes_held_at_once(results, leg):
+    """The gather's counters: in each step a rank holds at most twice its
+    largest unit's whole bytes at once and, where more than one unit
+    gathers, less than the whole of what it gathers (all its units
+    together: what a step that gathered the whole model held; a pp leg
+    gathers its pipelined stack alone); of tensors made from them alone
+    (casts, concatenations), at most its largest unit's bytes. Apart from
+    the counters: of the tensors autograd keeps from a forward, those that
+    do not depend on the batch (the parameters' own storage aside) come to
+    less than the smallest unit's bytes, so no unit's whole weights, nor a
+    cast or a concatenation of them, stay for the backward."""
+    for r in ranks_of(results[0], leg):
+        units = r[leg]["unit_bytes"]
+        largest, whole = max(units.values()), sum(units.values())
+        for peak, made in zip(r[leg]["gathered_peak"], r[leg]["made_peak"]):
+            assert 0 < peak <= 2 * largest, (peak, largest, units)
+            assert made <= largest, (made, largest)
+            if len(units) > 1:
+                assert peak < whole, (peak, whole)
+        kept = r[leg]["kept"]
+        assert kept["batch_free"] < min(units.values()), kept
+
+
+@pytest.mark.parametrize("leg", ["fsdp", "pp", "fsdp_e3", "fsdp2"])
+def test_model_runs_only_inside_the_step(results, leg):
+    """After init_state the model's parameters are the rank's blocks: a
+    forward outside the trainer's step raises, a second init_state raises,
+    and full_params() gives every parameter at its whole shape."""
+    for r in ranks_of(results[0], leg):
+        assert r[leg]["guards"] == {"forward": True, "init_state": True,
+                                    "full_params": True}
+
+
+def test_experts_whole_where_the_axis_does_not_divide(results):
+    """3 experts over 'expert' 2: every rank's MoE layers run all 3, and
+    their weights are stored split over 'expert' on another dim (FSDP),
+    gathered whole for the layer."""
+    cfg = L.make_cfg(n_experts=3)
+    whole = {n: tuple(p.shape)
+             for n, p in L.make_model(cfg).named_parameters()}
+    for r in ranks_of(results[0], "fsdp_e3"):
+        got = r["fsdp_e3"]
+        assert set(got["experts"].values()) == {(0, 3)}
+        split = [n for n, s in got["block_shapes"].items()
+                 if n.endswith((".w_gate", ".w_up", ".w_down"))
+                 and s[0] == 3 and s != whole[n]]
+        assert len(split) == 3 * len(got["experts"]), split
+
+
+@pytest.mark.parametrize("leg", GATHERING + ["dp_ep"])
+def test_gradients_have_block_shapes(results, leg):
+    """After the backward each parameter's gradient is its block's shape:
+    the stored element count, below the whole leaf's where it is split."""
+    cfg = L.make_cfg(**{**L.LEGS, **L.LEGS_2}[leg][3])
+    model = (L.pipelined_model(cfg) if leg.startswith("pp")
+             else L.make_model(cfg))
+    whole = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    split = 0
+    for r in ranks_of(results[0], leg):
+        got = r[leg]
+        assert got["grad_shapes"].keys() <= whole.keys()
+        for name, shape in got["grad_shapes"].items():
+            assert shape == got["block_shapes"][name], name
+            assert int(np.prod(shape)) == got["numels"][f"params/{name}"]
+            split += shape != whole[name]
+    assert split > 0
+
+
+@pytest.mark.parametrize("leg", EXPERT_LEGS)
+def test_experts_split_over_expert(results, leg):
+    """Under 'expert' 2 every MoE layer runs its rank's 2 of the 4 experts:
+    experts [2 c, 2 c + 2) on the rank at 'expert' coordinate c."""
+    for r in ranks_of(results[0], leg):
+        c = r[leg]["coords"]["expert"]
+        assert r[leg]["experts"], leg
+        for name, experts in r[leg]["experts"].items():
+            assert tuple(experts) == (2 * c, 2), (name, experts)
+
+
+@pytest.mark.parametrize("leg", EXPERT_LEGS)
+def test_expert_ranks_gradients_equal_not_doubled(results, leg):
+    """The 'expert' ranks compute the same rows: a leaf they hold alike
+    gets the same gradient on both (bit for bit), and every leaf's whole
+    gradient (gathered from the blocks) is JAX's, within 1e-4 of its
+    largest entry, so no rank summed the axis's equal gradients."""
+    ranks, refs = results
+    ran = ranks_of(ranks, leg)
+    want = refs[ref_of(leg)]["grads"]
+    by_place = {}
+    for r in ran:
+        coords = r[leg]["coords"]
+        place = tuple(v for k, v in sorted(coords.items()) if k != "expert")
+        by_place.setdefault(place, []).append(r[leg])
+        for name, g in r[leg]["full_grads"].items():
+            w = want[name]
+            np.testing.assert_allclose(g, w, rtol=0,
+                                       atol=1e-4 * np.abs(w).max(),
+                                       err_msg=name)
+    alike = 0
+    for group in by_place.values():
+        assert len(group) == 2
+        a, b = group
+        for name, g in a["grads"].items():
+            if a["block_shapes"][name] == tuple(a["full_grads"][name].shape):
+                np.testing.assert_array_equal(g, b["grads"][name],
+                                              err_msg=name)
+                alike += 1
+    assert alike > 0

@@ -8,7 +8,11 @@ multi-chip dry run (``__graft_entry__.py`` ``dryrun_multichip``'s
 layer, vision (B, 16, 32)), in fp32, built from one torch seed on every
 rank; the batch and its masks come from one numpy seed. Each leg trains 2
 steps from that model and records every rank's metrics, and its Adam first
-moments after the first step.
+moments after the first step; and, for the split of the step: the most
+whole bytes its units held at once in each step beside each unit's whole
+bytes, every parameter's block and gradient shape, the experts each MoE
+layer ran and, under an 'expert' axis, every gradient after the first
+step (the block, and gathered whole).
 """
 
 import os
@@ -40,11 +44,13 @@ DEVICE = torch.device(os.environ.get("DIST_TEST_DEVICE", "cpu"))
 LOSS_WEIGHTS = dict(contrastive=0.01, moe_aux=0.01)
 
 
-def make_cfg(pipeline_stages=0, seq_axis=None, dispatch_mode="auto"):
+def make_cfg(pipeline_stages=0, seq_axis=None, dispatch_mode="auto",
+             capacity_factor=2.0, remat=None, compute_dtype=torch.float32,
+             n_experts=4):
     c = tiny_config()
     c.hidden_dim = 64
     c.n_heads = 4
-    c.compute_dtype = torch.float32
+    c.compute_dtype = compute_dtype
     c.fusion.universal_dim = 64
     c.fusion.num_fusion_layers = 1
     c.fusion.num_heads = 4
@@ -53,9 +59,10 @@ def make_cfg(pipeline_stages=0, seq_axis=None, dispatch_mode="auto"):
         mla=MLAConfig(hidden_dim=64, n_heads=4, kv_lora_rank=16,
                       qk_rope_head_dim=8, qk_nope_head_dim=16,
                       v_head_dim=16),
-        moe=MoEConfig(n_routed_experts=4, num_experts_per_tok=2,
+        moe=MoEConfig(n_routed_experts=n_experts, num_experts_per_tok=2,
                       moe_intermediate_size=128, hidden_dim=64,
-                      n_shared_experts=1, dispatch_mode=dispatch_mode),
+                      n_shared_experts=1, dispatch_mode=dispatch_mode,
+                      capacity_factor=capacity_factor),
         first_k_dense_replace=1,
         pipeline_stages=pipeline_stages,
         pipeline_microbatches=(4 if pipeline_stages else 0))
@@ -63,6 +70,8 @@ def make_cfg(pipeline_stages=0, seq_axis=None, dispatch_mode="auto"):
         name="vision", input_dim=32, n_tokens=2, encoder_layers=1,
         encoder_heads=4, encoder_sequence_axis=seq_axis,
         encoder_ring_min_seq=8))
+    if remat is not None:  # the fusion layers and the simulator's blocks
+        c.fusion.remat, c.fusion.remat_policy = True, remat
     # the first update moves the parameters (no warmup)
     c.optimizer = OptimizerConfig(learning_rate=1e-3, warmup_steps=0,
                                   total_steps=4)
@@ -116,7 +125,31 @@ LEGS = {
                 dict(fsdp_axes=("data", "expert"), microbatch_steps=2), {}),
     "pp": ((2, 2), ("data", "pipe"), {}, dict(pipeline_stages=2)),
     "sp": ((2, 2), ("data", "sequence"), {}, dict(seq_axis="sequence")),
+    # the capacity route under the expert split, its slots the global
+    # batch's: without drops at capacity_factor 2 (C = 40 slots for 40
+    # tokens), with them at 0.5 (C = 10 slots, 20 assignments an expert)
+    "scatter": ((2, 2, 1), AXES, dict(fsdp_axes=("data", "expert")),
+                dict(dispatch_mode="scatter", capacity_factor=2.0)),
+    "scatter_drop": ((2, 2, 1), AXES, dict(fsdp_axes=("data", "expert")),
+                     dict(dispatch_mode="scatter", capacity_factor=0.5)),
+    # the one-hot capacity route under the expert split, with drops
+    "dense": ((2, 2, 1), AXES, {},
+              dict(dispatch_mode="dense", capacity_factor=0.5)),
+    # checkpointed blocks: the recompute gathers its blocks anew
+    "fsdp_remat": ((2, 2, 1), AXES, dict(fsdp_axes=("data", "expert")),
+                   dict(remat="dots")),
+    # fp32 parameters computed in bf16 (the configs' default): each layer
+    # casts its whole weights, and the casts are made again in the backward
+    "fsdp_bf16": ((2, 2, 1), AXES, dict(fsdp_axes=("data", "expert")),
+                  dict(compute_dtype=torch.bfloat16)),
+    # 3 experts over 'expert' 2: the rules leave them whole on every rank,
+    # and FSDP splits the expert weights over 'expert' on another dim
+    "fsdp_e3": ((2, 2, 1), AXES, dict(fsdp_axes=("data", "expert")),
+                dict(n_experts=3)),
 }
+# the legs held against the port's own single-process step (JAX's bf16
+# arithmetic rounds in other places)
+PORT_REF_LEGS = ("fsdp_bf16",)
 # 2-rank legs, two at once: the first on ranks 0-1, the second on ranks
 # 2-3 (each its half of a (replica, ...) mesh)
 PAIRS = [
@@ -141,9 +174,13 @@ def run_leg(name, mesh, local=False):
         model, cfg, LossWeights(**LOSS_WEIGHTS), mesh=mesh,
         lr_scale_by_data_parallel=False, apply_masking=False, **kwargs)
     state = trainer.init_state()
+    moe = {n: m for n, m in model.named_modules()
+           if type(m).__name__ == "MoELayer"}
     out = {"numels": trainer.local_numels(), "metrics": [],
-           "mode": {n: m.cfg.dispatch_mode for n, m in model.named_modules()
-                    if type(m).__name__ == "MoELayer"}}
+           "mode": {n: m.cfg.dispatch_mode for n, m in moe.items()},
+           "coords": {ax: mesh.coordinate(ax) for ax in mesh.axis_names},
+           "unit_bytes": trainer.unit_bytes(), "gathered_peak": [],
+           "made_peak": []}
     batch = numpy_batch()
     for _ in range(STEPS):
         if local:
@@ -155,12 +192,98 @@ def run_leg(name, mesh, local=False):
         else:
             state, m = trainer.step(state, batch)
         out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["gathered_peak"].append(trainer.gathered_peak)
+        out["made_peak"].append(trainer.made_peak)
+        if "kept" not in out and trainer._units:
+            out["kept"] = kept_bytes(trainer, model)
+            out["guards"] = guards(trainer, model)
         if "mu" not in out:
+            params = dict(model.named_parameters())
+            out["block_shapes"] = {n: tuple(p.shape)
+                                   for n, p in params.items()}
+            out["grad_shapes"] = {n: tuple(p.grad.shape)
+                                  for n, p in params.items()
+                                  if p.grad is not None}
+            out["experts"] = {n: m.experts for n, m in moe.items()}
+            if mesh.shape.get("expert", 1) > 1:
+                out["grads"] = {n: p.grad.cpu().numpy().copy()
+                                for n, p in params.items()
+                                if p.grad is not None}
+                out["full_grads"] = {n: g.cpu().numpy() for n, g in
+                                     trainer.full_grads().items()}
             # Adam's first moments after step 1: 0.1 the clipped gradient
             out["mu"] = {n[:-3]: v.cpu().numpy() for n, v in
                          trainer.full_state("opt/").items()
                          if n.endswith("/mu")}
     return out
+
+
+def _forward_keeping(trainer, model, seed):
+    """One forward under the split over the batch of ``seed`` (no
+    backward): every tensor autograd keeps as it is (the saved-tensor
+    hooks' pack returned it unchanged), by storage, as (storage bytes,
+    [(shape, dtype, sum, sum of squares)])."""
+    from deepearth_tpu_torch.ops.sharding import use_mesh
+    from deepearth_tpu_torch.parallel import comm
+
+    pack, kept = comm._pack, {}
+
+    def recording(t):
+        out = pack(t)
+        if out is t:
+            d = t.detach().double()
+            kept.setdefault(t.untyped_storage().data_ptr(), (
+                t.untyped_storage().nbytes(), []))[1].append(
+                (tuple(t.shape), t.dtype, float(d.sum()),
+                 float(d.square().sum())))
+        return out
+
+    comm._pack = recording
+    try:
+        batch = trainer.shard_batch(numpy_batch(100 + seed))
+        gen = torch.Generator(device=DEVICE).manual_seed(100 + seed)
+        with use_mesh(trainer.mesh, rows_local=True), trainer._split():
+            out = model(batch, generator=gen)
+            del out
+    finally:
+        comm._pack = pack
+    return kept
+
+
+def kept_bytes(trainer, model):
+    """What autograd keeps from a forward under the split: all the bytes it
+    keeps, and those whose values do not depend on the batch (found in two
+    forwards over two batches with the same shape, dtype and sums), apart
+    from the parameters' own storage."""
+    a, b = (_forward_keeping(trainer, model, s) for s in (0, 1))
+    params = {p.untyped_storage().data_ptr() for p in model.parameters()}
+    seen = {f for _, fs in b.values() for f in fs}
+    free = sum(n for key, (n, fs) in a.items()
+               if key not in params and any(f in seen for f in fs))
+    return {"all": sum(n for n, _ in a.values()), "batch_free": free,
+            "batch_free_shapes": sorted(
+                {f[0] for key, (n, fs) in a.items() if key not in params
+                 for f in fs if f in seen})}
+
+
+def guards(trainer, model):
+    """Whether a forward outside the trainer's step and a second
+    init_state each raise, and whether full_params() gives every parameter
+    whole."""
+    raised = {}
+    for what, call in (
+            ("forward", lambda: model(trainer.shard_batch(numpy_batch()))),
+            ("init_state", trainer.init_state)):
+        try:
+            call()
+            raised[what] = False
+        except RuntimeError:
+            raised[what] = True
+    full = {n: tuple(p.shape) for n, p in trainer.full_params().items()}
+    raised["full_params"] = full == {
+        n: tuple(p.shape)
+        for n, p in make_model(trainer.config).named_parameters()}
+    return raised
 
 
 def run_pairs():
